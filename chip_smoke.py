@@ -1,0 +1,352 @@
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; there is no CPU fallback):
+ 1. device: the card's name and power limit (nvidia-smi);
+ 2. build: K1 (src/repro_torch/csrc/potq_matmul.cu) with nvcc for sm_90a;
+ 3. K1 against its plain PyTorch version on the card, bit for bit
+    (torch.equal), at the serving shapes of llama3-8b, both modes;
+ 4. timing at those shapes: kernel, plain version, torch.matmul on the
+    same bf16 operands (yardstick only), and the roofline bound;
+ 5. serve: llama3-8b at full width (random weights from seed 0) through
+    PoolEngine on an 8-request Poisson trace; K1 must launch exactly
+    225 times per weight pass;
+ 6. pool vs solo: two requests served alone give the same tokens;
+ 7. CUDA vs CPU: a smoke-width model agrees within the CPU tests' logit
+    tolerance;
+ 8. the ``kernels`` JSON line, then the device line.
+
+Per-shape details go to chiprun_out/chip_smoke.json.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet), the roofline's two terms
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+LOGIT_ATOL = 1e-3  # tests/test_torch_serve.py's tolerance
+SERVE_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128512)]
+# launches of each (K, N) in one llama3-8b weight pass (32 layers + head)
+PASS_COUNTS = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
+               (14336, 4096): 32, (4096, 128512): 1}
+
+
+def phase(name):
+    print(f"== {name}", flush=True)
+
+
+def bound(m, k, n, in_bytes):
+    flops = 2.0 * m * n * k
+    nbytes = in_bytes * (m * k + k * n) + 4 * m * n
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def time_ms(fn, iters, flush):
+    """Mean device time of ``fn`` over ``iters`` calls, CUDA events around
+    each call, L2 flushed before each (the serving path finds weights cold)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch import configs
+    from repro_torch.core import potq
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry, spec, transformer
+    from repro_torch.serve import PoolEngine, generate, poisson_trace, slots
+    from repro_torch.serve import quantized_weights as qw
+
+    dev = resolve_device("cuda")
+    detail = {}
+
+    phase("1 device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print("torch", torch.__version__, "cuda", torch.version.cuda,
+          "device", torch.cuda.get_device_name(0))
+    detail["card"] = smi
+
+    phase("2 build")
+    t0 = time.perf_counter()
+    K.build()
+    print(f"build: nvcc {K.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
+    detail["build_seconds"] = K.build_seconds
+
+    phase("3 K1 vs plain version (bit for bit)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    max_err = 0.0
+    weights = {}
+    for kk, nn in SERVE_SHAPES:
+        w = torch.randn(kk, nn, generator=gen, device=dev) * 0.02 + 1e-3
+        weights[(kk, nn)] = qw.quantize_leaf("w", w, PAPER_FAITHFUL)
+        del w
+    cases = [(m, kk, nn) for m in (4, 128) for kk, nn in SERVE_SHAPES] + [(3, 200, 130)]
+    operands = {}
+    for m, kk, nn in cases:
+        wq = weights.get((kk, nn))
+        if wq is None:
+            wq = qw.quantize_leaf("w", torch.randn(kk, nn, generator=gen, device=dev),
+                                  PAPER_FAITHFUL)
+        a = torch.randn(m, kk, generator=gen, device=dev)
+        # decode rows: one scale group per slot; prefill: one per request
+        axes = (1,) if m <= 4 else None
+        aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, axes)).to(torch.bfloat16)
+        out_k = K.potq_matmul_cuda(aq, wq)
+        out_p = K.potq_matmul_plain(aq, wq)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        ok = torch.equal(out_k, out_p) and bool(torch.isfinite(out_k).all())
+        print(f"q0 M={m} K={kk} N={nn}: equal={ok} max_abs_err={err}")
+        if not ok:
+            raise SystemExit(f"K1 differs from its plain version at {(m, kk, nn)}")
+        max_err = max(max_err, err)
+        operands[(m, kk, nn)] = (aq, wq)
+    # quantize=True: raw f32 operands, PRC and WBC on, subnormals included
+    a = torch.randn(128, 4096, generator=gen, device=dev)
+    w = torch.randn(4096, 1024, generator=gen, device=dev) * 0.02 + 3e-3
+    a[0, :3] = torch.tensor([1e-40, -3e-39, 0.0], device=dev)
+    w_mean, clip_t = w.mean(), a.abs().max() * 0.95
+    out_k = ops.potq_matmul(a, w, w_mean=w_mean, clip_t=clip_t)
+    emax = potq.pot_emax(5)
+    beta_a = potq.compute_beta(torch.clamp(a, -clip_t, clip_t), 5)
+    beta_w = potq.compute_beta(w - w_mean, 5)
+    q_scal = torch.stack([potq.exp2i(-beta_a), potq.exp2i(-beta_w),
+                          potq.exp2i(beta_a + beta_w), w_mean, clip_t])
+    out_p = K.potq_matmul_plain(a, w, q_scal, emax_a=emax, emax_w=emax, quantize=True)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    ok = torch.equal(out_k, out_p)
+    print(f"q1 M=128 K=4096 N=1024 (PRC+WBC): equal={ok} max_abs_err={err}")
+    if not ok:
+        raise SystemExit("K1 quantize=True differs from its plain version")
+    max_err = max(max_err, err)
+
+    phase("4 timing (CUDA events, L2 flushed)")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    per_pass = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "t_ops": 0.0, "t_bytes": 0.0}
+    for (m, kk, nn), (aq, wq) in operands.items():
+        big = m * kk * nn > 1e10
+        it = 3 if big else 10
+        t_k = time_ms(lambda: K.potq_matmul_cuda(aq, wq), it, flush)
+        t_p = time_ms(lambda: K.potq_matmul_plain(aq, wq), 2 if big else 5, flush)
+        t_l = time_ms(lambda: torch.matmul(aq, wq), it, flush)
+        b_ms, b_by = bound(m, kk, nn, 2)
+        row = dict(mode="q0", M=m, K=kk, N=nn, ms=t_k, plain_ms=t_p,
+                   library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(json.dumps(row))
+        if m == 4 and (kk, nn) in PASS_COUNTS:
+            c = PASS_COUNTS[(kk, nn)]
+            per_pass["ms"] += c * t_k
+            per_pass["plain_ms"] += c * t_p
+            per_pass["library_ms"] += c * t_l
+            flops = 2.0 * m * kk * nn
+            nbytes = 2 * (m * kk + kk * nn) + 4 * m * nn
+            per_pass["t_ops"] += c * flops / PEAK_BF16_FLOPS * 1e3
+            per_pass["t_bytes"] += c * nbytes / PEAK_BYTES * 1e3
+    t_k = time_ms(lambda: ops.potq_matmul(a, w, w_mean=w_mean, clip_t=clip_t), 10, flush)
+    t_p = time_ms(lambda: K.potq_matmul_plain(a, w, q_scal, emax_a=emax, emax_w=emax,
+                                              quantize=True), 5, flush)
+    t_l = time_ms(lambda: torch.matmul(a, w), 10, flush)
+    b_ms, b_by = bound(128, 4096, 1024, 4)
+    row = dict(mode="q1", M=128, K=4096, N=1024, ms=t_k, plain_ms=t_p,
+               library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    print(json.dumps(row))
+    per_pass["bound_ms"] = max(per_pass["t_ops"], per_pass["t_bytes"])
+    per_pass["bound_by"] = ("operations" if per_pass["t_ops"] > per_pass["t_bytes"]
+                            else "bytes")
+    print("one decode weight pass (M=4, 225 launches):", json.dumps(per_pass))
+    detail["k1_shapes"] = rows
+    detail["k1_decode_pass"] = per_pass
+    del operands, weights, flush, a, w
+
+    phase("5 serve llama3-8b at full width")
+    cfg = configs.get_config("llama3-8b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    pgen = torch.Generator(device=dev).manual_seed(0)
+    params = spec.materialize(
+        registry.param_specs(cfg), pgen,
+        transform=lambda name, x: qw.quantize_leaf(name, x, PAPER_FAITHFUL))
+    torch.cuda.synchronize()
+    print(f"params: {spec.count_params(registry.param_specs(cfg))} "
+          f"materialized + quantized in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
+    reqs = poisson_trace(cfg, n_requests=8, prompt_len=128, lam=2.0, new_lo=8,
+                         new_hi=32, seed=0)
+    eng = PoolEngine(cfg, policy, params, max_slots=4, max_len=160, device=dev)
+    eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    torch.cuda.synchronize()
+    K.potq_matmul_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.potq_matmul_cuda.launches
+    st = eng.last_stats
+    serve = dict(wall_s=wall, tokens_per_s=st.emitted_tokens / wall,
+                 emitted_tokens=st.emitted_tokens, weight_passes=st.weight_passes,
+                 decode_steps=st.decode_steps, prefills=st.prefills,
+                 mean_ttft_passes=st.mean_ttft_passes,
+                 mean_occupancy=st.mean_occupancy, k1_launches=launches,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(json.dumps(serve))
+    detail["serve"] = serve
+    if launches != 225 * st.weight_passes:
+        raise SystemExit(f"K1 launched {launches} times, expected 225 x "
+                         f"{st.weight_passes} weight passes")
+    for r in reqs:
+        toks = out[r.uid]
+        if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_padded:
+            raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+    # where a weight pass's time goes: one prefill and one pooled decode step
+    with torch.inference_mode():
+        mini = registry.init_cache(cfg, 1, 160, device=dev)
+        toks = torch.as_tensor(reqs[0].tokens, dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = registry.prefill(cfg, eng.policy, params, {"tokens": toks}, mini)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit("non-finite prefill logits")
+        pool = registry.init_pool_cache(cfg, 4, 160, device=dev)
+        for s in range(4):
+            slots.write_slot(pool, mini, s)
+        tok = torch.zeros(4, dtype=torch.int64, device=dev)
+        t_steps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pool = registry.decode_step(cfg, eng.policy, params, tok, pool)
+            torch.cuda.synchronize()
+            t_steps.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit("non-finite decode logits")
+        # device time inside one pooled decode step, by kernel
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, pool = registry.decode_step(cfg, eng.policy, params, tok, pool)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    k1_us = sum(e.time_range.elapsed_us() for e in kern if "potq_mm" in e.name)
+    prof_row = dict(wall_ms=t_prof * 1e3, device_kernels=len(kern),
+                    device_busy_ms=busy_us / 1e3, k1_ms=k1_us / 1e3,
+                    # against the unprofiled step time measured above
+                    idle_share=(1 - busy_us / 1e6 / (sum(t_steps) / len(t_steps)))
+                    if kern else None)
+    print("profiled decode step:", json.dumps(prof_row))
+    detail["step_breakdown"] = dict(prefill_s=t_prefill, decode_step_s=t_steps,
+                                    profiled_decode_step=prof_row)
+    print(f"one prefill (S=128): {t_prefill * 1e3:.1f} ms; one pooled decode step "
+          f"(4 slots): {[round(t * 1e3, 1) for t in t_steps]} ms; K1 share of a "
+          f"decode step (phase 4 sum): {per_pass['ms']:.2f} ms")
+
+    phase("6 pool vs solo")
+    for r in reqs[:2]:
+        solo = generate(cfg, policy, params, {"tokens": r.tokens},
+                        max_new_tokens=r.max_new_tokens, max_len=160, device=dev)
+        same = np.array_equal(solo[0].numpy(), out[r.uid])
+        print(f"request {r.uid}: pool == solo: {same}")
+        if not same:
+            raise SystemExit(f"pool-vs-solo mismatch for request {r.uid}")
+    del params, eng
+    torch.cuda.empty_cache()
+
+    phase("7 CUDA vs CPU (smoke width)")
+    scfg = configs.smoke_config("llama3-8b")
+    p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
+    p_gpu = spec.params_from_numpy(
+        {name: x.numpy() for name, x in spec.named_leaves(p_cpu)}, dev)
+    spol = dataclasses.replace(PAPER_FAITHFUL, per_sample_act_scales=True)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, scfg.vocab, (1, 9)))
+    seq = torch.from_numpy(rng.integers(0, scfg.vocab, (2, 8)))
+    worst = 0.0
+    with torch.inference_mode():
+        outs = {}
+        for d, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            ls = []
+            lg, _ = transformer.prefill(scfg, spol, p, prompt.to(d),
+                                        transformer.init_cache(scfg, 1, 24, device=d))
+            ls.append(lg.cpu())
+            c = slots.lift_cache(transformer.init_cache(scfg, 2, 24, device=d), 2)
+            c["len"] = torch.tensor([0, 3], device=d)
+            for i in range(seq.shape[1]):
+                lg, c = transformer.decode_step(scfg, spol, p, seq[:, i].to(d), c)
+                ls.append(lg.cpu())
+            outs[d] = ls
+        for x, y in zip(outs["cpu"], outs["cuda"]):
+            worst = max(worst, (x - y).abs().max().item())
+    print(f"max |logit(cuda) - logit(cpu)| = {worst:.3g} (tolerance {LOGIT_ATOL})")
+    detail["cuda_vs_cpu_max_logit_diff"] = worst
+    if not worst <= LOGIT_ATOL:
+        raise SystemExit("CUDA and CPU logits disagree beyond the tolerance")
+
+    phase("8 results")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    kernels = [{
+        "name": "potq_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/potq_matmul.cu",
+        "replaces": "src/repro/kernels/potq_matmul.py:70",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": per_pass["ms"],
+        "plain_ms": per_pass["plain_ms"],
+        "bound_ms": per_pass["bound_ms"],
+        "bound_by": per_pass["bound_by"],
+        "library_ms": per_pass["library_ms"],
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""Synthetic request traces (port of ``repro/serve/trace.py``).
+
+Built on numpy exactly as the reference is, so the same seed gives the
+same requests in both packages.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from repro_torch.serve.scheduler import Request
+
+
+def _check_budget_range(new_lo: int, new_hi: int) -> None:
+    if new_lo > new_hi:
+        raise ValueError(
+            f"empty output-budget range: new_lo ({new_lo}) must be "
+            f"<= new_hi ({new_hi})"
+        )
+    if new_lo < 1:
+        raise ValueError(f"new_lo must be >= 1 (got {new_lo}): every "
+                         "request emits at least one token")
+
+
+def poisson_trace(cfg, *, n_requests: int, prompt_len: int, lam: float,
+                  new_lo: int, new_hi: int, seed: int = 0) -> List[Request]:
+    """Poisson(lam) inter-arrivals (in decode steps, first at 0) + uniform
+    output budgets in [new_lo, new_hi], fixed prompt length."""
+    _check_budget_range(new_lo, new_hi)
+    if n_requests <= 0:
+        return []
+    if cfg.family != "decoder":
+        raise NotImplementedError(
+            f"family {cfg.family!r} traces come with its port")
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.poisson(lam, n_requests))
+    arrivals[0] = 0
+    reqs = []
+    for i in range(n_requests):
+        toks = rng.integers(0, cfg.vocab, (1, prompt_len)).astype(np.int32)
+        reqs.append(
+            Request(
+                uid=i,
+                tokens=toks,
+                max_new_tokens=int(rng.integers(new_lo, new_hi + 1)),
+                arrival=int(arrivals[i]),
+            )
+        )
+    return reqs
