@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: K1 (src/repro_torch/csrc/potq_matmul.cu) with nvcc for sm_90a;
+ 2. build: K1 (src/repro_torch/csrc/potq_matmul.cu) and K2/K3
+    (src/repro_torch/csrc/potq_grad.cu) with nvcc for sm_90a, one nvcc
+    process per source, started together;
  3. K1 against its plain PyTorch version on the card, bit for bit
     (torch.equal), at the serving shapes of llama3-8b, both modes;
  4. timing at those shapes: kernel, plain version, torch.matmul on the
@@ -15,7 +17,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  6. pool vs solo: two requests served alone give the same tokens;
  7. CUDA vs CPU: a smoke-width model agrees within the CPU tests' logit
     tolerance;
- 8. the ``kernels`` JSON line, then the device line.
+ 8. K2/K3 against their plain versions on the card, bit for bit (dA, the
+    dgamma rows, dgamma, dW), at the four olmo-1b training shapes with
+    M = 4096, PRC on and off, bits_g 5 (6 at the LM head), a ragged shape
+    and G with subnormal and zero entries; K1 bit for bit at the four
+    training shapes, one activation scale, as the training forward runs it;
+ 9. timing of K1/K2/K3 at the training shapes: kernel, plain version,
+    torch.matmul on the same bf16 operands (yardstick only), and the
+    roofline bound;
+10. train olmo-1b at full width (random weights from seed 0, AdamW,
+    batch 8 x seq 512) through ``repro_torch.launch.train.main``: 1
+    warm-up + 3 steps; K1/K2/K3 launch counts per step must be 225/113/113
+    (K1: 113 forward + 112 recomputed); one more step profiled;
+11. determinism: one step run twice from the same state is bit-equal;
+12. training CUDA vs CPU at smoke width, within the CPU tests' tolerances;
+13. the ``kernels`` JSON line, then the device line.
 
 Per-shape details go to chiprun_out/chip_smoke.json.
 """
@@ -23,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -33,15 +50,28 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the trainer runs with deterministic algorithms, which need a fixed cuBLAS
+# workspace from the first cuBLAS call on (phase 4 makes it)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM published peaks (NVIDIA data sheet), the roofline's two terms
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 LOGIT_ATOL = 1e-3  # tests/test_torch_serve.py's tolerance
+# tests/test_torch_train.py's tolerances (port vs reference on the CPU)
+LOSS_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-5, 1e-4, 1e-6
 SERVE_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128512)]
 # launches of each (K, N) in one llama3-8b weight pass (32 layers + head)
 PASS_COUNTS = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
                (14336, 4096): 32, (4096, 128512): 1}
+# olmo-1b training: (K, N) of each linear and its launches per step (16
+# layers: wq/wk/wv/wo, wi_gate/wi_up, mlp wo; then the LM head, 6-bit G)
+TRAIN_M = 8 * 512
+TRAIN_COUNTS = {(2048, 2048): 64, (2048, 8192): 32, (8192, 2048): 16, (2048, 50688): 1}
+# K1 per step: every forward, and again when the backward recomputes a layer
+# (the head is not recomputed)
+TRAIN_K1_COUNTS = {(2048, 2048): 128, (2048, 8192): 64, (8192, 2048): 32, (2048, 50688): 1}
+STEP_LAUNCHES = {"k1": 225, "k2": 113, "k3": 113}
 
 
 def phase(name):
@@ -53,6 +83,19 @@ def bound(m, k, n, in_bytes):
     nbytes = in_bytes * (m * k + k * n) + 4 * m * n
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def train_bound(m, k, n, which, prc=True):
+    """Roofline of one training-step launch: 2MNK operations against the
+    bytes it must move (inputs read once, outputs written once)."""
+    flops = 2.0 * m * n * k
+    if which == "k1":  # Aq bf16, Wq bf16 -> out f32
+        nbytes = 2 * (m * k + k * n) + 4 * m * n
+    elif which == "k2":  # G f32, Wq bf16, a f32 (PRC) -> dA f32, rows f32
+        nbytes = 4 * m * n + 2 * k * n + (4 * m * k + 4 * m if prc else 0) + 4 * m * k
+    else:  # Aq bf16, G f32 -> dW f32
+        nbytes = 2 * m * k + 4 * m * n + 4 * k * n
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def time_ms(fn, iters, flush):
@@ -80,7 +123,8 @@ def main() -> int:
     from repro_torch.core import potq
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry, spec, transformer
     from repro_torch.serve import PoolEngine, generate, poisson_trace, slots
@@ -100,9 +144,12 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
+    nvcc_s = _build.compile_all([K.SOURCE, KG.SOURCE])
     K.build()
-    print(f"build: nvcc {K.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
-    detail["build_seconds"] = K.build_seconds
+    KG.build()
+    print(f"build: nvcc {nvcc_s} s, both built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    detail["build_seconds"] = nvcc_s
 
     phase("3 K1 vs plain version (bit for bit)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -324,7 +371,10 @@ def main() -> int:
     if not worst <= LOGIT_ATOL:
         raise SystemExit("CUDA and CPU logits disagree beyond the tolerance")
 
-    phase("8 results")
+    grads = training_kernels(dev, detail)
+    train = training(dev, detail)
+
+    phase("13 results")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -333,19 +383,277 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/potq_matmul.cu",
         "replaces": "src/repro/kernels/potq_matmul.py:70",
-        "launches": launches,
-        "max_abs_err": max_err,
+        # serve run (phase 5) + training run (phase 10)
+        "launches": launches + train["launches"]["k1"],
+        "max_abs_err": max(max_err, grads["k1"]["max_abs_err"]),
         "ms": per_pass["ms"],
         "plain_ms": per_pass["plain_ms"],
         "bound_ms": per_pass["bound_ms"],
         "bound_by": per_pass["bound_by"],
         "library_ms": per_pass["library_ms"],
     }]
+    for key, name, line in (("k2", "grad_da", 68), ("k3", "grad_dw", 143)):
+        kernels.append(dict(name=name, route="cuda",
+                            source="src/repro_torch/csrc/potq_grad.cu",
+                            replaces=f"src/repro/kernels/potq_grad.py:{line}",
+                            launches=train["launches"][key], **grads[key]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _grad_operands(dev, gen, m, k, n, *, subnormal=False):
+    """a, w, g as a training step makes them and the forward's residuals."""
+    from repro_torch.core import potq
+
+    a = torch.randn(m, k, generator=gen, device=dev) * 1.7
+    w = torch.randn(k, n, generator=gen, device=dev) * 0.02 + 1e-3
+    g = torch.randn(m, n, generator=gen, device=dev) * 1e-4
+    if subnormal:
+        g[0, :4] = torch.tensor([1e-40, -3e-39, 0.0, -0.0], device=dev)
+        g[1] = 0.0
+    amax = a.abs().amax()
+    t = amax * 0.95
+    aq = potq.pot_quantize(torch.clamp(a, -t, t), 5).to(torch.bfloat16)
+    wq = potq.pot_quantize(w - w.mean(), 5).to(torch.bfloat16)
+    return a, g, aq, wq, amax, t
+
+
+def training_kernels(dev, detail):
+    """Phases 8 and 9: K1/K2/K3 at the training shapes against their plain
+    versions, then timing."""
+    from repro_torch.core import potq
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.kernels import ref
+
+    phase("8 K2/K3 (and K1) vs plain versions at the training shapes (bit for bit)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(TRAIN_M, kk, nn, 6 if nn == 50688 else 5, prc, False)
+             for kk, nn in TRAIN_COUNTS for prc in (True, False)]
+    cases += [(200, 130, 300, bits, prc, True) for bits in (5, 6) for prc in (True, False)]
+    max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    timing_inputs = {}
+    for m, kk, nn, bits, prc, sub in cases:
+        a, g, aq, wq, amax, t = _grad_operands(dev, gen, m, kk, nn, subnormal=sub)
+        e = potq.pot_emax(bits)
+        beta = potq.compute_beta(g, bits)
+        s = torch.stack([potq.exp2i(-beta), potq.exp2i(beta), t])
+        da_k, rows_k = KG.grad_da_cuda(g, wq, a if prc else None, s, emax_g=e, prc=prc)
+        da_p, rows_p = KG.grad_da_plain(g, wq, a if prc else None, s, emax_g=e, prc=prc)
+        dw_k = KG.grad_dw_cuda(aq, g, s, emax_g=e)
+        dw_p = KG.grad_dw_plain(aq, g, s, emax_g=e)
+        torch.cuda.synchronize()
+        ok = torch.equal(da_k, da_p) and torch.equal(dw_k, dw_p)
+        errs = dict(da=(da_k - da_p).abs().max().item(), dw=(dw_k - dw_p).abs().max().item())
+        if prc:
+            dg_k = ref.halves_fold(rows_k) * amax
+            dg_p = ref.halves_fold(rows_p) * amax
+            ok = ok and torch.equal(rows_k, rows_p) and torch.equal(dg_k, dg_p)
+            errs.update(rows=(rows_k - rows_p).abs().max().item(),
+                        dgamma=(dg_k - dg_p).abs().item())
+        ok = ok and bool(torch.isfinite(da_k).all()) and bool(torch.isfinite(dw_k).all())
+        print(f"M={m} K={kk} N={nn} bits_g={bits} prc={prc} subnormal={sub}: "
+              f"equal={ok} {json.dumps(errs)}", flush=True)
+        if not ok:
+            raise SystemExit(f"K2/K3 differ from their plain versions at {(m, kk, nn, bits, prc)}")
+        max_err["k2"] = max(max_err["k2"], errs["da"], errs.get("rows", 0.0), errs.get("dgamma", 0.0))
+        max_err["k3"] = max(max_err["k3"], errs["dw"])
+        del da_k, da_p, dw_k, dw_p
+        if m == TRAIN_M and prc:
+            # K1 as the training forward launches it: M = B*S, one scale
+            out_k = K.potq_matmul_cuda(aq, wq)
+            out_p = K.potq_matmul_plain(aq, wq)
+            torch.cuda.synchronize()
+            err = (out_k - out_p).abs().max().item()
+            ok = torch.equal(out_k, out_p) and bool(torch.isfinite(out_k).all())
+            print(f"K1 M={m} K={kk} N={nn}: equal={ok} max_abs_err={err}", flush=True)
+            if not ok:
+                raise SystemExit(f"K1 differs from its plain version at {(m, kk, nn)}")
+            max_err["k1"] = max(max_err["k1"], err)
+            del out_k, out_p
+            timing_inputs[(kk, nn)] = (a, g, aq, wq, s, e)
+
+    phase("9 K1/K2/K3 timing at the training shapes (CUDA events, L2 flushed)")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows, per_step = [], {}
+    for key in ("k1", "k2", "k3"):
+        per_step[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                         "t_ops": 0.0, "t_bytes": 0.0, "max_abs_err": max_err[key]}
+    for (kk, nn), (a, g, aq, wq, s, e) in timing_inputs.items():
+        gq = ref.quantize_tile_ref(g * s[0], e).to(torch.bfloat16)
+        m = TRAIN_M
+        fns = {
+            "k1": (lambda: K.potq_matmul_cuda(aq, wq),
+                   lambda: K.potq_matmul_plain(aq, wq),
+                   lambda: torch.matmul(aq, wq)),
+            "k2": (lambda: KG.grad_da_cuda(g, wq, a, s, emax_g=e, prc=True),
+                   lambda: KG.grad_da_plain(g, wq, a, s, emax_g=e, prc=True),
+                   lambda: torch.matmul(gq, wq.T)),
+            "k3": (lambda: KG.grad_dw_cuda(aq, g, s, emax_g=e),
+                   lambda: KG.grad_dw_plain(aq, g, s, emax_g=e),
+                   lambda: torch.matmul(aq.T, gq)),
+        }
+        for key, (kern, plain, lib) in fns.items():
+            c = (TRAIN_K1_COUNTS if key == "k1" else TRAIN_COUNTS)[(kk, nn)]
+            t_k = time_ms(kern, 3, flush)
+            t_p = time_ms(plain, 1, flush)
+            t_l = time_ms(lib, 5, flush)
+            t_ops, t_bytes = train_bound(m, kk, nn, key)
+            row = dict(kernel=key, M=m, K=kk, N=nn, launches_per_step=c, ms=t_k,
+                       plain_ms=t_p, library_ms=t_l, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops > t_bytes else "bytes")
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            acc = per_step[key]
+            acc["ms"] += c * t_k
+            acc["plain_ms"] += c * t_p
+            acc["library_ms"] += c * t_l
+            acc["t_ops"] += c * t_ops
+            acc["t_bytes"] += c * t_bytes
+    out = {}
+    for key, acc in per_step.items():
+        t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
+        acc["bound_ms"] = max(t_ops, t_bytes)
+        acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        out[key] = acc
+        print(f"{key}, one training step ({STEP_LAUNCHES[key]} launches):", json.dumps(acc))
+    detail["train_kernel_shapes"] = rows
+    detail["train_kernels_per_step"] = out
+    del timing_inputs, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_copy(tree):
+    return {k: _state_copy(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _state_load(dst, src):
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _state_load(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def training(dev, detail):
+    """Phases 10-12: the full-width trainer, determinism, CUDA vs CPU."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.train import make_train_step
+
+    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    phase("10 train olmo-1b at full width (batch 8 x seq 512)")
+    steps = 4
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    run = train_cli.main(["--arch", "olmo-1b", "--steps", str(steps), "--batch", "8",
+                          "--seq", "512", "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in run.records:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0):
+            raise SystemExit(f"bad training step {r}")
+    want = {k: v * steps for k, v in STEP_LAUNCHES.items()}
+    print(f"launches over {steps} steps: {launches} (expected {want}); "
+          f"peak device memory {peak:.2f} GiB; run wall {wall:.1f} s")
+    if launches != want:
+        raise SystemExit(f"kernel launches {launches}, expected {want}")
+    timed = run.records[1:]
+    train = dict(steps=run.records, peak_gib=peak, launches=launches,
+                 mean_step_s=sum(r["seconds"] for r in timed) / len(timed),
+                 tokens_per_s=sum(r["tokens_per_s"] for r in timed) / len(timed))
+
+    # one more step, profiled: device busy/idle share and time by kernel
+    batch = pipeline.make_batch(run.cfg, run.shape, steps, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    reset()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run.step_fn(run.params, run.opt_state, batch, steps)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    per_step = read()
+    if per_step != STEP_LAUNCHES:
+        raise SystemExit(f"one step launched {per_step}, expected {STEP_LAUNCHES}")
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    by = {k: sum(e.time_range.elapsed_us() for e in kern if pat in e.name) / 1e3
+          for k, pat in (("k1_ms", "potq_mm"), ("k2_ms", "grad_da"), ("k3_ms", "grad_dw"))}
+    prof_row = dict(wall_ms=t_prof * 1e3, device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
+                    launches=per_step, **by,
+                    idle_share=(1 - busy_us / 1e3 / (train["mean_step_s"] * 1e3)) if kern else None)
+    print("profiled training step:", json.dumps(prof_row), flush=True)
+    train["profiled_step"] = prof_row
+
+    phase("11 determinism: one step twice from the same state")
+    batch = pipeline.make_batch(run.cfg, run.shape, steps + 1, device=dev)
+    saved = (_state_copy(run.params), _state_copy(run.opt_state))
+    _, _, m1 = run.step_fn(run.params, run.opt_state, batch, steps + 1)
+    first = _state_copy(run.params)
+    _state_load(run.params, saved[0])
+    _state_load(run.opt_state, saved[1])
+    del saved
+    _, _, m2 = run.step_fn(run.params, run.opt_state, batch, steps + 1)
+    torch.cuda.synchronize()
+    same = torch.equal(m1["loss"], m2["loss"]) and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(spec.named_leaves(first),
+                                                    spec.named_leaves(run.params)))
+    print(f"loss {float(m1['loss'])!r} / {float(m2['loss'])!r}; every parameter bit-equal: {same}")
+    if not same:
+        raise SystemExit("two runs of one training step differ")
+    train["deterministic"] = same
+    del run, first, batch
+    torch.cuda.empty_cache()
+
+    phase("12 training, CUDA vs CPU (smoke width)")
+    scfg = configs.smoke_config("olmo-1b")
+    p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
+    p_gpu = spec.params_from_numpy({n: x.numpy() for n, x in spec.named_leaves(p_cpu)}, dev)
+    b_cpu = pipeline.make_batch(scfg, ShapeConfig("t", 64, 8, "train"), 0, device="cpu")
+    b_gpu = {k: v.to(dev) for k, v in b_cpu.items()}
+    res = {}
+    for d, p, b in (("cpu", p_cpu, b_cpu), ("cuda", p_gpu, b_gpu)):
+        opt = adamw(warmup_cosine_schedule(3e-3, 5, 30))
+        step = make_train_step(scfg, PAPER_FAITHFUL, opt)
+        loss, grads = step.grads(p, b)
+        state = opt.init(p)
+        p, _, _ = step(p, state, b, 0)
+        res[d] = (float(loss), {n: g.cpu() for n, g in spec.named_leaves(grads)},
+                  {n: x.cpu() for n, x in spec.named_leaves(p)})
+    (lc, gc, pc), (lg, gg, pg) = res["cpu"], res["cuda"]
+    g_worst = max(float((gg[n] - gc[n]).abs().max() / gc[n].abs().max().clamp(min=1e-30))
+                  for n in gc)
+    p_worst = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+    cmp = dict(loss_cpu=lc, loss_cuda=lg, grad_rel_err=g_worst, param_abs_err=p_worst)
+    print(json.dumps(cmp), f"(tolerances: loss rtol {LOSS_RTOL}, grads {GRAD_RTOL} x max|g|, "
+          f"params atol {PARAM_ATOL})")
+    train["cuda_vs_cpu"] = cmp
+    if not (abs(lg - lc) <= LOSS_RTOL * abs(lc) and g_worst <= GRAD_RTOL and p_worst <= PARAM_ATOL):
+        raise SystemExit("CUDA and CPU training steps disagree beyond the tolerances")
+    detail["train"] = train
+    return train
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants.
 
-Only the architectures the port serves so far are registered; the rest
-arrive with their model families.
+Only the architectures the port runs so far are registered (llama3-8b
+for serving, olmo-1b for training); the rest arrive with their model
+families.
 """
 from __future__ import annotations
 
@@ -9,10 +10,11 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
+from repro_torch.configs.base import ModelConfig, MoEConfig, ShapeConfig  # noqa: F401
 
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "olmo-1b": "olmo_1b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -51,3 +51,13 @@ class ModelConfig:
     def vocab_padded(self) -> int:
         m = self.vocab_pad_multiple
         return ((self.vocab + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: sequence length and global batch."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'

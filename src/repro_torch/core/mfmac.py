@@ -1,13 +1,26 @@
-"""MF-MAC linear layers, forward (port of ``repro/core/mfmac.py``).
+"""MF-MAC linear layers with their backward (port of ``repro/core/mfmac.py``,
+``mf_linear``; Algorithm 1).
 
+Forward (lines 4-8):
     Wq = ALS-PoTQ(W - mean(W))            # WBC then quantize
     Aq = ALS-PoTQ(clip(A, gamma*max|A|))  # PRC then quantize
-    out = MF_MAC(Aq, Wq)                  # kernels/ops.pot_value_matmul
+    out = MF_MAC(Aq, Wq)                  # kernels/ops.pot_value_matmul (K1)
 
-The MAC runs over the *dequantized* PoT values in bf16 (exact for them)
-through K1, whose numeric spec is in ``kernels/ref.py``.  Serving needs no
-gradient; the ``torch.autograd.Function`` with the backward kernels comes
-with the training slice.
+Backward (lines 13-15): the incoming gradient G is ALS-PoTQ quantized
+once (``bits_g_last`` into the LM head), in the kernels' scaled domain,
+and reused:
+    dA = MF_MAC(Gq, Wq^T), then PRC's clip mask and dgamma   (K2)
+    dW = MF_MAC(Aq^T, Gq), the raw MAC output (STE)          (K3)
+through ``kernels/ops.potq_grad_matmuls``.
+
+The MACs run over the *dequantized* PoT values (exact in bf16), with the
+numeric spec of ``kernels/ref.py``.  ``mf_linear`` is a
+``torch.autograd.Function``: the clamp, the scales and the rounding all
+happen inside its forward, so autograd never sees through them — a's
+gradient is the masked dA, gamma's the kernel's dgamma and w's the raw dW,
+as in the reference's ``custom_vjp``.  dW keeps float32 whatever w's dtype
+is, so the training step differentiates float32 weights (the shadow of
+``train/step.py`` holds exact PoT values in float32).
 """
 from __future__ import annotations
 
@@ -62,6 +75,45 @@ def _quantize_a(a: torch.Tensor, gamma: torch.Tensor, policy: QuantPolicy,
     return potq.pot_quantize(a32, policy.bits_a, beta).to(_BF16)
 
 
+def _bits_g(policy: QuantPolicy, is_last: bool) -> int:
+    return policy.bits_g_last if is_last else policy.bits_g
+
+
+class _MFLinear(torch.autograd.Function):
+    """a[..., K] @ w[K, N] through K1, backward through K2 and K3."""
+
+    @staticmethod
+    def forward(ctx, a, w, gamma, policy: QuantPolicy, is_last: bool):
+        aq = _quantize_a(a, gamma, policy)
+        wq = _quantize_w(w, policy)
+        k = a.shape[-1]
+        out = _pot_matmul(aq.reshape(-1, k), wq, policy)
+        ctx.policy, ctx.is_last = policy, is_last
+        ctx.save_for_backward(a, aq, wq, gamma)
+        return out.reshape(*a.shape[:-1], w.shape[-1]).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, aq, wq, gamma = ctx.saved_tensors
+        policy = ctx.policy
+        k, n = wq.shape
+        g2 = g.to(torch.float32).reshape(-1, n)
+        kw = dict(bits_g=_bits_g(policy, ctx.is_last), bits_a=policy.bits_a,
+                  bits_w=policy.bits_w,
+                  per_sample_act_scales=policy.per_sample_act_scales)
+        if policy.prc_enabled:
+            a32 = a.to(torch.float32)
+            amax = a32.abs().amax()
+            da, dw, dgamma = ops.potq_grad_matmuls(
+                g2, aq.reshape(-1, k), wq, a=a32.reshape(-1, k),
+                clip_t=amax * gamma, amax=amax, **kw)
+            dgamma = dgamma.reshape(gamma.shape).to(gamma.dtype)
+        else:
+            da, dw, _ = ops.potq_grad_matmuls(g2, aq.reshape(-1, k), wq, **kw)
+            dgamma = torch.zeros_like(gamma)
+        return da.reshape(a.shape).to(a.dtype), dw, dgamma, None, None
+
+
 def mf_linear(
     a: torch.Tensor,
     w: torch.Tensor,
@@ -72,8 +124,8 @@ def mf_linear(
 ) -> torch.Tensor:
     """Quantized (or plain, if ``policy.enabled=False``) a[..., K] @ w[K, N].
 
-    ``is_last`` selects the last layer's gradient bit-width in the
-    backward, which the training slice adds; the forward ignores it."""
+    ``is_last`` selects the last layer's gradient bit-width
+    (``policy.bits_g_last``) in the backward.  dW comes back in float32."""
     if not policy.enabled:
         w_ = w.to(a.dtype)
         if a.dim() == 3 and a.shape[1] == 1:
@@ -83,9 +135,6 @@ def mf_linear(
         return torch.matmul(a, w_)
     if gamma is None:
         gamma = policy.ratio_clip_init or 1.0
-    gamma = torch.as_tensor(gamma, dtype=torch.float32, device=a.device)
-    aq = _quantize_a(a, gamma, policy)
-    wq = _quantize_w(w, policy)
-    k = a.shape[-1]
-    out = _pot_matmul(aq.reshape(-1, k), wq, policy)
-    return out.reshape(*a.shape[:-1], w.shape[-1]).to(a.dtype)
+    if not torch.is_tensor(gamma):
+        gamma = torch.tensor(gamma, dtype=torch.float32, device=a.device)
+    return _MFLinear.apply(a, w, gamma, policy, is_last)

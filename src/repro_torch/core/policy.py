@@ -19,7 +19,7 @@ class QuantPolicy:
       bits_g_last: bit-width for the last linear layer's activation grads.
       weight_bias_correction: subtract mean(W) before quantization (WBC).
       ratio_clip_init: PRC clipping ratio gamma; ``None`` disables PRC.
-      stochastic_rounding: not ported yet (training slice); must be False.
+      stochastic_rounding: not ported yet; must be False.
       quantize_attention: not ported yet; must be False.
       use_pallas: kept for field parity with the reference and **ignored
         by the port**.  In the port, dispatch depends only on the device
@@ -71,3 +71,7 @@ PAPER_FAITHFUL = QuantPolicy()
 
 #: FP32 baseline ("Original" rows of the paper's tables).
 FP32_BASELINE = QuantPolicy(enabled=False)
+
+#: Ablation variants for paper Table 5 (the training CLI's ``--policy``).
+ABLATION_NO_WBC = dataclasses.replace(PAPER_FAITHFUL, weight_bias_correction=False)
+ABLATION_NO_PRC = dataclasses.replace(PAPER_FAITHFUL, ratio_clip_init=None)

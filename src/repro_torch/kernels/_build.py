@@ -1,0 +1,84 @@
+"""Build helper shared by the port's CUDA kernels.
+
+Each kernel source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, at first use,
+into ``<checkout>/build/kernels/<hash of source + flags>/``, and loaded
+with ``ctypes``.  Nothing is compiled when a module is imported, and a
+failed build raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit")
+
+
+def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` lands (hash of source + flags)."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{src.stem}.so"
+
+
+def compile_library(source: str) -> Tuple[Path, float]:
+    """Compile ``csrc/<source>`` unless its library exists; returns the
+    library's path and the seconds nvcc took (0.0 when already built)."""
+    so = library_path(source)
+    if so.exists():
+        return so, 0.0
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    t0 = time.perf_counter()
+    res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
+                         capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {source}:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
+    return so, seconds
+
+
+def compile_all(sources) -> Dict[str, float]:
+    """Compile several sources at once, one nvcc process each; returns the
+    nvcc seconds of each.  Raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        futures = {s: pool.submit(compile_library, s) for s in sources}
+        return {s: f.result()[1] for s, f in futures.items()}
+
+
+def load(source: str, signatures: Dict[str, list]) -> Tuple[ctypes.CDLL, float]:
+    """Build (once per hash) and load ``csrc/<source>``; every entry point
+    in ``signatures`` gets its ctypes argtypes and an int return (the CUDA
+    error code).  Returns the library and the seconds nvcc took."""
+    so, seconds = compile_library(source)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, seconds

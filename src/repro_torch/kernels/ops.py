@@ -1,14 +1,19 @@
-"""Public wrappers around K1 (port of ``repro/kernels/ops.py:49-155``).
+"""Public wrappers around K1, K2 and K3 (port of ``repro/kernels/ops.py:49-299``).
 
-* :func:`potq_matmul`      — fused PRC-clip + WBC + ALS-PoTQ + matmul.
-* :func:`pot_value_matmul` — matmul over already-PoT-valued operands (what
-  ``core/mfmac.py`` calls on every quantized ``mf_linear`` forward).
+* :func:`potq_matmul`       — fused PRC-clip + WBC + ALS-PoTQ + matmul (K1).
+* :func:`pot_value_matmul`  — matmul over already-PoT-valued operands (K1;
+  what ``core/mfmac.py`` calls on every quantized ``mf_linear`` forward).
+* :func:`grad_da_matmul`    — dA = Gq·Wq^T with the PRC epilogue (K2).
+* :func:`grad_dw_matmul`    — dW = Aq^T·Gq (K3).
+* :func:`potq_grad_matmuls` — both, G quantized once under one beta_g
+  (every quantized ``mf_linear`` backward).
 
 Dispatch depends only on the operands' device: CUDA tensors launch the
-hand-written kernel (``kernels/potq_matmul.py``) — a build or launch
-failure raises, nothing falls back — and CPU tensors take the kernel's
-plain PyTorch version.  The kernel masks its own ragged edges, so there is
-no padding to block multiples, and there is no block-shape autotuning.
+hand-written kernels (``kernels/potq_matmul.py``, ``kernels/potq_grad.py``)
+— a build or launch failure raises, nothing falls back — and CPU tensors
+take the kernels' plain PyTorch versions.  The kernels mask their own
+ragged edges, so there is no padding to block multiples, and there is no
+block-shape autotuning.
 """
 from __future__ import annotations
 
@@ -18,15 +23,20 @@ import torch
 
 from repro_torch.core import potq
 from repro_torch.kernels import ref
+from repro_torch.kernels import potq_grad as _kg
 from repro_torch.kernels import potq_matmul as _k
 
 
+def _dispatch(device: torch.device, cuda_fn, plain_fn):
+    if device.type == "cuda":
+        return cuda_fn
+    if device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"unsupported device {device}")
+
+
 def _launch(a, w, scalars, **kw) -> torch.Tensor:
-    if a.device.type == "cuda":
-        return _k.potq_matmul_cuda(a, w, scalars, **kw)
-    if a.device.type == "cpu":
-        return _k.potq_matmul_plain(a, w, scalars, **kw)
-    raise ValueError(f"unsupported device {a.device}")
+    return _dispatch(a.device, _k.potq_matmul_cuda, _k.potq_matmul_plain)(a, w, scalars, **kw)
 
 
 def potq_matmul(
@@ -70,3 +80,104 @@ def pot_value_matmul(x: torch.Tensor, y: torch.Tensor, *,
     """
     ref.check_exact_spread(bits_a, bits_w)
     return _launch(x, y, None, quantize=False)
+
+
+def _g_scalars(g: torch.Tensor, bits_g: int, beta_g: Optional[torch.Tensor],
+               clip_t: Optional[torch.Tensor]) -> torch.Tensor:
+    """(3,) f32 ``[2^-beta_g, 2^beta_g, clip_t]`` on g's device."""
+    if beta_g is None:
+        beta_g = potq.compute_beta(g, bits_g)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    clip = (torch.tensor(float("inf"), **f32) if clip_t is None
+            else torch.as_tensor(clip_t).to(**f32).reshape(()))
+    return torch.stack([potq.exp2i(-beta_g), potq.exp2i(beta_g), clip])
+
+
+def grad_da_matmul(
+    g: torch.Tensor,
+    wq: torch.Tensor,
+    *,
+    a: Optional[torch.Tensor] = None,
+    clip_t: Optional[torch.Tensor] = None,
+    bits_g: int = 5,
+    bits_w: int = 5,
+    beta_g: Optional[torch.Tensor] = None,
+):
+    """dA = Gq·Wq^T (K2): g (M, N) raw gradient, wq (K, N) the forward's
+    quantized weights, read in that layout.
+
+    With ``a``/``clip_t`` the PRC epilogue runs in the kernel: dA is
+    clip-masked and the dgamma contributions are reduced to the (M,) row
+    vector; ``halves_fold(rows) * max|a|`` is dgamma.  Returns
+    ``(da, rows)``, ``rows`` None with PRC off."""
+    ref.check_exact_spread(bits_g, bits_w)
+    prc = a is not None
+    if prc and clip_t is None:
+        raise ValueError("PRC epilogue needs both a and clip_t")
+    g = g.to(torch.float32)
+    scalars = _g_scalars(g, bits_g, beta_g, clip_t)
+    fn = _dispatch(g.device, _kg.grad_da_cuda, _kg.grad_da_plain)
+    return fn(g, wq, a, scalars, emax_g=potq.pot_emax(bits_g), prc=prc)
+
+
+def grad_dw_matmul(
+    g: torch.Tensor,
+    aq: torch.Tensor,
+    *,
+    bits_g: int = 5,
+    bits_a: int = 5,
+    beta_g: Optional[torch.Tensor] = None,
+    per_sample_act_scales: bool = False,
+) -> torch.Tensor:
+    """dW = Aq^T·Gq (K3): g (M, N) raw gradient, aq (M, K) the forward's
+    quantized activations, read in that layout.
+
+    The contraction runs over M, so all of Aq must lie on one lattice (one
+    activation scale).  Under per-sample activation scales it does not,
+    and this raises instead of computing outside the exact regime."""
+    if per_sample_act_scales:
+        raise ValueError(
+            "grad_dw_matmul needs one activation scale along M: per-sample "
+            "activation scales (the serving policy) put the rows of Aq on "
+            "different lattices, outside the exact-chunk regime"
+        )
+    ref.check_exact_spread(bits_a, bits_g)
+    g = g.to(torch.float32)
+    scalars = _g_scalars(g, bits_g, beta_g, None)
+    fn = _dispatch(g.device, _kg.grad_dw_cuda, _kg.grad_dw_plain)
+    return fn(aq, g, scalars, emax_g=potq.pot_emax(bits_g))
+
+
+def potq_grad_matmuls(
+    g: torch.Tensor,
+    aq: torch.Tensor,
+    wq: torch.Tensor,
+    *,
+    a: Optional[torch.Tensor] = None,
+    clip_t: Optional[torch.Tensor] = None,
+    amax: Optional[torch.Tensor] = None,
+    bits_g: int = 5,
+    bits_a: int = 5,
+    bits_w: int = 5,
+    per_sample_act_scales: bool = False,
+):
+    """The backward MACs (Algorithm 1, lines 13-15): G (M, N) is quantized
+    once — one beta_g, shared by both kernels — then
+
+        dA = Gq·Wq^T   (PRC mask + dgamma rows in the epilogue, K2)
+        dW = Aq^T·Gq   (K3)
+
+    Returns ``(da, dw, dgamma)``; ``dgamma`` is None without ``a``/``clip_t``
+    (PRC off).  dgamma = halves_fold(rows) * amax, amax defaulting to
+    max|a|: a fixed order, the same bits on every device."""
+    g = g.to(torch.float32)
+    beta_g = potq.compute_beta(g, bits_g)  # quantized once: one shared beta
+    da, rows = grad_da_matmul(g, wq, a=a, clip_t=clip_t, bits_g=bits_g,
+                              bits_w=bits_w, beta_g=beta_g)
+    dw = grad_dw_matmul(g, aq, bits_g=bits_g, bits_a=bits_a, beta_g=beta_g,
+                        per_sample_act_scales=per_sample_act_scales)
+    if rows is None:
+        return da, dw, None
+    if amax is None:
+        amax = a.to(torch.float32).abs().amax()
+    return da, dw, ref.halves_fold(rows) * amax

@@ -1,0 +1,156 @@
+"""K2 and K3: the MF-MAC backward kernels, hand-written in CUDA for sm_90a.
+
+* K2 replaces the Pallas TPU kernel ``repro/kernels/potq_grad.py``
+  ``_grad_da_kernel`` (launcher ``grad_da_padded``): dA = Gq·Wq^T with G
+  quantized on load and the PRC epilogue (dA masked where |a| > clip_t,
+  per-row dgamma sums of ``where(clipped, dA_raw·sign(a), 0)``).
+* K3 replaces ``_grad_dw_kernel`` (launcher ``grad_dw_padded``):
+  dW = Aq^T·Gq with G quantized on load.
+
+Every ``mf_linear`` backward of the training step launches each once (113
+per olmo-1b step).  Source: ``repro_torch/csrc/potq_grad.cu`` — its header
+says what bounds the kernels on an H100 (fp64 operations at the training
+shapes) and how the reductions stay exact and in a fixed order.  Built by
+``kernels/_build.py`` at first use.
+
+Beside each kernel is its plain PyTorch version, the port's numeric spec
+(``kernels/ref.py``); within the exactness preconditions (bit widths that
+pass ``ref.check_exact_spread``, one scale for all of Wq, and for K3 one
+scale for all of Aq) the kernel equals it bit for bit.  ``scalars`` is a
+(3,) float32 tensor ``[2^-beta_g, 2^beta_g, clip_t]``, on the operands'
+device, so no launch waits for the host.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import (CANONICAL_BK, grad_rowsum_ref,
+                                     pot_value_matmul_ref, quantize_tile_ref)
+
+SOURCE = "potq_grad.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "grad_da_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grad_dw_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is None:
+        _lib, build_seconds = _build.load(SOURCE, _SIGNATURES)
+    return _lib
+
+
+def _quantize_g(g: torch.Tensor, scalars: torch.Tensor, emax_g: int) -> torch.Tensor:
+    """G in the scaled PoT domain, as the kernels quantize it on load."""
+    return quantize_tile_ref(g.to(torch.float32) * scalars[0], emax_g)
+
+
+def grad_da_plain(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
+                  scalars: torch.Tensor, *, emax_g: int,
+                  prc: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of K2: ``(dA (M,K), dgamma rows (M,) or None)``."""
+    gq = _quantize_g(g, scalars, emax_g)
+    da = pot_value_matmul_ref(gq, wq.to(torch.float32).T) * scalars[1]
+    if not prc:
+        return da, None
+    a = a.to(torch.float32)
+    clipped = a.abs() > scalars[2]
+    zero = torch.zeros_like(da)
+    rows = grad_rowsum_ref(torch.where(clipped, da * torch.sign(a), zero))
+    return torch.where(clipped, zero, da), rows
+
+
+def grad_dw_plain(aq: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, *,
+                  emax_g: int) -> torch.Tensor:
+    """Plain PyTorch version of K3: dW (K, N)."""
+    gq = _quantize_g(g, scalars, emax_g)
+    return pot_value_matmul_ref(aq.to(torch.float32).T, gq) * scalars[1]
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    if any(t.device.type != "cuda" for t in ts):
+        raise ValueError("the backward kernels need CUDA tensors")
+
+
+def _scalars(scalars: torch.Tensor, device) -> torch.Tensor:
+    s = scalars.to(device=device, dtype=torch.float32).contiguous()
+    if s.numel() != 3:
+        raise ValueError("scalars must hold 3 values")
+    return s
+
+
+def grad_da_cuda(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
+                 scalars: torch.Tensor, *, emax_g: int,
+                 prc: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K2 on the tensors' CUDA device (PyTorch's current stream).
+    g: (M, N) f32, wq: (K, N) PoT values (read as bf16), a: (M, K) f32
+    raw activations (PRC only).  Raises on a bad device, shape or launch."""
+    _check_cuda(g, wq, scalars, *([a] if prc else []))
+    if g.dim() != 2 or wq.dim() != 2 or g.shape[1] != wq.shape[1]:
+        raise ValueError(f"bad shapes G {tuple(g.shape)}, Wq {tuple(wq.shape)}")
+    m, n = g.shape
+    k = wq.shape[0]
+    g = g.to(torch.float32).contiguous()
+    wq = wq.to(torch.bfloat16).contiguous()
+    s = _scalars(scalars, g.device)
+    da = torch.empty((m, k), dtype=torch.float32, device=g.device)
+    part = rows = None
+    if prc:
+        if a is None or tuple(a.shape) != (m, k):
+            raise ValueError(f"PRC needs a of shape {(m, k)}")
+        a = a.to(torch.float32).contiguous()
+        nchunk = (k + CANONICAL_BK - 1) // CANONICAL_BK
+        part = torch.empty((nchunk, m), dtype=torch.float32, device=g.device)
+        rows = torch.empty((m,), dtype=torch.float32, device=g.device)
+    lib = build()
+    err = lib.grad_da_launch(
+        g.data_ptr(), wq.data_ptr(), a.data_ptr() if prc else None, s.data_ptr(),
+        da.data_ptr(), part.data_ptr() if prc else None,
+        rows.data_ptr() if prc else None, m, n, k, emax_g, int(prc),
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"grad_da kernel launch failed: CUDA error {err}")
+    grad_da_cuda.launches += 1
+    return da, rows
+
+
+def grad_dw_cuda(aq: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, *,
+                 emax_g: int) -> torch.Tensor:
+    """Launch K3 on the tensors' CUDA device (PyTorch's current stream).
+    aq: (M, K) PoT values (read as bf16), g: (M, N) f32.  Raises on a bad
+    device, shape or launch."""
+    _check_cuda(aq, g, scalars)
+    if aq.dim() != 2 or g.dim() != 2 or aq.shape[0] != g.shape[0]:
+        raise ValueError(f"bad shapes Aq {tuple(aq.shape)}, G {tuple(g.shape)}")
+    m, k = aq.shape
+    n = g.shape[1]
+    aq = aq.to(torch.bfloat16).contiguous()
+    g = g.to(torch.float32).contiguous()
+    s = _scalars(scalars, g.device)
+    dw = torch.empty((k, n), dtype=torch.float32, device=g.device)
+    lib = build()
+    err = lib.grad_dw_launch(
+        aq.data_ptr(), g.data_ptr(), s.data_ptr(), dw.data_ptr(), m, n, k, emax_g,
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"grad_dw kernel launch failed: CUDA error {err}")
+    grad_dw_cuda.launches += 1
+    return dw
+
+
+#: kernel launches since the last reset (the caller sets them to 0)
+grad_da_cuda.launches = 0
+grad_dw_cuda.launches = 0

@@ -11,9 +11,9 @@ Source: ``repro_torch/csrc/potq_matmul.cu`` — see its header for what
 bounds the kernel on an H100 (weight bytes at decode, fp64 operations at
 prefill) and how the design keeps the reduction exact and in order.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a
-shared library with a plain C interface, at first use, into
-``<checkout>/build/kernels/<source hash>/``, loaded with ``ctypes``.
+Build: ``kernels/_build.py`` (nvcc for sm_90a into a shared library with a
+plain C interface, at first use, into ``<checkout>/build/kernels/<hash>/``,
+loaded with ``ctypes``).
 
 Exactness precondition: operands come from the port's quantizer (one beta
 per row of A, one for all of W) and the bit widths pass
@@ -23,74 +23,34 @@ per row of A, one for all of W) and the bit widths pass
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import pot_value_matmul_ref, quantize_tile_ref
 
 #: Accumulation-scheme tag of the port: exact chunk partials, left fold.
 ACC_SCHEME = "canonical-k128-exactchunk-leftfold-v1"
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "potq_matmul.cu"
-_BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCE = "potq_matmul.cu"
+_SIGNATURES = {
+    "potq_matmul_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
 
 _lib = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
-                       "with the CUDA toolkit")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return _BUILD_ROOT / digest.hexdigest()[:16] / "libpotq_matmul.so"
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    so = library_path()
-    if not so.exists():
-        so.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-        os.close(fd)
-        t0 = time.perf_counter()
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                             capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {_SRC}:\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
-    lib = ctypes.CDLL(str(so))
-    fn = lib.potq_matmul_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    if _lib is None:
+        _lib, build_seconds = _build.load(SOURCE, _SIGNATURES)
+    return _lib
 
 
 def potq_matmul_plain(a: torch.Tensor, w: torch.Tensor,

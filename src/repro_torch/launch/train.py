@@ -1,0 +1,120 @@
+"""Single-device training CLI (port of ``repro/launch/train.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \\
+      --steps 3 --batch 2 --seq 16 --device cpu
+
+Runs on the card by default (``--device cuda``); there is no CPU fallback.
+Parameters are drawn from seed 0 on the device, batches come from the
+step-indexed synthetic pipeline, and the schedules are the reference's
+(AdamW: warmup 20 then cosine; SGD: step decay).  On the card the run is
+deterministic: two runs from the same state give the same bits.
+Checkpoints and restart, ``--mesh``, ``--pallas`` and ``--autotune`` are not
+ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch import configs as C
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import policy as policy_lib
+from repro_torch.data import pipeline
+from repro_torch.device import resolve_device
+from repro_torch.models import registry, spec
+from repro_torch.optim import (adamw, sgd_momentum, step_decay_schedule,
+                               warmup_cosine_schedule)
+from repro_torch.train import TrainConfig, make_train_step
+
+# cuBLAS reads its workspace setting when its first handle is made, so it
+# is fixed here, before any CUDA call, for make_deterministic's sake
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+POLICIES = {
+    "paper": policy_lib.PAPER_FAITHFUL,
+    "fp32": policy_lib.FP32_BASELINE,
+    "no_wbc": policy_lib.ABLATION_NO_WBC,
+    "no_prc": policy_lib.ABLATION_NO_PRC,
+}
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What a run leaves behind: its state, its step function and one
+    record per step (loss, grad_norm, seconds, tokens_per_s)."""
+
+    cfg: ModelConfig
+    shape: ShapeConfig
+    step_fn: Any
+    params: Dict
+    opt_state: Dict
+    records: List[Dict]
+
+
+def make_deterministic() -> None:
+    """Run-to-run identical steps on the card: deterministic algorithms
+    wherever PyTorch has a choice (e.g. index accumulation); an op that
+    has none raises.  The fixed cuBLAS workspace is set at import."""
+    torch.use_deterministic_algorithms(True)
+
+
+def main(argv=None) -> TrainRun:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
+    ap.add_argument("--policy", default="paper", choices=sorted(POLICIES))
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        make_deterministic()
+    cfg = C.smoke_config(args.arch) if args.smoke else C.get_config(args.arch)
+    policy = POLICIES[args.policy]
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    specs = registry.param_specs(cfg)
+    print(f"arch={cfg.name} params={spec.count_params(specs) / 1e6:.2f}M "
+          f"policy={args.policy} device={dev}", flush=True)
+
+    if args.optimizer == "sgd":
+        opt = sgd_momentum(step_decay_schedule(args.lr, [10 ** 9]))
+    else:
+        opt = adamw(warmup_cosine_schedule(args.lr, 20, args.steps))
+    tstep = make_train_step(cfg, policy, opt, TrainConfig(microbatches=args.microbatches))
+    params = spec.materialize(specs, torch.Generator(device=dev).manual_seed(0))
+    opt_state = opt.init(params)
+
+    records = []
+    for step in range(args.steps):
+        batch = pipeline.make_batch(cfg, shape, step, device=dev)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = tstep(params, opt_state, batch, step)
+        loss = float(metrics["loss"])  # waits for the device
+        gn = float(metrics["grad_norm"])
+        dt = time.perf_counter() - t0
+        rec = dict(step=step, loss=loss, grad_norm=gn, seconds=dt,
+                   tokens_per_s=args.batch * args.seq / dt)
+        records.append(rec)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} |g| {gn:.3f} ({dt:.2f}s, "
+                  f"{rec['tokens_per_s']:.0f} tokens/s)", flush=True)
+    if dev.type == "cuda":
+        print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    print("done")
+    return TrainRun(cfg, shape, tstep, params, opt_state, records)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
-#: families this slice serves
+#: families the port runs so far
 PORTED_FAMILIES = ("decoder",)
 
 
@@ -24,6 +24,13 @@ def _check(cfg: ModelConfig) -> None:
 def param_specs(cfg: ModelConfig):
     _check(cfg)
     return transformer.decoder_specs(cfg)
+
+
+def loss_fn(cfg: ModelConfig, policy, params, batch):
+    """Training loss of a batch dict (``tokens``, ``labels``, ``mask``)."""
+    _check(cfg)
+    return transformer.lm_loss(cfg, policy, params, batch["tokens"],
+                               batch["labels"], batch["mask"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

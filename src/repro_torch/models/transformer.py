@@ -1,8 +1,17 @@
 """Dense decoder-only transformer LM (port of ``repro/models/transformer.py``,
-the dense decoder: specs, forward, prefill and per-slot decode).
+the dense decoder: specs, forward, loss, prefill and per-slot decode).
 
 Layers are stacked along a leading 'layer' axis, as in the reference, and
 run as a Python loop over it.  Every weight matmul is ``mf_linear``.
+
+Training.  :func:`lm_loss` runs the batched :func:`forward` (never the
+row-by-row decode reductions below) with per-layer recomputation, the
+reference's ``jax.checkpoint`` around its layer scan: each layer's
+activations are rebuilt in the backward, so only the layer inputs stay
+live (``torch.utils.checkpoint``, non-reentrant; numerically a no-op, the
+forward is deterministic).  The stacked leaves are unbound once per
+forward, so the backward stacks each leaf's per-layer gradients once
+instead of writing a full (L, ...) zero gradient per layer.
 
 Batch invariance on the card.  Decode rows must not depend on their pool
 neighbours (the serving engine's pool-vs-solo identity).  K1 is
@@ -18,6 +27,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mfmac
@@ -96,8 +107,14 @@ def decoder_specs(cfg: ModelConfig):
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of the stacked layer tree."""
+    """Layer ``i`` of the stacked (or unbound) layer tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _unbind_layers(tree):
+    """Stacked (L, ...) leaves split once into per-layer views."""
+    return {k: _unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
             for k, v in tree.items()}
 
 
@@ -178,10 +195,10 @@ def _sdpa(cfg, q, k, v, qpos, kpos, window):
 
 
 def _block(cfg, policy, p, x, qpos):
-    h = common.apply_norm(cfg.norm, x, p["ln1"])
+    h = common.apply_norm(cfg.norm, x, p.get("ln1"))
     att, new_kv = _attn_apply(cfg, policy, p, h, qpos, window=cfg.window)
     x = x + att
-    h2 = common.apply_norm(cfg.norm, x, p["ln2"])
+    h2 = common.apply_norm(cfg.norm, x, p.get("ln2"))
     x = x + _mlp_apply(cfg, policy, p["mlp"], h2)
     return x, new_kv
 
@@ -191,22 +208,37 @@ def _block(cfg, policy, p, x, qpos):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg, params, tokens):
-    return params["embed"][tokens].to(getattr(torch, cfg.act_dtype))
+    # the values of embed[tokens]; the backward is embedding_dense_backward
+    # rather than an accumulating index_put_, and the trainer's
+    # deterministic mode keeps it run-to-run identical on the card
+    return F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.act_dtype))
+
+
+def _block_out(cfg, policy, p, x, qpos):
+    return _block(cfg, policy, p, x, qpos)[0]
 
 
 def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens: torch.Tensor,
-            *, return_kv: bool = False):
+            *, return_kv: bool = False, remat: bool = False):
     """Full-sequence forward.  Returns logits (B, S, V_padded) and, with
-    ``return_kv``, the per-layer (k, v) lists stacked to (L, B, S, KV, hd)."""
+    ``return_kv``, the per-layer (k, v) lists stacked to (L, B, S, KV, hd).
+    ``remat`` recomputes each layer in the backward (when grad is on)."""
     x = embed_inputs(cfg, params, tokens)
     qpos = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    layers = _unbind_layers(params["layers"])
+    recompute = remat and torch.is_grad_enabled() and not return_kv
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _block(cfg, policy, _layer(params["layers"], i), x, qpos)
+        lp = _layer(layers, i)
+        if recompute:
+            x = checkpoint(_block_out, cfg, policy, lp, x, qpos,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, (k, v) = _block(cfg, policy, lp, x, qpos)
         if return_kv:
             ks.append(k)
             vs.append(v)
-    x = common.apply_norm(cfg.norm, x, params["final_norm"])
+    x = common.apply_norm(cfg.norm, x, params.get("final_norm"))
     logits = _lm_head(cfg, policy, params, x)
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
@@ -221,6 +253,22 @@ def _lm_head(cfg, policy, params, x):
                                policy=pol, is_last=True)
     hp = params["lm_head"]
     return mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
+
+
+def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, labels,
+            loss_mask, *, remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy over ``loss_mask``; padded-vocab ids
+    are masked out (logits -1e30) before the logsumexp."""
+    logits = forward(cfg, policy, params, tokens, remat=remat).to(torch.float32)
+    vpad = cfg.vocab_padded
+    if vpad != cfg.vocab:
+        invalid = torch.arange(vpad, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(invalid, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    mask = loss_mask.to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return ((logz - gold) * mask).sum() / denom
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -296,16 +344,16 @@ def decode_step(cfg, policy, params, token, cache):
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
-        h = _rows(norm(lp["ln1"]), x)
+        h = _rows(norm(lp.get("ln1")), x)
         q, k, v = _qkv(cfg, policy, lp, h, qpos)
         ck[rows, slot] = k[:, 0].to(ck.dtype)
         cv[rows, slot] = v[:, 0].to(cv.dtype)
         att = _rows(attend, q, ck, cv, qpos, kpos)
         att = att.reshape(b, 1, cfg.n_heads * cfg.head_dim)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
-        h2 = _rows(norm(lp["ln2"]), y)
+        h2 = _rows(norm(lp.get("ln2")), y)
         x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
-    x = _rows(norm(params["final_norm"]), x)
+    x = _rows(norm(params.get("final_norm")), x)
     logits = _lm_head(cfg, policy, params, x)[:, 0, :]
     cache["pos"] = kpos
     cache["len"] = pos + 1
