@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: K1 (src/repro_torch/csrc/potq_matmul.cu) and K2/K3
-    (src/repro_torch/csrc/potq_grad.cu) with nvcc for sm_90a, one nvcc
+ 2. build: K1 (src/repro_torch/csrc/potq_matmul.cu), K2/K3
+    (src/repro_torch/csrc/potq_grad.cu) and K4
+    (src/repro_torch/csrc/potq_encode.cu) with nvcc for sm_90a, one nvcc
     process per source, started together;
  3. K1 against its plain PyTorch version on the card, bit for bit
     (torch.equal), at the serving shapes of llama3-8b, both modes;
@@ -31,17 +32,42 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     (K1: 113 forward + 112 recomputed); one more step profiled;
 11. determinism: one step run twice from the same state is bit-equal;
 12. training CUDA vs CPU at smoke width, within the CPU tests' tolerances;
-13. the ``kernels`` JSON line, then the device line.
+13. K4 (src/repro_torch/csrc/potq_encode.cu) against its plain version on
+    the card, bit for bit: the four olmo-1b pack shapes and ragged shapes
+    at bits 4/5/6, with zeros of both signs, subnormals, values at and
+    above emax, mantissas on both sides of √2/2, NaN and ±inf, and betas
+    whose scale 2^-beta is not a normal float; decompress(codes, beta)
+    equals pot_quantize(x, bits, beta);
+14. K4 timing at the pack shapes: kernel, plain version, ``x.to(int8)``
+    (a bytes yardstick, not the same function) and the bytes bound;
+15. checkpoint and restart at full width (olmo-1b, batch 8 x seq 512,
+    through ``launch.train.main`` and a checkpoint directory made with
+    tempfile, 40 GB free required): run A trains 2 steps and saves; run B
+    (--steps 3) restores step 2 and runs step 2 only; run C trains 3 steps
+    uninterrupted; B's params and AdamW m/v equal C's bit for bit; save
+    and restore seconds and GB/s;
+16. pack run B's served weights to int8 (K4: 8 launches), store the packed
+    tree with CheckpointManager, restore, unpack, count per linear leaf
+    the elements that differ from the served tree, and serve a 4-request
+    trace from the unpacked and from the served tree (equal tokens where
+    no element differs);
+17. CUDA vs CPU at smoke width: pack_int8 code for code and beta for
+    beta; checkpoints written from one device restore on the other;
+18. the ``kernels`` JSON line, then the device line.
 
 Per-shape details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +98,17 @@ TRAIN_COUNTS = {(2048, 2048): 64, (2048, 8192): 32, (8192, 2048): 16, (2048, 506
 # (the head is not recomputed)
 TRAIN_K1_COUNTS = {(2048, 2048): 128, (2048, 8192): 64, (8192, 2048): 32, (2048, 50688): 1}
 STEP_LAUNCHES = {"k1": 225, "k2": 113, "k3": 113}
+# olmo-1b pack: ops.potq_encode views each linear leaf as (rows, last axis)
+# -> launches per pack (wq/wk/wv/wo; wi_gate/wi_up; mlp wo; the LM head)
+PACK_SHAPES = {(32768, 2048): 4, (32768, 8192): 2, (131072, 2048): 1, (2048, 50688): 1}
+PACK_BYTES_PER_ELEMENT = 5  # f32 read, int8 code written
+# the encode's integer/compare work per element (abs, inf and zero tests,
+# frexp, threshold, exponent arithmetic, clip, sign, pack) against the
+# CUDA cores' instruction rate (67 TFLOP/s f32 counts an FMA as two operations)
+ENCODE_OPS_PER_ELEMENT = 16
+PEAK_ALU_OPS = 33.5e12
+CKPT_FREE_BYTES = 40e9  # two 15.4 GB training checkpoints + the packed tree
+TRAIN_ARGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "512", "--log-every", "1"]
 
 
 def phase(name):
@@ -124,6 +161,7 @@ def main() -> int:
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import potq_encode as KE
     from repro_torch.kernels import potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry, spec, transformer
@@ -144,10 +182,11 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    nvcc_s = _build.compile_all([K.SOURCE, KG.SOURCE])
+    nvcc_s = _build.compile_all([K.SOURCE, KG.SOURCE, KE.SOURCE])
     K.build()
     KG.build()
-    print(f"build: nvcc {nvcc_s} s, both built and loaded in "
+    KE.build()
+    print(f"build: nvcc {nvcc_s} s, all built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     detail["build_seconds"] = nvcc_s
 
@@ -373,8 +412,11 @@ def main() -> int:
 
     grads = training_kernels(dev, detail)
     train = training(dev, detail)
+    enc = encode_kernel(dev, detail)
+    k4_launches = checkpoint_and_pack(dev, detail)
+    cpu_vs_card(dev, detail)
 
-    phase("13 results")
+    phase("18 results")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -397,6 +439,10 @@ def main() -> int:
                             source="src/repro_torch/csrc/potq_grad.cu",
                             replaces=f"src/repro/kernels/potq_grad.py:{line}",
                             launches=train["launches"][key], **grads[key]))
+    kernels.append(dict(name="potq_encode", route="cuda",
+                        source="src/repro_torch/csrc/potq_encode.cu",
+                        replaces="src/repro/kernels/potq_encode.py:24",
+                        launches=k4_launches, **enc))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -654,6 +700,377 @@ def training(dev, detail):
         raise SystemExit("CUDA and CPU training steps disagree beyond the tolerances")
     detail["train"] = train
     return train
+
+
+def _encode_edges(x, dev):
+    """Write zeros of both signs, subnormals and mantissas just below and at
+    the √2/2 threshold (0x3F3504F3 / 0x3F3504F4, scaled into the tensor's
+    range) into the first elements of ``x``."""
+    below = torch.tensor(0x3F3504F3, dtype=torch.int32).view(torch.float32).item() * 2.0 ** -7
+    above = torch.tensor(0x3F3504F4, dtype=torch.int32).view(torch.float32).item() * 2.0 ** -7
+    edge = torch.tensor([0.0, -0.0, 1e-40, -3e-39, below, -above, above, -below, 2.0 ** -126],
+                        device=dev)
+    flat = x.view(-1)
+    k = min(flat.numel(), edge.numel())
+    flat[:k] = edge[:k]
+    return x
+
+
+def encode_kernel(dev, detail):
+    """Phases 13 and 14: K4 against its plain version, then timing."""
+    from repro_torch.core import compress, potq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import potq_encode as KE
+
+    phase("13 K4 vs plain version (bit for bit)")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    max_err = 0
+
+    def check(x, beta, bits, label):
+        e = potq.pot_emax(bits)
+        beta = torch.as_tensor(beta, device=dev).to(torch.int32)
+        ck = KE.potq_encode_cuda(x, beta, emax=e)
+        cp = KE.potq_encode_plain(x, beta, emax=e)
+        torch.cuda.synchronize()
+        err = (ck.to(torch.int32) - cp.to(torch.int32)).abs().max().item()
+        ok = torch.equal(ck, cp)
+        print(f"{label} bits={bits} beta={int(beta)}: equal={ok} max_code_diff={err}", flush=True)
+        if not ok:
+            raise SystemExit(f"K4 differs from its plain version at {label}, beta {int(beta)}")
+        return err
+
+    inputs = {}
+    for m, n in PACK_SHAPES:
+        x = _encode_edges(torch.randn(m, n, generator=gen, device=dev) * 0.02, dev)  # olmo init
+        x[1, :2] = torch.tensor([0.5, -0.5], device=dev)  # the amax: codes at ±emax
+        codes, beta = ops.potq_encode(x, 5)
+        ref = KE.potq_encode_plain(x, beta, emax=potq.pot_emax(5))
+        # a zero code has no sign: decompress gives +0 where pot_quantize
+        # gives -0 for a negative underflow, which torch.equal counts equal
+        same = torch.equal(codes, ref) and torch.equal(compress.decompress(codes, beta, 5),
+                                                       potq.pot_quantize(x, 5, beta))
+        print(f"pack shape {(m, n)}: ops.potq_encode == plain and decompress == "
+              f"pot_quantize: {same}", flush=True)
+        if not same:
+            raise SystemExit(f"K4 round trip fails at {(m, n)}")
+        max_err = max(max_err, check(x, beta - 3, 5, f"{(m, n)} saturating"))
+        inputs[(m, n)] = (x, beta)
+    for shape in [(7, 1000), (100, 300), (1, 3)]:
+        for bits in (4, 5, 6):
+            x = _encode_edges(torch.randn(shape, generator=gen, device=dev) * 1e-3, dev)
+            b0 = int(potq.compute_beta(x, bits))
+            for beta in (b0, b0 - 3, 127, 140, -127, -140):
+                max_err = max(max_err, check(x, beta, bits, f"{shape}"))
+            codes, beta = ops.potq_encode(x, bits)
+            # (1, 3) holds only zeros and subnormals: its beta is below -126,
+            # where neither decoder's 2^beta is a float (the reference's too)
+            if -126 <= int(beta) <= 126 and not torch.equal(
+                    compress.decompress(codes, beta, bits), potq.pot_quantize(x, bits, beta)):
+                raise SystemExit(f"decompress(potq_encode) != pot_quantize at {shape}")
+    odd = torch.randn(1001, generator=gen, device=dev) * 1e-3
+    odd[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0], device=dev)
+    max_err = max(max_err, check(odd, -12, 5, "(1001,) with NaN and ±inf"))
+    max_err = max(max_err, check(odd[1:], -12, 5, "(1000,) unaligned view"))
+
+    phase("14 K4 timing at the pack shapes (CUDA events, L2 flushed)")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    pack = {"ms": 0.0, "plain_ms": 0.0, "to_int8_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0}
+    for (m, n), count in PACK_SHAPES.items():
+        x, beta = inputs[(m, n)]
+        t_k = time_ms(lambda: KE.potq_encode_cuda(x, beta, emax=7), 10, flush)
+        t_p = time_ms(lambda: KE.potq_encode_plain(x, beta, emax=7), 2, flush)
+        t_y = time_ms(lambda: x.to(torch.int8), 10, flush)
+        t_bytes = PACK_BYTES_PER_ELEMENT * m * n / PEAK_BYTES * 1e3
+        t_ops = ENCODE_OPS_PER_ELEMENT * m * n / PEAK_ALU_OPS * 1e3
+        row = dict(M=m, N=n, launches_per_pack=count, ms=t_k, plain_ms=t_p, to_int8_ms=t_y,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops > t_bytes else "bytes",
+                   gb_per_s=PACK_BYTES_PER_ELEMENT * m * n / t_k / 1e6)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("to_int8_ms", t_y),
+                       ("t_ops", t_ops), ("t_bytes", t_bytes)):
+            pack[key] += count * t
+    t_ops, t_bytes = pack.pop("t_ops"), pack.pop("t_bytes")
+    pack["bound_ms"] = max(t_ops, t_bytes)
+    pack["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+    print("one olmo-1b pack (8 launches):", json.dumps(pack))
+    detail["k4_shapes"] = rows
+    detail["k4_pack"] = pack
+    del inputs, flush
+    torch.cuda.empty_cache()
+    # no single PyTorch call computes the PoT encode: library_ms is null
+    return dict(max_abs_err=max_err, ms=pack["ms"], plain_ms=pack["plain_ms"],
+                bound_ms=pack["bound_ms"], bound_by=pack["bound_by"], library_ms=None)
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        self.buf.write(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _trees_equal(a, b):
+    from repro_torch.models import spec
+
+    la, lb = list(spec.named_leaves(a)), list(spec.named_leaves(b))
+    return [n for n, _ in la] == [n for n, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y.to(x.device)) for (_, x), (_, y) in zip(la, lb))
+
+
+def checkpoint_and_pack(dev, detail):
+    """Phases 15 and 16 in one checkpoint directory, removed at the end."""
+    tmp_root = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp_root).free
+    print(f"checkpoint directory under {tmp_root}: {free / 1e9:.1f} GB free", flush=True)
+    if free < CKPT_FREE_BYTES:
+        raise SystemExit(f"only {free / 1e9:.1f} GB free under {tmp_root}; the checkpoint "
+                         f"phases need {CKPT_FREE_BYTES / 1e9:.0f} GB")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        run_b = restart(dev, detail, ckpt_dir)
+        return pack_and_serve(dev, detail, ckpt_dir, run_b)
+    finally:
+        shutil.rmtree(ckpt_dir)
+
+
+def restart(dev, detail, ckpt_dir):
+    """Phase 15: runs A (2 steps, saved), B (resumed to 3) and C (3 steps
+    uninterrupted); B must equal C bit for bit."""
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.launch import train as train_cli
+
+    phase("15 checkpoint and restart at full width (olmo-1b, batch 8 x seq 512)")
+    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda}
+    ck = ["--ckpt-dir", ckpt_dir, "--ckpt-every", "100"]
+    peaks = {}
+
+    def peak_gib(run):
+        torch.cuda.synchronize()
+        peaks[run] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+
+    peak_gib("before")
+    t0 = time.perf_counter()
+    run_a = train_cli.main(TRAIN_ARGS + ["--steps", "2"] + ck)
+    wall_a = time.perf_counter() - t0
+    peak_gib("A")
+    if run_a.ckpt.all_steps() != [2]:
+        raise SystemExit(f"run A left checkpoints {run_a.ckpt.all_steps()}, expected [2]")
+    timings = [dict(run="A", **t) for t in run_a.ckpt.timings]
+    del run_a
+    torch.cuda.empty_cache()
+
+    tee = _Tee(sys.stdout)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        run_b = train_cli.main(TRAIN_ARGS + ["--steps", "3"] + ck)
+    wall_b = time.perf_counter() - t0
+    peak_gib("B")
+    launches_b = {k: fn.launches for k, fn in counters.items()}
+    if "restoring checkpoint step 2" not in tee.buf.getvalue():
+        raise SystemExit("run B did not print 'restoring checkpoint step 2'")
+    if run_b.start_step != 2 or [r["step"] for r in run_b.records] != [2]:
+        raise SystemExit(f"run B started at {run_b.start_step} and ran "
+                         f"{[r['step'] for r in run_b.records]}, expected step 2 only")
+    if launches_b != STEP_LAUNCHES:
+        raise SystemExit(f"run B launched {launches_b}, expected one step's {STEP_LAUNCHES}")
+    if run_b.ckpt.all_steps() != [2, 3]:
+        raise SystemExit(f"run B left checkpoints {run_b.ckpt.all_steps()}, expected [2, 3]")
+    timings += [dict(run="B", **t) for t in run_b.ckpt.timings]
+    on_disk = {s: _dir_bytes(os.path.join(ckpt_dir, f"step_{s:010d}"))
+               for s in run_b.ckpt.all_steps()}
+
+    t0 = time.perf_counter()
+    run_c = train_cli.main(TRAIN_ARGS + ["--steps", "3"])
+    wall_c = time.perf_counter() - t0
+    peak_gib("C (run B's state held)")
+    same_p = _trees_equal(run_b.params, run_c.params)
+    same_s = _trees_equal(run_b.opt_state, run_c.opt_state)
+    loss_b, loss_c = run_b.records[0]["loss"], run_c.records[2]["loss"]
+    del run_c
+    torch.cuda.empty_cache()
+    for t in timings:
+        if t["op"] == "save":
+            t["seconds"] = t["snapshot_s"] + t["write_s"]
+        t["gb_per_s"] = t["bytes"] / t["seconds"] / 1e9
+        print(f"run {t['run']} {t['op']} step {t['step']}: {t['bytes'] / 1e9:.3f} GB in "
+              f"{t['seconds']:.2f} s = {t['gb_per_s']:.3f} GB/s"
+              + (f" (device to host {t['snapshot_s']:.2f} s, file write {t['write_s']:.2f} s)"
+                 if t["op"] == "save" else ""), flush=True)
+    print(f"bytes on disk per step: {on_disk}; runs A / B / C {wall_a:.1f} / {wall_b:.1f} / "
+          f"{wall_c:.1f} s; B launched {launches_b}; peak device GiB {json.dumps(peaks)}")
+    print(f"step 2 loss: resumed {loss_b!r}, uninterrupted {loss_c!r}; params bit-equal "
+          f"{same_p}, AdamW m/v bit-equal {same_s}", flush=True)
+    detail["restart"] = dict(timings=timings, bytes_on_disk=on_disk, wall_s=[wall_a, wall_b, wall_c],
+                             peak_gib=peaks,
+                             launches_b=launches_b, loss_resumed=loss_b,
+                             loss_uninterrupted=loss_c, params_equal=same_p, opt_equal=same_s)
+    if not (same_p and same_s and loss_b == loss_c):
+        raise SystemExit("the resumed run differs from the uninterrupted run")
+    return run_b
+
+
+def pack_and_serve(dev, detail, ckpt_dir, run_b):
+    """Phase 16: quantize_for_serving -> pack_int8 (K4) -> save -> restore ->
+    unpack_int8 -> PoolEngine, against serving the bf16 tree itself.
+    Returns K4's launches in the pack."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import potq
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.kernels import potq_encode as KE
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import spec
+    from repro_torch.serve import PoolEngine, poisson_trace
+    from repro_torch.serve import quantized_weights as qw
+
+    phase("16 pack (K4), store, restore, unpack and serve olmo-1b")
+    cfg = run_b.cfg
+    served = qw.quantize_for_serving(cfg, PAPER_FAITHFUL, run_b.params)
+    del run_b
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    KE.potq_encode_cuda.launches = 0
+    t0 = time.perf_counter()
+    packed = qw.pack_int8(served)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    launches = KE.potq_encode_cuda.launches
+    if launches != sum(PACK_SHAPES.values()):
+        raise SystemExit(f"pack_int8 launched K4 {launches} times, expected "
+                         f"{sum(PACK_SHAPES.values())}")
+    mgr = CheckpointManager(os.path.join(ckpt_dir, "packed"), async_write=False)
+    mgr.save(3, {"packed": packed}, blocking=True)
+    restored = mgr.restore(3, {"packed": packed})["packed"]
+    if not _trees_equal(restored, packed):
+        raise SystemExit("the packed tree changed through the checkpoint")
+    unpacked = qw.unpack_int8(restored)
+    del restored
+    torch.cuda.synchronize()
+    leaves, all_equal = [], True
+    packed_leaves = dict(spec.named_leaves(packed))
+    served_leaves = dict(spec.named_leaves(served))
+    for name, x in spec.named_leaves(unpacked):
+        if not name.endswith("/w"):
+            continue
+        s = served_leaves[name]
+        n_diff = int((x.float() != s.float()).sum())
+        all_equal = all_equal and n_diff == 0
+        sf = s.float()
+        layer_betas = (potq.compute_beta(sf, 5, axes=(1, 2)).flatten().tolist()
+                       if sf.dim() == 3 else [int(potq.compute_beta(sf, 5))])
+        row = dict(leaf=name, elements=x.numel(), differ=n_diff,
+                   beta=int(packed_leaves[name + "/beta"]), layer_betas=layer_betas,
+                   packed_bytes=x.numel() + 4, f32_bytes=4 * x.numel())
+        leaves.append(row)
+        print(json.dumps(row), flush=True)
+    packed_bytes = sum(r["packed_bytes"] for r in leaves)
+    f32_bytes = sum(r["f32_bytes"] for r in leaves)
+    on_disk = _dir_bytes(os.path.join(ckpt_dir, "packed"))
+    print(f"pack: {launches} K4 launches in {pack_s * 1e3:.1f} ms (betas included); linear "
+          f"leaves {packed_bytes / 1e9:.3f} GB packed vs {f32_bytes / 1e9:.3f} GB f32; the "
+          f"packed checkpoint {on_disk / 1e9:.3f} GB on disk; {mgr.timings}", flush=True)
+
+    pol = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
+    reqs = poisson_trace(cfg, n_requests=4, prompt_len=128, lam=2.0, new_lo=8, new_hi=32, seed=0)
+    outs, serve = {}, {}
+    for label, tree in (("unpacked", unpacked), ("served", served)):
+        eng = PoolEngine(cfg, pol, tree, max_slots=4, max_len=160, prequantize=False, device=dev)
+        eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+        torch.cuda.synchronize()
+        K.potq_matmul_cuda.launches = 0
+        t0 = time.perf_counter()
+        outs[label] = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.last_stats
+        k1 = K.potq_matmul_cuda.launches
+        serve[label] = dict(wall_s=wall, tokens_per_s=st.emitted_tokens / wall,
+                            emitted_tokens=st.emitted_tokens, weight_passes=st.weight_passes,
+                            k1_launches=k1)
+        print(label, json.dumps(serve[label]), flush=True)
+        if k1 != (7 * cfg.n_layers + 1) * st.weight_passes:
+            raise SystemExit(f"K1 launched {k1} times over {st.weight_passes} weight passes")
+        for r in reqs:
+            toks = outs[label][r.uid]
+            if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
+                    toks.max() >= cfg.vocab_padded:
+                raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+        del eng
+    same = [int((outs["unpacked"][r.uid] == outs["served"][r.uid]).sum()) for r in reqs]
+    share = sum(same) / sum(r.max_new_tokens for r in reqs)
+    print(f"every linear leaf round-trips exactly: {all_equal}; tokens equal to the served "
+          f"tree's: {share:.4f} of them", flush=True)
+    detail["pack_serve"] = dict(leaves=leaves, pack_s=pack_s, k4_launches=launches,
+                                packed_bytes=packed_bytes, f32_bytes=f32_bytes,
+                                on_disk=on_disk, timings=mgr.timings, serve=serve,
+                                all_leaves_exact=all_equal, token_share_equal=share)
+    if all_equal and share != 1.0:
+        raise SystemExit("exact round trip, yet the tokens differ from the served tree's")
+    del served, packed, unpacked
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cpu_vs_card(dev, detail):
+    """Phase 17: pack_int8 and checkpoints agree across CPU and card."""
+    from repro_torch import configs
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.models import registry, spec
+    from repro_torch.serve import quantized_weights as qw
+
+    phase("17 CUDA vs CPU: pack_int8 and checkpoints (smoke width)")
+    scfg = configs.smoke_config("olmo-1b")
+    p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
+    s_cpu = qw.quantize_for_serving(scfg, PAPER_FAITHFUL, p_cpu)
+
+    def to_card(tree):
+        out = {}
+        for n, x in spec.named_leaves(tree):
+            spec.set_leaf(out, n, x.to(dev))
+        return out
+
+    res = {label: _trees_equal(qw.pack_int8(tree), qw.pack_int8(to_card(tree)))
+           for label, tree in (("raw", p_cpu), ("served", s_cpu))}
+    print(f"pack_int8 CPU == card, code for code and beta for beta: {res}", flush=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_xdev_")
+    try:
+        p_gpu = to_card(p_cpu)
+        mgr = CheckpointManager(d, async_write=False)
+        pk_gpu = qw.pack_int8(p_gpu)
+        mgr.save(1, {"params": p_gpu, "packed": pk_gpu}, blocking=True)
+        back = mgr.restore(1, {"params": p_gpu, "packed": pk_gpu}, device="cpu")
+        card_to_cpu = (_trees_equal(back["params"], p_cpu)
+                       and _trees_equal(back["packed"], qw.pack_int8(p_cpu))
+                       and all(x.device.type == "cpu" for _, x in spec.named_leaves(back)))
+        mgr.save(2, {"params": p_cpu}, blocking=True)
+        back = mgr.restore(2, {"params": p_cpu}, device=dev)
+        cpu_to_card = _trees_equal(back["params"], p_gpu) and all(
+            x.device.type == dev.type for _, x in spec.named_leaves(back))
+    finally:
+        shutil.rmtree(d)
+    print(f"checkpoint card -> CPU bit-equal: {card_to_cpu}; CPU -> card: {cpu_to_card}")
+    detail["cpu_vs_card_pack"] = dict(pack=res, card_to_cpu=card_to_cpu, cpu_to_card=cpu_to_card)
+    if not (all(res.values()) and card_to_cpu and cpu_to_card):
+        raise SystemExit("packing or checkpoints differ between CPU and card")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Public wrappers around K1, K2 and K3 (port of ``repro/kernels/ops.py:49-299``).
+"""Public wrappers around K1-K4 (port of ``repro/kernels/ops.py:49-332``).
 
 * :func:`potq_matmul`       — fused PRC-clip + WBC + ALS-PoTQ + matmul (K1).
 * :func:`pot_value_matmul`  — matmul over already-PoT-valued operands (K1;
@@ -7,9 +7,12 @@
 * :func:`grad_dw_matmul`    — dW = Aq^T·Gq (K3).
 * :func:`potq_grad_matmuls` — both, G quantized once under one beta_g
   (every quantized ``mf_linear`` backward).
+* :func:`potq_encode`       — f32 -> int8 PoT wire codes + beta (K4;
+  ``serve/quantized_weights.pack_int8``).
 
 Dispatch depends only on the operands' device: CUDA tensors launch the
-hand-written kernels (``kernels/potq_matmul.py``, ``kernels/potq_grad.py``)
+hand-written kernels (``kernels/potq_matmul.py``, ``kernels/potq_grad.py``,
+``kernels/potq_encode.py``)
 — a build or launch failure raises, nothing falls back — and CPU tensors
 take the kernels' plain PyTorch versions.  The kernels mask their own
 ragged edges, so there is no padding to block multiples, and there is no
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.core import potq
 from repro_torch.kernels import ref
+from repro_torch.kernels import potq_encode as _ke
 from repro_torch.kernels import potq_grad as _kg
 from repro_torch.kernels import potq_matmul as _k
 
@@ -181,3 +185,17 @@ def potq_grad_matmuls(
     if amax is None:
         amax = a.to(torch.float32).abs().amax()
     return da, dw, ref.halves_fold(rows) * amax
+
+
+def potq_encode(x: torch.Tensor, bits: int = 5):
+    """Encode a tensor to int8 PoT codes + one int32 beta (the wire format
+    of ``core/compress.py``): code 0 for zero, otherwise
+    ``|code| = exp + emax + 1`` with the value's sign.
+
+    beta comes from :func:`potq.compute_beta` over the whole tensor and
+    stays on x's device; the codes have x's shape.  The kernel reads the
+    tensor flat, so there is no padding."""
+    x = x.to(torch.float32)
+    beta = potq.compute_beta(x, bits)
+    fn = _dispatch(x.device, _ke.potq_encode_cuda, _ke.potq_encode_plain)
+    return fn(x, beta, emax=potq.pot_emax(bits)), beta

@@ -1,15 +1,27 @@
 """Single-device training CLI (port of ``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \\
-      --steps 3 --batch 2 --seq 16 --device cpu
+      --steps 3 --batch 2 --seq 16 --device cpu --ckpt-dir /tmp/ckpt
 
 Runs on the card by default (``--device cuda``); there is no CPU fallback.
 Parameters are drawn from seed 0 on the device, batches come from the
 step-indexed synthetic pipeline, and the schedules are the reference's
 (AdamW: warmup 20 then cosine; SGD: step decay).  On the card the run is
 deterministic: two runs from the same state give the same bits.
-Checkpoints and restart, ``--mesh``, ``--pallas`` and ``--autotune`` are not
-ported yet.
+
+Restart: with ``--ckpt-dir`` the run restores the newest checkpoint there
+(if any) and continues from its step; kill it at any point and rerun the
+same command (or one with more ``--steps``) to continue.  The rules are
+the reference's (``repro/launch/train.py:125-157``), so the two packages'
+checkpoints mean the same and restore into each other:
+
+* after the update of step ``s``, when ``s and s % ckpt_every == 0``, the
+  state is saved (in the background) labelled ``s`` — it holds ``s + 1``
+  updates, and a restart from it runs step ``s`` again;
+* at the end the state is saved, blocking, labelled ``--steps``, the
+  number of updates it holds.
+
+``--mesh``, ``--pallas`` and ``--autotune`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,11 +29,12 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch import configs as C
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import policy as policy_lib
 from repro_torch.data import pipeline
@@ -45,8 +58,9 @@ POLICIES = {
 
 @dataclasses.dataclass
 class TrainRun:
-    """What a run leaves behind: its state, its step function and one
-    record per step (loss, grad_norm, seconds, tokens_per_s)."""
+    """What a run leaves behind: its state (restored and trained), its
+    step function, one record per step it ran (loss, grad_norm, seconds,
+    tokens_per_s), the step it started from and its checkpoint manager."""
 
     cfg: ModelConfig
     shape: ShapeConfig
@@ -54,6 +68,8 @@ class TrainRun:
     params: Dict
     opt_state: Dict
     records: List[Dict]
+    start_step: int = 0
+    ckpt: Optional[CheckpointManager] = None
 
 
 def make_deterministic() -> None:
@@ -74,6 +90,8 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--policy", default="paper", choices=sorted(POLICIES))
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -96,8 +114,20 @@ def main(argv=None) -> TrainRun:
     params = spec.materialize(specs, torch.Generator(device=dev).manual_seed(0))
     opt_state = opt.init(params)
 
+    start_step = 0
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        latest = mgr.latest_step()
+        if latest is not None:
+            print(f"restoring checkpoint step {latest}", flush=True)
+            _, state = mgr.restore_latest({"params": params, "opt_state": opt_state})
+            params, opt_state = state["params"], state["opt_state"]
+            del state
+            start_step = latest
+
     records = []
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         batch = pipeline.make_batch(cfg, shape, step, device=dev)
         t0 = time.perf_counter()
         params, opt_state, metrics = tstep(params, opt_state, batch, step)
@@ -110,10 +140,14 @@ def main(argv=None) -> TrainRun:
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {loss:.4f} |g| {gn:.3f} ({dt:.2f}s, "
                   f"{rec['tokens_per_s']:.0f} tokens/s)", flush=True)
+        if mgr and step and step % args.ckpt_every == 0:
+            mgr.save(step, {"params": params, "opt_state": opt_state})
+    if mgr:
+        mgr.save(args.steps, {"params": params, "opt_state": opt_state}, blocking=True)
     if dev.type == "cuda":
         print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     print("done")
-    return TrainRun(cfg, shape, tstep, params, opt_state, records)
+    return TrainRun(cfg, shape, tstep, params, opt_state, records, start_step, mgr)
 
 
 if __name__ == "__main__":

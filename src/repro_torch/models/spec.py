@@ -41,7 +41,8 @@ def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield name, val
 
 
-def _set(tree: dict, name: str, value) -> None:
+def set_leaf(tree: dict, name: str, value) -> None:
+    """Put ``value`` at the ``/``-joined ``name`` of a nested dict."""
     *head, last = name.split("/")
     for k in head:
         tree = tree.setdefault(k, {})
@@ -68,7 +69,7 @@ def materialize(specs, generator: torch.Generator, *,
         else:
             x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                             device=device).mul_(s.std).to(s.dtype)
-        _set(out, name, transform(name, x) if transform is not None else x)
+        set_leaf(out, name, transform(name, x) if transform is not None else x)
     return out
 
 
@@ -88,5 +89,5 @@ def params_from_numpy(tree: Mapping[str, np.ndarray], device) -> Dict:
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr))  # copy: arrays may be read-only
-        _set(out, name, t.to(device))
+        set_leaf(out, name, t.to(device))
     return out

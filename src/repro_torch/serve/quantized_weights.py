@@ -1,5 +1,5 @@
 """Serving-side weight compression (port of
-``repro/serve/quantized_weights.py:36-47``).
+``repro/serve/quantized_weights.py:36-81``).
 
 ``quantize_for_serving`` applies WBC + ALS-PoTQ to every linear-layer
 weight once (what ``mf_linear``'s forward would do per step) and stores
@@ -7,14 +7,22 @@ the exact PoT values in bf16, halving the weight bytes a decode step
 streams.  Each trailing 2-D matrix gets its own WBC mean and beta, so a
 stacked (L, D, F) weight gets one per layer.  The embedding, norms and
 PRC gammas stay f32.
+
+``pack_int8`` goes further for offline storage: one int8 code per element
+(``core/compress.py`` layout) through K4 (``ops.potq_encode``) and ONE
+beta per tensor, as the reference packs — so a stacked leaf shares one
+beta across its layers, and a layer whose largest value lies well below
+the stack's may lose its smallest codes to zero.  ``unpack_int8`` gives
+the bf16 PoT values back.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import mfmac
+from repro_torch.core import compress, mfmac
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.spec import named_leaves
+from repro_torch.kernels import ops
+from repro_torch.models.spec import named_leaves, set_leaf
 
 
 def is_linear_weight(name: str, x: torch.Tensor) -> bool:
@@ -41,9 +49,26 @@ def quantize_for_serving(cfg, policy: QuantPolicy, params):
     Returns a new tree; ``params`` is left as it is."""
     out: dict = {}
     for name, x in named_leaves(params):
-        node = out
-        *head, last = name.split("/")
-        for k in head:
-            node = node.setdefault(k, {})
-        node[last] = quantize_leaf(name, x, policy)
+        set_leaf(out, name, quantize_leaf(name, x, policy))
     return out
+
+
+def pack_int8(params, bits: int = 5):
+    """Offline int8 packing: every linear weight becomes
+    ``{"code": int8 of its shape, "beta": int32 scalar}`` (K4 on the card);
+    other leaves are kept as they are.  Returns a new tree."""
+    out: dict = {}
+    for name, x in named_leaves(params):
+        if is_linear_weight(name, x):
+            code, beta = ops.potq_encode(x, bits)
+            x = {"code": code, "beta": beta}
+        set_leaf(out, name, x)
+    return out
+
+
+def unpack_int8(packed, bits: int = 5):
+    """Inverse of :func:`pack_int8`: the packed leaves as bf16 PoT values
+    (exact), the others as they are."""
+    if "code" in packed and not isinstance(packed["code"], dict):
+        return compress.decompress(packed["code"], packed["beta"], bits).to(torch.bfloat16)
+    return {k: unpack_int8(v, bits) if isinstance(v, dict) else v for k, v in packed.items()}

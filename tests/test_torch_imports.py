@@ -1,5 +1,6 @@
 """repro_torch stands alone: importing every module of the port pulls in
-neither jax nor any module of the JAX package ``repro``."""
+neither jax nor any module of the JAX package ``repro``, and neither the
+port's sources nor ``chip_smoke.py`` import them."""
 import os
 import pathlib
 import subprocess
@@ -35,7 +36,7 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_port_sources_do_not_name_jax():
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    for path in [*(SRC / "repro_torch").rglob("*.py"), SRC.parent / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
