@@ -4,8 +4,8 @@
 
 Phases (any failure exits non-zero; there is no CPU fallback):
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: K1 (src/repro_torch/csrc/potq_matmul.cu), K2/K3
-    (src/repro_torch/csrc/potq_grad.cu) and K4
+ 2. build: K1 (src/repro_torch/csrc/potq_matmul.cu), K2/K3 and their
+    G pre-pass (src/repro_torch/csrc/potq_grad.cu) and K4
     (src/repro_torch/csrc/potq_encode.cu) with nvcc for sm_90a, one nvcc
     process per source, started together;
  3. K1 against its plain PyTorch version on the card, bit for bit
@@ -19,17 +19,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  7. CUDA vs CPU: a smoke-width model agrees within the CPU tests' logit
     tolerance;
  8. K2/K3 against their plain versions on the card, bit for bit (dA, the
-    dgamma rows, dgamma, dW), at the four olmo-1b training shapes with
-    M = 4096, PRC on and off, bits_g 5 (6 at the LM head), a ragged shape
-    and G with subnormal and zero entries; K1 bit for bit at the four
-    training shapes, one activation scale, as the training forward runs it;
- 9. timing of K1/K2/K3 at the training shapes: kernel, plain version,
-    torch.matmul on the same bf16 operands (yardstick only), and the
-    roofline bound;
+    dgamma rows, dgamma, dW), and the G pre-pass against its plain version
+    (``_quantize_g``), at the four olmo-1b training shapes with M = 4096,
+    PRC on and off, bits_g 5 (6 at the LM head), a ragged shape and G with
+    subnormal and zero entries, shapes off every edge of the kernels'
+    tiling (128 x 128 block tiles, 32-wide slices, k-steps of 8, rows not
+    16-byte aligned), one below one tile, and a lattice-extreme set whose
+    products reach both ends of the 52-bit chunk lattice at the head's
+    6 x 5 pair; K1 bit for bit at the four training shapes, one activation
+    scale, as the training forward runs it;
+ 9. timing of K1/K2/K3 and the pre-pass at the training shapes: kernel,
+    plain version, torch.matmul on the same bf16 operands (yardstick
+    only), the roofline bound and, for K2/K3, the bound of their datapath
+    (the FP64 tensor cores); K2's rows include its pre-pass;
 10. train olmo-1b at full width (random weights from seed 0, AdamW,
     batch 8 x seq 512) through ``repro_torch.launch.train.main``: 1
-    warm-up + 3 steps; K1/K2/K3 launch counts per step must be 225/113/113
-    (K1: 113 forward + 112 recomputed); one more step profiled;
+    warm-up + 3 steps, the losses printed with repr; K1/K2/K3/pre-pass
+    launch counts per step must be 225/113/113/113 (K1: 113 forward + 112
+    recomputed); one more step profiled;
 11. determinism: one step run twice from the same state is bit-equal;
 12. training CUDA vs CPU at smoke width, within the CPU tests' tolerances;
 13. K4 (src/repro_torch/csrc/potq_encode.cu) against its plain version on
@@ -83,6 +90,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 # H100 SXM published peaks (NVIDIA data sheet), the roofline's two terms
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the FP64 tensor cores, K2's and K3's datapath (same data sheet)
+PEAK_FP64_TC_FLOPS = 67e12
 LOGIT_ATOL = 1e-3  # tests/test_torch_serve.py's tolerance
 # tests/test_torch_train.py's tolerances (port vs reference on the CPU)
 LOSS_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-5, 1e-4, 1e-6
@@ -97,7 +106,8 @@ TRAIN_COUNTS = {(2048, 2048): 64, (2048, 8192): 32, (8192, 2048): 16, (2048, 506
 # K1 per step: every forward, and again when the backward recomputes a layer
 # (the head is not recomputed)
 TRAIN_K1_COUNTS = {(2048, 2048): 128, (2048, 8192): 64, (8192, 2048): 32, (2048, 50688): 1}
-STEP_LAUNCHES = {"k1": 225, "k2": 113, "k3": 113}
+# "gq": the G pre-pass, once per backward, shared by K2 and K3
+STEP_LAUNCHES = {"k1": 225, "k2": 113, "k3": 113, "gq": 113}
 # olmo-1b pack: ops.potq_encode views each linear leaf as (rows, last axis)
 # -> launches per pack (wq/wk/wv/wo; wi_gate/wi_up; mlp wo; the LM head)
 PACK_SHAPES = {(32768, 2048): 4, (32768, 8192): 2, (131072, 2048): 1, (2048, 50688): 1}
@@ -188,7 +198,11 @@ def main() -> int:
     KE.build()
     print(f"build: nvcc {nvcc_s} s, all built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
+    # ptxas -v: (registers, spill store bytes, spill load bytes) per kernel
+    for src, kern in _build.RESOURCES.items():
+        print(f"ptxas {src}: {json.dumps(kern)}")
     detail["build_seconds"] = nvcc_s
+    detail["ptxas"] = _build.RESOURCES
 
     phase("3 K1 vs plain version (bit for bit)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -434,7 +448,10 @@ def main() -> int:
         "bound_by": per_pass["bound_by"],
         "library_ms": per_pass["library_ms"],
     }]
-    for key, name, line in (("k2", "grad_da", 68), ("k3", "grad_dw", 143)):
+    # K2's ms includes its pre-pass, which also has a line of its own; it
+    # takes the place of the in-VMEM quantization of G in both TPU kernels
+    for key, name, line in (("k2", "grad_da", 68), ("k3", "grad_dw", 143),
+                            ("gq", "grad_g_quantize", 99)):
         kernels.append(dict(name=name, route="cuda",
                             source="src/repro_torch/csrc/potq_grad.cu",
                             replaces=f"src/repro/kernels/potq_grad.py:{line}",
@@ -467,9 +484,38 @@ def _grad_operands(dev, gen, m, k, n, *, subnormal=False):
     return a, g, aq, wq, amax, t
 
 
+def _lattice_operands(dev, gen, m, k, n):
+    """Operands whose products reach both ends of the chunk lattice at the
+    LM head's 6 x 5 pair: G's scaled values are ±2^±15 and Wq's and Aq's
+    ±2^±7 (around their betas), big and small alternating along the
+    contraction, with random signs; along N the big products of a chunk's
+    second half cancel the first half's, so the small ones decide dA."""
+    from repro_torch.core import potq
+
+    def pattern(rows, cols, emax, beta):
+        par = (torch.arange(rows, device=dev)[:, None] + torch.arange(cols, device=dev)[None]) % 2
+        sign = torch.randint(0, 2, (rows, cols), generator=gen, device=dev) * 2.0 - 1.0
+        e = torch.where(par == 0, emax, -emax)
+        return sign, e, potq.exp2i(e + beta)
+
+    sg, eg, mag = pattern(m, n, 15, -10)
+    col = torch.arange(n, device=dev) % 128
+    first = torch.clamp(torch.arange(n, device=dev) - 64, min=0)
+    second = (col >= 64)[None].expand(m, n)
+    sg = torch.where(second & (eg[:, first] > 0), -sg[:, first], sg)
+    g = sg * mag
+    sw, _, wmag = pattern(k, n, 7, -3)
+    wq = (sw * wmag).to(torch.bfloat16)
+    sa, _, amag = pattern(m, k, 7, -2)
+    aq = (sa * amag).to(torch.bfloat16)
+    a = torch.randn(m, k, generator=gen, device=dev) * 1.7
+    amax = a.abs().amax()
+    return a, g, aq, wq, amax, amax * 0.95
+
+
 def training_kernels(dev, detail):
-    """Phases 8 and 9: K1/K2/K3 at the training shapes against their plain
-    versions, then timing."""
+    """Phases 8 and 9: K1/K2/K3 and the G pre-pass at the training shapes
+    against their plain versions, then timing."""
     from repro_torch.core import potq
     from repro_torch.kernels import potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
@@ -477,23 +523,40 @@ def training_kernels(dev, detail):
 
     phase("8 K2/K3 (and K1) vs plain versions at the training shapes (bit for bit)")
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [(TRAIN_M, kk, nn, 6 if nn == 50688 else 5, prc, False)
+    cases = [(TRAIN_M, kk, nn, 6 if nn == 50688 else 5, prc, "random")
              for kk, nn in TRAIN_COUNTS for prc in (True, False)]
-    cases += [(200, 130, 300, bits, prc, True) for bits in (5, 6) for prc in (True, False)]
-    max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    cases += [(200, 130, 300, bits, prc, "subnormal") for bits in (5, 6) for prc in (True, False)]
+    # edges of the tiling: M, K, N off the 128 tile, the 32 slice and the
+    # 8 k-step, rows that are not 16-byte aligned (scalar loads), below a tile
+    cases += [(4160, 2056, 2052, 5, True, "subnormal"), (4160, 2052, 2056, 6, True, "subnormal"),
+              (4100, 2056, 2056, 5, False, "subnormal"), (17, 9, 5, 5, True, "subnormal"),
+              (1, 1, 1, 6, True, "random")]
+    cases += [(520, 264, 1032, 6, True, "lattice")]
+    max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "gq": 0.0}
     timing_inputs = {}
-    for m, kk, nn, bits, prc, sub in cases:
-        a, g, aq, wq, amax, t = _grad_operands(dev, gen, m, kk, nn, subnormal=sub)
+    for m, kk, nn, bits, prc, kind in cases:
+        if kind == "lattice":
+            a, g, aq, wq, amax, t = _lattice_operands(dev, gen, m, kk, nn)
+        else:
+            a, g, aq, wq, amax, t = _grad_operands(dev, gen, m, kk, nn,
+                                                   subnormal=kind == "subnormal")
         e = potq.pot_emax(bits)
         beta = potq.compute_beta(g, bits)
         s = torch.stack([potq.exp2i(-beta), potq.exp2i(beta), t])
-        da_k, rows_k = KG.grad_da_cuda(g, wq, a if prc else None, s, emax_g=e, prc=prc)
+        gq_k = KG.quantize_g_cuda(g, s, emax_g=e)
+        gq_p = KG._quantize_g(g, s, e)
+        da_k, rows_k = KG.grad_da_cuda(g, wq, a if prc else None, s, emax_g=e, prc=prc, gq=gq_k)
         da_p, rows_p = KG.grad_da_plain(g, wq, a if prc else None, s, emax_g=e, prc=prc)
-        dw_k = KG.grad_dw_cuda(aq, g, s, emax_g=e)
+        dw_k = KG.grad_dw_cuda(aq, g, s, emax_g=e, gq=gq_k)
         dw_p = KG.grad_dw_plain(aq, g, s, emax_g=e)
+        # K2 and K3 alone (each launches its own pre-pass) give the same bits
+        da_1, _ = KG.grad_da_cuda(g, wq, a if prc else None, s, emax_g=e, prc=prc)
+        dw_1 = KG.grad_dw_cuda(aq, g, s, emax_g=e)
         torch.cuda.synchronize()
-        ok = torch.equal(da_k, da_p) and torch.equal(dw_k, dw_p)
-        errs = dict(da=(da_k - da_p).abs().max().item(), dw=(dw_k - dw_p).abs().max().item())
+        ok = (torch.equal(gq_k.float(), gq_p) and torch.equal(da_k, da_p)
+              and torch.equal(dw_k, dw_p) and torch.equal(da_1, da_k) and torch.equal(dw_1, dw_k))
+        errs = dict(gq=(gq_k.float() - gq_p).abs().max().item(),
+                    da=(da_k - da_p).abs().max().item(), dw=(dw_k - dw_p).abs().max().item())
         if prc:
             dg_k = ref.halves_fold(rows_k) * amax
             dg_p = ref.halves_fold(rows_p) * amax
@@ -501,14 +564,16 @@ def training_kernels(dev, detail):
             errs.update(rows=(rows_k - rows_p).abs().max().item(),
                         dgamma=(dg_k - dg_p).abs().item())
         ok = ok and bool(torch.isfinite(da_k).all()) and bool(torch.isfinite(dw_k).all())
-        print(f"M={m} K={kk} N={nn} bits_g={bits} prc={prc} subnormal={sub}: "
+        print(f"M={m} K={kk} N={nn} bits_g={bits} prc={prc} {kind}: "
               f"equal={ok} {json.dumps(errs)}", flush=True)
         if not ok:
-            raise SystemExit(f"K2/K3 differ from their plain versions at {(m, kk, nn, bits, prc)}")
+            raise SystemExit(f"K2/K3/pre-pass differ from their plain versions at "
+                             f"{(m, kk, nn, bits, prc, kind)}")
+        max_err["gq"] = max(max_err["gq"], errs["gq"])
         max_err["k2"] = max(max_err["k2"], errs["da"], errs.get("rows", 0.0), errs.get("dgamma", 0.0))
         max_err["k3"] = max(max_err["k3"], errs["dw"])
-        del da_k, da_p, dw_k, dw_p
-        if m == TRAIN_M and prc:
+        del da_k, da_p, dw_k, dw_p, da_1, dw_1, gq_k, gq_p
+        if m == TRAIN_M and prc and kind == "random":
             # K1 as the training forward launches it: M = B*S, one scale
             out_k = K.potq_matmul_cuda(aq, wq)
             out_p = K.potq_matmul_plain(aq, wq)
@@ -522,43 +587,60 @@ def training_kernels(dev, detail):
             del out_k, out_p
             timing_inputs[(kk, nn)] = (a, g, aq, wq, s, e)
 
-    phase("9 K1/K2/K3 timing at the training shapes (CUDA events, L2 flushed)")
+    phase("9 K1/K2/K3 and pre-pass timing at the training shapes (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows, per_step = [], {}
-    for key in ("k1", "k2", "k3"):
+    for key in ("k1", "k2", "k3", "gq"):
         per_step[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                          "t_ops": 0.0, "t_bytes": 0.0, "max_abs_err": max_err[key]}
+    for key in ("k2", "k3"):
+        per_step[key]["fp64_tc_bound_ms"] = 0.0
+    per_step["k2"]["prepass_ms"] = 0.0
+    per_step["gq"]["library_ms"] = None
     for (kk, nn), (a, g, aq, wq, s, e) in timing_inputs.items():
-        gq = ref.quantize_tile_ref(g * s[0], e).to(torch.bfloat16)
+        gq = KG.quantize_g_cuda(g, s, emax_g=e)
         m = TRAIN_M
         fns = {
             "k1": (lambda: K.potq_matmul_cuda(aq, wq),
                    lambda: K.potq_matmul_plain(aq, wq),
                    lambda: torch.matmul(aq, wq)),
+            # K2's row includes its pre-pass (gq=None launches it)
             "k2": (lambda: KG.grad_da_cuda(g, wq, a, s, emax_g=e, prc=True),
                    lambda: KG.grad_da_plain(g, wq, a, s, emax_g=e, prc=True),
                    lambda: torch.matmul(gq, wq.T)),
-            "k3": (lambda: KG.grad_dw_cuda(aq, g, s, emax_g=e),
+            "k3": (lambda: KG.grad_dw_cuda(aq, g, s, emax_g=e, gq=gq),
                    lambda: KG.grad_dw_plain(aq, g, s, emax_g=e),
                    lambda: torch.matmul(aq.T, gq)),
+            "gq": (lambda: KG.quantize_g_cuda(g, s, emax_g=e),
+                   lambda: KG._quantize_g(g, s, e),
+                   None),
         }
         for key, (kern, plain, lib) in fns.items():
             c = (TRAIN_K1_COUNTS if key == "k1" else TRAIN_COUNTS)[(kk, nn)]
-            t_k = time_ms(kern, 3, flush)
+            t_k = time_ms(kern, 3 if key != "gq" else 10, flush)
             t_p = time_ms(plain, 1, flush)
-            t_l = time_ms(lib, 5, flush)
-            t_ops, t_bytes = train_bound(m, kk, nn, key)
+            t_l = time_ms(lib, 5, flush) if lib is not None else None
+            if key == "gq":  # G f32 read once, Gq bf16 written once
+                t_ops, t_bytes = 0.0, 6.0 * m * nn / PEAK_BYTES * 1e3
+            else:
+                t_ops, t_bytes = train_bound(m, kk, nn, key)
             row = dict(kernel=key, M=m, K=kk, N=nn, launches_per_step=c, ms=t_k,
                        plain_ms=t_p, library_ms=t_l, bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops > t_bytes else "bytes")
+            acc = per_step[key]
+            if key in ("k2", "k3"):
+                row["fp64_tc_bound_ms"] = 2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3
+                acc["fp64_tc_bound_ms"] += c * row["fp64_tc_bound_ms"]
             rows.append(row)
             print(json.dumps(row), flush=True)
-            acc = per_step[key]
             acc["ms"] += c * t_k
             acc["plain_ms"] += c * t_p
-            acc["library_ms"] += c * t_l
+            if t_l is not None:
+                acc["library_ms"] += c * t_l
             acc["t_ops"] += c * t_ops
             acc["t_bytes"] += c * t_bytes
+        del gq
+    per_step["k2"]["prepass_ms"] = per_step["gq"]["ms"]
     out = {}
     for key, acc in per_step.items():
         t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
@@ -566,8 +648,8 @@ def training_kernels(dev, detail):
         acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
         out[key] = acc
         print(f"{key}, one training step ({STEP_LAUNCHES[key]} launches):", json.dumps(acc))
-    detail["train_kernel_shapes"] = rows
     detail["train_kernels_per_step"] = out
+    detail["train_kernel_shapes"] = rows
     del timing_inputs, flush
     torch.cuda.empty_cache()
     return out
@@ -598,7 +680,8 @@ def training(dev, detail):
     from repro_torch.optim import adamw, warmup_cosine_schedule
     from repro_torch.train import make_train_step
 
-    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda}
+    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
+                "gq": KG.quantize_g_cuda}
 
     def reset():
         for fn in counters.values():
@@ -625,6 +708,8 @@ def training(dev, detail):
           f"peak device memory {peak:.2f} GiB; run wall {wall:.1f} s")
     if launches != want:
         raise SystemExit(f"kernel launches {launches}, expected {want}")
+    # every bit of the losses, for the next change to compare with
+    print("losses:", [repr(r["loss"]) for r in run.records], flush=True)
     timed = run.records[1:]
     train = dict(steps=run.records, peak_gib=peak, launches=launches,
                  mean_step_s=sum(r["seconds"] for r in timed) / len(timed),
@@ -645,8 +730,11 @@ def training(dev, detail):
         raise SystemExit(f"one step launched {per_step}, expected {STEP_LAUNCHES}")
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
-    by = {k: sum(e.time_range.elapsed_us() for e in kern if pat in e.name) / 1e3
-          for k, pat in (("k1_ms", "potq_mm"), ("k2_ms", "grad_da"), ("k3_ms", "grad_dw"))}
+    # K2 counts its pre-pass and its rows fold (grad_da_rows_fold_kernel)
+    pats = {"k1_ms": ("potq_mm",), "k2_ms": ("grad_da", "grad_g_quantize"),
+            "k3_ms": ("grad_dw",), "prepass_ms": ("grad_g_quantize",)}
+    by = {k: sum(e.time_range.elapsed_us() for e in kern if any(p in e.name for p in ps)) / 1e3
+          for k, ps in pats.items()}
     prof_row = dict(wall_ms=t_prof * 1e3, device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
                     launches=per_step, **by,
                     idle_share=(1 - busy_us / 1e3 / (train["mean_step_s"] * 1e3)) if kern else None)
@@ -856,7 +944,8 @@ def restart(dev, detail, ckpt_dir):
     from repro_torch.launch import train as train_cli
 
     phase("15 checkpoint and restart at full width (olmo-1b, batch 8 x seq 512)")
-    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda}
+    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
+                "gq": KG.quantize_g_cuda}
     ck = ["--ckpt-dir", ckpt_dir, "--ckpt-every", "100"]
     peaks = {}
 

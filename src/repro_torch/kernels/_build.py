@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,7 +23,11 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: per source, the registers and spills ptxas reported for each kernel in
+#: this process's build: {source: {kernel: (registers, spill stores, spill
+#: loads)}} (empty for a library that was already built)
+RESOURCES: Dict[str, Dict[str, Tuple[int, int, int]]] = {}
 
 
 def nvcc() -> str:
@@ -60,7 +65,42 @@ def compile_library(source: str) -> Tuple[Path, float]:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {source}:\n{res.stdout}{res.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
+    RESOURCES[source] = ptxas_resources(res.stdout + res.stderr)
     return so, seconds
+
+
+def _demangle(sym: str) -> str:
+    """``_ZN<ns><name>I<bools>E...`` -> ``name<0,1>`` (enough for the
+    kernels here: a nested name, bool template arguments)."""
+    pos = 3 if sym.startswith("_ZN") else 2
+    name = sym
+    while pos < len(sym) and sym[pos].isdigit():
+        m = re.match(r"\d+", sym[pos:])
+        n = int(m.group(0))
+        pos += len(m.group(0))
+        name = sym[pos:pos + n]
+        pos += n
+    args = re.match(r"I((?:Lb[01]E)+)E", sym[pos:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Lb([01])E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_resources(log: str) -> Dict[str, Tuple[int, int, int]]:
+    """Registers and spill stores/loads of each kernel in ``ptxas -v``'s log."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
+    return out
 
 
 def compile_all(sources) -> Dict[str, float]:

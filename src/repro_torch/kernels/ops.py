@@ -6,7 +6,8 @@
 * :func:`grad_da_matmul`    — dA = Gq·Wq^T with the PRC epilogue (K2).
 * :func:`grad_dw_matmul`    — dW = Aq^T·Gq (K3).
 * :func:`potq_grad_matmuls` — both, G quantized once under one beta_g
-  (every quantized ``mf_linear`` backward).
+  (every quantized ``mf_linear`` backward; on the card one pre-pass
+  writes Gq and both kernels read it).
 * :func:`potq_encode`       — f32 -> int8 PoT wire codes + beta (K4;
   ``serve/quantized_weights.pack_int8``).
 
@@ -20,6 +21,7 @@ block-shape autotuning.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -106,6 +108,7 @@ def grad_da_matmul(
     bits_g: int = 5,
     bits_w: int = 5,
     beta_g: Optional[torch.Tensor] = None,
+    gq: Optional[torch.Tensor] = None,
 ):
     """dA = Gq·Wq^T (K2): g (M, N) raw gradient, wq (K, N) the forward's
     quantized weights, read in that layout.
@@ -113,14 +116,15 @@ def grad_da_matmul(
     With ``a``/``clip_t`` the PRC epilogue runs in the kernel: dA is
     clip-masked and the dgamma contributions are reduced to the (M,) row
     vector; ``halves_fold(rows) * max|a|`` is dgamma.  Returns
-    ``(da, rows)``, ``rows`` None with PRC off."""
+    ``(da, rows)``, ``rows`` None with PRC off.  ``gq`` (CUDA only) is G
+    already quantized by the pre-pass under ``beta_g``."""
     ref.check_exact_spread(bits_g, bits_w)
     prc = a is not None
     if prc and clip_t is None:
         raise ValueError("PRC epilogue needs both a and clip_t")
     g = g.to(torch.float32)
     scalars = _g_scalars(g, bits_g, beta_g, clip_t)
-    fn = _dispatch(g.device, _kg.grad_da_cuda, _kg.grad_da_plain)
+    fn = _dispatch(g.device, functools.partial(_kg.grad_da_cuda, gq=gq), _kg.grad_da_plain)
     return fn(g, wq, a, scalars, emax_g=potq.pot_emax(bits_g), prc=prc)
 
 
@@ -132,9 +136,11 @@ def grad_dw_matmul(
     bits_a: int = 5,
     beta_g: Optional[torch.Tensor] = None,
     per_sample_act_scales: bool = False,
+    gq: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """dW = Aq^T·Gq (K3): g (M, N) raw gradient, aq (M, K) the forward's
-    quantized activations, read in that layout.
+    quantized activations, read in that layout; ``gq`` as for
+    :func:`grad_da_matmul`.
 
     The contraction runs over M, so all of Aq must lie on one lattice (one
     activation scale).  Under per-sample activation scales it does not,
@@ -148,7 +154,7 @@ def grad_dw_matmul(
     ref.check_exact_spread(bits_a, bits_g)
     g = g.to(torch.float32)
     scalars = _g_scalars(g, bits_g, beta_g, None)
-    fn = _dispatch(g.device, _kg.grad_dw_cuda, _kg.grad_dw_plain)
+    fn = _dispatch(g.device, functools.partial(_kg.grad_dw_cuda, gq=gq), _kg.grad_dw_plain)
     return fn(aq, g, scalars, emax_g=potq.pot_emax(bits_g))
 
 
@@ -176,10 +182,14 @@ def potq_grad_matmuls(
     max|a|: a fixed order, the same bits on every device."""
     g = g.to(torch.float32)
     beta_g = potq.compute_beta(g, bits_g)  # quantized once: one shared beta
+    gq = None
+    if g.device.type == "cuda":  # one pre-pass, read by both kernels
+        gq = _kg.quantize_g_cuda(g, _g_scalars(g, bits_g, beta_g, None),
+                                 emax_g=potq.pot_emax(bits_g))
     da, rows = grad_da_matmul(g, wq, a=a, clip_t=clip_t, bits_g=bits_g,
-                              bits_w=bits_w, beta_g=beta_g)
+                              bits_w=bits_w, beta_g=beta_g, gq=gq)
     dw = grad_dw_matmul(g, aq, bits_g=bits_g, bits_a=bits_a, beta_g=beta_g,
-                        per_sample_act_scales=per_sample_act_scales)
+                        per_sample_act_scales=per_sample_act_scales, gq=gq)
     if rows is None:
         return da, dw, None
     if amax is None:

@@ -1,16 +1,20 @@
-"""K2 and K3: the MF-MAC backward kernels, hand-written in CUDA for sm_90a.
+"""K2 and K3: the MF-MAC backward kernels, hand-written in CUDA for sm_90a
+on Hopper's FP64 tensor cores (``mma.sync ... .f64``).
 
 * K2 replaces the Pallas TPU kernel ``repro/kernels/potq_grad.py``
-  ``_grad_da_kernel`` (launcher ``grad_da_padded``): dA = Gq·Wq^T with G
-  quantized on load and the PRC epilogue (dA masked where |a| > clip_t,
-  per-row dgamma sums of ``where(clipped, dA_raw·sign(a), 0)``).
+  ``_grad_da_kernel`` (launcher ``grad_da_padded``): dA = Gq·Wq^T with the
+  PRC epilogue (dA masked where |a| > clip_t, per-row dgamma sums of
+  ``where(clipped, dA_raw·sign(a), 0)``).
 * K3 replaces ``_grad_dw_kernel`` (launcher ``grad_dw_padded``):
-  dW = Aq^T·Gq with G quantized on load.
+  dW = Aq^T·Gq.
+* The pre-pass :func:`quantize_g_cuda` takes the place of the TPU kernels'
+  in-VMEM quantization of G: it writes Gq (scaled domain, bf16) once per
+  backward, and K2 and K3 both read it.
 
 Every ``mf_linear`` backward of the training step launches each once (113
 per olmo-1b step).  Source: ``repro_torch/csrc/potq_grad.cu`` — its header
-says what bounds the kernels on an H100 (fp64 operations at the training
-shapes) and how the reductions stay exact and in a fixed order.  Built by
+says what bounds the kernels on an H100, why the tensor-core datapath
+keeps every bit, and the tiles, stages and shared memory.  Built by
 ``kernels/_build.py`` at first use.
 
 Beside each kernel is its plain PyTorch version, the port's numeric spec
@@ -32,10 +36,11 @@ from repro_torch.kernels.ref import (CANONICAL_BK, grad_rowsum_ref,
                                      pot_value_matmul_ref, quantize_tile_ref)
 
 SOURCE = "potq_grad.cu"
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "grad_da_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "grad_dw_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "grad_g_quantize_launch": [_P, _P, _P, _L, _I, _P],
+    "grad_da_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "grad_dw_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -52,7 +57,8 @@ def build() -> ctypes.CDLL:
 
 
 def _quantize_g(g: torch.Tensor, scalars: torch.Tensor, emax_g: int) -> torch.Tensor:
-    """G in the scaled PoT domain, as the kernels quantize it on load."""
+    """G in the scaled PoT domain (f32): the plain version of the pre-pass
+    :func:`quantize_g_cuda`, which writes the same values as bf16."""
     return quantize_tile_ref(g.to(torch.float32) * scalars[0], emax_g)
 
 
@@ -90,18 +96,50 @@ def _scalars(scalars: torch.Tensor, device) -> torch.Tensor:
     return s
 
 
+def quantize_g_cuda(g: torch.Tensor, scalars: torch.Tensor, *, emax_g: int) -> torch.Tensor:
+    """Launch the pre-pass on g's CUDA device (PyTorch's current stream):
+    Gq = PoT(g·2^-beta_g) with ``emax_g``, as bf16 of g's shape (exact:
+    every value is 0 or ±2^e with |e| <= 15).  Raises on a bad device or
+    launch."""
+    _check_cuda(g, scalars)
+    g = g.to(torch.float32).contiguous()
+    s = _scalars(scalars, g.device)
+    gq = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
+    err = build().grad_g_quantize_launch(
+        g.data_ptr(), s.data_ptr(), gq.data_ptr(), g.numel(), emax_g,
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"grad_g_quantize kernel launch failed: CUDA error {err}")
+    quantize_g_cuda.launches += 1
+    return gq
+
+
+def _gq(g: torch.Tensor, scalars: torch.Tensor, emax_g: int,
+        gq: Optional[torch.Tensor]) -> torch.Tensor:
+    """The pre-pass's Gq: ``gq`` when the caller shares one, else launched."""
+    if gq is None:
+        return quantize_g_cuda(g, scalars, emax_g=emax_g)
+    _check_cuda(gq)
+    if gq.dtype != torch.bfloat16 or gq.shape != g.shape or not gq.is_contiguous():
+        raise ValueError(f"gq must be a contiguous bf16 tensor of G's shape {tuple(g.shape)}")
+    return gq
+
+
 def grad_da_cuda(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
-                 scalars: torch.Tensor, *, emax_g: int,
-                 prc: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 scalars: torch.Tensor, *, emax_g: int, prc: bool,
+                 gq: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K2 on the tensors' CUDA device (PyTorch's current stream).
     g: (M, N) f32, wq: (K, N) PoT values (read as bf16), a: (M, K) f32
-    raw activations (PRC only).  Raises on a bad device, shape or launch."""
+    raw activations (PRC only); gq: G from :func:`quantize_g_cuda` under
+    the same scalars (the pre-pass is launched here when it is None).
+    Raises on a bad device, shape or launch."""
     _check_cuda(g, wq, scalars, *([a] if prc else []))
     if g.dim() != 2 or wq.dim() != 2 or g.shape[1] != wq.shape[1]:
         raise ValueError(f"bad shapes G {tuple(g.shape)}, Wq {tuple(wq.shape)}")
     m, n = g.shape
     k = wq.shape[0]
-    g = g.to(torch.float32).contiguous()
     wq = wq.to(torch.bfloat16).contiguous()
     s = _scalars(scalars, g.device)
     da = torch.empty((m, k), dtype=torch.float32, device=g.device)
@@ -114,10 +152,11 @@ def grad_da_cuda(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
         part = torch.empty((nchunk, m), dtype=torch.float32, device=g.device)
         rows = torch.empty((m,), dtype=torch.float32, device=g.device)
     lib = build()
+    gq = _gq(g, s, emax_g, gq)
     err = lib.grad_da_launch(
-        g.data_ptr(), wq.data_ptr(), a.data_ptr() if prc else None, s.data_ptr(),
+        gq.data_ptr(), wq.data_ptr(), a.data_ptr() if prc else None, s.data_ptr(),
         da.data_ptr(), part.data_ptr() if prc else None,
-        rows.data_ptr() if prc else None, m, n, k, emax_g, int(prc),
+        rows.data_ptr() if prc else None, m, n, k, int(prc),
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     if err != 0:
@@ -127,22 +166,22 @@ def grad_da_cuda(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
 
 
 def grad_dw_cuda(aq: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, *,
-                 emax_g: int) -> torch.Tensor:
+                 emax_g: int, gq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K3 on the tensors' CUDA device (PyTorch's current stream).
-    aq: (M, K) PoT values (read as bf16), g: (M, N) f32.  Raises on a bad
-    device, shape or launch."""
+    aq: (M, K) PoT values (read as bf16), g: (M, N) f32; gq as for
+    :func:`grad_da_cuda`.  Raises on a bad device, shape or launch."""
     _check_cuda(aq, g, scalars)
     if aq.dim() != 2 or g.dim() != 2 or aq.shape[0] != g.shape[0]:
         raise ValueError(f"bad shapes Aq {tuple(aq.shape)}, G {tuple(g.shape)}")
     m, k = aq.shape
     n = g.shape[1]
     aq = aq.to(torch.bfloat16).contiguous()
-    g = g.to(torch.float32).contiguous()
     s = _scalars(scalars, g.device)
     dw = torch.empty((k, n), dtype=torch.float32, device=g.device)
     lib = build()
+    gq = _gq(g, s, emax_g, gq)
     err = lib.grad_dw_launch(
-        aq.data_ptr(), g.data_ptr(), s.data_ptr(), dw.data_ptr(), m, n, k, emax_g,
+        aq.data_ptr(), gq.data_ptr(), s.data_ptr(), dw.data_ptr(), m, n, k,
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     if err != 0:
@@ -152,5 +191,6 @@ def grad_dw_cuda(aq: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, *,
 
 
 #: kernel launches since the last reset (the caller sets them to 0)
+quantize_g_cuda.launches = 0
 grad_da_cuda.launches = 0
 grad_dw_cuda.launches = 0

@@ -181,6 +181,101 @@ def test_chunk_partials_are_exact_in_any_order(product):
     np.testing.assert_array_equal(ours.numpy(), acc * np.float32(s[1]))
 
 
+def _lattice_extreme_chunks(rows, cols, emax_x, emax_y, seed):
+    """x (rows, C) and y (C, cols) PoT operands, C = 2 chunks, whose
+    products reach both ends of the chunk lattice, ±2^(emax_x + emax_y)
+    beside ±2^-(emax_x + emax_y), with alternating signs and a second half
+    of each chunk that cancels the first's large terms."""
+    rng = np.random.default_rng(seed)
+    c = 2 * ref.CANONICAL_BK
+    j = np.arange(c)
+    ex = np.where((j[None, :] + np.arange(rows)[:, None]) % 2 == 0, emax_x, -emax_x)
+    ey = np.where((j[:, None] + np.arange(cols)[None, :]) % 2 == 0, emax_y, -emax_y)
+    sx = rng.choice([-1.0, 1.0], (rows, c))
+    half = ref.CANONICAL_BK // 2
+    for start in range(0, c, ref.CANONICAL_BK):
+        # the large x of a chunk's second half cancel the first half's, the
+        # small ones add up: only the bottom of the lattice is left
+        first = slice(start, start + half)
+        second = slice(start + half, start + 2 * half)
+        sx[:, second] = np.where(ex[:, first] > 0, -sx[:, first], sx[:, first])
+    sy = np.where(((j[:, None] % half) // 3) % 2 == 0, 1.0, -1.0) * np.ones((1, cols))
+    x = (sx * np.exp2(ex)).astype(np.float32)
+    y = (sy * np.exp2(ey)).astype(np.float32)
+    x[0, 5] = 0.0  # zeros inside a chunk
+    y[7, 0] = -0.0
+    return x, y
+
+
+def _kernel_order_sum(x, y, order, group, dtype=np.float64):
+    """x @ y in the chunk scheme, each chunk summed as the tensor-core
+    kernel does: ``group`` products per MMA (summed in ``order``'s sequence),
+    fragments accumulated across the chunk's k-steps, rounded once to f32,
+    chunk partials left-folded in f32."""
+    acc = np.zeros((x.shape[0], y.shape[1]), np.float32)
+    for c0 in range(0, x.shape[1], ref.CANONICAL_BK):
+        prods = x[:, c0:c0 + 128, None].astype(dtype) * y[None, c0:c0 + 128].astype(dtype)
+        frag = np.zeros(acc.shape, dtype)
+        for s in range(0, len(order), group):
+            mma = np.zeros(acc.shape, dtype)
+            for i in order[s:s + group]:
+                mma = mma + prods[:, i]
+            frag = frag + mma
+        acc = acc + frag.astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("pair", [(6, 5), (5, 5)], ids=["6x5", "5x5"])
+@pytest.mark.parametrize("product", ["dA", "dW"])
+def test_tensor_core_order_is_exact_at_the_lattice_ends(product, pair):
+    """The FP64 tensor-core kernels add each chunk's products in k-steps of
+    4, 8 or 16 and in an order the hardware picks; at the widest supported
+    pairs (the LM head's 6 x 5: 2*15 + 2*7 + 8 = 52 bits) every such order
+    gives the spec's bits, also on chunks built to reach both ends of the
+    lattice with cancellations.  An f32 sum in the same order does not."""
+    bits_g, bits_other = pair
+    eg, eo = potq.pot_emax(bits_g), potq.pot_emax(bits_other)
+    s = torch.tensor([1.0, 1.0, float("inf")])  # beta_g = 0: Gq is G itself
+    if product == "dA":  # dA = Gq . Wq^T over N
+        gq, wt = _lattice_extreme_chunks(6, 5, eg, eo, seed=1)
+        x, y = gq, wt
+        plain = KG.grad_da_plain(torch.from_numpy(gq), torch.from_numpy(wt.T.copy()), None, s,
+                                 emax_g=eg, prc=False)[0]
+    else:  # dW = Aq^T . Gq over M
+        at, gq = _lattice_extreme_chunks(5, 6, eo, eg, seed=2)
+        x, y = at, gq
+        plain = KG.grad_dw_plain(torch.from_numpy(at.T.copy()), torch.from_numpy(gq), s,
+                                 emax_g=eg)
+    spec = ref.pot_value_matmul_ref(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    np.testing.assert_array_equal(plain.numpy(), spec)
+    rng = np.random.default_rng(3)
+    orders = [np.arange(128), np.arange(128)[::-1]] + [rng.permutation(128) for _ in range(3)]
+    for group in (4, 8, 16):
+        for order in orders:
+            np.testing.assert_array_equal(_kernel_order_sum(x, y, order, group), spec)
+    # the chunks are hard: f32 accumulation in the kernel's order loses bits
+    assert not np.array_equal(_kernel_order_sum(x, y, orders[0], 8, np.float32), spec)
+    # and one step wider the lattice no longer fits fp64's 53 bits
+    with pytest.raises(ValueError, match="53"):
+        ref.check_exact_spread(6, 6)
+
+
+@pytest.mark.parametrize("bits", [5, 6])
+def test_prepass_plain_version_is_bf16_exact(bits):
+    """The pre-pass writes Gq as bf16: every value of its plain version
+    (``potq_grad._quantize_g``) is 0 or ±2^e with |e| <= emax <= 15, which
+    bf16 holds exactly, including G with subnormal, tiny and huge entries."""
+    rng = np.random.default_rng(bits)
+    g = (rng.standard_normal((40, 300)) * 10.0 ** rng.integers(-8, 3, (40, 300))).astype(np.float32)
+    g[0, :6] = [1e-40, -3e-39, 0.0, -0.0, 3e38, -2.0 ** -126]
+    gt = torch.from_numpy(g)
+    beta = potq.compute_beta(gt, bits)
+    s = torch.stack([potq.exp2i(-beta), potq.exp2i(beta), torch.tensor(float("inf"))])
+    gq = KG._quantize_g(gt, s, potq.pot_emax(bits))
+    assert gq.abs().max() <= 2.0 ** potq.pot_emax(bits)
+    torch.testing.assert_close(gq.to(torch.bfloat16).float(), gq, rtol=0, atol=0)
+
+
 def test_rowsum_order_is_the_halves_fold():
     """The dgamma rows' spec order, checked against a literal lane model of
     the kernel: per lane (c0 + c2) + (c1 + c3), then a butterfly."""
@@ -284,12 +379,18 @@ def test_fp32_policy_grads_are_plain_autograd():
                                      bound + 1e-30)
 
 
+def _counts():
+    return (KG.quantize_g_cuda.launches, KG.grad_da_cuda.launches, KG.grad_dw_cuda.launches)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     _, g, aq, wq, amax, t = _operands(20, 30, 40)
-    before = (KG.grad_da_cuda.launches, KG.grad_dw_cuda.launches)
+    before = _counts()
     ops.potq_grad_matmuls(torch.from_numpy(g), aq, wq)
-    assert (KG.grad_da_cuda.launches, KG.grad_dw_cuda.launches) == before
+    assert _counts() == before
     s = torch.tensor([1.0, 1.0, float("inf")])
+    with pytest.raises(ValueError, match="CUDA"):
+        KG.quantize_g_cuda(torch.from_numpy(g), s, emax_g=7)
     with pytest.raises(ValueError, match="CUDA"):
         KG.grad_da_cuda(torch.from_numpy(g), wq, None, s, emax_g=7, prc=False)
     with pytest.raises(ValueError, match="CUDA"):
@@ -297,17 +398,18 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_cuda_tensors_launch_the_kernels():
-    """CUDA tensors launch K2 and K3, which match the plain versions bit
-    for bit (run on the card by chip_smoke.py as well)."""
+    """CUDA tensors launch the pre-pass, K2 and K3, which match the plain
+    versions bit for bit (run on the card by chip_smoke.py as well)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     a, g, aq, wq, amax, t = _operands(200, 130, 300)
     kw = dict(a=torch.from_numpy(a), clip_t=torch.tensor(t), amax=torch.tensor(amax))
     cpu = ops.potq_grad_matmuls(torch.from_numpy(g), aq, wq, **kw)
-    before = (KG.grad_da_cuda.launches, KG.grad_dw_cuda.launches)
+    before = _counts()
     gpu = ops.potq_grad_matmuls(torch.from_numpy(g).cuda(), aq.cuda(), wq.cuda(),
                                 **{k: v.cuda() for k, v in kw.items()})
     torch.cuda.synchronize()
-    assert (KG.grad_da_cuda.launches, KG.grad_dw_cuda.launches) == (before[0] + 1, before[1] + 1)
+    # one pre-pass shared by K2 and K3
+    assert _counts() == tuple(c + 1 for c in before)
     for x, y in zip(cpu, gpu):
         assert torch.equal(x, y.cpu())

@@ -141,3 +141,25 @@ def test_cuda_tensors_launch_the_kernel():
     torch.cuda.synchronize()
     assert K.potq_matmul_cuda.launches == before + 1
     assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_build_reads_registers_and_spills_from_ptxas():
+    """The build helper keeps what ``ptxas -v`` says of each kernel, under a
+    readable name, for the chip run to print."""
+    from repro_torch.kernels import _build
+
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN45_GLOBAL__N__dab37072_12_potq_grad_cu_bc30f36414grad_da_kernelILb1ELb0EEEvPKtS2_' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 220 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN45_GLOBAL__N__dab37072_12_potq_grad_cu_bc30f36424grad_da_rows_fold_kernelEPKfPfii' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 0 barriers\n"
+    )
+    assert _build.ptxas_resources(log) == {"grad_da_kernel<1,0>": (220, 8, 12),
+                                           "grad_da_rows_fold_kernel": (32, 0, 0)}
+    assert "-v" in _build.NVCC_FLAGS  # the log exists only with ptxas -v
