@@ -9,9 +9,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     (src/repro_torch/csrc/potq_encode.cu) with nvcc for sm_90a, one nvcc
     process per source, started together;
  3. K1 against its plain PyTorch version on the card, bit for bit
-    (torch.equal), at the serving shapes of llama3-8b, both modes;
- 4. timing at those shapes: kernel, plain version, torch.matmul on the
-    same bf16 operands (yardstick only), and the roofline bound;
+    (torch.equal), at the serving shapes of llama3-8b, both modes, and at
+    the edges of its paths (kernels/potq_matmul.py ``plan``): M from 1 to
+    4100 across the decode threshold and the tensor cores' 128-row tile,
+    split and unsplit grids, K and N off 128, off 32 and off 8 (rows not
+    16-byte aligned: the scalar loads), a subnormal row, an all-zero row
+    and a lattice-extreme operand set at the 5 x 5 pair;
+ 4. timing at the serving shapes: kernel, plain version, torch.matmul on
+    the same bf16 operands (yardstick only), and the roofline bound,
+    summed over one decode weight pass (M = 4) and one prefill (M = 128);
  5. serve: llama3-8b at full width (random weights from seed 0) through
     PoolEngine on an 8-request Poisson trace; K1 must launch exactly
     225 times per weight pass;
@@ -30,8 +36,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     scale, as the training forward runs it;
  9. timing of K1/K2/K3 and the pre-pass at the training shapes: kernel,
     plain version, torch.matmul on the same bf16 operands (yardstick
-    only), the roofline bound and, for K2/K3, the bound of their datapath
-    (the FP64 tensor cores); K2's rows include its pre-pass;
+    only), the roofline bound and, for K1/K2/K3, the bound of their
+    datapath (the FP64 tensor cores); K2's rows include its pre-pass;
 10. train olmo-1b at full width (random weights from seed 0, AdamW,
     batch 8 x seq 512) through ``repro_torch.launch.train.main``: 1
     warm-up + 3 steps, the losses printed with repr; K1/K2/K3/pre-pass
@@ -90,7 +96,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 # H100 SXM published peaks (NVIDIA data sheet), the roofline's two terms
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# the FP64 tensor cores, K2's and K3's datapath (same data sheet)
+# the FP64 tensor cores, K1's, K2's and K3's datapath (same data sheet)
 PEAK_FP64_TC_FLOPS = 67e12
 LOGIT_ATOL = 1e-3  # tests/test_torch_serve.py's tolerance
 # tests/test_torch_train.py's tolerances (port vs reference on the CPU)
@@ -253,11 +259,13 @@ def main() -> int:
     if not ok:
         raise SystemExit("K1 quantize=True differs from its plain version")
     max_err = max(max_err, err)
+    max_err = max(max_err, k1_edges(dev, gen))
 
     phase("4 timing (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    per_pass = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "t_ops": 0.0, "t_bytes": 0.0}
+    # summed over one decode weight pass (M = 4) and one prefill (M = 128)
+    sums = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "t_ops": 0.0, "t_bytes": 0.0} for m in (4, 128)}
     for (m, kk, nn), (aq, wq) in operands.items():
         big = m * kk * nn > 1e10
         it = 3 if big else 10
@@ -265,19 +273,21 @@ def main() -> int:
         t_p = time_ms(lambda: K.potq_matmul_plain(aq, wq), 2 if big else 5, flush)
         t_l = time_ms(lambda: torch.matmul(aq, wq), it, flush)
         b_ms, b_by = bound(m, kk, nn, 2)
-        row = dict(mode="q0", M=m, K=kk, N=nn, ms=t_k, plain_ms=t_p,
-                   library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+        path, groups = K.plan(m, nn, kk)
+        row = dict(mode="q0", M=m, K=kk, N=nn, path=path, groups=groups, ms=t_k,
+                   plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                   fp64_tc_bound_ms=2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3)
         rows.append(row)
         print(json.dumps(row))
-        if m == 4 and (kk, nn) in PASS_COUNTS:
-            c = PASS_COUNTS[(kk, nn)]
-            per_pass["ms"] += c * t_k
-            per_pass["plain_ms"] += c * t_p
-            per_pass["library_ms"] += c * t_l
+        if m in sums and (kk, nn) in PASS_COUNTS:
+            c, acc = PASS_COUNTS[(kk, nn)], sums[m]
+            acc["ms"] += c * t_k
+            acc["plain_ms"] += c * t_p
+            acc["library_ms"] += c * t_l
             flops = 2.0 * m * kk * nn
             nbytes = 2 * (m * kk + kk * nn) + 4 * m * nn
-            per_pass["t_ops"] += c * flops / PEAK_BF16_FLOPS * 1e3
-            per_pass["t_bytes"] += c * nbytes / PEAK_BYTES * 1e3
+            acc["t_ops"] += c * flops / PEAK_BF16_FLOPS * 1e3
+            acc["t_bytes"] += c * nbytes / PEAK_BYTES * 1e3
     t_k = time_ms(lambda: ops.potq_matmul(a, w, w_mean=w_mean, clip_t=clip_t), 10, flush)
     t_p = time_ms(lambda: K.potq_matmul_plain(a, w, q_scal, emax_a=emax, emax_w=emax,
                                               quantize=True), 5, flush)
@@ -287,13 +297,18 @@ def main() -> int:
                library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
     rows.append(row)
     print(json.dumps(row))
-    per_pass["bound_ms"] = max(per_pass["t_ops"], per_pass["t_bytes"])
-    per_pass["bound_by"] = ("operations" if per_pass["t_ops"] > per_pass["t_bytes"]
-                            else "bytes")
+    for acc in sums.values():
+        t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
+        acc["bound_ms"] = max(t_ops, t_bytes)
+        acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        acc["fp64_tc_bound_ms"] = t_ops * PEAK_BF16_FLOPS / PEAK_FP64_TC_FLOPS
+    per_pass, per_prefill = sums[4], sums[128]
     print("one decode weight pass (M=4, 225 launches):", json.dumps(per_pass))
+    print("one prefill (M=128, 225 launches):", json.dumps(per_prefill))
     detail["k1_shapes"] = rows
     detail["k1_decode_pass"] = per_pass
-    del operands, weights, flush, a, w
+    detail["k1_prefill"] = per_prefill
+    del operands, weights, flush, a, w, sums
 
     phase("5 serve llama3-8b at full width")
     cfg = configs.get_config("llama3-8b")
@@ -447,6 +462,18 @@ def main() -> int:
         "bound_ms": per_pass["bound_ms"],
         "bound_by": per_pass["bound_by"],
         "library_ms": per_pass["library_ms"],
+        # the other two regimes: one olmo-1b training step (phase 9) and
+        # one llama3-8b prefill (phase 4)
+        "train_ms": grads["k1"]["ms"],
+        "train_plain_ms": grads["k1"]["plain_ms"],
+        "train_bound_ms": grads["k1"]["bound_ms"],
+        "train_fp64_tc_bound_ms": grads["k1"]["fp64_tc_bound_ms"],
+        "train_library_ms": grads["k1"]["library_ms"],
+        "prefill_ms": per_prefill["ms"],
+        "prefill_plain_ms": per_prefill["plain_ms"],
+        "prefill_bound_ms": per_prefill["bound_ms"],
+        "prefill_fp64_tc_bound_ms": per_prefill["fp64_tc_bound_ms"],
+        "prefill_library_ms": per_prefill["library_ms"],
     }]
     # K2's ms includes its pre-pass, which also has a line of its own; it
     # takes the place of the in-VMEM quantization of G in both TPU kernels
@@ -465,6 +492,73 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _k1_lattice(dev, gen, m, k, n):
+    """Aq (m, k) and Wq (k, n) at the 5 x 5 pair whose products reach both
+    ends of each output's chunk lattice: exponents ±7 around each row's own
+    beta (every row another) and around W's, big and small alternating
+    along K, random signs; in each chunk the second half's big Aq terms
+    cancel the first half's, so the small products decide the sums."""
+    from repro_torch.core import potq
+
+    kk = torch.arange(k, device=dev)
+    rows = torch.arange(m, device=dev)
+    ea = torch.where((kk[None] + rows[:, None]) % 2 == 0, 7, -7)
+    sa = torch.randint(0, 2, (m, k), generator=gen, device=dev) * 2.0 - 1.0
+    second = kk % 128 >= 64
+    src = torch.where(second, kk - 64, kk)
+    sa = torch.where(second[None] & (ea[:, src] > 0), -sa[:, src], sa)
+    beta = (rows % 7 - 3)[:, None] * 2
+    aq = sa * potq.exp2i(ea + beta)
+    cols = torch.arange(n, device=dev)
+    ew = torch.where((kk[:, None] + cols[None]) % 2 == 0, 7, -7)
+    sw = torch.where(((kk % 64) // 3) % 2 == 0, 1.0, -1.0)[:, None].expand(k, n)
+    wq = sw * potq.exp2i(ew - 5)
+    return aq.to(torch.bfloat16), wq.to(torch.bfloat16)
+
+
+def k1_edges(dev, gen):
+    """Phase 3's edge cases of K1's paths, each bit for bit; returns the
+    largest error (0 when every case is equal)."""
+    from repro_torch.core import potq
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.serve import quantized_weights as qw
+    from repro_torch.core.policy import PAPER_FAITHFUL
+
+    worst = 0.0
+    cases = [(m, kk, nn, "random") for m in (1, 2, 3, 5, 8, 31, 32, 33, 64, 127, 129, 4100)
+             for kk, nn in ((1000, 1032), (1001, 1030))]
+    # odd N: rows only 2-byte aligned, the scalar loads of either path
+    cases += [(m, 1000, 1031, "random") for m in (1, 5, 33)]
+    cases += [(m, 264, 1032, "lattice") for m in (4, 33, 300)]
+    for i, (m, kk, nn, kind) in enumerate(cases):
+        if kind == "lattice":
+            aq, wq = _k1_lattice(dev, gen, m, kk, nn)
+        else:
+            wq = qw.quantize_leaf("w", torch.randn(kk, nn, generator=gen, device=dev) * 0.02,
+                                  PAPER_FAITHFUL)
+            a = torch.randn(m, kk, generator=gen, device=dev)
+            aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, (1,))).to(torch.bfloat16)
+            # a subnormal row and an all-zero row (for M < 3, one of them)
+            sub = torch.randint(0, 2, (kk,), generator=gen, device=dev) * 2.0 - 1.0
+            sub = torch.ldexp(sub, -128 - torch.randint(0, 6, (kk,), generator=gen,
+                                                        device=dev)).to(torch.bfloat16)
+            if m >= 3:
+                aq[0], aq[1] = 0.0, sub
+            else:
+                aq[m - 1] = sub if i % 2 == 0 else 0.0
+        out_k = K.potq_matmul_cuda(aq, wq)
+        out_p = K.potq_matmul_plain(aq, wq)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        ok = torch.equal(out_k, out_p) and bool(torch.isfinite(out_k).all())
+        print(f"edge M={m} K={kk} N={nn} {kind} {K.plan(m, nn, kk)}: equal={ok} "
+              f"max_abs_err={err}", flush=True)
+        if not ok:
+            raise SystemExit(f"K1 differs from its plain version at {(m, kk, nn, kind)}")
+        worst = max(worst, err)
+    return worst
 
 
 def _grad_operands(dev, gen, m, k, n, *, subnormal=False):
@@ -593,7 +687,7 @@ def training_kernels(dev, detail):
     for key in ("k1", "k2", "k3", "gq"):
         per_step[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                          "t_ops": 0.0, "t_bytes": 0.0, "max_abs_err": max_err[key]}
-    for key in ("k2", "k3"):
+    for key in ("k1", "k2", "k3"):
         per_step[key]["fp64_tc_bound_ms"] = 0.0
     per_step["k2"]["prepass_ms"] = 0.0
     per_step["gq"]["library_ms"] = None
@@ -628,7 +722,7 @@ def training_kernels(dev, detail):
                        plain_ms=t_p, library_ms=t_l, bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops > t_bytes else "bytes")
             acc = per_step[key]
-            if key in ("k2", "k3"):
+            if key != "gq":
                 row["fp64_tc_bound_ms"] = 2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3
                 acc["fp64_tc_bound_ms"] += c * row["fp64_tc_bound_ms"]
             rows.append(row)

@@ -3,288 +3,395 @@
 // Replaces the Pallas TPU kernel repro/kernels/potq_matmul.py
 // `_potq_matmul_kernel` (launcher `potq_matmul_padded`), both modes:
 //   quantize = 0: operands are already PoT values (bf16);
-//   quantize = 1: raw f32 operands; each loaded element is PRC-clipped
-//                 (A) or WBC-shifted (W), scaled by its exact power of two
-//                 and rounded to the nearest PoT value in the tile.
+//   quantize = 1: raw f32 operands; an elementwise pre-pass PRC-clips A,
+//                 WBC-shifts W, scales each by its exact power of two,
+//                 rounds to the nearest PoT value and writes the scaled
+//                 values as bf16 (exact: every value is 0 or +-2^e with
+//                 |e| <= 15); the product below then runs on them and the
+//                 epilogue multiplies by the dequant 2^(beta_a + beta_w).
 //
-// Numeric spec (repro_torch/kernels/ref.py): K is cut into canonical
-// 128-wide chunks.  Each chunk's partial dot is computed EXACTLY (fp64
-// FMAs: the PoT products of one chunk lie on one lattice of at most
-// 2*emax_a + 2*emax_w + 8 <= 53 bits, so every fp64 partial sum is exact
-// in any order), rounded ONCE to f32 (__double2float_rn), and the partials
-// are left-folded into an f32 accumulator in ascending chunk order.  The
-// epilogue multiplies by the scalar dequant.  No split-K across blocks and
-// no atomics: the result is deterministic, row-independent and the same
-// for every tiling, which is what the serving engine's pool-vs-solo
+// Numeric spec (repro_torch/kernels/ref.py, ACC_SCHEME
+// "canonical-k128-exactchunk-leftfold-v1"): K is cut into canonical
+// 128-wide chunks.  Each output's chunk sum is EXACT (its PoT products lie
+// on one lattice of at most 2*emax_a + 2*emax_w + 8 <= 53 bits: one beta
+// per row of A, one for all of W, so every fp64 partial sum is exact in
+// any order), rounded ONCE to f32, and the chunk sums are left-folded in
+// f32 in ascending chunk order from 0.0f; the fold is multiplied by `deq`.
+// No atomics: the result is deterministic, row-independent and the same
+// for every path below, which is what the serving engine's pool-vs-solo
 // identity rests on.
 //
-// What bounds it on an H100: the roofline (bf16 tensor cores, 3.35 TB/s)
-// is bound by the weight bytes at both decode (M = 4) and prefill
-// (M = 128) shapes.  Decode streams the whole weight once per call; at
-// prefill this kernel is held instead by its own M*N*K fp64 FMAs on CUDA
-// cores.  Design: the small-M kernel spreads the chunks of one 32-column
-// strip over the warps of a block (partials are exact, so any warp may
-// compute any chunk) and folds them in order through shared memory, so a
-// strip streams W from 8 warps without split-K across blocks; the large-M
-// kernel is a 64x64 register-tiled fp64 product over double-precision
-// shared-memory tiles.  Wider strips for small N, tensor cores (wgmma),
-// TMA and an integer shift-add datapath are left for a later change
-// (PERF.md has the measured gap to the bound).
+// Two paths and a split, chosen by the wrapper (kernels/potq_matmul.py `plan`) from
+// M, N and K alone:
+//
+//  * tensor cores (M above the decode threshold: training, prefill).
+//    potq_mm_tc runs block_product (fp64_mma.cuh, shared with K2/K3):
+//    128 x 128 output tiles on the FP64 tensor cores (mma.sync m16n8k8
+//    .f64).  What bounds it: 2*M*N*K operations, against 67 TFLOP/s.
+//
+//  * decode (M <= 32).  What bounds it: the weight bytes.  potq_mm_dec
+//    makes every warp a task of its own: a strip of 256 columns (a lane
+//    owns 8, read as 16 bytes per k-row) over a range of chunks, streamed
+//    by cp.async (16-byte copies; scalar loads where rows are not 16-byte
+//    aligned) through a 4-stage ring of 8 k-rows per warp that
+//    needs no barrier; each W element is converted once (F2F) and feeds
+//    the MR <= 8 rows of A (staged per chunk in the warp's shared memory
+//    as fp64) by fp64 FMAs on the CUDA cores; a lane's fp64 sums are its
+//    columns' exact chunk sums, rounded once -- no sum crosses lanes.
+//
+//  * the split.  Where a path's grid is too small to fill the 132 SMs (at
+//    decode every llama3-8b shape but the LM head; at prefill, M = 128,
+//    the shapes with N = 1024 and N = 4096), the chunk range is split
+//    across blocks: each writes every chunk's rounded sums into a
+//    (nchunk, M, N) f32 scratch, and potq_mm_fold left-folds them in
+//    ascending chunk order from 0.0f and multiplies by deq -- the same
+//    adds in the same order as one block walking all of K, so the same
+//    bits.  Ranges are never summed before the fold.
 //
 // Plain C interface, loaded with ctypes.  Returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "fp64_mma.cuh"
 
 namespace {
 
-constexpr int CHUNK = 128;  // canonical K chunk (CANONICAL_BK)
+constexpr int DEC_COLS = 256;                     // decode strip: 32 lanes x 8 columns
 
-__device__ __forceinline__ float sqrt_half_up() {
-    return __int_as_float(0x3F3504F4);    // first f32 above sqrt(2)/2
+__device__ __forceinline__ float dequant(const float* scal) {
+    return scal == nullptr ? 1.0f : scal[2];
 }
 
-// Round-to-nearest PoT of an already-scaled value: round(log2|x|) by the
-// frexp rule, underflow below -emax to 0, saturate at emax.
-__device__ __forceinline__ float quantize_pot(float x, int emax) {
-    float mag = fabsf(x);
-    if (mag == 0.0f) return 0.0f;
-    int e;
-    float m = frexpf(mag, &e);
-    int r = e - 1 + (m >= sqrt_half_up() ? 1 : 0);
-    if (r < -emax) return 0.0f;
-    r = min(r, emax);
-    return copysignf(__int_as_float((r + 127) << 23), x);
+// ---------------------------------------------------------------------------
+// Pre-pass of quantize = 1: q = PoT((clamp(x, +-clip) - shift) * scale) as
+// bf16.  A: clip = scalars[4], shift 0, scale 2^-beta_a; W: no clip, shift
+// = w_mean, scale 2^-beta_w.  (x - 0) is x and clamp(x, +-inf) is x, so
+// each operand gets the plain version's exact operations.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(256)
+potq_mm_prequant(const float* __restrict__ x, const float* __restrict__ scal,
+                 __nv_bfloat16* __restrict__ q, long long n, int is_w, int emax) {
+    const float clip = is_w ? __int_as_float(0x7F800000) : scal[4];
+    const float shift = is_w ? scal[3] : 0.0f;
+    const float scale = is_w ? scal[1] : scal[0];
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+        const float v = fminf(fmaxf(x[i], -clip), clip);
+        q[i] = __float2bfloat16_rn(quantize_pot((v - shift) * scale, emax));
+    }
 }
 
-__device__ __forceinline__ float load_val(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_val(const __nv_bfloat16* p, size_t i) {
-    return __bfloat162float(p[i]);
-}
-
-struct Scalars {
-    float sa, sw, deq, wmean, clip;
-};
-
-__device__ __forceinline__ Scalars read_scalars(const float* s) {
-    Scalars r;
-    if (s == nullptr) {
-        r.sa = 1.0f; r.sw = 1.0f; r.deq = 1.0f; r.wmean = 0.0f;
-        r.clip = __int_as_float(0x7F800000);
+// ---------------------------------------------------------------------------
+// Tensor-core path.  X = Aq (M x K, rows along K), Y = Wq (K x N, rows
+// along N).  Block (x: 128 columns of N, y: 128 rows of M, z: chunk range
+// of `span` columns of K with SPLIT).
+// ---------------------------------------------------------------------------
+template <bool VEC, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, 1)
+potq_mm_tc(const uint16_t* __restrict__ Aq, const uint16_t* __restrict__ Wq,
+           const float* __restrict__ scal, float* __restrict__ out, float* __restrict__ part,
+           int M, int N, int K, int span) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int m0 = blockIdx.y * BT, n0 = blockIdx.x * BT;
+    if constexpr (SPLIT) {
+        const int l0 = blockIdx.z * span;
+        const int len = min(span, K - l0);
+        block_product<true, false, VEC, true>(
+            Operand{Aq + l0, K, M, len}, Operand{Wq + (size_t)l0 * N, N, N, len}, m0, n0, smem,
+            part + (size_t)(l0 / CHUNK) * M * N, N, (size_t)M * N);
     } else {
-        r.sa = s[0]; r.sw = s[1]; r.deq = s[2]; r.wmean = s[3]; r.clip = s[4];
+        block_product<true, false, VEC>(Operand{Aq, K, M, K}, Operand{Wq, N, N, K}, m0, n0, smem);
+        const float* acc = reinterpret_cast<const float*>(
+            reinterpret_cast<const double*>(smem) + tile_doubles(true) + tile_doubles(false));
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        const float deq = dequant(scal);
+        for (int rr = 0; rr < BT / 8; ++rr) {
+            const int r = warp * (BT / 8) + rr, gm = m0 + r;
+            if (gm >= M) break;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int col = lane + 32 * j, gn = n0 + col;
+                if (gn < N) out[(size_t)gm * N + gn] = acc[r * ACC_LD + col] * deq;
+            }
+        }
     }
-    return r;
-}
-
-template <bool Q, typename T>
-__device__ __forceinline__ float prep_a(const T* A, size_t i, const Scalars& s, int emax) {
-    float v = load_val(A, i);
-    if (Q) {
-        v = fminf(fmaxf(v, -s.clip), s.clip);   // PRC
-        v = quantize_pot(v * s.sa, emax);        // exact 2^-beta_a, then PoT
-    }
-    return v;
-}
-
-template <bool Q, typename T>
-__device__ __forceinline__ float prep_w(const T* W, size_t i, const Scalars& s, int emax) {
-    float v = load_val(W, i);
-    if (Q) {
-        v = v - s.wmean;                         // WBC
-        v = quantize_pot(v * s.sw, emax);        // exact 2^-beta_w, then PoT
-    }
-    return v;
 }
 
 // ---------------------------------------------------------------------------
-// Small M (decode): a block owns MR rows x 32 columns (one per lane).  Its
-// NWARP warps take chunks c = round*NWARP + warp; each warp stages its A
-// chunk (MR x 128, fp64) in shared memory and computes its exact partial;
-// warp 0 then folds the round's partials in chunk order.
+// Decode path.  Every warp is a task of its own: one strip of 256 columns
+// (a lane owns 8) over a range of `span` chunks with SPLIT, else all of K,
+// for MR rows of A.  A block is DEC_WPB warps on neighbouring strips of the
+// same rows (grid x: strips / DEC_WPB, y: MR rows of M, z: chunk ranges).
+// The warp streams its 128 k-rows a chunk in stages of 8 through a ring of
+// DEC_STAGES in shared memory, lane l copying (cp.async) and reading only
+// its own 16 bytes of each row, so the ring runs ahead across
+// chunks with no barrier; each lane keeps the exact fp64 chunk sums of its
+// 8 columns x MR rows, so no sum crosses lanes or warps.  The warp stages
+// A's chunk (MR x 128, as fp64) in its own shared memory, fetched a chunk
+// ahead into registers.
 // ---------------------------------------------------------------------------
-template <int MR, int NWARP, bool Q, typename T>
-__global__ void __launch_bounds__(NWARP * 32)
-potq_mm_small(const T* __restrict__ A, const T* __restrict__ W,
-              const float* __restrict__ scal, float* __restrict__ out,
-              int M, int N, int K, int emax_a, int emax_w) {
-    __shared__ double As[NWARP][MR][CHUNK];
-    __shared__ float part[NWARP][MR][32];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int col = blockIdx.x * 32 + lane;
+constexpr int DEC_WPB = 4;                               // warps a block
+constexpr int DEC_STAGES = 4;                            // ring depth a warp
+constexpr int DEC_STAGE_ROWS = 8;                        // k-rows of W in one stage
+constexpr int DEC_STAGE_U4 = DEC_STAGE_ROWS * 32;        // 16-byte pieces of a stage
+constexpr int DEC_CHUNK_STAGES = CHUNK / DEC_STAGE_ROWS;
+
+__host__ __device__ constexpr size_t dec_warp_bytes(int mr) {
+    return (size_t)DEC_STAGES * DEC_STAGE_U4 * 16 + 8 * (size_t)mr * CHUNK;
+}
+constexpr size_t dec_smem_bytes(int mr) { return DEC_WPB * dec_warp_bytes(mr); }
+
+// 8 k-rows from k0 into `slot`: this lane's 16 bytes of each row (its 8
+// columns), zero past K and N.  VEC: 16-byte cp.async (N % 8 == 0, W
+// 16-byte aligned); else scalar loads, all 8 rows' issued before any is
+// stored, so a stage waits out one memory latency, not one a row.
+template <bool VEC>
+__device__ __forceinline__ void dec_load(uint4* slot, const uint16_t* W, int N, int K, int k0,
+                                         int col, int lane) {
+    if (VEC) {
+#pragma unroll
+        for (int j = 0; j < DEC_STAGE_ROWS; ++j) {
+            const int k = k0 + j;
+            const bool ok = k < K && col < N;
+            cp_async16(slot + j * 32 + lane, ok ? W + (size_t)k * N + col : W, ok);
+        }
+    } else {
+        uint32_t v[DEC_STAGE_ROWS][8];
+#pragma unroll
+        for (int j = 0; j < DEC_STAGE_ROWS; ++j) {
+            const int k = k0 + j;
+            const uint16_t* src = W + (size_t)k * N + col;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[j][e] = (k < K && col + e < N) ? __ldg(src + e) : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < DEC_STAGE_ROWS; ++j)
+            slot[j * 32 + lane] = make_uint4(v[j][0] | v[j][1] << 16, v[j][2] | v[j][3] << 16,
+                                             v[j][4] | v[j][5] << 16, v[j][6] | v[j][7] << 16);
+    }
+}
+
+template <int MR, bool VEC, bool SPLIT>
+__global__ void __launch_bounds__(DEC_WPB * 32)
+potq_mm_dec(const uint16_t* __restrict__ A, const uint16_t* __restrict__ W,
+            const float* __restrict__ scal, float* __restrict__ out, float* __restrict__ part,
+            int M, int N, int K, int span) {
+    constexpr int A_PER = MR * CHUNK / 32;  // A values a lane stages a chunk
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int col = (blockIdx.x * DEC_WPB + warp) * DEC_COLS + 8 * lane;
+    if ((blockIdx.x * DEC_WPB + warp) * DEC_COLS >= N) return;  // a warp past the last strip
+    unsigned char* mine = smem + warp * dec_warp_bytes(MR);
+    uint4* ring = reinterpret_cast<uint4*>(mine);
+    double* as = reinterpret_cast<double*>(mine + DEC_STAGES * DEC_STAGE_U4 * 16);
     const int m0 = blockIdx.y * MR;
-    const Scalars s = read_scalars(scal);
     const int nchunk = (K + CHUNK - 1) / CHUNK;
-    float acc[MR];
-#pragma unroll
-    for (int r = 0; r < MR; ++r) acc[r] = 0.0f;
+    const int c_begin = SPLIT ? blockIdx.z * span : 0;
+    const int c_end = SPLIT ? min(nchunk, c_begin + span) : nchunk;
+    const int nstage = (c_end - c_begin) * DEC_CHUNK_STAGES;
+    const int k_begin = c_begin * CHUNK;
 
-    for (int base = 0; base < nchunk; base += NWARP) {
-        const int c = base + warp;
-        double p[MR];
+    uint32_t a_next[A_PER];
+    auto fetch_a = [&](int c) {
 #pragma unroll
-        for (int r = 0; r < MR; ++r) p[r] = 0.0;
-        if (c < nchunk) {
-            const int k0 = c * CHUNK;
-#pragma unroll
-            for (int r = 0; r < MR; ++r) {
-                const int row = m0 + r;
-                for (int i = lane; i < CHUNK; i += 32) {
-                    const int k = k0 + i;
-                    float v = 0.0f;
-                    if (row < M && k < K) v = prep_a<Q>(A, (size_t)row * K + k, s, emax_a);
-                    As[warp][r][i] = (double)v;
-                }
-            }
-            __syncwarp();
-            const int kend = min(CHUNK, K - k0);
-            if (col < N) {
-#pragma unroll 4
-                for (int i = 0; i < kend; ++i) {
-                    const double wv = (double)prep_w<Q>(W, (size_t)(k0 + i) * N + col, s, emax_w);
-#pragma unroll
-                    for (int r = 0; r < MR; ++r) p[r] = fma(As[warp][r][i], wv, p[r]);
-                }
-            }
+        for (int i = 0; i < A_PER; ++i) {
+            const int e = lane + 32 * i;
+            const int row = m0 + e / CHUNK, k = c * CHUNK + e % CHUNK;
+            a_next[i] = (row < M && k < K) ? A[(size_t)row * K + k] : 0u;
         }
+    };
+    auto store_a = [&]() {
 #pragma unroll
-        for (int r = 0; r < MR; ++r) part[warp][r][lane] = __double2float_rn(p[r]);
-        __syncthreads();
-        if (warp == 0) {
-            for (int w = 0; w < NWARP && base + w < nchunk; ++w) {
+        for (int i = 0; i < A_PER; ++i) as[lane + 32 * i] = bf16_to_f64(a_next[i]);
+    };
+
 #pragma unroll
-                for (int r = 0; r < MR; ++r) acc[r] += part[w][r][lane];
-            }
-        }
-        __syncthreads();
+    for (int q = 0; q < DEC_STAGES - 1; ++q) {
+        if (q < nstage)
+            dec_load<VEC>(ring + q * DEC_STAGE_U4, W, N, K, k_begin + q * DEC_STAGE_ROWS, col,
+                          lane);
+        cp_async_commit();
     }
-    if (warp == 0 && col < N) {
+    float acc[MR][8];
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] = 0.0f;
+    if (c_begin < c_end) {
+        fetch_a(c_begin);
+        store_a();
+    }
+    __syncwarp();
+
+    for (int c = c_begin; c < c_end; ++c) {
+        if (c + 1 < c_end) fetch_a(c + 1);  // in flight while this chunk computes
+        double p[MR][8];
+#pragma unroll
+        for (int r = 0; r < MR; ++r)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) p[r][e] = 0.0;
+        for (int h = 0; h < DEC_CHUNK_STAGES; ++h) {
+            const int q = (c - c_begin) * DEC_CHUNK_STAGES + h;
+            cp_async_wait<DEC_STAGES - 2>();  // this lane's copies of stage q have landed
+            {
+                const int nq = q + DEC_STAGES - 1;  // refill the slot read one stage ago
+                if (nq < nstage)
+                    dec_load<VEC>(ring + (nq % DEC_STAGES) * DEC_STAGE_U4, W, N, K,
+                                   k_begin + nq * DEC_STAGE_ROWS, col, lane);
+                cp_async_commit();
+            }
+            const uint4* slot = ring + (q % DEC_STAGES) * DEC_STAGE_U4;
+#pragma unroll
+            for (int j = 0; j < DEC_STAGE_ROWS; ++j) {
+                const uint4 v = slot[j * 32 + lane];
+                const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+                const int kk = h * DEC_STAGE_ROWS + j;
+                double a[MR];
+#pragma unroll
+                for (int r = 0; r < MR; ++r) a[r] = as[r * CHUNK + kk];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const double wd = bf16_to_f64(e & 1 ? w[e >> 1] >> 16 : w[e >> 1] & 0xffffu);
+#pragma unroll
+                    for (int r = 0; r < MR; ++r) p[r][e] = fma(a[r], wd, p[r][e]);
+                }
+            }
+        }
+        // the exact chunk sums, rounded once
 #pragma unroll
         for (int r = 0; r < MR; ++r) {
             const int row = m0 + r;
-            if (row < M) out[(size_t)row * N + col] = acc[r] * s.deq;
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// Large M (prefill): 64x64 output tile per block, 256 threads, 4x4 outputs
-// per thread.  K walks in order in sub-steps of 32 through fp64 shared
-// tiles; every 128 columns (and at the K end) the exact partials are
-// rounded once and added to the f32 accumulators.
-// ---------------------------------------------------------------------------
-constexpr int LBM = 64, LBN = 64, LKS = 32;
-
-template <bool Q, typename T>
-__global__ void __launch_bounds__(256)
-potq_mm_large(const T* __restrict__ A, const T* __restrict__ W,
-              const float* __restrict__ scal, float* __restrict__ out,
-              int M, int N, int K, int emax_a, int emax_w) {
-    __shared__ double As[LKS][LBM];
-    __shared__ double Ws[LKS][LBN];
-    const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;
-    const int m0 = blockIdx.y * LBM, n0 = blockIdx.x * LBN;
-    const Scalars s = read_scalars(scal);
-    float acc[4][4];
-    double p[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) { acc[i][j] = 0.0f; p[i][j] = 0.0; }
-
-    for (int k0 = 0; k0 < K; k0 += LKS) {
-#pragma unroll
-        for (int t = 0; t < (LBM * LKS) / 256; ++t) {
-            const int idx = tid + t * 256;
-            const int row = idx / LKS, kk = idx % LKS;
-            const int gr = m0 + row, gk = k0 + kk;
-            float v = 0.0f;
-            if (gr < M && gk < K) v = prep_a<Q>(A, (size_t)gr * K + gk, s, emax_a);
-            As[kk][row] = (double)v;
-        }
-#pragma unroll
-        for (int t = 0; t < (LBN * LKS) / 256; ++t) {
-            const int idx = tid + t * 256;
-            const int kk = idx / LBN, cc = idx % LBN;
-            const int gk = k0 + kk, gc = n0 + cc;
-            float v = 0.0f;
-            if (gk < K && gc < N) v = prep_w<Q>(W, (size_t)gk * N + gc, s, emax_w);
-            Ws[kk][cc] = (double)v;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < LKS; ++kk) {
-            double a[4], w[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) p[i][j] = fma(a[i], w[j], p[i][j]);
-        }
-        __syncthreads();
-        const int knext = k0 + LKS;
-        if (knext % CHUNK == 0 || knext >= K) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    acc[i][j] += __double2float_rn(p[i][j]);
-                    p[i][j] = 0.0;
+            for (int e = 0; e < 8; ++e) {
+                const float f = __double2float_rn(p[r][e]);
+                if (SPLIT) {
+                    if (row < M && col + e < N) part[((size_t)c * M + row) * N + col + e] = f;
+                } else {
+                    acc[r][e] += f;
                 }
+            }
         }
+        __syncwarp();  // every lane is done with this chunk's A
+        if (c + 1 < c_end) store_a();
+        __syncwarp();
     }
+    cp_async_wait<0>();
+    if (!SPLIT) {
+        const float deq = dequant(scal);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int gr = m0 + ty + 16 * i;
-        if (gr >= M) continue;
+        for (int r = 0; r < MR; ++r) {
+            const int row = m0 + r;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int gc = n0 + tx + 16 * j;
-            if (gc < N) out[(size_t)gr * N + gc] = acc[i][j] * s.deq;
+            for (int e = 0; e < 8; ++e)
+                if (row < M && col + e < N) out[(size_t)row * N + col + e] = acc[r][e] * deq;
         }
     }
 }
 
-template <bool Q, typename T>
-void launch(const T* A, const T* W, const float* scal, float* out, int M,
-            int N, int K, int emax_a, int emax_w, cudaStream_t st) {
-    const int nb = (N + 31) / 32;
-    if (M <= 1) {
-        potq_mm_small<1, 8, Q, T><<<dim3(nb, 1), 256, 0, st>>>(A, W, scal, out, M, N, K, emax_a, emax_w);
-    } else if (M <= 2) {
-        potq_mm_small<2, 8, Q, T><<<dim3(nb, 1), 256, 0, st>>>(A, W, scal, out, M, N, K, emax_a, emax_w);
-    } else if (M <= 4) {
-        potq_mm_small<4, 8, Q, T><<<dim3(nb, 1), 256, 0, st>>>(A, W, scal, out, M, N, K, emax_a, emax_w);
-    } else if (M <= 32) {
-        potq_mm_small<8, 4, Q, T><<<dim3(nb, (M + 7) / 8), 128, 0, st>>>(A, W, scal, out, M, N, K, emax_a, emax_w);
-    } else {
-        potq_mm_large<Q, T><<<dim3((N + LBN - 1) / LBN, (M + LBM - 1) / LBM), 256, 0, st>>>(
-            A, W, scal, out, M, N, K, emax_a, emax_w);
+// Left fold of the (nchunk, M*N) chunk sums in ascending chunk order, x deq.
+__global__ void __launch_bounds__(256)
+potq_mm_fold(const float* __restrict__ part, const float* __restrict__ scal,
+             float* __restrict__ out, long long total, int nchunk) {
+    const float deq = dequant(scal);
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+        float acc = 0.0f;
+        for (int c = 0; c < nchunk; ++c) acc += part[(size_t)c * total + i];
+        out[i] = acc * deq;
     }
+}
+
+int grid_stride_blocks(long long n) {
+    const long long b = (n + 255) / 256;
+    return (int)(b < 132 * 16 ? (b > 0 ? b : 1) : 132 * 16);
+}
+
+template <int MR, bool VEC>
+cudaError_t launch_dec(bool split, dim3 grid, cudaStream_t st, const uint16_t* a,
+                       const uint16_t* w, const float* scal, float* out, float* part, int M,
+                       int N, int K, int span) {
+    auto kernel = split ? potq_mm_dec<MR, VEC, true> : potq_mm_dec<MR, VEC, false>;
+    return launch_kernel(kernel, grid, DEC_WPB * 32, dec_smem_bytes(MR), st, a, w, scal, out,
+                         part, M, N, K, span);
+}
+
+template <int MR>
+cudaError_t launch_dec_rows(bool vec, bool split, dim3 grid, cudaStream_t st, const uint16_t* a,
+                            const uint16_t* w, const float* scal, float* out, float* part,
+                            int M, int N, int K, int span) {
+    if (vec) return launch_dec<MR, true>(split, grid, st, a, w, scal, out, part, M, N, K, span);
+    return launch_dec<MR, false>(split, grid, st, a, w, scal, out, part, M, N, K, span);
+}
+
+// kind 0: decode, 1: tensor cores.  groups > 1 splits the chunks into that
+// many ranges (part: (ceil(K/128), M, N) f32), then folds.
+cudaError_t product(const uint16_t* a, const uint16_t* w, const float* scal, float* out,
+                    float* part, int M, int N, int K, int kind, int groups, cudaStream_t st) {
+    const int nchunk = (K + CHUNK - 1) / CHUNK;
+    const bool split = groups > 1 && nchunk > 1;
+    const int per = split ? (nchunk + groups - 1) / groups : nchunk;  // chunks per range
+    const int ranges = split ? (nchunk + per - 1) / per : 1;
+    cudaError_t e;
+    if (kind == 0) {
+        const int mr = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8;
+        const bool vec = N % 8 == 0 && aligned16(w);
+        const int strips = (N + DEC_COLS - 1) / DEC_COLS;
+        const dim3 grid((strips + DEC_WPB - 1) / DEC_WPB, (M + mr - 1) / mr, ranges);
+        e = mr == 1   ? launch_dec_rows<1>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per)
+            : mr == 2 ? launch_dec_rows<2>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per)
+            : mr == 4 ? launch_dec_rows<4>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per)
+                      : launch_dec_rows<8>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per);
+    } else {
+        const bool vec = K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(w);
+        const dim3 grid((N + BT - 1) / BT, (M + BT - 1) / BT, ranges);
+        auto kernel = split ? (vec ? potq_mm_tc<true, true> : potq_mm_tc<false, true>)
+                            : (vec ? potq_mm_tc<true, false> : potq_mm_tc<false, false>);
+        e = launch_kernel(kernel, grid, THREADS, smem_bytes(true, false), st, a, w, scal, out,
+                          part, M, N, K, per * CHUNK);
+    }
+    if (e != cudaSuccess || !split) return e;
+    const long long total = (long long)M * N;
+    potq_mm_fold<<<grid_stride_blocks(total), 256, 0, st>>>(part, scal, out, total, nchunk);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int potq_matmul_launch(const void* a, const void* w,
-                                  const float* scalars, float* out, int M,
-                                  int N, int K, int emax_a, int emax_w,
-                                  int quantize, void* stream) {
+// quantize = 0.  a: (M, K) bf16 PoT values, w: (K, N) bf16 PoT values;
+// scalars: null (deq 1) or the (5,) f32 [2^-beta_a, 2^-beta_w, deq, w_mean,
+// clip_t], of which only deq is read; part: the scratch when groups > 1.
+extern "C" int potq_matmul_launch(const void* a, const void* w, const float* scalars,
+                                  float* out, float* part, int M, int N, int K, int kind,
+                                  int groups, void* stream) {
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (M > 0 && N > 0) {
-        if (quantize) {
-            launch<true, float>(static_cast<const float*>(a), static_cast<const float*>(w),
-                                scalars, out, M, N, K, emax_a, emax_w, st);
-        } else {
-            launch<false, __nv_bfloat16>(static_cast<const __nv_bfloat16*>(a),
-                                         static_cast<const __nv_bfloat16*>(w), scalars, out,
-                                         M, N, K, emax_a, emax_w, st);
-        }
+        const cudaError_t e = product(static_cast<const uint16_t*>(a),
+                                      static_cast<const uint16_t*>(w), scalars, out, part, M, N,
+                                      K, kind, groups, st);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// quantize = 1.  a: (M, K) f32, w: (K, N) f32 raw operands; aq (M, K) and
+// wq (K, N): bf16 buffers for the pre-pass; scalars as above, all read.
+extern "C" int potq_matmul_quantize_launch(const float* a, const float* w,
+                                           const float* scalars, void* aq, void* wq,
+                                           float* out, float* part, int M, int N, int K,
+                                           int emax_a, int emax_w, int kind, int groups,
+                                           void* stream) {
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (M > 0 && N > 0) {
+        __nv_bfloat16* qa = static_cast<__nv_bfloat16*>(aq);
+        __nv_bfloat16* qw = static_cast<__nv_bfloat16*>(wq);
+        const long long na = (long long)M * K, nw = (long long)K * N;
+        if (na > 0)
+            potq_mm_prequant<<<grid_stride_blocks(na), 256, 0, st>>>(a, scalars, qa, na, 0, emax_a);
+        if (nw > 0)
+            potq_mm_prequant<<<grid_stride_blocks(nw), 256, 0, st>>>(w, scalars, qw, nw, 1, emax_w);
+        cudaError_t e = cudaGetLastError();
+        if (e == cudaSuccess)
+            e = product(reinterpret_cast<const uint16_t*>(qa), reinterpret_cast<const uint16_t*>(qw),
+                        scalars, out, part, M, N, K, kind, groups, st);
+        if (e != cudaSuccess) return static_cast<int>(e);
     }
     return static_cast<int>(cudaGetLastError());
 }

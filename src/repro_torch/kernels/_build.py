@@ -41,10 +41,30 @@ def nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_headers(path: Path, seen=None) -> list:
+    """The headers under ``csrc/`` that ``path`` includes with quotes,
+    directly or through another such header, in first-seen order."""
+    seen = [] if seen is None else seen
+    for name in _INCLUDE.findall(path.read_bytes()):
+        header = path.parent / name.decode()
+        if header.exists() and header not in seen:
+            seen.append(header)
+            local_headers(header, seen)
+    return seen
+
+
 def library_path(source: str) -> Path:
-    """Where the library of ``csrc/<source>`` lands (hash of source + flags)."""
+    """Where the library of ``csrc/<source>`` lands: a hash of the source,
+    every local header it includes and the flags, so that an edited header
+    builds a new library instead of loading a stale one."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{src.stem}.so"
 
 
@@ -70,8 +90,9 @@ def compile_library(source: str) -> Tuple[Path, float]:
 
 
 def _demangle(sym: str) -> str:
-    """``_ZN<ns><name>I<bools>E...`` -> ``name<0,1>`` (enough for the
-    kernels here: a nested name, bool template arguments)."""
+    """``_ZN<ns><name>I<args>E...`` -> ``name<0,1>`` (enough for the
+    kernels here: a nested name, bool or int template arguments, e.g.
+    ``Lb1E`` -> 1 and ``Li4E`` -> 4)."""
     pos = 3 if sym.startswith("_ZN") else 2
     name = sym
     while pos < len(sym) and sym[pos].isdigit():
@@ -80,9 +101,10 @@ def _demangle(sym: str) -> str:
         pos += len(m.group(0))
         name = sym[pos:pos + n]
         pos += n
-    args = re.match(r"I((?:Lb[01]E)+)E", sym[pos:])
+    args = re.match(r"I((?:L[bij]n?\d+E)+)E", sym[pos:])
     if args:
-        name += "<" + ",".join(re.findall(r"Lb([01])E", args.group(1))) + ">"
+        vals = re.findall(r"L[bij](n?)(\d+)E", args.group(1))
+        name += "<" + ",".join(("-" if neg else "") + v for neg, v in vals) + ">"
     return name
 
 

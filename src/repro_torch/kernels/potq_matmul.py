@@ -3,13 +3,18 @@
 Replaces the Pallas TPU kernel ``repro/kernels/potq_matmul.py``
 ``_potq_matmul_kernel`` (launcher ``potq_matmul_padded``) in both modes:
 ``quantize=False`` (PoT-valued bf16 operands — every ``mf_linear``
-forward, 225 launches per llama3-8b weight pass) and ``quantize=True``
-(in-tile PRC clip, WBC shift, exact 2^-beta scaling and nearest PoT
-rounding of raw f32 operands).
+forward, 225 launches per llama3-8b weight pass and per olmo-1b training
+step) and ``quantize=True`` (PRC clip, WBC shift, exact 2^-beta scaling
+and nearest PoT rounding of raw f32 operands, by an elementwise pre-pass
+that writes the scaled values as bf16, then the same product).
 
-Source: ``repro_torch/csrc/potq_matmul.cu`` — see its header for what
-bounds the kernel on an H100 (weight bytes at decode, fp64 operations at
-prefill) and how the design keeps the reduction exact and in order.
+Source: ``repro_torch/csrc/potq_matmul.cu`` — its header says what bounds
+each path on an H100 and how each keeps the reduction exact and in order.
+:func:`plan` picks the path from the shapes alone: the FP64 tensor cores
+(``block_product`` of ``csrc/fp64_mma.cuh``, shared with K2/K3) above
+``DECODE_MAX_M`` rows, a bandwidth-bound fp64 kernel on the CUDA cores at
+or below it; where the grid is under two waves the chunks are split across
+blocks into a scratch that a fold kernel adds in the spec's order.
 
 Build: ``kernels/_build.py`` (nvcc for sm_90a into a shared library with a
 plain C interface, at first use, into ``<checkout>/build/kernels/<hash>/``,
@@ -18,27 +23,34 @@ loaded with ``ctypes``).
 Exactness precondition: operands come from the port's quantizer (one beta
 per row of A, one for all of W) and the bit widths pass
 ``ref.check_exact_spread``.  Within it the kernel equals
-:func:`potq_matmul_plain` bit for bit.
+:func:`potq_matmul_plain` bit for bit on every path.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import pot_value_matmul_ref, quantize_tile_ref
+from repro_torch.kernels.ref import CANONICAL_BK, pot_value_matmul_ref, quantize_tile_ref
 
 #: Accumulation-scheme tag of the port: exact chunk partials, left fold.
 ACC_SCHEME = "canonical-k128-exactchunk-leftfold-v1"
 
 SOURCE = "potq_matmul.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "potq_matmul_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "potq_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "potq_matmul_quantize_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _P],
 }
+#: rows of A up to which the decode kernel runs (above: the tensor cores)
+DECODE_MAX_M = 32
+#: output columns of one decode block, and the tensor cores' block tile
+DECODE_COLS, TC_TILE = 256, 128
+_KINDS = {"decode": 0, "tc": 1}
 
 _lib = None
 #: seconds the last build took (0.0 when the library was already built)
@@ -76,6 +88,59 @@ def potq_matmul_plain(a: torch.Tensor, w: torch.Tensor,
     return out
 
 
+#: a tensor-core tile's fixed cost (ring fill, epilogue) in chunks of work
+_TILE_OVERHEAD = 0.5
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, n: int, k: int, sms: int = 132) -> Tuple[str, int]:
+    """``(path, groups)`` of an (m, k) @ (k, n) product on a card of ``sms``
+    SMs: ``path`` is "decode" (m <= DECODE_MAX_M) or "tc"; ``groups`` > 1
+    splits the 128-wide chunks into that many ranges (scratch + fold)."""
+    path = "decode" if m <= DECODE_MAX_M else "tc"
+    return path, split_groups(path, m, n, k, sms)
+
+
+def split_groups(path: str, m: int, n: int, k: int, sms: int = 132) -> int:
+    """Chunk ranges for ``path``.
+
+    Decode: a warp streams one strip of 256 columns for 8 rows of A; where
+    the strips give fewer than three warps an SM, too few bytes are in
+    flight, and every chunk becomes a task of its own (the LM head's 502
+    strips run unsplit; ``tools/k1_path_sweep.py`` times each path and
+    split on the card).  Under 4 chunks the fold's launch costs about what
+    the split saves, so nothing is split.
+
+    Tensor cores: a 128 x 128 tile fills an SM.  A grid of two waves or
+    more runs unsplit; under that, the split whose waves finish soonest
+    wins, a wave taking its ranges' chunks plus a tile's fixed cost, and a
+    split must beat the best so far by 10% (the scratch's bytes and the
+    fold are not in the model)."""
+    nchunk = -(-k // CANONICAL_BK)
+    if nchunk <= 1:
+        return 1
+    if path == "decode":
+        warps = -(-n // DECODE_COLS) * -(-m // 8)
+        return nchunk if nchunk >= 4 and warps < 3 * sms else 1
+    tiles = -(-m // TC_TILE) * -(-n // TC_TILE)
+    if tiles >= 2 * sms:
+        return 1
+    best, best_t = 1, None
+    for g in range(1, nchunk + 1):
+        per = -(-nchunk // g)
+        if -(-nchunk // per) != g:
+            continue  # the same ranges as a smaller g
+        t = -(-tiles * g // sms) * (per + _TILE_OVERHEAD)
+        if best_t is None or t < 0.9 * best_t:
+            best, best_t = g, t
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
                      scalars: Optional[torch.Tensor] = None, *,
                      emax_a: int = 7, emax_w: int = 7,
@@ -100,14 +165,25 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
         raise ValueError("quantize=True needs the (5,) scalars")
     m, k = a.shape
     n = w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    dev = a.device
+    path, groups = plan(m, n, k, _sm_count(dev.index))
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    part = None
+    if groups > 1:
+        part = torch.empty((-(-k // CANONICAL_BK), m, n), dtype=torch.float32, device=dev)
     lib = build()
-    err = lib.potq_matmul_launch(
-        a.data_ptr(), w.data_ptr(),
-        scalars.data_ptr() if scalars is not None else None,
-        out.data_ptr(), m, n, k, emax_a, emax_w, int(quantize),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sp = scalars.data_ptr() if scalars is not None else None
+    pp = part.data_ptr() if part is not None else None
+    if quantize:
+        aq = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+        wq = torch.empty((k, n), dtype=torch.bfloat16, device=dev)
+        err = lib.potq_matmul_quantize_launch(
+            a.data_ptr(), w.data_ptr(), sp, aq.data_ptr(), wq.data_ptr(), out.data_ptr(), pp,
+            m, n, k, emax_a, emax_w, _KINDS[path], groups, stream)
+    else:
+        err = lib.potq_matmul_launch(a.data_ptr(), w.data_ptr(), sp, out.data_ptr(), pp,
+                                     m, n, k, _KINDS[path], groups, stream)
     if err != 0:
         raise RuntimeError(f"potq_matmul kernel launch failed: CUDA error {err}")
     potq_matmul_cuda.launches += 1

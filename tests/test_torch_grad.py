@@ -39,6 +39,7 @@ from repro_torch.core import mfmac, potq  # noqa: E402
 from repro_torch.core.policy import FP32_BASELINE, PAPER_FAITHFUL  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import potq_grad as KG  # noqa: E402
+from repro_torch.kernels import potq_matmul as KM  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -226,17 +227,24 @@ def _kernel_order_sum(x, y, order, group, dtype=np.float64):
 
 
 @pytest.mark.parametrize("pair", [(6, 5), (5, 5)], ids=["6x5", "5x5"])
-@pytest.mark.parametrize("product", ["dA", "dW"])
+@pytest.mark.parametrize("product", ["dA", "dW", "K1"])
 def test_tensor_core_order_is_exact_at_the_lattice_ends(product, pair):
     """The FP64 tensor-core kernels add each chunk's products in k-steps of
     4, 8 or 16 and in an order the hardware picks; at the widest supported
     pairs (the LM head's 6 x 5: 2*15 + 2*7 + 8 = 52 bits) every such order
     gives the spec's bits, also on chunks built to reach both ends of the
-    lattice with cancellations.  An f32 sum in the same order does not."""
+    lattice with cancellations.  An f32 sum in the same order does not.
+    K1's Aq . Wq has one beta per row of Aq (decode slots, prefill
+    requests): each output still sums one row's products, on one lattice."""
     bits_g, bits_other = pair
     eg, eo = potq.pot_emax(bits_g), potq.pot_emax(bits_other)
     s = torch.tensor([1.0, 1.0, float("inf")])  # beta_g = 0: Gq is G itself
-    if product == "dA":  # dA = Gq . Wq^T over N
+    if product == "K1":  # out = Aq . Wq over K, a different beta on every row
+        x, y = _lattice_extreme_chunks(6, 5, eg, eo, seed=4)
+        x = (x * np.exp2(np.array([-9, -2, 0, 3, 7, 11], np.float32))[:, None]).astype(np.float32)
+        y = (y * np.float32(2.0 ** -5)).astype(np.float32)
+        plain = KM.potq_matmul_plain(torch.from_numpy(x).bfloat16(), torch.from_numpy(y).bfloat16())
+    elif product == "dA":  # dA = Gq . Wq^T over N
         gq, wt = _lattice_extreme_chunks(6, 5, eg, eo, seed=1)
         x, y = gq, wt
         plain = KG.grad_da_plain(torch.from_numpy(gq), torch.from_numpy(wt.T.copy()), None, s,

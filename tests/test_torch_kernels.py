@@ -163,3 +163,134 @@ def test_build_reads_registers_and_spills_from_ptxas():
     assert _build.ptxas_resources(log) == {"grad_da_kernel<1,0>": (220, 8, 12),
                                            "grad_da_rows_fold_kernel": (32, 0, 0)}
     assert "-v" in _build.NVCC_FLAGS  # the log exists only with ptxas -v
+
+
+def test_build_reads_int_template_arguments():
+    """The decode kernel's int row count reads back as a number, so ptxas's
+    registers and spills of each instantiation are told apart."""
+    from repro_torch.kernels import _build
+
+    ns = "_ZN45_GLOBAL__N__dab37072_12_potq_grad_cu_bc30f364"
+    assert _build._demangle(ns + "11potq_mm_decILi4ELb1ELb0EEEvPKtS2_") == "potq_mm_dec<4,1,0>"
+    assert _build._demangle(ns + "10potq_mm_tcILb0ELb1EEEvPKtS2_") == "potq_mm_tc<0,1>"
+    assert _build._demangle(ns + "12potq_mm_foldEPKfS1_Pfxi") == "potq_mm_fold"
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ gives every source that includes it a
+    new library path, so a build never loads a library made from the old
+    header; an edit elsewhere does not."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [h.name for h in _build.local_headers(csrc / "potq_matmul.cu")] == ["fp64_mma.cuh"]
+    before = {s: _build.library_path(s) for s in ("potq_matmul.cu", "potq_grad.cu",
+                                                   "potq_encode.cu")}
+    header = csrc / "fp64_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s: _build.library_path(s) for s in before}
+    assert after["potq_matmul.cu"] != before["potq_matmul.cu"]
+    assert after["potq_grad.cu"] != before["potq_grad.cu"]
+    assert after["potq_encode.cu"] == before["potq_encode.cu"]
+    # a header included only through another header counts as well
+    (csrc / "inner.cuh").write_text("// v1\n")
+    header.write_text('#include "inner.cuh"\n' + header.read_text())
+    first = _build.library_path("potq_matmul.cu")
+    (csrc / "inner.cuh").write_text("// v2\n")
+    assert _build.library_path("potq_matmul.cu") != first
+
+
+def _decode_split_model(aq, wq, deq):
+    """The decode kernel's arithmetic in numpy: the lane that owns a column
+    sums the 128 k-rows of a chunk in k order by fp64 FMAs (each product of
+    two bf16 values is exact, so an FMA is a multiply and an add), rounds
+    the chunk sum once into an f32 (nchunk, M, N) scratch; the fold kernel
+    adds the scratch left to right from 0.0f and multiplies by deq."""
+    m, k = aq.shape
+    n = wq.shape[1]
+    nchunk = -(-k // ref.CANONICAL_BK)
+    part = np.empty((nchunk, m, n), np.float32)
+    for c in range(nchunk):
+        p = np.zeros((m, n), np.float64)
+        for kk in range(c * 128, min(c * 128 + 128, k)):
+            p = p + aq[:, kk:kk + 1].astype(np.float64) * wq[kk:kk + 1].astype(np.float64)
+        part[c] = p.astype(np.float32)
+    acc = np.zeros((m, n), np.float32)
+    for c in range(nchunk):
+        acc = acc + part[c]
+    return acc * np.float32(deq)
+
+
+@pytest.mark.parametrize("m", [1, 4, 32])
+def test_decode_split_model_is_bit_exact(m):
+    """Splitting the chunks across blocks into a scratch and folding them
+    afterwards is the spec's order: bit for bit with the plain version at
+    ragged K (two full chunks and a 44-wide one), rows on their own betas,
+    an all-zero row and a dequant that is not 1."""
+    aq, wq = _pot_operands(m, 300, 40, seed=20 + m)
+    aq[0] = 0.0
+    scal = torch.tensor([1.0, 1.0, 2.0 ** -9, 0.0, float("inf")])
+    want = K.potq_matmul_plain(torch.from_numpy(aq).bfloat16(),
+                               torch.from_numpy(wq).bfloat16(), scal).numpy()
+    np.testing.assert_array_equal(_decode_split_model(aq, wq, 2.0 ** -9), want)
+
+
+def test_quantize_prepass_model_is_bit_exact():
+    """quantize=True on the card: an elementwise pre-pass writes the scaled
+    PoT values of A (PRC clip) and W (WBC shift) as bf16, then the product
+    runs on them and multiplies by deq.  bf16 holds every such value
+    exactly, so this equals potq_matmul_plain(quantize=True) bit for bit,
+    subnormal and zero inputs included."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((9, 300)).astype(np.float32)
+    w = (rng.standard_normal((300, 40)) * 0.02 + 0.003).astype(np.float32)
+    a[0, :4] = [1e-40, -3e-39, 0.0, -0.0]
+    w[0, :2] = [1e-41, -2e-39]
+    at, wt = torch.from_numpy(a), torch.from_numpy(w)
+    w_mean, clip_t = wt.mean(), at.abs().max() * 0.95
+    emax = potq.pot_emax(5)
+    beta_a = potq.compute_beta(torch.clamp(at, -clip_t, clip_t), 5)
+    beta_w = potq.compute_beta(wt - w_mean, 5)
+    scal = torch.stack([potq.exp2i(-beta_a), potq.exp2i(-beta_w), potq.exp2i(beta_a + beta_w),
+                        w_mean, clip_t])
+    qa = ref.quantize_tile_ref((torch.clamp(at, -clip_t, clip_t) - 0.0) * scal[0], emax)
+    qw = ref.quantize_tile_ref((torch.clamp(wt, -float("inf"), float("inf")) - scal[3])
+                               * scal[1], emax)
+    for q in (qa, qw):
+        torch.testing.assert_close(q.bfloat16().float(), q, rtol=0, atol=0)
+    model = K.potq_matmul_plain(qa.bfloat16(), qw.bfloat16(), scal)
+    want = K.potq_matmul_plain(at, wt, scal, emax_a=emax, emax_w=emax, quantize=True)
+    assert torch.equal(model, want)
+    assert torch.equal(want, ops.potq_matmul(at, wt, w_mean=w_mean, clip_t=clip_t))
+
+
+@pytest.mark.parametrize("m,k,n,path,groups", [
+    (4, 4096, 4096, "decode", 32),      # decode: 16 strips, a warp per chunk
+    (4, 14336, 4096, "decode", 112),
+    (4, 4096, 128512, "decode", 1),     # the LM head's 502 strips run unsplit
+    (1, 4096, 1024, "decode", 32),
+    (32, 4096, 4096, "decode", 32),     # four row groups of 8
+    (32, 4096, 128512, "decode", 1),
+    (33, 4096, 4096, "tc", 4),
+    (128, 4096, 1024, "tc", 16),        # prefill: 8 tiles
+    (128, 4096, 4096, "tc", 4),
+    (128, 4096, 14336, "tc", 1),        # 112 tiles: a split would not pay
+    (128, 14336, 4096, "tc", 4),
+    (128, 4096, 128512, "tc", 1),
+    (4096, 2048, 2048, "tc", 1),        # training: 512 tiles
+    (4096, 2048, 50688, "tc", 1),
+    (2, 100, 64, "decode", 1),          # one chunk: nothing to split
+    (3, 200, 130, "decode", 1),         # two chunks: the fold would not pay
+])
+def test_plan_depends_on_the_shapes_alone(m, k, n, path, groups):
+    """The path and the chunk split follow from the shapes alone (the
+    serving shapes of llama3-8b, the training shapes of olmo-1b)."""
+    assert K.plan(m, n, k) == (path, groups)
+    assert (m <= K.DECODE_MAX_M) == (path == "decode")
+    nchunk = -(-k // ref.CANONICAL_BK)
+    per = -(-nchunk // groups)
+    assert -(-nchunk // per) == groups  # every range holds at least one chunk
