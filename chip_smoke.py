@@ -66,7 +66,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     no element differs);
 17. CUDA vs CPU at smoke width: pack_int8 code for code and beta for
     beta; checkpoints written from one device restore on the other;
-18. the ``kernels`` JSON line, then the device line.
+19. chunked + paged serving, llama3-8b at full width (the serve cell's
+    weights and trace): engine A (4 slots, chunk 32, page 16) is the main
+    path, its launch counts set to 0 just before and read just after; B
+    (page = span) and C (each request alone, chunk 32) give A's tokens bit
+    for bit; A's counters (weight passes, decode steps, prefills, emitted
+    tokens, per-request TTFT in passes, admission deferrals) equal a CPU
+    run of the port at smoke width on the same requests (token ids modulo
+    the smoke vocab); a chunk-step decode row equals ``decode_step`` in
+    logits and cache bytes; K1 launches 225 times per chunk step and per
+    decode step; tokens/s, TTFT in passes and ms, chunk- and decode-step
+    wall times, one profiled chunk step (M = 128);
+20. the prefix cache at full width (shared_prefix_trace: 8 requests,
+    prefix 96 + suffix 32): prefix on gives prefix off's tokens bit for
+    bit, a hit rate above 0, fewer weight passes and a lower mean TTFT,
+    and both runs' counters (prefix hits, copies on write and evictions
+    included) equal the CPU smoke-width run's;
+18. the ``kernels`` JSON line, then the device line (phase 18 runs last).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
 """
@@ -444,6 +460,7 @@ def main() -> int:
     enc = encode_kernel(dev, detail)
     k4_launches = checkpoint_and_pack(dev, detail)
     cpu_vs_card(dev, detail)
+    paged = paged_serving(dev, detail)
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -454,8 +471,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/potq_matmul.cu",
         "replaces": "src/repro/kernels/potq_matmul.py:70",
-        # serve run (phase 5) + training run (phase 10)
-        "launches": launches + train["launches"]["k1"],
+        # serve runs (phases 5, 19 and 20's prefix-on run) + training (phase 10)
+        "launches": launches + train["launches"]["k1"] + paged["launches"],
+        "chunk_step_launches": paged["chunk_launches"],
         "max_abs_err": max(max_err, grads["k1"]["max_abs_err"]),
         "ms": per_pass["ms"],
         "plain_ms": per_pass["plain_ms"],
@@ -1254,6 +1272,243 @@ def cpu_vs_card(dev, detail):
     detail["cpu_vs_card_pack"] = dict(pack=res, card_to_cpu=card_to_cpu, cpu_to_card=cpu_to_card)
     if not (all(res.values()) and card_to_cpu and cpu_to_card):
         raise SystemExit("packing or checkpoints differ between CPU and card")
+
+
+# K1 launches per llama3-8b weight pass: 7 linears x 32 layers + the head
+K1_PER_PASS = 225
+SERVE_COUNTERS = ("weight_passes", "decode_steps", "prefills", "emitted_tokens",
+                  "ttft_passes", "admission_deferrals")
+PREFIX_COUNTERS = SERVE_COUNTERS + ("prefix_hit_tokens", "cow_copies", "evictions")
+
+
+def _zero_launches():
+    from repro_torch.kernels import potq_encode as KE
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+
+    for fn in (K.potq_matmul_cuda, KG.quantize_g_cuda, KG.grad_da_cuda, KG.grad_dw_cuda,
+               KE.potq_encode_cuda):
+        fn.launches = 0
+
+
+def _timed_run(eng, reqs):
+    """One engine run with every launch count set to 0 just before it;
+    returns (tokens, wall seconds, K1 launches)."""
+    from repro_torch.kernels import potq_matmul as K
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, K.potq_matmul_cuda.launches
+
+
+def _serve_row(st, wall, launches):
+    return dict(wall_s=wall, tokens_per_s=st.emitted_tokens / wall,
+                emitted_tokens=st.emitted_tokens, weight_passes=st.weight_passes,
+                decode_steps=st.decode_steps, prefills=st.prefills,
+                mean_ttft_passes=st.mean_ttft_passes, mean_ttft_ms=st.mean_ttft_s * 1e3,
+                mean_occupancy=st.mean_occupancy, prefix_hit_rate=st.prefix_hit_rate,
+                cow_copies=st.cow_copies, evictions=st.evictions,
+                admission_deferrals=st.admission_deferrals,
+                kv_hbm_bytes_per_token=st.kv_hbm_bytes_per_token, k1_launches=launches)
+
+
+def _cpu_counters(reqs, engine_kw, keys):
+    """The same requests (token ids modulo the smoke vocab) through the
+    port on the CPU at smoke width: the counters that do not depend on
+    the model's width when no request has an EOS."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.models import registry, spec
+    from repro_torch.serve import PoolEngine
+
+    scfg = configs.smoke_config("llama3-8b")
+    p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
+    eng = PoolEngine(scfg, PAPER_FAITHFUL, p_cpu, device="cpu", **engine_kw)
+    eng.run([dataclasses.replace(r, tokens=np.asarray(r.tokens) % scfg.vocab) for r in reqs])
+    return {k: getattr(eng.last_stats, k) for k in keys}
+
+
+def _check_counters(label, st, cpu):
+    card = {k: getattr(st, k) for k in cpu}
+    same = card == cpu
+    print(f"{label}: counters equal the CPU smoke-width run's: {same}")
+    if not same:
+        raise SystemExit(f"{label}: counters differ from the CPU run: card {card}, cpu {cpu}")
+
+
+def paged_serving(dev, detail):
+    """Phases 19-20: chunked piggybacked prefill over the paged cache and
+    the prefix cache, llama3-8b at full width."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry, spec
+    from repro_torch.serve import PoolEngine, poisson_trace, shared_prefix_trace
+    from repro_torch.serve import quantized_weights as qw
+
+    phase("19 chunked + paged serving, llama3-8b at full width")
+    # the trainer (phases 10-16) turns PyTorch's deterministic algorithms on
+    # for the whole process; a server runs without them (they make each
+    # index_put_ sort), so these phases do too
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    cfg = configs.get_config("llama3-8b")
+    pgen = torch.Generator(device=dev).manual_seed(0)
+    params = spec.materialize(
+        registry.param_specs(cfg), pgen,
+        transform=lambda name, x: qw.quantize_leaf(name, x, PAPER_FAITHFUL))
+    policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
+    reqs = poisson_trace(cfg, n_requests=8, prompt_len=128, lam=2.0, new_lo=8,
+                         new_hi=32, seed=0)
+    kw = dict(max_slots=4, max_len=160, prefill_chunk=32)
+    eng_a = PoolEngine(cfg, policy, params, page_size=16, device=dev, **kw)
+    eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    out_a, wall, launches = _timed_run(eng_a, reqs)  # the main path
+    st_a = eng_a.last_stats
+    res = {"A": _serve_row(st_a, wall, launches)}
+    print("A (page 16):", json.dumps(res["A"]))
+    if launches != K1_PER_PASS * st_a.weight_passes:
+        raise SystemExit(f"K1 launched {launches} times in A, expected {K1_PER_PASS} x "
+                         f"{st_a.weight_passes} weight passes")
+    for r in reqs:
+        toks = out_a[r.uid]
+        if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_padded:
+            raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+    _check_counters("A", st_a, _cpu_counters(reqs, dict(kw, page_size=16), SERVE_COUNTERS))
+    eng_b = PoolEngine(cfg, policy, params, device=dev, **kw)
+    out_b, wall, launches = _timed_run(eng_b, reqs)
+    res["B"] = _serve_row(eng_b.last_stats, wall, launches)
+    print("B (page = span):", json.dumps(res["B"]))
+    same_b = all(np.array_equal(out_a[r.uid], out_b[r.uid]) for r in reqs)
+    eng_c = PoolEngine(cfg, policy, params, max_slots=1, max_len=160, prefill_chunk=32,
+                       device=dev)
+    same_c = []
+    for r in reqs:
+        solo = eng_c.run([dataclasses.replace(r, arrival=0)])
+        same_c.append(bool(np.array_equal(solo[r.uid], out_a[r.uid])))
+    print(f"A == B (page 16 vs page = span) bit for bit: {same_b}; "
+          f"A == C (each request alone, chunk 32): {same_c}")
+    if not (same_b and all(same_c)):
+        raise SystemExit("paged pool tokens differ across page sizes or from solo")
+
+    # a chunk-step decode row against decode_step, and the step times
+    with torch.inference_mode():
+        pool = registry.init_pool_cache(cfg, 4, 160, device=dev, page_size=16)
+        table = torch.arange(40, device=dev).flip(0).reshape(4, 10)  # not the identity
+        pool["table"].copy_(table)
+        prompts = [np.asarray(r.tokens).reshape(-1)[:n] for r, n in
+                   zip(reqs, (70, 40, 96, 128))]
+        t_chunk, logits = [], None
+        for c0 in range(0, 128, 32):
+            tokens = np.zeros((4, 32), np.int64)
+            n_new = np.zeros((4,), np.int64)
+            for s, p in enumerate(prompts):
+                part = p[c0:c0 + 32]
+                tokens[s, :len(part)] = part
+                n_new[s] = len(part)
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pool = registry.chunk_step(cfg, eng_a.policy, params,
+                                               torch.as_tensor(tokens, device=dev), n_new, pool)
+            torch.cuda.synchronize()
+            t_chunk.append(time.perf_counter() - t0)
+            chunk_launches = K.potq_matmul_cuda.launches
+            if chunk_launches != K1_PER_PASS:
+                raise SystemExit(f"K1 launched {chunk_launches} times in one chunk step")
+        last = torch.argmax(logits, -1)
+        dec = torch.zeros((4, 32), dtype=torch.int64, device=dev)
+        dec[:, 0] = last
+        c1 = {k: v.clone() for k, v in pool.items()}
+        c2 = {k: v.clone() for k, v in pool.items()}
+        lg_chunk, c1 = registry.chunk_step(cfg, eng_a.policy, params, dec, [1, 1, 1, 1], c1)
+        _zero_launches()
+        lg_plain, c2 = registry.decode_step(cfg, eng_a.policy, params, last, c2)
+        torch.cuda.synchronize()
+        decode_launches = K.potq_matmul_cuda.launches
+        row_equal = bool(torch.equal(lg_chunk, lg_plain)) and all(
+            torch.equal(c1[k], c2[k]) for k in ("k", "v", "pos", "len", "table"))
+        print(f"chunk-step decode row == decode_step (logits and cache bytes): {row_equal}")
+        if not row_equal or decode_launches != K1_PER_PASS:
+            raise SystemExit(f"decode row differs between the step bodies ({row_equal}) "
+                             f"or K1 launched {decode_launches} times in a decode step")
+        t_decode = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, c2 = registry.decode_step(cfg, eng_a.policy, params, last, c2)
+            torch.cuda.synchronize()
+            t_decode.append(time.perf_counter() - t0)
+        # device time inside one chunk step (4 slots x 32 positions), by kernel
+        tokens = torch.as_tensor(np.stack([p[:32] for p in prompts]), device=dev)
+        c3 = {k: v.clone() for k, v in pool.items()}
+        c3["len"].zero_()
+        registry.chunk_step(cfg, eng_a.policy, params, tokens, [32] * 4,
+                            {k: v.clone() for k, v in c3.items()})
+        c4 = {k: v.clone() for k, v in c3.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        registry.chunk_step(cfg, eng_a.policy, params, tokens, [32] * 4, c4)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            registry.chunk_step(cfg, eng_a.policy, params, tokens, [32] * 4, c3)
+            torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    k1_us = sum(e.time_range.elapsed_us() for e in kern if "potq_mm" in e.name)
+    prof_row = dict(wall_ms=t_full * 1e3, device_kernels=len(kern),
+                    device_busy_ms=busy_us / 1e3, k1_ms=k1_us / 1e3,
+                    idle_share=1 - busy_us / 1e6 / t_full if kern else None)
+    steps = dict(chunk_step_ms=[t * 1e3 for t in t_chunk],
+                 decode_step_ms=[t * 1e3 for t in t_decode],
+                 profiled_chunk_step=prof_row, k1_launches_per_chunk_step=chunk_launches,
+                 k1_launches_per_decode_step=decode_launches)
+    print(f"chunk steps (4 slots x 32, prompts streaming): "
+          f"{[round(t, 1) for t in steps['chunk_step_ms']]} ms; decode steps (4 slots): "
+          f"{[round(t, 1) for t in steps['decode_step_ms']]} ms")
+    print("profiled chunk step (M = 128):", json.dumps(prof_row))
+    res["steps"] = steps
+    del eng_b, eng_c, pool, c1, c2, c3, c4
+
+    phase("20 prefix cache at full width")
+    preqs = shared_prefix_trace(cfg, n_requests=8, prefix_len=96, suffix_len=32, lam=2.0,
+                                new_lo=8, new_hi=32, seed=0)
+    pkw = dict(kw, page_size=16)
+    runs = {}
+    for on in (False, True):
+        eng = PoolEngine(cfg, policy, params, prefix_cache=on, device=dev, **pkw)
+        out, wall, launches = _timed_run(eng, preqs)
+        st = eng.last_stats
+        runs[on] = (out, st)
+        res[f"prefix_{'on' if on else 'off'}"] = row = _serve_row(st, wall, launches)
+        print(f"prefix {'on' if on else 'off'}:", json.dumps(row))
+        if launches != K1_PER_PASS * st.weight_passes:
+            raise SystemExit(f"K1 launched {launches} times, expected {K1_PER_PASS} x "
+                             f"{st.weight_passes} weight passes")
+        _check_counters(f"prefix {'on' if on else 'off'}", st,
+                        _cpu_counters(preqs, dict(pkw, prefix_cache=on), PREFIX_COUNTERS))
+        del eng
+    (off, st_off), (on, st_on) = runs[False], runs[True]
+    same = all(np.array_equal(on[r.uid], off[r.uid]) for r in preqs)
+    print(f"prefix on == off bit for bit: {same}; hit rate {st_on.prefix_hit_rate}; "
+          f"weight passes {st_on.weight_passes} vs {st_off.weight_passes}; mean TTFT "
+          f"{st_on.mean_ttft_passes} vs {st_off.mean_ttft_passes} passes")
+    if not (same and st_on.prefix_hit_rate > 0
+            and st_on.weight_passes < st_off.weight_passes
+            and st_on.mean_ttft_passes < st_off.mean_ttft_passes):
+        raise SystemExit("prefix cache: tokens changed or no saving")
+    detail["paged_serving"] = res
+    del params
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(deterministic)
+    return dict(launches=res["A"]["k1_launches"] + res["prefix_on"]["k1_launches"],
+                chunk_launches=chunk_launches)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """Family dispatch (port of ``repro/models/registry.py``), for the dense
-``decoder`` family.  The other families (vlm, encdec, hybrid, ssm) and
-MoE come in a later slice of the port and raise here."""
+``decoder`` family: specs, loss, prefill, the paged pool cache, pooled
+decode and the fused chunk step of chunked piggybacked prefill.  The
+other families (vlm, encdec, hybrid, ssm) and MoE come in a later slice
+of the port and raise here."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +12,14 @@ from repro_torch.models import transformer
 
 #: families the port runs so far
 PORTED_FAMILIES = ("decoder",)
+
+#: families whose ``chunk_step`` fuses decode rows and prefill-chunk rows
+#: into one pooled step (the reference adds vlm and encdec)
+CHUNKED_FAMILIES = ("decoder",)
+
+#: families whose pool cache is block-table paged (serve/slots.py; the
+#: reference adds vlm and encdec)
+PAGED_FAMILIES = ("decoder",)
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -39,14 +49,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return transformer.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
+def pool_span(cfg: ModelConfig, max_len: int) -> int:
+    """Logical cache span per slot (the ring window caps it)."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
 def init_pool_cache(cfg: ModelConfig, max_slots: int, max_len: int,
-                    dtype=torch.bfloat16, *, device):
-    """Pooled decode cache, built once per engine: contiguous slot rows
-    with per-slot ``pos``/``len`` (serve/slots.py)."""
+                    dtype=torch.bfloat16, *, device, page_size=None,
+                    num_pages=None):
+    """Pooled decode cache, built once per engine, in the block-table
+    paged layout (``serve.slots.page_pool_cache``): pages of ``page_size``
+    positions (default the whole span, one page per slot), ``num_pages``
+    physical pages (default ``max_slots * span / page_size``) plus the
+    null page, and a (max_slots, span / page_size) page table."""
+    _check(cfg)
     from repro_torch.serve import slots
 
-    return slots.lift_cache(init_cache(cfg, max_slots, max_len, dtype,
-                                       device=device), max_slots)
+    base = init_cache(cfg, max_slots, max_len, dtype, device=device)
+    return slots.page_pool_cache(base, max_slots,
+                                 page_size or pool_span(cfg, max_len), num_pages)
 
 
 def prefill(cfg, policy, params, batch, cache):
@@ -57,3 +78,13 @@ def prefill(cfg, policy, params, batch, cache):
 def decode_step(cfg, policy, params, token, cache):
     _check(cfg)
     return transformer.decode_step(cfg, policy, params, token, cache)
+
+
+def chunk_step(cfg, policy, params, tokens, n_new, cache):
+    """One fused pooled step over ``(B, C)`` token positions: decode rows
+    carry one valid token, prefilling rows up to C prompt tokens, idle
+    rows none.  ``n_new`` (B,) counts each slot's valid positions and is
+    read on the host.  Returns (logits (B, V) at each slot's last valid
+    position, the cache updated in place).  Paged pool caches only."""
+    _check(cfg)
+    return transformer.chunk_step(cfg, policy, params, tokens, n_new, cache)

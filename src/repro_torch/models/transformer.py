@@ -1,5 +1,6 @@
 """Dense decoder-only transformer LM (port of ``repro/models/transformer.py``,
-the dense decoder: specs, forward, loss, prefill and per-slot decode).
+the dense decoder: specs, forward, loss, prefill, per-slot decode over the
+paged or contiguous pool cache, and the fused chunk step).
 
 Layers are stacked along a leading 'layer' axis, as in the reference, and
 run as a Python loop over it.  Every weight matmul is ``mf_linear``.
@@ -20,6 +21,8 @@ but PyTorch picks the reduction split of a norm, a softmax or a batched
 attention product from the whole tensor's shape.  So decode runs its
 row reductions one row at a time (:func:`_rows`): a row in a pool of
 four then runs the very same (1, ...) programs as a request served alone.
+:func:`chunk_step` runs each slot's norms and attention on their own in
+the same way (a decode row at decode's shapes, a chunk at (1, C, ·)).
 """
 from __future__ import annotations
 
@@ -313,48 +316,238 @@ def prefill(cfg, policy, params, tokens, cache):
     return logits[:, -1, :], cache
 
 
+# ---------------------------------------------------------------------------
+# Paged pool cache (serve/slots.py): gathers and guarded writes
+# ---------------------------------------------------------------------------
+
+def page_ids(cache) -> torch.Tensor:
+    """The page table with drop_id entries clamped onto the null page."""
+    return cache["table"].clamp(max=cache["pos"].shape[0] - 1)
+
+
+def page_view(leaf, ids):
+    """Logical (B, span, ...) row view (a copy) of a physical page store
+    (P+1, page, ...) through clamped table ids (B, n).  Entries of dead
+    and unallocated slots read the null page, whose ``pos`` is -1: masked
+    out of attention."""
+    b, n = ids.shape
+    x = leaf[ids]  # (B, n, page, ...)
+    return x.reshape((b, n * x.shape[2]) + x.shape[3:])
+
+
+def paged_write(leaf, dest, loff, vals, num_pages: int):
+    """``leaf[dest, loff] = vals`` where ``dest < num_pages``; where it is
+    the null page or drop_id nothing changes.  Those positions are pointed
+    at the null page and written with the null page's own contents, so no
+    index is out of bounds (torch has no drop mode), no live page is
+    touched and the step needs no host round trip."""
+    ok = dest < num_pages
+    d = torch.where(ok, dest, torch.full_like(dest, num_pages))
+    old = leaf[d, loff]
+    keep = ok.reshape(ok.shape + (1,) * (old.dim() - ok.dim()))
+    leaf[d, loff] = torch.where(keep, vals.to(leaf.dtype), old)
+    return leaf
+
+
+def _attend(cfg, q, k, v, qpos, kpos, window):
+    return _sdpa(cfg, q, k.to(q.dtype), v.to(q.dtype), qpos, kpos, window)
+
+
+def _norm_fn(cfg, p):
+    return lambda r: common.apply_norm(cfg.norm, r, p)
+
+
 def decode_step(cfg, policy, params, token, cache):
-    """One decode step over a slot-pooled contiguous cache
-    (``len`` (B,), ``pos`` (B, span), ``k``/``v`` (L, B, span, KV, hd)):
-    each row decodes at its own position.  token: (B,) -> (logits (B, V),
-    cache).  K/V are written into ``cache`` in place; ``pos``/``len`` are
-    replaced.  Attention reads the bf16 cache cast to f32."""
+    """One decode step over a slot-pooled cache: each row decodes at its
+    own position.  token: (B,) -> (logits (B, V), cache).  K/V (and, when
+    paged, ``pos``) are written into ``cache`` in place; ``len`` is
+    replaced.  Two layouts (``registry.init_pool_cache`` vs
+    ``serve.slots.lift_cache``):
+
+    * paged: ``table`` (B, n), ``pos`` (P+1, page), ``k``/``v``
+      (L, P+1, page, KV, hd).  Each row's view is gathered through its
+      page table; it holds the same (position, value) pairs in the same
+      order as a contiguous row, so the served bits do not depend on the
+      page layout or size.  Rows whose page is drop_id (dead slots) write
+      nothing.
+    * contiguous: ``pos`` (B, span), ``k``/``v`` (L, B, span, KV, hd).
+
+    Attention reads the bf16 cache cast to the activation dtype."""
     pos = cache["len"]
-    if pos.dim() != 1 or "table" in cache:
+    if pos.dim() != 1:
         raise NotImplementedError(
-            "repro_torch decodes the slot-pooled contiguous cache only "
-            "(lockstep and paged layouts are later slices)"
-        )
+            "repro_torch decodes slot-pooled caches only (the lockstep "
+            "layout is a later slice)")
     b = token.shape[0]
-    span = cache["k"].shape[2]
-    slot = pos % span
-    rows = torch.arange(b, device=token.device)
+    paged = "table" in cache
+    if paged:
+        page = cache["pos"].shape[1]
+        ids = page_ids(cache)
+        span = ids.shape[1] * page
+        npages = cache["pos"].shape[0] - 1
+        slot = pos % span
+        dest = torch.gather(cache["table"], 1, (slot // page)[:, None])[:, 0]
+        loff = slot % page
+        paged_write(cache["pos"], dest, loff, pos, npages)
+        kpos = page_view(cache["pos"], ids)
+    else:
+        span = cache["k"].shape[2]
+        slot = pos % span
+        rows = torch.arange(b, device=token.device)
+        kpos = cache["pos"].clone()
+        kpos[rows, slot] = pos
     qpos = pos[:, None]  # (B, 1)
-    kpos = cache["pos"].clone()
-    kpos[rows, slot] = pos
     x = params["embed"][token[:, None]]  # (B, 1, D)
 
     def attend(q, kview, vview, qp, kp):
-        return _sdpa(cfg, q, kview.to(q.dtype), vview.to(q.dtype), qp, kp,
-                     cfg.window)
-
-    def norm(p):
-        return lambda r: common.apply_norm(cfg.norm, r, p)
+        return _attend(cfg, q, kview, vview, qp, kp, cfg.window)
 
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
-        h = _rows(norm(lp.get("ln1")), x)
+        h = _rows(_norm_fn(cfg, lp.get("ln1")), x)
         q, k, v = _qkv(cfg, policy, lp, h, qpos)
-        ck[rows, slot] = k[:, 0].to(ck.dtype)
-        cv[rows, slot] = v[:, 0].to(cv.dtype)
-        att = _rows(attend, q, ck, cv, qpos, kpos)
+        if paged:
+            paged_write(ck, dest, loff, k[:, 0], npages)
+            paged_write(cv, dest, loff, v[:, 0], npages)
+            kview, vview = page_view(ck, ids), page_view(cv, ids)
+        else:
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+            kview, vview = ck, cv
+        att = _rows(attend, q, kview, vview, qpos, kpos)
         att = att.reshape(b, 1, cfg.n_heads * cfg.head_dim)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
-        h2 = _rows(norm(lp.get("ln2")), y)
+        h2 = _rows(_norm_fn(cfg, lp.get("ln2")), y)
         x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
-    x = _rows(norm(params.get("final_norm")), x)
+    x = _rows(_norm_fn(cfg, params.get("final_norm")), x)
     logits = _lm_head(cfg, policy, params, x)[:, 0, :]
-    cache["pos"] = kpos
+    if not paged:
+        cache["pos"] = kpos
     cache["len"] = pos + 1
+    return logits, cache
+
+
+def _row(t, s):
+    """Row ``s``, position 0 of a (B, C, ...) tensor as a fresh contiguous
+    (1, 1, ...) tensor: the very strides ``decode_step`` hands its
+    per-row programs."""
+    return t[s:s + 1, :1].clone(memory_format=torch.contiguous_format)
+
+
+def _slot_norms(cfg, p, x, layout):
+    """Norm of each slot's rows: a decode row alone at (1, 1, D), as
+    ``decode_step`` runs it; a chunk at (1, C, D), as a one-slot pool
+    runs it; idle slots stay zero."""
+    norm = _norm_fn(cfg, p)
+    out = torch.zeros_like(x)
+    for s, kind in enumerate(layout):
+        if kind == "decode":
+            out[s:s + 1, :1] = norm(_row(x, s))
+        elif kind == "chunk":
+            out[s:s + 1] = norm(x[s:s + 1])
+    return out
+
+
+def chunk_step(cfg, policy, params, tokens, n_new, cache):
+    """One fused pooled step over ``(B, C)`` token positions, the step
+    body of chunked piggybacked prefill (serve/engine.py).
+
+    Every slot advances by its own ``n_new[b]`` (0..C) positions: decode
+    slots carry one valid token (``tokens[b, 0]``), prefilling slots up to
+    C prompt tokens, idle slots none.  Positions past ``n_new[b]`` are
+    padding: qpos -1, never written to the cache, and zeroed before every
+    activation-scale group (the norm outputs, the attention output), so a
+    slot's (C, D) group has the amax of its valid rows alone.
+
+    ``n_new`` is read on the host, and each slot's norms and attention run
+    as a program of their own: a decode row (window-free, ``n_new <= 1``)
+    at ``decode_step``'s (1, 1, ·) shapes, any other slot at (1, C, ·).
+    cuBLAS and torch's reductions pick their kernels by shape, so this is
+    what makes a decode row bit-equal between the two step bodies on the
+    card (the engine's decode fast path switches between them mid-request)
+    and a slot's rows independent of its pool neighbours.  The linear
+    layers take the whole (B*C, D) block through K1 in one call per
+    weight: K1 reduces each row on its own.
+
+    Without a window no ring wrap can occur, so the step scatters first
+    and attends over the post-scatter view, as ``decode_step`` does.  A
+    windowed arch attends over [the pre-scatter cache ∪ the fresh chunk],
+    so a wrap inside the chunk cannot overwrite keys that earlier chunk
+    positions still need (requires C <= span).
+
+    Returns (logits (B, V) at each slot's last valid position, the cache,
+    updated in place).  Paged pool caches only."""
+    if "table" not in cache:
+        raise NotImplementedError("repro_torch's chunk_step runs the paged pool cache")
+    n_host = [int(n) for n in n_new]
+    b, c = tokens.shape
+    dev = tokens.device
+    page = cache["pos"].shape[1]
+    table = cache["table"]
+    span = table.shape[1] * page
+    npages = cache["pos"].shape[0] - 1
+    if c > span:
+        raise ValueError(f"chunk {c} exceeds the cache span {span}")
+    windowed = cfg.window is not None
+    layout = ["idle" if n == 0 else
+              "decode" if n == 1 and not windowed else "chunk" for n in n_host]
+    ids = page_ids(cache)
+    pos0 = cache["len"]
+    nn = torch.tensor(n_host, dtype=pos0.dtype, device=dev)
+    offs = torch.arange(c, dtype=pos0.dtype, device=dev)
+    valid = offs[None, :] < nn[:, None]  # (B, C)
+    gpos = pos0[:, None] + offs[None, :]
+    qpos = torch.where(valid, gpos, torch.full_like(gpos, -1))
+    lo = gpos % span
+    dest = torch.gather(table, 1, lo // page)
+    dest = torch.where(valid, dest, torch.full_like(dest, npages + 1))  # pads: drop
+    loff = lo % page
+    kpos_old = page_view(cache["pos"], ids) if windowed else None  # pre-scatter
+    paged_write(cache["pos"], dest, loff, qpos, npages)
+    kpos = page_view(cache["pos"], ids)
+    x = params["embed"][tokens]  # (B, C, D)
+    vmask = valid[:, :, None]
+    hd = cfg.head_dim
+
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
+        h = torch.where(vmask, _slot_norms(cfg, lp.get("ln1"), x, layout), 0.0)
+        q, k, v = _qkv(cfg, policy, lp, h, qpos)
+        if windowed:
+            ok, ov = page_view(ck, ids), page_view(cv, ids)
+        paged_write(ck, dest, loff, k, npages)
+        paged_write(cv, dest, loff, v, npages)
+        if not windowed:
+            ok, ov = page_view(ck, ids), page_view(cv, ids)
+        att = torch.zeros_like(q)
+        for s, kind in enumerate(layout):
+            if kind == "decode":
+                att[s:s + 1, :1] = _attend(cfg, _row(q, s), ok[s:s + 1], ov[s:s + 1],
+                                           qpos[s:s + 1, :1], kpos[s:s + 1], None)
+            elif kind == "chunk" and not windowed:
+                att[s:s + 1] = _attend(cfg, q[s:s + 1], ok[s:s + 1], ov[s:s + 1],
+                                       qpos[s:s + 1], kpos[s:s + 1], None)
+            elif kind == "chunk":
+                # old entries hold positions < pos0 only, fresh ones >= pos0
+                # (-1 where invalid): each key is seen exactly once
+                k_all = torch.cat([ok[s:s + 1].to(q.dtype), k[s:s + 1]], dim=1)
+                v_all = torch.cat([ov[s:s + 1].to(q.dtype), v[s:s + 1]], dim=1)
+                kp_all = torch.cat([kpos_old[s:s + 1], qpos[s:s + 1]], dim=1)
+                att[s:s + 1] = _attend(cfg, q[s:s + 1], k_all, v_all, qpos[s:s + 1],
+                                       kp_all, cfg.window)
+        # a pad query's softmax is uniform over every key, stale ones of a
+        # reused slot included: zero it before the (C, D) scale group
+        att = torch.where(vmask[..., None], att, 0.0).reshape(b, c, cfg.n_heads * hd)
+        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        h2 = torch.where(vmask, _slot_norms(cfg, lp.get("ln2"), y, layout), 0.0)
+        x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
+    # emit at each slot's last valid position; gather BEFORE the head so its
+    # scale group is the (1, D) row, as in decode_step
+    emit = torch.tensor([min(max(n - 1, 0), c - 1) for n in n_host], device=dev)
+    xe = x[torch.arange(b, device=dev), emit][:, None, :]  # (B, 1, D)
+    xe = _rows(_norm_fn(cfg, params.get("final_norm")), xe)
+    logits = _lm_head(cfg, policy, params, xe)[:, 0, :]
+    cache["len"] = pos0 + nn
     return logits, cache

@@ -2,6 +2,7 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     Optimizer,
     adamw,
     clip_by_global_norm,
+    global_norm,
     sgd_momentum,
     step_decay_schedule,
     warmup_cosine_schedule,

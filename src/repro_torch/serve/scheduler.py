@@ -1,12 +1,20 @@
 """FIFO continuous-batching scheduler: model-free slot assignment
-(port of ``repro/serve/scheduler.py``, solo-prefill admission).
+(port of ``repro/serve/scheduler.py``).
 
     QUEUED --admit(now)--> ACTIVE(slot) --retire(slot)--> DONE
 
-* FIFO fairness: requests are admitted in (arrival, submit-order) order.
+With chunked piggybacked prefill (``PoolEngine(prefill_chunk=C)``) a slot
+first passes through a PREFILLING sub-state of ACTIVE: assigned, but still
+consuming prompt chunks rather than emitting tokens:
+
+    ACTIVE --mark_prefilling--> PREFILLING --finish_prefill--> DECODING
+
+* FIFO fairness: requests are admitted in (arrival, submit-order) order;
+  a refused head blocks the queue rather than being overtaken.
 * A slot holds at most one request; never more than ``max_slots`` active.
 * Every admitted request is retired exactly once (double retires raise).
-* Conservation: queued + active + done == submitted, at every step.
+* Conservation: queued + active + done == submitted, at every step
+  (PREFILLING counts as active: the slot is occupied).
 
 Arrival times are measured in engine steps (one step = one pooled decode
 dispatch), which keeps traces deterministic and replayable.
@@ -48,6 +56,7 @@ class FIFOScheduler:
         self._free: List[int] = list(range(max_slots))  # min-heap of slots
         heapq.heapify(self._free)
         self._active: Dict[int, Request] = {}
+        self._prefilling: set = set()  # slots of _active still in prefill
         self._done: List[Request] = []
         self._submitted = 0
 
@@ -56,11 +65,19 @@ class FIFOScheduler:
         heapq.heappush(self._queue, (request.arrival, next(self._seq), request))
         self._submitted += 1
 
-    def admit(self, now: int) -> List[Tuple[int, Request]]:
+    def admit(self, now: int, can_admit=None) -> List[Tuple[int, Request]]:
         """Assign arrived requests to free slots (lowest first), FIFO,
-        until one runs out.  Returns the new ``(slot, request)`` pairs."""
+        until one runs out.  Returns the new ``(slot, request)`` pairs.
+
+        ``can_admit(request)``, when given, gates each admission on a
+        resource the scheduler does not track (the engine's page
+        allocator).  False head-blocks: the loop stops instead of skipping
+        to a later request.  True means the pair IS admitted (the engine
+        commits its page reservation inside the callback)."""
         out: List[Tuple[int, Request]] = []
         while self._free and self._queue and self._queue[0][0] <= now:
+            if can_admit is not None and not can_admit(self._queue[0][2]):
+                break  # head-block: FIFO order is never overtaken
             _, _, req = heapq.heappop(self._queue)
             slot = heapq.heappop(self._free)
             if slot in self._active:  # pragma: no cover - heap invariant
@@ -74,9 +91,23 @@ class FIFOScheduler:
         if slot not in self._active:
             raise SchedulerError(f"retire of non-active slot {slot}")
         req = self._active.pop(slot)
+        self._prefilling.discard(slot)
         self._done.append(req)
         heapq.heappush(self._free, slot)
         return req
+
+    def mark_prefilling(self, slot: int) -> None:
+        """Flag a just-admitted slot as consuming prompt chunks: it
+        occupies the slot but emits no tokens until ``finish_prefill``."""
+        if slot not in self._active:
+            raise SchedulerError(f"mark_prefilling of non-active slot {slot}")
+        self._prefilling.add(slot)
+
+    def finish_prefill(self, slot: int) -> None:
+        """PREFILLING -> DECODING (exactly once per admission)."""
+        if slot not in self._prefilling:
+            raise SchedulerError(f"finish_prefill of non-prefilling slot {slot}")
+        self._prefilling.discard(slot)
 
     @property
     def num_queued(self) -> int:
@@ -90,8 +121,17 @@ class FIFOScheduler:
     def num_done(self) -> int:
         return len(self._done)
 
+    @property
+    def num_prefilling(self) -> int:
+        return len(self._prefilling)
+
     def active_slots(self) -> List[int]:
-        return sorted(self._active)
+        """Slots currently DECODING (prefilling slots are excluded: they
+        occupy a slot but emit no tokens yet)."""
+        return sorted(s for s in self._active if s not in self._prefilling)
+
+    def prefilling_slots(self) -> List[int]:
+        return sorted(self._prefilling)
 
     def active_request(self, slot: int) -> Request:
         return self._active[slot]

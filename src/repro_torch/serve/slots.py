@@ -1,41 +1,430 @@
-"""Slot-pooled KV cache helpers (port of ``repro/serve/slots.py``, the
-contiguous slot-row layout):
+"""KV memory of the serving pool (port of ``repro/serve/slots.py``): the
+block-table paged layout, the page allocator with its shared-prefix cache,
+and the contiguous slot-row helpers kept for direct callers.
 
-    k/v   (L, max_slots, span, KV, hd)   one contiguous row per slot
-    pos   (max_slots, span)              global position per row entry
-    len   (max_slots,)                   per-slot sequence length
+Paged layout (``registry.init_pool_cache``, the engine's default):
 
-A slot's row holds the same (position, value) pairs the reference
-engine's one-page-per-slot paged view holds, so attention reduces over
-the same values.  Paging and the page allocator come in a later slice.
-The helpers update the pool in place and return it.
+    k/v   (L, num_pages+1, page, KV, hd)   physical page store
+    pos   (num_pages+1, page)              global position per physical slot
+    len   (max_slots,)                     per-slot sequence length
+    table (max_slots, pages_per_slot)      logical page -> physical page
+
+A slot's logical row is reassembled in the step bodies by gathering
+``k[table[slot]]``: it holds the same (position, value) pairs in the same
+logical order whatever the physical layout, so attention reduces over the
+same values for every page size (pool-vs-solo identity survives paging).
+
+Two sentinel page ids make dead state self-masking:
+
+* page ``num_pages`` is the **null page**: never written, its ``pos``
+  stays -1, so a gather that lands there is masked out by attention;
+* table entries of unallocated and retired slots hold ``num_pages + 1``
+  (:func:`drop_id`).  The reference relies on jit's out-of-bounds
+  semantics for it (scatters drop, gathers clamp).  Torch has neither, so
+  the port clamps every gather onto the null page (:func:`gather_view`) and
+  writes only through entries below ``num_pages``
+  (``models.transformer.paged_write``): nothing indexes out of bounds.
+
+Contiguous slot-row layout (``lift_cache``): ``k``/``v``
+(L, max_slots, span, KV, hd), ``pos`` (max_slots, span), ``len``
+(max_slots,).  ``decode_step`` still accepts it.
+
+:class:`PageAllocator` is host-side bookkeeping in numpy (free list,
+refcounts, per-slot tables, a prompt-keyed prefix cache with LRU eviction
+and copy-on-write); the engine mirrors its tables and page resets into
+the device cache once per admission.  The helpers here update the pool in
+place and return it.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer
+
+
+# ---------------------------------------------------------------------------
+# Contiguous slot-row layout
+# ---------------------------------------------------------------------------
 
 def lift_cache(cache, max_slots: int):
     """Lift a fresh ``init_cache(cfg, max_slots, ...)`` to the slot-pooled
-    layout (per-slot ``pos``/``len``)."""
+    contiguous layout (per-slot ``pos``/``len``)."""
     out = dict(cache)
     out["len"] = cache["len"].new_zeros((max_slots,))
     out["pos"] = cache["pos"][None].repeat(max_slots, 1)
     return out
 
 
+# ---------------------------------------------------------------------------
+# Paged layout
+# ---------------------------------------------------------------------------
+
+def is_paged(pool) -> bool:
+    return isinstance(pool, dict) and "table" in pool
+
+
+def num_pages_of(pool) -> int:
+    """Usable page count (the +1 null page excluded)."""
+    return pool["pos"].shape[0] - 1
+
+
+def drop_id(pool_or_num_pages) -> int:
+    """Sentinel table entry of a slot with no page there: writes through
+    it are skipped and gathers read the null page."""
+    n = (pool_or_num_pages if isinstance(pool_or_num_pages, int)
+         else num_pages_of(pool_or_num_pages))
+    return n + 1
+
+
+def page_pool_cache(cache, max_slots: int, page_size: int,
+                    num_pages: Optional[int] = None):
+    """Turn a fresh ``init_cache(cfg, max_slots, max_len)`` into the paged
+    pool layout.  With the default ``num_pages = max_slots *
+    pages_per_slot`` the table is the identity mapping (slot i owns pages
+    [i*n, (i+1)*n)), so direct callers that never retire slots see the
+    contiguous behaviour; otherwise every entry starts at :func:`drop_id`.
+    Engine-managed pools overwrite the table at admission either way."""
+    L, _, span, kv, hd = cache["k"].shape
+    if page_size < 1 or span % page_size != 0:
+        raise ValueError(f"page_size={page_size} must divide the cache span {span}")
+    n = span // page_size
+    if num_pages is None:
+        num_pages = max_slots * n
+    if num_pages < n:
+        raise ValueError(
+            f"num_pages={num_pages} < pages_per_slot={n}: no single "
+            "request could ever be admitted")
+    dev, dt = cache["k"].device, cache["k"].dtype
+    if num_pages == max_slots * n:
+        table = torch.arange(max_slots * n, device=dev).reshape(max_slots, n)
+    else:
+        table = torch.full((max_slots, n), drop_id(num_pages), dtype=torch.int64,
+                           device=dev)
+    return {
+        "k": torch.zeros((L, num_pages + 1, page_size, kv, hd), dtype=dt, device=dev),
+        "v": torch.zeros((L, num_pages + 1, page_size, kv, hd), dtype=dt, device=dev),
+        "pos": torch.full((num_pages + 1, page_size), -1, dtype=torch.int64, device=dev),
+        "len": torch.zeros((max_slots,), dtype=torch.int64, device=dev),
+        "table": table,
+    }
+
+
+def gather_view(pool, leaf):
+    """Logical (B, span, ...) view (a copy) of one physical page store:
+    gather the slot tables (drop_id entries clamped onto the null page),
+    flatten the page axis back into a span axis.  ``leaf`` is indexed on
+    its first axis (``pos``, or ``k[layer]``)."""
+    return transformer.page_view(leaf, transformer.page_ids(pool))
+
+
 def reset_slot(pool, slot: int):
     """Rewind one slot: ``len`` -> 0 and its positions to -1 (the
-    not-yet-written sentinel the attention mask keys on)."""
+    not-yet-written sentinel the attention mask keys on).  On a paged pool
+    this resets the ``pos`` rows of the pages the slot's table maps;
+    engine-managed slots get their resets from the allocator instead."""
     pool["len"][slot] = 0
-    pool["pos"][slot] = -1
+    if is_paged(pool):
+        pids = [p for p in pool["table"][slot].tolist() if p < num_pages_of(pool)]
+        pool["pos"][pids] = -1
+    else:
+        pool["pos"][slot] = -1
     return pool
 
 
-def write_slot(pool, mini, slot: int):
+def write_slot(pool, mini, slot: int, *, pages: Optional[Sequence[int]] = None):
     """Copy a batch-1 cache (``init_cache(cfg, 1, max_len)`` after a solo
     prefill) into ``slot``: the slot's whole row (k, v, pos, len) is
-    overwritten, so nothing of a previous occupant survives."""
+    overwritten, so nothing of a previous occupant survives.
+
+    Paged pools scatter the mini cache's span into the slot's pages:
+    ``pages`` (``pages_per_slot`` ids, drop_id-padded) replaces the slot's
+    table row (the engine passes freshly allocated pages); without it the
+    current row is used.  Logical pages mapped to drop_id are skipped."""
+    if is_paged(pool):
+        return _write_slot_paged(pool, mini, slot, pages)
     pool["k"][:, slot] = mini["k"][:, 0].to(pool["k"].dtype)
     pool["v"][:, slot] = mini["v"][:, 0].to(pool["v"].dtype)
     pool["pos"][slot] = mini["pos"]
     pool["len"][slot] = mini["len"]
     return pool
+
+
+def _write_slot_paged(pool, mini, slot, pages):
+    page = pool["pos"].shape[1]
+    n = pool["table"].shape[1]
+    if pages is None:
+        pages = pool["table"][slot].tolist()
+    if len(pages) != n:
+        raise ValueError(f"write_slot: {len(pages)} pages for a {n}-page slot")
+    pool["table"][slot] = torch.as_tensor(list(pages), dtype=pool["table"].dtype)
+    live = [(lp, p) for lp, p in enumerate(pages) if p < num_pages_of(pool)]
+    logical = [lp for lp, _ in live]
+    phys = [p for _, p in live]
+    for key in ("k", "v"):
+        m = mini[key]  # (L, 1, span, KV, hd)
+        L, _, _, kv, hd = m.shape
+        mp = m.to(pool[key].dtype).reshape(L, n, page, kv, hd)
+        pool[key][:, phys] = mp[:, logical]
+    pool["pos"][phys] = mini["pos"].reshape(n, page)[logical].to(pool["pos"].dtype)
+    pool["len"][slot] = mini["len"]
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# Host-side page allocator with shared-prefix cache
+# ---------------------------------------------------------------------------
+
+
+class PageAllocatorError(RuntimeError):
+    """An allocator invariant was violated (double free, bad refcount)."""
+
+
+@dataclasses.dataclass
+class AdmissionPlan:
+    """What :meth:`PageAllocator.plan_admission` decided for one request.
+
+    ``shared`` pages are mapped straight from the prefix cache (ref
+    bumped); ``cow`` pages are prefix hits the slot will append into, so
+    they get a fresh copy (src physical page and logical index recorded);
+    ``fresh`` counts brand-new pages.  ``resume`` is the prompt position
+    streaming restarts from (a multiple of the chunk; everything before it
+    is served from the cache)."""
+
+    shared: List[int]
+    cow: List[Tuple[int, int]]  # (src physical page, logical index)
+    fresh: int
+    resume: int
+    hit_tokens: int
+
+
+class PageAllocator:
+    """Free-list page allocator with refcounts, per-slot tables, a
+    shared-prefix cache and copy-on-write: the host half of the paged pool.
+
+    Pages are admitted worst case up front: a request gets every page it
+    could ever touch (``ceil((plen + max_new) / page)``, capped at the
+    span), so a step can never run out mid-flight; "preemption" is
+    admission deferral, counted by the engine.  The prefix cache keeps a
+    page alive after its last slot retires (one cache ref) until LRU
+    eviction makes room for a new admission.
+
+    Determinism: the free list is kept sorted and eviction is strictly LRU
+    on an engine-step clock, so for a fixed trace the physical page
+    assignment and every counter are exactly reproducible.
+    """
+
+    def __init__(self, num_pages: int, page_size: int, pages_per_slot: int,
+                 max_slots: int):
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.pages_per_slot = pages_per_slot
+        self.max_slots = max_slots
+        self._free: List[int] = list(range(num_pages - 1, -1, -1))  # stack
+        self.refcount = np.zeros((num_pages,), np.int64)
+        self.tables: List[List[int]] = [[] for _ in range(max_slots)]
+        # prefix cache: key (logical index, prompt bytes through the page's
+        # covering chunk) -> physical page, so a hit is exact token equality
+        self._prefix: Dict[Tuple, int] = {}
+        self._prefix_of: Dict[int, Tuple] = {}  # physical page -> key
+        self._lru: Dict[int, int] = {}  # physical page -> last-hit clock
+        self._clock = 0
+        self.cow_copies = 0
+        self.evictions = 0
+
+    # -- invariant-checked primitives ---------------------------------------
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def _evictable(self, protect) -> List[int]:
+        return [pid for pid in self._prefix_of
+                if self.refcount[pid] == 1 and pid not in protect]
+
+    def evictable_pages(self, protect=()) -> int:
+        """Prefix-cached pages whose only ref is the cache itself."""
+        return len(self._evictable(set(protect)))
+
+    def can_admit(self, fresh_needed: int, protect=()) -> bool:
+        return self.free_pages() + self.evictable_pages(protect) >= fresh_needed
+
+    def alloc(self, count: int, protect=()) -> List[int]:
+        """Pop ``count`` pages, LRU-evicting idle prefix pages if the free
+        list runs short.  Raises if the pool cannot supply them (the
+        engine checks ``can_admit`` first)."""
+        while len(self._free) < count:
+            self._evict_one(protect)
+        out = [self._free.pop() for _ in range(count)]
+        for pid in out:
+            if self.refcount[pid] != 0:  # pragma: no cover - internal
+                raise PageAllocatorError(f"page {pid} allocated while live")
+            self.refcount[pid] = 1
+        return out
+
+    def _evict_one(self, protect=()):
+        victims = self._evictable(set(protect))
+        if not victims:
+            raise PageAllocatorError("out of pages: nothing evictable")
+        victim = min(victims, key=lambda pid: (self._lru.get(pid, -1), pid))
+        self._unregister(victim)
+        self.evictions += 1
+
+    def _unregister(self, pid: int):
+        key = self._prefix_of.pop(pid)
+        del self._prefix[key]
+        self._lru.pop(pid, None)
+        self._unref(pid)
+
+    def _unref(self, pid: int):
+        if self.refcount[pid] <= 0:
+            raise PageAllocatorError(f"double free of page {pid}")
+        self.refcount[pid] -= 1
+        if self.refcount[pid] == 0:
+            self._free.append(pid)
+            self._free.sort(reverse=True)  # deterministic: lowest pid first
+
+    # -- prefix cache --------------------------------------------------------
+    @staticmethod
+    def chunk_dep(logical_page: int, page_size: int, chunk: int) -> int:
+        """Prompt length page ``logical_page``'s content depends on: the
+        end of the chunk that wrote the page's last position (a chunk is
+        one activation-scale group)."""
+        end = (logical_page + 1) * page_size
+        return -(-end // chunk) * chunk
+
+    def _key(self, prompt: np.ndarray, k: int, chunk: int) -> Tuple:
+        dep = self.chunk_dep(k, self.page_size, chunk)
+        return (k, prompt[:dep].tobytes())
+
+    def prefix_lookup(self, prompt: np.ndarray, chunk: int) -> List[int]:
+        """Longest chain of registered pages matching ``prompt``'s head
+        (pages whose chunk dependency the prompt fully covers)."""
+        plen = len(prompt)
+        hits: List[int] = []
+        k = 0
+        while (k + 1) * self.page_size <= plen:
+            if self.chunk_dep(k, self.page_size, chunk) > plen:
+                break
+            pid = self._prefix.get(self._key(prompt, k, chunk))
+            if pid is None:
+                break
+            hits.append(pid)
+            k += 1
+        return hits
+
+    def register_prefix(self, slot: int, prompt: np.ndarray, chunk: int):
+        """After a slot finishes prefill, publish its full, chunk-complete
+        prompt pages (one cache ref each; already-registered keys get an
+        LRU touch)."""
+        plen = len(prompt)
+        table = self.tables[slot]
+        for k in range(plen // self.page_size):
+            if self.chunk_dep(k, self.page_size, chunk) > plen:
+                break
+            key = self._key(prompt, k, chunk)
+            pid = self._prefix.get(key)
+            if pid is not None:
+                self._lru[pid] = self._clock
+                continue
+            pid = table[k]
+            self._prefix[key] = pid
+            self._prefix_of[pid] = key
+            self.refcount[pid] += 1
+            self._lru[pid] = self._clock
+
+    def tick(self, clock: int):
+        self._clock = clock
+
+    # -- admission / retirement ---------------------------------------------
+    def plan_admission(self, prompt: Optional[np.ndarray], need_tokens: int,
+                       chunk: Optional[int]) -> AdmissionPlan:
+        """Pages for one request: prefix hits (shared / copy-on-write) and
+        a fresh count.  ``prompt=None`` or no chunk disables prefix reuse
+        (solo prefill's scale groups cover the whole prompt)."""
+        npages = min(-(-need_tokens // self.page_size), self.pages_per_slot)
+        if prompt is None or chunk is None:
+            return AdmissionPlan([], [], npages, 0, 0)
+        hits = self.prefix_lookup(prompt, chunk)
+        plen = len(prompt)
+        share_tok = len(hits) * self.page_size
+        # streaming resumes on a chunk boundary with >= 1 prompt token
+        # left (the resumed chunk emits the first token)
+        resume = (min(share_tok, plen - 1) // chunk) * chunk
+        if resume == 0:
+            return AdmissionPlan([], [], npages, 0, 0)
+        first_stream_page = resume // self.page_size
+        shared = hits[:first_stream_page]
+        cow = [(pid, k) for k, pid in enumerate(hits) if k >= first_stream_page]
+        return AdmissionPlan(shared=shared, cow=cow, fresh=npages - len(hits),
+                             resume=resume, hit_tokens=resume)
+
+    def fresh_needed(self, plan: AdmissionPlan) -> int:
+        return plan.fresh + len(plan.cow)
+
+    def reserve(self, plan: AdmissionPlan) -> Dict:
+        """Commit a plan's pages before its slot is known, so back-to-back
+        ``can_admit`` checks cannot hand the same pages to two requests.
+        Returns {'table': the table row, 'new': cow-dst + fresh pids,
+        'copies': [(src, dst)]}; pass it to :meth:`bind` right away."""
+        protect = set(plan.shared) | {pid for pid, _ in plan.cow}
+        new = self.alloc(self.fresh_needed(plan), protect)
+        copies = []
+        table: List[int] = []
+        for pid in plan.shared:
+            self.refcount[pid] += 1
+            self._lru[pid] = self._clock
+            table.append(pid)
+        for src, _ in plan.cow:
+            dst = new.pop(0)
+            self._lru[src] = self._clock
+            copies.append((src, dst))
+            table.append(dst)
+            self.cow_copies += 1
+        table.extend(new)
+        return {"table": table, "new": [d for _, d in copies] + new,
+                "copies": copies}
+
+    def bind(self, slot: int, hold: Dict) -> None:
+        """Attach a :meth:`reserve` result to its assigned slot."""
+        if self.tables[slot]:
+            raise PageAllocatorError(f"slot {slot} already holds pages")
+        self.tables[slot] = list(hold["table"])
+
+    def release_slot(self, slot: int):
+        """Unref every page the slot maps; prefix-registered pages stay
+        alive on their cache ref."""
+        for pid in self.tables[slot]:
+            self._unref(pid)
+        self.tables[slot] = []
+
+    # -- accounting ----------------------------------------------------------
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    def check_conservation(self):
+        """free + live == num_pages, refcounts consistent, no aliasing
+        between the free list and any table or the prefix cache."""
+        free = set(self._free)
+        if len(free) != len(self._free):
+            raise PageAllocatorError("duplicate page on the free list")
+        refs = np.zeros_like(self.refcount)
+        for t in self.tables:
+            for pid in t:
+                refs[pid] += 1
+        for pid in self._prefix_of:
+            refs[pid] += 1
+        if not np.array_equal(refs, self.refcount):
+            bad = np.nonzero(refs != self.refcount)[0]
+            raise PageAllocatorError(
+                f"refcount drift on pages {bad.tolist()}: "
+                f"counted {refs[bad].tolist()}, "
+                f"stored {self.refcount[bad].tolist()}")
+        for pid in range(self.num_pages):
+            if (self.refcount[pid] == 0) != (pid in free):
+                raise PageAllocatorError(
+                    f"page {pid}: refcount {self.refcount[pid]} vs "
+                    f"free-list membership {pid in free}")
+        if np.any(self.refcount < 0):
+            raise PageAllocatorError("negative refcount")

@@ -48,3 +48,32 @@ def poisson_trace(cfg, *, n_requests: int, prompt_len: int, lam: float,
             )
         )
     return reqs
+
+
+def shared_prefix_trace(cfg, *, n_requests: int, prefix_len: int,
+                        suffix_len: int, lam: float, new_lo: int,
+                        new_hi: int, seed: int = 0) -> List[Request]:
+    """The shared-system-prompt workload: every prompt is one fixed
+    ``prefix_len`` head (drawn once) + a per-request random ``suffix_len``
+    tail; Poisson(lam) arrivals and uniform budgets as in
+    :func:`poisson_trace`.  With the engine's prefix cache the head's
+    pages are prefilled once and mapped by every later admission."""
+    _check_budget_range(new_lo, new_hi)
+    if n_requests <= 0:
+        return []
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.poisson(lam, n_requests))
+    arrivals[0] = 0
+    prefix = rng.integers(0, cfg.vocab, (prefix_len,)).astype(np.int32)
+    reqs = []
+    for i in range(n_requests):
+        suffix = rng.integers(0, cfg.vocab, (suffix_len,)).astype(np.int32)
+        reqs.append(
+            Request(
+                uid=i,
+                tokens=np.concatenate([prefix, suffix])[None, :],
+                max_new_tokens=int(rng.integers(new_lo, new_hi + 1)),
+                arrival=int(arrivals[i]),
+            )
+        )
+    return reqs

@@ -20,6 +20,7 @@ PoT values (mf_linear casts them to bf16 without loss).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -27,18 +28,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import registry
-from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim import Optimizer, clip_by_global_norm, global_norm
 from repro_torch.optim.optimizers import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The reference's fields that the port runs: the microbatch count and
-    the global-norm clip.  Its ``grad_compression`` (multi-GPU) is not
-    ported, and the weight shadow is always on for quantized policies."""
+    the global-norm clip (``None``: no clipping, the norm is still
+    reported).  Its ``grad_compression`` (multi-GPU) is not ported, and the
+    weight shadow is always on for quantized policies."""
 
     microbatches: int = 1
-    clip_norm: float = 1.0
+    clip_norm: Optional[float] = 1.0
 
 
 def _quantize_shadow(params, policy: QuantPolicy):
@@ -110,7 +112,10 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
     def train_step(params, opt_state, batch, step):
         loss, grads = grads_of(params, batch)
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+            if tc.clip_norm is not None:
+                grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+            else:
+                gnorm = global_norm(grads)
             # STE: gradients taken w.r.t. the shadow update the f32 masters
             params, opt_state = optimizer.update(grads, opt_state, params, step)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, "step": step + 1}

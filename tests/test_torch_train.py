@@ -191,6 +191,30 @@ def test_train_steps_vs_reference(name, micro):
     print(f"largest parameter difference after 3 steps: {worst:.3g}")
 
 
+def test_train_step_without_clipping_vs_reference():
+    """``TrainConfig(clip_norm=None)``: no clipping, the global norm is
+    still reported.  One olmo-1b smoke step against the reference's step,
+    with a learning rate large enough that an unclipped update (the
+    norm is above 1 here) differs from a clipped one by far more than
+    ``PARAM_ATOL``."""
+    jcfg, cfg = JC.smoke_config("olmo-1b"), TC.smoke_config("olmo-1b")
+    jp, tp = _ref_params(jcfg)
+    jopt, opt = joptim.sgd_momentum(lambda s: 0.5), optim.sgd_momentum(lambda s: 0.5)
+    jstep = jax.jit(j_make_train_step(jcfg, J_PF, jopt, JTrainConfig(clip_norm=None)))
+    tstep = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(clip_norm=None))
+    jb = jpipeline.make_batch(jcfg, J_SHAPE, 0)
+    jp, _, jm = jstep(jp, jopt.init(jp), jb, jnp.int32(0))
+    tp, _, tm = tstep(tp, opt.init(tp), _torch_batch(jb), 0)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=LOSS_RTOL)
+    assert float(tm["grad_norm"]) > 1.0  # a clip at 1 would have scaled the step
+    jn = _named(jp)
+    for leaf, x in spec.named_leaves(tp):
+        np.testing.assert_allclose(x.numpy(), jn[leaf], rtol=0, atol=PARAM_ATOL,
+                                   err_msg=leaf)
+
+
 def _run_training(policy, steps=30, lr=3e-3):
     params = spec.materialize(registry.param_specs(CFG), torch.Generator().manual_seed(0))
     opt = optim.adamw(optim.warmup_cosine_schedule(lr, 5, steps))
