@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     (src/repro_torch/csrc/potq_encode.cu) with nvcc for sm_90a, one nvcc
     process per source, started together;
  3. K1 against its plain PyTorch version on the card, bit for bit
-    (torch.equal), at the serving shapes of llama3-8b, both modes, and at
+    (torch.equal), at the serving shapes of llama3-8b (decode M = 4,
+    prefill M = 128, a verify pass M = 16 at 5 bits, a self-draft step
+    M = 4 at 3 bits), both modes, and at
     the edges of its paths (kernels/potq_matmul.py ``plan``): M from 1 to
     4100 across the decode threshold and the tensor cores' 128-row tile,
     split and unsplit grids, K and N off 128, off 32 and off 8 (rows not
@@ -17,7 +19,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     and a lattice-extreme operand set at the 5 x 5 pair;
  4. timing at the serving shapes: kernel, plain version, torch.matmul on
     the same bf16 operands (yardstick only), and the roofline bound,
-    summed over one decode weight pass (M = 4) and one prefill (M = 128);
+    summed over one decode weight pass (M = 4), one prefill (M = 128),
+    one verify pass (M = 16) and one self-draft step (M = 4, 3 bits);
  5. serve: llama3-8b at full width (random weights from seed 0) through
     PoolEngine on an 8-request Poisson trace; K1 must launch exactly
     225 times per weight pass;
@@ -82,6 +85,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     bit, a hit rate above 0, fewer weight passes and a lower mean TTFT,
     and both runs' counters (prefix hits, copies on write and evictions
     included) equal the CPU smoke-width run's;
+21. PoT-quantized KV pages (``KV_PINNED``) on phase 19's engine and trace:
+    A (page 16) is the main path; B (page = span) and C (each request
+    alone) give A's tokens bit for bit; A's counters equal the CPU
+    smoke-width run's; ``kv_page_bytes`` is 528,384; a chunk-step decode
+    row equals ``decode_step`` in logits and every cache leaf (codes and
+    betas); K1 launches 225 times per weight pass; tokens/s, TTFT, KV bytes
+    per token beside phase 19's bf16 figure, peak memory, a profiled decode
+    step;
+22. speculative decoding on the same engine: ``NgramDrafter(3)`` and
+    ``LowBitSelfDraft(3, 3)`` over bf16 pages give phase 19 A's tokens,
+    the self-draft over quantized pages phase 21 A's, bit for bit, in no
+    more weight passes; K1 launches 225 times per verify pass and per
+    draft step; a verify pass over 4 slots x 4 positions (one row across a
+    page) equals 4 sequential ``decode_step`` calls in logits and every
+    cache leaf, over bf16 and quantized pages; weight passes, accepted
+    tokens, draft passes, tokens/s, a profiled verify pass and draft step,
+    and the draft's 225 weight re-quantizations timed alone;
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
@@ -118,6 +138,9 @@ LOGIT_ATOL = 1e-3  # tests/test_torch_serve.py's tolerance
 # tests/test_torch_train.py's tolerances (port vs reference on the CPU)
 LOSS_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-5, 1e-4, 1e-6
 SERVE_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128512)]
+# the serving shapes of speculative decoding: a verify pass scores 4 slots x
+# 4 positions (max_draft 3), a self-draft step runs decode at 3 bits
+VERIFY_M, DRAFT_BITS = 16, 3
 # launches of each (K, N) in one llama3-8b weight pass (32 layers + head)
 PASS_COUNTS = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
                (14336, 4096): 32, (4096, 128512): 1}
@@ -143,8 +166,11 @@ CKPT_FREE_BYTES = 40e9  # two 15.4 GB training checkpoints + the packed tree
 TRAIN_ARGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "512", "--log-every", "1"]
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def bound(m, k, n, in_bytes):
@@ -189,8 +215,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import configs
-    from repro_torch.core import potq
-    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.core import mfmac, potq
+    from repro_torch.core.policy import PAPER_FAITHFUL, draft_policy
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import potq_encode as KE
@@ -235,27 +261,37 @@ def main() -> int:
         w = torch.randn(kk, nn, generator=gen, device=dev) * 0.02 + 1e-3
         weights[(kk, nn)] = qw.quantize_leaf("w", w, PAPER_FAITHFUL)
         del w
-    cases = [(m, kk, nn) for m in (4, 128) for kk, nn in SERVE_SHAPES] + [(3, 200, 130)]
+    # (M, K, N, bits): decode (M = 4 slots) and prefill / chunk step (M =
+    # 128) at 5 bits, a verify pass (M = 4 slots x 4 positions) at 5 bits,
+    # and a self-draft step (M = 4) at 3 bits: the served 5-bit weights
+    # re-quantized by the draft policy, as each draft step does
+    cases = ([(m, kk, nn, 5) for m in (4, 128, VERIFY_M) for kk, nn in SERVE_SHAPES]
+             + [(4, kk, nn, DRAFT_BITS) for kk, nn in SERVE_SHAPES] + [(3, 200, 130, 5)])
+    dpol = draft_policy(dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True),
+                        DRAFT_BITS)
     operands = {}
-    for m, kk, nn in cases:
+    for m, kk, nn, bits in cases:
         wq = weights.get((kk, nn))
         if wq is None:
             wq = qw.quantize_leaf("w", torch.randn(kk, nn, generator=gen, device=dev),
                                   PAPER_FAITHFUL)
+        if bits != 5:
+            wq = mfmac._quantize_w(wq, dpol)
         a = torch.randn(m, kk, generator=gen, device=dev)
-        # decode rows: one scale group per slot; prefill: one per request
-        axes = (1,) if m <= 4 else None
-        aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, axes)).to(torch.bfloat16)
+        # serving rows: one scale group per slot (and position); prefill:
+        # one per request
+        axes = (1,) if m <= VERIFY_M else None
+        aq = potq.pot_quantize(a, bits, potq.compute_beta(a, bits, axes)).to(torch.bfloat16)
         out_k = K.potq_matmul_cuda(aq, wq)
         out_p = K.potq_matmul_plain(aq, wq)
         torch.cuda.synchronize()
         err = (out_k - out_p).abs().max().item()
         ok = torch.equal(out_k, out_p) and bool(torch.isfinite(out_k).all())
-        print(f"q0 M={m} K={kk} N={nn}: equal={ok} max_abs_err={err}")
+        print(f"q0 M={m} K={kk} N={nn} bits={bits}: equal={ok} max_abs_err={err}")
         if not ok:
-            raise SystemExit(f"K1 differs from its plain version at {(m, kk, nn)}")
+            raise SystemExit(f"K1 differs from its plain version at {(m, kk, nn, bits)}")
         max_err = max(max_err, err)
-        operands[(m, kk, nn)] = (aq, wq)
+        operands[(m, kk, nn, bits)] = (aq, wq)
     # quantize=True: raw f32 operands, PRC and WBC on, subnormals included
     a = torch.randn(128, 4096, generator=gen, device=dev)
     w = torch.randn(4096, 1024, generator=gen, device=dev) * 0.02 + 3e-3
@@ -279,10 +315,12 @@ def main() -> int:
 
     phase("4 timing (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    # summed over one decode weight pass (M = 4) and one prefill (M = 128)
-    sums = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "t_ops": 0.0, "t_bytes": 0.0} for m in (4, 128)}
-    for (m, kk, nn), (aq, wq) in operands.items():
+    # summed over one decode weight pass (M = 4), one prefill (M = 128), one
+    # verify pass (M = 16) and one self-draft step (M = 4, 3 bits)
+    sums = {mb: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                 "t_ops": 0.0, "t_bytes": 0.0}
+            for mb in ((4, 5), (128, 5), (VERIFY_M, 5), (4, DRAFT_BITS))}
+    for (m, kk, nn, bits), (aq, wq) in operands.items():
         big = m * kk * nn > 1e10
         it = 3 if big else 10
         t_k = time_ms(lambda: K.potq_matmul_cuda(aq, wq), it, flush)
@@ -290,13 +328,13 @@ def main() -> int:
         t_l = time_ms(lambda: torch.matmul(aq, wq), it, flush)
         b_ms, b_by = bound(m, kk, nn, 2)
         path, groups = K.plan(m, nn, kk)
-        row = dict(mode="q0", M=m, K=kk, N=nn, path=path, groups=groups, ms=t_k,
+        row = dict(mode="q0", M=m, K=kk, N=nn, bits=bits, path=path, groups=groups, ms=t_k,
                    plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
                    fp64_tc_bound_ms=2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3)
         rows.append(row)
         print(json.dumps(row))
-        if m in sums and (kk, nn) in PASS_COUNTS:
-            c, acc = PASS_COUNTS[(kk, nn)], sums[m]
+        if (m, bits) in sums and (kk, nn) in PASS_COUNTS:
+            c, acc = PASS_COUNTS[(kk, nn)], sums[(m, bits)]
             acc["ms"] += c * t_k
             acc["plain_ms"] += c * t_p
             acc["library_ms"] += c * t_l
@@ -318,12 +356,18 @@ def main() -> int:
         acc["bound_ms"] = max(t_ops, t_bytes)
         acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
         acc["fp64_tc_bound_ms"] = t_ops * PEAK_BF16_FLOPS / PEAK_FP64_TC_FLOPS
-    per_pass, per_prefill = sums[4], sums[128]
+    per_pass, per_prefill = sums[(4, 5)], sums[(128, 5)]
+    per_verify, per_draft = sums[(VERIFY_M, 5)], sums[(4, DRAFT_BITS)]
     print("one decode weight pass (M=4, 225 launches):", json.dumps(per_pass))
     print("one prefill (M=128, 225 launches):", json.dumps(per_prefill))
+    print(f"one verify pass (M={VERIFY_M}, 225 launches):", json.dumps(per_verify))
+    print(f"one self-draft step (M=4, {DRAFT_BITS} bits, 225 launches):",
+          json.dumps(per_draft))
     detail["k1_shapes"] = rows
     detail["k1_decode_pass"] = per_pass
     detail["k1_prefill"] = per_prefill
+    detail["k1_verify_pass"] = per_verify
+    detail["k1_draft_step"] = per_draft
     del operands, weights, flush, a, w, sums
 
     phase("5 serve llama3-8b at full width")
@@ -460,7 +504,7 @@ def main() -> int:
     enc = encode_kernel(dev, detail)
     k4_launches = checkpoint_and_pack(dev, detail)
     cpu_vs_card(dev, detail)
-    paged = paged_serving(dev, detail)
+    paged = serving(dev, detail)
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -471,9 +515,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/potq_matmul.cu",
         "replaces": "src/repro/kernels/potq_matmul.py:70",
-        # serve runs (phases 5, 19 and 20's prefix-on run) + training (phase 10)
+        # serve runs (phases 5, 19, 20's prefix-on run, 21 and 22's three
+        # speculative runs) + training (phase 10)
         "launches": launches + train["launches"]["k1"] + paged["launches"],
         "chunk_step_launches": paged["chunk_launches"],
+        "verify_step_launches": paged["verify_launches"],
+        "draft_step_launches": paged["draft_launches"],
         "max_abs_err": max(max_err, grads["k1"]["max_abs_err"]),
         "ms": per_pass["ms"],
         "plain_ms": per_pass["plain_ms"],
@@ -492,6 +539,16 @@ def main() -> int:
         "prefill_bound_ms": per_prefill["bound_ms"],
         "prefill_fp64_tc_bound_ms": per_prefill["fp64_tc_bound_ms"],
         "prefill_library_ms": per_prefill["library_ms"],
+        # speculative decoding (phase 4): one verify pass (M = 16) and one
+        # self-draft step (M = 4, 3-bit operands)
+        "verify_ms": per_verify["ms"],
+        "verify_plain_ms": per_verify["plain_ms"],
+        "verify_bound_ms": per_verify["bound_ms"],
+        "verify_library_ms": per_verify["library_ms"],
+        "draft_ms": per_draft["ms"],
+        "draft_plain_ms": per_draft["plain_ms"],
+        "draft_bound_ms": per_draft["bound_ms"],
+        "draft_library_ms": per_draft["library_ms"],
     }]
     # K2's ms includes its pre-pass, which also has a line of its own; it
     # takes the place of the in-VMEM quantization of G in both TPU kernels
@@ -1339,17 +1396,98 @@ def _check_counters(label, st, cpu):
         raise SystemExit(f"{label}: counters differ from the CPU run: card {card}, cpu {cpu}")
 
 
-def paged_serving(dev, detail):
-    """Phases 19-20: chunked piggybacked prefill over the paged cache and
-    the prefix cache, llama3-8b at full width."""
+def _streamed_pool(cfg, pol, params, dev, prompts, kv_quant=None):
+    """A 4-slot pool (page 16, a reversed page table: not the identity)
+    with ``prompts`` streamed in by chunk steps of 32; K1 must launch 225
+    times in each.  Returns (pool, last logits, chunk-step seconds, K1
+    launches of the last chunk step)."""
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry
+
+    pool = registry.init_pool_cache(cfg, 4, 160, device=dev, page_size=16,
+                                    kv_quant=kv_quant)
+    pool["table"].copy_(torch.arange(40, device=dev).flip(0).reshape(4, 10))
+    t_chunk, logits, launches = [], None, 0
+    for c0 in range(0, max(len(p) for p in prompts), 32):
+        tokens = np.zeros((4, 32), np.int64)
+        n_new = np.zeros((4,), np.int64)
+        for s, p in enumerate(prompts):
+            part = p[c0:c0 + 32]
+            tokens[s, :len(part)] = part
+            n_new[s] = len(part)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pool = registry.chunk_step(cfg, pol, params,
+                                           torch.as_tensor(tokens, device=dev), n_new, pool)
+        torch.cuda.synchronize()
+        t_chunk.append(time.perf_counter() - t0)
+        launches = K.potq_matmul_cuda.launches
+        if launches != K1_PER_PASS:
+            raise SystemExit(f"K1 launched {launches} times in one chunk step")
+    return pool, logits, t_chunk, launches
+
+
+def _decode_row_check(cfg, pol, params, pool, logits, dev):
+    """A chunk-step decode row equals ``decode_step`` in logits and every
+    cache leaf, and a decode step launches K1 225 times.  Returns (the
+    decoded tokens, decode_step's cache, its K1 launches)."""
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry
+
+    last = torch.argmax(logits, -1)
+    dec = torch.zeros((4, 32), dtype=torch.int64, device=dev)
+    dec[:, 0] = last
+    c1 = {k: v.clone() for k, v in pool.items()}
+    c2 = {k: v.clone() for k, v in pool.items()}
+    lg_chunk, c1 = registry.chunk_step(cfg, pol, params, dec, [1, 1, 1, 1], c1)
+    _zero_launches()
+    lg_plain, c2 = registry.decode_step(cfg, pol, params, last, c2)
+    torch.cuda.synchronize()
+    launches = K.potq_matmul_cuda.launches
+    equal = bool(torch.equal(lg_chunk, lg_plain)) and all(
+        torch.equal(c1[k], c2[k]) for k in c1)
+    print(f"chunk-step decode row == decode_step (logits and every cache leaf: "
+          f"{sorted(c1)}): {equal}")
+    if not equal or launches != K1_PER_PASS:
+        raise SystemExit(f"decode row differs between the step bodies ({equal}) "
+                         f"or K1 launched {launches} times in a decode step")
+    return last, c2, launches
+
+
+def _profiled(fn, wall_s):
+    """Device kernels of one call of ``fn`` under torch.profiler: count,
+    busy ms, K1's ms, and the idle share against ``wall_s``, the call's
+    unprofiled wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    k1_us = sum(e.time_range.elapsed_us() for e in kern if "potq_mm" in e.name)
+    return dict(wall_ms=wall_s * 1e3, device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
+                k1_ms=k1_us / 1e3, idle_share=1 - busy_us / 1e6 / wall_s if kern else None)
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serving(dev, detail):
+    """Phases 19-22 on one llama3-8b at full width (weights from seed 0):
+    chunked + paged serving, the prefix cache, PoT-quantized KV pages and
+    speculative decoding.  Returns K1's launch counts of their main paths."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
-    from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry, spec
-    from repro_torch.serve import PoolEngine, poisson_trace, shared_prefix_trace
+    from repro_torch.serve import poisson_trace
     from repro_torch.serve import quantized_weights as qw
 
-    phase("19 chunked + paged serving, llama3-8b at full width")
     # the trainer (phases 10-16) turns PyTorch's deterministic algorithms on
     # for the whole process; a server runs without them (they make each
     # index_put_ sort), so these phases do too
@@ -1363,6 +1501,27 @@ def paged_serving(dev, detail):
     policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
     reqs = poisson_trace(cfg, n_requests=8, prompt_len=128, lam=2.0, new_lo=8,
                          new_hi=32, seed=0)
+    paged = paged_serving(dev, detail, cfg, params, policy, reqs)
+    kvq = kv_quant_serving(dev, detail, cfg, params, policy, reqs)
+    spec_run = spec_serving(dev, detail, cfg, params, policy, reqs, paged["tokens"],
+                            kvq["tokens"])
+    del params
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(deterministic)
+    return dict(launches=paged["launches"] + kvq["launches"] + spec_run["launches"],
+                chunk_launches=paged["chunk_launches"],
+                verify_launches=spec_run["verify_launches"],
+                draft_launches=spec_run["draft_launches"])
+
+
+def paged_serving(dev, detail, cfg, params, policy, reqs):
+    """Phases 19-20: chunked piggybacked prefill over the paged cache and
+    the prefix cache."""
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry
+    from repro_torch.serve import PoolEngine, shared_prefix_trace
+
+    phase("19 chunked + paged serving, llama3-8b at full width")
     kw = dict(max_slots=4, max_len=160, prefill_chunk=32)
     eng_a = PoolEngine(cfg, policy, params, page_size=16, device=dev, **kw)
     eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
@@ -1397,52 +1556,14 @@ def paged_serving(dev, detail):
 
     # a chunk-step decode row against decode_step, and the step times
     with torch.inference_mode():
-        pool = registry.init_pool_cache(cfg, 4, 160, device=dev, page_size=16)
-        table = torch.arange(40, device=dev).flip(0).reshape(4, 10)  # not the identity
-        pool["table"].copy_(table)
         prompts = [np.asarray(r.tokens).reshape(-1)[:n] for r, n in
                    zip(reqs, (70, 40, 96, 128))]
-        t_chunk, logits = [], None
-        for c0 in range(0, 128, 32):
-            tokens = np.zeros((4, 32), np.int64)
-            n_new = np.zeros((4,), np.int64)
-            for s, p in enumerate(prompts):
-                part = p[c0:c0 + 32]
-                tokens[s, :len(part)] = part
-                n_new[s] = len(part)
-            _zero_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, pool = registry.chunk_step(cfg, eng_a.policy, params,
-                                               torch.as_tensor(tokens, device=dev), n_new, pool)
-            torch.cuda.synchronize()
-            t_chunk.append(time.perf_counter() - t0)
-            chunk_launches = K.potq_matmul_cuda.launches
-            if chunk_launches != K1_PER_PASS:
-                raise SystemExit(f"K1 launched {chunk_launches} times in one chunk step")
-        last = torch.argmax(logits, -1)
-        dec = torch.zeros((4, 32), dtype=torch.int64, device=dev)
-        dec[:, 0] = last
-        c1 = {k: v.clone() for k, v in pool.items()}
-        c2 = {k: v.clone() for k, v in pool.items()}
-        lg_chunk, c1 = registry.chunk_step(cfg, eng_a.policy, params, dec, [1, 1, 1, 1], c1)
-        _zero_launches()
-        lg_plain, c2 = registry.decode_step(cfg, eng_a.policy, params, last, c2)
-        torch.cuda.synchronize()
-        decode_launches = K.potq_matmul_cuda.launches
-        row_equal = bool(torch.equal(lg_chunk, lg_plain)) and all(
-            torch.equal(c1[k], c2[k]) for k in ("k", "v", "pos", "len", "table"))
-        print(f"chunk-step decode row == decode_step (logits and cache bytes): {row_equal}")
-        if not row_equal or decode_launches != K1_PER_PASS:
-            raise SystemExit(f"decode row differs between the step bodies ({row_equal}) "
-                             f"or K1 launched {decode_launches} times in a decode step")
-        t_decode = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, c2 = registry.decode_step(cfg, eng_a.policy, params, last, c2)
-            torch.cuda.synchronize()
-            t_decode.append(time.perf_counter() - t0)
+        pool, logits, t_chunk, chunk_launches = _streamed_pool(cfg, eng_a.policy, params,
+                                                               dev, prompts)
+        last, c2, decode_launches = _decode_row_check(cfg, eng_a.policy, params, pool,
+                                                      logits, dev)
+        t_decode = [_wall(lambda: registry.decode_step(cfg, eng_a.policy, params, last, c2))
+                    for _ in range(3)]
         # device time inside one chunk step (4 slots x 32 positions), by kernel
         tokens = torch.as_tensor(np.stack([p[:32] for p in prompts]), device=dev)
         c3 = {k: v.clone() for k, v in pool.items()}
@@ -1450,21 +1571,10 @@ def paged_serving(dev, detail):
         registry.chunk_step(cfg, eng_a.policy, params, tokens, [32] * 4,
                             {k: v.clone() for k, v in c3.items()})
         c4 = {k: v.clone() for k, v in c3.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        registry.chunk_step(cfg, eng_a.policy, params, tokens, [32] * 4, c4)
-        torch.cuda.synchronize()
-        t_full = time.perf_counter() - t0
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            registry.chunk_step(cfg, eng_a.policy, params, tokens, [32] * 4, c3)
-            torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kern)
-    k1_us = sum(e.time_range.elapsed_us() for e in kern if "potq_mm" in e.name)
-    prof_row = dict(wall_ms=t_full * 1e3, device_kernels=len(kern),
-                    device_busy_ms=busy_us / 1e3, k1_ms=k1_us / 1e3,
-                    idle_share=1 - busy_us / 1e6 / t_full if kern else None)
+        t_full = _wall(lambda: registry.chunk_step(cfg, eng_a.policy, params, tokens,
+                                                   [32] * 4, c4))
+        prof_row = _profiled(lambda: registry.chunk_step(cfg, eng_a.policy, params, tokens,
+                                                         [32] * 4, c3), t_full)
     steps = dict(chunk_step_ms=[t * 1e3 for t in t_chunk],
                  decode_step_ms=[t * 1e3 for t in t_decode],
                  profiled_chunk_step=prof_row, k1_launches_per_chunk_step=chunk_launches,
@@ -1474,7 +1584,7 @@ def paged_serving(dev, detail):
           f"{[round(t, 1) for t in steps['decode_step_ms']]} ms")
     print("profiled chunk step (M = 128):", json.dumps(prof_row))
     res["steps"] = steps
-    del eng_b, eng_c, pool, c1, c2, c3, c4
+    del eng_b, eng_c, pool, c2, c3, c4
 
     phase("20 prefix cache at full width")
     preqs = shared_prefix_trace(cfg, n_requests=8, prefix_len=96, suffix_len=32, lam=2.0,
@@ -1504,11 +1614,205 @@ def paged_serving(dev, detail):
             and st_on.mean_ttft_passes < st_off.mean_ttft_passes):
         raise SystemExit("prefix cache: tokens changed or no saving")
     detail["paged_serving"] = res
-    del params
-    torch.cuda.empty_cache()
-    torch.use_deterministic_algorithms(deterministic)
     return dict(launches=res["A"]["k1_launches"] + res["prefix_on"]["k1_launches"],
-                chunk_launches=chunk_launches)
+                chunk_launches=chunk_launches, tokens=out_a)
+
+
+# bytes of one K+V page across llama3-8b's 32 layers in the pinned wire
+# format at page 16: 2 x 32 x 16 x (8 heads x 64 nibble bytes + a 4-byte beta)
+KVQ_PAGE_BYTES = 528384
+
+
+def kv_quant_serving(dev, detail, cfg, params, policy, reqs):
+    """Phase 21: phase 19's engine with PoT-quantized KV pages."""
+    from repro_torch.core.policy import KV_PINNED
+    from repro_torch.models import registry
+    from repro_torch.serve import PoolEngine
+
+    phase("21 PoT-quantized KV pages (KV_PINNED), llama3-8b at full width")
+    kw = dict(max_slots=4, max_len=160, prefill_chunk=32, kv_quant=KV_PINNED)
+    eng_a = PoolEngine(cfg, policy, params, page_size=16, device=dev, **kw)
+    eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    torch.cuda.reset_peak_memory_stats()
+    out_a, wall, launches = _timed_run(eng_a, reqs)  # the main path
+    st = eng_a.last_stats
+    res = {"A": dict(_serve_row(st, wall, launches), kv_page_bytes=st.kv_page_bytes,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
+    bf16 = detail["paged_serving"]["A"]["kv_hbm_bytes_per_token"]
+    print("A (page 16, KV_PINNED):", json.dumps(res["A"]))
+    print(f"kv_page_bytes {st.kv_page_bytes} (bf16: {2 * 32 * 16 * 8 * 128 * 2}); "
+          f"kv_hbm_bytes_per_token {st.kv_hbm_bytes_per_token} (phase 19, bf16: {bf16})")
+    if launches != K1_PER_PASS * st.weight_passes:
+        raise SystemExit(f"K1 launched {launches} times in A, expected {K1_PER_PASS} x "
+                         f"{st.weight_passes} weight passes")
+    if st.kv_page_bytes != KVQ_PAGE_BYTES:
+        raise SystemExit(f"kv_page_bytes {st.kv_page_bytes}, expected {KVQ_PAGE_BYTES}")
+    for r in reqs:
+        toks = out_a[r.uid]
+        if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_padded:
+            raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+    _check_counters("A", st, _cpu_counters(reqs, dict(kw, page_size=16), SERVE_COUNTERS))
+    eng_b = PoolEngine(cfg, policy, params, device=dev, **kw)
+    out_b, wall, launches = _timed_run(eng_b, reqs)
+    res["B"] = _serve_row(eng_b.last_stats, wall, launches)
+    print("B (page = span):", json.dumps(res["B"]))
+    same_b = all(np.array_equal(out_a[r.uid], out_b[r.uid]) for r in reqs)
+    eng_c = PoolEngine(cfg, policy, params, **dict(kw, max_slots=1), device=dev)
+    same_c = [bool(np.array_equal(eng_c.run([dataclasses.replace(r, arrival=0)])[r.uid],
+                                  out_a[r.uid])) for r in reqs]
+    print(f"A == B (page 16 vs page = span) bit for bit: {same_b}; "
+          f"A == C (each request alone): {same_c}")
+    if not (same_b and all(same_c)):
+        raise SystemExit("quantized pool tokens differ across page sizes or from solo")
+    with torch.inference_mode():
+        prompts = [np.asarray(r.tokens).reshape(-1)[:n] for r, n in
+                   zip(reqs, (70, 40, 96, 128))]
+        pool, logits, t_chunk, _ = _streamed_pool(cfg, eng_a.policy, params, dev, prompts,
+                                                  KV_PINNED)
+        last, c2, decode_launches = _decode_row_check(cfg, eng_a.policy, params, pool,
+                                                      logits, dev)
+        t_decode = [_wall(lambda: registry.decode_step(cfg, eng_a.policy, params, last, c2))
+                    for _ in range(3)]
+        prof_row = _profiled(lambda: registry.decode_step(cfg, eng_a.policy, params, last, c2),
+                             min(t_decode))
+    res["steps"] = dict(chunk_step_ms=[t * 1e3 for t in t_chunk],
+                        decode_step_ms=[t * 1e3 for t in t_decode],
+                        profiled_decode_step=prof_row)
+    print(f"quantized pool: chunk steps {[round(t * 1e3, 1) for t in t_chunk]} ms, "
+          f"decode steps {[round(t * 1e3, 1) for t in t_decode]} ms")
+    print("profiled decode step over the quantized pages:", json.dumps(prof_row))
+    detail["kv_quant_serving"] = res
+    return dict(launches=res["A"]["k1_launches"], tokens=out_a)
+
+
+def _verify_check(cfg, pol, params, dev, prompts, kv_quant, label):
+    """Verify logits for 4 slots x 4 positions against 4 sequential
+    ``decode_step`` calls, bit for bit, and every cache leaf after them;
+    225 K1 launches in the verify pass.  Returns (verify seconds, its K1
+    launches, a verify call for the profiler)."""
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry
+
+    pool, _, _, _ = _streamed_pool(cfg, pol, params, dev, prompts, kv_quant)
+    rows = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (4, 4)),
+                           device=dev)
+    c1 = {k: v.clone() for k, v in pool.items()}
+    c2 = {k: v.clone() for k, v in pool.items()}
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lv, c1 = registry.verify_step(cfg, pol, params, rows, [4] * 4, c1)
+    torch.cuda.synchronize()
+    t_verify = time.perf_counter() - t0
+    launches = K.potq_matmul_cuda.launches
+    seq = []
+    for j in range(4):
+        lg, c2 = registry.decode_step(cfg, pol, params, rows[:, j], c2)
+        seq.append(lg)
+    equal = bool(torch.equal(lv, torch.stack(seq, dim=1))) and all(
+        torch.equal(c1[k], c2[k]) for k in c1)
+    print(f"{label}: verify (4 slots x 4 positions, slot 0 across a page) == 4 sequential "
+          f"decode steps (logits and every cache leaf): {equal}; K1 launches {launches}")
+    if not equal or launches != K1_PER_PASS:
+        raise SystemExit(f"{label}: verify differs from sequential decode ({equal}) or K1 "
+                         f"launched {launches} times in a verify pass")
+    c3 = {k: v.clone() for k, v in pool.items()}
+    return t_verify, launches, lambda: registry.verify_step(cfg, pol, params, rows, [4] * 4, c3)
+
+
+def _counted(fn, calls):
+    """``fn`` that appends 1 to ``calls`` at each call (host-side only)."""
+    def wrapped(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+def spec_serving(dev, detail, cfg, params, policy, reqs, tokens_off, tokens_kvq):
+    """Phase 22: speculative decoding on phase 19's engine (bf16 pages) and
+    on phase 21's (quantized pages)."""
+    from repro_torch.core import mfmac
+    from repro_torch.core.policy import KV_PINNED
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry
+    from repro_torch.serve import LowBitSelfDraft, NgramDrafter, PoolEngine
+
+    phase("22 speculative decoding, llama3-8b at full width")
+    verify_step = registry.verify_step
+    kw = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
+    off = {None: (tokens_off, detail["paged_serving"]["A"]["weight_passes"]),
+           KV_PINNED: (tokens_kvq, detail["kv_quant_serving"]["A"]["weight_passes"])}
+    runs = {"ngram": (NgramDrafter(max_draft=3), None),
+            "self_draft": (LowBitSelfDraft(max_draft=3, bits=DRAFT_BITS), None),
+            "kvq_self_draft": (LowBitSelfDraft(max_draft=3, bits=DRAFT_BITS), KV_PINNED)}
+    res, launches_total, eng = {}, 0, None
+    for name, (drafter, kvq) in runs.items():
+        eng = PoolEngine(cfg, policy, params, spec=drafter, kv_quant=kvq, device=dev, **kw)
+        eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+        verify_calls = []
+        registry.verify_step = _counted(verify_step, verify_calls)
+        try:
+            out, wall, launches = _timed_run(eng, reqs)
+        finally:
+            registry.verify_step = verify_step
+        st = eng.last_stats
+        launches_total += launches
+        res[name] = row = dict(_serve_row(st, wall, launches), verify_passes=len(verify_calls),
+                               accepted_tokens=st.accepted_tokens,
+                               draft_weight_passes=st.draft_weight_passes,
+                               accepted_tokens_per_weight_pass=st.accepted_tokens_per_weight_pass)
+        toks_off, passes_off = off[kvq]
+        same = all(np.array_equal(out[r.uid], toks_off[r.uid]) for r in reqs)
+        row["spec_off_weight_passes"] = passes_off
+        print(f"{name}:", json.dumps(row))
+        print(f"{name}: tokens == spec off ({'phase 21' if kvq else 'phase 19 A'}) bit for "
+              f"bit: {same}; weight passes {st.weight_passes} <= {passes_off}")
+        if not same or st.weight_passes > passes_off:
+            raise SystemExit(f"{name}: speculation changed the tokens or added passes")
+        want = K1_PER_PASS * (st.weight_passes + st.draft_weight_passes)
+        if launches != want:
+            raise SystemExit(f"{name}: K1 launched {launches} times, expected {K1_PER_PASS} "
+                             f"x (weight passes + draft steps) = {want}")
+    # the verify pass and the draft step on the card, each against its
+    # sequential or plain counterpart; slot 0's row (positions 62..65)
+    # crosses a 16-position page
+    prompts = [np.asarray(r.tokens).reshape(-1)[:n] for r, n in
+               zip(reqs, (62, 40, 96, 126))]
+    steps = {}
+    with torch.inference_mode():
+        for kvq, label in ((None, "bf16"), (KV_PINNED, "KV_PINNED")):
+            pol = dataclasses.replace(eng.policy, kv_quant=kvq)
+            t_verify, verify_launches, again = _verify_check(cfg, pol, params, dev, prompts,
+                                                             kvq, label)
+            steps[f"verify_{label}"] = dict(wall_ms=t_verify * 1e3,
+                                            profiled=_profiled(again, t_verify))
+        dpol = eng.draft_policy
+        pool, logits, _, _ = _streamed_pool(cfg, eng.policy, params, dev, prompts, KV_PINNED)
+        last = torch.argmax(logits, -1)
+        _zero_launches()
+        t_draft = [_wall(lambda: registry.decode_step(cfg, dpol, params, last, pool))
+                   for _ in range(3)]
+        draft_launches = K.potq_matmul_cuda.launches // 3
+        if draft_launches != K1_PER_PASS:
+            raise SystemExit(f"K1 launched {draft_launches} times in a draft step")
+        prof = _profiled(lambda: registry.decode_step(cfg, dpol, params, last, pool),
+                         min(t_draft))
+        # the draft's 225 weight re-quantizations (5 -> 3 bits, WBC) alone
+        leaves = [lp[key]["w"] for lp in (params["layers"], params["layers"]["mlp"])
+                  for key in lp if isinstance(lp[key], dict) and "w" in lp[key]]
+        requant = _wall(lambda: [mfmac._quantize_w(w[i], dpol) for w in leaves
+                                 for i in range(w.shape[0])]
+                        + [mfmac._quantize_w(params["lm_head"]["w"], dpol)])
+    steps["draft_step"] = dict(wall_ms=[t * 1e3 for t in t_draft], profiled=prof,
+                               weight_requantization_ms=requant * 1e3,
+                               requantized_leaves=sum(w.shape[0] for w in leaves) + 1)
+    res["steps"] = steps
+    for key, row in steps.items():
+        print(f"{key}:", json.dumps(row))
+    detail["spec_serving"] = res
+    return dict(launches=launches_total, verify_launches=verify_launches,
+                draft_launches=draft_launches)
 
 
 if __name__ == "__main__":

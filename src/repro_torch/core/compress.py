@@ -1,17 +1,38 @@
-"""Decoder of the int8 PoT wire format (port of ``repro/core/compress.py:47-58``).
+"""The int8 PoT wire format's decoder and the KV-page wire format (port
+of ``repro/core/compress.py:47-58`` and ``:86-184``).
 
 Code layout (int8): 0 means an exact zero; otherwise
     code = (exp + emax + 1) * (-1 if negative else +1),  |code| in [1, 2*emax+1],
 and the value is ``sign * 2^(exp + beta)`` under one int32 beta per
 tensor.  ``ops.potq_encode`` (K4) produces it with nearest rounding; the
-reference's stochastic ``compress`` (gradient compression) and its KV
-page format come with their slices of the port.
+reference's stochastic ``compress`` (gradient compression) comes with its
+slice of the port.
+
+KV pages (``serve/slots.py``, ``core.policy.KVQuantSpec``) use the same
+code layout with three serving choices, each the reference's:
+
+* the scale group is ONE written token's (kv_heads, head_dim) K or V
+  vector, so a code never depends on the page, slot or batch it lands
+  in (decode is bit-identical across page sizes, pool vs solo, and the
+  decode / chunk / verify write paths);
+* rounding is nearest, and the input is canonicalized through bf16 (solo
+  admission encodes a bf16 mini cache, the step bodies fresh
+  activations: both must give the same codes);
+* beta is clamped to [emax-126, 127-emax] at encode and at decode, and
+  |code| at decode, so stale or junk codes decode to *finite* values:
+  attention multiplies masked rows by an exact 0, and 0 * inf is NaN.
+
+Betas are stored page-shaped (one int32 per page position), so a page's
+scales travel with it through copies on write and prefix sharing.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.core import potq
+from repro_torch.core.policy import KVQuantSpec
 
 
 def decompress(code: torch.Tensor, beta: torch.Tensor, bits: int = 5) -> torch.Tensor:
@@ -27,3 +48,84 @@ def decompress(code: torch.Tensor, beta: torch.Tensor, bits: int = 5) -> torch.T
 def wire_bytes(g: torch.Tensor) -> int:
     """Bytes on the wire for one tensor: 1 per element + the scalar beta."""
     return int(g.numel()) + 4
+
+
+# ---------------------------------------------------------------------------
+# KV-cache page wire format
+# ---------------------------------------------------------------------------
+
+def _kv_beta_window(bits: int) -> Tuple[int, int]:
+    emax = potq.pot_emax(bits)
+    return emax - 126, 127 - emax
+
+
+def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """Pack signed-nibble codes (|code| <= 7) pairwise along the last axis
+    into uint8: ``codes[..., 2i]`` low nibble, ``codes[..., 2i+1]`` high."""
+    if codes.shape[-1] % 2:
+        raise ValueError(f"cannot nibble-pack odd last dim {codes.shape[-1]}")
+    c = codes.to(torch.int32) & 0xF
+    return ((c[..., 1::2] << 4) | c[..., 0::2]).to(torch.uint8)
+
+
+def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_nibbles`: int32 codes, sign-extended."""
+    p = packed.to(torch.int32)
+    pair = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1)
+    flat = pair.reshape(packed.shape[:-1] + (2 * packed.shape[-1],))
+    return (flat ^ 8) - 8
+
+
+def kv_code_width(spec: KVQuantSpec, head_dim: int) -> int:
+    """Trailing extent of the code leaf for one token's head vector."""
+    if spec.pack:
+        if head_dim % 2:
+            raise ValueError(
+                f"nibble-packed KV cache requires an even head_dim, got {head_dim}")
+        return head_dim // 2
+    return head_dim
+
+
+def kv_code_dtype(spec: KVQuantSpec) -> torch.dtype:
+    return torch.uint8 if spec.pack else torch.int8
+
+
+def kv_page_encode(f: torch.Tensor, spec: KVQuantSpec):
+    """Encode K/V vectors ``f`` (..., kv_heads, head_dim).  Returns
+    ``(codes, beta)``: codes (..., kv_heads, head_dim[/2]) and int32 beta
+    (...,), one amax scale per written token."""
+    f = f.to(torch.bfloat16)
+    emax = potq.pot_emax(spec.bits)
+    lo, hi = _kv_beta_window(spec.bits)
+    beta = potq.compute_beta(f, spec.bits, axes=(-2, -1)).clamp(lo, hi)
+    enc = potq.pot_encode(f, spec.bits, beta)
+    mag = torch.where(enc.exp == potq.EXP_ZERO, 0, enc.exp.to(torch.int32) + emax + 1)
+    code = torch.where(enc.sign == 1, -mag, mag)
+    if spec.pack:
+        kv_code_width(spec, f.shape[-1])  # validates an even head_dim
+        codes = pack_nibbles(code)
+    else:
+        codes = code.to(torch.int8)
+    return codes, beta.reshape(beta.shape[:-2])
+
+
+def kv_page_decode(codes: torch.Tensor, beta: torch.Tensor,
+                   spec: KVQuantSpec) -> torch.Tensor:
+    """Exact float32 PoT values of code leaves; ``beta`` has the shape of
+    ``codes`` without its trailing (kv, hd) dims.  Junk codes and betas
+    decode finite (the clamps above)."""
+    emax = potq.pot_emax(spec.bits)
+    lo, hi = _kv_beta_window(spec.bits)
+    code = unpack_nibbles(codes) if spec.pack else codes.to(torch.int32)
+    b = beta.to(torch.int32).clamp(lo, hi)[..., None, None]
+    mag = code.abs().clamp(max=2 * emax + 1)
+    exp = mag - (emax + 1) + b
+    val = potq.exp2i(torch.where(mag == 0, 0, exp))
+    val = torch.where(mag == 0, 0.0, val)
+    return torch.where(code < 0, -val, val)
+
+
+def kv_page_wire_bytes(spec: KVQuantSpec, page_size: int, kv_heads: int,
+                       head_dim: int) -> int:
+    """Bytes of ONE (layer, K-or-V) page: codes + one int32 beta a token."""
+    return page_size * (kv_heads * kv_code_width(spec, head_dim) + 4)

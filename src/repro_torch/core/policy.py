@@ -6,7 +6,37 @@ applied to a model's linear layers.  Field names are the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class KVQuantSpec:
+    """Wire-format recipe for PoT-quantized KV cache pages
+    (``core/compress.py``: one beta per written token, nearest rounding).
+
+    Attributes:
+      bits: PoT bit-width of the codes (1 sign + b-1 exponent bits, b>=3).
+      pack: store two codes per byte (signed nibbles along head_dim).
+        Requires bits <= 4 (|code| <= 2*emax+1 = 7) and an even head_dim.
+    """
+
+    bits: int = 4
+    pack: bool = True
+
+    def __post_init__(self) -> None:
+        if self.bits < 3:
+            raise ValueError(f"KVQuantSpec.bits must be >= 3, got {self.bits}")
+        if self.pack and self.bits > 4:
+            raise ValueError(
+                f"nibble packing requires bits <= 4 (codes must fit a signed "
+                f"nibble); got bits={self.bits}"
+            )
+
+
+#: The pinned KV-cache recipe: 4-bit PoT codes, per-token amax scale,
+#: nearest rounding, nibble-packed.  Decode under it is bit-identical
+#: across page sizes, pool vs solo, and the decode/chunk/verify writes.
+KV_PINNED = KVQuantSpec(bits=4, pack=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +61,8 @@ class QuantPolicy:
         (serve/quantized_weights.py), stored as exact PoT values in bf16.
       per_sample_act_scales: forward activation scales per leading-dim
         sample (batch-invariant decode; forced on by the serving engine).
-      kv_quant: quantized KV pages — not ported yet; must be None.
+      kv_quant: the :class:`KVQuantSpec` of the serving pool's K/V pages
+        (None: bf16 pages); ``PoolEngine(kv_quant=...)`` sets it.
     """
 
     enabled: bool = True
@@ -47,13 +78,12 @@ class QuantPolicy:
     accum_dtype: str = "float32"
     weights_prequantized: bool = False
     per_sample_act_scales: bool = False
-    kv_quant: Optional[Any] = None
+    kv_quant: Optional[KVQuantSpec] = None
 
     def __post_init__(self) -> None:
         unported = {
             "stochastic_rounding": self.stochastic_rounding,
             "quantize_attention": self.quantize_attention,
-            "kv_quant": self.kv_quant is not None,
         }
         on = [k for k, v in unported.items() if v]
         if on:
@@ -64,6 +94,29 @@ class QuantPolicy:
     @property
     def prc_enabled(self) -> bool:
         return self.ratio_clip_init is not None
+
+
+def draft_policy(policy: QuantPolicy, bits: int = 3) -> QuantPolicy:
+    """The low-bit self-draft policy of a serving policy (serve/spec.py):
+    the same weights at ``bits`` PoT bits for W and A.
+    ``weights_prequantized`` is cleared, so each draft step re-quantizes
+    the served (exact 5-bit PoT) weights down to ``bits`` at use, WBC
+    included.  ``kv_quant`` is kept: the draft reads and writes the same
+    cache as the verify pass."""
+    if not policy.enabled:
+        raise ValueError(
+            "draft_policy requires a quantized serving policy "
+            "(policy.enabled=True); an FP baseline has no cheaper "
+            "bit-width to draft at"
+        )
+    if not 2 <= bits < min(policy.bits_w, policy.bits_a):
+        raise ValueError(
+            f"draft bits must be in [2, min(bits_w, bits_a)) = "
+            f"[2, {min(policy.bits_w, policy.bits_a)}); got {bits}"
+        )
+    return dataclasses.replace(
+        policy, bits_w=bits, bits_a=bits, weights_prequantized=False
+    )
 
 
 #: The paper's scheme (Algorithm 1).

@@ -1,6 +1,7 @@
 """Family dispatch (port of ``repro/models/registry.py``), for the dense
-``decoder`` family: specs, loss, prefill, the paged pool cache, pooled
-decode and the fused chunk step of chunked piggybacked prefill.  The
+``decoder`` family: specs, loss, prefill, the paged pool cache (bf16 or
+PoT-quantized pages), pooled decode, the fused chunk step of chunked
+piggybacked prefill and the speculative verify step.  The
 other families (vlm, encdec, hybrid, ssm) and MoE come in a later slice
 of the port and raise here."""
 from __future__ import annotations
@@ -20,6 +21,10 @@ CHUNKED_FAMILIES = ("decoder",)
 #: families whose pool cache is block-table paged (serve/slots.py; the
 #: reference adds vlm and encdec)
 PAGED_FAMILIES = ("decoder",)
+
+#: families with a speculative-decoding ``verify_step`` (the reference
+#: adds vlm and encdec)
+SPEC_FAMILIES = ("decoder",)
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -56,18 +61,21 @@ def pool_span(cfg: ModelConfig, max_len: int) -> int:
 
 def init_pool_cache(cfg: ModelConfig, max_slots: int, max_len: int,
                     dtype=torch.bfloat16, *, device, page_size=None,
-                    num_pages=None):
+                    num_pages=None, kv_quant=None):
     """Pooled decode cache, built once per engine, in the block-table
     paged layout (``serve.slots.page_pool_cache``): pages of ``page_size``
     positions (default the whole span, one page per slot), ``num_pages``
     physical pages (default ``max_slots * span / page_size``) plus the
-    null page, and a (max_slots, span / page_size) page table."""
+    null page, and a (max_slots, span / page_size) page table.
+    ``kv_quant`` (a ``core.policy.KVQuantSpec``) stores the K/V pages in
+    the PoT wire format with per-token ``k_beta``/``v_beta`` leaves."""
     _check(cfg)
     from repro_torch.serve import slots
 
     base = init_cache(cfg, max_slots, max_len, dtype, device=device)
     return slots.page_pool_cache(base, max_slots,
-                                 page_size or pool_span(cfg, max_len), num_pages)
+                                 page_size or pool_span(cfg, max_len), num_pages,
+                                 kv_quant=kv_quant)
 
 
 def prefill(cfg, policy, params, batch, cache):
@@ -88,3 +96,14 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
     position, the cache updated in place).  Paged pool caches only."""
     _check(cfg)
     return transformer.chunk_step(cfg, policy, params, tokens, n_new, cache)
+
+
+def verify_step(cfg, policy, params, tokens, n_new, cache):
+    """Speculative-decoding verifier: score each slot's ``n_new[b]``-token
+    verify row (its last emitted token, then the draft) in ONE weight
+    pass, bit-identical to ``n_new[b]`` sequential ``decode_step`` calls.
+    Returns (logits (B, C, V), position i scoring the successor of
+    ``tokens[b, i]``; the cache updated in place, ``len += n_new``).
+    Paged pool caches only; serve/spec.py owns acceptance and rollback."""
+    _check(cfg)
+    return transformer.verify_step(cfg, policy, params, tokens, n_new, cache)

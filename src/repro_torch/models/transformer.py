@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import mfmac
+from repro_torch.core import compress, mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import common
 from repro_torch.models.spec import ParamSpec
@@ -349,6 +349,40 @@ def paged_write(leaf, dest, loff, vals, num_pages: int):
     return leaf
 
 
+def _kv_check(policy, cache):
+    """The cache's KV wire format: ``policy.kv_quant`` when the cache holds
+    quantized pages (it carries the ``k_beta``/``v_beta`` leaves), else
+    None (bf16 pages; a solo prefill's mini cache stays bf16 under a
+    kv_quant policy)."""
+    if "k_beta" not in cache:
+        return None
+    if policy.kv_quant is None:
+        raise ValueError("cache holds quantized K/V pages but policy.kv_quant is None")
+    return policy.kv_quant
+
+
+def _kv_scatter(cache, key, layer, dest, loff, vals, npages, spec):
+    """Write fresh K or V vectors (..., KV, hd) of ``layer`` at (dest,
+    loff) as :func:`paged_write` does; PoT-encoded, with their per-token
+    betas, when ``spec`` is set."""
+    if spec is None:
+        paged_write(cache[key][layer], dest, loff, vals, npages)
+        return
+    codes, beta = compress.kv_page_encode(vals, spec)
+    paged_write(cache[key][layer], dest, loff, codes, npages)
+    paged_write(cache[f"{key}_beta"][layer], dest, loff, beta, npages)
+
+
+def _kv_page_view(cache, key, layer, ids, spec):
+    """Logical (B, span, KV, hd) K or V view of ``layer``, decoded to exact
+    PoT float32 values when ``spec`` is set (the attention casts it to
+    the activation dtype, exactly)."""
+    view = page_view(cache[key][layer], ids)
+    if spec is None:
+        return view
+    return compress.kv_page_decode(view, page_view(cache[f"{key}_beta"][layer], ids), spec)
+
+
 def _attend(cfg, q, k, v, qpos, kpos, window):
     return _sdpa(cfg, q, k.to(q.dtype), v.to(q.dtype), qpos, kpos, window)
 
@@ -369,10 +403,11 @@ def decode_step(cfg, policy, params, token, cache):
       page table; it holds the same (position, value) pairs in the same
       order as a contiguous row, so the served bits do not depend on the
       page layout or size.  Rows whose page is drop_id (dead slots) write
-      nothing.
+      nothing.  Quantized pages (``k_beta`` leaves, ``policy.kv_quant``)
+      are encoded per written token and decoded in the gathered view.
     * contiguous: ``pos`` (B, span), ``k``/``v`` (L, B, span, KV, hd).
 
-    Attention reads the bf16 cache cast to the activation dtype."""
+    Attention reads the cache cast to the activation dtype."""
     pos = cache["len"]
     if pos.dim() != 1:
         raise NotImplementedError(
@@ -380,6 +415,7 @@ def decode_step(cfg, policy, params, token, cache):
             "layout is a later slice)")
     b = token.shape[0]
     paged = "table" in cache
+    spec = _kv_check(policy, cache)
     if paged:
         page = cache["pos"].shape[1]
         ids = page_ids(cache)
@@ -404,14 +440,15 @@ def decode_step(cfg, policy, params, token, cache):
 
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
         h = _rows(_norm_fn(cfg, lp.get("ln1")), x)
         q, k, v = _qkv(cfg, policy, lp, h, qpos)
         if paged:
-            paged_write(ck, dest, loff, k[:, 0], npages)
-            paged_write(cv, dest, loff, v[:, 0], npages)
-            kview, vview = page_view(ck, ids), page_view(cv, ids)
+            _kv_scatter(cache, "k", i, dest, loff, k[:, 0], npages, spec)
+            _kv_scatter(cache, "v", i, dest, loff, v[:, 0], npages, spec)
+            kview = _kv_page_view(cache, "k", i, ids, spec)
+            vview = _kv_page_view(cache, "v", i, ids, spec)
         else:
+            ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
             ck[rows, slot] = k[:, 0].to(ck.dtype)
             cv[rows, slot] = v[:, 0].to(cv.dtype)
             kview, vview = ck, cv
@@ -476,6 +513,10 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
     so a wrap inside the chunk cannot overwrite keys that earlier chunk
     positions still need (requires C <= span).
 
+    Quantized pages are written through the wire format; the windowed
+    layout re-reads the fresh chunk's K/V through it too (encode, then
+    decode), so every attended key is the value later steps gather.
+
     Returns (logits (B, V) at each slot's last valid position, the cache,
     updated in place).  Paged pool caches only."""
     if "table" not in cache:
@@ -490,6 +531,7 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
     if c > span:
         raise ValueError(f"chunk {c} exceeds the cache span {span}")
     windowed = cfg.window is not None
+    spec = _kv_check(policy, cache)
     layout = ["idle" if n == 0 else
               "decode" if n == 1 and not windowed else "chunk" for n in n_host]
     ids = page_ids(cache)
@@ -512,15 +554,20 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
 
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
         h = torch.where(vmask, _slot_norms(cfg, lp.get("ln1"), x, layout), 0.0)
         q, k, v = _qkv(cfg, policy, lp, h, qpos)
         if windowed:
-            ok, ov = page_view(ck, ids), page_view(cv, ids)
-        paged_write(ck, dest, loff, k, npages)
-        paged_write(cv, dest, loff, v, npages)
+            ok = _kv_page_view(cache, "k", i, ids, spec)
+            ov = _kv_page_view(cache, "v", i, ids, spec)
+            kf, vf = k, v
+            if spec is not None:
+                kf = compress.kv_page_decode(*compress.kv_page_encode(k, spec), spec)
+                vf = compress.kv_page_decode(*compress.kv_page_encode(v, spec), spec)
+        _kv_scatter(cache, "k", i, dest, loff, k, npages, spec)
+        _kv_scatter(cache, "v", i, dest, loff, v, npages, spec)
         if not windowed:
-            ok, ov = page_view(ck, ids), page_view(cv, ids)
+            ok = _kv_page_view(cache, "k", i, ids, spec)
+            ov = _kv_page_view(cache, "v", i, ids, spec)
         att = torch.zeros_like(q)
         for s, kind in enumerate(layout):
             if kind == "decode":
@@ -532,8 +579,8 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
             elif kind == "chunk":
                 # old entries hold positions < pos0 only, fresh ones >= pos0
                 # (-1 where invalid): each key is seen exactly once
-                k_all = torch.cat([ok[s:s + 1].to(q.dtype), k[s:s + 1]], dim=1)
-                v_all = torch.cat([ov[s:s + 1].to(q.dtype), v[s:s + 1]], dim=1)
+                k_all = torch.cat([ok[s:s + 1].to(q.dtype), kf[s:s + 1].to(q.dtype)], dim=1)
+                v_all = torch.cat([ov[s:s + 1].to(q.dtype), vf[s:s + 1].to(q.dtype)], dim=1)
                 kp_all = torch.cat([kpos_old[s:s + 1], qpos[s:s + 1]], dim=1)
                 att[s:s + 1] = _attend(cfg, q[s:s + 1], k_all, v_all, qpos[s:s + 1],
                                        kp_all, cfg.window)
@@ -549,5 +596,105 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
     xe = x[torch.arange(b, device=dev), emit][:, None, :]  # (B, 1, D)
     xe = _rows(_norm_fn(cfg, params.get("final_norm")), xe)
     logits = _lm_head(cfg, policy, params, xe)[:, 0, :]
+    cache["len"] = pos0 + nn
+    return logits, cache
+
+
+def _live_norms(cfg, p, x, live):
+    """Norm of each live row of a (R, 1, D) block at ``decode_step``'s
+    (1, 1, D) shape; the other rows stay zero."""
+    norm = _norm_fn(cfg, p)
+    out = torch.zeros_like(x)
+    for r in live:
+        out[r:r + 1] = norm(x[r:r + 1])
+    return out
+
+
+def verify_step(cfg, policy, params, tokens, n_new, cache):
+    """Score ``n_new[b]`` candidate tokens per slot in ONE weight pass,
+    bit-identically to ``n_new[b]`` sequential ``decode_step`` calls: the
+    speculative-decoding verifier (serve/spec.py).
+
+    ``tokens[b, :n_new[b]]`` is slot b's verify row: its last emitted
+    token, then the draft.  ``chunk_step`` cannot verify, since a slot's
+    (C, D) chunk is one activation-scale group; here every (slot,
+    position) row is a scale group of its own, as in decode.
+
+    The reference loops over the C positions inside each layer with
+    ``(B, 1, D)`` linears, C weight reads a layer.  The port runs each
+    linear layer, and the LM head, ONCE over all B*C rows as a (B*C, 1, D)
+    block: ``per_sample_act_scales`` gives every row decode's (1, D)
+    amax, beta and clip, and K1 reduces each row on its own in a fixed
+    order, so a row's bits do not depend on the block (225 K1 launches a
+    pass).  Norms and attention run per (slot, position) at
+    ``decode_step``'s own shapes: a (1, 1, ·) row against the slot's whole
+    span view.  Position j's K/V (and ``pos``) are written before position
+    j attends and after position j-1 did, so each position sees exactly
+    the cache sequential decode would, windowed rings included.  Positions
+    past ``n_new[b]`` are padding: never written, their rows zero.
+
+    ``n_new`` is read on the host.  Returns (logits (B, C, V), position i
+    scoring the token after ``tokens[b, i]``; the cache updated in place,
+    ``len += n_new``).  Paged pool caches only; the caller owns acceptance
+    and the rollback of rejected positions (``serve.slots.spec_restore``)."""
+    if "table" not in cache:
+        raise NotImplementedError("repro_torch's verify_step runs the paged pool cache")
+    n_host = [int(n) for n in n_new]
+    b, c = tokens.shape
+    dev = tokens.device
+    page = cache["pos"].shape[1]
+    table = cache["table"]
+    span = table.shape[1] * page
+    npages = cache["pos"].shape[0] - 1
+    if c > span:
+        raise ValueError(f"verify row {c} exceeds the cache span {span}")
+    spec = _kv_check(policy, cache)
+    ids = page_ids(cache)
+    pos0 = cache["len"]
+    nn = torch.tensor(n_host, dtype=pos0.dtype, device=dev)
+    offs = torch.arange(c, dtype=pos0.dtype, device=dev)
+    valid = offs[None, :] < nn[:, None]  # (B, C)
+    gpos = pos0[:, None] + offs[None, :]
+    qpos = torch.where(valid, gpos, torch.full_like(gpos, -1))
+    lo = gpos % span
+    dest = torch.gather(table, 1, lo // page)
+    dest = torch.where(valid, dest, torch.full_like(dest, npages + 1))  # pads: drop
+    loff = lo % page
+    # position j attends over the pos view with positions 0..j written
+    kpos = []
+    for j in range(c):
+        paged_write(cache["pos"], dest[:, j], loff[:, j], qpos[:, j], npages)
+        kpos.append(page_view(cache["pos"], ids))
+    live = [[s for s in range(b) if j < n_host[s]] for j in range(c)]
+    rows = sorted(s * c + j for j in range(c) for s in live[j])  # row of (s, j)
+    x = params["embed"][tokens].reshape(b * c, 1, -1)  # (B*C, 1, D)
+    rq = qpos.reshape(b * c, 1)
+    h_all = cfg.n_heads * cfg.head_dim
+
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = _live_norms(cfg, lp.get("ln1"), x, rows)
+        q, k, v = _qkv(cfg, policy, lp, h, rq)  # (B*C, 1, heads, hd)
+        kb = k.reshape(b, c, cfg.kv_heads, cfg.head_dim)
+        vb = v.reshape(b, c, cfg.kv_heads, cfg.head_dim)
+        att = torch.zeros_like(q)
+        for j in range(c):
+            if not live[j]:
+                break  # later positions are pads in every slot
+            _kv_scatter(cache, "k", i, dest[:, j], loff[:, j], kb[:, j], npages, spec)
+            _kv_scatter(cache, "v", i, dest[:, j], loff[:, j], vb[:, j], npages, spec)
+            kview = _kv_page_view(cache, "k", i, ids, spec)
+            vview = _kv_page_view(cache, "v", i, ids, spec)
+            for s in live[j]:
+                r = s * c + j
+                att[r:r + 1] = _attend(cfg, q[r:r + 1], kview[s:s + 1], vview[s:s + 1],
+                                       qpos[s:s + 1, j:j + 1], kpos[j][s:s + 1],
+                                       cfg.window)
+        att = att.reshape(b * c, 1, h_all)
+        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        h2 = _live_norms(cfg, lp.get("ln2"), y, rows)
+        x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
+    xe = _live_norms(cfg, params.get("final_norm"), x, rows)
+    logits = _lm_head(cfg, policy, params, xe)[:, 0, :].reshape(b, c, -1)
     cache["len"] = pos0 + nn
     return logits, cache

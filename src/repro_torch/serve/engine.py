@@ -21,19 +21,27 @@ head maps them (shared), copies the page it will append into
 (copy-on-write) and resumes streaming after the hit.  Idle prefix pages
 are LRU-evicted to make room.
 
+``kv_quant=KV_PINNED`` stores the K/V pages in the PoT wire format
+(``core/compress.py``: 4-bit nibble codes and one int32 beta per token).
+``spec=NgramDrafter(...)`` or ``spec=LowBitSelfDraft(...)`` serves by
+speculative decoding (``serve/spec.py``): while no slot is prefilling,
+each engine step drafts up to ``max_draft`` tokens a slot, scores them in
+one ``registry.verify_step`` weight pass and keeps the greedy-accepted
+prefix plus the verifier's own next token.
+
 Guarantee: batching never changes a request's tokens.  Each request's
 output equals its run alone through the same admission recipe (solo
-prefill, or the same chunk size) bit for bit, for every page size and
-with the prefix cache on or off.  K1 reduces each row on its own in a
-fixed order, activation scales are per sample
-(``policy.per_sample_act_scales``, forced on here), and each slot's norms
-and attention run as programs of their own (``models/transformer.py``).
+prefill, or the same chunk size) bit for bit, for every page size, with
+the prefix cache on or off, and with speculation on or off.  K1 reduces
+each row on its own in a fixed order, activation scales are per sample
+(``policy.per_sample_act_scales``, forced on here), each slot's norms and
+attention run as programs of their own (``models/transformer.py``), and
+a KV page's codes have one scale per token.
 
 The loop is synchronous.  The reference overlaps host scheduling with
 the in-flight step, which moves wall-clock time only; its counters are
-kept here exactly, arrival stamps included.  PoT-quantized KV pages,
-speculative decoding, lockstep serving and ``cache_dtype`` are later
-slices of the port.
+kept here exactly, arrival stamps included.  Lockstep serving and
+``cache_dtype`` are later slices of the port.
 """
 from __future__ import annotations
 
@@ -45,11 +53,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.policy import QuantPolicy
+from repro_torch.core import compress
+from repro_torch.core.policy import QuantPolicy, draft_policy
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.serve import quantized_weights as qw
 from repro_torch.serve import slots as slots_lib
+from repro_torch.serve import spec as spec_lib
 from repro_torch.serve.scheduler import FIFOScheduler, Request
 
 
@@ -58,11 +68,12 @@ class ServeStats:
     """Host-side counters from one :meth:`PoolEngine.run`.
 
     ``weight_passes`` is the deterministic cost clock: every full
-    weight-streaming dispatch (a pooled decode or chunk step, a solo
-    admission prefill) counts one pass.  ``ttft_passes[uid]`` is a
+    weight-streaming dispatch (a pooled decode, chunk or verify step, a
+    solo admission prefill) counts one pass; a low-bit self-draft step
+    counts in ``draft_weight_passes`` instead.  ``ttft_passes[uid]`` is a
     request's time-to-first-token on that clock, from the first engine
     step at which it was admissible (queue wait included).  The paging
-    counters are as deterministic for a fixed trace."""
+    and speculation counters are as deterministic for a fixed trace."""
 
     decode_steps: int = 0  # pooled step dispatches (plain decode or chunk)
     prefills: int = 0  # completed admissions
@@ -70,6 +81,8 @@ class ServeStats:
     occupancy_sum: float = 0.0  # sum over steps of occupied/max_slots
     weight_passes: int = 0
     ttft_passes: Dict = dataclasses.field(default_factory=dict)
+    accepted_tokens: int = 0  # draft tokens accepted by verify rounds
+    draft_weight_passes: int = 0  # low-bit self-draft steps
     prompt_tokens: int = 0  # total prompt tokens across admitted requests
     prefix_hit_tokens: int = 0  # prompt tokens served from the prefix cache
     cow_copies: int = 0
@@ -77,7 +90,7 @@ class ServeStats:
     admission_deferrals: int = 0  # head-blocked admissions (page pressure)
     pages_in_use_sum: int = 0  # sum over pooled steps of live pages
     page_size: int = 0
-    kv_page_bytes: int = 0  # bytes of one K+V page across all layers
+    kv_page_bytes: int = 0  # bytes of one K+V page across all layers (wire format)
     # host wall-clock seconds from admissible to first token on the host;
     # a measurement of the port's own (the reference keeps none)
     ttft_s: Dict = dataclasses.field(default_factory=dict)
@@ -102,6 +115,12 @@ class ServeStats:
         return self.prefix_hit_tokens / self.prompt_tokens if self.prompt_tokens else 0.0
 
     @property
+    def accepted_tokens_per_weight_pass(self) -> float:
+        """Tokens served per full-policy weight pass: plain decode serves
+        at most one per pass and slot, speculation more."""
+        return self.emitted_tokens / self.weight_passes if self.weight_passes else 0.0
+
+    @property
     def kv_hbm_bytes_per_token(self) -> float:
         """Mean live KV footprint per emitted token (pages, not whole
         rows, pin memory)."""
@@ -116,7 +135,8 @@ class PoolEngine:
     Weights are PoT-prequantized at construction by default
     (``serve/quantized_weights.py``); pass ``prequantize=False`` to serve
     the weights as given.  ``params`` must already lie on ``device``
-    (default ``cuda``).  The KV cache is bf16, as in the reference.
+    (default ``cuda``).  The KV cache is bf16, as in the reference, or
+    the PoT wire format of ``kv_quant`` (default ``policy.kv_quant``).
 
     ``prefill_chunk=C`` admits by chunked piggybacked prefill (C in
     [1, span]).  Chunking is part of a request's recipe (a chunk is one
@@ -124,18 +144,34 @@ class PoolEngine:
     tokens; pool and solo agree for the same C.  ``page_size`` (default
     the whole span) must divide the span; ``num_pages`` defaults to
     ``max_slots * span / page_size``.  ``prefix_cache`` needs
-    ``prefill_chunk``."""
+    ``prefill_chunk``.  ``spec`` is a ``serve.spec.NgramDrafter`` or
+    ``LowBitSelfDraft``; its verify row (``max_draft + 1`` positions) must
+    fit the span."""
 
     def __init__(self, cfg: ModelConfig, policy: QuantPolicy, params, *,
                  max_slots: int, max_len: int, prequantize: bool = True,
                  prefill_chunk: Optional[int] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
-                 prefix_cache: bool = False, device=None):
+                 prefix_cache: bool = False, spec=None, kv_quant=None,
+                 device=None):
         if cfg.family not in registry.PAGED_FAMILIES or cfg.moe is not None:
             raise NotImplementedError(
                 f"PoolEngine: family {cfg.family!r} is not ported yet")
         span = registry.pool_span(cfg, max_len)
+        if spec is not None:
+            if cfg.family not in registry.SPEC_FAMILIES:
+                raise NotImplementedError(
+                    f"spec: family {cfg.family!r} has no verify step "
+                    f"(supported: {registry.SPEC_FAMILIES})")
+            if not isinstance(spec, (spec_lib.NgramDrafter, spec_lib.LowBitSelfDraft)):
+                raise TypeError(
+                    "spec must be a serve.spec.NgramDrafter or "
+                    f"serve.spec.LowBitSelfDraft (got {type(spec).__name__})")
+            if spec.max_draft + 1 > span:
+                raise ValueError(
+                    f"spec.max_draft={spec.max_draft}: a verify row of "
+                    f"{spec.max_draft + 1} positions exceeds the cache span {span}")
         if prefill_chunk is not None:
             if cfg.family not in registry.CHUNKED_FAMILIES:
                 raise NotImplementedError(
@@ -161,6 +197,12 @@ class PoolEngine:
                 "prefix_cache needs prefill_chunk: solo prefill's "
                 "activation-scale groups cover the whole prompt, so its "
                 "pages are never content-shareable")
+        # the kwarg wins, else the policy's recipe; either way every step
+        # body reads it from the policy
+        kv_quant = kv_quant if kv_quant is not None else policy.kv_quant
+        if kv_quant is not None:
+            compress.kv_code_width(kv_quant, cfg.head_dim)  # even head_dim
+        policy = dataclasses.replace(policy, kv_quant=kv_quant)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -180,6 +222,11 @@ class PoolEngine:
         self.span = span
         self.prefill_chunk = prefill_chunk
         self.prefix_cache = prefix_cache
+        self.kv_quant = kv_quant
+        self.spec = spec
+        # the self-draft: the same weights at spec.bits, re-quantized at use
+        self.draft_policy = (draft_policy(policy, spec.bits)
+                             if spec is not None and spec.needs_draft_pass else None)
         self.last_stats: Optional[ServeStats] = None
 
     # -- request admission -------------------------------------------------
@@ -211,7 +258,7 @@ class PoolEngine:
                                  device=self.device).reshape(1, -1)
         logits, mini = registry.prefill(self.cfg, self.policy, self.params,
                                         {"tokens": tokens}, mini)
-        slots_lib.write_slot(cache, mini, slot, pages=pages)
+        slots_lib.write_slot(cache, mini, slot, pages=pages, kv_quant=self.kv_quant)
         return int(torch.argmax(logits, dim=-1)[0])
 
     @staticmethod
@@ -243,8 +290,9 @@ class PoolEngine:
         if hold["new"]:
             cache["pos"][torch.tensor(hold["new"], device=dev)] = -1
         for src, dst in hold["copies"]:
-            for key in ("k", "v"):
-                cache[key][:, dst] = cache[key][:, src]
+            for key in ("k", "v", "k_beta", "v_beta"):
+                if key in cache:
+                    cache[key][:, dst] = cache[key][:, src]
             sp = cache["pos"][src]
             cache["pos"][dst] = torch.where(sp < aplan.resume, sp, torch.full_like(sp, -1))
         cache["len"][slot] = aplan.resume
@@ -256,9 +304,125 @@ class PoolEngine:
 
     def _stats(self) -> ServeStats:
         cfg = self.cfg
-        return ServeStats(page_size=self.page_size,
-                          kv_page_bytes=2 * cfg.n_layers * self.page_size
-                          * cfg.kv_heads * cfg.head_dim * 2)  # bf16 K and V
+        if self.kv_quant is not None:
+            leaf = compress.kv_page_wire_bytes(self.kv_quant, self.page_size,
+                                               cfg.kv_heads, cfg.head_dim)
+        else:
+            leaf = self.page_size * cfg.kv_heads * cfg.head_dim * 2  # bf16
+        return ServeStats(page_size=self.page_size, kv_page_bytes=2 * cfg.n_layers * leaf)
+
+    def _draft(self, last_tok, cache):
+        """``max_draft`` greedy decode steps under the draft policy on the
+        live cache; returns the draft tokens (B, max_draft) with ``len``
+        rewound (the caller restores the cache entries written)."""
+        token = torch.as_tensor(last_tok, device=self.device)
+        toks = []
+        for _ in range(self.spec.max_draft):
+            logits, cache = registry.decode_step(self.cfg, self.draft_policy, self.params,
+                                                 token, cache)
+            token = torch.argmax(logits, dim=-1)
+            toks.append(token)
+        cache["len"] = cache["len"] - self.spec.max_draft
+        return torch.stack(toks, dim=1)
+
+    def _spec_round(self, cache, stats, reqs, alloc, remaining, last_tok,
+                    histories):
+        """Draft, then one verify pass when any slot has a draft.  Returns
+        None when none has (the cache is as it was; the caller runs a
+        plain step), else ``(emitted, lens, n_new)``: the tokens each slot
+        of ``reqs`` ({slot: request}) emits (greedy acceptance, cut at EOS
+        and at its budget), and the pre-round lengths and verify-row
+        widths.  Rejected positions are rolled back here."""
+        spec = self.spec
+        active = sorted(reqs)
+        c = spec.max_draft + 1
+        lens = cache["len"].cpu().numpy()
+        snap = slots_lib.spec_snapshot(cache, c)
+        if spec.needs_draft_pass:
+            dtoks = self._draft(last_tok, cache)
+            stats.draft_weight_passes += spec.max_draft
+            # the verify pass must see the pristine pre-round cache
+            slots_lib.spec_restore(cache, snap, torch.zeros_like(snap["len"]))
+            dhost = dtoks.cpu().numpy()
+            drafts = {slot: dhost[slot] for slot in active}
+        else:
+            drafts = {slot: spec.propose(histories[slot], spec.max_draft)
+                      for slot in active}
+        tokens = np.zeros((self.max_slots, c), np.int64)
+        n_new = np.zeros((self.max_slots,), np.int64)
+        for slot in active:
+            cap = remaining[slot]
+            if self.cfg.window is None:
+                # a verify row's valid positions may not wrap the span
+                cap = min(cap, self.span - int(lens[slot]))
+            nd = max(0, min(len(drafts[slot]), cap - 1, c - 1))
+            tokens[slot, 0] = last_tok[slot]
+            tokens[slot, 1:1 + nd] = drafts[slot][:nd]
+            n_new[slot] = 1 + nd
+        if int(n_new.max()) <= 1:
+            return None
+        logits, cache = registry.verify_step(
+            self.cfg, self.policy, self.params,
+            torch.as_tensor(tokens, device=self.device), n_new, cache)
+        vhost = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, C)
+        stats.decode_steps += 1
+        stats.weight_passes += 1
+        stats.occupancy_sum += len(active) / self.max_slots
+        stats.pages_in_use_sum += alloc.pages_in_use()
+        keep = np.zeros((self.max_slots,), np.int64)
+        emitted = {}
+        for slot in active:
+            eos, nd = reqs[slot].eos_id, int(n_new[slot]) - 1
+            a = spec_lib.greedy_accept(tokens[slot, 1:1 + nd], vhost[slot, :nd])
+            emit = [int(t) for t in tokens[slot, 1:1 + a]] + [int(vhost[slot, a])]
+            # sequential decode's stop rules: the first EOS, the budget
+            for j, t in enumerate(emit):
+                if t == eos:
+                    emit = emit[:j + 1]
+                    break
+            emit = emit[:remaining[slot]]
+            keep[slot] = len(emit)
+            stats.accepted_tokens += len(emit) - 1
+            emitted[slot] = emit
+        # keep[slot] positions cache exactly the consumed context (the
+        # last emitted token is never cached, as in decode)
+        slots_lib.spec_restore(cache, snap, torch.as_tensor(keep, device=self.device))
+        return emitted, lens, n_new
+
+    def _drop_rejected_pages(self, cache, alloc, rnd, spec_dropped):
+        """Table entries of pages a spec round wrote only rejected
+        positions into go to drop_id (their ``pos`` is back at -1); they
+        are re-bound from ``alloc.tables`` before the slot's next step."""
+        emitted, lens, n_new = rnd
+        drop = slots_lib.drop_id(self.num_pages)
+        rows, cols = [], []
+        for slot, emit in emitted.items():
+            p0 = int(lens[slot])
+            lo = -(-(p0 + len(emit)) // self.page_size)
+            hi = (p0 + int(n_new[slot]) - 1) // self.page_size
+            nmap = len(alloc.tables[slot])  # 0 once the slot retired
+            for lp in range(lo, min(hi, nmap - 1) + 1):
+                spec_dropped.setdefault(slot, set()).add(lp)
+                rows.append(slot)
+                cols.append(lp)
+        if rows:
+            dev = self.device
+            cache["table"][torch.tensor(rows, device=dev), torch.tensor(cols, device=dev)] = drop
+
+    def _rebind_dropped_pages(self, cache, alloc, spec_dropped):
+        rows, cols, pids = [], [], []
+        for slot, lps in spec_dropped.items():
+            row = alloc.tables[slot]
+            for lp in sorted(lps):
+                if lp < len(row):
+                    rows.append(slot)
+                    cols.append(lp)
+                    pids.append(int(row[lp]))
+        if rows:
+            dev = self.device
+            cache["table"][torch.tensor(rows, device=dev), torch.tensor(cols, device=dev)] = \
+                torch.tensor(pids, device=dev)
+        spec_dropped.clear()
 
     # -- main loop ---------------------------------------------------------
     def run(self, requests: Sequence[Request]) -> Dict:
@@ -276,6 +440,9 @@ class PoolEngine:
         remaining: Dict[int, int] = {}  # slot -> tokens still to emit
         pending: Dict[int, np.ndarray] = {}  # slot -> unconsumed prompt
         prompts: Dict[int, np.ndarray] = {}  # slot -> full prompt
+        histories: Dict[int, List[int]] = {}  # slot -> prompt + emitted (n-gram)
+        spec_dropped: Dict[int, set] = {}  # slot -> table columns at drop_id
+        track_hist = isinstance(self.spec, spec_lib.NgramDrafter)
         arrival_pass: Dict = {}  # uid -> weight_passes when first admissible
         arrival_time: Dict = {}  # uid -> host clock when first admissible
         holds: List = []  # reserve() results, FIFO with sched.admit's pairs
@@ -304,22 +471,31 @@ class PoolEngine:
             alloc.release_slot(slot)
             dead_rows.append(slot)
             prompts.pop(slot, None)
+            histories.pop(slot, None)
+            spec_dropped.pop(slot, None)
+
+        def emit_tokens(slot, req, toks):
+            out[req.uid].extend(toks)
+            if track_hist:
+                histories[slot].extend(toks)
+            last_tok[slot] = toks[-1]
+            stats.emitted_tokens += len(toks)
+            remaining[slot] -= len(toks)
+            if remaining[slot] <= 0 or toks[-1] == req.eos_id:
+                retire(slot)
 
         def first_token(slot, req, tok):
-            out[req.uid].append(tok)
-            last_tok[slot] = tok
-            stats.emitted_tokens += 1
             stats.ttft_passes[req.uid] = (
                 stats.weight_passes - arrival_pass.get(req.uid, stats.weight_passes))
             stats.ttft_s[req.uid] = time.perf_counter() - arrival_time[req.uid]
-            remaining[slot] = req.max_new_tokens - 1
-            if remaining[slot] <= 0 or tok == req.eos_id:
-                retire(slot)
+            remaining[slot] = req.max_new_tokens
+            emit_tokens(slot, req, [tok])
 
         with torch.inference_mode():
             cache = registry.init_pool_cache(
                 cfg, self.max_slots, self.max_len, device=self.device,
-                page_size=self.page_size, num_pages=self.num_pages)
+                page_size=self.page_size, num_pages=self.num_pages,
+                kv_quant=self.kv_quant)
             # the allocator owns every mapping: dead slots must write into
             # nothing, not into pages the allocator will hand out
             cache["table"].fill_(slots_lib.drop_id(self.num_pages))
@@ -329,6 +505,8 @@ class PoolEngine:
                 alloc.tick(step)
                 for slot, req in sched.admit(step, can_admit_cb):
                     stats.prompt_tokens += self._request_tokens(req)
+                    if track_hist:
+                        histories[slot] = np.asarray(req.tokens, np.int64).reshape(-1).tolist()
                     aplan, hold = holds.pop(0)
                     alloc.bind(slot, hold)
                     self._sync_admission(cache, slot, hold, aplan)
@@ -355,6 +533,27 @@ class PoolEngine:
                         break
                     step = max(step + 1, nxt)
                     continue
+                if spec_dropped:
+                    # re-bind pages a spec round dropped before anything
+                    # writes through them again (their pos is -1 either way)
+                    self._rebind_dropped_pages(cache, alloc, spec_dropped)
+                if self.spec is not None and active and not prefilling:
+                    reqs = {slot: sched.active_request(slot) for slot in active}
+                    rnd = self._spec_round(cache, stats, reqs, alloc, remaining,
+                                           last_tok, histories)
+                    if rnd is not None:
+                        for slot, emit in rnd[0].items():
+                            emit_tokens(slot, reqs[slot], emit)
+                        if cfg.window is None:
+                            self._drop_rejected_pages(cache, alloc, rnd, spec_dropped)
+                        if dead_rows:
+                            self._void_table_rows(cache, dead_rows)
+                        sched.check_conservation()
+                        alloc.check_conservation()
+                        step += 1
+                        continue
+                    # no slot had a draft: the cache is as before the
+                    # round, so the plain step runs
                 finishing = []
                 if chunk is None or (not prefilling and cfg.window is None):
                     # decode fast path: with nobody prefilling the chunk step
@@ -398,14 +597,7 @@ class PoolEngine:
                         alloc.register_prefix(slot, prompts[slot], chunk)
                     first_token(slot, sched.active_request(slot), int(ntok[slot]))
                 for slot in active:
-                    req = sched.active_request(slot)
-                    tok = int(ntok[slot])
-                    out[req.uid].append(tok)
-                    last_tok[slot] = tok
-                    stats.emitted_tokens += 1
-                    remaining[slot] -= 1
-                    if remaining[slot] <= 0 or tok == req.eos_id:
-                        retire(slot)
+                    emit_tokens(slot, sched.active_request(slot), [int(ntok[slot])])
                 if dead_rows:
                     self._void_table_rows(cache, dead_rows)
                 sched.check_conservation()

@@ -9,6 +9,12 @@ Paged layout (``registry.init_pool_cache``, the engine's default):
     len   (max_slots,)                     per-slot sequence length
     table (max_slots, pages_per_slot)      logical page -> physical page
 
+With a ``KVQuantSpec`` the page stores hold the PoT wire format
+(``core/compress.py``): ``k``/``v`` become uint8 code pages
+(L, num_pages+1, page, KV, hd/2) beside int32 per-token scales
+``k_beta``/``v_beta`` (L, num_pages+1, page), page-shaped so a page's
+scales travel with it.
+
 A slot's logical row is reassembled in the step bodies by gathering
 ``k[table[slot]]``: it holds the same (position, value) pairs in the same
 logical order whatever the physical layout, so attention reduces over the
@@ -43,6 +49,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import compress
+from repro_torch.core.policy import KVQuantSpec
 from repro_torch.models import transformer
 
 
@@ -81,13 +89,15 @@ def drop_id(pool_or_num_pages) -> int:
 
 
 def page_pool_cache(cache, max_slots: int, page_size: int,
-                    num_pages: Optional[int] = None):
+                    num_pages: Optional[int] = None,
+                    kv_quant: Optional[KVQuantSpec] = None):
     """Turn a fresh ``init_cache(cfg, max_slots, max_len)`` into the paged
-    pool layout.  With the default ``num_pages = max_slots *
-    pages_per_slot`` the table is the identity mapping (slot i owns pages
-    [i*n, (i+1)*n)), so direct callers that never retire slots see the
-    contiguous behaviour; otherwise every entry starts at :func:`drop_id`.
-    Engine-managed pools overwrite the table at admission either way."""
+    pool layout (with ``kv_quant``: code pages and per-token beta leaves).
+    With the default ``num_pages = max_slots * pages_per_slot`` the table
+    is the identity mapping (slot i owns pages [i*n, (i+1)*n)), so direct
+    callers that never retire slots see the contiguous behaviour;
+    otherwise every entry starts at :func:`drop_id`.  Engine-managed
+    pools overwrite the table at admission either way."""
     L, _, span, kv, hd = cache["k"].shape
     if page_size < 1 or span % page_size != 0:
         raise ValueError(f"page_size={page_size} must divide the cache span {span}")
@@ -104,13 +114,20 @@ def page_pool_cache(cache, max_slots: int, page_size: int,
     else:
         table = torch.full((max_slots, n), drop_id(num_pages), dtype=torch.int64,
                            device=dev)
-    return {
+    if kv_quant is not None:
+        hd, dt = compress.kv_code_width(kv_quant, hd), compress.kv_code_dtype(kv_quant)
+    out = {
         "k": torch.zeros((L, num_pages + 1, page_size, kv, hd), dtype=dt, device=dev),
         "v": torch.zeros((L, num_pages + 1, page_size, kv, hd), dtype=dt, device=dev),
         "pos": torch.full((num_pages + 1, page_size), -1, dtype=torch.int64, device=dev),
         "len": torch.zeros((max_slots,), dtype=torch.int64, device=dev),
         "table": table,
     }
+    if kv_quant is not None:
+        for key in ("k_beta", "v_beta"):
+            out[key] = torch.zeros((L, num_pages + 1, page_size), dtype=torch.int32,
+                                   device=dev)
+    return out
 
 
 def gather_view(pool, leaf):
@@ -135,7 +152,8 @@ def reset_slot(pool, slot: int):
     return pool
 
 
-def write_slot(pool, mini, slot: int, *, pages: Optional[Sequence[int]] = None):
+def write_slot(pool, mini, slot: int, *, pages: Optional[Sequence[int]] = None,
+               kv_quant: Optional[KVQuantSpec] = None):
     """Copy a batch-1 cache (``init_cache(cfg, 1, max_len)`` after a solo
     prefill) into ``slot``: the slot's whole row (k, v, pos, len) is
     overwritten, so nothing of a previous occupant survives.
@@ -143,9 +161,11 @@ def write_slot(pool, mini, slot: int, *, pages: Optional[Sequence[int]] = None):
     Paged pools scatter the mini cache's span into the slot's pages:
     ``pages`` (``pages_per_slot`` ids, drop_id-padded) replaces the slot's
     table row (the engine passes freshly allocated pages); without it the
-    current row is used.  Logical pages mapped to drop_id are skipped."""
+    current row is used.  Logical pages mapped to drop_id are skipped.  A
+    quantized pool (``kv_quant``, which must match the pool) encodes the
+    bf16 mini K/V per written token on the way in."""
     if is_paged(pool):
-        return _write_slot_paged(pool, mini, slot, pages)
+        return _write_slot_paged(pool, mini, slot, pages, kv_quant)
     pool["k"][:, slot] = mini["k"][:, 0].to(pool["k"].dtype)
     pool["v"][:, slot] = mini["v"][:, 0].to(pool["v"].dtype)
     pool["pos"][slot] = mini["pos"]
@@ -153,9 +173,12 @@ def write_slot(pool, mini, slot: int, *, pages: Optional[Sequence[int]] = None):
     return pool
 
 
-def _write_slot_paged(pool, mini, slot, pages):
+def _write_slot_paged(pool, mini, slot, pages, kv_quant=None):
     page = pool["pos"].shape[1]
     n = pool["table"].shape[1]
+    if ("k_beta" in pool) != (kv_quant is not None):
+        raise ValueError("write_slot kv_quant must be given exactly when the pool "
+                         "holds quantized K/V pages")
     if pages is None:
         pages = pool["table"][slot].tolist()
     if len(pages) != n:
@@ -167,11 +190,78 @@ def _write_slot_paged(pool, mini, slot, pages):
     for key in ("k", "v"):
         m = mini[key]  # (L, 1, span, KV, hd)
         L, _, _, kv, hd = m.shape
-        mp = m.to(pool[key].dtype).reshape(L, n, page, kv, hd)
+        if kv_quant is not None:
+            codes, beta = compress.kv_page_encode(m, kv_quant)
+            mp = codes.reshape((L, n, page, kv) + codes.shape[4:])
+            pool[f"{key}_beta"][:, phys] = beta.reshape(L, n, page)[:, logical]
+        else:
+            mp = m.to(pool[key].dtype).reshape(L, n, page, kv, hd)
         pool[key][:, phys] = mp[:, logical]
     pool["pos"][phys] = mini["pos"].reshape(n, page)[logical].to(pool["pos"].dtype)
     pool["len"][slot] = mini["len"]
     return pool
+
+
+# ---------------------------------------------------------------------------
+# Speculative-decoding rollback (serve/spec.py)
+# ---------------------------------------------------------------------------
+# A spec round writes K/V and pos at positions len .. len+C-1 of every
+# slot.  ``spec_snapshot`` gathers those C entries (and ``len``) before
+# the round; ``spec_restore`` writes them back at positions >= keep[b]:
+# keep = 0 erases the self-draft's writes before the verify pass, keep =
+# accepted + 1 rolls back the rejected tail after acceptance.  Without a
+# window the restored entries held pos -1, so this is the reference's "pos
+# back to -1" rollback.  Kept positions, and dead slots (drop_id tables),
+# are written as the null page's own contents (``transformer.paged_write``).
+
+
+def _spec_addr(cache, c: int, pos0):
+    """``(dest, loff)`` (B, C): physical page and offset of each slot's C
+    spec-round entries (drop_id where the slot maps no page)."""
+    offs = torch.arange(c, dtype=pos0.dtype, device=pos0.device)
+    gpos = pos0[:, None] + offs[None, :]
+    table = cache["table"]
+    page = cache["pos"].shape[1]
+    lo = gpos % (table.shape[1] * page)
+    return torch.gather(table, 1, lo // page), lo % page
+
+
+def _spec_leaves(cache):
+    return [k for k in ("k", "v", "k_beta", "v_beta") if k in cache]
+
+
+def spec_snapshot(cache, c: int):
+    """The pre-round state of the C entries a spec round can touch:
+    ``{"k": (L, B, C, ...), "v", ["k_beta", "v_beta"], "pos": (B, C),
+    "len": (B,)}`` (copies; dead slots read the null page)."""
+    if not is_paged(cache):
+        raise NotImplementedError("repro_torch's spec rounds run the paged pool cache")
+    pos0 = cache["len"].clone()
+    dest, off = _spec_addr(cache, c, pos0)
+    d = dest.clamp(max=num_pages_of(cache))
+    snap = {key: cache[key][:, d, off] for key in _spec_leaves(cache)}
+    snap["pos"] = cache["pos"][d, off]
+    snap["len"] = pos0
+    return snap
+
+
+def spec_restore(cache, snap, keep):
+    """Write the snapshot back at positions >= ``keep[b]`` and set ``len =
+    snap["len"] + keep``; ``keep`` (B,) in [0, C].  In place."""
+    c = snap["pos"].shape[1]
+    pos0 = snap["len"]
+    keep = torch.as_tensor(keep, dtype=pos0.dtype, device=pos0.device)
+    dest, off = _spec_addr(cache, c, pos0)
+    offs = torch.arange(c, dtype=pos0.dtype, device=pos0.device)
+    rej = offs[None, :] >= keep[:, None]  # (B, C): restore these
+    npages = num_pages_of(cache)
+    dest = torch.where(rej, dest, torch.full_like(dest, npages + 1))
+    for key in _spec_leaves(cache):
+        for layer, sv in zip(cache[key], snap[key]):
+            transformer.paged_write(layer, dest, off, sv, npages)
+    transformer.paged_write(cache["pos"], dest, off, snap["pos"], npages)
+    cache["len"] = pos0 + keep
+    return cache
 
 
 # ---------------------------------------------------------------------------
