@@ -10,8 +10,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     process per source, started together;
  3. K1 against its plain PyTorch version on the card, bit for bit
     (torch.equal), at the serving shapes of llama3-8b (decode M = 4,
-    prefill M = 128, a verify pass M = 16 at 5 bits, a self-draft step
-    M = 4 at 3 bits), both modes, and at
+    prefill M = 128, a verify pass M = 16 at 5 bits, the lockstep wave's
+    batched prefill M = 512 = 4 x 128 under one activation scale, a
+    self-draft step M = 4 at 3 bits) and of mistral-nemo-12b and
+    starcoder2-7b (M = 4
+    and 128 at each linear's (K, N)), both modes, and at
     the edges of its paths (kernels/potq_matmul.py ``plan``): M from 1 to
     4100 across the decode threshold and the tensor cores' 128-row tile,
     split and unsplit grids, K and N off 128, off 32 and off 8 (rows not
@@ -19,11 +22,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     and a lattice-extreme operand set at the 5 x 5 pair;
  4. timing at the serving shapes: kernel, plain version, torch.matmul on
     the same bf16 operands (yardstick only), and the roofline bound,
-    summed over one decode weight pass (M = 4), one prefill (M = 128),
-    one verify pass (M = 16) and one self-draft step (M = 4, 3 bits);
+    summed over one llama3-8b decode weight pass (M = 4), prefill (M =
+    128), verify pass (M = 16), self-draft step (M = 4, 3 bits) and
+    lockstep wave prefill (M = 512), and over one decode weight pass and
+    one prefill of each other config;
  5. serve: llama3-8b at full width (random weights from seed 0) through
     PoolEngine on an 8-request Poisson trace; K1 must launch exactly
-    225 times per weight pass;
+    once per linear per weight pass (``k1_per_pass``: 225 for
+    llama3-8b, 281 for mistral-nemo-12b, 193 for starcoder2-7b);
  6. pool vs solo: two requests served alone give the same tokens;
  7. CUDA vs CPU: a smoke-width model agrees within the CPU tests' logit
     tolerance;
@@ -93,15 +99,35 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     betas); K1 launches 225 times per weight pass; tokens/s, TTFT, KV bytes
     per token beside phase 19's bf16 figure, peak memory, a profiled decode
     step;
-22. speculative decoding on the same engine: ``NgramDrafter(3)`` and
-    ``LowBitSelfDraft(3, 3)`` over bf16 pages give phase 19 A's tokens,
-    the self-draft over quantized pages phase 21 A's, bit for bit, in no
-    more weight passes; K1 launches 225 times per verify pass and per
-    draft step; a verify pass over 4 slots x 4 positions (one row across a
-    page) equals 4 sequential ``decode_step`` calls in logits and every
-    cache leaf, over bf16 and quantized pages; weight passes, accepted
-    tokens, draft passes, tokens/s, a profiled verify pass and draft step,
-    and the draft's 225 weight re-quantizations timed alone;
+22. speculative decoding on the same engine at llama3-8b's widths and
+    8 of its layers: ``NgramDrafter(3)`` and ``LowBitSelfDraft(3, 3)``
+    over bf16 pages and the self-draft over quantized pages give the
+    tokens of their spec-off runs at that depth, bit for bit, in no more
+    weight passes; K1 launches once a linear per verify pass and per
+    draft step; at all 32 layers, a verify pass over 4 slots x 4
+    positions (one row across a page) equals 4 sequential
+    ``decode_step`` calls in logits and every cache leaf, over bf16 and
+    quantized pages; weight passes, accepted tokens, draft passes,
+    tokens/s, a profiled verify pass and draft step, and the draft's 225
+    weight re-quantizations timed alone;
+23. lockstep serving and float32 pages at llama3-8b's full width, on the
+    serve trace's first 4 requests: ``lockstep_generate`` serves them as
+    one wave (one batched prefill, then lockstep steps to the longest
+    output; 225 K1 launches a weight pass); request 0 by batch-1
+    lockstep equals its tokens from a solo-prefill pool (page 16), bit
+    for bit; a ``cache_dtype=torch.float32`` chunked (32) + paged (16)
+    engine gives each request's tokens alone, its counters equal the CPU
+    smoke-width run's and ``kv_page_bytes`` is twice bf16's;
+24. mistral-nemo-12b and 25. starcoder2-7b at full width (weights from
+    seed 0, llama3-8b's freed first), each through phase 19's engine on
+    ``poisson_trace(4 requests, prompt 128, lam 2.0, 8-16 new, seed 0)``:
+    A is the main path (its implicit host syncs counted under PyTorch's
+    sync debug mode); C (each request alone) gives A's tokens bit for
+    bit; A's counters equal the CPU smoke-width run's; K1 launches 281 /
+    193 times a weight pass; a chunk-step decode row equals
+    ``decode_step``; tokens/s, TTFT, chunk- and decode-step wall times
+    and one profiled decode step (K1's device time beside its bytes
+    bound);
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
@@ -118,6 +144,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -138,12 +166,15 @@ LOGIT_ATOL = 1e-3  # tests/test_torch_serve.py's tolerance
 # tests/test_torch_train.py's tolerances (port vs reference on the CPU)
 LOSS_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-5, 1e-4, 1e-6
 SERVE_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128512)]
+# the other dense decoders, served at full width in phases 24-25; phase 3
+# checks K1 at their linears' (K, N), phase 4 times their weight passes
+OTHER_ARCHS = ("mistral-nemo-12b", "starcoder2-7b")
 # the serving shapes of speculative decoding: a verify pass scores 4 slots x
 # 4 positions (max_draft 3), a self-draft step runs decode at 3 bits
 VERIFY_M, DRAFT_BITS = 16, 3
-# launches of each (K, N) in one llama3-8b weight pass (32 layers + head)
-PASS_COUNTS = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
-               (14336, 4096): 32, (4096, 128512): 1}
+# phase 23's lockstep wave prefills 4 requests of 128 tokens as one batch:
+# K1 sees (4 x 128, K) rows under one activation scale (per tensor)
+LOCKSTEP_PREFILL_M = 4 * 128
 # olmo-1b training: (K, N) of each linear and its launches per step (16
 # layers: wq/wk/wv/wo, wi_gate/wi_up, mlp wo; then the LM head, 6-bit G)
 TRAIN_M = 8 * 512
@@ -151,8 +182,6 @@ TRAIN_COUNTS = {(2048, 2048): 64, (2048, 8192): 32, (8192, 2048): 16, (2048, 506
 # K1 per step: every forward, and again when the backward recomputes a layer
 # (the head is not recomputed)
 TRAIN_K1_COUNTS = {(2048, 2048): 128, (2048, 8192): 64, (8192, 2048): 32, (2048, 50688): 1}
-# "gq": the G pre-pass, once per backward, shared by K2 and K3
-STEP_LAUNCHES = {"k1": 225, "k2": 113, "k3": 113, "gq": 113}
 # olmo-1b pack: ops.potq_encode views each linear leaf as (rows, last axis)
 # -> launches per pack (wq/wk/wv/wo; wi_gate/wi_up; mlp wo; the LM head)
 PACK_SHAPES = {(32768, 2048): 4, (32768, 8192): 2, (131072, 2048): 1, (2048, 50688): 1}
@@ -167,6 +196,47 @@ TRAIN_ARGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "512", "--log-every"
 
 
 _T0 = time.perf_counter()
+
+
+def k1_per_pass(cfg):
+    """K1 launches in one weight pass of a dense decoder: the 4 attention
+    linears and the MLP's matrices (3 swiglu, 2 gelu) of every layer, then
+    the LM head (llama3-8b 225, mistral-nemo-12b 281, starcoder2-7b 193)."""
+    return cfg.n_layers * (4 + (3 if cfg.act == "swiglu" else 2)) + 1
+
+
+def pass_counts(cfg):
+    """{(K, N): K1 launches} of one weight pass, from the parameter specs."""
+    from repro_torch.models import registry, spec
+
+    counts = {}
+    for name, leaf in spec.named_leaves(registry.param_specs(cfg)):
+        if name.endswith("/w"):
+            kn = tuple(leaf.shape[-2:])
+            counts[kn] = counts.get(kn, 0) + (leaf.shape[0] if len(leaf.shape) == 3 else 1)
+    if sum(counts.values()) != k1_per_pass(cfg):
+        raise SystemExit(f"{cfg.name}: {counts} is not one weight pass")
+    return counts
+
+
+def check_tokens(cfg, reqs, out):
+    """Each request got its ``max_new_tokens`` ids, all inside the padded
+    vocabulary."""
+    for r in reqs:
+        toks = out[r.uid]
+        if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_padded:
+            raise SystemExit(f"{cfg.name}: bad tokens for request {r.uid}: {toks}")
+
+
+def step_launches():
+    """Launches of one olmo-1b training step: K1 runs each forward linear
+    and again where the backward recomputes a layer (not the head); K2, K3
+    and the G pre-pass ("gq", shared by K2 and K3) once per linear."""
+    from repro_torch import configs
+
+    n = k1_per_pass(configs.get_config("olmo-1b"))
+    return {"k1": 2 * n - 1, "k2": n, "k3": n, "gq": n}
 
 
 def phase(name):
@@ -262,24 +332,22 @@ def main() -> int:
         weights[(kk, nn)] = qw.quantize_leaf("w", w, PAPER_FAITHFUL)
         del w
     # (M, K, N, bits): decode (M = 4 slots) and prefill / chunk step (M =
-    # 128) at 5 bits, a verify pass (M = 4 slots x 4 positions) at 5 bits,
-    # and a self-draft step (M = 4) at 3 bits: the served 5-bit weights
-    # re-quantized by the draft policy, as each draft step does
-    cases = ([(m, kk, nn, 5) for m in (4, 128, VERIFY_M) for kk, nn in SERVE_SHAPES]
+    # 128) at 5 bits, a verify pass (M = 4 slots x 4 positions) and the
+    # lockstep wave's batched prefill (M = 512) at 5 bits, and a self-draft
+    # step (M = 4) at 3 bits: the served 5-bit weights re-quantized by the
+    # draft policy, as each draft step does
+    cases = ([(m, kk, nn, 5) for m in (4, 128, VERIFY_M, LOCKSTEP_PREFILL_M)
+              for kk, nn in SERVE_SHAPES]
              + [(4, kk, nn, DRAFT_BITS) for kk, nn in SERVE_SHAPES] + [(3, 200, 130, 5)])
     dpol = draft_policy(dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True),
                         DRAFT_BITS)
     operands = {}
-    for m, kk, nn, bits in cases:
-        wq = weights.get((kk, nn))
-        if wq is None:
-            wq = qw.quantize_leaf("w", torch.randn(kk, nn, generator=gen, device=dev),
-                                  PAPER_FAITHFUL)
-        if bits != 5:
-            wq = mfmac._quantize_w(wq, dpol)
+
+    def q0_case(m, kk, nn, bits, wq):
+        """K1 on (M, K) serving activations, one scale group per slot (and
+        position) at M <= 16 and one per request above, bit for bit."""
+        nonlocal max_err
         a = torch.randn(m, kk, generator=gen, device=dev)
-        # serving rows: one scale group per slot (and position); prefill:
-        # one per request
         axes = (1,) if m <= VERIFY_M else None
         aq = potq.pot_quantize(a, bits, potq.compute_beta(a, bits, axes)).to(torch.bfloat16)
         out_k = K.potq_matmul_cuda(aq, wq)
@@ -292,6 +360,26 @@ def main() -> int:
             raise SystemExit(f"K1 differs from its plain version at {(m, kk, nn, bits)}")
         max_err = max(max_err, err)
         operands[(m, kk, nn, bits)] = (aq, wq)
+
+    for m, kk, nn, bits in cases:
+        wq = weights.get((kk, nn))
+        if wq is None:
+            wq = qw.quantize_leaf("w", torch.randn(kk, nn, generator=gen, device=dev),
+                                  PAPER_FAITHFUL)
+        if bits != 5:
+            wq = mfmac._quantize_w(wq, dpol)
+        q0_case(m, kk, nn, bits, wq)
+    # the other dense decoders' linears: decode (M = 4) and prefill or a
+    # chunk step (M = 128)
+    counts = {arch: pass_counts(configs.get_config(arch))
+              for arch in ("llama3-8b",) + OTHER_ARCHS}
+    for arch in OTHER_ARCHS:
+        for kk, nn in counts[arch]:
+            w = torch.randn(kk, nn, generator=gen, device=dev) * 0.02 + 1e-3
+            wq = qw.quantize_leaf("w", w, PAPER_FAITHFUL)
+            del w
+            for m in (4, 128):
+                q0_case(m, kk, nn, 5, wq)
     # quantize=True: raw f32 operands, PRC and WBC on, subnormals included
     a = torch.randn(128, 4096, generator=gen, device=dev)
     w = torch.randn(4096, 1024, generator=gen, device=dev) * 0.02 + 3e-3
@@ -315,11 +403,16 @@ def main() -> int:
 
     phase("4 timing (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    # summed over one decode weight pass (M = 4), one prefill (M = 128), one
-    # verify pass (M = 16) and one self-draft step (M = 4, 3 bits)
-    sums = {mb: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                 "t_ops": 0.0, "t_bytes": 0.0}
-            for mb in ((4, 5), (128, 5), (VERIFY_M, 5), (4, DRAFT_BITS))}
+    # summed over one llama3-8b decode weight pass (M = 4), prefill (M =
+    # 128), verify pass (M = 16), self-draft step (M = 4, 3 bits) and
+    # lockstep wave prefill (M = 512), and over a decode weight pass and a
+    # prefill of each other dense decoder
+    regimes = ([("llama3-8b", m, bits) for m, bits in
+                ((4, 5), (128, 5), (VERIFY_M, 5), (4, DRAFT_BITS),
+                 (LOCKSTEP_PREFILL_M, 5))]
+               + [(arch, m, 5) for arch in OTHER_ARCHS for m in (4, 128)])
+    sums = {r: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "t_ops": 0.0, "t_bytes": 0.0} for r in regimes}
     for (m, kk, nn, bits), (aq, wq) in operands.items():
         big = m * kk * nn > 1e10
         it = 3 if big else 10
@@ -333,8 +426,10 @@ def main() -> int:
                    fp64_tc_bound_ms=2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3)
         rows.append(row)
         print(json.dumps(row))
-        if (m, bits) in sums and (kk, nn) in PASS_COUNTS:
-            c, acc = PASS_COUNTS[(kk, nn)], sums[(m, bits)]
+        for (arch, rm, rbits), acc in sums.items():
+            c = counts[arch].get((kk, nn))
+            if (rm, rbits) != (m, bits) or c is None:
+                continue
             acc["ms"] += c * t_k
             acc["plain_ms"] += c * t_p
             acc["library_ms"] += c * t_l
@@ -356,18 +451,31 @@ def main() -> int:
         acc["bound_ms"] = max(t_ops, t_bytes)
         acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
         acc["fp64_tc_bound_ms"] = t_ops * PEAK_BF16_FLOPS / PEAK_FP64_TC_FLOPS
-    per_pass, per_prefill = sums[(4, 5)], sums[(128, 5)]
-    per_verify, per_draft = sums[(VERIFY_M, 5)], sums[(4, DRAFT_BITS)]
+    per_pass, per_prefill = sums[("llama3-8b", 4, 5)], sums[("llama3-8b", 128, 5)]
+    per_verify, per_draft = sums[("llama3-8b", VERIFY_M, 5)], sums[("llama3-8b", 4, DRAFT_BITS)]
+    per_wave_prefill = sums[("llama3-8b", LOCKSTEP_PREFILL_M, 5)]
     print("one decode weight pass (M=4, 225 launches):", json.dumps(per_pass))
     print("one prefill (M=128, 225 launches):", json.dumps(per_prefill))
     print(f"one verify pass (M={VERIFY_M}, 225 launches):", json.dumps(per_verify))
     print(f"one self-draft step (M=4, {DRAFT_BITS} bits, 225 launches):",
           json.dumps(per_draft))
+    print(f"one lockstep wave prefill (M={LOCKSTEP_PREFILL_M} = 4 x 128, 225 launches):",
+          json.dumps(per_wave_prefill))
+    other_passes = {}
+    for arch in OTHER_ARCHS:
+        n = sum(counts[arch].values())
+        other_passes[arch] = dict(launches_per_pass=n, decode_pass=sums[(arch, 4, 5)],
+                                  prefill=sums[(arch, 128, 5)])
+        print(f"{arch}: one decode weight pass (M=4, {n} launches):",
+              json.dumps(sums[(arch, 4, 5)]))
+        print(f"{arch}: one prefill (M=128, {n} launches):", json.dumps(sums[(arch, 128, 5)]))
     detail["k1_shapes"] = rows
     detail["k1_decode_pass"] = per_pass
     detail["k1_prefill"] = per_prefill
     detail["k1_verify_pass"] = per_verify
     detail["k1_draft_step"] = per_draft
+    detail["k1_lockstep_prefill"] = per_wave_prefill
+    detail["k1_other_configs"] = other_passes
     del operands, weights, flush, a, w, sums
 
     phase("5 serve llama3-8b at full width")
@@ -403,14 +511,10 @@ def main() -> int:
                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(json.dumps(serve))
     detail["serve"] = serve
-    if launches != 225 * st.weight_passes:
-        raise SystemExit(f"K1 launched {launches} times, expected 225 x "
+    if launches != k1_per_pass(cfg) * st.weight_passes:
+        raise SystemExit(f"K1 launched {launches} times, expected {k1_per_pass(cfg)} x "
                          f"{st.weight_passes} weight passes")
-    for r in reqs:
-        toks = out[r.uid]
-        if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
-                toks.max() >= cfg.vocab_padded:
-            raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+    check_tokens(cfg, reqs, out)
     # where a weight pass's time goes: one prefill and one pooled decode step
     with torch.inference_mode():
         mini = registry.init_cache(cfg, 1, 160, device=dev)
@@ -515,9 +619,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/potq_matmul.cu",
         "replaces": "src/repro/kernels/potq_matmul.py:70",
-        # serve runs (phases 5, 19, 20's prefix-on run, 21 and 22's three
-        # speculative runs) + training (phase 10)
+        # serve runs (phases 5, 19, 20's prefix-on run, 21, 22's three
+        # speculative runs, 23's lockstep wave and float32 run, 24-25's A)
+        # + training (phase 10)
         "launches": launches + train["launches"]["k1"] + paged["launches"],
+        "lockstep_launches": paged["lockstep_launches"],
         "chunk_step_launches": paged["chunk_launches"],
         "verify_step_launches": paged["verify_launches"],
         "draft_step_launches": paged["draft_launches"],
@@ -549,6 +655,21 @@ def main() -> int:
         "draft_plain_ms": per_draft["plain_ms"],
         "draft_bound_ms": per_draft["bound_ms"],
         "draft_library_ms": per_draft["library_ms"],
+        # phase 23's lockstep wave: its batched prefill (M = 512, phase 4)
+        "lockstep_prefill_ms": per_wave_prefill["ms"],
+        "lockstep_prefill_plain_ms": per_wave_prefill["plain_ms"],
+        "lockstep_prefill_bound_ms": per_wave_prefill["bound_ms"],
+        "lockstep_prefill_fp64_tc_bound_ms": per_wave_prefill["fp64_tc_bound_ms"],
+        "lockstep_prefill_library_ms": per_wave_prefill["library_ms"],
+        # the other dense decoders (phase 4's sums, phases 24-25's launches)
+        "other_configs": {
+            arch: dict(launches=paged["dense_launches"][arch],
+                       launches_per_pass=o["launches_per_pass"],
+                       **{f"{key}_{f}": o[regime][f]
+                          for key, regime in (("decode", "decode_pass"), ("prefill", "prefill"))
+                          for f in ("ms", "plain_ms", "bound_ms", "fp64_tc_bound_ms",
+                                    "library_ms")})
+            for arch, o in detail["k1_other_configs"].items()},
     }]
     # K2's ms includes its pre-pass, which also has a line of its own; it
     # takes the place of the in-VMEM quantization of G in both TPU kernels
@@ -816,7 +937,7 @@ def training_kernels(dev, detail):
         acc["bound_ms"] = max(t_ops, t_bytes)
         acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
         out[key] = acc
-        print(f"{key}, one training step ({STEP_LAUNCHES[key]} launches):", json.dumps(acc))
+        print(f"{key}, one training step ({step_launches()[key]} launches):", json.dumps(acc))
     detail["train_kernels_per_step"] = out
     detail["train_kernel_shapes"] = rows
     del timing_inputs, flush
@@ -872,7 +993,7 @@ def training(dev, detail):
     for r in run.records:
         if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0):
             raise SystemExit(f"bad training step {r}")
-    want = {k: v * steps for k, v in STEP_LAUNCHES.items()}
+    want = {k: v * steps for k, v in step_launches().items()}
     print(f"launches over {steps} steps: {launches} (expected {want}); "
           f"peak device memory {peak:.2f} GiB; run wall {wall:.1f} s")
     if launches != want:
@@ -895,8 +1016,8 @@ def training(dev, detail):
         torch.cuda.synchronize()
         t_prof = time.perf_counter() - t0
     per_step = read()
-    if per_step != STEP_LAUNCHES:
-        raise SystemExit(f"one step launched {per_step}, expected {STEP_LAUNCHES}")
+    if per_step != step_launches():
+        raise SystemExit(f"one step launched {per_step}, expected {step_launches()}")
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
     # K2 counts its pre-pass and its rows fold (grad_da_rows_fold_kernel)
@@ -1148,8 +1269,8 @@ def restart(dev, detail, ckpt_dir):
     if run_b.start_step != 2 or [r["step"] for r in run_b.records] != [2]:
         raise SystemExit(f"run B started at {run_b.start_step} and ran "
                          f"{[r['step'] for r in run_b.records]}, expected step 2 only")
-    if launches_b != STEP_LAUNCHES:
-        raise SystemExit(f"run B launched {launches_b}, expected one step's {STEP_LAUNCHES}")
+    if launches_b != step_launches():
+        raise SystemExit(f"run B launched {launches_b}, expected one step's {step_launches()}")
     if run_b.ckpt.all_steps() != [2, 3]:
         raise SystemExit(f"run B left checkpoints {run_b.ckpt.all_steps()}, expected [2, 3]")
     timings += [dict(run="B", **t) for t in run_b.ckpt.timings]
@@ -1264,13 +1385,9 @@ def pack_and_serve(dev, detail, ckpt_dir, run_b):
                             emitted_tokens=st.emitted_tokens, weight_passes=st.weight_passes,
                             k1_launches=k1)
         print(label, json.dumps(serve[label]), flush=True)
-        if k1 != (7 * cfg.n_layers + 1) * st.weight_passes:
+        if k1 != k1_per_pass(cfg) * st.weight_passes:
             raise SystemExit(f"K1 launched {k1} times over {st.weight_passes} weight passes")
-        for r in reqs:
-            toks = outs[label][r.uid]
-            if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
-                    toks.max() >= cfg.vocab_padded:
-                raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+        check_tokens(cfg, reqs, outs[label])
         del eng
     same = [int((outs["unpacked"][r.uid] == outs["served"][r.uid]).sum()) for r in reqs]
     share = sum(same) / sum(r.max_new_tokens for r in reqs)
@@ -1331,8 +1448,6 @@ def cpu_vs_card(dev, detail):
         raise SystemExit("packing or checkpoints differ between CPU and card")
 
 
-# K1 launches per llama3-8b weight pass: 7 linears x 32 layers + the head
-K1_PER_PASS = 225
 SERVE_COUNTERS = ("weight_passes", "decode_steps", "prefills", "emitted_tokens",
                   "ttft_passes", "admission_deferrals")
 PREFIX_COUNTERS = SERVE_COUNTERS + ("prefix_hit_tokens", "cow_copies", "evictions")
@@ -1348,15 +1463,39 @@ def _zero_launches():
         fn.launches = 0
 
 
-def _timed_run(eng, reqs):
+def _timed_run(eng, reqs, syncs=None):
     """One engine run with every launch count set to 0 just before it;
-    returns (tokens, wall seconds, K1 launches)."""
+    returns (tokens, wall seconds, K1 launches).  With a dict ``syncs``
+    the run goes under PyTorch's CUDA sync debug mode, and ``syncs``
+    counts its implicit host syncs by the innermost line of the port
+    (``src/``) that made them, else by torch's own line (waiting on an
+    event is explicit: the engine's one sync a step is not counted)."""
     from repro_torch.kernels import potq_matmul as K
 
     torch.cuda.synchronize()
     _zero_launches()
     t0 = time.perf_counter()
-    out = eng.run(reqs)
+    if syncs is None:
+        out = eng.run(reqs)
+    else:
+        def record(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if f.filename.startswith(str(ROOT / "src"))]
+            where = ours[-1] if ours else None
+            key = (f"{os.path.relpath(where.filename, ROOT)}:{where.lineno} "
+                   f"({where.line})" if where else f"{filename}:{lineno}")
+            syncs[key] = syncs.get(key, 0) + 1
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = eng.run(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, K.potq_matmul_cuda.launches
 
@@ -1372,16 +1511,16 @@ def _serve_row(st, wall, launches):
                 kv_hbm_bytes_per_token=st.kv_hbm_bytes_per_token, k1_launches=launches)
 
 
-def _cpu_counters(reqs, engine_kw, keys):
+def _cpu_counters(reqs, engine_kw, keys, arch="llama3-8b"):
     """The same requests (token ids modulo the smoke vocab) through the
-    port on the CPU at smoke width: the counters that do not depend on
-    the model's width when no request has an EOS."""
+    port on the CPU at ``arch``'s smoke width: the counters that do not
+    depend on the model's width when no request has an EOS."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.models import registry, spec
     from repro_torch.serve import PoolEngine
 
-    scfg = configs.smoke_config("llama3-8b")
+    scfg = configs.smoke_config(arch)
     p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
     eng = PoolEngine(scfg, PAPER_FAITHFUL, p_cpu, device="cpu", **engine_kw)
     eng.run([dataclasses.replace(r, tokens=np.asarray(r.tokens) % scfg.vocab) for r in reqs])
@@ -1398,8 +1537,8 @@ def _check_counters(label, st, cpu):
 
 def _streamed_pool(cfg, pol, params, dev, prompts, kv_quant=None):
     """A 4-slot pool (page 16, a reversed page table: not the identity)
-    with ``prompts`` streamed in by chunk steps of 32; K1 must launch 225
-    times in each.  Returns (pool, last logits, chunk-step seconds, K1
+    with ``prompts`` streamed in by chunk steps of 32; K1 must launch
+    ``k1_per_pass(cfg)`` times in each.  Returns (pool, last logits, chunk-step seconds, K1
     launches of the last chunk step)."""
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry
@@ -1423,14 +1562,14 @@ def _streamed_pool(cfg, pol, params, dev, prompts, kv_quant=None):
         torch.cuda.synchronize()
         t_chunk.append(time.perf_counter() - t0)
         launches = K.potq_matmul_cuda.launches
-        if launches != K1_PER_PASS:
+        if launches != k1_per_pass(cfg):
             raise SystemExit(f"K1 launched {launches} times in one chunk step")
     return pool, logits, t_chunk, launches
 
 
 def _decode_row_check(cfg, pol, params, pool, logits, dev):
     """A chunk-step decode row equals ``decode_step`` in logits and every
-    cache leaf, and a decode step launches K1 225 times.  Returns (the
+    cache leaf, and a decode step launches K1 once a linear.  Returns (the
     decoded tokens, decode_step's cache, its K1 launches)."""
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry
@@ -1449,7 +1588,7 @@ def _decode_row_check(cfg, pol, params, pool, logits, dev):
         torch.equal(c1[k], c2[k]) for k in c1)
     print(f"chunk-step decode row == decode_step (logits and every cache leaf: "
           f"{sorted(c1)}): {equal}")
-    if not equal or launches != K1_PER_PASS:
+    if not equal or launches != k1_per_pass(cfg):
         raise SystemExit(f"decode row differs between the step bodies ({equal}) "
                          f"or K1 launched {launches} times in a decode step")
     return last, c2, launches
@@ -1479,9 +1618,11 @@ def _wall(fn):
 
 
 def serving(dev, detail):
-    """Phases 19-22 on one llama3-8b at full width (weights from seed 0):
-    chunked + paged serving, the prefix cache, PoT-quantized KV pages and
-    speculative decoding.  Returns K1's launch counts of their main paths."""
+    """Phases 19-23 on one llama3-8b at full width (weights from seed 0):
+    chunked + paged serving, the prefix cache, PoT-quantized KV pages,
+    speculative decoding, lockstep serving and float32 pages; then phases
+    24-25, mistral-nemo-12b and starcoder2-7b at full width.  Returns K1's
+    launch counts of their main paths."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.models import registry, spec
@@ -1503,15 +1644,19 @@ def serving(dev, detail):
                          new_hi=32, seed=0)
     paged = paged_serving(dev, detail, cfg, params, policy, reqs)
     kvq = kv_quant_serving(dev, detail, cfg, params, policy, reqs)
-    spec_run = spec_serving(dev, detail, cfg, params, policy, reqs, paged["tokens"],
-                            kvq["tokens"])
+    spec_run = spec_serving(dev, detail, cfg, params, policy, reqs)
+    lockstep = lockstep_serving(dev, detail, cfg, params, policy, reqs)
     del params
     torch.cuda.empty_cache()
+    dense = {arch: dense_serving(dev, detail, arch, number)
+             for number, arch in enumerate(OTHER_ARCHS, start=24)}
     torch.use_deterministic_algorithms(deterministic)
-    return dict(launches=paged["launches"] + kvq["launches"] + spec_run["launches"],
+    return dict(launches=paged["launches"] + kvq["launches"] + spec_run["launches"]
+                + lockstep["launches"] + sum(dense.values()),
                 chunk_launches=paged["chunk_launches"],
                 verify_launches=spec_run["verify_launches"],
-                draft_launches=spec_run["draft_launches"])
+                draft_launches=spec_run["draft_launches"],
+                lockstep_launches=lockstep["wave_launches"], dense_launches=dense)
 
 
 def paged_serving(dev, detail, cfg, params, policy, reqs):
@@ -1529,14 +1674,10 @@ def paged_serving(dev, detail, cfg, params, policy, reqs):
     st_a = eng_a.last_stats
     res = {"A": _serve_row(st_a, wall, launches)}
     print("A (page 16):", json.dumps(res["A"]))
-    if launches != K1_PER_PASS * st_a.weight_passes:
-        raise SystemExit(f"K1 launched {launches} times in A, expected {K1_PER_PASS} x "
+    if launches != k1_per_pass(cfg) * st_a.weight_passes:
+        raise SystemExit(f"K1 launched {launches} times in A, expected {k1_per_pass(cfg)} x "
                          f"{st_a.weight_passes} weight passes")
-    for r in reqs:
-        toks = out_a[r.uid]
-        if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
-                toks.max() >= cfg.vocab_padded:
-            raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+    check_tokens(cfg, reqs, out_a)
     _check_counters("A", st_a, _cpu_counters(reqs, dict(kw, page_size=16), SERVE_COUNTERS))
     eng_b = PoolEngine(cfg, policy, params, device=dev, **kw)
     out_b, wall, launches = _timed_run(eng_b, reqs)
@@ -1598,8 +1739,8 @@ def paged_serving(dev, detail, cfg, params, policy, reqs):
         runs[on] = (out, st)
         res[f"prefix_{'on' if on else 'off'}"] = row = _serve_row(st, wall, launches)
         print(f"prefix {'on' if on else 'off'}:", json.dumps(row))
-        if launches != K1_PER_PASS * st.weight_passes:
-            raise SystemExit(f"K1 launched {launches} times, expected {K1_PER_PASS} x "
+        if launches != k1_per_pass(cfg) * st.weight_passes:
+            raise SystemExit(f"K1 launched {launches} times, expected {k1_per_pass(cfg)} x "
                              f"{st.weight_passes} weight passes")
         _check_counters(f"prefix {'on' if on else 'off'}", st,
                         _cpu_counters(preqs, dict(pkw, prefix_cache=on), PREFIX_COUNTERS))
@@ -1615,7 +1756,7 @@ def paged_serving(dev, detail, cfg, params, policy, reqs):
         raise SystemExit("prefix cache: tokens changed or no saving")
     detail["paged_serving"] = res
     return dict(launches=res["A"]["k1_launches"] + res["prefix_on"]["k1_launches"],
-                chunk_launches=chunk_launches, tokens=out_a)
+                chunk_launches=chunk_launches)
 
 
 # bytes of one K+V page across llama3-8b's 32 layers in the pinned wire
@@ -1642,16 +1783,12 @@ def kv_quant_serving(dev, detail, cfg, params, policy, reqs):
     print("A (page 16, KV_PINNED):", json.dumps(res["A"]))
     print(f"kv_page_bytes {st.kv_page_bytes} (bf16: {2 * 32 * 16 * 8 * 128 * 2}); "
           f"kv_hbm_bytes_per_token {st.kv_hbm_bytes_per_token} (phase 19, bf16: {bf16})")
-    if launches != K1_PER_PASS * st.weight_passes:
-        raise SystemExit(f"K1 launched {launches} times in A, expected {K1_PER_PASS} x "
+    if launches != k1_per_pass(cfg) * st.weight_passes:
+        raise SystemExit(f"K1 launched {launches} times in A, expected {k1_per_pass(cfg)} x "
                          f"{st.weight_passes} weight passes")
     if st.kv_page_bytes != KVQ_PAGE_BYTES:
         raise SystemExit(f"kv_page_bytes {st.kv_page_bytes}, expected {KVQ_PAGE_BYTES}")
-    for r in reqs:
-        toks = out_a[r.uid]
-        if toks.shape != (r.max_new_tokens,) or toks.min() < 0 or \
-                toks.max() >= cfg.vocab_padded:
-            raise SystemExit(f"bad tokens for request {r.uid}: {toks}")
+    check_tokens(cfg, reqs, out_a)
     _check_counters("A", st, _cpu_counters(reqs, dict(kw, page_size=16), SERVE_COUNTERS))
     eng_b = PoolEngine(cfg, policy, params, device=dev, **kw)
     out_b, wall, launches = _timed_run(eng_b, reqs)
@@ -1683,13 +1820,13 @@ def kv_quant_serving(dev, detail, cfg, params, policy, reqs):
           f"decode steps {[round(t * 1e3, 1) for t in t_decode]} ms")
     print("profiled decode step over the quantized pages:", json.dumps(prof_row))
     detail["kv_quant_serving"] = res
-    return dict(launches=res["A"]["k1_launches"], tokens=out_a)
+    return dict(launches=res["A"]["k1_launches"])
 
 
 def _verify_check(cfg, pol, params, dev, prompts, kv_quant, label):
     """Verify logits for 4 slots x 4 positions against 4 sequential
     ``decode_step`` calls, bit for bit, and every cache leaf after them;
-    225 K1 launches in the verify pass.  Returns (verify seconds, its K1
+    one K1 launch a linear in the verify pass.  Returns (verify seconds, its K1
     launches, a verify call for the profiler)."""
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry
@@ -1714,7 +1851,7 @@ def _verify_check(cfg, pol, params, dev, prompts, kv_quant, label):
         torch.equal(c1[k], c2[k]) for k in c1)
     print(f"{label}: verify (4 slots x 4 positions, slot 0 across a page) == 4 sequential "
           f"decode steps (logits and every cache leaf): {equal}; K1 launches {launches}")
-    if not equal or launches != K1_PER_PASS:
+    if not equal or launches != k1_per_pass(cfg):
         raise SystemExit(f"{label}: verify differs from sequential decode ({equal}) or K1 "
                          f"launched {launches} times in a verify pass")
     c3 = {k: v.clone() for k, v in pool.items()}
@@ -1729,26 +1866,48 @@ def _counted(fn, calls):
     return wrapped
 
 
-def spec_serving(dev, detail, cfg, params, policy, reqs, tokens_off, tokens_kvq):
+def _first_layers(tree, n):
+    """The first ``n`` layers of a stacked layer tree (views)."""
+    return {k: _first_layers(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+
+
+# phase 22's engines run llama3-8b's widths at this depth (its verify and
+# draft steps run all 32 layers)
+SPEC_LAYERS = 8
+
+
+def spec_serving(dev, detail, cfg, params, policy, reqs):
     """Phase 22: speculative decoding on phase 19's engine (bf16 pages) and
-    on phase 21's (quantized pages)."""
+    on phase 21's (quantized pages), at ``SPEC_LAYERS`` layers against
+    their spec-off runs at that depth."""
     from repro_torch.core import mfmac
     from repro_torch.core.policy import KV_PINNED
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry
     from repro_torch.serve import LowBitSelfDraft, NgramDrafter, PoolEngine
 
-    phase("22 speculative decoding, llama3-8b at full width")
+    phase(f"22 speculative decoding, llama3-8b's widths at {SPEC_LAYERS} layers")
     verify_step = registry.verify_step
     kw = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
-    off = {None: (tokens_off, detail["paged_serving"]["A"]["weight_passes"]),
-           KV_PINNED: (tokens_kvq, detail["kv_quant_serving"]["A"]["weight_passes"])}
+    scfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+    sparams = dict(params, layers=_first_layers(params["layers"], SPEC_LAYERS))
+    res, off = {}, {}
+    for kvq, label in ((None, "spec_off"), (KV_PINNED, "kvq_spec_off")):
+        eng = PoolEngine(scfg, policy, sparams, kv_quant=kvq, device=dev, **kw)
+        out, wall, launches = _timed_run(eng, reqs)
+        st = eng.last_stats
+        res[label] = _serve_row(st, wall, launches)
+        print(f"{label}:", json.dumps(res[label]))
+        if launches != k1_per_pass(scfg) * st.weight_passes:
+            raise SystemExit(f"{label}: K1 launched {launches} times, expected "
+                             f"{k1_per_pass(scfg)} x {st.weight_passes} weight passes")
+        off[kvq] = (out, st.weight_passes)
     runs = {"ngram": (NgramDrafter(max_draft=3), None),
             "self_draft": (LowBitSelfDraft(max_draft=3, bits=DRAFT_BITS), None),
             "kvq_self_draft": (LowBitSelfDraft(max_draft=3, bits=DRAFT_BITS), KV_PINNED)}
-    res, launches_total, eng = {}, 0, None
+    launches_total, eng = 0, None
     for name, (drafter, kvq) in runs.items():
-        eng = PoolEngine(cfg, policy, params, spec=drafter, kv_quant=kvq, device=dev, **kw)
+        eng = PoolEngine(scfg, policy, sparams, spec=drafter, kv_quant=kvq, device=dev, **kw)
         eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
         verify_calls = []
         registry.verify_step = _counted(verify_step, verify_calls)
@@ -1766,14 +1925,15 @@ def spec_serving(dev, detail, cfg, params, policy, reqs, tokens_off, tokens_kvq)
         same = all(np.array_equal(out[r.uid], toks_off[r.uid]) for r in reqs)
         row["spec_off_weight_passes"] = passes_off
         print(f"{name}:", json.dumps(row))
-        print(f"{name}: tokens == spec off ({'phase 21' if kvq else 'phase 19 A'}) bit for "
-              f"bit: {same}; weight passes {st.weight_passes} <= {passes_off}")
+        print(f"{name}: tokens == spec off ({'quantized' if kvq else 'bf16'} pages, "
+              f"{SPEC_LAYERS} layers) bit for bit: {same}; weight passes "
+              f"{st.weight_passes} <= {passes_off}")
         if not same or st.weight_passes > passes_off:
             raise SystemExit(f"{name}: speculation changed the tokens or added passes")
-        want = K1_PER_PASS * (st.weight_passes + st.draft_weight_passes)
+        want = k1_per_pass(scfg) * (st.weight_passes + st.draft_weight_passes)
         if launches != want:
-            raise SystemExit(f"{name}: K1 launched {launches} times, expected {K1_PER_PASS} "
-                             f"x (weight passes + draft steps) = {want}")
+            raise SystemExit(f"{name}: K1 launched {launches} times, expected "
+                             f"{k1_per_pass(scfg)} x (weight passes + draft steps) = {want}")
     # the verify pass and the draft step on the card, each against its
     # sequential or plain counterpart; slot 0's row (positions 62..65)
     # crosses a 16-position page
@@ -1794,7 +1954,7 @@ def spec_serving(dev, detail, cfg, params, policy, reqs, tokens_off, tokens_kvq)
         t_draft = [_wall(lambda: registry.decode_step(cfg, dpol, params, last, pool))
                    for _ in range(3)]
         draft_launches = K.potq_matmul_cuda.launches // 3
-        if draft_launches != K1_PER_PASS:
+        if draft_launches != k1_per_pass(cfg):
             raise SystemExit(f"K1 launched {draft_launches} times in a draft step")
         prof = _profiled(lambda: registry.decode_step(cfg, dpol, params, last, pool),
                          min(t_draft))
@@ -1813,6 +1973,157 @@ def spec_serving(dev, detail, cfg, params, policy, reqs, tokens_off, tokens_kvq)
     detail["spec_serving"] = res
     return dict(launches=launches_total, verify_launches=verify_launches,
                 draft_launches=draft_launches)
+
+
+def lockstep_serving(dev, detail, cfg, params, policy, reqs):
+    """Phase 23: lockstep serving and float32 K/V pages, llama3-8b at full
+    width, on the serve trace's first 4 requests."""
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.serve import PoolEngine, lockstep_generate
+
+    phase("23 lockstep serving and cache_dtype, llama3-8b at full width")
+    wave = reqs[:4]
+    horizon = max(r.max_new_tokens for r in wave)
+    batch = {"tokens": np.concatenate([np.asarray(r.tokens) for r in wave], axis=0)}
+    lockstep_generate(cfg, policy, params, batch, max_new_tokens=2, max_len=160, device=dev)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = lockstep_generate(cfg, policy, params, batch, max_new_tokens=horizon, max_len=160,
+                            device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.potq_matmul_cuda.launches
+    # one batched prefill, then horizon - 1 lockstep steps, each a weight pass
+    useful = sum(r.max_new_tokens for r in wave)
+    res = {"wave": dict(wall_s=wall, tokens_per_s=useful / wall, emitted_tokens=useful,
+                        slot_tokens_per_s=len(wave) * horizon / wall, weight_passes=horizon,
+                        decode_steps=horizon - 1, prefills=1, k1_launches=launches)}
+    print("lockstep wave (4 requests):", json.dumps(res["wave"]))
+    if launches != k1_per_pass(cfg) * horizon:
+        raise SystemExit(f"lockstep: K1 launched {launches} times, expected "
+                         f"{k1_per_pass(cfg)} x {horizon} weight passes")
+    if out.shape != (len(wave), horizon) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab_padded:
+        raise SystemExit(f"bad lockstep tokens: {out}")
+    # batch-1 lockstep (per-tensor scales, the lockstep cache) against the
+    # same request served by a solo-prefill pool (paged, per-sample scales)
+    eng = PoolEngine(cfg, policy, params, max_slots=4, max_len=160, page_size=16, device=dev)
+    pooled, wall, launches = _timed_run(eng, wave)
+    res["solo_prefill_pool"] = _serve_row(eng.last_stats, wall, launches)
+    r0 = wave[0]
+    solo = lockstep_generate(cfg, policy, params, {"tokens": r0.tokens},
+                             max_new_tokens=r0.max_new_tokens, max_len=160, device=dev)
+    same = bool(np.array_equal(solo[0].numpy(), pooled[r0.uid]))
+    print(f"batch-1 lockstep of request {r0.uid} == solo-prefill pool bit for bit: {same}")
+    if not same:
+        raise SystemExit("batch-1 lockstep differs from the pool")
+    # float32 K/V pages: pooled against each request alone
+    kw = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16,
+              cache_dtype=torch.float32)
+    eng = PoolEngine(cfg, policy, params, device=dev, **kw)
+    out32, wall, launches32 = _timed_run(eng, wave)
+    st = eng.last_stats
+    res["float32_pages"] = dict(_serve_row(st, wall, launches32),
+                                kv_page_bytes=st.kv_page_bytes)
+    print("float32 pages (chunk 32, page 16):", json.dumps(res["float32_pages"]))
+    bf16_page = 2 * cfg.n_layers * 16 * cfg.kv_heads * cfg.head_dim * 2
+    if st.kv_page_bytes != 2 * bf16_page:
+        raise SystemExit(f"float32 kv_page_bytes {st.kv_page_bytes}, expected {2 * bf16_page}")
+    if launches32 != k1_per_pass(cfg) * st.weight_passes:
+        raise SystemExit(f"float32 pages: K1 launched {launches32} times, expected "
+                         f"{k1_per_pass(cfg)} x {st.weight_passes} weight passes")
+    _check_counters("float32 pages", st, _cpu_counters(wave, kw, SERVE_COUNTERS))
+    alone = PoolEngine(cfg, policy, params, device=dev, **dict(kw, max_slots=1))
+    same_c = [bool(np.array_equal(alone.run([dataclasses.replace(r, arrival=0)])[r.uid],
+                                  out32[r.uid])) for r in wave]
+    print(f"float32 pages: pooled == each request alone: {same_c}")
+    if not all(same_c):
+        raise SystemExit("float32 pages: pooled tokens differ from solo")
+    detail["lockstep_serving"] = res
+    return dict(launches=res["wave"]["k1_launches"] + launches32,
+                wave_launches=res["wave"]["k1_launches"])
+
+
+# phases 24-25: each other dense decoder through phase 19's engine
+DENSE_TRACE = dict(n_requests=4, prompt_len=128, lam=2.0, new_lo=8, new_hi=16, seed=0)
+
+
+def dense_serving(dev, detail, arch, number):
+    """Phase 24 or 25: ``arch`` at full width (weights from seed 0) through
+    the chunked (32) + paged (16) engine: A is the main path, C each
+    request alone; A's counters against the CPU smoke-width run's; the
+    step times and one profiled decode step.  Returns A's K1 launches."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.models import registry, spec
+    from repro_torch.serve import PoolEngine, poisson_trace
+    from repro_torch.serve import quantized_weights as qw
+
+    phase(f"{number} {arch} at full width: chunked (32) + paged (16) serving")
+    cfg = configs.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = spec.materialize(
+        registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0),
+        transform=lambda name, x: qw.quantize_leaf(name, x, PAPER_FAITHFUL))
+    torch.cuda.synchronize()
+    res = {"params": dict(count=spec.count_params(registry.param_specs(cfg)),
+                          seconds=time.perf_counter() - t0,
+                          held_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
+    print("params:", json.dumps(res["params"]))
+    policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
+    reqs = poisson_trace(cfg, **DENSE_TRACE)
+    kw = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
+    eng_a = PoolEngine(cfg, policy, params, device=dev, **kw)
+    eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    syncs = {}
+    out_a, wall, launches = _timed_run(eng_a, reqs, syncs)  # the main path
+    st = eng_a.last_stats
+    res["A"] = dict(_serve_row(st, wall, launches), implicit_syncs=syncs)
+    print("A (chunk 32, page 16):", json.dumps(res["A"]))
+    # the engine's one host sync a step is its wait on the token copy's
+    # event; nothing of the port may synchronize implicitly
+    port_syncs = {k: n for k, n in syncs.items() if k.startswith("src/")}
+    print(f"implicit host syncs in A made by the port: {port_syncs}")
+    if port_syncs:
+        raise SystemExit(f"{arch}: the engine synchronized outside its token copy: {port_syncs}")
+    if launches != k1_per_pass(cfg) * st.weight_passes:
+        raise SystemExit(f"{arch}: K1 launched {launches} times in A, expected "
+                         f"{k1_per_pass(cfg)} x {st.weight_passes} weight passes")
+    check_tokens(cfg, reqs, out_a)
+    _check_counters("A", st, _cpu_counters(reqs, kw, SERVE_COUNTERS, arch))
+    eng_c = PoolEngine(cfg, policy, params, device=dev, **dict(kw, max_slots=1))
+    same_c = [bool(np.array_equal(eng_c.run([dataclasses.replace(r, arrival=0)])[r.uid],
+                                  out_a[r.uid])) for r in reqs]
+    print(f"A == C (each request alone, chunk 32): {same_c}")
+    if not all(same_c):
+        raise SystemExit(f"{arch}: pooled tokens differ from solo")
+    with torch.inference_mode():
+        prompts = [np.asarray(r.tokens).reshape(-1)[:n] for r, n in
+                   zip(reqs, (70, 40, 96, 128))]
+        pool, logits, t_chunk, _ = _streamed_pool(cfg, eng_a.policy, params, dev, prompts)
+        last, c2, _ = _decode_row_check(cfg, eng_a.policy, params, pool, logits, dev)
+        t_decode = [_wall(lambda: registry.decode_step(cfg, eng_a.policy, params, last, c2))
+                    for _ in range(3)]
+        prof = _profiled(lambda: registry.decode_step(cfg, eng_a.policy, params, last, c2),
+                         min(t_decode))
+    # K1's bytes bound over one decode weight pass (M = 4): each bf16
+    # operand read once, the f32 output written once
+    prof["k1_bytes_bound_ms"] = sum(
+        c * (2 * (4 * kk + kk * nn) + 4 * 4 * nn)
+        for (kk, nn), c in pass_counts(cfg).items()) / PEAK_BYTES * 1e3
+    res["steps"] = dict(chunk_step_ms=[t * 1e3 for t in t_chunk],
+                        decode_step_ms=[t * 1e3 for t in t_decode], profiled_decode_step=prof)
+    print(f"{arch}: chunk steps {[round(t * 1e3, 1) for t in t_chunk]} ms, decode steps "
+          f"{[round(t * 1e3, 1) for t in t_decode]} ms")
+    print(f"{arch}: profiled decode step (K1 device ms against its "
+          f"{prof['k1_bytes_bound_ms']:.2f} ms bytes bound):", json.dumps(prof))
+    detail[f"serving_{arch}"] = res
+    del params, eng_a, eng_c, pool, c2
+    torch.cuda.empty_cache()
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Config registry: ``get_config(arch_id)`` + reduced smoke variants.
+"""Config registry: ``get_config(arch_id)``, per-shape adaptations and
+reduced smoke variants.
 
-Only the architectures the port runs so far are registered (llama3-8b
-for serving, olmo-1b for training); the rest arrive with their model
-families.
+Only the architectures the port runs so far are registered: the dense
+decoders (llama3-8b, mistral-nemo-12b, starcoder2-7b for serving, olmo-1b
+for training); the rest arrive with their model families.
 """
 from __future__ import annotations
 
@@ -10,9 +11,21 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, ShapeConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    ModelConfig,
+    MoEConfig,
+    ShapeConfig,
+    shapes_for,
+)
 
 _MODULES = {
+    "starcoder2-7b": "starcoder2_7b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
     "llama3-8b": "llama3_8b",
     "olmo-1b": "olmo_1b",
 }
@@ -29,6 +42,15 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def config_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
+    """Per-shape adaptations: mistral-nemo's long_500k cell runs with
+    sliding-window attention."""
+    if cfg.name == "mistral-nemo-12b" and shape.name == "long_500k":
+        mod = importlib.import_module("repro_torch.configs.mistral_nemo_12b")
+        return dataclasses.replace(cfg, window=mod.LONG_CONTEXT_WINDOW)
+    return cfg
+
+
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
     ``repro.configs.smoke_config`` cut, for the dense decoder)."""
@@ -41,4 +63,6 @@ def smoke_config(arch: str) -> ModelConfig:
     )
     ratio = max(1, cfg.n_heads // cfg.kv_heads)
     kw.update(n_heads=4, kv_heads=max(1, 4 // ratio), head_dim=16, d_ff=128)
+    if cfg.window is not None:
+        kw.update(window=8)
     return dataclasses.replace(cfg, **kw)

@@ -52,6 +52,19 @@ class ModelConfig:
         m = self.vocab_pad_multiple
         return ((self.vocab + m - 1) // m) * m
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch run 500k-token contexts?"""
+        return self.family in ("ssm", "hybrid") or self.window is not None
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -61,3 +74,18 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ModelConfig):
+    """The shape cells that are well-defined for this arch: a pure
+    full-attention arch has no long_500k cell (O(S^2) at 512k)."""
+    return tuple(s for s in ALL_SHAPES
+                 if s.name != "long_500k" or cfg.subquadratic)

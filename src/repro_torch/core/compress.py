@@ -17,7 +17,10 @@ code layout with three serving choices, each the reference's:
   decode / chunk / verify write paths);
 * rounding is nearest, and the input is canonicalized through bf16 (solo
   admission encodes a bf16 mini cache, the step bodies fresh
-  activations: both must give the same codes);
+  activations: both must give the same codes); a value that is
+  subnormal after that is flushed to a zero of its own sign, as XLA
+  flushes it in the reference, so it codes 0 and takes no part in the
+  token's amax;
 * beta is clamped to [emax-126, 127-emax] at encode and at decode, and
   |code| at decode, so stale or junk codes decode to *finite* values:
   attention multiplies masked rows by an exact 0, and 0 * inf is NaN.
@@ -95,6 +98,7 @@ def kv_page_encode(f: torch.Tensor, spec: KVQuantSpec):
     ``(codes, beta)``: codes (..., kv_heads, head_dim[/2]) and int32 beta
     (...,), one amax scale per written token."""
     f = f.to(torch.bfloat16)
+    f = torch.where(f.abs() < torch.finfo(torch.float32).tiny, f * 0, f)
     emax = potq.pot_emax(spec.bits)
     lo, hi = _kv_beta_window(spec.bits)
     beta = potq.compute_beta(f, spec.bits, axes=(-2, -1)).clamp(lo, hi)

@@ -24,3 +24,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
     return dev
+
+
+def to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array or list as a tensor on ``device``.  To a card the
+    copy is staged in pinned memory and issued ``non_blocking``, so the
+    host does not wait for the work already queued on the stream (a
+    pageable copy synchronizes the stream)."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -47,7 +47,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     half = d // 2
     f32 = dict(dtype=torch.float32, device=x.device)
     freqs = torch.exp(
-        -torch.log(torch.tensor(theta, **f32))
+        -torch.log(torch.full((), theta, **f32))
         * torch.arange(half, **f32) / half
     )  # (half,)
     ang = positions[..., None].to(torch.float32) * freqs  # (B, S, half)

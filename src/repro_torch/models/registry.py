@@ -1,9 +1,9 @@
 """Family dispatch (port of ``repro/models/registry.py``), for the dense
-``decoder`` family: specs, loss, prefill, the paged pool cache (bf16 or
-PoT-quantized pages), pooled decode, the fused chunk step of chunked
-piggybacked prefill and the speculative verify step.  The
-other families (vlm, encdec, hybrid, ssm) and MoE come in a later slice
-of the port and raise here."""
+``decoder`` family: specs, loss, prefill, the lockstep cache, the paged
+pool cache (PoT-quantized pages or ``cache_dtype`` ones), lockstep and
+pooled decode, the fused chunk step of chunked piggybacked prefill and
+the speculative verify step.  The other families (vlm, encdec, hybrid,
+ssm) and MoE come in a later slice of the port and raise here."""
 from __future__ import annotations
 
 import torch

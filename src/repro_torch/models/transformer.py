@@ -1,6 +1,7 @@
 """Dense decoder-only transformer LM (port of ``repro/models/transformer.py``,
-the dense decoder: specs, forward, loss, prefill, per-slot decode over the
-paged or contiguous pool cache, and the fused chunk step).
+the dense decoder: specs, forward, loss, prefill, lockstep decode and
+per-slot decode over the paged or contiguous pool cache, the fused chunk
+step and the speculative verify step).
 
 Layers are stacked along a leading 'layer' axis, as in the reference, and
 run as a Python loop over it.  Every weight matmul is ``mf_linear``.
@@ -36,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import compress, mfmac
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.device import to_device
 from repro_torch.models import common
 from repro_torch.models.spec import ParamSpec
 
@@ -177,7 +179,7 @@ def _sdpa(cfg, q, k, v, qpos, kpos, window):
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     rep = h // kv
-    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=q.device))
+    scale = 1.0 / torch.sqrt(torch.full((), hd, dtype=torch.float32, device=q.device))
     qg = q.reshape(b, sq, kv, rep, hd).permute(0, 2, 3, 1, 4)  # (B,KV,rep,Sq,hd)
     kt = k.permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,Skv)
     vt = v.permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,Skv,hd)
@@ -312,7 +314,7 @@ def prefill(cfg, policy, params, tokens, cache):
         cache["v"][:, :, :take] = vs_t
         cache["pos"] = cache["pos"].clone()
         cache["pos"][:take] = pos
-    cache["len"] = torch.tensor(s, dtype=cache["len"].dtype, device=ks.device)
+    cache["len"] = torch.full((), s, dtype=cache["len"].dtype, device=ks.device)
     return logits[:, -1, :], cache
 
 
@@ -392,12 +394,15 @@ def _norm_fn(cfg, p):
 
 
 def decode_step(cfg, policy, params, token, cache):
-    """One decode step over a slot-pooled cache: each row decodes at its
-    own position.  token: (B,) -> (logits (B, V), cache).  K/V (and, when
-    paged, ``pos``) are written into ``cache`` in place; ``len`` is
-    replaced.  Two layouts (``registry.init_pool_cache`` vs
-    ``serve.slots.lift_cache``):
+    """One decode step.  token: (B,) -> (logits (B, V), cache).  K/V (and
+    ``pos`` where it is shared or paged) are written into ``cache`` in
+    place; ``len`` is replaced.  Three layouts (``registry.init_cache``,
+    ``registry.init_pool_cache`` and ``serve.slots.lift_cache``):
 
+    * lockstep: ``len`` a scalar, ``pos`` (span,), ``k``/``v``
+      (L, B, span, KV, hd).  Every row decodes at the one position
+      ``len`` and writes ring slot ``len % span``; the activation scales
+      are per tensor unless ``policy.per_sample_act_scales``.
     * paged: ``table`` (B, n), ``pos`` (P+1, page), ``k``/``v``
       (L, P+1, page, KV, hd).  Each row's view is gathered through its
       page table; it holds the same (position, value) pairs in the same
@@ -405,16 +410,16 @@ def decode_step(cfg, policy, params, token, cache):
       page layout or size.  Rows whose page is drop_id (dead slots) write
       nothing.  Quantized pages (``k_beta`` leaves, ``policy.kv_quant``)
       are encoded per written token and decoded in the gathered view.
-    * contiguous: ``pos`` (B, span), ``k``/``v`` (L, B, span, KV, hd).
+    * contiguous slot rows: ``pos`` (B, span), ``k``/``v``
+      (L, B, span, KV, hd).
 
-    Attention reads the cache cast to the activation dtype."""
+    Norms and attention run row by row in every layout, so a batch-1
+    lockstep row runs the very programs of a pooled row.  Attention reads
+    the cache cast to the activation dtype."""
     pos = cache["len"]
-    if pos.dim() != 1:
-        raise NotImplementedError(
-            "repro_torch decodes slot-pooled caches only (the lockstep "
-            "layout is a later slice)")
     b = token.shape[0]
     paged = "table" in cache
+    lockstep = pos.dim() == 0
     spec = _kv_check(policy, cache)
     if paged:
         page = cache["pos"].shape[1]
@@ -426,13 +431,18 @@ def decode_step(cfg, policy, params, token, cache):
         loff = slot % page
         paged_write(cache["pos"], dest, loff, pos, npages)
         kpos = page_view(cache["pos"], ids)
+    elif lockstep:
+        span = cache["k"].shape[2]
+        slot = (pos % span).reshape(1)
+        kpos_new = cache["pos"].index_copy(0, slot, pos.reshape(1))
+        kpos = kpos_new[None].expand(b, span)
     else:
         span = cache["k"].shape[2]
         slot = pos % span
         rows = torch.arange(b, device=token.device)
         kpos = cache["pos"].clone()
         kpos[rows, slot] = pos
-    qpos = pos[:, None]  # (B, 1)
+    qpos = pos.reshape(1, 1).expand(b, 1) if lockstep else pos[:, None]  # (B, 1)
     x = params["embed"][token[:, None]]  # (B, 1, D)
 
     def attend(q, kview, vview, qp, kp):
@@ -447,6 +457,11 @@ def decode_step(cfg, policy, params, token, cache):
             _kv_scatter(cache, "v", i, dest, loff, v[:, 0], npages, spec)
             kview = _kv_page_view(cache, "k", i, ids, spec)
             vview = _kv_page_view(cache, "v", i, ids, spec)
+        elif lockstep:
+            ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
+            ck.index_copy_(1, slot, k.to(ck.dtype))
+            cv.index_copy_(1, slot, v.to(cv.dtype))
+            kview, vview = ck, cv
         else:
             ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
             ck[rows, slot] = k[:, 0].to(ck.dtype)
@@ -459,7 +474,9 @@ def decode_step(cfg, policy, params, token, cache):
         x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
     x = _rows(_norm_fn(cfg, params.get("final_norm")), x)
     logits = _lm_head(cfg, policy, params, x)[:, 0, :]
-    if not paged:
+    if lockstep:
+        cache["pos"] = kpos_new
+    elif not paged:
         cache["pos"] = kpos
     cache["len"] = pos + 1
     return logits, cache
@@ -536,7 +553,7 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
               "decode" if n == 1 and not windowed else "chunk" for n in n_host]
     ids = page_ids(cache)
     pos0 = cache["len"]
-    nn = torch.tensor(n_host, dtype=pos0.dtype, device=dev)
+    nn = to_device(n_host, dev, pos0.dtype)
     offs = torch.arange(c, dtype=pos0.dtype, device=dev)
     valid = offs[None, :] < nn[:, None]  # (B, C)
     gpos = pos0[:, None] + offs[None, :]
@@ -592,7 +609,7 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
         x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
     # emit at each slot's last valid position; gather BEFORE the head so its
     # scale group is the (1, D) row, as in decode_step
-    emit = torch.tensor([min(max(n - 1, 0), c - 1) for n in n_host], device=dev)
+    emit = (nn - 1).clamp(0, c - 1)
     xe = x[torch.arange(b, device=dev), emit][:, None, :]  # (B, 1, D)
     xe = _rows(_norm_fn(cfg, params.get("final_norm")), xe)
     logits = _lm_head(cfg, policy, params, xe)[:, 0, :]
@@ -651,7 +668,7 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
     spec = _kv_check(policy, cache)
     ids = page_ids(cache)
     pos0 = cache["len"]
-    nn = torch.tensor(n_host, dtype=pos0.dtype, device=dev)
+    nn = to_device(n_host, dev, pos0.dtype)
     offs = torch.arange(c, dtype=pos0.dtype, device=dev)
     valid = offs[None, :] < nn[:, None]  # (B, C)
     gpos = pos0[:, None] + offs[None, :]

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine (port of ``repro/serve/engine.py``,
-``PoolEngine`` and ``generate``).
+"""Serving engines (port of ``repro/serve/engine.py``: ``PoolEngine``,
+``generate`` and ``lockstep_generate``).
 
 :class:`PoolEngine` keeps one block-table paged KV cache (built once,
 ``registry.init_pool_cache``; ``serve/slots.py``) and admits queued
@@ -38,10 +38,29 @@ each row on its own in a fixed order, activation scales are per sample
 attention run as programs of their own (``models/transformer.py``), and
 a KV page's codes have one scale per token.
 
-The loop is synchronous.  The reference overlaps host scheduling with
-the in-flight step, which moves wall-clock time only; its counters are
-kept here exactly, arrival stamps included.  Lockstep serving and
-``cache_dtype`` are later slices of the port.
+Admission is double-buffered, as in the reference.  Right after a
+pooled step is enqueued, its token vector starts on its way to the host
+(:class:`_InflightTokens`: a ``non_blocking`` copy into a pinned buffer
+and a CUDA event behind it).  While the step and the copy are in flight
+the host stamps the next step's arrivals and stages the next chunk row
+of every slot that stays prefilling; neither depends on this step's
+tokens (finishing slots are known at dispatch, prefilling slots are
+never retired).  Then it waits on the event, the one host sync of a
+plain step, and retires, emits and admits from the arrived tokens.  The
+step bodies and the uploads of tokens, chunk widths and page tables
+hold no other sync (``device.to_device``).  The overlap can move
+wall-clock time only: every token and counter is the synchronous
+loop's.  Spec rounds and solo-prefill admissions read the device as the
+reference does.
+
+``cache_dtype`` (default bf16) is the dtype of the K/V pages and of a
+solo prefill's mini cache; under ``kv_quant`` the pages hold codes and
+betas and the mini cache keeps ``cache_dtype``.
+
+:func:`lockstep_generate` is the pre-pool loop the reference keeps as
+servebench's baseline: one batched prefill, then the whole batch decodes
+in lockstep (one shared position, per-tensor activation scales) to
+``max_new_tokens``.
 """
 from __future__ import annotations
 
@@ -55,7 +74,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import compress
 from repro_torch.core.policy import QuantPolicy, draft_policy
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.models import registry
 from repro_torch.serve import quantized_weights as qw
 from repro_torch.serve import slots as slots_lib
@@ -91,6 +110,10 @@ class ServeStats:
     pages_in_use_sum: int = 0  # sum over pooled steps of live pages
     page_size: int = 0
     kv_page_bytes: int = 0  # bytes of one K+V page across all layers (wire format)
+    # the mesh-shape keys of a sharded engine's plan (slot and weight
+    # shard divisors); a one-card engine has no plan, so both stay 1
+    data_shards: int = 1
+    model_shards: int = 1
     # host wall-clock seconds from admissible to first token on the host;
     # a measurement of the port's own (the reference keeps none)
     ttft_s: Dict = dataclasses.field(default_factory=dict)
@@ -98,6 +121,12 @@ class ServeStats:
     @property
     def mean_occupancy(self) -> float:
         return self.occupancy_sum / self.decode_steps if self.decode_steps else 0.0
+
+    @property
+    def per_device_weight_passes(self) -> float:
+        """Full-weight-equivalent streams per device: each pass streams
+        1/model_shards of the weight bytes on a device."""
+        return self.weight_passes / max(1, self.model_shards)
 
     @property
     def mean_ttft_passes(self) -> float:
@@ -129,14 +158,51 @@ class ServeStats:
         return self.pages_in_use_sum * self.kv_page_bytes / self.emitted_tokens
 
 
+class _InflightTokens:
+    """The token vector of a dispatched pooled step on its way to the
+    host.  On a card :meth:`start` copies it ``non_blocking`` into a
+    pinned host buffer and records a CUDA event behind the copy;
+    :meth:`wait` synchronizes on that event.  A copy into pageable memory
+    would block at once, so a card engine without its pinned buffer fails
+    instead.  On the CPU the step is done when it returns, and
+    :meth:`wait` is a plain copy."""
+
+    def __init__(self, max_slots: int, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._tok = None
+        if self._cuda:
+            self._host = torch.empty((max_slots,), dtype=torch.int64, pin_memory=True)
+            if not self._host.is_pinned():
+                raise RuntimeError("the host token buffer is not pinned")
+            self._event = torch.cuda.Event()
+
+    def start(self, tok: torch.Tensor) -> None:
+        if tok.is_cuda != self._cuda:
+            raise ValueError(f"token vector on {tok.device}, engine on "
+                             f"{'cuda' if self._cuda else 'cpu'}")
+        if self._cuda:
+            self._host.copy_(tok, non_blocking=True)
+            self._event.record()
+        else:
+            self._tok = tok
+
+    def wait(self) -> np.ndarray:
+        """Block until the copy lands; the host token vector."""
+        if self._cuda:
+            self._event.synchronize()
+            return self._host.numpy().copy()
+        return self._tok.numpy().copy()
+
+
 class PoolEngine:
     """Continuous-batching serving engine over a paged slot-pooled KV cache.
 
     Weights are PoT-prequantized at construction by default
     (``serve/quantized_weights.py``); pass ``prequantize=False`` to serve
     the weights as given.  ``params`` must already lie on ``device``
-    (default ``cuda``).  The KV cache is bf16, as in the reference, or
-    the PoT wire format of ``kv_quant`` (default ``policy.kv_quant``).
+    (default ``cuda``).  The KV cache holds ``cache_dtype`` values
+    (default bf16, as in the reference) or the PoT wire format of
+    ``kv_quant`` (default ``policy.kv_quant``).
 
     ``prefill_chunk=C`` admits by chunked piggybacked prefill (C in
     [1, span]).  Chunking is part of a request's recipe (a chunk is one
@@ -154,7 +220,7 @@ class PoolEngine:
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = False, spec=None, kv_quant=None,
-                 device=None):
+                 cache_dtype=torch.bfloat16, device=None):
         if cfg.family not in registry.PAGED_FAMILIES or cfg.moe is not None:
             raise NotImplementedError(
                 f"PoolEngine: family {cfg.family!r} is not ported yet")
@@ -219,6 +285,7 @@ class PoolEngine:
         self.params = params
         self.max_slots = max_slots
         self.max_len = max_len
+        self.cache_dtype = cache_dtype
         self.span = span
         self.prefill_chunk = prefill_chunk
         self.prefix_cache = prefix_cache
@@ -253,7 +320,8 @@ class PoolEngine:
     def _prefill_into(self, cache, slot: int, req: Request, pages):
         """Solo-prefill ``req`` (batch 1) and copy its cache into the
         slot's ``pages``.  Returns the first generated token."""
-        mini = registry.init_cache(self.cfg, 1, self.max_len, device=self.device)
+        mini = registry.init_cache(self.cfg, 1, self.max_len, self.cache_dtype,
+                                   device=self.device)
         tokens = torch.as_tensor(np.asarray(req.tokens), dtype=torch.int64,
                                  device=self.device).reshape(1, -1)
         logits, mini = registry.prefill(self.cfg, self.policy, self.params,
@@ -286,21 +354,23 @@ class PoolEngine:
         solo run would hold them there) and ``len`` = the prompt position
         streaming resumes from."""
         dev = self.device
-        cache["table"][slot] = torch.tensor(self._table_row(hold["table"]), device=dev)
+        cache["table"][slot] = to_device(self._table_row(hold["table"]), dev,
+                                         cache["table"].dtype)
         if hold["new"]:
-            cache["pos"][torch.tensor(hold["new"], device=dev)] = -1
+            cache["pos"].index_fill_(0, to_device(hold["new"], dev, torch.int64), -1)
         for src, dst in hold["copies"]:
             for key in ("k", "v", "k_beta", "v_beta"):
                 if key in cache:
                     cache[key][:, dst] = cache[key][:, src]
             sp = cache["pos"][src]
             cache["pos"][dst] = torch.where(sp < aplan.resume, sp, torch.full_like(sp, -1))
-        cache["len"][slot] = aplan.resume
+        cache["len"][slot].fill_(aplan.resume)  # a fill: no host copy, no sync
 
     def _void_table_rows(self, cache, dead_slots):
         """Retired slots keep riding the fixed-shape step: point their
         table rows at drop_id so their writes land nowhere."""
-        cache["table"][sorted(dead_slots)] = slots_lib.drop_id(self.num_pages)
+        for slot in dead_slots:
+            cache["table"][slot].fill_(slots_lib.drop_id(self.num_pages))
 
     def _stats(self) -> ServeStats:
         cfg = self.cfg
@@ -308,7 +378,8 @@ class PoolEngine:
             leaf = compress.kv_page_wire_bytes(self.kv_quant, self.page_size,
                                                cfg.kv_heads, cfg.head_dim)
         else:
-            leaf = self.page_size * cfg.kv_heads * cfg.head_dim * 2  # bf16
+            itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
+            leaf = self.page_size * cfg.kv_heads * cfg.head_dim * itemsize
         return ServeStats(page_size=self.page_size, kv_page_bytes=2 * cfg.n_layers * leaf)
 
     def _draft(self, last_tok, cache):
@@ -407,7 +478,7 @@ class PoolEngine:
                 cols.append(lp)
         if rows:
             dev = self.device
-            cache["table"][torch.tensor(rows, device=dev), torch.tensor(cols, device=dev)] = drop
+            cache["table"][to_device(rows, dev), to_device(cols, dev)] = drop
 
     def _rebind_dropped_pages(self, cache, alloc, spec_dropped):
         rows, cols, pids = [], [], []
@@ -420,8 +491,7 @@ class PoolEngine:
                     pids.append(int(row[lp]))
         if rows:
             dev = self.device
-            cache["table"][torch.tensor(rows, device=dev), torch.tensor(cols, device=dev)] = \
-                torch.tensor(pids, device=dev)
+            cache["table"][to_device(rows, dev), to_device(cols, dev)] = to_device(pids, dev)
         spec_dropped.clear()
 
     # -- main loop ---------------------------------------------------------
@@ -448,7 +518,18 @@ class PoolEngine:
         holds: List = []  # reserve() results, FIFO with sched.admit's pairs
         last_tok = np.zeros((self.max_slots,), np.int64)
         chunk = self.prefill_chunk
+        # double-buffered admission: {slot: (row, finishes)}, the chunk
+        # rows staged for the NEXT step while this one is in flight
+        staged: Dict[int, tuple] = {}
+        flight = _InflightTokens(self.max_slots, self.device)
         step = 0
+
+        def next_chunk(slot):
+            """The slot's next prompt chunk and whether it ends the prompt;
+            the chunk leaves ``pending``."""
+            buf = pending[slot]
+            pending[slot] = buf[chunk:]
+            return buf[:chunk], len(buf) <= chunk
 
         def stamp_arrivals(now):
             for arr, uid in sched.pending_arrivals():
@@ -493,7 +574,7 @@ class PoolEngine:
 
         with torch.inference_mode():
             cache = registry.init_pool_cache(
-                cfg, self.max_slots, self.max_len, device=self.device,
+                cfg, self.max_slots, self.max_len, self.cache_dtype, device=self.device,
                 page_size=self.page_size, num_pages=self.num_pages,
                 kv_quant=self.kv_quant)
             # the allocator owns every mapping: dead slots must write into
@@ -560,8 +641,8 @@ class PoolEngine:
                     # is plain decode, bit-equal on decode rows.  Windowed
                     # archs keep the chunk step (its layout differs).
                     logits, cache = registry.decode_step(
-                        cfg, self.policy, self.params,
-                        torch.as_tensor(last_tok, device=self.device), cache)
+                        cfg, self.policy, self.params, to_device(last_tok, self.device),
+                        cache)
                 else:
                     tokens = np.zeros((self.max_slots, chunk), np.int64)
                     n_new = np.zeros((self.max_slots,), np.int64)
@@ -569,25 +650,32 @@ class PoolEngine:
                         tokens[slot, 0] = last_tok[slot]
                         n_new[slot] = 1
                     for slot in prefilling:
-                        buf = pending[slot]
-                        take = min(chunk, len(buf))
-                        tokens[slot, :take] = buf[:take]
-                        n_new[slot] = take
-                        pending[slot] = buf[take:]
-                        if take == len(buf):
+                        # staged while the previous step was in flight, or
+                        # (first chunk of a fresh admission) taken now
+                        row, fin = staged.pop(slot) if slot in staged else next_chunk(slot)
+                        tokens[slot, :len(row)] = row
+                        n_new[slot] = len(row)
+                        if fin:
                             finishing.append(slot)
                     logits, cache = registry.chunk_step(
-                        cfg, self.policy, self.params,
-                        torch.as_tensor(tokens, device=self.device), n_new, cache)
-                ntok = torch.argmax(logits, dim=-1)
+                        cfg, self.policy, self.params, to_device(tokens, self.device),
+                        n_new, cache)
+                flight.start(torch.argmax(logits, dim=-1))
+                # -- overlap window: the step and its token copy are in
+                # flight; nothing here may depend on this step's tokens
                 stats.decode_steps += 1
                 stats.weight_passes += 1
                 stats.occupancy_sum += (len(active) + len(prefilling)) / self.max_slots
                 stats.pages_in_use_sum += alloc.pages_in_use()
-                # where the reference stamps the next step's arrivals: after
-                # the pass clock moved, before this step's retirements
+                # the next step's arrivals stamp against the moved pass
+                # clock, and every slot that stays prefilling gets its next
+                # chunk row (finishing slots need this step's token first)
                 stamp_arrivals(step + 1)
-                ntok = ntok.cpu().numpy()
+                for slot in prefilling:
+                    if slot not in finishing:
+                        staged[slot] = next_chunk(slot)
+                # -- the one host sync of the step: its tokens arrive
+                ntok = flight.wait()
                 for slot in finishing:
                     sched.finish_prefill(slot)
                     stats.prefills += 1
@@ -611,11 +699,11 @@ class PoolEngine:
 
 
 def generate(cfg: ModelConfig, policy: QuantPolicy, params, batch, *,
-             max_new_tokens: int, max_len: int, prequantize: bool = False,
-             device=None) -> torch.Tensor:
+             max_new_tokens: int, max_len: int, cache_dtype=torch.bfloat16,
+             prequantize: bool = False, device=None) -> torch.Tensor:
     """Greedy generation: a :class:`PoolEngine` with one slot per request
-    (all arrivals at step 0).  Returns (B, max_new_tokens) int32 on the
-    CPU."""
+    (all arrivals at step 0), so a row's tokens do not depend on the
+    other rows.  Returns (B, max_new_tokens) int32 on the CPU."""
     toks = np.asarray(batch["tokens"].cpu() if torch.is_tensor(batch["tokens"])
                       else batch["tokens"])
     b = toks.shape[0]
@@ -624,6 +712,34 @@ def generate(cfg: ModelConfig, policy: QuantPolicy, params, batch, *,
         for i in range(b)
     ]
     eng = PoolEngine(cfg, policy, params, max_slots=b, max_len=max_len,
-                     prequantize=prequantize, device=device)
+                     prequantize=prequantize, cache_dtype=cache_dtype, device=device)
     out = eng.run(reqs)
     return torch.as_tensor(np.stack([out[i] for i in range(b)]))
+
+
+def lockstep_generate(cfg: ModelConfig, policy: QuantPolicy, params, batch, *,
+                      max_new_tokens: int, max_len: int, cache_dtype=torch.bfloat16,
+                      device=None) -> torch.Tensor:
+    """The pre-pool serving loop, kept as servebench's baseline: one
+    batched prefill of ``batch["tokens"]`` (B, S), then ``max_new_tokens
+    - 1`` lockstep decode steps of the whole batch, every row at the same
+    position (dead rows stream every weight for nothing).  The policy is
+    taken as given: activation scales are per tensor over the batch
+    unless ``policy.per_sample_act_scales``, and the weights are
+    quantized at use unless ``policy.weights_prequantized``.  At batch 1
+    it gives a :class:`PoolEngine` request's tokens, bit for bit.
+    Returns (B, max_new_tokens) int32 on the CPU."""
+    dev = resolve_device(device)
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"params lie on {params['embed'].device}, generation runs on {dev}")
+    tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.int64)
+    with torch.inference_mode():
+        cache = registry.init_cache(cfg, tokens.shape[0], max_len, cache_dtype, device=dev)
+        logits, cache = registry.prefill(cfg, policy, params, {"tokens": tokens}, cache)
+        tok = torch.argmax(logits, dim=-1)
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits, cache = registry.decode_step(cfg, policy, params, tok, cache)
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+    return torch.stack(out, dim=1).to(torch.int32).cpu()

@@ -1,7 +1,8 @@
-"""Phases 19-22 of ``chip_smoke.py`` alone, on one GPU: build K1, then
+"""Phases 19-25 of ``chip_smoke.py`` alone, on one GPU: build K1, then
 serve llama3-8b at full width through the chunked + paged engine, the
-prefix cache, PoT-quantized KV pages and speculative decoding, with every
-gate of those phases.
+prefix cache, PoT-quantized KV pages, speculative decoding, lockstep
+serving and float32 pages, then mistral-nemo-12b and starcoder2-7b at
+full width, with every gate of those phases.
 
     python3 tools/serving_smoke.py
 
