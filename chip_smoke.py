@@ -19,13 +19,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     4100 across the decode threshold and the tensor cores' 128-row tile,
     split and unsplit grids, K and N off 128, off 32 and off 8 (rows not
     16-byte aligned: the scalar loads), a subnormal row, an all-zero row
-    and a lattice-extreme operand set at the 5 x 5 pair;
+    and a lattice-extreme operand set at the 5 x 5 pair; and the MoE
+    decoders (``moe_k1_checks``): each llama4-scout and grok-1 linear at
+    M = 4 and, but the head, at a chunk step's M = 128 (among them the
+    routers (5120, 16) and (6144, 8), ragged N), and the
+    expert-batched launch equal to its plain version and to E
+    single-expert launches at llama4-scout's experts (E = 16, (5120,
+    8192) and (8192, 5120), M = 4, 12, 16 and 40) and grok-1's (E = 8,
+    (6144, 32768) and (32768, 6144), M = 16 and 48), a decode step's
+    rows with capacity padding (zero rows between the real ones);
  4. timing at the serving shapes: kernel, plain version, torch.matmul on
     the same bf16 operands (yardstick only), and the roofline bound,
     summed over one llama3-8b decode weight pass (M = 4), prefill (M =
     128), verify pass (M = 16), self-draft step (M = 4, 3 bits) and
     lockstep wave prefill (M = 512), and over one decode weight pass and
-    one prefill of each other config;
+    one prefill of each other config, and one decode weight pass of each
+    MoE decoder at phases 26-27's depth (its experts at 16 rows, through
+    the expert-batched launch; ``torch.bmm`` their yardstick);
  5. serve: llama3-8b at full width (random weights from seed 0) through
     PoolEngine on an 8-request Poisson trace; K1 must launch exactly
     once per linear per weight pass (``k1_per_pass``: 225 for
@@ -42,11 +52,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     16-byte aligned), one below one tile, and a lattice-extreme set whose
     products reach both ends of the 52-bit chunk lattice at the head's
     6 x 5 pair; K1 bit for bit at the four training shapes, one activation
-    scale, as the training forward runs it;
+    scale, as the training forward runs it; and llama4-scout's training
+    shapes: an expert's 320 rows (8 groups x capacity 40) at (5120, 8192)
+    and (8192, 5120), its router (5120, 16) at M = 4096, PRC on and off;
  9. timing of K1/K2/K3 and the pre-pass at the training shapes: kernel,
     plain version, torch.matmul on the same bf16 operands (yardstick
     only), the roofline bound and, for K1/K2/K3, the bound of their
     datapath (the FP64 tensor cores); K2's rows include its pre-pass;
+    K2/K3 and the pre-pass also at one llama4-scout expert's training
+    shapes (M = 320, PRC on), apart from olmo-1b's step sums;
 10. train olmo-1b at full width (random weights from seed 0, AdamW,
     batch 8 x seq 512) through ``repro_torch.launch.train.main``: 1
     warm-up + 3 steps, the losses printed with repr; K1/K2/K3/pre-pass
@@ -100,7 +114,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     per token beside phase 19's bf16 figure, peak memory, a profiled decode
     step;
 22. speculative decoding on the same engine at llama3-8b's widths and
-    8 of its layers: ``NgramDrafter(3)`` and ``LowBitSelfDraft(3, 3)``
+    4 of its layers (``SPEC_LAYERS``): ``NgramDrafter(3)`` and ``LowBitSelfDraft(3, 3)``
     over bf16 pages and the self-draft over quantized pages give the
     tokens of their spec-off runs at that depth, bit for bit, in no more
     weight passes; K1 launches once a linear per verify pass and per
@@ -128,6 +142,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     ``decode_step``; tokens/s, TTFT, chunk- and decode-step wall times
     and one profiled decode step (K1's device time beside its bytes
     bound);
+26. llama4-scout-17b-a16e (16 experts top-1 + a shared expert) at its
+    published widths and 8 of its 48 layers, and 27. grok-1-314b (8
+    experts top-2, gelu) at 2 of its 64, each through phase 24's engine,
+    trace and gates (A = C, counters = the CPU smoke-width run's, no
+    implicit host sync, a chunk-step decode row = ``decode_step``); K1
+    launches 89 / 15 times a weight pass (the experts one expert-batched
+    launch per expert matrix); the weights' parameter count, seconds,
+    held and peak GiB (phase 26's peak under ``MOE_PEAK_GIB``);
+28. MoE training at smoke width, both MoE decoders: three AdamW steps on
+    the card against the CPU (losses, the first step's gradients), the
+    last step run twice bit for bit, and its K1/K2/K3/pre-pass launches
+    equal to ``step_launches`` (the experts' backward once per expert);
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
@@ -172,6 +198,24 @@ OTHER_ARCHS = ("mistral-nemo-12b", "starcoder2-7b")
 # the serving shapes of speculative decoding: a verify pass scores 4 slots x
 # 4 positions (max_draft 3), a self-draft step runs decode at 3 bits
 VERIFY_M, DRAFT_BITS = 16, 3
+# the MoE decoders, served in phases 26-27 at their published widths and
+# this depth (all their layers do not fit one card): llama4-scout 8 of 48,
+# grok-1 2 of 64
+MOE_ARCHS = {"llama4-scout-17b-a16e": 8, "grok-1-314b": 2}
+# phase 3 holds the expert-batched K1 at these rows an expert: llama4-scout
+# one slot's capacity (4), a 128-token solo prefill's (12), a decode step's
+# 4 slots x 4 (16, the capacity padding zero between the real rows) and a
+# 512-token group's (40); grok-1 a decode step's 16 and 48
+MOE_EXPERT_M = {"llama4-scout-17b-a16e": (4, 12, 16, 40), "grok-1-314b": (16, 48)}
+# phase 8: llama4-scout's experts at training (8 groups of 512 tokens,
+# capacity 40: 320 rows an expert), PRC on and off, and its router; phase
+# 9 times the experts' shapes, launches an expert of one layer (gate and
+# up, down)
+MOE_TRAIN_M = 320
+MOE_TRAIN_COUNTS = {(5120, 8192): 2, (8192, 5120): 1}
+MOE_GRAD_CASES = ([(MOE_TRAIN_M, kk, nn, 5, prc, "random") for kk, nn in MOE_TRAIN_COUNTS
+                   for prc in (True, False)]
+                  + [(8 * 512, 5120, 16, 5, prc, "random") for prc in (True, False)])
 # phase 23's lockstep wave prefills 4 requests of 128 tokens as one batch:
 # K1 sees (4 x 128, K) rows under one activation scale (per tensor)
 LOCKSTEP_PREFILL_M = 4 * 128
@@ -199,24 +243,60 @@ _T0 = time.perf_counter()
 
 
 def k1_per_pass(cfg):
-    """K1 launches in one weight pass of a dense decoder: the 4 attention
-    linears and the MLP's matrices (3 swiglu, 2 gelu) of every layer, then
-    the LM head (llama3-8b 225, mistral-nemo-12b 281, starcoder2-7b 193)."""
-    return cfg.n_layers * (4 + (3 if cfg.act == "swiglu" else 2)) + 1
+    """K1 launches in one weight pass of a decoder: every layer's 4
+    attention linears, then its MLP's matrices (3 swiglu, 2 gelu) or, in a
+    MoE layer, the router, one expert-batched launch per expert matrix (3
+    swiglu, 2 gelu: gate and down) and the shared expert's MLP; then the LM
+    head (llama3-8b 225, mistral-nemo-12b 281, starcoder2-7b 193;
+    llama4-scout 89 at 8 layers, grok-1 15 at 2)."""
+    mlp = 3 if cfg.act == "swiglu" else 2
+    ffn = mlp if cfg.moe is None else 1 + mlp + (mlp if cfg.moe.shared_expert else 0)
+    return cfg.n_layers * (4 + ffn) + 1
 
 
 def pass_counts(cfg):
-    """{(K, N): K1 launches} of one weight pass, from the parameter specs."""
+    """{shape: K1 launches} of one weight pass, from the parameter specs:
+    (K, N) for a linear, (E, K, N) for an expert matrix (one launch for
+    its E experts); gelu's unused ``up`` is never read."""
     from repro_torch.models import registry, spec
 
     counts = {}
     for name, leaf in spec.named_leaves(registry.param_specs(cfg)):
-        if name.endswith("/w"):
-            kn = tuple(leaf.shape[-2:])
-            counts[kn] = counts.get(kn, 0) + (leaf.shape[0] if len(leaf.shape) == 3 else 1)
+        if not name.endswith("/w") or (name == "layers/moe/up/w" and cfg.act != "swiglu"):
+            continue
+        shape = tuple(leaf.shape)
+        key = shape[1:] if len(shape) == 4 else shape[-2:]
+        counts[key] = counts.get(key, 0) + (shape[0] if len(shape) >= 3 else 1)
     if sum(counts.values()) != k1_per_pass(cfg):
         raise SystemExit(f"{cfg.name}: {counts} is not one weight pass")
     return counts
+
+
+def moe_config(arch):
+    """``arch`` at its published widths and phases 26-27's depth."""
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch), n_layers=MOE_ARCHS[arch])
+
+
+def expert_rows(cfg, slots=4):
+    """Rows of each expert in a pooled decode step of ``slots`` slots: every
+    slot is a dispatch group of one token with its capacity of rows."""
+    from repro_torch.models import transformer
+
+    return slots * transformer.moe_capacity(cfg, 1)
+
+
+def decode_pass_bytes(cfg, slots=4):
+    """Bytes K1 must move in one pooled decode weight pass: each weight read
+    once (bf16), the activations read (bf16) and the outputs written (f32);
+    a linear takes ``slots`` rows, an expert ``expert_rows`` of its own."""
+    total = 0
+    for key, c in pass_counts(cfg).items():
+        e, (kk, nn) = (key[0], key[1:]) if len(key) == 3 else (1, key)
+        m = expert_rows(cfg, slots) if len(key) == 3 else slots
+        total += c * e * (2 * (m * kk + kk * nn) + 4 * m * nn)
+    return total
 
 
 def check_tokens(cfg, reqs, out):
@@ -229,14 +309,23 @@ def check_tokens(cfg, reqs, out):
             raise SystemExit(f"{cfg.name}: bad tokens for request {r.uid}: {toks}")
 
 
-def step_launches():
-    """Launches of one olmo-1b training step: K1 runs each forward linear
-    and again where the backward recomputes a layer (not the head); K2, K3
-    and the G pre-pass ("gq", shared by K2 and K3) once per linear."""
+def step_launches(cfg=None):
+    """Launches of one training step (default olmo-1b): K1 runs each forward
+    linear and again where the backward recomputes a layer (not the head):
+    2 k1_per_pass - 1; K2, K3 and the G pre-pass ("gq", shared by K2 and K3)
+    once per linear and once per expert of an expert linear: L x (4 + the
+    MLP's matrices) + 1, or for MoE L x (4 + 1 + E x the expert matrices +
+    the shared expert's) + 1 (E x 2 for gelu: gate and down)."""
     from repro_torch import configs
 
-    n = k1_per_pass(configs.get_config("olmo-1b"))
-    return {"k1": 2 * n - 1, "k2": n, "k3": n, "gq": n}
+    cfg = cfg or configs.get_config("olmo-1b")
+    n = k1_per_pass(cfg)
+    bwd = n
+    if cfg.moe is not None:
+        mlp = 3 if cfg.act == "swiglu" else 2
+        shared = mlp if cfg.moe.shared_expert else 0
+        bwd = cfg.n_layers * (4 + 1 + cfg.moe.num_experts * mlp + shared) + 1
+    return {"k1": 2 * n - 1, "k2": bwd, "k3": bwd, "gq": bwd}
 
 
 def phase(name):
@@ -380,6 +469,8 @@ def main() -> int:
             del w
             for m in (4, 128):
                 q0_case(m, kk, nn, 5, wq)
+    moe_ops, err = moe_k1_checks(dev, gen)
+    max_err = max(max_err, err)
     # quantize=True: raw f32 operands, PRC and WBC on, subnormals included
     a = torch.randn(128, 4096, generator=gen, device=dev)
     w = torch.randn(4096, 1024, generator=gen, device=dev) * 0.02 + 3e-3
@@ -437,6 +528,9 @@ def main() -> int:
             nbytes = 2 * (m * kk + kk * nn) + 4 * m * nn
             acc["t_ops"] += c * flops / PEAK_BF16_FLOPS * 1e3
             acc["t_bytes"] += c * nbytes / PEAK_BYTES * 1e3
+    moe_rows, moe_passes = moe_k1_timing(moe_ops, flush)
+    rows += moe_rows
+    del moe_ops
     t_k = time_ms(lambda: ops.potq_matmul(a, w, w_mean=w_mean, clip_t=clip_t), 10, flush)
     t_p = time_ms(lambda: K.potq_matmul_plain(a, w, q_scal, emax_a=emax, emax_w=emax,
                                               quantize=True), 5, flush)
@@ -476,6 +570,7 @@ def main() -> int:
     detail["k1_draft_step"] = per_draft
     detail["k1_lockstep_prefill"] = per_wave_prefill
     detail["k1_other_configs"] = other_passes
+    detail["k1_moe_configs"] = moe_passes
     del operands, weights, flush, a, w, sums
 
     phase("5 serve llama3-8b at full width")
@@ -609,6 +704,7 @@ def main() -> int:
     k4_launches = checkpoint_and_pack(dev, detail)
     cpu_vs_card(dev, detail)
     paged = serving(dev, detail)
+    moe_train = moe_training(dev, detail)
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -619,9 +715,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/potq_matmul.cu",
         "replaces": "src/repro/kernels/potq_matmul.py:70",
+        "forms": ["(M, K) @ (K, N) a launch",
+                  "an expert batch (E, M, K) @ (E, K, N) a launch (MoE, phases 26-28)"],
         # serve runs (phases 5, 19, 20's prefix-on run, 21, 22's three
-        # speculative runs, 23's lockstep wave and float32 run, 24-25's A)
-        # + training (phase 10)
+        # speculative runs, 23's lockstep wave and float32 run, 24-27's A)
+        # + training (phase 10); since phases 26-27 it also runs the
+        # expert-batched form (one launch counts one)
         "launches": launches + train["launches"]["k1"] + paged["launches"],
         "lockstep_launches": paged["lockstep_launches"],
         "chunk_step_launches": paged["chunk_launches"],
@@ -661,6 +760,15 @@ def main() -> int:
         "lockstep_prefill_bound_ms": per_wave_prefill["bound_ms"],
         "lockstep_prefill_fp64_tc_bound_ms": per_wave_prefill["fp64_tc_bound_ms"],
         "lockstep_prefill_library_ms": per_wave_prefill["library_ms"],
+        # the MoE decoders (phase 4's sums, phases 26-27's launches): their
+        # experts run the expert-batched form, one launch per expert matrix
+        "moe_configs": {
+            arch: dict(launches=paged["moe_launches"][arch], layers=o["layers"],
+                       launches_per_pass=o["launches_per_pass"],
+                       expert_rows=o["expert_rows"],
+                       **{f"decode_{f}": o["decode_pass"][f]
+                          for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
+            for arch, o in detail["k1_moe_configs"].items()},
         # the other dense decoders (phase 4's sums, phases 24-25's launches)
         "other_configs": {
             arch: dict(launches=paged["dense_launches"][arch],
@@ -678,7 +786,10 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source="src/repro_torch/csrc/potq_grad.cu",
                             replaces=f"src/repro/kernels/potq_grad.py:{line}",
-                            launches=train["launches"][key], **grads[key]))
+                            launches=train["launches"][key],
+                            # phase 28: one MoE training step at smoke width
+                            moe_step_launches={a: n[key] for a, n in moe_train.items()},
+                            **grads[key]))
     kernels.append(dict(name="potq_encode", route="cuda",
                         source="src/repro_torch/csrc/potq_encode.cu",
                         replaces="src/repro/kernels/potq_encode.py:24",
@@ -712,6 +823,117 @@ def _k1_lattice(dev, gen, m, k, n):
     sw = torch.where(((kk % 64) // 3) % 2 == 0, 1.0, -1.0)[:, None].expand(k, n)
     wq = sw * potq.exp2i(ew - 5)
     return aq.to(torch.bfloat16), wq.to(torch.bfloat16)
+
+
+def moe_k1_checks(dev, gen):
+    """Phase 3 for the MoE decoders at their published widths: each
+    linear through K1 at decode (M = 4 slots, a scale per row) and, but
+    the head, at a chunk step's M = 128 (the routers: ragged N under one
+    decode strip), and each
+    expert matrix through the expert-batched launch at ``MOE_EXPERT_M``
+    rows (E experts, each its own PoT weight scale; activation scales per
+    (expert, slot of 4 rows), as serving's per-slot dispatch makes them;
+    at a decode step's rows three of each slot's four are zero, the
+    capacity padding).  Each launch equals its plain version, and the
+    batched one E single-expert launches, bit for bit.  Returns the
+    operands of one decode weight pass, {(arch, pass_counts key): (aq,
+    wq)}, and the largest |difference|."""
+    from repro_torch.core import potq
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.serve import quantized_weights as qw
+
+    keep, max_err = {}, 0.0
+    for arch in MOE_ARCHS:
+        cfg = moe_config(arch)
+        decode_m = expert_rows(cfg)
+        for key in pass_counts(cfg):
+            batched = len(key) == 3
+            e, (kk, nn) = (key[0], key[1:]) if batched else (1, key)
+            w = torch.randn((e, kk, nn) if batched else (kk, nn), generator=gen,
+                            device=dev) * 0.02 + 1e-3
+            wq = qw.quantize_leaf("w", w, PAPER_FAITHFUL)  # per expert
+            del w
+            # every linear but the head (gathered to the emit rows first)
+            # also at a chunk step's 4 slots x 32 rows
+            ms = (MOE_EXPERT_M[arch] if batched
+                  else (4,) if nn == cfg.vocab_padded else (4, 128))
+            for m in ms:
+                if batched:
+                    a = torch.randn(e, m // 4, 4, kk, generator=gen, device=dev)
+                    if m == decode_m:
+                        a[:, :, 1:] = 0.0
+                    aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, (2, 3)))
+                    aq = aq.to(torch.bfloat16).reshape(e, m, kk)
+                    out_k = K.potq_matmul_cuda(aq, wq)
+                    out_p = K.potq_matmul_plain(aq, wq)
+                    single = torch.stack([K.potq_matmul_cuda(aq[i], wq[i]) for i in range(e)])
+                else:
+                    a = torch.randn(m, kk, generator=gen, device=dev)
+                    aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, (1,)))
+                    aq = aq.to(torch.bfloat16)
+                    out_k = K.potq_matmul_cuda(aq, wq)
+                    out_p = single = K.potq_matmul_plain(aq, wq)
+                del a
+                torch.cuda.synchronize()
+                err = (out_k - out_p).abs().max().item()
+                ok = (torch.equal(out_k, out_p) and torch.equal(out_k, single)
+                      and bool(torch.isfinite(out_k).all()))
+                print(f"{arch} {'experts E=%d ' % e if batched else ''}M={m} K={kk} N={nn} "
+                      f"{K.plan(m, nn, kk, 132, e)}: equal={ok} max_abs_err={err}", flush=True)
+                if not ok:
+                    raise SystemExit(f"K1 differs from its plain version at {(arch, e, m, kk, nn)}")
+                max_err = max(max_err, err)
+                if m == (decode_m if batched else 4):
+                    keep[(arch, key)] = (aq, wq)
+                del out_k, out_p, single
+    return keep, max_err
+
+
+def moe_k1_timing(operands, flush):
+    """Phase 4 for the MoE decoders: each operand pair of ``moe_k1_checks``
+    timed (the kernel, its plain version, ``torch.matmul`` or ``torch.bmm``
+    on the same bf16 operands, a yardstick and not the same function) with
+    its bound, and summed over one decode weight pass of each config.
+    Returns (the rows, {arch: the pass})."""
+    from repro_torch.kernels import potq_matmul as K
+
+    rows, sums = [], {}
+    for (arch, key), (aq, wq) in operands.items():
+        batched = len(key) == 3
+        e, (kk, nn) = (key[0], key[1:]) if batched else (1, key)
+        m = aq.shape[-2]
+        c = pass_counts(moe_config(arch))[key]
+        lib = torch.bmm if batched else torch.matmul
+        big = e * m * kk * nn > 1e10
+        t_k = time_ms(lambda: K.potq_matmul_cuda(aq, wq), 3 if big else 10, flush)
+        t_p = time_ms(lambda: K.potq_matmul_plain(aq, wq), 2, flush)
+        t_l = time_ms(lambda: lib(aq, wq), 3 if big else 10, flush)
+        t_ops = 2.0 * e * m * kk * nn / PEAK_BF16_FLOPS * 1e3
+        t_bytes = e * (2 * (m * kk + kk * nn) + 4 * m * nn) / PEAK_BYTES * 1e3
+        path, groups = K.plan(m, nn, kk, 132, e)
+        row = dict(mode="experts" if batched else "q0", arch=arch, E=e, M=m, K=kk, N=nn,
+                   path=path, groups=groups, launches_per_pass=c, ms=t_k, plain_ms=t_p,
+                   library_ms=t_l, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops > t_bytes else "bytes")
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        acc = sums.setdefault(arch, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_ops=0.0,
+                                         t_bytes=0.0))
+        for f, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("t_ops", t_ops),
+                     ("t_bytes", t_bytes)):
+            acc[f] += c * t
+    passes = {}
+    for arch, acc in sums.items():
+        t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
+        acc.update(bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops > t_bytes else "bytes")
+        cfg = moe_config(arch)
+        passes[arch] = dict(layers=cfg.n_layers, launches_per_pass=k1_per_pass(cfg),
+                            expert_rows=expert_rows(cfg), decode_pass=acc)
+        print(f"{arch} at {cfg.n_layers} layers: one decode weight pass (M=4, experts "
+              f"M={expert_rows(cfg)}, {k1_per_pass(cfg)} launches):", json.dumps(acc))
+    return rows, passes
 
 
 def k1_edges(dev, gen):
@@ -803,26 +1025,18 @@ def _lattice_operands(dev, gen, m, k, n):
     return a, g, aq, wq, amax, amax * 0.95
 
 
-def training_kernels(dev, detail):
-    """Phases 8 and 9: K1/K2/K3 and the G pre-pass at the training shapes
-    against their plain versions, then timing."""
+def grad_checks(dev, gen, cases, max_err):
+    """Phase 8's checks: for each (M, K, N, bits_g, PRC, operand kind) case
+    the G pre-pass, K2 (dA, the dgamma rows, dgamma) and K3 (dW) against
+    their plain versions, and K2/K3 with their own pre-pass, bit for bit;
+    at the olmo-1b training shapes also K1 under one activation scale.
+    Updates ``max_err``; returns phase 9's timing inputs, {(M, K, N): ...}
+    at olmo-1b's and an expert's training shapes, PRC on."""
     from repro_torch.core import potq
     from repro_torch.kernels import potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.kernels import ref
 
-    phase("8 K2/K3 (and K1) vs plain versions at the training shapes (bit for bit)")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [(TRAIN_M, kk, nn, 6 if nn == 50688 else 5, prc, "random")
-             for kk, nn in TRAIN_COUNTS for prc in (True, False)]
-    cases += [(200, 130, 300, bits, prc, "subnormal") for bits in (5, 6) for prc in (True, False)]
-    # edges of the tiling: M, K, N off the 128 tile, the 32 slice and the
-    # 8 k-step, rows that are not 16-byte aligned (scalar loads), below a tile
-    cases += [(4160, 2056, 2052, 5, True, "subnormal"), (4160, 2052, 2056, 6, True, "subnormal"),
-              (4100, 2056, 2056, 5, False, "subnormal"), (17, 9, 5, 5, True, "subnormal"),
-              (1, 1, 1, 6, True, "random")]
-    cases += [(520, 264, 1032, 6, True, "lattice")]
-    max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "gq": 0.0}
     timing_inputs = {}
     for m, kk, nn, bits, prc, kind in cases:
         if kind == "lattice":
@@ -863,7 +1077,9 @@ def training_kernels(dev, detail):
         max_err["k2"] = max(max_err["k2"], errs["da"], errs.get("rows", 0.0), errs.get("dgamma", 0.0))
         max_err["k3"] = max(max_err["k3"], errs["dw"])
         del da_k, da_p, dw_k, dw_p, da_1, dw_1, gq_k, gq_p
-        if m == TRAIN_M and prc and kind == "random":
+        if m == MOE_TRAIN_M and prc and kind == "random" and (kk, nn) in MOE_TRAIN_COUNTS:
+            timing_inputs[(m, kk, nn)] = (a, g, aq, wq, s, e)
+        if m == TRAIN_M and prc and kind == "random" and (kk, nn) in TRAIN_COUNTS:
             # K1 as the training forward launches it: M = B*S, one scale
             out_k = K.potq_matmul_cuda(aq, wq)
             out_p = K.potq_matmul_plain(aq, wq)
@@ -875,21 +1091,49 @@ def training_kernels(dev, detail):
                 raise SystemExit(f"K1 differs from its plain version at {(m, kk, nn)}")
             max_err["k1"] = max(max_err["k1"], err)
             del out_k, out_p
-            timing_inputs[(kk, nn)] = (a, g, aq, wq, s, e)
+            timing_inputs[(m, kk, nn)] = (a, g, aq, wq, s, e)
+    return timing_inputs
+
+
+def training_kernels(dev, detail):
+    """Phases 8 and 9: K1/K2/K3 and the G pre-pass at the training shapes
+    against their plain versions, then timing."""
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+
+    phase("8 K2/K3 (and K1) vs plain versions at the training shapes (bit for bit)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(TRAIN_M, kk, nn, 6 if nn == 50688 else 5, prc, "random")
+             for kk, nn in TRAIN_COUNTS for prc in (True, False)]
+    cases += [(200, 130, 300, bits, prc, "subnormal") for bits in (5, 6) for prc in (True, False)]
+    # edges of the tiling: M, K, N off the 128 tile, the 32 slice and the
+    # 8 k-step, rows that are not 16-byte aligned (scalar loads), below a tile
+    cases += [(4160, 2056, 2052, 5, True, "subnormal"), (4160, 2052, 2056, 6, True, "subnormal"),
+              (4100, 2056, 2056, 5, False, "subnormal"), (17, 9, 5, 5, True, "subnormal"),
+              (1, 1, 1, 6, True, "random")]
+    cases += [(520, 264, 1032, 6, True, "lattice")] + MOE_GRAD_CASES
+    max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "gq": 0.0}
+    timing_inputs = grad_checks(dev, gen, cases, max_err)
 
     phase("9 K1/K2/K3 and pre-pass timing at the training shapes (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    rows, per_step = [], {}
+    rows, per_step, per_expert = [], {}, {}
     for key in ("k1", "k2", "k3", "gq"):
         per_step[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                          "t_ops": 0.0, "t_bytes": 0.0, "max_abs_err": max_err[key]}
+    for key in ("k2", "k3", "gq"):
+        per_expert[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                           "t_ops": 0.0, "t_bytes": 0.0}
     for key in ("k1", "k2", "k3"):
         per_step[key]["fp64_tc_bound_ms"] = 0.0
+    for key in ("k2", "k3"):
+        per_expert[key]["fp64_tc_bound_ms"] = 0.0
     per_step["k2"]["prepass_ms"] = 0.0
     per_step["gq"]["library_ms"] = None
-    for (kk, nn), (a, g, aq, wq, s, e) in timing_inputs.items():
+    per_expert["gq"]["library_ms"] = None
+    for (m, kk, nn), (a, g, aq, wq, s, e) in timing_inputs.items():
         gq = KG.quantize_g_cuda(g, s, emax_g=e)
-        m = TRAIN_M
+        expert = m == MOE_TRAIN_M
         fns = {
             "k1": (lambda: K.potq_matmul_cuda(aq, wq),
                    lambda: K.potq_matmul_plain(aq, wq),
@@ -905,8 +1149,13 @@ def training_kernels(dev, detail):
                    lambda: KG._quantize_g(g, s, e),
                    None),
         }
+        if expert:  # an expert's forward is phase 4's expert-batched launch
+            del fns["k1"]
         for key, (kern, plain, lib) in fns.items():
-            c = (TRAIN_K1_COUNTS if key == "k1" else TRAIN_COUNTS)[(kk, nn)]
+            if expert:
+                c = MOE_TRAIN_COUNTS[(kk, nn)]
+            else:
+                c = (TRAIN_K1_COUNTS if key == "k1" else TRAIN_COUNTS)[(kk, nn)]
             t_k = time_ms(kern, 3 if key != "gq" else 10, flush)
             t_p = time_ms(plain, 1, flush)
             t_l = time_ms(lib, 5, flush) if lib is not None else None
@@ -914,10 +1163,14 @@ def training_kernels(dev, detail):
                 t_ops, t_bytes = 0.0, 6.0 * m * nn / PEAK_BYTES * 1e3
             else:
                 t_ops, t_bytes = train_bound(m, kk, nn, key)
-            row = dict(kernel=key, M=m, K=kk, N=nn, launches_per_step=c, ms=t_k,
-                       plain_ms=t_p, library_ms=t_l, bound_ms=max(t_ops, t_bytes),
+            row = dict(kernel=key, M=m, K=kk, N=nn, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops > t_bytes else "bytes")
-            acc = per_step[key]
+            if expert:
+                row.update(arch="llama4-scout-17b-a16e", launches_per_expert_layer=c)
+            else:
+                row["launches_per_step"] = c
+            acc = (per_expert if expert else per_step)[key]
             if key != "gq":
                 row["fp64_tc_bound_ms"] = 2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3
                 acc["fp64_tc_bound_ms"] += c * row["fp64_tc_bound_ms"]
@@ -931,18 +1184,24 @@ def training_kernels(dev, detail):
             acc["t_bytes"] += c * t_bytes
         del gq
     per_step["k2"]["prepass_ms"] = per_step["gq"]["ms"]
-    out = {}
+    for sums in (per_step, per_expert):
+        for acc in sums.values():
+            t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
+            acc["bound_ms"] = max(t_ops, t_bytes)
+            acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
     for key, acc in per_step.items():
-        t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
-        acc["bound_ms"] = max(t_ops, t_bytes)
-        acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
-        out[key] = acc
         print(f"{key}, one training step ({step_launches()[key]} launches):", json.dumps(acc))
-    detail["train_kernels_per_step"] = out
+        # one llama4-scout expert's backward of one layer, at its
+        # training rows (M = 320): gate, up and down
+        acc["moe_expert_layer"] = per_expert.get(key)
+        if key in per_expert:
+            print(f"{key}, one llama4-scout expert of one layer (M={MOE_TRAIN_M}, "
+                  f"{sum(MOE_TRAIN_COUNTS.values())} launches):", json.dumps(per_expert[key]))
+    detail["train_kernels_per_step"] = per_step
     detail["train_kernel_shapes"] = rows
     del timing_inputs, flush
     torch.cuda.empty_cache()
-    return out
+    return per_step
 
 
 def _state_copy(tree):
@@ -1078,6 +1337,85 @@ def training(dev, detail):
         raise SystemExit("CUDA and CPU training steps disagree beyond the tolerances")
     detail["train"] = train
     return train
+
+
+def moe_training(dev, detail):
+    """Phase 28: MoE training at smoke width, both MoE decoders: three AdamW
+    steps on the card against the same steps on the CPU (each loss within
+    ``LOSS_RTOL``, the first step's gradients within ``GRAD_RTOL`` of their
+    leaf's largest; a top-1 router's exact gradient is zero (its gate is
+    g / g), so its rounding noise is held to ``GRAD_RTOL`` of the tree's
+    largest), the last step run twice from the same state bit for bit,
+    and its K1/K2/K3/pre-pass launches equal to ``step_launches``.
+    Returns the launch counts of each config's step."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.train import make_train_step
+
+    phase("28 MoE training at smoke width: CUDA vs CPU, a step twice, launches a step")
+    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
+                "gq": KG.quantize_g_cuda}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)  # as the trainer runs
+    out = {}
+    for arch in MOE_ARCHS:
+        scfg = configs.smoke_config(arch)
+        p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
+        p_gpu = spec.params_from_numpy({n: x.numpy() for n, x in spec.named_leaves(p_cpu)}, dev)
+        batches = [pipeline.make_batch(scfg, ShapeConfig("t", 64, 8, "train"), i, device="cpu")
+                   for i in range(3)]
+        runs = {}
+        for d, where, p in (("cpu", "cpu", p_cpu), ("cuda", dev, p_gpu)):
+            opt = adamw(warmup_cosine_schedule(3e-3, 5, 30))
+            step = make_train_step(scfg, PAPER_FAITHFUL, opt)
+            bs = [{k: v.to(where) for k, v in b.items()} for b in batches]
+            _, grads = step.grads(p, bs[0])
+            state = opt.init(p)
+            losses = []
+            for i, b in enumerate(bs):
+                if d == "cuda" and i == len(bs) - 1:
+                    saved = (_state_copy(p), _state_copy(state))
+                    torch.cuda.synchronize()
+                    _zero_launches()
+                p, state, m = step(p, state, b, i)
+                losses.append(float(m["loss"]))
+            runs[d] = (losses, {n: g.cpu() for n, g in spec.named_leaves(grads)})
+        launches = {k: fn.launches for k, fn in counters.items()}
+        first = _state_copy(p)
+        _state_load(p, saved[0])
+        _state_load(state, saved[1])
+        p, state, m = step(p, state, bs[-1], len(bs) - 1)
+        torch.cuda.synchronize()
+        same = float(m["loss"]) == runs["cuda"][0][-1] and all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(spec.named_leaves(first),
+                                                        spec.named_leaves(p)))
+        (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
+        top = max(float(g.abs().max()) for g in gc.values())
+        g_worst = max(float((gg[n] - gc[n]).abs().max()) / max(
+            top if scfg.moe.top_k == 1 and "/router/" in n else float(gc[n].abs().max()), 1e-30)
+            for n in gc)
+        want = step_launches(scfg)
+        row = dict(losses_cpu=lc, losses_cuda=lg, grad_rel_err=g_worst, step_twice_equal=same,
+                   launches=launches, expected_launches=want)
+        print(f"{arch}:", json.dumps(row), f"(tolerances: loss rtol {LOSS_RTOL}, grads "
+              f"{GRAD_RTOL} x max|g|)", flush=True)
+        if not all(abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(lg, lc)) or \
+                not g_worst <= GRAD_RTOL:
+            raise SystemExit(f"{arch}: CUDA and CPU training disagree beyond the tolerances")
+        if not same:
+            raise SystemExit(f"{arch}: two runs of one training step differ")
+        if launches != want:
+            raise SystemExit(f"{arch}: a training step launched {launches}, expected {want}")
+        out[arch] = row
+    torch.use_deterministic_algorithms(deterministic)
+    detail["moe_training"] = out
+    return {arch: r["launches"] for arch, r in out.items()}
 
 
 def _encode_edges(x, dev):
@@ -1621,7 +1959,8 @@ def serving(dev, detail):
     """Phases 19-23 on one llama3-8b at full width (weights from seed 0):
     chunked + paged serving, the prefix cache, PoT-quantized KV pages,
     speculative decoding, lockstep serving and float32 pages; then phases
-    24-25, mistral-nemo-12b and starcoder2-7b at full width.  Returns K1's
+    24-25, mistral-nemo-12b and starcoder2-7b at full width, and 26-27,
+    llama4-scout and grok-1 at full width and cut depth.  Returns K1's
     launch counts of their main paths."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
@@ -1650,13 +1989,23 @@ def serving(dev, detail):
     torch.cuda.empty_cache()
     dense = {arch: dense_serving(dev, detail, arch, number)
              for number, arch in enumerate(OTHER_ARCHS, start=24)}
+    moe = moe_serving(dev, detail)
     torch.use_deterministic_algorithms(deterministic)
     return dict(launches=paged["launches"] + kvq["launches"] + spec_run["launches"]
-                + lockstep["launches"] + sum(dense.values()),
+                + lockstep["launches"] + sum(dense.values()) + sum(moe.values()),
                 chunk_launches=paged["chunk_launches"],
                 verify_launches=spec_run["verify_launches"],
                 draft_launches=spec_run["draft_launches"],
-                lockstep_launches=lockstep["wave_launches"], dense_launches=dense)
+                lockstep_launches=lockstep["wave_launches"], dense_launches=dense,
+                moe_launches=moe)
+
+
+def moe_serving(dev, detail):
+    """Phases 26-27: the MoE decoders at their published widths, cut in
+    depth to one card, through phase 24's engine and gates.  Returns each
+    one's K1 launches on its main path."""
+    return {arch: dense_serving(dev, detail, arch, number, n_layers=layers)
+            for number, (arch, layers) in enumerate(MOE_ARCHS.items(), start=26)}
 
 
 def paged_serving(dev, detail, cfg, params, policy, reqs):
@@ -1872,8 +2221,9 @@ def _first_layers(tree, n):
 
 
 # phase 22's engines run llama3-8b's widths at this depth (its verify and
-# draft steps run all 32 layers)
-SPEC_LAYERS = 8
+# draft steps run all 32 layers): five engine runs on a host-bound path,
+# kept short so the whole script stays well inside its time limit
+SPEC_LAYERS = 4
 
 
 def spec_serving(dev, detail, cfg, params, policy, reqs):
@@ -2049,19 +2399,29 @@ def lockstep_serving(dev, detail, cfg, params, policy, reqs):
 DENSE_TRACE = dict(n_requests=4, prompt_len=128, lam=2.0, new_lo=8, new_hi=16, seed=0)
 
 
-def dense_serving(dev, detail, arch, number):
+# phase 26's weights, drawn leaf by leaf in f32, must leave this much room
+MOE_PEAK_GIB = 75.0
+
+
+def dense_serving(dev, detail, arch, number, n_layers=None):
     """Phase 24 or 25: ``arch`` at full width (weights from seed 0) through
     the chunked (32) + paged (16) engine: A is the main path, C each
     request alone; A's counters against the CPU smoke-width run's; the
-    step times and one profiled decode step.  Returns A's K1 launches."""
+    step times and one profiled decode step.  Phases 26-27 serve a MoE
+    decoder the same way at its published widths and ``n_layers`` layers,
+    the peak device memory under ``MOE_PEAK_GIB``.  Returns A's K1
+    launches."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.models import registry, spec
     from repro_torch.serve import PoolEngine, poisson_trace
     from repro_torch.serve import quantized_weights as qw
 
-    phase(f"{number} {arch} at full width: chunked (32) + paged (16) serving")
     cfg = configs.get_config(arch)
+    depth = "" if n_layers is None else f", {n_layers} of {cfg.n_layers} layers"
+    phase(f"{number} {arch} at full width{depth}: chunked (32) + paged (16) serving")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = spec.materialize(
@@ -2073,6 +2433,9 @@ def dense_serving(dev, detail, arch, number):
                           held_gib=torch.cuda.memory_allocated() / 2 ** 30,
                           peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
     print("params:", json.dumps(res["params"]))
+    if n_layers is not None and res["params"]["peak_gib"] >= MOE_PEAK_GIB:
+        raise SystemExit(f"{arch}: making the weights peaked at {res['params']['peak_gib']:.1f} "
+                         f"GiB, over {MOE_PEAK_GIB}")
     policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
     reqs = poisson_trace(cfg, **DENSE_TRACE)
     kw = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
@@ -2109,11 +2472,10 @@ def dense_serving(dev, detail, arch, number):
                     for _ in range(3)]
         prof = _profiled(lambda: registry.decode_step(cfg, eng_a.policy, params, last, c2),
                          min(t_decode))
-    # K1's bytes bound over one decode weight pass (M = 4): each bf16
-    # operand read once, the f32 output written once
-    prof["k1_bytes_bound_ms"] = sum(
-        c * (2 * (4 * kk + kk * nn) + 4 * 4 * nn)
-        for (kk, nn), c in pass_counts(cfg).items()) / PEAK_BYTES * 1e3
+    # K1's bytes bound over one decode weight pass (M = 4, an expert its
+    # capacity rows of the 4 slots): each bf16 operand read once, the f32
+    # output written once
+    prof["k1_bytes_bound_ms"] = decode_pass_bytes(cfg) / PEAK_BYTES * 1e3
     res["steps"] = dict(chunk_step_ms=[t * 1e3 for t in t_chunk],
                         decode_step_ms=[t * 1e3 for t in t_decode], profiled_decode_step=prof)
     print(f"{arch}: chunk steps {[round(t * 1e3, 1) for t in t_chunk]} ms, decode steps "

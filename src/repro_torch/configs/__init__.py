@@ -1,9 +1,10 @@
 """Config registry: ``get_config(arch_id)``, per-shape adaptations and
 reduced smoke variants.
 
-Only the architectures the port runs so far are registered: the dense
-decoders (llama3-8b, mistral-nemo-12b, starcoder2-7b for serving, olmo-1b
-for training); the rest arrive with their model families.
+Only the architectures the port runs so far are registered: the decoders,
+dense (llama3-8b, mistral-nemo-12b, starcoder2-7b for serving, olmo-1b
+for training) and MoE (llama4-scout-17b-a16e, grok-1-314b); the rest
+arrive with their model families.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = {
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "grok-1-314b": "grok_1_314b",
     "starcoder2-7b": "starcoder2_7b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "llama3-8b": "llama3_8b",
@@ -53,7 +56,8 @@ def config_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
 
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
-    ``repro.configs.smoke_config`` cut, for the dense decoder)."""
+    ``repro.configs.smoke_config`` cut, for the decoder family: MoE keeps
+    4 experts and at most top-2)."""
     cfg = get_config(arch)
     kw: Dict = dict(
         n_layers=2,
@@ -63,6 +67,9 @@ def smoke_config(arch: str) -> ModelConfig:
     )
     ratio = max(1, cfg.n_heads // cfg.kv_heads)
     kw.update(n_heads=4, kv_heads=max(1, 4 // ratio), head_dim=16, d_ff=128)
+    if cfg.moe is not None:
+        kw.update(moe=dataclasses.replace(cfg.moe, num_experts=4,
+                                          top_k=min(cfg.moe.top_k, 2)))
     if cfg.window is not None:
         kw.update(window=8)
     return dataclasses.replace(cfg, **kw)

@@ -1,4 +1,5 @@
-// K1 on Hopper: the MF-MAC forward, (M,K) @ (K,N) over PoT-valued operands.
+// K1 on Hopper: the MF-MAC forward, (M,K) @ (K,N) over PoT-valued operands,
+// or E such products in one launch (the MoE experts: (E,M,K) @ (E,K,N)).
 //
 // Replaces the Pallas TPU kernel repro/kernels/potq_matmul.py
 // `_potq_matmul_kernel` (launcher `potq_matmul_padded`), both modes:
@@ -20,6 +21,14 @@
 // No atomics: the result is deterministic, row-independent and the same
 // for every path below, which is what the serving engine's pool-vs-solo
 // identity rests on.
+//
+// The expert batch.  potq_matmul_launch runs E independent products
+// (expert e: A + e*M*K, W + e*K*N, out + e*M*N; one deq for all) in one
+// launch, E = 1 for a single product: grid z holds E x the chunk ranges,
+// expert-major, and each block is the block of a single-expert launch on
+// its expert's operands.  The precondition holds per expert (each
+// expert's W has its own beta, each row of A its own), so the batched
+// result equals E single-expert launches bit for bit.
 //
 // Two paths and a split, chosen by the wrapper (kernels/potq_matmul.py `plan`) from
 // M, N and K alone:
@@ -81,22 +90,29 @@ potq_mm_prequant(const float* __restrict__ x, const float* __restrict__ scal,
 
 // ---------------------------------------------------------------------------
 // Tensor-core path.  X = Aq (M x K, rows along K), Y = Wq (K x N, rows
-// along N).  Block (x: 128 columns of N, y: 128 rows of M, z: chunk range
-// of `span` columns of K with SPLIT).
+// along N).  Block (x: 128 columns of N, y: 128 rows of M, z: expert x
+// `ranges` chunk ranges of `span` columns of K with SPLIT).
 // ---------------------------------------------------------------------------
 template <bool VEC, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 potq_mm_tc(const uint16_t* __restrict__ Aq, const uint16_t* __restrict__ Wq,
            const float* __restrict__ scal, float* __restrict__ out, float* __restrict__ part,
-           int M, int N, int K, int span) {
+           int M, int N, int K, int span, int ranges) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int m0 = blockIdx.y * BT, n0 = blockIdx.x * BT;
+    const int ex = blockIdx.z / ranges;
+    const size_t mn = (size_t)M * N;
+    Aq += ex * (size_t)M * K;
+    Wq += ex * (size_t)K * N;
+    out += ex * mn;
     if constexpr (SPLIT) {
-        const int l0 = blockIdx.z * span;
+        // scratch (nchunk, E, M, N): a chunk's sums of every expert together
+        const size_t cstride = mn * (gridDim.z / ranges);
+        const int l0 = (blockIdx.z % ranges) * span;
         const int len = min(span, K - l0);
         block_product<true, false, VEC, true>(
             Operand{Aq + l0, K, M, len}, Operand{Wq + (size_t)l0 * N, N, N, len}, m0, n0, smem,
-            part + (size_t)(l0 / CHUNK) * M * N, N, (size_t)M * N);
+            part + ex * mn + (size_t)(l0 / CHUNK) * cstride, N, cstride);
     } else {
         block_product<true, false, VEC>(Operand{Aq, K, M, K}, Operand{Wq, N, N, K}, m0, n0, smem);
         const float* acc = reinterpret_cast<const float*>(
@@ -119,7 +135,8 @@ potq_mm_tc(const uint16_t* __restrict__ Aq, const uint16_t* __restrict__ Wq,
 // Decode path.  Every warp is a task of its own: one strip of 256 columns
 // (a lane owns 8) over a range of `span` chunks with SPLIT, else all of K,
 // for MR rows of A.  A block is DEC_WPB warps on neighbouring strips of the
-// same rows (grid x: strips / DEC_WPB, y: MR rows of M, z: chunk ranges).
+// same rows (grid x: strips / DEC_WPB, y: MR rows of M, z: expert x
+// `ranges` chunk ranges).
 // The warp streams its 128 k-rows a chunk in stages of 8 through a ring of
 // DEC_STAGES in shared memory, lane l copying (cp.async) and reading only
 // its own 16 bytes of each row, so the ring runs ahead across
@@ -173,10 +190,16 @@ template <int MR, bool VEC, bool SPLIT>
 __global__ void __launch_bounds__(DEC_WPB * 32)
 potq_mm_dec(const uint16_t* __restrict__ A, const uint16_t* __restrict__ W,
             const float* __restrict__ scal, float* __restrict__ out, float* __restrict__ part,
-            int M, int N, int K, int span) {
+            int M, int N, int K, int span, int ranges) {
     constexpr int A_PER = MR * CHUNK / 32;  // A values a lane stages a chunk
     extern __shared__ __align__(16) unsigned char smem[];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int ex = blockIdx.z / ranges;
+    const size_t mn = (size_t)M * N;
+    const size_t cstride = mn * (gridDim.z / ranges);  // scratch (nchunk, E, M, N)
+    A += ex * (size_t)M * K;
+    W += ex * (size_t)K * N;
+    out += ex * mn;
     const int col = (blockIdx.x * DEC_WPB + warp) * DEC_COLS + 8 * lane;
     if ((blockIdx.x * DEC_WPB + warp) * DEC_COLS >= N) return;  // a warp past the last strip
     unsigned char* mine = smem + warp * dec_warp_bytes(MR);
@@ -184,7 +207,7 @@ potq_mm_dec(const uint16_t* __restrict__ A, const uint16_t* __restrict__ W,
     double* as = reinterpret_cast<double*>(mine + DEC_STAGES * DEC_STAGE_U4 * 16);
     const int m0 = blockIdx.y * MR;
     const int nchunk = (K + CHUNK - 1) / CHUNK;
-    const int c_begin = SPLIT ? blockIdx.z * span : 0;
+    const int c_begin = SPLIT ? (blockIdx.z % ranges) * span : 0;
     const int c_end = SPLIT ? min(nchunk, c_begin + span) : nchunk;
     const int nstage = (c_end - c_begin) * DEC_CHUNK_STAGES;
     const int k_begin = c_begin * CHUNK;
@@ -263,7 +286,8 @@ potq_mm_dec(const uint16_t* __restrict__ A, const uint16_t* __restrict__ W,
             for (int e = 0; e < 8; ++e) {
                 const float f = __double2float_rn(p[r][e]);
                 if (SPLIT) {
-                    if (row < M && col + e < N) part[((size_t)c * M + row) * N + col + e] = f;
+                    if (row < M && col + e < N)
+                        part[(size_t)c * cstride + ex * mn + (size_t)row * N + col + e] = f;
                 } else {
                     acc[r][e] += f;
                 }
@@ -307,24 +331,27 @@ int grid_stride_blocks(long long n) {
 template <int MR, bool VEC>
 cudaError_t launch_dec(bool split, dim3 grid, cudaStream_t st, const uint16_t* a,
                        const uint16_t* w, const float* scal, float* out, float* part, int M,
-                       int N, int K, int span) {
+                       int N, int K, int span, int ranges) {
     auto kernel = split ? potq_mm_dec<MR, VEC, true> : potq_mm_dec<MR, VEC, false>;
     return launch_kernel(kernel, grid, DEC_WPB * 32, dec_smem_bytes(MR), st, a, w, scal, out,
-                         part, M, N, K, span);
+                         part, M, N, K, span, ranges);
 }
 
 template <int MR>
 cudaError_t launch_dec_rows(bool vec, bool split, dim3 grid, cudaStream_t st, const uint16_t* a,
                             const uint16_t* w, const float* scal, float* out, float* part,
-                            int M, int N, int K, int span) {
-    if (vec) return launch_dec<MR, true>(split, grid, st, a, w, scal, out, part, M, N, K, span);
-    return launch_dec<MR, false>(split, grid, st, a, w, scal, out, part, M, N, K, span);
+                            int M, int N, int K, int span, int ranges) {
+    if (vec)
+        return launch_dec<MR, true>(split, grid, st, a, w, scal, out, part, M, N, K, span, ranges);
+    return launch_dec<MR, false>(split, grid, st, a, w, scal, out, part, M, N, K, span, ranges);
 }
 
-// kind 0: decode, 1: tensor cores.  groups > 1 splits the chunks into that
-// many ranges (part: (ceil(K/128), M, N) f32), then folds.
+// E products (E = 1: one).  kind 0: decode, 1: tensor cores.  groups > 1
+// splits the chunks into that many ranges (part: (ceil(K/128), E, M, N)
+// f32), then folds.
 cudaError_t product(const uint16_t* a, const uint16_t* w, const float* scal, float* out,
-                    float* part, int M, int N, int K, int kind, int groups, cudaStream_t st) {
+                    float* part, int E, int M, int N, int K, int kind, int groups,
+                    cudaStream_t st) {
     const int nchunk = (K + CHUNK - 1) / CHUNK;
     const bool split = groups > 1 && nchunk > 1;
     const int per = split ? (nchunk + groups - 1) / groups : nchunk;  // chunks per range
@@ -334,38 +361,44 @@ cudaError_t product(const uint16_t* a, const uint16_t* w, const float* scal, flo
         const int mr = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8;
         const bool vec = N % 8 == 0 && aligned16(w);
         const int strips = (N + DEC_COLS - 1) / DEC_COLS;
-        const dim3 grid((strips + DEC_WPB - 1) / DEC_WPB, (M + mr - 1) / mr, ranges);
-        e = mr == 1   ? launch_dec_rows<1>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per)
-            : mr == 2 ? launch_dec_rows<2>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per)
-            : mr == 4 ? launch_dec_rows<4>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per)
-                      : launch_dec_rows<8>(vec, split, grid, st, a, w, scal, out, part, M, N, K, per);
+        const dim3 grid((strips + DEC_WPB - 1) / DEC_WPB, (M + mr - 1) / mr, ranges * E);
+        e = mr == 1   ? launch_dec_rows<1>(vec, split, grid, st, a, w, scal, out, part, M, N, K,
+                                           per, ranges)
+            : mr == 2 ? launch_dec_rows<2>(vec, split, grid, st, a, w, scal, out, part, M, N, K,
+                                           per, ranges)
+            : mr == 4 ? launch_dec_rows<4>(vec, split, grid, st, a, w, scal, out, part, M, N, K,
+                                           per, ranges)
+                      : launch_dec_rows<8>(vec, split, grid, st, a, w, scal, out, part, M, N, K,
+                                           per, ranges);
     } else {
         const bool vec = K % 8 == 0 && N % 8 == 0 && aligned16(a) && aligned16(w);
-        const dim3 grid((N + BT - 1) / BT, (M + BT - 1) / BT, ranges);
+        const dim3 grid((N + BT - 1) / BT, (M + BT - 1) / BT, ranges * E);
         auto kernel = split ? (vec ? potq_mm_tc<true, true> : potq_mm_tc<false, true>)
                             : (vec ? potq_mm_tc<true, false> : potq_mm_tc<false, false>);
         e = launch_kernel(kernel, grid, THREADS, smem_bytes(true, false), st, a, w, scal, out,
-                          part, M, N, K, per * CHUNK);
+                          part, M, N, K, per * CHUNK, ranges);
     }
     if (e != cudaSuccess || !split) return e;
-    const long long total = (long long)M * N;
+    const long long total = (long long)E * M * N;
     potq_mm_fold<<<grid_stride_blocks(total), 256, 0, st>>>(part, scal, out, total, nchunk);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// quantize = 0.  a: (M, K) bf16 PoT values, w: (K, N) bf16 PoT values;
-// scalars: null (deq 1) or the (5,) f32 [2^-beta_a, 2^-beta_w, deq, w_mean,
-// clip_t], of which only deq is read; part: the scratch when groups > 1.
+// quantize = 0, E products (E = 1: one).  a: (E, M, K) bf16 PoT values,
+// w: (E, K, N) bf16 PoT values, out: (E, M, N) f32; scalars: null (deq 1)
+// or the (5,) f32 [2^-beta_a, 2^-beta_w, deq, w_mean, clip_t], of which
+// only deq is read; part: the (ceil(K/128), E, M, N) scratch when
+// groups > 1.
 extern "C" int potq_matmul_launch(const void* a, const void* w, const float* scalars,
-                                  float* out, float* part, int M, int N, int K, int kind,
+                                  float* out, float* part, int E, int M, int N, int K, int kind,
                                   int groups, void* stream) {
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    if (M > 0 && N > 0) {
+    if (E > 0 && M > 0 && N > 0) {
         const cudaError_t e = product(static_cast<const uint16_t*>(a),
-                                      static_cast<const uint16_t*>(w), scalars, out, part, M, N,
-                                      K, kind, groups, st);
+                                      static_cast<const uint16_t*>(w), scalars, out, part, E, M,
+                                      N, K, kind, groups, st);
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     return static_cast<int>(cudaGetLastError());
@@ -390,7 +423,7 @@ extern "C" int potq_matmul_quantize_launch(const float* a, const float* w,
         cudaError_t e = cudaGetLastError();
         if (e == cudaSuccess)
             e = product(reinterpret_cast<const uint16_t*>(qa), reinterpret_cast<const uint16_t*>(qw),
-                        scalars, out, part, M, N, K, kind, groups, st);
+                        scalars, out, part, 1, M, N, K, kind, groups, st);
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     return static_cast<int>(cudaGetLastError());

@@ -3,11 +3,15 @@
 * :func:`potq_matmul`       — fused PRC-clip + WBC + ALS-PoTQ + matmul (K1).
 * :func:`pot_value_matmul`  — matmul over already-PoT-valued operands (K1;
   what ``core/mfmac.py`` calls on every quantized ``mf_linear`` forward).
+* :func:`pot_value_bmm`     — the same over a batch of experts, one launch
+  (K1's expert-batched form; every quantized ``mf_expert_linear`` forward).
 * :func:`grad_da_matmul`    — dA = Gq·Wq^T with the PRC epilogue (K2).
 * :func:`grad_dw_matmul`    — dW = Aq^T·Gq (K3).
 * :func:`potq_grad_matmuls` — both, G quantized once under one beta_g
   (every quantized ``mf_linear`` backward; on the card one pre-pass
   writes Gq and both kernels read it).
+* :func:`potq_expert_grad_matmuls` — :func:`potq_grad_matmuls` once per
+  expert (every quantized ``mf_expert_linear`` backward).
 * :func:`potq_encode`       — f32 -> int8 PoT wire codes + beta (K4;
   ``serve/quantized_weights.pack_int8``).
 
@@ -85,6 +89,19 @@ def pot_value_matmul(x: torch.Tensor, y: torch.Tensor, *,
     they only gate the exactness precondition (``ref.check_exact_spread``).
     """
     ref.check_exact_spread(bits_a, bits_w)
+    return _launch(x, y, None, quantize=False)
+
+
+def pot_value_bmm(x: torch.Tensor, y: torch.Tensor, *,
+                  bits_a: int = 5, bits_w: int = 5) -> torch.Tensor:
+    """(E,M,K)@(E,K,N) over already-quantized (PoT-valued) operands, one
+    scale per expert's W and per row of its A; K1's expert-batched form, a
+    single launch on the card.  ``bits_a``/``bits_w`` as for
+    :func:`pot_value_matmul`."""
+    ref.check_exact_spread(bits_a, bits_w)
+    if x.dim() != 3 or y.dim() != 3:
+        raise ValueError(f"pot_value_bmm takes (E,M,K)@(E,K,N), got {tuple(x.shape)} @ "
+                         f"{tuple(y.shape)}")
     return _launch(x, y, None, quantize=False)
 
 
@@ -195,6 +212,42 @@ def potq_grad_matmuls(
     if amax is None:
         amax = a.to(torch.float32).abs().amax()
     return da, dw, ref.halves_fold(rows) * amax
+
+
+def potq_expert_grad_matmuls(
+    g: torch.Tensor,
+    aq: torch.Tensor,
+    wq: torch.Tensor,
+    *,
+    a: Optional[torch.Tensor] = None,
+    gamma: Optional[torch.Tensor] = None,
+    bits_g: int = 5,
+    bits_a: int = 5,
+    bits_w: int = 5,
+):
+    """The backward MACs of an expert linear: :func:`potq_grad_matmuls` on
+    each expert's g (E, M, N), aq (E, M, K) and wq (E, K, N), each expert
+    its own "layer" (its own beta_g; with PRC, ``a`` given, its own
+    ``amax = max|a[e]|`` and clip ``amax * gamma``).
+
+    Returns ``(da (E, M, K), dw (E, K, N), dgamma)``: dgamma, the sum of
+    the experts' dgammas in :func:`ref.halves_fold`'s order, is None with
+    PRC off."""
+    kw = dict(bits_g=bits_g, bits_a=bits_a, bits_w=bits_w)
+    das, dws, dgs = [], [], []
+    for e in range(g.shape[0]):
+        if a is not None:
+            ae = a[e].to(torch.float32)
+            amax = ae.abs().amax()
+            da, dw, dg = potq_grad_matmuls(g[e], aq[e], wq[e], a=ae, clip_t=amax * gamma,
+                                           amax=amax, **kw)
+            dgs.append(dg)
+        else:
+            da, dw, _ = potq_grad_matmuls(g[e], aq[e], wq[e], **kw)
+        das.append(da)
+        dws.append(dw)
+    dgamma = ref.halves_fold(torch.stack(dgs)) if dgs else None
+    return torch.stack(das), torch.stack(dws), dgamma
 
 
 def potq_encode(x: torch.Tensor, bits: int = 5):

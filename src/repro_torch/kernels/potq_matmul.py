@@ -6,7 +6,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/potq_matmul.py``
 forward, 225 launches per llama3-8b weight pass and per olmo-1b training
 step) and ``quantize=True`` (PRC clip, WBC shift, exact 2^-beta scaling
 and nearest PoT rounding of raw f32 operands, by an elementwise pre-pass
-that writes the scaled values as bf16, then the same product).
+that writes the scaled values as bf16, then the same product).  With
+``quantize=False`` it also takes an expert batch, (E, M, K) @ (E, K, N)
+in one launch, E of the products above side by side (the MoE experts).
 
 Source: ``repro_torch/csrc/potq_matmul.cu`` — its header says what bounds
 each path on an H100 and how each keeps the reduction exact and in order.
@@ -42,7 +44,7 @@ ACC_SCHEME = "canonical-k128-exactchunk-leftfold-v1"
 SOURCE = "potq_matmul.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "potq_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "potq_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "potq_matmul_quantize_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _P],
 }
@@ -73,7 +75,12 @@ def potq_matmul_plain(a: torch.Tensor, w: torch.Tensor,
 
     ``scalars`` is a (5,) float32 tensor ``[2^-beta_a, 2^-beta_w,
     2^(beta_a+beta_w), w_mean, clip_t]``; ``None`` means
-    ``[1, 1, 1, 0, inf]``."""
+    ``[1, 1, 1, 0, inf]``.  An expert batch (E, M, K) @ (E, K, N) is one
+    expert at a time."""
+    if a.dim() == 3:
+        if quantize:
+            raise ValueError("quantize=True takes one (M, K) @ (K, N) product")
+        return torch.stack([potq_matmul_plain(a[e], w[e], scalars) for e in range(a.shape[0])])
     a = a.to(torch.float32)
     w = w.to(torch.float32)
     if quantize:
@@ -93,16 +100,19 @@ _TILE_OVERHEAD = 0.5
 
 
 @functools.lru_cache(maxsize=None)
-def plan(m: int, n: int, k: int, sms: int = 132) -> Tuple[str, int]:
-    """``(path, groups)`` of an (m, k) @ (k, n) product on a card of ``sms``
-    SMs: ``path`` is "decode" (m <= DECODE_MAX_M) or "tc"; ``groups`` > 1
-    splits the 128-wide chunks into that many ranges (scratch + fold)."""
+def plan(m: int, n: int, k: int, sms: int = 132, batch: int = 1) -> Tuple[str, int]:
+    """``(path, groups)`` of ``batch`` (m, k) @ (k, n) products in one
+    launch on a card of ``sms`` SMs: ``path`` is "decode" (m <=
+    DECODE_MAX_M) or "tc"; ``groups`` > 1 splits the 128-wide chunks into
+    that many ranges (scratch + fold).  Every expert of a batch takes the
+    path one product of its shape would."""
     path = "decode" if m <= DECODE_MAX_M else "tc"
-    return path, split_groups(path, m, n, k, sms)
+    return path, split_groups(path, m, n, k, sms, batch)
 
 
-def split_groups(path: str, m: int, n: int, k: int, sms: int = 132) -> int:
-    """Chunk ranges for ``path``.
+def split_groups(path: str, m: int, n: int, k: int, sms: int = 132, batch: int = 1) -> int:
+    """Chunk ranges for ``path``; the grid holds ``batch`` times the warps
+    or tiles of one product.
 
     Decode: a warp streams one strip of 256 columns for 8 rows of A; where
     the strips give fewer than three warps an SM, too few bytes are in
@@ -120,9 +130,9 @@ def split_groups(path: str, m: int, n: int, k: int, sms: int = 132) -> int:
     if nchunk <= 1:
         return 1
     if path == "decode":
-        warps = -(-n // DECODE_COLS) * -(-m // 8)
+        warps = batch * -(-n // DECODE_COLS) * -(-m // 8)
         return nchunk if nchunk >= 4 and warps < 3 * sms else 1
-    tiles = -(-m // TC_TILE) * -(-n // TC_TILE)
+    tiles = batch * -(-m // TC_TILE) * -(-n // TC_TILE)
     if tiles >= 2 * sms:
         return 1
     best, best_t = 1, None
@@ -148,12 +158,18 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     """Launch K1 on the tensors' CUDA device (PyTorch's current stream).
 
     ``quantize=False`` reads bf16 operands (f32 PoT values are cast, which
-    is exact); ``quantize=True`` reads raw f32 operands.  Raises on a bad
-    device, shape or launch."""
+    is exact), (M, K) @ (K, N) or an expert batch (E, M, K) @ (E, K, N) ->
+    (E, M, N) in one launch; each expert's W must then carry one beta and
+    each row of its A one, so that the result equals E single launches
+    bit for bit.  ``quantize=True`` reads raw f32 (M, K) @ (K, N)
+    operands.  Raises on a bad device, shape or launch."""
     if a.device.type != "cuda" or w.device.type != "cuda":
         raise ValueError("potq_matmul_cuda needs CUDA tensors")
-    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
-        raise ValueError(f"bad shapes {tuple(a.shape)} @ {tuple(w.shape)}")
+    batched = a.dim() == 3
+    if (a.dim() not in (2, 3) or w.dim() != a.dim() or a.shape[-1] != w.shape[-2]
+            or a.shape[:-2] != w.shape[:-2] or (batched and quantize)):
+        raise ValueError(f"bad shapes {tuple(a.shape)} @ {tuple(w.shape)}"
+                         f"{' with quantize=True' if quantize else ''}")
     dt = torch.float32 if quantize else torch.bfloat16
     a = a.to(dt).contiguous()
     w = w.to(dt).contiguous()
@@ -163,14 +179,15 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
             raise ValueError("scalars must hold 5 values")
     elif quantize:
         raise ValueError("quantize=True needs the (5,) scalars")
-    m, k = a.shape
-    n = w.shape[1]
+    e = a.shape[0] if batched else 1
+    m, k = a.shape[-2:]
+    n = w.shape[-1]
     dev = a.device
-    path, groups = plan(m, n, k, _sm_count(dev.index))
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    path, groups = plan(m, n, k, _sm_count(dev.index), e)
+    out = torch.empty((*a.shape[:-2], m, n), dtype=torch.float32, device=dev)
     part = None
     if groups > 1:
-        part = torch.empty((-(-k // CANONICAL_BK), m, n), dtype=torch.float32, device=dev)
+        part = torch.empty((-(-k // CANONICAL_BK), e, m, n), dtype=torch.float32, device=dev)
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     sp = scalars.data_ptr() if scalars is not None else None
@@ -183,12 +200,13 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
             m, n, k, emax_a, emax_w, _KINDS[path], groups, stream)
     else:
         err = lib.potq_matmul_launch(a.data_ptr(), w.data_ptr(), sp, out.data_ptr(), pp,
-                                     m, n, k, _KINDS[path], groups, stream)
+                                     e, m, n, k, _KINDS[path], groups, stream)
     if err != 0:
         raise RuntimeError(f"potq_matmul kernel launch failed: CUDA error {err}")
     potq_matmul_cuda.launches += 1
     return out
 
 
-#: kernel launches since the last reset (the caller sets it to 0)
+#: kernel launches since the last reset (the caller sets it to 0); an
+#: expert batch counts one
 potq_matmul_cuda.launches = 0

@@ -1,9 +1,9 @@
-"""Family dispatch (port of ``repro/models/registry.py``), for the dense
-``decoder`` family: specs, loss, prefill, the lockstep cache, the paged
-pool cache (PoT-quantized pages or ``cache_dtype`` ones), lockstep and
-pooled decode, the fused chunk step of chunked piggybacked prefill and
-the speculative verify step.  The other families (vlm, encdec, hybrid,
-ssm) and MoE come in a later slice of the port and raise here."""
+"""Family dispatch (port of ``repro/models/registry.py``), for the
+``decoder`` family, dense and MoE: specs, loss, prefill, the lockstep
+cache, the paged pool cache (PoT-quantized pages or ``cache_dtype`` ones),
+lockstep and pooled decode, the fused chunk step of chunked piggybacked
+prefill and the speculative verify step.  The other families (vlm,
+encdec, hybrid, ssm) come in a later slice of the port and raise here."""
 from __future__ import annotations
 
 import torch
@@ -28,11 +28,10 @@ SPEC_FAMILIES = ("decoder",)
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.moe is not None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''} is not "
-            "ported yet: the other model families come in a later slice of "
-            "repro_torch (ROADMAP.md, Queue 1)"
+            f"family {cfg.family!r} is not ported yet: the other model "
+            "families come in a later slice of repro_torch (ROADMAP.md, Queue 1)"
         )
 
 

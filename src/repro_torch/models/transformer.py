@@ -1,10 +1,11 @@
-"""Dense decoder-only transformer LM (port of ``repro/models/transformer.py``,
-the dense decoder: specs, forward, loss, prefill, lockstep decode and
-per-slot decode over the paged or contiguous pool cache, the fused chunk
-step and the speculative verify step).
+"""Decoder-only transformer LM, dense or MoE (port of
+``repro/models/transformer.py``, the decoder family: specs, forward, loss,
+prefill, lockstep decode and per-slot decode over the paged or contiguous
+pool cache, the fused chunk step and the speculative verify step).
 
 Layers are stacked along a leading 'layer' axis, as in the reference, and
-run as a Python loop over it.  Every weight matmul is ``mf_linear``.
+run as a Python loop over it.  Every weight matmul is ``mf_linear``, and
+``mf_expert_linear`` for the experts of a MoE layer (:func:`_moe_apply`).
 
 Training.  :func:`lm_loss` runs the batched :func:`forward` (never the
 row-by-row decode reductions below) with per-layer recomputation, the
@@ -24,6 +25,9 @@ row reductions one row at a time (:func:`_rows`): a row in a pool of
 four then runs the very same (1, ...) programs as a request served alone.
 :func:`chunk_step` runs each slot's norms and attention on their own in
 the same way (a decode row at decode's shapes, a chunk at (1, C, ·)).
+A MoE layer dispatches per slot in every serving step (``per_slot``), so
+routing, capacity and expert scales never couple pool rows; its router
+softmax sums each row in a fixed order (:func:`_softmax_rows`).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import compress, mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import to_device
+from repro_torch.kernels.ref import halves_fold
 from repro_torch.models import common
 from repro_torch.models.spec import ParamSpec
 
@@ -83,11 +88,27 @@ def _mlp_specs(cfg: ModelConfig, L: int, std: float):
     }
 
 
+def _moe_specs(cfg: ModelConfig, L: int, std: float):
+    # gelu experts use "gate" and "down" only; "up" is kept, unused, so the
+    # tree is the reference's leaf for leaf
+    m = cfg.moe
+    d, f, e = cfg.d_model, cfg.d_ff, m.num_experts
+    out = {
+        "router": _linear((L, d, e), ("layer", "embed", None), std),
+        "gate": _linear((L, e, d, f), ("layer", "expert", "embed", "ffn"), std),
+        "up": _linear((L, e, d, f), ("layer", "expert", "embed", "ffn"), std),
+        "down": _linear((L, e, f, d), ("layer", "expert", "ffn", "embed"), std),
+    }
+    if m.shared_expert:
+        out["shared"] = _mlp_specs(cfg, L, std)
+    return out
+
+
 def decoder_specs(cfg: ModelConfig):
-    if cfg.moe is not None or cfg.family != "decoder":
+    if cfg.family != "decoder":
         raise NotImplementedError(
-            "repro_torch ports the dense decoder only; MoE and VLM come "
-            "with the other families"
+            "repro_torch ports the decoder family only; VLM comes with the "
+            "other families"
         )
     L, d = cfg.n_layers, cfg.d_model
     hd = cfg.head_dim
@@ -99,8 +120,11 @@ def decoder_specs(cfg: ModelConfig):
         "wk": _linear((L, d, cfg.kv_heads * hd), ("layer", "embed", "kv"), std),
         "wv": _linear((L, d, cfg.kv_heads * hd), ("layer", "embed", "kv"), std),
         "wo": _linear((L, cfg.n_heads * hd, d), ("layer", "heads", "embed"), std),
-        "mlp": _mlp_specs(cfg, L, std),
     }
+    if cfg.moe is not None:
+        layer["moe"] = _moe_specs(cfg, L, std)
+    else:
+        layer["mlp"] = _mlp_specs(cfg, L, std)
     specs = {
         "embed": ParamSpec((cfg.vocab_padded, d), ("vocab", "embed"), std=0.02),
         "layers": layer,
@@ -144,6 +168,123 @@ def _mlp_apply(cfg: ModelConfig, policy: QuantPolicy, p, x):
             mfmac.mf_linear(x, p["wi"]["w"], p["wi"]["gamma"], policy=policy)
         )
     return mfmac.mf_linear(h, p["wo"]["w"], p["wo"]["gamma"], policy=policy)
+
+
+def _softmax_rows(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis whose sum runs in a fixed order
+    (:func:`halves_fold`), so a row's bits never depend on the shape of
+    the batch around it; exp and the max are elementwise or exact."""
+    ex = torch.exp(x - x.amax(-1, keepdim=True).detach())
+    return ex / halves_fold(ex)[..., None]
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of the last axis, largest
+    first; among equal values the lower index wins, as in
+    ``jax.lax.top_k`` (argmax returns the first maximal index)."""
+    vals, idxs, p = [], [], probs
+    for i in range(k):
+        j = p.argmax(-1, keepdim=True)
+        vals.append(probs.gather(-1, j))
+        idxs.append(j)
+        if i + 1 < k:
+            p = p.scatter(-1, j, float("-inf"))
+    return torch.cat(vals, -1), torch.cat(idxs, -1)
+
+
+def moe_capacity(cfg: ModelConfig, t: int) -> int:
+    """Expert capacity of a dispatch group of ``t`` tokens (a multiple of
+    4, at least 4); tokens past it are dropped."""
+    m = cfg.moe
+    cap = int(t * m.top_k / m.num_experts * m.capacity_factor)
+    return max(4, ((cap + 3) // 4) * 4)
+
+
+def moe_route(cfg: ModelConfig, probs: torch.Tensor):
+    """Top-k routing of router probabilities (G, T, E) over the (G, T*k)
+    token slots, token-major (slot ``t*k + j`` is token t's j-th choice).
+    Returns (gate, expert, pos, keep, cap): the normalized gate value, the
+    expert, the slot's position in its expert's queue of the group (a
+    cumulative count in slot order), whether it fits the capacity, and the
+    capacity."""
+    g, t, e = probs.shape
+    k = cfg.moe.top_k
+    gate, expert = _top_k(probs, k)
+    gate = gate / gate.sum(-1, keepdim=True)
+    expert = expert.reshape(g, t * k)
+    onehot = (expert[..., None] == torch.arange(e, device=probs.device)).to(torch.int64)
+    pos = torch.gather(onehot.cumsum(1), 2, expert[..., None])[..., 0] - 1
+    cap = moe_capacity(cfg, t)
+    return gate.reshape(g, t * k), expert, pos, pos < cap, cap
+
+
+def _moe_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, group_size: int = 512,
+               per_slot: bool = False):
+    """GShard-style capacity dispatch; the experts run through
+    ``mf_expert_linear``.
+
+    x: (B, S, D).  Tokens are regrouped into groups of ``group_size``
+    (training, prefill), or with ``per_slot`` every batch row is a group of
+    its own (serving): its own capacity, and its own activation scale per
+    expert, so a slot's routing and bits never depend on its neighbours.
+
+    The reference's one-hot dispatch and combine einsums are index ops
+    here, with the same values: each kept token slot is written to cell
+    (expert, group, pos) of a zeroed (E, G, C, D) buffer (slots that are
+    dropped, or whose gate is 0, go to one dead row past it), and its
+    output is read back from that cell times its gate; top-k slots are
+    summed in k order.  Every shape is static: nothing syncs with the
+    host."""
+    m = cfg.moe
+    b, s, d = x.shape
+    if per_slot:
+        g, t = b, s
+        xg = x
+    else:
+        t = min(group_size, b * s)
+        g = b * s // t
+        if g * t != b * s:
+            raise ValueError(f"{b} x {s} tokens do not split into groups of {t}")
+        xg = x.reshape(g, t, d)
+    logits = mfmac.mf_linear(xg, p["router"]["w"], p["router"]["gamma"],
+                             policy=policy).to(torch.float32)  # (G, T, E)
+    gate, expert, pos, keep, cap = moe_route(cfg, _softmax_rows(logits))
+    e, k = m.num_experts, m.top_k
+    xk = xg.repeat_interleave(k, dim=1) if k > 1 else xg  # (G, T*k, D)
+    grp = torch.arange(g, device=x.device)[:, None]
+    dead = e * g * cap
+    cell = torch.where(keep & (gate > 0), (expert * g + grp) * cap + pos, dead)
+    buf = x.new_zeros((dead + 1, d)).index_put((cell.reshape(-1),), xk.reshape(-1, d))
+    ein = buf[:dead].reshape(e, g, cap, d)
+    if not per_slot:
+        ein = ein.reshape(e, g * cap, d)
+
+    def ffn(name, h):
+        q = p[name]
+        return mfmac.mf_expert_linear(h, q["w"], q["gamma"], policy=policy, per_slot=per_slot)
+
+    if cfg.act == "swiglu":
+        h = F.silu(ffn("gate", ein).to(torch.float32)).to(x.dtype) * ffn("up", ein)
+    else:
+        h = common.gelu(ffn("gate", ein))
+    eout = ffn("down", h).reshape(dead, d)
+    eout = torch.cat([eout, eout.new_zeros((1, d))])
+    out = (eout[cell].to(torch.float32)
+           * torch.where(keep, gate, 0.0)[..., None]).to(x.dtype)  # (G, T*k, D)
+    if k > 1:
+        out = out.reshape(g, t, k, d).sum(dim=2)
+    out = out.reshape(b, s, d)
+    if m.shared_expert:
+        out = out + _mlp_apply(cfg, policy, p["shared"], x)
+    return out
+
+
+def _ffn(cfg, policy, p, x, per_slot=False):
+    """The block's feed-forward: the MoE layer (``per_slot`` in serving
+    steps) or the MLP."""
+    if cfg.moe is not None:
+        return _moe_apply(cfg, policy, p["moe"], x, per_slot=per_slot)
+    return _mlp_apply(cfg, policy, p["mlp"], x)
 
 
 def _qkv(cfg, policy, p, x, qpos):
@@ -204,7 +345,7 @@ def _block(cfg, policy, p, x, qpos):
     att, new_kv = _attn_apply(cfg, policy, p, h, qpos, window=cfg.window)
     x = x + att
     h2 = common.apply_norm(cfg.norm, x, p.get("ln2"))
-    x = x + _mlp_apply(cfg, policy, p["mlp"], h2)
+    x = x + _ffn(cfg, policy, p, h2)
     return x, new_kv
 
 
@@ -471,7 +612,7 @@ def decode_step(cfg, policy, params, token, cache):
         att = att.reshape(b, 1, cfg.n_heads * cfg.head_dim)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         h2 = _rows(_norm_fn(cfg, lp.get("ln2")), y)
-        x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
+        x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
     x = _rows(_norm_fn(cfg, params.get("final_norm")), x)
     logits = _lm_head(cfg, policy, params, x)[:, 0, :]
     if lockstep:
@@ -606,7 +747,7 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
         att = torch.where(vmask[..., None], att, 0.0).reshape(b, c, cfg.n_heads * hd)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         h2 = torch.where(vmask, _slot_norms(cfg, lp.get("ln2"), y, layout), 0.0)
-        x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
+        x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
     # emit at each slot's last valid position; gather BEFORE the head so its
     # scale group is the (1, D) row, as in decode_step
     emit = (nn - 1).clamp(0, c - 1)
@@ -710,7 +851,9 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
         att = att.reshape(b * c, 1, h_all)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         h2 = _live_norms(cfg, lp.get("ln2"), y, rows)
-        x = y + _mlp_apply(cfg, policy, lp["mlp"], h2)
+        # every (slot, position) row is a dispatch group of its own (t = 1),
+        # as in the reference's per-position decode
+        x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
     xe = _live_norms(cfg, params.get("final_norm"), x, rows)
     logits = _lm_head(cfg, policy, params, xe)[:, 0, :].reshape(b, c, -1)
     cache["len"] = pos0 + nn

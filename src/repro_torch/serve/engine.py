@@ -35,8 +35,10 @@ prefill, or the same chunk size) bit for bit, for every page size, with
 the prefix cache on or off, and with speculation on or off.  K1 reduces
 each row on its own in a fixed order, activation scales are per sample
 (``policy.per_sample_act_scales``, forced on here), each slot's norms and
-attention run as programs of their own (``models/transformer.py``), and
-a KV page's codes have one scale per token.
+attention run as programs of their own (``models/transformer.py``), a
+MoE layer dispatches per slot (each slot its own expert capacity and
+expert scales, ``transformer._moe_apply(per_slot=True)``), and a KV
+page's codes have one scale per token.
 
 Admission is double-buffered, as in the reference.  Right after a
 pooled step is enqueued, its token vector starts on its way to the host
@@ -221,7 +223,7 @@ class PoolEngine:
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = False, spec=None, kv_quant=None,
                  cache_dtype=torch.bfloat16, device=None):
-        if cfg.family not in registry.PAGED_FAMILIES or cfg.moe is not None:
+        if cfg.family not in registry.PAGED_FAMILIES:
             raise NotImplementedError(
                 f"PoolEngine: family {cfg.family!r} is not ported yet")
         span = registry.pool_span(cfg, max_len)

@@ -294,3 +294,75 @@ def test_plan_depends_on_the_shapes_alone(m, k, n, path, groups):
     nchunk = -(-k // ref.CANONICAL_BK)
     per = -(-nchunk // groups)
     assert -(-nchunk // per) == groups  # every range holds at least one chunk
+
+
+def _expert_operands(e, m, k, n, seed, zero_rows=()):
+    """E experts' operands, each quantized as ``mf_expert_linear`` does in
+    serving: its own W scale, a scale per row of A; ``zero_rows`` are
+    zeroed in every expert (capacity padding between real rows)."""
+    pairs = [_pot_operands(m, k, n, seed=seed + i) for i in range(e)]
+    aq = np.stack([p[0] * 2.0 ** (3 * i) for i, p in enumerate(pairs)])
+    wq = np.stack([p[1] for p in pairs])
+    aq[:, list(zero_rows)] = 0.0
+    return torch.from_numpy(aq).bfloat16(), torch.from_numpy(wq).bfloat16()
+
+
+@pytest.mark.parametrize("e,m,k,n,zero_rows", [
+    (3, 4, 300, 70, ()),
+    (4, 12, 200, 16, (1, 2, 5, 6, 7)),   # a router-like ragged N, padded rows
+    (2, 40, 130, 8, ()),
+])
+def test_pot_value_bmm_cpu_is_the_plain_loop(e, m, k, n, zero_rows):
+    """On CPU tensors the expert batch is today's plain version one expert
+    at a time, bit for bit, with no launch; each expert within the
+    chunk bound of the reference's oracle."""
+    x, y = _expert_operands(e, m, k, n, seed=e * m, zero_rows=zero_rows)
+    before = K.potq_matmul_cuda.launches
+    out = ops.pot_value_bmm(x, y)
+    assert K.potq_matmul_cuda.launches == before
+    assert out.shape == (e, m, n) and out.dtype == torch.float32
+    for i in range(e):
+        assert torch.equal(out[i], K.potq_matmul_plain(x[i], y[i]))
+        assert torch.equal(out[i], ops.pot_value_matmul(x[i], y[i]))
+        oracle = np.asarray(jref.pot_value_matmul_ref(jnp.asarray(x[i].float().numpy()),
+                                                      jnp.asarray(y[i].float().numpy())))
+        _check_bound(out[i].numpy(), oracle, x[i].float().numpy(), y[i].float().numpy(),
+                     f"expert {i}")
+    if zero_rows:
+        assert float(out[:, list(zero_rows)].abs().max()) == 0.0
+    with pytest.raises(ValueError, match="CUDA"):
+        K.potq_matmul_cuda(x, y)
+
+
+def test_cuda_batched_launch_equals_single_expert_launches():
+    """A CUDA tensor batch launches K1 once; it equals one launch per
+    expert and the plain loop, bit for bit (run on the card by
+    chip_smoke.py as well)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, y = _expert_operands(3, 12, 300, 70, seed=5, zero_rows=(3, 4))
+    before = K.potq_matmul_cuda.launches
+    gpu = ops.pot_value_bmm(x.cuda(), y.cuda())
+    torch.cuda.synchronize()
+    assert K.potq_matmul_cuda.launches == before + 1
+    assert torch.equal(gpu.cpu(), ops.pot_value_bmm(x, y))
+    for i in range(3):
+        assert torch.equal(gpu[i], K.potq_matmul_cuda(x[i].cuda(), y[i].cuda()))
+
+
+@pytest.mark.parametrize("e,m,k,n,path,groups", [
+    (16, 16, 5120, 8192, "decode", 1),     # llama4-scout decode, 4 slots
+    (16, 4, 5120, 8192, "decode", 1),
+    (16, 4, 8192, 5120, "decode", 64),     # 320 warps: under three an SM
+    (16, 16, 8192, 5120, "decode", 1),
+    (8, 16, 32768, 6144, "decode", 256),   # grok-1 down: 384 warps
+    (8, 16, 6144, 32768, "decode", 1),
+    (16, 40, 5120, 8192, "tc", 1),         # a 512-token group: 1024 tiles
+    (1, 4, 8192, 5120, "decode", 64),      # one expert: as plan(m, n, k)
+])
+def test_plan_counts_the_whole_expert_batch(e, m, k, n, path, groups):
+    """The expert-batched grid holds E times one product's warps or tiles,
+    and ``plan`` decides the split on that grid."""
+    assert K.plan(m, n, k, 132, e) == (path, groups)
+    if e == 1:
+        assert K.plan(m, n, k) == (path, groups)

@@ -161,3 +161,30 @@ def test_prequantized_weights_are_fixed_points():
     np.testing.assert_array_equal(sq[1].float().numpy(),
                                   qw.quantize_leaf("w", stack[1], PAPER_FAITHFUL).float().numpy())
     assert int(potq.compute_beta(sq[1].float(), 5)) == int(potq.compute_beta(sq[0].float(), 5)) + 2
+
+
+@pytest.mark.parametrize("wbc", [True, False], ids=["wbc", "no_wbc"])
+def test_quantize_w_in_row_blocks_keeps_every_bit(wbc, monkeypatch):
+    """A matrix larger than ``W_BLOCK_ELEMS`` is rounded a block of rows at
+    a time, its mean and beta taken over the whole matrix (beta from each
+    block's extremes): the same bits as in one block and as the
+    reference's ``_quantize_w``, a ragged last block included, whichever
+    block holds the largest |w - mean|; ``quantize_leaf`` quantizes each
+    matrix of a stack so."""
+    policy = dataclasses.replace(PAPER_FAITHFUL, weight_bias_correction=wbc)
+    jpol = dataclasses.replace(J_PF, weight_bias_correction=wbc)
+    _, w = _inputs((1,), 300, 70, seed=12)
+    for big in (0.5, -0.5):
+        w[17, 3] = big  # the largest value lies in one block only
+        whole = mfmac._quantize_w(torch.from_numpy(w), policy)
+        want = np.asarray(jmfmac._quantize_w(jnp.asarray(w), jpol)).astype(np.float32)
+        with monkeypatch.context() as m:
+            m.setattr(mfmac, "W_BLOCK_ELEMS", 70 * 64)
+            blocked = mfmac._quantize_w(torch.from_numpy(w), policy)
+            stack = torch.from_numpy(np.stack([w, -2 * w]))
+            leaf = qw.quantize_leaf("layers/w", stack, policy)
+        assert blocked.dtype == torch.bfloat16
+        assert torch.equal(blocked, whole)
+        np.testing.assert_array_equal(blocked.float().numpy(), want)
+        assert torch.equal(leaf[0], whole)
+        assert torch.equal(leaf[1], mfmac._quantize_w(stack[1], policy))
