@@ -27,7 +27,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     single-expert launches at llama4-scout's experts (E = 16, (5120,
     8192) and (8192, 5120), M = 4, 12, 16 and 40) and grok-1's (E = 8,
     (6144, 32768) and (32768, 6144), M = 16 and 48), a decode step's
-    rows with capacity padding (zero rows between the real ones);
+    rows with capacity padding (zero rows between the real ones); and
+    the vlm and encdec configs (``family_k1_checks``): every linear of
+    internvl2-76b and whisper-large-v3 at decode (M = 4) and, but the
+    head, at a chunk step's M = 128, internvl2's at its solo prefill's
+    M = 384 and its patch_proj (3200, 8192) at the 256 patch rows,
+    whisper's encoder side (frame_proj (128, 1280), the encoder layers,
+    the cross K/V) at M = 1500;
  4. timing at the serving shapes: kernel, plain version, torch.matmul on
     the same bf16 operands (yardstick only), and the roofline bound,
     summed over one llama3-8b decode weight pass (M = 4), prefill (M =
@@ -35,7 +41,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     lockstep wave prefill (M = 512), and over one decode weight pass and
     one prefill of each other config, and one decode weight pass of each
     MoE decoder at phases 26-27's depth (its experts at 16 rows, through
-    the expert-batched launch; ``torch.bmm`` their yardstick);
+    the expert-batched launch; ``torch.bmm`` their yardstick), and over
+    internvl2's decode weight pass and solo prefill and whisper's decode
+    weight pass and encoder-side pass (``family_k1_timing``, with their
+    FP64 tensor-core bounds);
  5. serve: llama3-8b at full width (random weights from seed 0) through
     PoolEngine on an 8-request Poisson trace; K1 must launch exactly
     once per linear per weight pass (``k1_per_pass``: 225 for
@@ -105,14 +114,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     bit, a hit rate above 0, fewer weight passes and a lower mean TTFT,
     and both runs' counters (prefix hits, copies on write and evictions
     included) equal the CPU smoke-width run's;
-21. PoT-quantized KV pages (``KV_PINNED``) on phase 19's engine and trace:
-    A (page 16) is the main path; B (page = span) and C (each request
-    alone) give A's tokens bit for bit; A's counters equal the CPU
-    smoke-width run's; ``kv_page_bytes`` is 528,384; a chunk-step decode
-    row equals ``decode_step`` in logits and every cache leaf (codes and
-    betas); K1 launches 225 times per weight pass; tokens/s, TTFT, KV bytes
-    per token beside phase 19's bf16 figure, peak memory, a profiled decode
-    step;
+21. PoT-quantized KV pages (``KV_PINNED``) on phase 19's engine and trace,
+    at llama3-8b's widths and 8 of its layers (``KVQ_LAYERS``, to keep
+    the script inside its time limit): A (page 16) is the main path; B
+    (page = span) and C (each request alone) give A's tokens bit for
+    bit; A's counters equal the CPU smoke-width run's; ``kv_page_bytes``
+    is 132,096 (528,384 at 32 layers); a chunk-step decode row equals
+    ``decode_step`` in logits and every cache leaf (codes and betas); K1
+    launches 57 times per weight pass; tokens/s, TTFT, KV bytes per token
+    beside phase 19's bf16 figure at that depth, peak memory, a profiled
+    decode step;
 22. speculative decoding on the same engine at llama3-8b's widths and
     4 of its layers (``SPEC_LAYERS``): ``NgramDrafter(3)`` and ``LowBitSelfDraft(3, 3)``
     over bf16 pages and the self-draft over quantized pages give the
@@ -154,6 +165,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     the card against the CPU (losses, the first step's gradients), the
     last step run twice bit for bit, and its K1/K2/K3/pre-pass launches
     equal to ``step_launches`` (the experts' backward once per expert);
+29. internvl2-76b (vlm) at its published widths and 16 of its 80 layers,
+    and 30. whisper-large-v3 (encdec) at full width and depth, through
+    phase 24's engine and gates (A = C, counters = the CPU smoke-width
+    run's, no implicit host sync, a chunk-step decode row =
+    ``decode_step``, peak under ``MOE_PEAK_GIB``): internvl2's requests
+    carry 256 patch embeddings of 3200 (max_len 400) and solo-prefill,
+    K1 113 a weight pass and one patch_proj more a prefill; whisper
+    serves ``ENCDEC_TRACE`` (prompt 16, 16-32 new, 1500 x 128 frames,
+    max_len 64), each admission one encoder-side pass
+    (``registry.encode_cross_kv``), K1 257 a decode, chunk or encoder
+    pass; the encoder-side pass timed and profiled against its FP64
+    tensor-core bound;
+31. (a) internvl2-76b and whisper-large-v3 training at smoke width as
+    phase 28 (CUDA against CPU losses within ``FAMILY_LOSS_RTOL``); (b)
+    whisper-large-v3 at full width through ``launch.train.main``, batch 2
+    x 1500 frames x 448 tokens, 3 AdamW steps with recomputation: finite
+    losses printed with repr, 1026/514/514/514 launches a step, peak
+    GiB, a profiled step (K1, K2, K3 device ms beside their FP64
+    tensor-core bounds) and one step run twice bit for bit;
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
@@ -237,6 +267,22 @@ ENCODE_OPS_PER_ELEMENT = 16
 PEAK_ALU_OPS = 33.5e12
 CKPT_FREE_BYTES = 40e9  # two 15.4 GB training checkpoints + the packed tree
 TRAIN_ARGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "512", "--log-every", "1"]
+# the vlm and encdec families (phases 29-31): internvl2-76b served at its
+# published widths and 16 of its 80 layers (all 80 do not fit one card),
+# whisper-large-v3 served and trained at full width and depth
+VLM_ARCH, VLM_LAYERS = "internvl2-76b", 16
+ENCDEC_ARCH = "whisper-large-v3"
+# K1's rows there: a decode step (4 slots), a chunk step (4 x 32), an
+# internvl2 solo prefill (256 patches + 128 tokens; its patch_proj at the
+# 256 patch rows) and a whisper encoder-side pass (one request's frames)
+VLM_PREFILL_M, ENC_M = 256 + 128, 1500
+# phase 30's trace: transcription requests (a short task prefix, 30 s of
+# audio as 1500 frames, a few dozen tokens out)
+ENCDEC_TRACE = dict(n_requests=4, prompt_len=16, lam=2.0, new_lo=16, new_hi=32, seed=0)
+# phase 31: whisper trained at full width on batch 2 x its 448-token decoder
+# context; CUDA against CPU losses at smoke width within this relative bound
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 2, 448
+FAMILY_LOSS_RTOL = 1e-6
 
 
 _T0 = time.perf_counter()
@@ -248,7 +294,13 @@ def k1_per_pass(cfg):
     MoE layer, the router, one expert-batched launch per expert matrix (3
     swiglu, 2 gelu: gate and down) and the shared expert's MLP; then the LM
     head (llama3-8b 225, mistral-nemo-12b 281, starcoder2-7b 193;
-    llama4-scout 89 at 8 layers, grok-1 15 at 2)."""
+    llama4-scout 89 at 8 layers, grok-1 15 at 2; internvl2 113 at 16, its
+    solo prefill one more, patch_proj).  An encdec decode or chunk pass:
+    every decoder layer's 4 self- and 2 cross-attention linears (cq, co)
+    and its 2 MLP matrices, then the tied head (whisper 257; its
+    encoder-side pass, ``encdec_pass_counts``, also 257)."""
+    if cfg.family == "encdec":
+        return 8 * cfg.n_layers + 1
     mlp = 3 if cfg.act == "swiglu" else 2
     ffn = mlp if cfg.moe is None else 1 + mlp + (mlp if cfg.moe.shared_expert else 0)
     return cfg.n_layers * (4 + ffn) + 1
@@ -260,9 +312,13 @@ def pass_counts(cfg):
     its E experts); gelu's unused ``up`` is never read."""
     from repro_torch.models import registry, spec
 
+    if cfg.family == "encdec":
+        return encdec_pass_counts(cfg)[0]
     counts = {}
     for name, leaf in spec.named_leaves(registry.param_specs(cfg)):
         if not name.endswith("/w") or (name == "layers/moe/up/w" and cfg.act != "swiglu"):
+            continue
+        if name == "patch_proj/w":  # a vlm's prefill only
             continue
         shape = tuple(leaf.shape)
         key = shape[1:] if len(shape) == 4 else shape[-2:]
@@ -270,6 +326,71 @@ def pass_counts(cfg):
     if sum(counts.values()) != k1_per_pass(cfg):
         raise SystemExit(f"{cfg.name}: {counts} is not one weight pass")
     return counts
+
+
+def encdec_pass_counts(cfg):
+    """({(K, N): K1 launches} of an encdec decode or chunk pass, the same of
+    its encoder-side pass (``registry.encode_cross_kv``: frame_proj, the
+    encoder layers, every decoder layer's ck and cv)), from the parameter
+    specs; the decode pass ends in the tied head (d_model, vocab_padded)."""
+    from repro_torch.models import registry, spec
+
+    dec, enc = {}, {}
+    for name, leaf in spec.named_leaves(registry.param_specs(cfg)):
+        if not name.endswith("/w"):
+            continue
+        into = enc if name.startswith(("frame_proj", "enc_layers", "dec_layers/ck",
+                                       "dec_layers/cv")) else dec
+        shape = tuple(leaf.shape)
+        into[shape[-2:]] = into.get(shape[-2:], 0) + (shape[0] if len(shape) == 3 else 1)
+    head = (cfg.d_model, cfg.vocab_padded)
+    dec[head] = dec.get(head, 0) + 1
+    want = (k1_per_pass(cfg), 1 + 6 * cfg.enc_layers + 2 * cfg.n_layers)
+    if (sum(dec.values()), sum(enc.values())) != want:
+        raise SystemExit(f"{cfg.name}: {dec}, {enc} are not one decode and one encoder pass")
+    return dec, enc
+
+
+def train_linears(cfg, batch, seq):
+    """(M, K, N, recomputed) of every linear launch of one training step's
+    forward at ``batch`` x ``seq`` tokens: an encdec's encoder side at
+    batch x enc_seq rows (its ck/cv included), its decoder side at batch x
+    seq; a vlm's patch_proj at batch x num_patches rows and its backbone at
+    batch x seq (patches and text).  Every layer linear is recomputed in
+    the backward; frame_proj, patch_proj and the head are not."""
+    from repro_torch.models import registry, spec
+
+    out = []
+    for name, leaf in spec.named_leaves(registry.param_specs(cfg)):
+        if not name.endswith("/w"):
+            continue
+        shape = tuple(leaf.shape)
+        stacked = len(shape) == 3
+        if cfg.family == "encdec" and name.startswith(("frame_proj", "enc_layers",
+                                                       "dec_layers/ck", "dec_layers/cv")):
+            m = batch * cfg.enc_seq
+        elif name == "patch_proj/w":
+            m = batch * cfg.num_patches
+        else:
+            m = batch * seq
+        out += [(m,) + shape[-2:] + (stacked,)] * (shape[0] if stacked else 1)
+    if cfg.family == "encdec" or cfg.tie_embeddings:
+        out.append((batch * seq, cfg.d_model, cfg.vocab_padded, False))
+    return out
+
+
+def whisper_train_counts():
+    """{(M, K, N): (K1 launches, K2 = K3 = pre-pass launches)} of one
+    whisper-large-v3 training step at phase 31b's batch (``train_linears``:
+    8 shapes, the encoder side at M = 3000, the decoder side at 896)."""
+    from repro_torch import configs
+
+    out = {}
+    for m, kk, nn, recomputed in train_linears(configs.get_config(ENCDEC_ARCH),
+                                               WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ):
+        k1, bwd = out.get((m, kk, nn), (0, 0))
+        out[(m, kk, nn)] = (k1 + 1 + recomputed, bwd + 1)
+    return out
 
 
 def moe_config(arch):
@@ -315,10 +436,17 @@ def step_launches(cfg=None):
     2 k1_per_pass - 1; K2, K3 and the G pre-pass ("gq", shared by K2 and K3)
     once per linear and once per expert of an expert linear: L x (4 + the
     MLP's matrices) + 1, or for MoE L x (4 + 1 + E x the expert matrices +
-    the shared expert's) + 1 (E x 2 for gelu: gate and down)."""
+    the shared expert's) + 1 (E x 2 for gelu: gate and down); a vlm or
+    encdec as ``train_linears`` lists them (whisper 514 linears, K1 1026)."""
     from repro_torch import configs
 
     cfg = cfg or configs.get_config("olmo-1b")
+    if cfg.family in ("vlm", "encdec"):
+        # every linear once forward and backward; recomputed but for
+        # frame_proj, patch_proj and the head
+        lin = train_linears(cfg, 1, 1)
+        bwd = len(lin)
+        return {"k1": bwd + sum(r for *_, r in lin), "k2": bwd, "k3": bwd, "gq": bwd}
     n = k1_per_pass(cfg)
     bwd = n
     if cfg.moe is not None:
@@ -471,6 +599,8 @@ def main() -> int:
                 q0_case(m, kk, nn, 5, wq)
     moe_ops, err = moe_k1_checks(dev, gen)
     max_err = max(max_err, err)
+    fam_ops, err = family_k1_checks(dev, gen)
+    max_err = max(max_err, err)
     # quantize=True: raw f32 operands, PRC and WBC on, subnormals included
     a = torch.randn(128, 4096, generator=gen, device=dev)
     w = torch.randn(4096, 1024, generator=gen, device=dev) * 0.02 + 3e-3
@@ -531,6 +661,9 @@ def main() -> int:
     moe_rows, moe_passes = moe_k1_timing(moe_ops, flush)
     rows += moe_rows
     del moe_ops
+    fam_rows, fam_passes = family_k1_timing(fam_ops, flush)
+    rows += fam_rows
+    del fam_ops
     t_k = time_ms(lambda: ops.potq_matmul(a, w, w_mean=w_mean, clip_t=clip_t), 10, flush)
     t_p = time_ms(lambda: K.potq_matmul_plain(a, w, q_scal, emax_a=emax, emax_w=emax,
                                               quantize=True), 5, flush)
@@ -571,6 +704,7 @@ def main() -> int:
     detail["k1_lockstep_prefill"] = per_wave_prefill
     detail["k1_other_configs"] = other_passes
     detail["k1_moe_configs"] = moe_passes
+    detail["k1_family_configs"] = fam_passes
     del operands, weights, flush, a, w, sums
 
     phase("5 serve llama3-8b at full width")
@@ -705,11 +839,23 @@ def main() -> int:
     cpu_vs_card(dev, detail)
     paged = serving(dev, detail)
     moe_train = moe_training(dev, detail)
+    fam_train, whisper_launches, whisper_step = family_training(dev, detail)
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+    # internvl2_* and whisper_*: phase 4's sums of each regime (internvl2's
+    # decode pass and solo prefill, whisper's decode and encoder-side
+    # passes) and phases 29-30's launches
+    family = {}
+    for arch, by in detail["k1_family_configs"].items():
+        prefix = arch.split("-")[0]
+        family[f"{prefix}_launches"] = paged["family_launches"][arch]
+        for regime, acc in by.items():
+            for f in ("launches", "ms", "plain_ms", "bound_ms", "bound_by", "fp64_tc_bound_ms",
+                      "library_ms"):
+                family[f"{prefix}_{regime}_{f}"] = acc[f]
     kernels = [{
         "name": "potq_matmul",
         "route": "cuda",
@@ -721,7 +867,8 @@ def main() -> int:
         # speculative runs, 23's lockstep wave and float32 run, 24-27's A)
         # + training (phase 10); since phases 26-27 it also runs the
         # expert-batched form (one launch counts one)
-        "launches": launches + train["launches"]["k1"] + paged["launches"],
+        "launches": (launches + train["launches"]["k1"] + paged["launches"]
+                     + whisper_launches["k1"]),
         "lockstep_launches": paged["lockstep_launches"],
         "chunk_step_launches": paged["chunk_launches"],
         "verify_step_launches": paged["verify_launches"],
@@ -739,6 +886,8 @@ def main() -> int:
         "train_bound_ms": grads["k1"]["bound_ms"],
         "train_fp64_tc_bound_ms": grads["k1"]["fp64_tc_bound_ms"],
         "train_library_ms": grads["k1"]["library_ms"],
+        # phase 9's sums over one whisper-large-v3 training step (phase 31b)
+        "whisper_train_step": grads["k1"]["whisper_step"],
         "prefill_ms": per_prefill["ms"],
         "prefill_plain_ms": per_prefill["plain_ms"],
         "prefill_bound_ms": per_prefill["bound_ms"],
@@ -769,6 +918,12 @@ def main() -> int:
                        **{f"decode_{f}": o["decode_pass"][f]
                           for f in ("ms", "plain_ms", "bound_ms", "library_ms")})
             for arch, o in detail["k1_moe_configs"].items()},
+        # internvl2-76b at 16 layers and whisper-large-v3 (phases 4 and
+        # 29-30), and one whisper training step at full width (31b)
+        **family,
+        "whisper_train_step_launches": whisper_step["launches"]["k1"],
+        "whisper_train_step_device_ms": whisper_step["k1_ms"],
+        "whisper_train_step_fp64_tc_bound_ms": whisper_step["fp64_tc_bound_ms"]["k1_ms"],
         # the other dense decoders (phase 4's sums, phases 24-25's launches)
         "other_configs": {
             arch: dict(launches=paged["dense_launches"][arch],
@@ -786,9 +941,17 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source="src/repro_torch/csrc/potq_grad.cu",
                             replaces=f"src/repro/kernels/potq_grad.py:{line}",
-                            launches=train["launches"][key],
-                            # phase 28: one MoE training step at smoke width
+                            # phase 10 (olmo-1b) and phase 31b (whisper)
+                            launches=train["launches"][key] + whisper_launches[key],
+                            # phases 28 and 31a: one step at smoke width
                             moe_step_launches={a: n[key] for a, n in moe_train.items()},
+                            family_step_launches={a: n[key] for a, n in fam_train.items()},
+                            # phase 31b: one whisper step at full width, profiled
+                            whisper_train_step_launches=whisper_step["launches"][key],
+                            whisper_train_step_device_ms=whisper_step[
+                                "prepass_ms" if key == "gq" else f"{key}_ms"],
+                            whisper_train_step_fp64_tc_bound_ms=whisper_step[
+                                "fp64_tc_bound_ms"].get(f"{key}_ms"),
                             **grads[key]))
     kernels.append(dict(name="potq_encode", route="cuda",
                         source="src/repro_torch/csrc/potq_encode.cu",
@@ -936,6 +1099,127 @@ def moe_k1_timing(operands, flush):
     return rows, passes
 
 
+def family_configs():
+    """{arch: config} of phases 29-30: internvl2-76b at its published widths
+    and ``VLM_LAYERS`` layers, whisper-large-v3 whole."""
+    from repro_torch import configs
+
+    return {VLM_ARCH: dataclasses.replace(configs.get_config(VLM_ARCH), n_layers=VLM_LAYERS),
+            ENCDEC_ARCH: configs.get_config(ENCDEC_ARCH)}
+
+
+def family_regimes():
+    """{(arch, regime): (M, {(K, N): K1 launches})} of the vlm and encdec
+    paths that phase 4 sums: a decode weight pass of each (M = 4),
+    internvl2's solo prefill (M = 384; its patch_proj at the 256 patch
+    rows, keyed (M, K, N)) and whisper's encoder-side pass (M = 1500)."""
+    cf = family_configs()
+    vlm, enc = cf[VLM_ARCH], cf[ENCDEC_ARCH]
+    prefill = dict(pass_counts(vlm))
+    prefill[(vlm.num_patches, vlm.patch_dim, vlm.d_model)] = 1
+    return {(VLM_ARCH, "decode"): (4, pass_counts(vlm)),
+            (VLM_ARCH, "prefill"): (VLM_PREFILL_M, prefill),
+            (ENCDEC_ARCH, "decode"): (4, pass_counts(enc)),
+            (ENCDEC_ARCH, "encoder"): (ENC_M, encdec_pass_counts(enc)[1])}
+
+
+def family_k1_checks(dev, gen):
+    """Phase 3 for the vlm and encdec families at their published widths:
+    every (M, K, N) K1 meets on phases 29-31's serving paths, bit for bit
+    against its plain version: each linear of a decode pass at M = 4 and,
+    but the head, at a chunk step's M = 128; internvl2's at its solo
+    prefill's M = 384 (the head too) and patch_proj (3200, 8192) at the 256
+    patch rows; whisper's encoder side (frame_proj (128, 1280), a single
+    K chunk, the encoder layers' and the cross K/V's linears) at M = 1500.
+    One scale group per row at M <= 16, one per operand above.  Returns
+    phase 4's operands {(arch, regime, (M, K, N)): (aq, wq)} and the
+    largest |difference|."""
+    from repro_torch.core import potq
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.serve import quantized_weights as qw
+
+    cases = {}  # (K, N) -> {M: [(arch, regime) kept for timing]}
+    for (arch, regime), (m, counts) in family_regimes().items():
+        for key in counts:
+            mm, kn = (key[0], key[1:]) if len(key) == 3 else (m, key)
+            cases.setdefault((arch, kn), {}).setdefault(mm, []).append(regime)
+    cf = family_configs()
+    for arch, cfg in cf.items():
+        for kn in list(pass_counts(cfg)):
+            if kn[1] != cfg.vocab_padded:  # a chunk step gathers before the head
+                cases[(arch, kn)].setdefault(128, [])
+    keep, max_err = {}, 0.0
+    for (arch, (kk, nn)), ms in cases.items():
+        w = torch.randn(kk, nn, generator=gen, device=dev) * 0.02 + 1e-3
+        wq = qw.quantize_leaf("w", w, PAPER_FAITHFUL)
+        del w
+        for m, regimes in sorted(ms.items()):
+            a = torch.randn(m, kk, generator=gen, device=dev)
+            axes = (1,) if m <= 16 else None
+            aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, axes)).to(torch.bfloat16)
+            del a
+            out_k = K.potq_matmul_cuda(aq, wq)
+            out_p = K.potq_matmul_plain(aq, wq)
+            torch.cuda.synchronize()
+            err = (out_k - out_p).abs().max().item()
+            ok = torch.equal(out_k, out_p) and bool(torch.isfinite(out_k).all())
+            print(f"{arch} M={m} K={kk} N={nn} {K.plan(m, nn, kk)}: equal={ok} "
+                  f"max_abs_err={err}", flush=True)
+            if not ok:
+                raise SystemExit(f"K1 differs from its plain version at {(arch, m, kk, nn)}")
+            max_err = max(max_err, err)
+            for regime in regimes:
+                keep[(arch, regime, (m, kk, nn))] = (aq, wq)
+            del out_k, out_p
+    return keep, max_err
+
+
+def family_k1_timing(operands, flush):
+    """Phase 4 for the vlm and encdec families: each operand pair of
+    ``family_k1_checks`` timed (the kernel, its plain version and
+    ``torch.matmul`` on the same bf16 operands, a yardstick and not the
+    same function) with its bounds, and summed over each of
+    ``family_regimes``.  Returns (the rows, {arch: {regime: sums}})."""
+    from repro_torch.kernels import potq_matmul as K
+
+    rows, sums, timed = [], {}, {}
+    regimes = family_regimes()
+    for (arch, regime, (m, kk, nn)), (aq, wq) in operands.items():
+        counts = regimes[(arch, regime)][1]
+        c = counts.get((kk, nn), counts.get((m, kk, nn)))
+        if (m, kk, nn) not in timed:
+            big = m * kk * nn > 1e10
+            t_k = time_ms(lambda: K.potq_matmul_cuda(aq, wq), 3 if big else 10, flush)
+            t_p = time_ms(lambda: K.potq_matmul_plain(aq, wq), 2, flush)
+            t_l = time_ms(lambda: torch.matmul(aq, wq), 3 if big else 10, flush)
+            t_ops = 2.0 * m * kk * nn / PEAK_BF16_FLOPS * 1e3
+            t_bytes = (2 * (m * kk + kk * nn) + 4 * m * nn) / PEAK_BYTES * 1e3
+            path, groups = K.plan(m, nn, kk)
+            timed[(m, kk, nn)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, t_ops=t_ops,
+                                      t_bytes=t_bytes)
+            row = dict(mode="q0", arch=arch, M=m, K=kk, N=nn, path=path, groups=groups,
+                       ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops > t_bytes else "bytes",
+                       fp64_tc_bound_ms=t_ops * PEAK_BF16_FLOPS / PEAK_FP64_TC_FLOPS)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        acc = sums.setdefault(arch, {}).setdefault(regime, dict(
+            M=regimes[(arch, regime)][0], launches=sum(counts.values()), ms=0.0, plain_ms=0.0,
+            library_ms=0.0, t_ops=0.0, t_bytes=0.0))
+        for f, t in timed[(m, kk, nn)].items():
+            acc[f] += c * t
+    for arch, by in sums.items():
+        for regime, acc in by.items():
+            t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
+            acc.update(bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops > t_bytes else "bytes",
+                       fp64_tc_bound_ms=t_ops * PEAK_BF16_FLOPS / PEAK_FP64_TC_FLOPS)
+            print(f"{arch}: one {regime} pass (M={acc['M']}, {acc['launches']} launches):",
+                  json.dumps(acc), flush=True)
+    return rows, sums
+
+
 def k1_edges(dev, gen):
     """Phase 3's edge cases of K1's paths, each bit for bit; returns the
     largest error (0 when every case is equal)."""
@@ -1029,15 +1313,17 @@ def grad_checks(dev, gen, cases, max_err):
     """Phase 8's checks: for each (M, K, N, bits_g, PRC, operand kind) case
     the G pre-pass, K2 (dA, the dgamma rows, dgamma) and K3 (dW) against
     their plain versions, and K2/K3 with their own pre-pass, bit for bit;
-    at the olmo-1b training shapes also K1 under one activation scale.
-    Updates ``max_err``; returns phase 9's timing inputs, {(M, K, N): ...}
-    at olmo-1b's and an expert's training shapes, PRC on."""
+    at the olmo-1b and whisper training shapes also K1 under one
+    activation scale.  Updates ``max_err``; returns phase 9's timing
+    inputs, {(M, K, N): ...} at olmo-1b's, an expert's and whisper's
+    training shapes, PRC on."""
     from repro_torch.core import potq
     from repro_torch.kernels import potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.kernels import ref
 
     timing_inputs = {}
+    whisper = whisper_train_counts()
     for m, kk, nn, bits, prc, kind in cases:
         if kind == "lattice":
             a, g, aq, wq, amax, t = _lattice_operands(dev, gen, m, kk, nn)
@@ -1079,7 +1365,8 @@ def grad_checks(dev, gen, cases, max_err):
         del da_k, da_p, dw_k, dw_p, da_1, dw_1, gq_k, gq_p
         if m == MOE_TRAIN_M and prc and kind == "random" and (kk, nn) in MOE_TRAIN_COUNTS:
             timing_inputs[(m, kk, nn)] = (a, g, aq, wq, s, e)
-        if m == TRAIN_M and prc and kind == "random" and (kk, nn) in TRAIN_COUNTS:
+        if prc and kind == "random" and ((m == TRAIN_M and (kk, nn) in TRAIN_COUNTS)
+                                         or (m, kk, nn) in whisper):
             # K1 as the training forward launches it: M = B*S, one scale
             out_k = K.potq_matmul_cuda(aq, wq)
             out_p = K.potq_matmul_plain(aq, wq)
@@ -1097,7 +1384,10 @@ def grad_checks(dev, gen, cases, max_err):
 
 def training_kernels(dev, detail):
     """Phases 8 and 9: K1/K2/K3 and the G pre-pass at the training shapes
-    against their plain versions, then timing."""
+    against their plain versions, then timing; each summed over one
+    olmo-1b step, one llama4-scout expert of one layer and one
+    whisper-large-v3 step."""
+    from repro_torch import configs
     from repro_torch.kernels import potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
 
@@ -1112,15 +1402,23 @@ def training_kernels(dev, detail):
               (4100, 2056, 2056, 5, False, "subnormal"), (17, 9, 5, 5, True, "subnormal"),
               (1, 1, 1, 6, True, "random")]
     cases += [(520, 264, 1032, 6, True, "lattice")] + MOE_GRAD_CASES
+    # whisper-large-v3's training shapes at phase 31b's batch (the head's
+    # G at 6 bits)
+    vocab = configs.get_config(ENCDEC_ARCH).vocab_padded
+    cases += [(m, kk, nn, 6 if nn == vocab else 5, True, "random")
+              for m, kk, nn in whisper_train_counts()]
     max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "gq": 0.0}
     timing_inputs = grad_checks(dev, gen, cases, max_err)
 
     phase("9 K1/K2/K3 and pre-pass timing at the training shapes (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    rows, per_step, per_expert = [], {}, {}
+    rows, per_step, per_expert, per_whisper = [], {}, {}, {}
+    whisper = whisper_train_counts()
     for key in ("k1", "k2", "k3", "gq"):
         per_step[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                          "t_ops": 0.0, "t_bytes": 0.0, "max_abs_err": max_err[key]}
+        per_whisper[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                            "t_ops": 0.0, "t_bytes": 0.0, "fp64_tc_bound_ms": 0.0}
     for key in ("k2", "k3", "gq"):
         per_expert[key] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                            "t_ops": 0.0, "t_bytes": 0.0}
@@ -1131,6 +1429,8 @@ def training_kernels(dev, detail):
     per_step["k2"]["prepass_ms"] = 0.0
     per_step["gq"]["library_ms"] = None
     per_expert["gq"]["library_ms"] = None
+    per_whisper["gq"]["library_ms"] = None
+    del per_whisper["gq"]["fp64_tc_bound_ms"]
     for (m, kk, nn), (a, g, aq, wq, s, e) in timing_inputs.items():
         gq = KG.quantize_g_cuda(g, s, emax_g=e)
         expert = m == MOE_TRAIN_M
@@ -1154,6 +1454,8 @@ def training_kernels(dev, detail):
         for key, (kern, plain, lib) in fns.items():
             if expert:
                 c = MOE_TRAIN_COUNTS[(kk, nn)]
+            elif (m, kk, nn) in whisper:
+                c = whisper[(m, kk, nn)][0 if key == "k1" else 1]
             else:
                 c = (TRAIN_K1_COUNTS if key == "k1" else TRAIN_COUNTS)[(kk, nn)]
             t_k = time_ms(kern, 3 if key != "gq" else 10, flush)
@@ -1170,7 +1472,11 @@ def training_kernels(dev, detail):
                 row.update(arch="llama4-scout-17b-a16e", launches_per_expert_layer=c)
             else:
                 row["launches_per_step"] = c
-            acc = (per_expert if expert else per_step)[key]
+            if (m, kk, nn) in whisper:
+                row["arch"] = ENCDEC_ARCH
+                acc = per_whisper[key]
+            else:
+                acc = (per_expert if expert else per_step)[key]
             if key != "gq":
                 row["fp64_tc_bound_ms"] = 2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3
                 acc["fp64_tc_bound_ms"] += c * row["fp64_tc_bound_ms"]
@@ -1184,7 +1490,7 @@ def training_kernels(dev, detail):
             acc["t_bytes"] += c * t_bytes
         del gq
     per_step["k2"]["prepass_ms"] = per_step["gq"]["ms"]
-    for sums in (per_step, per_expert):
+    for sums in (per_step, per_expert, per_whisper):
         for acc in sums.values():
             t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
             acc["bound_ms"] = max(t_ops, t_bytes)
@@ -1197,6 +1503,10 @@ def training_kernels(dev, detail):
         if key in per_expert:
             print(f"{key}, one llama4-scout expert of one layer (M={MOE_TRAIN_M}, "
                   f"{sum(MOE_TRAIN_COUNTS.values())} launches):", json.dumps(per_expert[key]))
+        acc["whisper_step"] = per_whisper[key]
+        print(f"{key}, one whisper-large-v3 training step "
+              f"({step_launches(configs.get_config(ENCDEC_ARCH))[key]} launches):",
+              json.dumps(per_whisper[key]))
     detail["train_kernels_per_step"] = per_step
     detail["train_kernel_shapes"] = rows
     del timing_inputs, flush
@@ -1340,14 +1650,23 @@ def training(dev, detail):
 
 
 def moe_training(dev, detail):
-    """Phase 28: MoE training at smoke width, both MoE decoders: three AdamW
-    steps on the card against the same steps on the CPU (each loss within
-    ``LOSS_RTOL``, the first step's gradients within ``GRAD_RTOL`` of their
-    leaf's largest; a top-1 router's exact gradient is zero (its gate is
-    g / g), so its rounding noise is held to ``GRAD_RTOL`` of the tree's
-    largest), the last step run twice from the same state bit for bit,
-    and its K1/K2/K3/pre-pass launches equal to ``step_launches``.
-    Returns the launch counts of each config's step."""
+    """Phase 28: MoE training at smoke width, both MoE decoders
+    (``smoke_training`` with ``LOSS_RTOL``).  Returns the launch counts of
+    each config's step."""
+    phase("28 MoE training at smoke width: CUDA vs CPU, a step twice, launches a step")
+    out = smoke_training(dev, MOE_ARCHS, LOSS_RTOL)
+    detail["moe_training"] = out
+    return {arch: r["launches"] for arch, r in out.items()}
+
+
+def smoke_training(dev, archs, loss_rtol):
+    """Three AdamW steps of each arch at smoke width on the card against the
+    same steps on the CPU (each loss within ``loss_rtol``, the first
+    step's gradients within ``GRAD_RTOL`` of their leaf's largest; a top-1
+    router's exact gradient is zero (its gate is g / g), so its rounding
+    noise is held to ``GRAD_RTOL`` of the tree's largest), the last step
+    run twice from the same state bit for bit, and its K1/K2/K3/pre-pass
+    launches equal to ``step_launches``.  Returns {arch: its row}."""
     from repro_torch import configs
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.policy import PAPER_FAITHFUL
@@ -1358,13 +1677,12 @@ def moe_training(dev, detail):
     from repro_torch.optim import adamw, warmup_cosine_schedule
     from repro_torch.train import make_train_step
 
-    phase("28 MoE training at smoke width: CUDA vs CPU, a step twice, launches a step")
     counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
                 "gq": KG.quantize_g_cuda}
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)  # as the trainer runs
     out = {}
-    for arch in MOE_ARCHS:
+    for arch in archs:
         scfg = configs.smoke_config(arch)
         p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
         p_gpu = spec.params_from_numpy({n: x.numpy() for n, x in spec.named_leaves(p_cpu)}, dev)
@@ -1397,15 +1715,16 @@ def moe_training(dev, detail):
                                                         spec.named_leaves(p)))
         (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
         top = max(float(g.abs().max()) for g in gc.values())
+        top1 = scfg.moe is not None and scfg.moe.top_k == 1
         g_worst = max(float((gg[n] - gc[n]).abs().max()) / max(
-            top if scfg.moe.top_k == 1 and "/router/" in n else float(gc[n].abs().max()), 1e-30)
+            top if top1 and "/router/" in n else float(gc[n].abs().max()), 1e-30)
             for n in gc)
         want = step_launches(scfg)
         row = dict(losses_cpu=lc, losses_cuda=lg, grad_rel_err=g_worst, step_twice_equal=same,
                    launches=launches, expected_launches=want)
-        print(f"{arch}:", json.dumps(row), f"(tolerances: loss rtol {LOSS_RTOL}, grads "
+        print(f"{arch}:", json.dumps(row), f"(tolerances: loss rtol {loss_rtol}, grads "
               f"{GRAD_RTOL} x max|g|)", flush=True)
-        if not all(abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(lg, lc)) or \
+        if not all(abs(a - b) <= loss_rtol * abs(b) for a, b in zip(lg, lc)) or \
                 not g_worst <= GRAD_RTOL:
             raise SystemExit(f"{arch}: CUDA and CPU training disagree beyond the tolerances")
         if not same:
@@ -1414,8 +1733,117 @@ def moe_training(dev, detail):
             raise SystemExit(f"{arch}: a training step launched {launches}, expected {want}")
         out[arch] = row
     torch.use_deterministic_algorithms(deterministic)
-    detail["moe_training"] = out
-    return {arch: r["launches"] for arch, r in out.items()}
+    return out
+
+
+def family_training(dev, detail):
+    """Phase 31: (a) internvl2-76b and whisper-large-v3 at smoke width
+    (``smoke_training`` with ``FAMILY_LOSS_RTOL``); (b) whisper-large-v3 at
+    full width, ``PAPER_FAITHFUL``, through ``launch.train.main``: batch 2
+    x 1500 frames x 448 decoder tokens, 3 AdamW steps with recomputation,
+    the losses finite and printed with repr, the launches of each step
+    equal to ``step_launches``, peak GiB, then one more step profiled (K1,
+    K2 with its pre-pass, K3 device ms beside their FP64 tensor-core
+    bounds) and one step run twice from the same state, bit-equal.
+    Returns (31a's launches a step by arch, 31b's launches over its 3
+    steps, 31b's profiled step)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import spec
+
+    phase("31a vlm and encdec training at smoke width: CUDA vs CPU, a step twice, "
+          "launches a step")
+    small = smoke_training(dev, (VLM_ARCH, ENCDEC_ARCH), FAMILY_LOSS_RTOL)
+    res = {"smoke": small}
+
+    phase(f"31b train {ENCDEC_ARCH} at full width (batch {WHISPER_TRAIN_BATCH} x "
+          f"{configs.get_config(ENCDEC_ARCH).enc_seq} frames x {WHISPER_TRAIN_SEQ} tokens)")
+    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
+                "gq": KG.quantize_g_cuda}
+    steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    run = train_cli.main(["--arch", ENCDEC_ARCH, "--steps", str(steps),
+                          "--batch", str(WHISPER_TRAIN_BATCH), "--seq", str(WHISPER_TRAIN_SEQ),
+                          "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = run.cfg
+    want = step_launches(cfg)
+    for r in run.records:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0):
+            raise SystemExit(f"bad training step {r}")
+    print(f"launches over {steps} steps: {launches} (expected {want} a step); peak device "
+          f"memory {peak:.2f} GiB; run wall {wall:.1f} s")
+    print("losses:", [repr(r["loss"]) for r in run.records], flush=True)
+    if launches != {k: v * steps for k, v in want.items()}:
+        raise SystemExit(f"whisper training launched {launches}, expected {want} a step")
+    timed = run.records[1:]
+    full = dict(steps=run.records, peak_gib=peak, launches=launches,
+                mean_step_s=sum(r["seconds"] for r in timed) / len(timed),
+                tokens_per_s=sum(r["tokens_per_s"] for r in timed) / len(timed))
+    # the FP64 tensor-core bound of each kernel's launches in one step
+    lin = train_linears(cfg, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ)
+    fwd = sum(2.0 * m * kk * nn for m, kk, nn, _ in lin)
+    rec = sum(2.0 * m * kk * nn for m, kk, nn, r in lin if r)
+    bounds = {"k1_ms": (fwd + rec) / PEAK_FP64_TC_FLOPS * 1e3,
+              "k2_ms": fwd / PEAK_FP64_TC_FLOPS * 1e3, "k3_ms": fwd / PEAK_FP64_TC_FLOPS * 1e3}
+
+    batch = pipeline.make_batch(cfg, run.shape, steps, device=dev)
+    # the device's kernels only: the step's ~140k launches with their host
+    # ops take the profiler tens of seconds to collect
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    _zero_launches()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run.step_fn(run.params, run.opt_state, batch, steps)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    per_step = {k: fn.launches for k, fn in counters.items()}
+    if per_step != want:
+        raise SystemExit(f"one whisper step launched {per_step}, expected {want}")
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    pats = {"k1_ms": ("potq_mm",), "k2_ms": ("grad_da", "grad_g_quantize"),
+            "k3_ms": ("grad_dw",), "prepass_ms": ("grad_g_quantize",)}
+    by = {k: sum(e.time_range.elapsed_us() for e in kern if any(p in e.name for p in ps)) / 1e3
+          for k, ps in pats.items()}
+    prof_row = dict(wall_ms=t_prof * 1e3, device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
+                    launches=per_step, **by,
+                    fp64_tc_bound_ms=bounds,
+                    idle_share=(1 - busy_us / 1e3 / (full["mean_step_s"] * 1e3)) if kern else None)
+    print("profiled whisper training step:", json.dumps(prof_row), flush=True)
+    full["profiled_step"] = prof_row
+    phase("31b a whisper step twice from the same state")
+
+    batch = pipeline.make_batch(cfg, run.shape, steps + 1, device=dev)
+    saved = (_state_copy(run.params), _state_copy(run.opt_state))
+    _, _, m1 = run.step_fn(run.params, run.opt_state, batch, steps + 1)
+    first = _state_copy(run.params)
+    _state_load(run.params, saved[0])
+    _state_load(run.opt_state, saved[1])
+    del saved
+    _, _, m2 = run.step_fn(run.params, run.opt_state, batch, steps + 1)
+    torch.cuda.synchronize()
+    same = torch.equal(m1["loss"], m2["loss"]) and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(spec.named_leaves(first),
+                                                    spec.named_leaves(run.params)))
+    print(f"loss {float(m1['loss'])!r} / {float(m2['loss'])!r}; every parameter bit-equal: {same}")
+    if not same:
+        raise SystemExit("two runs of one whisper training step differ")
+    full["deterministic"] = same
+    full["peak_gib_with_step_twice"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["whisper_full_width"] = full
+    detail["family_training"] = res
+    del run, first, batch
+    torch.cuda.empty_cache()
+    return {a: r["launches"] for a, r in small.items()}, launches, prof_row
 
 
 def _encode_edges(x, dev):
@@ -1852,16 +2280,26 @@ def _serve_row(st, wall, launches):
 def _cpu_counters(reqs, engine_kw, keys, arch="llama3-8b"):
     """The same requests (token ids modulo the smoke vocab) through the
     port on the CPU at ``arch``'s smoke width: the counters that do not
-    depend on the model's width when no request has an EOS."""
+    depend on the model's width when no request has an EOS.  A request's
+    frames or patch embeddings are redrawn at the smoke width; a vlm keeps
+    its full count of patches, which take cache positions."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.models import registry, spec
     from repro_torch.serve import PoolEngine
 
     scfg = configs.smoke_config(arch)
+    if scfg.family == "vlm":
+        scfg = dataclasses.replace(scfg, num_patches=configs.get_config(arch).num_patches)
+    rng = np.random.default_rng(0)
+    shapes = {"frames": (1, scfg.enc_seq, scfg.frame_dim),
+              "patch_embeds": (1, scfg.num_patches, scfg.patch_dim)}
     p_cpu = spec.materialize(registry.param_specs(scfg), torch.Generator().manual_seed(0))
     eng = PoolEngine(scfg, PAPER_FAITHFUL, p_cpu, device="cpu", **engine_kw)
-    eng.run([dataclasses.replace(r, tokens=np.asarray(r.tokens) % scfg.vocab) for r in reqs])
+    eng.run([dataclasses.replace(
+        r, tokens=np.asarray(r.tokens) % scfg.vocab,
+        extras={k: rng.standard_normal(shapes[k]).astype(np.float32) for k in r.extras})
+        for r in reqs])
     return {k: getattr(eng.last_stats, k) for k in keys}
 
 
@@ -1873,17 +2311,23 @@ def _check_counters(label, st, cpu):
         raise SystemExit(f"{label}: counters differ from the CPU run: card {card}, cpu {cpu}")
 
 
-def _streamed_pool(cfg, pol, params, dev, prompts, kv_quant=None):
+def _streamed_pool(cfg, pol, params, dev, prompts, kv_quant=None, frames=None):
     """A 4-slot pool (page 16, a reversed page table: not the identity)
     with ``prompts`` streamed in by chunk steps of 32; K1 must launch
-    ``k1_per_pass(cfg)`` times in each.  Returns (pool, last logits, chunk-step seconds, K1
+    ``k1_per_pass(cfg)`` times in each.  An encdec pool first gets each
+    slot's cross K/V from its request's ``frames`` (one encoder-side pass
+    a slot).  Returns (pool, last logits, chunk-step seconds, K1
     launches of the last chunk step)."""
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry
+    from repro_torch.serve import slots
 
     pool = registry.init_pool_cache(cfg, 4, 160, device=dev, page_size=16,
                                     kv_quant=kv_quant)
     pool["table"].copy_(torch.arange(40, device=dev).flip(0).reshape(4, 10))
+    for s, f in enumerate(frames or ()):
+        cks, cvs = registry.encode_cross_kv(cfg, pol, params, torch.as_tensor(f, device=dev))
+        slots.write_cross(pool, cks, cvs, s)
     t_chunk, logits, launches = [], None, 0
     for c0 in range(0, max(len(p) for p in prompts), 32):
         tokens = np.zeros((4, 32), np.int64)
@@ -1990,14 +2434,53 @@ def serving(dev, detail):
     dense = {arch: dense_serving(dev, detail, arch, number)
              for number, arch in enumerate(OTHER_ARCHS, start=24)}
     moe = moe_serving(dev, detail)
+    family = family_serving(dev, detail)
     torch.use_deterministic_algorithms(deterministic)
     return dict(launches=paged["launches"] + kvq["launches"] + spec_run["launches"]
-                + lockstep["launches"] + sum(dense.values()) + sum(moe.values()),
+                + lockstep["launches"] + sum(dense.values()) + sum(moe.values())
+                + sum(family.values()), family_launches=family,
                 chunk_launches=paged["chunk_launches"],
                 verify_launches=spec_run["verify_launches"],
                 draft_launches=spec_run["draft_launches"],
                 lockstep_launches=lockstep["wave_launches"], dense_launches=dense,
                 moe_launches=moe)
+
+
+def _encoder_pass(cfg, pol, params, dev, frames):
+    """Phase 30's encoder-side pass (``registry.encode_cross_kv`` of one
+    request's frames): K1 launches (``encdec_pass_counts``), wall times,
+    and one profiled pass, K1's device ms beside its FP64 tensor-core
+    bound at M = enc_seq."""
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry
+
+    f = torch.as_tensor(frames, device=dev)
+    _zero_launches()
+    t = [_wall(lambda: registry.encode_cross_kv(cfg, pol, params, f)) for _ in range(3)]
+    launches = K.potq_matmul_cuda.launches // 3
+    want = sum(encdec_pass_counts(cfg)[1].values())
+    prof = _profiled(lambda: registry.encode_cross_kv(cfg, pol, params, f), min(t))
+    flops = sum(2.0 * cfg.enc_seq * kk * nn * c for (kk, nn), c in
+                encdec_pass_counts(cfg)[1].items())
+    prof["k1_fp64_tc_bound_ms"] = flops / PEAK_FP64_TC_FLOPS * 1e3
+    row = dict(wall_ms=[x * 1e3 for x in t], k1_launches=launches, profiled=prof)
+    print(f"{cfg.name}: encoder-side pass (M={cfg.enc_seq}, K1 device ms against its "
+          f"{prof['k1_fp64_tc_bound_ms']:.2f} ms FP64 tensor-core bound):", json.dumps(row))
+    if launches != want:
+        raise SystemExit(f"K1 launched {launches} times in an encoder-side pass, expected {want}")
+    return row
+
+
+def family_serving(dev, detail):
+    """Phases 29-30: internvl2-76b at its published widths and
+    ``VLM_LAYERS`` layers (max_len 400: 256 patches, 128 tokens, 16 new),
+    and whisper-large-v3 whole on ``ENCDEC_TRACE`` (max_len 64), through
+    phase 24's engine and gates.  Returns each one's K1 launches on its
+    main path."""
+    return {VLM_ARCH: dense_serving(dev, detail, VLM_ARCH, 29, n_layers=VLM_LAYERS,
+                                    max_len=400),
+            ENCDEC_ARCH: dense_serving(dev, detail, ENCDEC_ARCH, 30, max_len=64,
+                                       trace=ENCDEC_TRACE)}
 
 
 def moe_serving(dev, detail):
@@ -2108,18 +2591,26 @@ def paged_serving(dev, detail, cfg, params, policy, reqs):
                 chunk_launches=chunk_launches)
 
 
-# bytes of one K+V page across llama3-8b's 32 layers in the pinned wire
-# format at page 16: 2 x 32 x 16 x (8 heads x 64 nibble bytes + a 4-byte beta)
-KVQ_PAGE_BYTES = 528384
+# phase 21's engines run llama3-8b's widths at this depth: at all 32
+# layers the whole script read 912.0 s on an H100 (phase 21: 133 s of it)
+KVQ_LAYERS = 8
+# kv_page_bytes of phase 21's engine at KVQ_LAYERS layers: a 16-position
+# page of K and of V holds 8 KV heads x 64 code bytes and one int32 beta a
+# token, 8256 bytes a layer each (528,384 at all 32 layers)
+KVQ_PAGE_BYTES = 2 * KVQ_LAYERS * 16 * (8 * 64 + 4)
 
 
 def kv_quant_serving(dev, detail, cfg, params, policy, reqs):
-    """Phase 21: phase 19's engine with PoT-quantized KV pages."""
+    """Phase 21: phase 19's engine with PoT-quantized KV pages, at
+    llama3-8b's widths and ``KVQ_LAYERS`` layers."""
     from repro_torch.core.policy import KV_PINNED
     from repro_torch.models import registry
     from repro_torch.serve import PoolEngine
 
-    phase("21 PoT-quantized KV pages (KV_PINNED), llama3-8b at full width")
+    phase(f"21 PoT-quantized KV pages (KV_PINNED), llama3-8b's widths at {KVQ_LAYERS} layers")
+    full_layers = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=KVQ_LAYERS)
+    params = dict(params, layers=_first_layers(params["layers"], KVQ_LAYERS))
     kw = dict(max_slots=4, max_len=160, prefill_chunk=32, kv_quant=KV_PINNED)
     eng_a = PoolEngine(cfg, policy, params, page_size=16, device=dev, **kw)
     eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
@@ -2128,10 +2619,12 @@ def kv_quant_serving(dev, detail, cfg, params, policy, reqs):
     st = eng_a.last_stats
     res = {"A": dict(_serve_row(st, wall, launches), kv_page_bytes=st.kv_page_bytes,
                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
-    bf16 = detail["paged_serving"]["A"]["kv_hbm_bytes_per_token"]
+    # phase 19's bf16 figure at this depth (bytes a token scale with layers)
+    bf16 = detail["paged_serving"]["A"]["kv_hbm_bytes_per_token"] * KVQ_LAYERS / full_layers
     print("A (page 16, KV_PINNED):", json.dumps(res["A"]))
-    print(f"kv_page_bytes {st.kv_page_bytes} (bf16: {2 * 32 * 16 * 8 * 128 * 2}); "
-          f"kv_hbm_bytes_per_token {st.kv_hbm_bytes_per_token} (phase 19, bf16: {bf16})")
+    print(f"kv_page_bytes {st.kv_page_bytes} (bf16: {2 * KVQ_LAYERS * 16 * 8 * 128 * 2}); "
+          f"kv_hbm_bytes_per_token {st.kv_hbm_bytes_per_token} (phase 19's bf16 at "
+          f"{KVQ_LAYERS} layers: {bf16})")
     if launches != k1_per_pass(cfg) * st.weight_passes:
         raise SystemExit(f"K1 launched {launches} times in A, expected {k1_per_pass(cfg)} x "
                          f"{st.weight_passes} weight passes")
@@ -2403,14 +2896,23 @@ DENSE_TRACE = dict(n_requests=4, prompt_len=128, lam=2.0, new_lo=8, new_hi=16, s
 MOE_PEAK_GIB = 75.0
 
 
-def dense_serving(dev, detail, arch, number, n_layers=None):
+def expected_k1(cfg, st):
+    """K1 launches of an engine run: ``k1_per_pass`` a weight pass (an
+    encdec's encoder-side passes included), and one patch_proj more for
+    each vlm request (they all solo-prefill)."""
+    return k1_per_pass(cfg) * st.weight_passes + (st.prefills if cfg.family == "vlm" else 0)
+
+
+def dense_serving(dev, detail, arch, number, n_layers=None, max_len=160, trace=DENSE_TRACE):
     """Phase 24 or 25: ``arch`` at full width (weights from seed 0) through
     the chunked (32) + paged (16) engine: A is the main path, C each
     request alone; A's counters against the CPU smoke-width run's; the
     step times and one profiled decode step.  Phases 26-27 serve a MoE
     decoder the same way at its published widths and ``n_layers`` layers,
-    the peak device memory under ``MOE_PEAK_GIB``.  Returns A's K1
-    launches."""
+    and phases 29-30 internvl2-76b (``VLM_LAYERS`` layers, its requests
+    with their patches) and whisper-large-v3 (with its frames; the
+    encoder-side pass timed and profiled), the peak device memory under
+    ``MOE_PEAK_GIB`` in all four.  Returns A's K1 launches."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.models import registry, spec
@@ -2422,6 +2924,7 @@ def dense_serving(dev, detail, arch, number, n_layers=None):
     phase(f"{number} {arch} at full width{depth}: chunked (32) + paged (16) serving")
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    peak_gate = n_layers is not None or cfg.family != "decoder"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = spec.materialize(
@@ -2433,12 +2936,12 @@ def dense_serving(dev, detail, arch, number, n_layers=None):
                           held_gib=torch.cuda.memory_allocated() / 2 ** 30,
                           peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
     print("params:", json.dumps(res["params"]))
-    if n_layers is not None and res["params"]["peak_gib"] >= MOE_PEAK_GIB:
+    if peak_gate and res["params"]["peak_gib"] >= MOE_PEAK_GIB:
         raise SystemExit(f"{arch}: making the weights peaked at {res['params']['peak_gib']:.1f} "
                          f"GiB, over {MOE_PEAK_GIB}")
     policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
-    reqs = poisson_trace(cfg, **DENSE_TRACE)
-    kw = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
+    reqs = poisson_trace(cfg, **trace)
+    kw = dict(max_slots=4, max_len=max_len, prefill_chunk=32, page_size=16)
     eng_a = PoolEngine(cfg, policy, params, device=dev, **kw)
     eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
     syncs = {}
@@ -2452,9 +2955,10 @@ def dense_serving(dev, detail, arch, number, n_layers=None):
     print(f"implicit host syncs in A made by the port: {port_syncs}")
     if port_syncs:
         raise SystemExit(f"{arch}: the engine synchronized outside its token copy: {port_syncs}")
-    if launches != k1_per_pass(cfg) * st.weight_passes:
+    if launches != expected_k1(cfg, st):
         raise SystemExit(f"{arch}: K1 launched {launches} times in A, expected "
-                         f"{k1_per_pass(cfg)} x {st.weight_passes} weight passes")
+                         f"{expected_k1(cfg, st)} ({k1_per_pass(cfg)} x {st.weight_passes} "
+                         f"weight passes, {st.prefills} prefills)")
     check_tokens(cfg, reqs, out_a)
     _check_counters("A", st, _cpu_counters(reqs, kw, SERVE_COUNTERS, arch))
     eng_c = PoolEngine(cfg, policy, params, device=dev, **dict(kw, max_slots=1))
@@ -2466,7 +2970,11 @@ def dense_serving(dev, detail, arch, number, n_layers=None):
     with torch.inference_mode():
         prompts = [np.asarray(r.tokens).reshape(-1)[:n] for r, n in
                    zip(reqs, (70, 40, 96, 128))]
-        pool, logits, t_chunk, _ = _streamed_pool(cfg, eng_a.policy, params, dev, prompts)
+        frames = ([r.extras["frames"] for r in reqs] if cfg.family == "encdec" else None)
+        pool, logits, t_chunk, _ = _streamed_pool(cfg, eng_a.policy, params, dev, prompts,
+                                                  frames=frames)
+        if frames:
+            res["encoder_pass"] = _encoder_pass(cfg, eng_a.policy, params, dev, frames[0])
         last, c2, _ = _decode_row_check(cfg, eng_a.policy, params, pool, logits, dev)
         t_decode = [_wall(lambda: registry.decode_step(cfg, eng_a.policy, params, last, c2))
                     for _ in range(3)]
@@ -2482,6 +2990,11 @@ def dense_serving(dev, detail, arch, number, n_layers=None):
           f"{[round(t * 1e3, 1) for t in t_decode]} ms")
     print(f"{arch}: profiled decode step (K1 device ms against its "
           f"{prof['k1_bytes_bound_ms']:.2f} ms bytes bound):", json.dumps(prof))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{arch}: peak device memory over the phase {res['peak_gib']:.2f} GiB")
+    if peak_gate and res["peak_gib"] >= MOE_PEAK_GIB:
+        raise SystemExit(f"{arch}: the phase peaked at {res['peak_gib']:.1f} GiB, over "
+                         f"{MOE_PEAK_GIB}")
     detail[f"serving_{arch}"] = res
     del params, eng_a, eng_c, pool, c2
     torch.cuda.empty_cache()

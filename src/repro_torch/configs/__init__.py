@@ -3,8 +3,9 @@ reduced smoke variants.
 
 Only the architectures the port runs so far are registered: the decoders,
 dense (llama3-8b, mistral-nemo-12b, starcoder2-7b for serving, olmo-1b
-for training) and MoE (llama4-scout-17b-a16e, grok-1-314b); the rest
-arrive with their model families.
+for training) and MoE (llama4-scout-17b-a16e, grok-1-314b), the vlm
+internvl2-76b and the encoder-decoder whisper-large-v3; the hybrid and
+ssm archs arrive with their model families.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ _MODULES = {
     "mistral-nemo-12b": "mistral_nemo_12b",
     "llama3-8b": "llama3_8b",
     "olmo-1b": "olmo_1b",
+    "internvl2-76b": "internvl2_76b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -56,8 +59,9 @@ def config_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
 
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
-    ``repro.configs.smoke_config`` cut, for the decoder family: MoE keeps
-    4 experts and at most top-2)."""
+    ``repro.configs.smoke_config`` cut: MoE keeps 4 experts and at most
+    top-2; encdec 2 encoder layers over 12 frames of 24; vlm 4 patches
+    of 24)."""
     cfg = get_config(arch)
     kw: Dict = dict(
         n_layers=2,
@@ -72,4 +76,8 @@ def smoke_config(arch: str) -> ModelConfig:
                                           top_k=min(cfg.moe.top_k, 2)))
     if cfg.window is not None:
         kw.update(window=8)
+    if cfg.family == "encdec":
+        kw.update(enc_layers=2, enc_seq=12, frame_dim=24)
+    if cfg.family == "vlm":
+        kw.update(num_patches=4, patch_dim=24)
     return dataclasses.replace(cfg, **kw)

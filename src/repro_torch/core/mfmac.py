@@ -173,7 +173,8 @@ def mf_linear(
     if gamma is None:
         gamma = policy.ratio_clip_init or 1.0
     if not torch.is_tensor(gamma):
-        gamma = torch.tensor(gamma, dtype=torch.float32, device=a.device)
+        # a fill on the device, not a host-to-device copy (no host sync)
+        gamma = torch.full((), gamma, dtype=torch.float32, device=a.device)
     return _MFLinear.apply(a, w, gamma, policy, is_last)
 
 

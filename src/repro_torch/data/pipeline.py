@@ -5,7 +5,11 @@ config) alone, drawn from a ``torch.Generator`` seeded by (seed, step).
 It cannot give the reference's jax.random bits, so the tests hand both
 packages the same numpy batches; the structure is the reference's: a
 Zipf-ish marginal, an induction period of s//2 (the second half repeats
-the first), labels rolled by one, the last position masked out.
+the first), labels rolled by one, the last position masked out.  The
+modality frontends are stubs, as in the reference: an encdec batch adds
+``frames`` (B, enc_seq, frame_dim) and a vlm batch ``patch_embeds`` (B,
+num_patches, patch_dim), normal draws times 0.1; a vlm's patches and
+text fill ``seq_len`` together.
 """
 from __future__ import annotations
 
@@ -18,19 +22,23 @@ from repro_torch.device import resolve_device
 
 
 def _text_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only the decoder's batches are ported")
+    if cfg.family == "vlm":
+        return shape.seq_len - cfg.num_patches  # patches + text = seq_len
     return shape.seq_len
 
 
 def batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, tuple]:
     b, s = shape.global_batch, _text_len(cfg, shape)
-    return {
+    out = {
         "tokens": ((b, s), torch.int64),
         "labels": ((b, s), torch.int64),
         "mask": ((b, s), torch.float32),
     }
+    if cfg.family == "encdec":
+        out["frames"] = ((b, cfg.enc_seq, cfg.frame_dim), torch.float32)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = ((b, cfg.num_patches, cfg.patch_dim), torch.float32)
+    return out
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int, seed: int = 0,
@@ -50,4 +58,8 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int, seed: int = 0,
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones((b, s), dtype=torch.float32)
     mask[:, -1] = 0.0
-    return {"tokens": tokens.to(dev), "labels": labels.to(dev), "mask": mask.to(dev)}
+    out = {"tokens": tokens, "labels": labels, "mask": mask}
+    for key, (shp, _) in batch_shapes(cfg, shape).items():
+        if key not in out:  # frames, patch_embeds
+            out[key] = torch.randn(shp, generator=gen) * 0.1
+    return {k: v.to(dev) for k, v in out.items()}

@@ -3,7 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \\
       --steps 3 --batch 2 --seq 16 --device cpu --ckpt-dir /tmp/ckpt
 
-Runs on the card by default (``--device cuda``); there is no CPU fallback.
+Every arch the port registers trains through ``registry.loss_fn``, the
+vlm (internvl2-76b, its batches with patch embeddings; ``--smoke`` on one
+card) and encdec (whisper-large-v3, with frames, at full width) ones
+included.  Runs on the card by default (``--device cuda``); there is no
+CPU fallback.
 Parameters are drawn from seed 0 on the device, batches come from the
 step-indexed synthetic pipeline, and the schedules are the reference's
 (AdamW: warmup 20 then cosine; SGD: step decay).  On the card the run is

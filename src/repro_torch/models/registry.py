@@ -1,56 +1,71 @@
-"""Family dispatch (port of ``repro/models/registry.py``), for the
-``decoder`` family, dense and MoE: specs, loss, prefill, the lockstep
-cache, the paged pool cache (PoT-quantized pages or ``cache_dtype`` ones),
-lockstep and pooled decode, the fused chunk step of chunked piggybacked
-prefill and the speculative verify step.  The other families (vlm,
-encdec, hybrid, ssm) come in a later slice of the port and raise here."""
+"""Family dispatch (port of ``repro/models/registry.py``): one API over the
+families the port runs.  ``batch`` is a dict; its keys by family:
+
+  decoder   tokens, labels, mask
+  vlm       tokens, labels, mask, patch_embeds
+  encdec    tokens, labels, mask, frames
+
+Specs, loss, prefill, the lockstep cache, the paged pool cache
+(PoT-quantized pages or ``cache_dtype`` ones), lockstep and pooled
+decode, the fused chunk step of chunked piggybacked prefill, the
+speculative verify step and encdec's encoder-side admission
+(:func:`encode_cross_kv`).  The hybrid and ssm families are not ported
+yet (ROADMAP.md, Queue 1 items 6.4-6.5) and raise here."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 #: families the port runs so far
-PORTED_FAMILIES = ("decoder",)
+PORTED_FAMILIES = ("decoder", "vlm", "encdec")
 
 #: families whose ``chunk_step`` fuses decode rows and prefill-chunk rows
-#: into one pooled step (the reference adds vlm and encdec)
-CHUNKED_FAMILIES = ("decoder",)
+#: into one pooled step
+CHUNKED_FAMILIES = ("decoder", "vlm", "encdec")
 
-#: families whose pool cache is block-table paged (serve/slots.py; the
-#: reference adds vlm and encdec)
-PAGED_FAMILIES = ("decoder",)
+#: families whose pool cache is block-table paged (serve/slots.py)
+PAGED_FAMILIES = ("decoder", "vlm", "encdec")
 
-#: families with a speculative-decoding ``verify_step`` (the reference
-#: adds vlm and encdec)
-SPEC_FAMILIES = ("decoder",)
+#: families with a speculative-decoding ``verify_step``
+SPEC_FAMILIES = ("decoder", "vlm", "encdec")
 
 
 def _check(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the other model "
-            "families come in a later slice of repro_torch (ROADMAP.md, Queue 1)"
+            f"family {cfg.family!r} is not ported yet: the hybrid and ssm families "
+            "come in a later slice of repro_torch (ROADMAP.md, Queue 1 items 6.4-6.5)"
         )
+
+
+def _model(cfg: ModelConfig):
+    """The module of ``cfg``'s family (vlm runs the decoder's)."""
+    _check(cfg)
+    return encdec if cfg.family == "encdec" else transformer
 
 
 def param_specs(cfg: ModelConfig):
     _check(cfg)
+    if cfg.family == "encdec":
+        return encdec.encdec_specs(cfg)
     return transformer.decoder_specs(cfg)
 
 
 def loss_fn(cfg: ModelConfig, policy, params, batch):
-    """Training loss of a batch dict (``tokens``, ``labels``, ``mask``)."""
+    """Training loss of a batch dict (its family's keys)."""
     _check(cfg)
-    return transformer.lm_loss(cfg, policy, params, batch["tokens"],
-                               batch["labels"], batch["mask"])
+    if cfg.family == "encdec":
+        return encdec.lm_loss(cfg, policy, params, batch["tokens"], batch["frames"],
+                              batch["labels"], batch["mask"])
+    return transformer.lm_loss(cfg, policy, params, batch["tokens"], batch["labels"],
+                               batch["mask"], patch_embeds=batch.get("patch_embeds"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device):
-    _check(cfg)
-    return transformer.init_cache(cfg, batch, max_len, dtype, device=device)
+    return _model(cfg).init_cache(cfg, batch, max_len, dtype, device=device)
 
 
 def pool_span(cfg: ModelConfig, max_len: int) -> int:
@@ -78,13 +93,17 @@ def init_pool_cache(cfg: ModelConfig, max_slots: int, max_len: int,
 
 
 def prefill(cfg, policy, params, batch, cache):
+    """Prefill of a batch dict: ``tokens``, and a vlm's ``patch_embeds``
+    (optional) or an encdec's ``frames``."""
     _check(cfg)
-    return transformer.prefill(cfg, policy, params, batch["tokens"], cache)
+    if cfg.family == "encdec":
+        return encdec.prefill(cfg, policy, params, batch["tokens"], batch["frames"], cache)
+    return transformer.prefill(cfg, policy, params, batch["tokens"], cache,
+                               patch_embeds=batch.get("patch_embeds"))
 
 
 def decode_step(cfg, policy, params, token, cache):
-    _check(cfg)
-    return transformer.decode_step(cfg, policy, params, token, cache)
+    return _model(cfg).decode_step(cfg, policy, params, token, cache)
 
 
 def chunk_step(cfg, policy, params, tokens, n_new, cache):
@@ -93,8 +112,7 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
     rows none.  ``n_new`` (B,) counts each slot's valid positions and is
     read on the host.  Returns (logits (B, V) at each slot's last valid
     position, the cache updated in place).  Paged pool caches only."""
-    _check(cfg)
-    return transformer.chunk_step(cfg, policy, params, tokens, n_new, cache)
+    return _model(cfg).chunk_step(cfg, policy, params, tokens, n_new, cache)
 
 
 def verify_step(cfg, policy, params, tokens, n_new, cache):
@@ -104,5 +122,14 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
     Returns (logits (B, C, V), position i scoring the successor of
     ``tokens[b, i]``; the cache updated in place, ``len += n_new``).
     Paged pool caches only; serve/spec.py owns acceptance and rollback."""
-    _check(cfg)
-    return transformer.verify_step(cfg, policy, params, tokens, n_new, cache)
+    return _model(cfg).verify_step(cfg, policy, params, tokens, n_new, cache)
+
+
+def encode_cross_kv(cfg, policy, params, frames):
+    """Encoder-side admission of chunked encdec serving: the encoder pass
+    and every decoder layer's cross K/V, each (L, B, enc_seq, KV, hd); the
+    engine writes them into the slot, then the decoder prompt streams in
+    through ``chunk_step``."""
+    if cfg.family != "encdec":
+        raise ValueError(f"encode_cross_kv: family {cfg.family!r} has no encoder")
+    return encdec.encode_cross_kv(cfg, policy, params, frames)

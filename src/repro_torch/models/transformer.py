@@ -1,7 +1,14 @@
-"""Decoder-only transformer LM, dense or MoE (port of
-``repro/models/transformer.py``, the decoder family: specs, forward, loss,
-prefill, lockstep decode and per-slot decode over the paged or contiguous
-pool cache, the fused chunk step and the speculative verify step).
+"""Decoder-only transformer LM, dense or MoE, and the vlm family's backbone
+(port of ``repro/models/transformer.py``: specs, forward, loss, prefill,
+lockstep decode and per-slot decode over the paged or contiguous pool
+cache, the fused chunk step and the speculative verify step).
+
+A vlm config adds ``patch_proj``: precomputed patch embeddings (the stub
+of its vision frontend) are projected by one ``mf_linear`` and prefix the
+token embeddings (:func:`embed_inputs`) in the forward, the loss (whose
+logits start after the patches) and prefill.  Decode, chunk and verify
+steps take tokens only, as in the reference: the patches sit in the
+cache after prefill.
 
 Layers are stacked along a leading 'layer' axis, as in the reference, and
 run as a Python loop over it.  Every weight matmul is ``mf_linear``, and
@@ -105,11 +112,8 @@ def _moe_specs(cfg: ModelConfig, L: int, std: float):
 
 
 def decoder_specs(cfg: ModelConfig):
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            "repro_torch ports the decoder family only; VLM comes with the "
-            "other families"
-        )
+    if cfg.family not in ("decoder", "vlm"):
+        raise ValueError(f"decoder_specs: family {cfg.family!r} has no decoder backbone")
     L, d = cfg.n_layers, cfg.d_model
     hd = cfg.head_dim
     std = 0.02
@@ -132,6 +136,8 @@ def decoder_specs(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = _linear((d, cfg.vocab_padded), ("embed", "vocab"), std)
+    if cfg.family == "vlm" and cfg.num_patches:
+        specs["patch_proj"] = _linear((cfg.patch_dim, d), (None, "embed"), std)
     return specs
 
 
@@ -353,11 +359,19 @@ def _block(cfg, policy, p, x, qpos):
 # Forward / decode
 # ---------------------------------------------------------------------------
 
-def embed_inputs(cfg, params, tokens):
+def embed_inputs(cfg, policy, params, tokens, patch_embeds=None):
+    """Token embeddings (B, S, D), prefixed for a vlm by the projected
+    patch embeddings (B, P, patch_dim) -> (B, P + S, D)."""
     # the values of embed[tokens]; the backward is embedding_dense_backward
     # rather than an accumulating index_put_, and the trainer's
     # deterministic mode keeps it run-to-run identical on the card
-    return F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.act_dtype))
+    x = F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.act_dtype))
+    if cfg.family == "vlm" and patch_embeds is not None:
+        pp = params["patch_proj"]
+        pe = mfmac.mf_linear(patch_embeds.to(torch.float32), pp["w"], pp["gamma"],
+                             policy=policy).to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def _block_out(cfg, policy, p, x, qpos):
@@ -365,11 +379,12 @@ def _block_out(cfg, policy, p, x, qpos):
 
 
 def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens: torch.Tensor,
-            *, return_kv: bool = False, remat: bool = False):
-    """Full-sequence forward.  Returns logits (B, S, V_padded) and, with
-    ``return_kv``, the per-layer (k, v) lists stacked to (L, B, S, KV, hd).
-    ``remat`` recomputes each layer in the backward (when grad is on)."""
-    x = embed_inputs(cfg, params, tokens)
+            *, patch_embeds=None, return_kv: bool = False, remat: bool = False):
+    """Full-sequence forward.  Returns logits (B, S_total, V_padded), the
+    patch positions of a vlm first, and, with ``return_kv``, the
+    per-layer (k, v) lists stacked to (L, B, S_total, KV, hd).  ``remat``
+    recomputes each layer in the backward (when grad is on)."""
+    x = embed_inputs(cfg, policy, params, tokens, patch_embeds)
     qpos = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     layers = _unbind_layers(params["layers"])
     recompute = remat and torch.is_grad_enabled() and not return_kv
@@ -391,21 +406,38 @@ def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens: torch.Tensor,
     return logits
 
 
+def tied_head(policy, embed, x):
+    """The LM head tied to the token embedding, x @ embed^T, with the last
+    layer's gradient bits and gamma = ``ratio_clip_init``.  The embedding
+    table is never prequantized, so it is quantized at use (at every
+    call, as in the reference: no quantized copy is kept)."""
+    pol = dataclasses.replace(policy, weights_prequantized=False)
+    return mfmac.mf_linear(x, embed.T, policy.ratio_clip_init or 1.0, policy=pol,
+                           is_last=True)
+
+
 def _lm_head(cfg, policy, params, x):
     if cfg.tie_embeddings:
-        # the embedding table is never prequantized: quantize at use
-        pol = dataclasses.replace(policy, weights_prequantized=False)
-        return mfmac.mf_linear(x, params["embed"].T, policy.ratio_clip_init or 1.0,
-                               policy=pol, is_last=True)
+        return tied_head(policy, params["embed"], x)
     hp = params["lm_head"]
     return mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
 
 
 def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, labels,
-            loss_mask, *, remat: bool = True) -> torch.Tensor:
+            loss_mask, *, patch_embeds=None, remat: bool = True) -> torch.Tensor:
     """Mean next-token cross entropy over ``loss_mask``; padded-vocab ids
-    are masked out (logits -1e30) before the logsumexp."""
-    logits = forward(cfg, policy, params, tokens, remat=remat).to(torch.float32)
+    are masked out (logits -1e30) before the logsumexp.  A vlm's patch
+    positions carry no loss: the logits are cut after them."""
+    logits = forward(cfg, policy, params, tokens, patch_embeds=patch_embeds, remat=remat)
+    if patch_embeds is not None:
+        logits = logits[:, patch_embeds.shape[1]:]
+    return next_token_loss(cfg, logits, labels, loss_mask)
+
+
+def next_token_loss(cfg: ModelConfig, logits, labels, loss_mask) -> torch.Tensor:
+    """Mean cross entropy of ``logits`` (B, S, V_padded) against ``labels``
+    over ``loss_mask``, padded-vocab ids masked out."""
+    logits = logits.to(torch.float32)
     vpad = cfg.vocab_padded
     if vpad != cfg.vocab:
         invalid = torch.arange(vpad, device=logits.device) >= cfg.vocab
@@ -430,14 +462,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def prefill(cfg, policy, params, tokens, cache):
-    """Run the prompt through the model, filling ``cache`` (in place);
-    returns the last position's logits and the cache.
+def prefill(cfg, policy, params, tokens, cache, patch_embeds=None):
+    """Run the prompt (a vlm's patches, then its tokens) through the
+    model, filling ``cache`` (in place); returns the last position's
+    logits and the cache.
 
     The LM head runs over ALL prompt positions before the last one is
     taken: prefill's (1, S, D) input is one activation-scale group, and
     the head must see the same group the reference's does."""
-    logits, (ks, vs) = forward(cfg, policy, params, tokens, return_kv=True)
+    logits, (ks, vs) = forward(cfg, policy, params, tokens, patch_embeds=patch_embeds,
+                               return_kv=True)
     s = ks.shape[2]
     span = cache["k"].shape[2]
     take = min(s, span)
@@ -534,6 +568,76 @@ def _norm_fn(cfg, p):
     return lambda r: common.apply_norm(cfg.norm, r, p)
 
 
+class DecodeSlots:
+    """The cache addresses of one decode step, shared by every layer (and
+    by ``models/encdec.py``): the position each row writes, the rows'
+    query positions and the ``pos`` view they attend against.  Building
+    it writes the new positions into a paged ``pos``."""
+
+    def __init__(self, cache, token, spec):
+        pos = cache["len"]
+        b = token.shape[0]
+        self.pos, self.spec = pos, spec
+        self.paged = "table" in cache
+        self.lockstep = pos.dim() == 0
+        if self.paged:
+            page = cache["pos"].shape[1]
+            self.ids = page_ids(cache)
+            span = self.ids.shape[1] * page
+            self.npages = cache["pos"].shape[0] - 1
+            slot = pos % span
+            self.dest = torch.gather(cache["table"], 1, (slot // page)[:, None])[:, 0]
+            self.loff = slot % page
+            paged_write(cache["pos"], self.dest, self.loff, pos, self.npages)
+            self.kpos = page_view(cache["pos"], self.ids)
+        elif self.lockstep:
+            span = cache["k"].shape[2]
+            self.slot = (pos % span).reshape(1)
+            self.kpos_new = cache["pos"].index_copy(0, self.slot, pos.reshape(1))
+            self.kpos = self.kpos_new[None].expand(b, span)
+        else:
+            span = cache["k"].shape[2]
+            self.slot = pos % span
+            self.rows = torch.arange(b, device=token.device)
+            self.kpos = cache["pos"].clone()
+            self.kpos[self.rows, self.slot] = pos
+        # (B, 1)
+        self.qpos = pos.reshape(1, 1).expand(b, 1) if self.lockstep else pos[:, None]
+
+    def attend(self, cfg, cache, i, q, k, v):
+        """Write layer ``i``'s fresh K/V (B, 1, KV, hd) of every row, then
+        attend each row over its own view, row by row (B, 1, H, hd)."""
+        spec = self.spec
+        if self.paged:
+            _kv_scatter(cache, "k", i, self.dest, self.loff, k[:, 0], self.npages, spec)
+            _kv_scatter(cache, "v", i, self.dest, self.loff, v[:, 0], self.npages, spec)
+            kview = _kv_page_view(cache, "k", i, self.ids, spec)
+            vview = _kv_page_view(cache, "v", i, self.ids, spec)
+        elif self.lockstep:
+            ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
+            ck.index_copy_(1, self.slot, k.to(ck.dtype))
+            cv.index_copy_(1, self.slot, v.to(cv.dtype))
+            kview, vview = ck, cv
+        else:
+            ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
+            ck[self.rows, self.slot] = k[:, 0].to(ck.dtype)
+            cv[self.rows, self.slot] = v[:, 0].to(cv.dtype)
+            kview, vview = ck, cv
+
+        def one(q1, kv1, vv1, qp, kp):
+            return _attend(cfg, q1, kv1, vv1, qp, kp, cfg.window)
+
+        return _rows(one, q, kview, vview, self.qpos, self.kpos)
+
+    def done(self, cache):
+        """The step's ``pos`` (where it is not paged) and ``len`` + 1."""
+        if self.lockstep:
+            cache["pos"] = self.kpos_new
+        elif not self.paged:
+            cache["pos"] = self.kpos
+        cache["len"] = self.pos + 1
+
+
 def decode_step(cfg, policy, params, token, cache):
     """One decode step.  token: (B,) -> (logits (B, V), cache).  K/V (and
     ``pos`` where it is shared or paged) are written into ``cache`` in
@@ -557,69 +661,20 @@ def decode_step(cfg, policy, params, token, cache):
     Norms and attention run row by row in every layout, so a batch-1
     lockstep row runs the very programs of a pooled row.  Attention reads
     the cache cast to the activation dtype."""
-    pos = cache["len"]
     b = token.shape[0]
-    paged = "table" in cache
-    lockstep = pos.dim() == 0
-    spec = _kv_check(policy, cache)
-    if paged:
-        page = cache["pos"].shape[1]
-        ids = page_ids(cache)
-        span = ids.shape[1] * page
-        npages = cache["pos"].shape[0] - 1
-        slot = pos % span
-        dest = torch.gather(cache["table"], 1, (slot // page)[:, None])[:, 0]
-        loff = slot % page
-        paged_write(cache["pos"], dest, loff, pos, npages)
-        kpos = page_view(cache["pos"], ids)
-    elif lockstep:
-        span = cache["k"].shape[2]
-        slot = (pos % span).reshape(1)
-        kpos_new = cache["pos"].index_copy(0, slot, pos.reshape(1))
-        kpos = kpos_new[None].expand(b, span)
-    else:
-        span = cache["k"].shape[2]
-        slot = pos % span
-        rows = torch.arange(b, device=token.device)
-        kpos = cache["pos"].clone()
-        kpos[rows, slot] = pos
-    qpos = pos.reshape(1, 1).expand(b, 1) if lockstep else pos[:, None]  # (B, 1)
+    st = DecodeSlots(cache, token, _kv_check(policy, cache))
     x = params["embed"][token[:, None]]  # (B, 1, D)
-
-    def attend(q, kview, vview, qp, kp):
-        return _attend(cfg, q, kview, vview, qp, kp, cfg.window)
-
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = _rows(_norm_fn(cfg, lp.get("ln1")), x)
-        q, k, v = _qkv(cfg, policy, lp, h, qpos)
-        if paged:
-            _kv_scatter(cache, "k", i, dest, loff, k[:, 0], npages, spec)
-            _kv_scatter(cache, "v", i, dest, loff, v[:, 0], npages, spec)
-            kview = _kv_page_view(cache, "k", i, ids, spec)
-            vview = _kv_page_view(cache, "v", i, ids, spec)
-        elif lockstep:
-            ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
-            ck.index_copy_(1, slot, k.to(ck.dtype))
-            cv.index_copy_(1, slot, v.to(cv.dtype))
-            kview, vview = ck, cv
-        else:
-            ck, cv = cache["k"][i], cache["v"][i]  # views: written in place
-            ck[rows, slot] = k[:, 0].to(ck.dtype)
-            cv[rows, slot] = v[:, 0].to(cv.dtype)
-            kview, vview = ck, cv
-        att = _rows(attend, q, kview, vview, qpos, kpos)
-        att = att.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+        q, k, v = _qkv(cfg, policy, lp, h, st.qpos)
+        att = st.attend(cfg, cache, i, q, k, v).reshape(b, 1, cfg.n_heads * cfg.head_dim)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         h2 = _rows(_norm_fn(cfg, lp.get("ln2")), y)
         x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
     x = _rows(_norm_fn(cfg, params.get("final_norm")), x)
     logits = _lm_head(cfg, policy, params, x)[:, 0, :]
-    if lockstep:
-        cache["pos"] = kpos_new
-    elif not paged:
-        cache["pos"] = kpos
-    cache["len"] = pos + 1
+    st.done(cache)
     return logits, cache
 
 
@@ -630,11 +685,10 @@ def _row(t, s):
     return t[s:s + 1, :1].clone(memory_format=torch.contiguous_format)
 
 
-def _slot_norms(cfg, p, x, layout):
-    """Norm of each slot's rows: a decode row alone at (1, 1, D), as
+def slot_norms(norm, x, layout):
+    """``norm`` of each slot's rows: a decode row alone at (1, 1, D), as
     ``decode_step`` runs it; a chunk at (1, C, D), as a one-slot pool
     runs it; idle slots stay zero."""
-    norm = _norm_fn(cfg, p)
     out = torch.zeros_like(x)
     for s, kind in enumerate(layout):
         if kind == "decode":
@@ -642,6 +696,118 @@ def _slot_norms(cfg, p, x, layout):
         elif kind == "chunk":
             out[s:s + 1] = norm(x[s:s + 1])
     return out
+
+
+def slot_attend(fn, q, layout):
+    """``fn(q_s, s)`` of each slot's queries, at the shapes of
+    :func:`slot_norms` (a decode row at (1, 1, H, hd), a chunk at (1, C,
+    H, hd)); idle slots stay zero."""
+    out = torch.zeros_like(q)
+    for s, kind in enumerate(layout):
+        if kind == "decode":
+            out[s:s + 1, :1] = fn(_row(q, s), s)
+        elif kind == "chunk":
+            out[s:s + 1] = fn(q[s:s + 1], s)
+    return out
+
+
+class ChunkSlots:
+    """The cache addresses of one chunk step, shared by every layer (and
+    by ``models/encdec.py``): each slot's layout ("idle", "decode" or
+    "chunk", from ``n_new`` read on the host), the valid positions and
+    their query positions, the page each position writes and the ``pos``
+    view.  Building it writes the valid positions into ``pos``."""
+
+    def __init__(self, cfg, cache, tokens, n_new, spec):
+        if "table" not in cache:
+            raise NotImplementedError("repro_torch's chunk_step runs the paged pool cache")
+        n_host = [int(n) for n in n_new]
+        b, c = tokens.shape
+        dev = tokens.device
+        page = cache["pos"].shape[1]
+        table = cache["table"]
+        span = table.shape[1] * page
+        self.npages = cache["pos"].shape[0] - 1
+        if c > span:
+            raise ValueError(f"chunk {c} exceeds the cache span {span}")
+        self.windowed = cfg.window is not None
+        self.spec = spec
+        self.layout = ["idle" if n == 0 else "decode" if n == 1 and not self.windowed
+                       else "chunk" for n in n_host]
+        self.ids = page_ids(cache)
+        self.pos0 = cache["len"]
+        self.nn = to_device(n_host, dev, self.pos0.dtype)
+        offs = torch.arange(c, dtype=self.pos0.dtype, device=dev)
+        self.valid = offs[None, :] < self.nn[:, None]  # (B, C)
+        gpos = self.pos0[:, None] + offs[None, :]
+        self.qpos = torch.where(self.valid, gpos, torch.full_like(gpos, -1))
+        lo = gpos % span
+        dest = torch.gather(table, 1, lo // page)
+        # pads: drop
+        self.dest = torch.where(self.valid, dest, torch.full_like(dest, self.npages + 1))
+        self.loff = lo % page
+        # pre-scatter
+        self.kpos_old = page_view(cache["pos"], self.ids) if self.windowed else None
+        paged_write(cache["pos"], self.dest, self.loff, self.qpos, self.npages)
+        self.kpos = page_view(cache["pos"], self.ids)
+        self.vmask = self.valid[:, :, None]
+
+    def norms(self, norm, x):
+        """:func:`slot_norms`, pad rows zeroed (each slot's (C, D) scale
+        group then has the amax of its valid rows alone)."""
+        return torch.where(self.vmask, slot_norms(norm, x, self.layout), 0.0)
+
+    def attend(self, cfg, cache, i, q, k, v):
+        """Write layer ``i``'s fresh K/V of the valid positions, then attend
+        each slot over its view (a windowed arch over the pre-scatter cache
+        and the fresh chunk); pad rows zeroed.  Returns (B, C, H * hd)."""
+        spec = self.spec
+        windowed, npages, ids = self.windowed, self.npages, self.ids
+        if windowed:
+            ok = _kv_page_view(cache, "k", i, ids, spec)
+            ov = _kv_page_view(cache, "v", i, ids, spec)
+            kf, vf = k, v
+            if spec is not None:
+                kf = compress.kv_page_decode(*compress.kv_page_encode(k, spec), spec)
+                vf = compress.kv_page_decode(*compress.kv_page_encode(v, spec), spec)
+        _kv_scatter(cache, "k", i, self.dest, self.loff, k, npages, spec)
+        _kv_scatter(cache, "v", i, self.dest, self.loff, v, npages, spec)
+        if not windowed:
+            ok = _kv_page_view(cache, "k", i, ids, spec)
+            ov = _kv_page_view(cache, "v", i, ids, spec)
+        qpos, kpos = self.qpos, self.kpos
+
+        def one(q_s, s):
+            kind = self.layout[s]
+            if kind == "decode":
+                return _attend(cfg, q_s, ok[s:s + 1], ov[s:s + 1], qpos[s:s + 1, :1],
+                               kpos[s:s + 1], None)
+            if not windowed:
+                return _attend(cfg, q_s, ok[s:s + 1], ov[s:s + 1], qpos[s:s + 1],
+                               kpos[s:s + 1], None)
+            # old entries hold positions < pos0 only, fresh ones >= pos0
+            # (-1 where invalid): each key is seen exactly once
+            k_all = torch.cat([ok[s:s + 1].to(q.dtype), kf[s:s + 1].to(q.dtype)], dim=1)
+            v_all = torch.cat([ov[s:s + 1].to(q.dtype), vf[s:s + 1].to(q.dtype)], dim=1)
+            kp_all = torch.cat([self.kpos_old[s:s + 1], qpos[s:s + 1]], dim=1)
+            return _attend(cfg, q_s, k_all, v_all, qpos[s:s + 1], kp_all, cfg.window)
+
+        att = slot_attend(one, q, self.layout)
+        # a pad query's softmax is uniform over every key, stale ones of a
+        # reused slot included: zero it before the (C, D) scale group
+        b, c = self.valid.shape
+        return torch.where(self.vmask[..., None], att, 0.0).reshape(b, c, -1)
+
+    def emit_rows(self, x):
+        """Each slot's last valid position of x (B, C, D) -> (B, 1, D):
+        gathered BEFORE the head, so its scale group is the (1, D) row, as
+        in decode_step."""
+        c = x.shape[1]
+        emit = (self.nn - 1).clamp(0, c - 1)
+        return x[torch.arange(x.shape[0], device=x.device), emit][:, None, :]
+
+    def done(self, cache):
+        cache["len"] = self.pos0 + self.nn
 
 
 def chunk_step(cfg, policy, params, tokens, n_new, cache):
@@ -677,95 +843,98 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
 
     Returns (logits (B, V) at each slot's last valid position, the cache,
     updated in place).  Paged pool caches only."""
-    if "table" not in cache:
-        raise NotImplementedError("repro_torch's chunk_step runs the paged pool cache")
-    n_host = [int(n) for n in n_new]
-    b, c = tokens.shape
-    dev = tokens.device
-    page = cache["pos"].shape[1]
-    table = cache["table"]
-    span = table.shape[1] * page
-    npages = cache["pos"].shape[0] - 1
-    if c > span:
-        raise ValueError(f"chunk {c} exceeds the cache span {span}")
-    windowed = cfg.window is not None
-    spec = _kv_check(policy, cache)
-    layout = ["idle" if n == 0 else
-              "decode" if n == 1 and not windowed else "chunk" for n in n_host]
-    ids = page_ids(cache)
-    pos0 = cache["len"]
-    nn = to_device(n_host, dev, pos0.dtype)
-    offs = torch.arange(c, dtype=pos0.dtype, device=dev)
-    valid = offs[None, :] < nn[:, None]  # (B, C)
-    gpos = pos0[:, None] + offs[None, :]
-    qpos = torch.where(valid, gpos, torch.full_like(gpos, -1))
-    lo = gpos % span
-    dest = torch.gather(table, 1, lo // page)
-    dest = torch.where(valid, dest, torch.full_like(dest, npages + 1))  # pads: drop
-    loff = lo % page
-    kpos_old = page_view(cache["pos"], ids) if windowed else None  # pre-scatter
-    paged_write(cache["pos"], dest, loff, qpos, npages)
-    kpos = page_view(cache["pos"], ids)
+    st = ChunkSlots(cfg, cache, tokens, n_new, _kv_check(policy, cache))
     x = params["embed"][tokens]  # (B, C, D)
-    vmask = valid[:, :, None]
-    hd = cfg.head_dim
-
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h = torch.where(vmask, _slot_norms(cfg, lp.get("ln1"), x, layout), 0.0)
-        q, k, v = _qkv(cfg, policy, lp, h, qpos)
-        if windowed:
-            ok = _kv_page_view(cache, "k", i, ids, spec)
-            ov = _kv_page_view(cache, "v", i, ids, spec)
-            kf, vf = k, v
-            if spec is not None:
-                kf = compress.kv_page_decode(*compress.kv_page_encode(k, spec), spec)
-                vf = compress.kv_page_decode(*compress.kv_page_encode(v, spec), spec)
-        _kv_scatter(cache, "k", i, dest, loff, k, npages, spec)
-        _kv_scatter(cache, "v", i, dest, loff, v, npages, spec)
-        if not windowed:
-            ok = _kv_page_view(cache, "k", i, ids, spec)
-            ov = _kv_page_view(cache, "v", i, ids, spec)
-        att = torch.zeros_like(q)
-        for s, kind in enumerate(layout):
-            if kind == "decode":
-                att[s:s + 1, :1] = _attend(cfg, _row(q, s), ok[s:s + 1], ov[s:s + 1],
-                                           qpos[s:s + 1, :1], kpos[s:s + 1], None)
-            elif kind == "chunk" and not windowed:
-                att[s:s + 1] = _attend(cfg, q[s:s + 1], ok[s:s + 1], ov[s:s + 1],
-                                       qpos[s:s + 1], kpos[s:s + 1], None)
-            elif kind == "chunk":
-                # old entries hold positions < pos0 only, fresh ones >= pos0
-                # (-1 where invalid): each key is seen exactly once
-                k_all = torch.cat([ok[s:s + 1].to(q.dtype), kf[s:s + 1].to(q.dtype)], dim=1)
-                v_all = torch.cat([ov[s:s + 1].to(q.dtype), vf[s:s + 1].to(q.dtype)], dim=1)
-                kp_all = torch.cat([kpos_old[s:s + 1], qpos[s:s + 1]], dim=1)
-                att[s:s + 1] = _attend(cfg, q[s:s + 1], k_all, v_all, qpos[s:s + 1],
-                                       kp_all, cfg.window)
-        # a pad query's softmax is uniform over every key, stale ones of a
-        # reused slot included: zero it before the (C, D) scale group
-        att = torch.where(vmask[..., None], att, 0.0).reshape(b, c, cfg.n_heads * hd)
+        h = st.norms(_norm_fn(cfg, lp.get("ln1")), x)
+        q, k, v = _qkv(cfg, policy, lp, h, st.qpos)
+        att = st.attend(cfg, cache, i, q, k, v)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
-        h2 = torch.where(vmask, _slot_norms(cfg, lp.get("ln2"), y, layout), 0.0)
+        h2 = st.norms(_norm_fn(cfg, lp.get("ln2")), y)
         x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
-    # emit at each slot's last valid position; gather BEFORE the head so its
-    # scale group is the (1, D) row, as in decode_step
-    emit = (nn - 1).clamp(0, c - 1)
-    xe = x[torch.arange(b, device=dev), emit][:, None, :]  # (B, 1, D)
-    xe = _rows(_norm_fn(cfg, params.get("final_norm")), xe)
+    xe = _rows(_norm_fn(cfg, params.get("final_norm")), st.emit_rows(x))
     logits = _lm_head(cfg, policy, params, xe)[:, 0, :]
-    cache["len"] = pos0 + nn
+    st.done(cache)
     return logits, cache
 
 
-def _live_norms(cfg, p, x, live):
-    """Norm of each live row of a (R, 1, D) block at ``decode_step``'s
+def live_norms(norm, x, live):
+    """``norm`` of each live row of a (R, 1, D) block at ``decode_step``'s
     (1, 1, D) shape; the other rows stay zero."""
-    norm = _norm_fn(cfg, p)
     out = torch.zeros_like(x)
     for r in live:
         out[r:r + 1] = norm(x[r:r + 1])
     return out
+
+
+class VerifySlots:
+    """The cache addresses of one verify step, shared by every layer (and
+    by ``models/encdec.py``): per position j the page each slot writes
+    and the ``pos`` view with positions 0..j written, the live (slot,
+    position) rows and their query positions.  Building it writes the
+    valid positions into ``pos``."""
+
+    def __init__(self, cfg, cache, tokens, n_new, spec):
+        if "table" not in cache:
+            raise NotImplementedError("repro_torch's verify_step runs the paged pool cache")
+        n_host = [int(n) for n in n_new]
+        b, c = tokens.shape
+        dev = tokens.device
+        page = cache["pos"].shape[1]
+        table = cache["table"]
+        span = table.shape[1] * page
+        self.npages = npages = cache["pos"].shape[0] - 1
+        if c > span:
+            raise ValueError(f"verify row {c} exceeds the cache span {span}")
+        self.spec = spec
+        self.ids = page_ids(cache)
+        self.pos0 = cache["len"]
+        self.nn = to_device(n_host, dev, self.pos0.dtype)
+        offs = torch.arange(c, dtype=self.pos0.dtype, device=dev)
+        valid = offs[None, :] < self.nn[:, None]  # (B, C)
+        gpos = self.pos0[:, None] + offs[None, :]
+        self.qpos = torch.where(valid, gpos, torch.full_like(gpos, -1))
+        lo = gpos % span
+        dest = torch.gather(table, 1, lo // page)
+        # pads: drop
+        self.dest = torch.where(valid, dest, torch.full_like(dest, npages + 1))
+        self.loff = lo % page
+        # position j attends over the pos view with positions 0..j written
+        self.kpos = []
+        for j in range(c):
+            paged_write(cache["pos"], self.dest[:, j], self.loff[:, j], self.qpos[:, j], npages)
+            self.kpos.append(page_view(cache["pos"], self.ids))
+        self.live = [[s for s in range(b) if j < n_host[s]] for j in range(c)]
+        # the row of (s, j) in the (B*C, 1, ·) block
+        self.rows = sorted(s * c + j for j in range(c) for s in self.live[j])
+        self.rq = self.qpos.reshape(b * c, 1)
+
+    def attend(self, cfg, cache, i, q, k, v):
+        """Per position j: write layer ``i``'s K/V of every live slot at j,
+        then each live (slot, j) row attends over its slot's view.  q, k,
+        v are (B*C, 1, ·, hd); returns (B*C, 1, H * hd), pad rows zero."""
+        b, c = self.qpos.shape
+        spec, npages, ids = self.spec, self.npages, self.ids
+        kb = k.reshape(b, c, cfg.kv_heads, cfg.head_dim)
+        vb = v.reshape(b, c, cfg.kv_heads, cfg.head_dim)
+        att = torch.zeros_like(q)
+        for j in range(c):
+            if not self.live[j]:
+                break  # later positions are pads in every slot
+            _kv_scatter(cache, "k", i, self.dest[:, j], self.loff[:, j], kb[:, j], npages, spec)
+            _kv_scatter(cache, "v", i, self.dest[:, j], self.loff[:, j], vb[:, j], npages, spec)
+            kview = _kv_page_view(cache, "k", i, ids, spec)
+            vview = _kv_page_view(cache, "v", i, ids, spec)
+            for s in self.live[j]:
+                r = s * c + j
+                att[r:r + 1] = _attend(cfg, q[r:r + 1], kview[s:s + 1], vview[s:s + 1],
+                                       self.qpos[s:s + 1, j:j + 1], self.kpos[j][s:s + 1],
+                                       cfg.window)
+        return att.reshape(b * c, 1, -1)
+
+    def done(self, cache):
+        cache["len"] = self.pos0 + self.nn
 
 
 def verify_step(cfg, policy, params, tokens, n_new, cache):
@@ -795,66 +964,20 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
     scoring the token after ``tokens[b, i]``; the cache updated in place,
     ``len += n_new``).  Paged pool caches only; the caller owns acceptance
     and the rollback of rejected positions (``serve.slots.spec_restore``)."""
-    if "table" not in cache:
-        raise NotImplementedError("repro_torch's verify_step runs the paged pool cache")
-    n_host = [int(n) for n in n_new]
+    st = VerifySlots(cfg, cache, tokens, n_new, _kv_check(policy, cache))
     b, c = tokens.shape
-    dev = tokens.device
-    page = cache["pos"].shape[1]
-    table = cache["table"]
-    span = table.shape[1] * page
-    npages = cache["pos"].shape[0] - 1
-    if c > span:
-        raise ValueError(f"verify row {c} exceeds the cache span {span}")
-    spec = _kv_check(policy, cache)
-    ids = page_ids(cache)
-    pos0 = cache["len"]
-    nn = to_device(n_host, dev, pos0.dtype)
-    offs = torch.arange(c, dtype=pos0.dtype, device=dev)
-    valid = offs[None, :] < nn[:, None]  # (B, C)
-    gpos = pos0[:, None] + offs[None, :]
-    qpos = torch.where(valid, gpos, torch.full_like(gpos, -1))
-    lo = gpos % span
-    dest = torch.gather(table, 1, lo // page)
-    dest = torch.where(valid, dest, torch.full_like(dest, npages + 1))  # pads: drop
-    loff = lo % page
-    # position j attends over the pos view with positions 0..j written
-    kpos = []
-    for j in range(c):
-        paged_write(cache["pos"], dest[:, j], loff[:, j], qpos[:, j], npages)
-        kpos.append(page_view(cache["pos"], ids))
-    live = [[s for s in range(b) if j < n_host[s]] for j in range(c)]
-    rows = sorted(s * c + j for j in range(c) for s in live[j])  # row of (s, j)
     x = params["embed"][tokens].reshape(b * c, 1, -1)  # (B*C, 1, D)
-    rq = qpos.reshape(b * c, 1)
-    h_all = cfg.n_heads * cfg.head_dim
-
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h = _live_norms(cfg, lp.get("ln1"), x, rows)
-        q, k, v = _qkv(cfg, policy, lp, h, rq)  # (B*C, 1, heads, hd)
-        kb = k.reshape(b, c, cfg.kv_heads, cfg.head_dim)
-        vb = v.reshape(b, c, cfg.kv_heads, cfg.head_dim)
-        att = torch.zeros_like(q)
-        for j in range(c):
-            if not live[j]:
-                break  # later positions are pads in every slot
-            _kv_scatter(cache, "k", i, dest[:, j], loff[:, j], kb[:, j], npages, spec)
-            _kv_scatter(cache, "v", i, dest[:, j], loff[:, j], vb[:, j], npages, spec)
-            kview = _kv_page_view(cache, "k", i, ids, spec)
-            vview = _kv_page_view(cache, "v", i, ids, spec)
-            for s in live[j]:
-                r = s * c + j
-                att[r:r + 1] = _attend(cfg, q[r:r + 1], kview[s:s + 1], vview[s:s + 1],
-                                       qpos[s:s + 1, j:j + 1], kpos[j][s:s + 1],
-                                       cfg.window)
-        att = att.reshape(b * c, 1, h_all)
+        h = live_norms(_norm_fn(cfg, lp.get("ln1")), x, st.rows)
+        q, k, v = _qkv(cfg, policy, lp, h, st.rq)  # (B*C, 1, heads, hd)
+        att = st.attend(cfg, cache, i, q, k, v)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
-        h2 = _live_norms(cfg, lp.get("ln2"), y, rows)
+        h2 = live_norms(_norm_fn(cfg, lp.get("ln2")), y, st.rows)
         # every (slot, position) row is a dispatch group of its own (t = 1),
         # as in the reference's per-position decode
         x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
-    xe = _live_norms(cfg, params.get("final_norm"), x, rows)
+    xe = live_norms(_norm_fn(cfg, params.get("final_norm")), x, st.rows)
     logits = _lm_head(cfg, policy, params, xe)[:, 0, :].reshape(b, c, -1)
-    cache["len"] = pos0 + nn
+    st.done(cache)
     return logits, cache

@@ -13,13 +13,23 @@ requests into free slots mid-flight, in one of two ways:
   engine dispatches plain ``decode_step`` instead (the decode fast path):
   the two step bodies are bit-equal on decode rows.
 
+The vlm and encdec families serve through the same engine.  A vlm
+request's ``patch_embeds`` (``Request.extras``) prefix its prompt: it
+takes positions in the cache and solo-prefills even in a chunked engine.
+A chunked encdec admission first runs the encoder over the request's
+``frames`` and writes the slot's cross K/V (``registry.encode_cross_kv``,
+one weight pass); its decoder prompt then streams in by chunk steps.
+
 A host-side :class:`~repro_torch.serve.slots.PageAllocator` hands every
 admission its worst-case pages up front and defers admissions (FIFO,
 head-blocking) when the pool runs short.  With ``prefix_cache=True``
 finished prompts publish their full pages; a later prompt with the same
 head maps them (shared), copies the page it will append into
-(copy-on-write) and resumes streaming after the hit.  Idle prefix pages
-are LRU-evicted to make room.
+(copy-on-write) and resumes streaming after the hit.  An encdec page is
+shared only between requests with the same frames too: its decoder K/V
+see them through cross attention (the reference keys on the prompt
+alone, and maps pages made under another request's frames).  Idle
+prefix pages are LRU-evicted to make room.
 
 ``kv_quant=KV_PINNED`` stores the K/V pages in the PoT wire format
 (``core/compress.py``: 4-bit nibble codes and one int32 beta per token).
@@ -67,6 +77,7 @@ in lockstep (one shared position, per-tensor activation scales) to
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -161,13 +172,13 @@ class ServeStats:
 
 
 class _InflightTokens:
-    """The token vector of a dispatched pooled step on its way to the
-    host.  On a card :meth:`start` copies it ``non_blocking`` into a
-    pinned host buffer and records a CUDA event behind the copy;
-    :meth:`wait` synchronizes on that event.  A copy into pageable memory
-    would block at once, so a card engine without its pinned buffer fails
-    instead.  On the CPU the step is done when it returns, and
-    :meth:`wait` is a plain copy."""
+    """The token vector of a dispatched step (a pooled step's, or a solo
+    prefill's one token) on its way to the host.  On a card :meth:`start`
+    copies it ``non_blocking`` into a pinned host buffer and records a
+    CUDA event behind the copy; :meth:`wait` synchronizes on that event.
+    A copy into pageable memory would block at once, so a card engine
+    without its pinned buffer fails instead.  On the CPU the step is done
+    when it returns, and :meth:`wait` is a plain copy."""
 
     def __init__(self, max_slots: int, device: torch.device):
         self._cuda = device.type == "cuda"
@@ -182,8 +193,9 @@ class _InflightTokens:
         if tok.is_cuda != self._cuda:
             raise ValueError(f"token vector on {tok.device}, engine on "
                              f"{'cuda' if self._cuda else 'cpu'}")
+        self._n = tok.shape[0]
         if self._cuda:
-            self._host.copy_(tok, non_blocking=True)
+            self._host[:self._n].copy_(tok, non_blocking=True)
             self._event.record()
         else:
             self._tok = tok
@@ -192,7 +204,7 @@ class _InflightTokens:
         """Block until the copy lands; the host token vector."""
         if self._cuda:
             self._event.synchronize()
-            return self._host.numpy().copy()
+            return self._host[:self._n].numpy().copy()
         return self._tok.numpy().copy()
 
 
@@ -225,7 +237,8 @@ class PoolEngine:
                  cache_dtype=torch.bfloat16, device=None):
         if cfg.family not in registry.PAGED_FAMILIES:
             raise NotImplementedError(
-                f"PoolEngine: family {cfg.family!r} is not ported yet")
+                f"PoolEngine: family {cfg.family!r} has no paged pool cache "
+                f"(supported: {registry.PAGED_FAMILIES})")
         span = registry.pool_span(cfg, max_len)
         if spec is not None:
             if cfg.family not in registry.SPEC_FAMILIES:
@@ -305,7 +318,7 @@ class PoolEngine:
             if r.uid in seen:
                 raise ValueError(f"duplicate request uid {r.uid!r}")
             seen.add(r.uid)
-            plen = self._request_tokens(r)
+            plen = self._request_tokens(r)  # a vlm's patches take positions
             need = plen + r.max_new_tokens
             # a windowed arch decodes from a ring whose wrap is the model's
             # semantics; otherwise the request must fit its page budget
@@ -319,31 +332,66 @@ class PoolEngine:
                     f"pages of {self.page_size}, exceeding the per-slot budget "
                     f"of {self.pages_per_slot} pages (max_len={self.max_len})")
 
-    def _prefill_into(self, cache, slot: int, req: Request, pages):
-        """Solo-prefill ``req`` (batch 1) and copy its cache into the
-        slot's ``pages``.  Returns the first generated token."""
-        mini = registry.init_cache(self.cfg, 1, self.max_len, self.cache_dtype,
-                                   device=self.device)
-        tokens = torch.as_tensor(np.asarray(req.tokens), dtype=torch.int64,
-                                 device=self.device).reshape(1, -1)
-        logits, mini = registry.prefill(self.cfg, self.policy, self.params,
-                                        {"tokens": tokens}, mini)
+    def _prefill_into(self, cache, slot: int, req: Request, pages, flight):
+        """Solo-prefill ``req`` (batch 1, its extras passed along) and copy
+        its cache into the slot's ``pages``.  Returns the first generated
+        token, read through ``flight`` (an explicit sync)."""
+        dev = self.device
+        mini = registry.init_cache(self.cfg, 1, self.max_len, self.cache_dtype, device=dev)
+        batch = {"tokens": to_device(np.asarray(req.tokens), dev, torch.int64).reshape(1, -1)}
+        batch.update({k: to_device(np.asarray(v), dev) for k, v in req.extras.items()})
+        logits, mini = registry.prefill(self.cfg, self.policy, self.params, batch, mini)
         slots_lib.write_slot(cache, mini, slot, pages=pages, kv_quant=self.kv_quant)
-        return int(torch.argmax(logits, dim=-1)[0])
+        flight.start(torch.argmax(logits, dim=-1))
+        return int(flight.wait()[0])
+
+    def _chunkable(self, req: Request) -> bool:
+        """Chunked admission for this request?  A vlm's patch prefix is
+        activations, not tokens: such a request solo-prefills even in a
+        chunked engine."""
+        return self.prefill_chunk is not None and "patch_embeds" not in req.extras
+
+    def _admit_encoder(self, cache, slot: int, req: Request) -> None:
+        """Chunked encdec admission: the encoder pass over the request's
+        frames and the decoder layers' cross K/V, written into the slot
+        (one weight pass); the prompt then streams in by chunk steps."""
+        frames = to_device(np.asarray(req.extras["frames"]), self.device, torch.float32)
+        cks, cvs = registry.encode_cross_kv(self.cfg, self.policy, self.params, frames)
+        slots_lib.write_cross(cache, cks, cvs, slot)
 
     @staticmethod
-    def _request_tokens(req: Request) -> int:
+    def _prompt_len(req: Request) -> int:
         return int(np.asarray(req.tokens).shape[-1])
+
+    def _request_tokens(self, req: Request) -> int:
+        """Positions the prompt takes in the cache: its tokens, after a
+        vlm's patches."""
+        plen = self._prompt_len(req)
+        if "patch_embeds" in req.extras:
+            plen += int(np.asarray(req.extras["patch_embeds"]).shape[1])
+        return plen
 
     def _admission_plan(self, alloc, req: Request):
         """Worst-case token need (capped at the span: a ring wrap revisits
         pages) and, when enabled, the prefix-cache lookup."""
         need = self._request_tokens(req) + req.max_new_tokens
         prompt = chunk = None
-        if self.prefix_cache and self.cfg.window is None:
+        if self.prefix_cache and self._chunkable(req) and self.cfg.window is None:
             prompt = np.asarray(req.tokens, np.int32).reshape(-1)
             chunk = self.prefill_chunk
-        return alloc.plan_admission(prompt, min(need, self.span), chunk)
+        return alloc.plan_admission(prompt, min(need, self.span), chunk,
+                                    self._prefix_context(req))
+
+    @staticmethod
+    def _prefix_context(req: Request) -> bytes:
+        """What a request's prefix pages depend on besides its prompt.  An
+        encdec decoder's self-attention K/V from layer 1 up see the
+        request's frames through cross attention, so its pages are shared
+        only between requests with the same frames (a digest of them)."""
+        if "frames" not in req.extras:
+            return b""
+        frames = np.ascontiguousarray(req.extras["frames"], np.float32)
+        return hashlib.sha256(frames.tobytes()).digest()
 
     def _table_row(self, pages) -> List[int]:
         drop = slots_lib.drop_id(self.num_pages)
@@ -587,21 +635,24 @@ class PoolEngine:
                 dead_rows: List[int] = []
                 alloc.tick(step)
                 for slot, req in sched.admit(step, can_admit_cb):
-                    stats.prompt_tokens += self._request_tokens(req)
+                    stats.prompt_tokens += self._prompt_len(req)
                     if track_hist:
                         histories[slot] = np.asarray(req.tokens, np.int64).reshape(-1).tolist()
                     aplan, hold = holds.pop(0)
                     alloc.bind(slot, hold)
                     self._sync_admission(cache, slot, hold, aplan)
                     stats.prefix_hit_tokens += aplan.hit_tokens
-                    if chunk is not None:
+                    if self._chunkable(req):
+                        if cfg.family == "encdec":
+                            self._admit_encoder(cache, slot, req)
+                            stats.weight_passes += 1  # the encoder-side pass
                         sched.mark_prefilling(slot)
                         prompt = np.asarray(req.tokens, np.int32).reshape(-1)
                         prompts[slot] = prompt
                         pending[slot] = prompt[aplan.resume:]
                     else:
                         tok = self._prefill_into(cache, slot, req,
-                                                 self._table_row(hold["table"]))
+                                                 self._table_row(hold["table"]), flight)
                         stats.prefills += 1
                         stats.weight_passes += 1
                         first_token(slot, req, tok)
@@ -684,7 +735,8 @@ class PoolEngine:
                     if self.prefix_cache and cfg.window is None:
                         # publish the prompt's full pages BEFORE first_token
                         # may retire the slot
-                        alloc.register_prefix(slot, prompts[slot], chunk)
+                        alloc.register_prefix(slot, prompts[slot], chunk,
+                                              self._prefix_context(sched.active_request(slot)))
                     first_token(slot, sched.active_request(slot), int(ntok[slot]))
                 for slot in active:
                     emit_tokens(slot, sched.active_request(slot), [int(ntok[slot])])
@@ -705,12 +757,15 @@ def generate(cfg: ModelConfig, policy: QuantPolicy, params, batch, *,
              prequantize: bool = False, device=None) -> torch.Tensor:
     """Greedy generation: a :class:`PoolEngine` with one slot per request
     (all arrivals at step 0), so a row's tokens do not depend on the
-    other rows.  Returns (B, max_new_tokens) int32 on the CPU."""
-    toks = np.asarray(batch["tokens"].cpu() if torch.is_tensor(batch["tokens"])
-                      else batch["tokens"])
-    b = toks.shape[0]
+    other rows.  ``batch`` holds ``tokens`` (B, S) and a family's
+    ``frames`` or ``patch_embeds``, split per request.  Returns (B,
+    max_new_tokens) int32 on the CPU."""
+    host = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v) for k, v in batch.items()
+            if k in ("tokens", "frames", "patch_embeds")}
+    b = host["tokens"].shape[0]
     reqs: List[Request] = [
-        Request(uid=i, tokens=toks[i:i + 1], max_new_tokens=max_new_tokens)
+        Request(uid=i, tokens=host["tokens"][i:i + 1], max_new_tokens=max_new_tokens,
+                extras={k: v[i:i + 1] for k, v in host.items() if k != "tokens"})
         for i in range(b)
     ]
     eng = PoolEngine(cfg, policy, params, max_slots=b, max_len=max_len,
@@ -729,15 +784,19 @@ def lockstep_generate(cfg: ModelConfig, policy: QuantPolicy, params, batch, *,
     taken as given: activation scales are per tensor over the batch
     unless ``policy.per_sample_act_scales``, and the weights are
     quantized at use unless ``policy.weights_prequantized``.  At batch 1
-    it gives a :class:`PoolEngine` request's tokens, bit for bit.
-    Returns (B, max_new_tokens) int32 on the CPU."""
+    it gives a :class:`PoolEngine` request's tokens, bit for bit.  A
+    family's ``frames`` or ``patch_embeds`` in ``batch`` go to the
+    prefill.  Returns (B, max_new_tokens) int32 on the CPU."""
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params lie on {params['embed'].device}, generation runs on {dev}")
     tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.int64)
+    inputs = {"tokens": tokens}
+    inputs.update({k: torch.as_tensor(batch[k]).to(dev, torch.float32)
+                   for k in ("frames", "patch_embeds") if k in batch})
     with torch.inference_mode():
         cache = registry.init_cache(cfg, tokens.shape[0], max_len, cache_dtype, device=dev)
-        logits, cache = registry.prefill(cfg, policy, params, {"tokens": tokens}, cache)
+        logits, cache = registry.prefill(cfg, policy, params, inputs, cache)
         tok = torch.argmax(logits, dim=-1)
         out = [tok]
         for _ in range(max_new_tokens - 1):

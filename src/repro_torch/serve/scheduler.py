@@ -29,15 +29,18 @@ from typing import Any, Dict, List, Optional, Tuple
 
 @dataclasses.dataclass
 class Request:
-    """One serving request: ``tokens`` is the (1, prompt_len) prompt;
-    ``arrival`` the engine step at which it becomes visible; ``eos_id``
-    optionally stops generation early."""
+    """One serving request: ``tokens`` is the (1, prompt_len) prompt; a
+    family's extras (an encdec's ``frames`` (1, enc_seq, frame_dim), a
+    vlm's ``patch_embeds`` (1, P, patch_dim)) ride in ``extras`` and go to
+    prefill as they are; ``arrival`` is the engine step at which it
+    becomes visible; ``eos_id`` optionally stops generation early."""
 
     uid: Any
     tokens: Any
     max_new_tokens: int
     arrival: int = 0
     eos_id: Optional[int] = None
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 class SchedulerError(RuntimeError):

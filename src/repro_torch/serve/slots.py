@@ -31,6 +31,12 @@ Two sentinel page ids make dead state self-masking:
   writes only through entries below ``num_pages``
   (``models.transformer.paged_write``): nothing indexes out of bounds.
 
+An encdec pool also carries each slot's cross-attention K/V, ``ck``/``cv``
+(L, max_slots, enc_seq, KV, hd): slot-rowed, never paged, never
+quantized and never shared.  They are written once per admission
+(:func:`write_slot`, or the engine's encoder-side pass) and a
+speculative rollback never touches them.
+
 Contiguous slot-row layout (``lift_cache``): ``k``/``v``
 (L, max_slots, span, KV, hd), ``pos`` (max_slots, span), ``len``
 (max_slots,).  ``decode_step`` still accepts it.
@@ -51,6 +57,7 @@ import torch
 
 from repro_torch.core import compress
 from repro_torch.core.policy import KVQuantSpec
+from repro_torch.device import to_device
 from repro_torch.models import transformer
 
 
@@ -70,6 +77,18 @@ def lift_cache(cache, max_slots: int):
 # ---------------------------------------------------------------------------
 # Paged layout
 # ---------------------------------------------------------------------------
+
+#: encdec's slot-rowed cross-attention K/V leaves
+CROSS_KEYS = ("ck", "cv")
+
+
+def write_cross(pool, ck, cv, slot: int):
+    """Write one request's cross-attention K/V (L, 1, frames, kv, hd), as
+    ``encode_cross_kv`` or a batch-1 prefill gives them, into ``slot``'s
+    rows of an encdec pool (contiguous or paged: they stay slot-rowed)."""
+    pool["ck"][:, slot] = ck[:, 0].to(pool["ck"].dtype)
+    pool["cv"][:, slot] = cv[:, 0].to(pool["cv"].dtype)
+
 
 def is_paged(pool) -> bool:
     return isinstance(pool, dict) and "table" in pool
@@ -127,6 +146,7 @@ def page_pool_cache(cache, max_slots: int, page_size: int,
         for key in ("k_beta", "v_beta"):
             out[key] = torch.zeros((L, num_pages + 1, page_size), dtype=torch.int32,
                                    device=dev)
+    out.update({key: cache[key] for key in CROSS_KEYS if key in cache})
     return out
 
 
@@ -163,7 +183,10 @@ def write_slot(pool, mini, slot: int, *, pages: Optional[Sequence[int]] = None,
     table row (the engine passes freshly allocated pages); without it the
     current row is used.  Logical pages mapped to drop_id are skipped.  A
     quantized pool (``kv_quant``, which must match the pool) encodes the
-    bf16 mini K/V per written token on the way in."""
+    bf16 mini K/V per written token on the way in.  An encdec slot's
+    cross ``ck``/``cv`` rows are copied as they are."""
+    if "ck" in pool:
+        write_cross(pool, mini["ck"], mini["cv"], slot)
     if is_paged(pool):
         return _write_slot_paged(pool, mini, slot, pages, kv_quant)
     pool["k"][:, slot] = mini["k"][:, 0].to(pool["k"].dtype)
@@ -183,10 +206,12 @@ def _write_slot_paged(pool, mini, slot, pages, kv_quant=None):
         pages = pool["table"][slot].tolist()
     if len(pages) != n:
         raise ValueError(f"write_slot: {len(pages)} pages for a {n}-page slot")
-    pool["table"][slot] = torch.as_tensor(list(pages), dtype=pool["table"].dtype)
+    # every index goes up through pinned memory: no implicit host sync
+    dev = pool["pos"].device
+    pool["table"][slot] = to_device(list(pages), dev, pool["table"].dtype)
     live = [(lp, p) for lp, p in enumerate(pages) if p < num_pages_of(pool)]
-    logical = [lp for lp, _ in live]
-    phys = [p for _, p in live]
+    logical = to_device([lp for lp, _ in live], dev, torch.int64)
+    phys = to_device([p for _, p in live], dev, torch.int64)
     for key in ("k", "v"):
         m = mini[key]  # (L, 1, span, KV, hd)
         L, _, _, kv, hd = m.shape
@@ -317,7 +342,8 @@ class PageAllocator:
         self.refcount = np.zeros((num_pages,), np.int64)
         self.tables: List[List[int]] = [[] for _ in range(max_slots)]
         # prefix cache: key (logical index, prompt bytes through the page's
-        # covering chunk) -> physical page, so a hit is exact token equality
+        # covering chunk, request context) -> physical page, so a hit is
+        # exact token equality under the same context
         self._prefix: Dict[Tuple, int] = {}
         self._prefix_of: Dict[int, Tuple] = {}  # physical page -> key
         self._lru: Dict[int, int] = {}  # physical page -> last-hit clock
@@ -384,36 +410,40 @@ class PageAllocator:
         end = (logical_page + 1) * page_size
         return -(-end // chunk) * chunk
 
-    def _key(self, prompt: np.ndarray, k: int, chunk: int) -> Tuple:
+    def _key(self, prompt: np.ndarray, k: int, chunk: int, context: bytes) -> Tuple:
         dep = self.chunk_dep(k, self.page_size, chunk)
-        return (k, prompt[:dep].tobytes())
+        return (k, prompt[:dep].tobytes(), context)
 
-    def prefix_lookup(self, prompt: np.ndarray, chunk: int) -> List[int]:
+    def prefix_lookup(self, prompt: np.ndarray, chunk: int,
+                      context: bytes = b"") -> List[int]:
         """Longest chain of registered pages matching ``prompt``'s head
-        (pages whose chunk dependency the prompt fully covers)."""
+        (pages whose chunk dependency the prompt fully covers) under the
+        same ``context``: what a page's K/V depend on besides the prompt
+        (an encdec request's frames, through cross attention)."""
         plen = len(prompt)
         hits: List[int] = []
         k = 0
         while (k + 1) * self.page_size <= plen:
             if self.chunk_dep(k, self.page_size, chunk) > plen:
                 break
-            pid = self._prefix.get(self._key(prompt, k, chunk))
+            pid = self._prefix.get(self._key(prompt, k, chunk, context))
             if pid is None:
                 break
             hits.append(pid)
             k += 1
         return hits
 
-    def register_prefix(self, slot: int, prompt: np.ndarray, chunk: int):
+    def register_prefix(self, slot: int, prompt: np.ndarray, chunk: int,
+                        context: bytes = b""):
         """After a slot finishes prefill, publish its full, chunk-complete
-        prompt pages (one cache ref each; already-registered keys get an
-        LRU touch)."""
+        prompt pages under ``context`` (one cache ref each;
+        already-registered keys get an LRU touch)."""
         plen = len(prompt)
         table = self.tables[slot]
         for k in range(plen // self.page_size):
             if self.chunk_dep(k, self.page_size, chunk) > plen:
                 break
-            key = self._key(prompt, k, chunk)
+            key = self._key(prompt, k, chunk, context)
             pid = self._prefix.get(key)
             if pid is not None:
                 self._lru[pid] = self._clock
@@ -429,14 +459,14 @@ class PageAllocator:
 
     # -- admission / retirement ---------------------------------------------
     def plan_admission(self, prompt: Optional[np.ndarray], need_tokens: int,
-                       chunk: Optional[int]) -> AdmissionPlan:
+                       chunk: Optional[int], context: bytes = b"") -> AdmissionPlan:
         """Pages for one request: prefix hits (shared / copy-on-write) and
         a fresh count.  ``prompt=None`` or no chunk disables prefix reuse
         (solo prefill's scale groups cover the whole prompt)."""
         npages = min(-(-need_tokens // self.page_size), self.pages_per_slot)
         if prompt is None or chunk is None:
             return AdmissionPlan([], [], npages, 0, 0)
-        hits = self.prefix_lookup(prompt, chunk)
+        hits = self.prefix_lookup(prompt, chunk, context)
         plen = len(prompt)
         share_tok = len(hits) * self.page_size
         # streaming resumes on a chunk boundary with >= 1 prompt token

@@ -26,28 +26,41 @@ def _check_budget_range(new_lo: int, new_hi: int) -> None:
 def poisson_trace(cfg, *, n_requests: int, prompt_len: int, lam: float,
                   new_lo: int, new_hi: int, seed: int = 0) -> List[Request]:
     """Poisson(lam) inter-arrivals (in decode steps, first at 0) + uniform
-    output budgets in [new_lo, new_hi], fixed prompt length."""
+    output budgets in [new_lo, new_hi], fixed prompt length.  An encdec
+    request carries its frames and a vlm request its patch embeddings
+    (standard normal), drawn between its tokens and its budget, as the
+    reference draws them."""
     _check_budget_range(new_lo, new_hi)
     if n_requests <= 0:
         return []
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"family {cfg.family!r} traces come with its port")
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.poisson(lam, n_requests))
     arrivals[0] = 0
     reqs = []
     for i in range(n_requests):
         toks = rng.integers(0, cfg.vocab, (1, prompt_len)).astype(np.int32)
+        extras = _extras(cfg, rng)
         reqs.append(
             Request(
                 uid=i,
                 tokens=toks,
+                extras=extras,
                 max_new_tokens=int(rng.integers(new_lo, new_hi + 1)),
                 arrival=int(arrivals[i]),
             )
         )
     return reqs
+
+
+def _extras(cfg, rng):
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = rng.standard_normal(
+            (1, cfg.enc_seq, cfg.frame_dim)).astype(np.float32)
+    if cfg.family == "vlm" and cfg.num_patches:
+        extras["patch_embeds"] = rng.standard_normal(
+            (1, cfg.num_patches, cfg.patch_dim)).astype(np.float32)
+    return extras
 
 
 def shared_prefix_trace(cfg, *, n_requests: int, prefix_len: int,

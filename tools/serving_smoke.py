@@ -1,9 +1,10 @@
-"""Phases 19-27 of ``chip_smoke.py`` alone, on one GPU: build K1, then
-serve llama3-8b at full width through the chunked + paged engine, the
-prefix cache, PoT-quantized KV pages, speculative decoding, lockstep
-serving and float32 pages, then mistral-nemo-12b and starcoder2-7b at
-full width, and llama4-scout-17b-a16e and grok-1-314b at full width and
-cut depth, with every gate of those phases.
+"""Phases 19-27 and 29-30 of ``chip_smoke.py`` alone, on one GPU: build
+K1, then serve llama3-8b at full width through the chunked + paged
+engine, the prefix cache, PoT-quantized KV pages, speculative decoding,
+lockstep serving and float32 pages, then mistral-nemo-12b and
+starcoder2-7b at full width, llama4-scout-17b-a16e and grok-1-314b at
+full width and cut depth, and internvl2-76b (16 of 80 layers) and
+whisper-large-v3 at full width, with every gate of those phases.
 
     python3 tools/serving_smoke.py
 
