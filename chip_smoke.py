@@ -33,7 +33,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     head, at a chunk step's M = 128, internvl2's at its solo prefill's
     M = 384 and its patch_proj (3200, 8192) at the 256 patch rows,
     whisper's encoder side (frame_proj (128, 1280), the encoder layers,
-    the cross K/V) at M = 1500;
+    the cross K/V) at M = 1500; and the recurrent configs: every linear
+    of mamba2-2.7b (in_proj (2560, 10576), N off 32; out_proj (5120,
+    2560); the head (2560, 50688)) and recurrentgemma-2b ((2560, 2560),
+    (2560, 256), (2560, 7680), (7680, 2560), the head (2560, 256000)) at
+    M = 1 (a request decoding alone; a prefill's last row into the head)
+    and M = 4, and but the head at their solo prefill's M (512, 128);
  4. timing at the serving shapes: kernel, plain version, torch.matmul on
     the same bf16 operands (yardstick only), and the roofline bound,
     summed over one llama3-8b decode weight pass (M = 4), prefill (M =
@@ -43,8 +48,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     MoE decoder at phases 26-27's depth (its experts at 16 rows, through
     the expert-batched launch; ``torch.bmm`` their yardstick), and over
     internvl2's decode weight pass and solo prefill and whisper's decode
-    weight pass and encoder-side pass (``family_k1_timing``, with their
-    FP64 tensor-core bounds);
+    weight pass and encoder-side pass, and each recurrent model's decode
+    weight pass and solo prefill (``family_k1_timing``, with their FP64
+    tensor-core bounds);
  5. serve: llama3-8b at full width (random weights from seed 0) through
     PoolEngine on an 8-request Poisson trace; K1 must launch exactly
     once per linear per weight pass (``k1_per_pass``: 225 for
@@ -184,7 +190,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     losses printed with repr, 1026/514/514/514 launches a step, peak
     GiB, a profiled step (K1, K2, K3 device ms beside their FP64
     tensor-core bounds) and one step run twice bit for bit;
-18. the ``kernels`` JSON line, then the device line (phase 18 runs last).
+32. mamba2-2.7b (ssm) and 33. recurrentgemma-2b (hybrid: RG-LRU and
+    local attention) at full width and depth (weights from seed 0, drawn
+    leaf by leaf into served form) through ``PoolEngine(max_slots=4)`` on
+    the slot-row pool (no pages; solo-prefill admissions) on
+    ``RECURRENT_TRACE`` (4 requests, 8-16 new; prompts of 512 and 128):
+    A is the main path (no implicit host sync by the port); C (each
+    request alone) gives A's tokens bit for bit; A's counters equal the
+    CPU smoke-width run's; K1 launches 129 / 201 times a weight pass, in
+    a solo prefill and in a decode step; tokens/s, TTFT in passes and ms,
+    prefill and decode-step wall times, one profiled decode step (kernels,
+    K1 device ms beside its bytes bound, idle share), the state bytes a
+    slot, peak under ``MOE_PEAK_GIB``;
+34. mamba2-2.7b and recurrentgemma-2b training at smoke width as phase
+    28 (CUDA against CPU losses within ``FAMILY_LOSS_RTOL``, a step twice
+    bit for bit, launches a step);
+18. the ``kernels`` JSON line, then the device line (phase 18 runs last;
+    32-33 run after 30, 34 after 31).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
 """
@@ -283,6 +305,13 @@ ENCDEC_TRACE = dict(n_requests=4, prompt_len=16, lam=2.0, new_lo=16, new_hi=32, 
 # context; CUDA against CPU losses at smoke width within this relative bound
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 2, 448
 FAMILY_LOSS_RTOL = 1e-6
+# the recurrent families (phases 32-34), served whole at full width and
+# depth through the slot-row pool (4 slots, solo-prefill admissions): each
+# one's prompt length (mamba2's 512 runs two SSD chunks of 256) and
+# max_len (recurrentgemma's span 256: its 2048 window does not wrap here)
+RECURRENT = {"mamba2-2.7b": dict(prompt=512, max_len=528),
+             "recurrentgemma-2b": dict(prompt=128, max_len=256)}
+RECURRENT_TRACE = dict(n_requests=4, lam=2.0, new_lo=8, new_hi=16, seed=0)
 
 
 _T0 = time.perf_counter()
@@ -298,9 +327,18 @@ def k1_per_pass(cfg):
     solo prefill one more, patch_proj).  An encdec decode or chunk pass:
     every decoder layer's 4 self- and 2 cross-attention linears (cq, co)
     and its 2 MLP matrices, then the tied head (whisper 257; its
-    encoder-side pass, ``encdec_pass_counts``, also 257)."""
+    encoder-side pass, ``encdec_pass_counts``, also 257).  An ssm layer:
+    in_proj and out_proj (mamba2 129); a hybrid RG-LRU layer wx, wy, wa,
+    wi, wout and its 3 MLP matrices, an attention layer its 4 attention
+    linears and 3 MLP matrices (recurrentgemma 18 x 8 + 8 x 7 + 1 = 201)."""
     if cfg.family == "encdec":
         return 8 * cfg.n_layers + 1
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        from repro_torch.models import recurrent
+
+        return sum(7 if k == "attn" else 8 for k in recurrent.layer_kinds(cfg)) + 1
     mlp = 3 if cfg.act == "swiglu" else 2
     ffn = mlp if cfg.moe is None else 1 + mlp + (mlp if cfg.moe.shared_expert else 0)
     return cfg.n_layers * (4 + ffn) + 1
@@ -840,6 +878,7 @@ def main() -> int:
     paged = serving(dev, detail)
     moe_train = moe_training(dev, detail)
     fam_train, whisper_launches, whisper_step = family_training(dev, detail)
+    fam_train.update(recurrent_training(dev, detail))
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -1100,37 +1139,53 @@ def moe_k1_timing(operands, flush):
 
 
 def family_configs():
-    """{arch: config} of phases 29-30: internvl2-76b at its published widths
-    and ``VLM_LAYERS`` layers, whisper-large-v3 whole."""
+    """{arch: config} of phases 29-30 and 32-33: internvl2-76b at its
+    published widths and ``VLM_LAYERS`` layers; whisper-large-v3,
+    mamba2-2.7b and recurrentgemma-2b whole."""
     from repro_torch import configs
 
-    return {VLM_ARCH: dataclasses.replace(configs.get_config(VLM_ARCH), n_layers=VLM_LAYERS),
-            ENCDEC_ARCH: configs.get_config(ENCDEC_ARCH)}
+    out = {VLM_ARCH: dataclasses.replace(configs.get_config(VLM_ARCH), n_layers=VLM_LAYERS),
+           ENCDEC_ARCH: configs.get_config(ENCDEC_ARCH)}
+    out.update({arch: configs.get_config(arch) for arch in RECURRENT})
+    return out
 
 
 def family_regimes():
-    """{(arch, regime): (M, {(K, N): K1 launches})} of the vlm and encdec
-    paths that phase 4 sums: a decode weight pass of each (M = 4),
-    internvl2's solo prefill (M = 384; its patch_proj at the 256 patch
-    rows, keyed (M, K, N)) and whisper's encoder-side pass (M = 1500)."""
+    """{(arch, regime): (M, {(K, N): K1 launches})} of the vlm, encdec and
+    recurrent paths that phase 4 sums: a decode weight pass of each (M =
+    4), internvl2's solo prefill (M = 384; its patch_proj at the 256 patch
+    rows, keyed (M, K, N)), whisper's encoder-side pass (M = 1500) and
+    each recurrent model's solo prefill (M = its prompt; the head at the
+    last row alone, M = 1, keyed (M, K, N))."""
     cf = family_configs()
     vlm, enc = cf[VLM_ARCH], cf[ENCDEC_ARCH]
     prefill = dict(pass_counts(vlm))
     prefill[(vlm.num_patches, vlm.patch_dim, vlm.d_model)] = 1
-    return {(VLM_ARCH, "decode"): (4, pass_counts(vlm)),
-            (VLM_ARCH, "prefill"): (VLM_PREFILL_M, prefill),
-            (ENCDEC_ARCH, "decode"): (4, pass_counts(enc)),
-            (ENCDEC_ARCH, "encoder"): (ENC_M, encdec_pass_counts(enc)[1])}
+    out = {(VLM_ARCH, "decode"): (4, pass_counts(vlm)),
+           (VLM_ARCH, "prefill"): (VLM_PREFILL_M, prefill),
+           (ENCDEC_ARCH, "decode"): (4, pass_counts(enc)),
+           (ENCDEC_ARCH, "encoder"): (ENC_M, encdec_pass_counts(enc)[1])}
+    for arch, rc in RECURRENT.items():
+        cfg = cf[arch]
+        head = (cfg.d_model, cfg.vocab_padded)
+        prefill = {kn: c for kn, c in pass_counts(cfg).items() if kn != head}
+        prefill[(1,) + head] = 1
+        out[(arch, "decode")] = (4, pass_counts(cfg))
+        out[(arch, "prefill")] = (rc["prompt"], prefill)
+    return out
 
 
 def family_k1_checks(dev, gen):
-    """Phase 3 for the vlm and encdec families at their published widths:
-    every (M, K, N) K1 meets on phases 29-31's serving paths, bit for bit
-    against its plain version: each linear of a decode pass at M = 4 and,
-    but the head, at a chunk step's M = 128; internvl2's at its solo
-    prefill's M = 384 (the head too) and patch_proj (3200, 8192) at the 256
-    patch rows; whisper's encoder side (frame_proj (128, 1280), a single
-    K chunk, the encoder layers' and the cross K/V's linears) at M = 1500.
+    """Phase 3 for the vlm, encdec and recurrent families at their
+    published widths: every (M, K, N) K1 meets on phases 29-33's serving
+    paths, bit for bit against its plain version: each linear of a decode
+    pass at M = 4 and, but the head, at a chunk step's M = 128; internvl2's
+    at its solo prefill's M = 384 (the head too) and patch_proj (3200,
+    8192) at the 256 patch rows; whisper's encoder side (frame_proj (128,
+    1280), a single K chunk, the encoder layers' and the cross K/V's
+    linears) at M = 1500; mamba2's and recurrentgemma's linears at their
+    solo prefill's M (512, 128; the head at the prompt's last row, M = 1)
+    and every one of them at M = 1 (a request decoding alone) and M = 4.
     One scale group per row at M <= 16, one per operand above.  Returns
     phase 4's operands {(arch, regime, (M, K, N)): (aq, wq)} and the
     largest |difference|."""
@@ -1147,7 +1202,9 @@ def family_k1_checks(dev, gen):
     cf = family_configs()
     for arch, cfg in cf.items():
         for kn in list(pass_counts(cfg)):
-            if kn[1] != cfg.vocab_padded:  # a chunk step gathers before the head
+            if arch in RECURRENT:  # no chunk step; a decode row alone
+                cases[(arch, kn)].setdefault(1, [])
+            elif kn[1] != cfg.vocab_padded:  # a chunk step gathers before the head
                 cases[(arch, kn)].setdefault(128, [])
     keep, max_err = {}, 0.0
     for (arch, (kk, nn)), ms in cases.items():
@@ -1515,15 +1572,15 @@ def training_kernels(dev, detail):
 
 
 def _state_copy(tree):
-    return {k: _state_copy(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+    from repro_torch.models import spec
+
+    return spec.tree_map(lambda x: x.clone(), tree)
 
 
 def _state_load(dst, src):
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _state_load(dst[k], v)
-        else:
-            dst[k].copy_(v)
+    from repro_torch.models import spec
+
+    spec.tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
 def training(dev, detail):
@@ -1734,6 +1791,19 @@ def smoke_training(dev, archs, loss_rtol):
         out[arch] = row
     torch.use_deterministic_algorithms(deterministic)
     return out
+
+
+def recurrent_training(dev, detail):
+    """Phase 34: mamba2-2.7b and recurrentgemma-2b at smoke width
+    (``smoke_training`` with ``FAMILY_LOSS_RTOL``: CUDA against CPU, a step
+    twice, launches a step).  Full width does not fit one card's training
+    state at ~21 bytes a parameter (ROADMAP).  Returns the launches a step
+    by arch."""
+    phase("34 ssm and hybrid training at smoke width: CUDA vs CPU, a step twice, "
+          "launches a step")
+    res = smoke_training(dev, tuple(RECURRENT), FAMILY_LOSS_RTOL)
+    detail["recurrent_training"] = res
+    return {a: r["launches"] for a, r in res.items()}
 
 
 def family_training(dev, detail):
@@ -2475,12 +2545,138 @@ def family_serving(dev, detail):
     """Phases 29-30: internvl2-76b at its published widths and
     ``VLM_LAYERS`` layers (max_len 400: 256 patches, 128 tokens, 16 new),
     and whisper-large-v3 whole on ``ENCDEC_TRACE`` (max_len 64), through
-    phase 24's engine and gates.  Returns each one's K1 launches on its
-    main path."""
-    return {VLM_ARCH: dense_serving(dev, detail, VLM_ARCH, 29, n_layers=VLM_LAYERS,
-                                    max_len=400),
-            ENCDEC_ARCH: dense_serving(dev, detail, ENCDEC_ARCH, 30, max_len=64,
-                                       trace=ENCDEC_TRACE)}
+    phase 24's engine and gates; phases 32-33: mamba2-2.7b and
+    recurrentgemma-2b whole through the slot-row pool
+    (``recurrent_serving``).  Returns each one's K1 launches on its main
+    path."""
+    out = {VLM_ARCH: dense_serving(dev, detail, VLM_ARCH, 29, n_layers=VLM_LAYERS,
+                                   max_len=400),
+           ENCDEC_ARCH: dense_serving(dev, detail, ENCDEC_ARCH, 30, max_len=64,
+                                      trace=ENCDEC_TRACE)}
+    for number, arch in enumerate(RECURRENT, start=32):
+        out[arch] = recurrent_serving(dev, detail, arch, number)
+    return out
+
+
+def _state_bytes(cache):
+    """Bytes of a batch-1 cache's state leaves (``len`` aside): one slot's
+    recurrent state (and ring, for the hybrid's attention layers)."""
+    from repro_torch.models import spec
+
+    return sum(x.numel() * x.element_size() for name, x in spec.named_leaves(cache)
+               if name != "len")
+
+
+def recurrent_serving(dev, detail, arch, number):
+    """Phase 32 or 33: ``arch`` (mamba2-2.7b, recurrentgemma-2b) at full
+    width and depth (weights from seed 0, drawn leaf by leaf into served
+    form) through ``PoolEngine(max_slots=4)`` on its slot-row pool: no
+    pages, each admission a solo prefill.  A is the main path (its launch
+    counts set to 0 just before and read just after, its implicit host
+    syncs counted); C (each request alone) gives A's tokens bit for bit;
+    A's counters equal the CPU smoke-width run's; K1 launches
+    ``k1_per_pass`` times a weight pass (129 / 201), in a solo prefill and
+    in a 4-slot decode step; the prefill and decode-step wall times, one
+    profiled decode step (kernels, busy, K1 device ms beside its bytes
+    bound, idle share); the state bytes a slot; peak memory under
+    ``MOE_PEAK_GIB``.  Returns A's K1 launches."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry, spec
+    from repro_torch.serve import PoolEngine, poisson_trace, slots
+    from repro_torch.serve import quantized_weights as qw
+
+    cfg = configs.get_config(arch)
+    rc = RECURRENT[arch]
+    phase(f"{number} {arch} at full width and depth: slot-row pool, 4 slots, solo prefill")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = spec.materialize(
+        registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0),
+        transform=lambda name, x: qw.quantize_leaf(name, x, PAPER_FAITHFUL))
+    torch.cuda.synchronize()
+    res = {"params": dict(count=spec.count_params(registry.param_specs(cfg)),
+                          seconds=time.perf_counter() - t0,
+                          held_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
+    print("params:", json.dumps(res["params"]))
+    policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
+    reqs = poisson_trace(cfg, prompt_len=rc["prompt"], **RECURRENT_TRACE)
+    kw = dict(max_slots=4, max_len=rc["max_len"])
+    eng_a = PoolEngine(cfg, policy, params, device=dev, **kw)
+    eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    syncs = {}
+    out_a, wall, launches = _timed_run(eng_a, reqs, syncs)  # the main path
+    st = eng_a.last_stats
+    res["A"] = dict(_serve_row(st, wall, launches), implicit_syncs=syncs)
+    print("A (slot rows, 4 slots):", json.dumps(res["A"]))
+    port_syncs = {k: n for k, n in syncs.items() if k.startswith("src/")}
+    print(f"implicit host syncs in A made by the port: {port_syncs}")
+    if port_syncs:
+        raise SystemExit(f"{arch}: the engine synchronized outside its token copy: {port_syncs}")
+    if launches != expected_k1(cfg, st):
+        raise SystemExit(f"{arch}: K1 launched {launches} times in A, expected "
+                         f"{expected_k1(cfg, st)} ({k1_per_pass(cfg)} x {st.weight_passes} "
+                         "weight passes)")
+    check_tokens(cfg, reqs, out_a)
+    _check_counters("A", st, _cpu_counters(reqs, kw, SERVE_COUNTERS, arch))
+    eng_c = PoolEngine(cfg, policy, params, device=dev, **dict(kw, max_slots=1))
+    same_c = [bool(np.array_equal(eng_c.run([dataclasses.replace(r, arrival=0)])[r.uid],
+                                  out_a[r.uid])) for r in reqs]
+    print(f"A == C (each request alone): {same_c}")
+    if not all(same_c):
+        raise SystemExit(f"{arch}: pooled tokens differ from solo")
+    pol = eng_a.policy
+    with torch.inference_mode():
+        pool = registry.init_pool_cache(cfg, 4, rc["max_len"], device=dev)
+        t_prefill, prefill_launches = [], []
+        for s, r in enumerate(reqs):
+            mini = registry.init_cache(cfg, 1, rc["max_len"], device=dev)
+            toks = torch.as_tensor(r.tokens, dtype=torch.int64, device=dev)
+            _zero_launches()
+            t_prefill.append(_wall(lambda: registry.prefill(cfg, pol, params,
+                                                            {"tokens": toks}, mini)))
+            prefill_launches.append(K.potq_matmul_cuda.launches)
+            slots.write_slot(pool, mini, s)
+        state_bytes = _state_bytes(mini)
+        tok = torch.zeros(4, dtype=torch.int64, device=dev)
+        _zero_launches()
+        logits, pool = registry.decode_step(cfg, pol, params, tok, pool)
+        torch.cuda.synchronize()
+        decode_launches = K.potq_matmul_cuda.launches
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"{arch}: non-finite decode logits")
+        if set(prefill_launches) != {k1_per_pass(cfg)} or decode_launches != k1_per_pass(cfg):
+            raise SystemExit(f"{arch}: K1 launched {prefill_launches} times in a solo prefill "
+                             f"and {decode_launches} in a decode step, expected "
+                             f"{k1_per_pass(cfg)}")
+        t_decode = [_wall(lambda: registry.decode_step(cfg, pol, params, tok, pool))
+                    for _ in range(3)]
+        prof = _profiled(lambda: registry.decode_step(cfg, pol, params, tok, pool),
+                         min(t_decode))
+    # K1's bytes bound over one decode weight pass (M = 4): each bf16
+    # operand read once, the f32 output written once
+    prof["k1_bytes_bound_ms"] = decode_pass_bytes(cfg) / PEAK_BYTES * 1e3
+    res["steps"] = dict(prefill_ms=[t * 1e3 for t in t_prefill],
+                        decode_step_ms=[t * 1e3 for t in t_decode],
+                        k1_launches_prefill=prefill_launches[0],
+                        k1_launches_decode_step=decode_launches,
+                        state_bytes_per_slot=state_bytes, profiled_decode_step=prof)
+    print(f"{arch}: solo prefills (M={rc['prompt']}) "
+          f"{[round(t * 1e3, 1) for t in t_prefill]} ms, decode steps (4 slots) "
+          f"{[round(t * 1e3, 1) for t in t_decode]} ms; state {state_bytes} bytes a slot")
+    print(f"{arch}: profiled decode step (K1 device ms against its "
+          f"{prof['k1_bytes_bound_ms']:.2f} ms bytes bound):", json.dumps(prof))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{arch}: peak device memory over the phase {res['peak_gib']:.2f} GiB")
+    if res["peak_gib"] >= MOE_PEAK_GIB:
+        raise SystemExit(f"{arch}: the phase peaked at {res['peak_gib']:.1f} GiB, over "
+                         f"{MOE_PEAK_GIB}")
+    detail[f"serving_{arch}"] = res
+    del params, eng_a, eng_c, pool, mini
+    torch.cuda.empty_cache()
+    return launches
 
 
 def moe_serving(dev, detail):

@@ -17,8 +17,9 @@ checkpoints:
 * **keep**: after each write only the ``keep`` newest steps remain.
 
 Leaf names come from :func:`repro_torch.models.spec.named_leaves` (sorted
-keys joined by ``/``: ``layers/wq/w``, ``m/embed``), the naming rule of
-the reference's ``_flatten_with_names`` for trees of dicts.  numpy has no
+keys, and a tuple entry's index, joined by ``/``: ``layers/wq/w``,
+``m/embed``, ``layers/2/wq/w``), the naming rule of the reference's
+``_flatten_with_names``.  numpy has no
 bfloat16, so a bf16 leaf is refused: training state is float32, and a
 packed weight tree holds int8 codes and int32 betas.
 """
@@ -35,7 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.spec import named_leaves, set_leaf
+from repro_torch.models.spec import named_leaves, unflatten
 
 
 def _snapshot(tree) -> Dict[str, np.ndarray]:
@@ -139,7 +140,7 @@ class CheckpointManager:
         d = os.path.join(self.directory, f"step_{step:010d}")
         out, nbytes = {}, 0
         for group, tree in template.items():
-            restored: Dict = {}
+            restored = []
             with np.load(os.path.join(d, f"{group}.npz")) as z:
                 for name, like in named_leaves(tree):
                     if name not in z:
@@ -151,8 +152,8 @@ class CheckpointManager:
                             f"{tuple(x.shape)}, the template's {like.dtype} "
                             f"{tuple(like.shape)}")
                     nbytes += x.numel() * x.element_size()
-                    set_leaf(restored, name, x.to(like.device if device is None else device))
-            out[group] = restored
+                    restored.append((name, x.to(like.device if device is None else device)))
+            out[group] = unflatten(restored)
         self.timings.append(dict(op="restore", step=step, bytes=nbytes,
                                  seconds=time.perf_counter() - t0))
         return out

@@ -1,11 +1,11 @@
 """Config registry: ``get_config(arch_id)``, per-shape adaptations and
 reduced smoke variants.
 
-Only the architectures the port runs so far are registered: the decoders,
-dense (llama3-8b, mistral-nemo-12b, starcoder2-7b for serving, olmo-1b
-for training) and MoE (llama4-scout-17b-a16e, grok-1-314b), the vlm
-internvl2-76b and the encoder-decoder whisper-large-v3; the hybrid and
-ssm archs arrive with their model families.
+Every architecture of the reference is registered: the decoders, dense
+(llama3-8b, mistral-nemo-12b, starcoder2-7b for serving, olmo-1b for
+training) and MoE (llama4-scout-17b-a16e, grok-1-314b), the vlm
+internvl2-76b, the hybrid recurrentgemma-2b, the encoder-decoder
+whisper-large-v3 and the ssm mamba2-2.7b.
 """
 from __future__ import annotations
 
@@ -33,7 +33,9 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "olmo-1b": "olmo_1b",
     "internvl2-76b": "internvl2_76b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "whisper-large-v3": "whisper_large_v3",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -61,21 +63,27 @@ def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the reference's
     ``repro.configs.smoke_config`` cut: MoE keeps 4 experts and at most
     top-2; encdec 2 encoder layers over 12 frames of 24; vlm 4 patches
-    of 24)."""
+    of 24; hybrid 3 layers, an RG-LRU of width 96; ssm a state of 16 and
+    chunks of 8, its head fields left as they are)."""
     cfg = get_config(arch)
     kw: Dict = dict(
-        n_layers=2,
+        n_layers=3 if cfg.family == "hybrid" else 2,
         d_model=64,
         vocab=257,
         vocab_pad_multiple=64,
     )
-    ratio = max(1, cfg.n_heads // cfg.kv_heads)
-    kw.update(n_heads=4, kv_heads=max(1, 4 // ratio), head_dim=16, d_ff=128)
+    if cfg.family == "ssm":
+        kw.update(ssm_state=16, ssm_chunk=8)
+    else:
+        ratio = max(1, cfg.n_heads // cfg.kv_heads)
+        kw.update(n_heads=4, kv_heads=max(1, 4 // ratio), head_dim=16, d_ff=128)
     if cfg.moe is not None:
         kw.update(moe=dataclasses.replace(cfg.moe, num_experts=4,
                                           top_k=min(cfg.moe.top_k, 2)))
     if cfg.window is not None:
         kw.update(window=8)
+    if cfg.family == "hybrid":
+        kw.update(lru_width=96)
     if cfg.family == "encdec":
         kw.update(enc_layers=2, enc_seq=12, frame_dim=24)
     if cfg.family == "vlm":

@@ -5,7 +5,8 @@ config) alone, drawn from a ``torch.Generator`` seeded by (seed, step).
 It cannot give the reference's jax.random bits, so the tests hand both
 packages the same numpy batches; the structure is the reference's: a
 Zipf-ish marginal, an induction period of s//2 (the second half repeats
-the first), labels rolled by one, the last position masked out.  The
+the first), labels rolled by one, the last position masked out: a
+decoder's, an ssm's or a hybrid's batch is these three alone.  The
 modality frontends are stubs, as in the reference: an encdec batch adds
 ``frames`` (B, enc_seq, frame_dim) and a vlm batch ``patch_embeds`` (B,
 num_patches, patch_dim), normal draws times 0.1; a vlm's patches and

@@ -5,8 +5,9 @@
 
 Every arch the port registers trains through ``registry.loss_fn``, the
 vlm (internvl2-76b, its batches with patch embeddings; ``--smoke`` on one
-card) and encdec (whisper-large-v3, with frames, at full width) ones
-included.  Runs on the card by default (``--device cuda``); there is no
+card), encdec (whisper-large-v3, with frames, at full width), ssm
+(mamba2-2.7b) and hybrid (recurrentgemma-2b: tokens-only batches, a tuple
+of per-layer parameter dicts; ``--smoke`` on one card) ones included.  Runs on the card by default (``--device cuda``); there is no
 CPU fallback.
 Parameters are drawn from seed 0 on the device, batches come from the
 step-indexed synthetic pipeline, and the schedules are the reference's

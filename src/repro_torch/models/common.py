@@ -57,5 +57,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def softplus(x):
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it (logaddexp(x, 0))."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def gelu(x):
     return F.gelu(x.to(torch.float32), approximate="tanh").to(x.dtype)

@@ -1,70 +1,85 @@
-"""Family dispatch (port of ``repro/models/registry.py``): one API over the
-families the port runs.  ``batch`` is a dict; its keys by family:
+"""Family dispatch (port of ``repro/models/registry.py``): one API over
+every model family.  ``batch`` is a dict; its keys by family:
 
-  decoder   tokens, labels, mask
-  vlm       tokens, labels, mask, patch_embeds
-  encdec    tokens, labels, mask, frames
+  decoder        tokens, labels, mask
+  vlm            tokens, labels, mask, patch_embeds
+  encdec         tokens, labels, mask, frames
+  hybrid / ssm   tokens, labels, mask
 
-Specs, loss, prefill, the lockstep cache, the paged pool cache
-(PoT-quantized pages or ``cache_dtype`` ones), lockstep and pooled
-decode, the fused chunk step of chunked piggybacked prefill, the
+Specs, loss, prefill, the lockstep cache, the pool cache (block-table
+paged for the attention families, PoT-quantized pages or ``cache_dtype``
+ones; the lifted slot-row layout for the recurrent ones), lockstep and
+pooled decode, the fused chunk step of chunked piggybacked prefill, the
 speculative verify step and encdec's encoder-side admission
-(:func:`encode_cross_kv`).  The hybrid and ssm families are not ported
-yet (ROADMAP.md, Queue 1 items 6.4-6.5) and raise here."""
+(:func:`encode_cross_kv`).  The recurrent families (hybrid, ssm) have no
+chunk or verify step, as in the reference."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, recurrent, ssm, transformer
 
-#: families the port runs so far
-PORTED_FAMILIES = ("decoder", "vlm", "encdec")
+#: families the port runs
+PORTED_FAMILIES = ("decoder", "vlm", "encdec", "hybrid", "ssm")
+
+#: families whose ``decode_step`` takes the slot-pooled cache (per-slot
+#: ``len``; the attention families' per-slot positions, the recurrent
+#: state per row by construction)
+POOLED_FAMILIES = ("decoder", "vlm", "encdec", "ssm", "hybrid")
 
 #: families whose ``chunk_step`` fuses decode rows and prefill-chunk rows
 #: into one pooled step
 CHUNKED_FAMILIES = ("decoder", "vlm", "encdec")
 
-#: families whose pool cache is block-table paged (serve/slots.py)
+#: families whose pool cache is block-table paged (serve/slots.py); the
+#: recurrent state of ssm and hybrid is O(1) in length, nothing to page,
+#: so they keep the lifted slot-row layout
 PAGED_FAMILIES = ("decoder", "vlm", "encdec")
 
 #: families with a speculative-decoding ``verify_step``
 SPEC_FAMILIES = ("decoder", "vlm", "encdec")
 
 
-def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the hybrid and ssm families "
-            "come in a later slice of repro_torch (ROADMAP.md, Queue 1 items 6.4-6.5)"
-        )
+_MODULES = {"decoder": transformer, "vlm": transformer, "encdec": encdec,
+            "hybrid": recurrent, "ssm": ssm}
 
 
 def _model(cfg: ModelConfig):
     """The module of ``cfg``'s family (vlm runs the decoder's)."""
-    _check(cfg)
-    return encdec if cfg.family == "encdec" else transformer
+    if cfg.family not in _MODULES:
+        raise ValueError(cfg.family)
+    return _MODULES[cfg.family]
 
 
 def param_specs(cfg: ModelConfig):
-    _check(cfg)
     if cfg.family == "encdec":
         return encdec.encdec_specs(cfg)
-    return transformer.decoder_specs(cfg)
+    if cfg.family == "ssm":
+        return ssm.ssm_specs(cfg)
+    if cfg.family == "hybrid":
+        return recurrent.hybrid_specs(cfg)
+    return _model(cfg).decoder_specs(cfg)
 
 
 def loss_fn(cfg: ModelConfig, policy, params, batch):
     """Training loss of a batch dict (its family's keys)."""
-    _check(cfg)
     if cfg.family == "encdec":
         return encdec.lm_loss(cfg, policy, params, batch["tokens"], batch["frames"],
                               batch["labels"], batch["mask"])
-    return transformer.lm_loss(cfg, policy, params, batch["tokens"], batch["labels"],
+    if cfg.family in ("ssm", "hybrid"):
+        return _model(cfg).lm_loss(cfg, policy, params, batch["tokens"], batch["labels"],
+                                   batch["mask"])
+    return _model(cfg).lm_loss(cfg, policy, params, batch["tokens"], batch["labels"],
                                batch["mask"], patch_embeds=batch.get("patch_embeds"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device):
+    """The lockstep (and solo-prefill) cache.  An ssm's takes no dtype from
+    here: its states are f32, as in the reference."""
+    if cfg.family == "ssm":
+        return ssm.init_cache(cfg, batch, max_len, device=device)
     return _model(cfg).init_cache(cfg, batch, max_len, dtype, device=device)
 
 
@@ -76,29 +91,41 @@ def pool_span(cfg: ModelConfig, max_len: int) -> int:
 def init_pool_cache(cfg: ModelConfig, max_slots: int, max_len: int,
                     dtype=torch.bfloat16, *, device, page_size=None,
                     num_pages=None, kv_quant=None):
-    """Pooled decode cache, built once per engine, in the block-table
-    paged layout (``serve.slots.page_pool_cache``): pages of ``page_size``
-    positions (default the whole span, one page per slot), ``num_pages``
-    physical pages (default ``max_slots * span / page_size``) plus the
-    null page, and a (max_slots, span / page_size) page table.
-    ``kv_quant`` (a ``core.policy.KVQuantSpec``) stores the K/V pages in
-    the PoT wire format with per-token ``k_beta``/``v_beta`` leaves."""
-    _check(cfg)
+    """Pooled decode cache, built once per engine.  The attention families
+    (``PAGED_FAMILIES``) get the block-table paged layout
+    (``serve.slots.page_pool_cache``): pages of ``page_size`` positions
+    (default the whole span, one page per slot), ``num_pages`` physical
+    pages (default ``max_slots * span / page_size``) plus the null page,
+    and a (max_slots, span / page_size) page table; ``kv_quant`` (a
+    ``core.policy.KVQuantSpec``) stores the K/V pages in the PoT wire
+    format with per-token ``k_beta``/``v_beta`` leaves.  The recurrent
+    families keep the lifted slot-row layout (``serve.slots.lift_cache``:
+    per-slot ``len`` and attention ``pos``) and refuse the paged knobs."""
+    if cfg.family not in POOLED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} does not support slot-pooled decode "
+            f"(supported: {POOLED_FAMILIES})")
     from repro_torch.serve import slots
 
     base = init_cache(cfg, max_slots, max_len, dtype, device=device)
-    return slots.page_pool_cache(base, max_slots,
-                                 page_size or pool_span(cfg, max_len), num_pages,
-                                 kv_quant=kv_quant)
+    if cfg.family in PAGED_FAMILIES:
+        return slots.page_pool_cache(base, max_slots,
+                                     page_size or pool_span(cfg, max_len), num_pages,
+                                     kv_quant=kv_quant)
+    if page_size is not None or num_pages is not None or kv_quant is not None:
+        raise ValueError(f"family {cfg.family!r} has no paged cache "
+                         f"(paged: {PAGED_FAMILIES})")
+    return slots.lift_cache(base, max_slots)
 
 
 def prefill(cfg, policy, params, batch, cache):
     """Prefill of a batch dict: ``tokens``, and a vlm's ``patch_embeds``
     (optional) or an encdec's ``frames``."""
-    _check(cfg)
     if cfg.family == "encdec":
         return encdec.prefill(cfg, policy, params, batch["tokens"], batch["frames"], cache)
-    return transformer.prefill(cfg, policy, params, batch["tokens"], cache,
+    if cfg.family in ("ssm", "hybrid"):
+        return _model(cfg).prefill(cfg, policy, params, batch["tokens"], cache)
+    return _model(cfg).prefill(cfg, policy, params, batch["tokens"], cache,
                                patch_embeds=batch.get("patch_embeds"))
 
 
@@ -112,6 +139,10 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
     rows none.  ``n_new`` (B,) counts each slot's valid positions and is
     read on the host.  Returns (logits (B, V) at each slot's last valid
     position, the cache updated in place).  Paged pool caches only."""
+    if cfg.family not in CHUNKED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no fused chunk step "
+            f"(supported: {CHUNKED_FAMILIES})")
     return _model(cfg).chunk_step(cfg, policy, params, tokens, n_new, cache)
 
 
@@ -122,6 +153,10 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
     Returns (logits (B, C, V), position i scoring the successor of
     ``tokens[b, i]``; the cache updated in place, ``len += n_new``).
     Paged pool caches only; serve/spec.py owns acceptance and rollback."""
+    if cfg.family not in SPEC_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no speculative verify step "
+            f"(supported: {SPEC_FAMILIES})")
     return _model(cfg).verify_step(cfg, policy, params, tokens, n_new, cache)
 
 

@@ -1,0 +1,350 @@
+"""Mamba2 (SSD, state-space duality, arXiv:2405.21060) backbone (port of
+``repro/models/ssm.py``: specs, forward, loss, prefill and decode).
+
+Chunked SSD: inside a chunk of Q positions the output is an
+attention-like pair of products (C B^T masked by the cumulative decay,
+times X); across chunks a small state (H, N, P) is carried by a
+sequential loop over the chunks.  The in/out projections and the head
+are MF-MAC quantized linear layers (``mf_linear``: K1 forward, K2/K3
+backward); the causal conv, the state recurrence and the SSD products
+stay FP32 elementwise ops and f32 matmuls, as in the reference.
+
+Decode keeps (conv_state, ssm_state) per layer: O(1) memory in sequence
+length.  Like ``models/transformer.py``, decode runs its row reductions
+one row at a time (the norms and the ``C · h`` contraction, through
+``transformer._rows``), so a slot in a pool of four runs the very
+programs of a request served alone; everything else of a decode step is
+elementwise or K1, both row-independent.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mfmac
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.models import common
+from repro_torch.models.spec import ParamSpec
+from repro_torch.models.transformer import _layer, _rows, _unbind_layers, next_token_loss
+
+HEADDIM = 64  # Mamba2's default head dim P
+
+
+def _dims(cfg: ModelConfig):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // HEADDIM
+    n = cfg.ssm_state
+    # in_proj emits [z, x, B, C, dt]: d_inner + d_inner + N + N + nheads
+    d_in = 2 * d_inner + 2 * n + nheads
+    return d_inner, nheads, n, d_in
+
+
+def _linear(shape, axes, std):
+    if axes and axes[0] == "layer":
+        gshape, gaxes = (shape[0],), ("layer",)
+    else:
+        gshape, gaxes = (), ()
+    return {
+        "w": ParamSpec(shape, axes, std=std),
+        "gamma": ParamSpec(gshape, gaxes, init="value", value=0.95),
+    }
+
+
+def ssm_specs(cfg: ModelConfig):
+    L, d = cfg.n_layers, cfg.d_model
+    d_inner, nheads, n, d_in = _dims(cfg)
+    std = 0.02
+    conv_ch = d_inner + 2 * n  # the conv runs over x, B, C
+    layer = {
+        "norm": {"scale": ParamSpec((L, d), ("layer", None), init="ones")},
+        "in_proj": _linear((L, d, d_in), ("layer", "embed", "ffn"), std),
+        "conv_w": ParamSpec((L, cfg.conv_width, conv_ch), ("layer", None, None), std=0.2),
+        "conv_b": ParamSpec((L, conv_ch), ("layer", None), init="zeros"),
+        "A_log": ParamSpec((L, nheads), ("layer", None), init="value", value=0.0),
+        "D": ParamSpec((L, nheads), ("layer", None), init="ones"),
+        "dt_bias": ParamSpec((L, nheads), ("layer", None), init="zeros"),
+        "out_norm": {"scale": ParamSpec((L, d_inner), ("layer", None), init="ones")},
+        "out_proj": _linear((L, d_inner, d), ("layer", "ffn", "embed"), std),
+    }
+    return {
+        "embed": ParamSpec((cfg.vocab_padded, d), ("vocab", "embed"), std=0.02),
+        "layers": layer,
+        "final_norm": {"scale": ParamSpec((d,), (None,), init="ones")},
+        "lm_head": _linear((d, cfg.vocab_padded), ("embed", "vocab"), std),
+    }
+
+
+def _split_proj(cfg, zxbcdt):
+    d_inner, _, n, _ = _dims(cfg)
+    z = zxbcdt[..., :d_inner]
+    x = zxbcdt[..., d_inner:2 * d_inner]
+    bb = zxbcdt[..., 2 * d_inner:2 * d_inner + n]
+    cc = zxbcdt[..., 2 * d_inner + n:2 * d_inner + 2 * n]
+    dt = zxbcdt[..., 2 * d_inner + 2 * n:]
+    return z, x, bb, cc, dt
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x: (B, S, C), w: (W, C).  The taps are summed
+    one by one, in order (W is 4)."""
+    width = w.shape[0]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + xp[:, i:i + x.shape[1], :] * w[i]
+    return F.silu((out + b).to(torch.float32)).to(x.dtype)
+
+
+def _cumsum(x, dim: int):
+    """Inclusive prefix sum along ``dim`` by log2(n) doubling steps of
+    shifted adds: elementwise ops only, so its bits never depend on a
+    library scan kernel's choices, under the trainer's deterministic
+    mode or not.  Its order is not the reference's ``jnp.cumsum``'s; the
+    two agree within rounding."""
+    n = x.shape[dim]
+    d = 1
+    while d < n:
+        head = x.narrow(dim, 0, d)
+        x = torch.cat([head, x.narrow(dim, d, n - d) + x.narrow(dim, 0, n - d)], dim=dim)
+        d *= 2
+    return x
+
+
+def _ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int, with_final: bool = False):
+    """SSD forward. x: (B, S, H, P); dt: (B, S, H); b, c: (B, S, N).
+
+    Returns y (B, S, H, P) in f32, and with ``with_final`` the state after
+    the last position (B, H, N, P).  One B/C group shared by every head
+    (G = 1).  S must be a multiple of ``chunk``: padding the sequence
+    would change the final state.
+
+    The reference runs the intra-chunk product ``HEAD_GROUP`` heads at a
+    time to bound its memory; every head here goes at once (a serving
+    prompt's (NC, Q, Q, H) mask is a few tens of MB at full width), in the
+    reference's 2-operand steps, so no (B, NC, Q, N, H) temporary is made.
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // chunk
+    if nc * chunk != s:
+        raise ValueError(f"SSD: sequence length {s} is not a multiple of the chunk "
+                         f"{chunk} {(s, chunk)}")
+    a = -torch.exp(a_log)  # (H,) negative decay rates
+    dt = common.softplus(dt.to(torch.float32))  # (B, S, H)
+    da = dt * a  # (B, S, H) log-decay a step
+    xdt = x.to(torch.float32) * dt[..., None]
+
+    xc = xdt.reshape(bsz, nc, chunk, h, p)
+    dac = da.reshape(bsz, nc, chunk, h)
+    bc = b.to(torch.float32).reshape(bsz, nc, chunk, n)
+    cc = c.to(torch.float32).reshape(bsz, nc, chunk, n)
+
+    cum = _cumsum(dac, 2)  # (B, NC, Q, H) inclusive cumsum of log decay
+    qi = torch.arange(chunk, device=x.device)
+    causal = qi[:, None] >= qi[None, :]
+    # (Q, Q) scores shared by every head (G = 1): C_q · B_k, causal-masked
+    scores = torch.einsum("bzqn,bzkn->bzqk", cc, bc)
+    scores = torch.where(causal, scores, torch.zeros_like(scores))
+
+    # intra-chunk: the per-head decay mask exp(cum_q - cum_k), (B, NC, Q, Q, H),
+    # zero above the diagonal (exp(-inf): the masked entries, which can
+    # overflow, never reach exp or its gradient)
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    lm = torch.exp(li.masked_fill(~causal[:, :, None], float("-inf")))
+    m = scores[..., None] * lm
+    y_intra = torch.einsum("bzqkh,bzkhp->bzqhp", m, xc)
+
+    # chunk-final states: S_z = sum_k exp(cum_end - cum_k) * B_k ⊗ x_k
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, NC, Q, H)
+    wx = xc * decay_to_end[..., None]  # (B, NC, Q, H, P)
+    states = torch.einsum("bzkn,bzkhp->bzhnp", bc, wx)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, NC, H) a chunk's total decay
+
+    # sequential loop over the chunks, carrying the state (B, H, N, P)
+    hcur = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    hprevs = []
+    for z in range(nc):
+        hprevs.append(hcur)
+        hcur = hcur * chunk_decay[:, z, :, None, None] + states[:, z]
+    hprevs = torch.stack(hprevs, dim=1)  # (B, NC, H, N, P): the state entering a chunk
+
+    # inter-chunk: y_q += (C_q · h_in) * exp(cum_q)
+    t = torch.einsum("bzqn,bzhnp->bzqhp", cc, hprevs)
+    y_inter = t * torch.exp(cum)[..., None]
+
+    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    y = y + d_skip[None, None, :, None] * x.to(torch.float32)
+    if with_final:
+        return y, hcur
+    return y
+
+
+def _mixer(cfg, policy, lp, x, chunk):
+    """The block's SSD mixer over a whole sequence.  Returns (the block's
+    output, the conv window of its last W - 1 inputs, the final state)."""
+    d_inner, nheads, n, _ = _dims(cfg)
+    h = common.rms_norm(x, lp["norm"]["scale"])
+    zxbcdt = mfmac.mf_linear(h, lp["in_proj"]["w"], lp["in_proj"]["gamma"], policy=policy)
+    z, xs, bb, cc, dt = _split_proj(cfg, zxbcdt)
+    conv_in = torch.cat([xs, bb, cc], dim=-1)
+    conv_state = conv_in[:, conv_in.shape[1] - (cfg.conv_width - 1):, :]
+    conv_out = _causal_conv(conv_in, lp["conv_w"], lp["conv_b"])
+    xs = conv_out[..., :d_inner]
+    bb = conv_out[..., d_inner:d_inner + n]
+    cc = conv_out[..., d_inner + n:]
+    bsz, s, _ = xs.shape
+    xh = xs.reshape(bsz, s, nheads, HEADDIM)
+    y, final = _ssd_chunked(xh, dt + lp["dt_bias"], lp["A_log"], bb, cc, lp["D"], chunk,
+                            with_final=True)
+    y = y.reshape(bsz, s, d_inner).to(x.dtype)
+    y = y * F.silu(z.to(torch.float32)).to(x.dtype)
+    y = common.rms_norm(y, lp["out_norm"]["scale"])
+    out = mfmac.mf_linear(y, lp["out_proj"]["w"], lp["out_proj"]["gamma"], policy=policy)
+    return x + out, conv_state, final
+
+
+def _block(cfg, policy, lp, x, chunk):
+    return _mixer(cfg, policy, lp, x, chunk)[0]
+
+
+def _head(policy, params, x):
+    x = common.rms_norm(x, params["final_norm"]["scale"])
+    hp = params["lm_head"]
+    return mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
+
+
+def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: bool = False):
+    """Full-sequence forward: logits (B, S, V_padded).  ``remat``
+    recomputes each layer in the backward (when grad is on), as the
+    reference's ``jax.checkpoint`` around its layer scan."""
+    x = F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.act_dtype))
+    chunk = min(cfg.ssm_chunk, x.shape[1])
+    layers = _unbind_layers(params["layers"])
+    recompute = remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        lp = _layer(layers, i)
+        if recompute:
+            x = checkpoint(_block, cfg, policy, lp, x, chunk, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(cfg, policy, lp, x, chunk)
+    return _head(policy, params, x)
+
+
+def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, labels, loss_mask,
+            *, remat: bool = True) -> torch.Tensor:
+    logits = forward(cfg, policy, params, tokens, remat=remat)
+    return next_token_loss(cfg, logits, labels, loss_mask)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, *, device):
+    """Per-layer conv windows (W - 1 inputs) and SSM states, both f32 by
+    default (the registry passes no dtype, as the reference's does)."""
+    d_inner, nheads, n, _ = _dims(cfg)
+    conv_ch = d_inner + 2 * n
+    L = cfg.n_layers
+    return {
+        "conv": torch.zeros((L, batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((L, batch, nheads, n, HEADDIM), dtype=torch.float32,
+                           device=device),
+        "len": torch.zeros((), dtype=torch.int64, device=device),
+    }
+
+
+def _contract_c(cc, state):
+    """y = C · h over the state axis: (B, N) x (B, H, N, P) -> (B, H, P)."""
+    return torch.einsum("bn,bhnp->bhp", cc, state)
+
+
+def _block_decode(cfg, policy, lp, x, conv_state, ssm_state):
+    """x: (B, 1, D).  Returns (y, the new conv window, the new SSM state)."""
+    d_inner, nheads, n, _ = _dims(cfg)
+    norm = lambda r: common.rms_norm(r, lp["norm"]["scale"])  # noqa: E731
+    h = _rows(norm, x)
+    zxbcdt = mfmac.mf_linear(h, lp["in_proj"]["w"], lp["in_proj"]["gamma"], policy=policy)
+    z, xs, bb, cc, dt = _split_proj(cfg, zxbcdt)
+    conv_in = torch.cat([xs, bb, cc], dim=-1)  # (B, 1, C)
+    # an f32 window promotes the new row, as jnp.concatenate does
+    wdt = torch.promote_types(conv_state.dtype, conv_in.dtype)
+    window = torch.cat([conv_state.to(wdt), conv_in.to(wdt)], dim=1)  # (B, W, C)
+    w = lp["conv_w"]  # (W, C)
+    # the reference's jnp.sum over the window, its taps added in order:
+    # elementwise, so a row never depends on its neighbours
+    acc = window[:, 0] * w[0]
+    for i in range(1, w.shape[0]):
+        acc = acc + window[:, i] * w[i]
+    conv_out = (acc[:, None, :] + lp["conv_b"])
+    conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)
+    new_conv_state = window[:, 1:, :]
+
+    xs = conv_out[..., :d_inner]
+    bb = conv_out[..., d_inner:d_inner + n].to(torch.float32)
+    cc = conv_out[..., d_inner + n:].to(torch.float32)
+    bsz = xs.shape[0]
+    xh = xs.reshape(bsz, nheads, HEADDIM).to(torch.float32)
+    dtv = common.softplus((dt[:, 0, :] + lp["dt_bias"]).to(torch.float32))  # (B, H)
+    a = -torch.exp(lp["A_log"])  # (H,)
+    decay = torch.exp(dtv * a)  # (B, H)
+    # h' = decay * h + dt * B ⊗ x ;  y = C · h' + D * x
+    # the outer product B ⊗ (dt x) of each row: (B, H, N, P)
+    outer = bb[:, 0, None, :, None] * (xh * dtv[..., None])[:, :, None, :]
+    new_ssm = ssm_state * decay[:, :, None, None] + outer
+    y = _rows(_contract_c, cc[:, 0, :], new_ssm)
+    y = y + lp["D"][None, :, None] * xh
+    y = y.reshape(bsz, 1, d_inner)
+    y = y * F.silu(z.to(torch.float32))
+    out_norm = lambda r: common.rms_norm(r, lp["out_norm"]["scale"])  # noqa: E731
+    y = _rows(out_norm, y.to(x.dtype))
+    out = mfmac.mf_linear(y, lp["out_proj"]["w"], lp["out_proj"]["gamma"], policy=policy)
+    return x + out, new_conv_state, new_ssm
+
+
+def prefill(cfg, policy, params, tokens, cache):
+    """Run the prompt through the model and fill ``cache`` in place with
+    each layer's last W - 1 conv inputs and its SSD state after the
+    prompt; returns the last position's logits and the cache.  The prompt
+    needs at least W - 1 tokens (the conv window), and past one SSD chunk
+    a multiple of it.  The LM head runs over every prompt position, one
+    activation-scale group, as the reference's does."""
+    s = tokens.shape[1]
+    if s < cfg.conv_width - 1:
+        raise ValueError(f"ssm prefill: a prompt of {s} tokens is shorter than the conv "
+                         f"window ({cfg.conv_width - 1})")
+    x = F.embedding(tokens, params["embed"])
+    chunk = min(cfg.ssm_chunk, s)
+    layers = _unbind_layers(params["layers"])
+    for i in range(cfg.n_layers):
+        x, conv_state, final = _mixer(cfg, policy, _layer(layers, i), x, chunk)
+        cache["conv"][i].copy_(conv_state)
+        cache["ssm"][i].copy_(final)
+    logits = _head(policy, params, x[:, -1:, :])[:, 0, :]
+    cache["len"] = torch.full((), s, dtype=cache["len"].dtype, device=tokens.device)
+    return logits, cache
+
+
+def decode_step(cfg, policy, params, token, cache):
+    """One decode step.  token: (B,) -> (logits (B, V), cache).  The conv
+    windows and SSM states are written into ``cache`` in place and
+    ``len`` is replaced: a scalar (lockstep, ``registry.init_cache``) or
+    (B,) per slot (``serve.slots.lift_cache``); the states are per row in
+    either layout."""
+    x = params["embed"][token[:, None]]  # (B, 1, D)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        x, conv, ssm_state = _block_decode(cfg, policy, lp, x, cache["conv"][i],
+                                           cache["ssm"][i])
+        cache["conv"][i].copy_(conv)
+        cache["ssm"][i].copy_(ssm_state)
+    fn = lambda r: common.rms_norm(r, params["final_norm"]["scale"])  # noqa: E731
+    x = _rows(fn, x)
+    hp = params["lm_head"]
+    logits = mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)[:, 0, :]
+    cache["len"] = cache["len"] + 1
+    return logits, cache

@@ -570,9 +570,10 @@ def _norm_fn(cfg, p):
 
 class DecodeSlots:
     """The cache addresses of one decode step, shared by every layer (and
-    by ``models/encdec.py``): the position each row writes, the rows'
-    query positions and the ``pos`` view they attend against.  Building
-    it writes the new positions into a paged ``pos``."""
+    by ``models/encdec.py``, and by each attention layer of
+    ``models/recurrent.py`` over its own ring): the position each row
+    writes, the rows' query positions and the ``pos`` view they attend
+    against.  Building it writes the new positions into a paged ``pos``."""
 
     def __init__(self, cache, token, spec):
         pos = cache["len"]

@@ -1,7 +1,8 @@
 """Optimizers, from scratch (port of ``repro/optim/optimizers.py``).
 
 SGD with momentum (the paper's CNN recipe) and Adam(W) (its Transformer
-recipe), over nested dicts of tensors shaped like the parameters.  Master
+recipe), over nested trees (dicts, and tuples) of tensors shaped like the
+parameters.  Master
 weights and optimizer state are float32; only the linear layers' MACs
 are quantized, the update itself is full precision.
 
@@ -24,6 +25,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.spec import named_leaves, tree_map  # noqa: F401
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -31,20 +34,11 @@ class Optimizer:
     update: Callable
 
 
-def tree_map(fn, tree, *rest):
-    """Apply ``fn`` to matching leaves of nested dicts (same structure)."""
-    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
-
-
 def tree_leaves(tree):
-    """Leaves in sorted key order (the order JAX flattens dicts in)."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from tree_leaves(v)
-        else:
-            yield v
+    """Leaves in the order JAX flattens the tree (dict keys sorted, tuple
+    entries by index)."""
+    for _, v in named_leaves(tree):
+        yield v
 
 
 def _f32(x) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Serving engines (port of ``repro/serve/engine.py``: ``PoolEngine``,
 ``generate`` and ``lockstep_generate``).
 
-:class:`PoolEngine` keeps one block-table paged KV cache (built once,
-``registry.init_pool_cache``; ``serve/slots.py``) and admits queued
-requests into free slots mid-flight, in one of two ways:
+:class:`PoolEngine` keeps one pool cache (built once,
+``registry.init_pool_cache``; ``serve/slots.py``), block-table paged for
+the attention families, and admits queued requests into free slots
+mid-flight, in one of two ways:
 
 * solo prefill (default): a batch-1 prefill whose cache is copied into
   the slot's pages, one extra weight pass per admission;
@@ -12,6 +13,14 @@ requests into free slots mid-flight, in one of two ways:
   that advances the decoding slots.  When no slot is prefilling, the
   engine dispatches plain ``decode_step`` instead (the decode fast path):
   the two step bodies are bit-equal on decode rows.
+
+The recurrent families (ssm: mamba2; hybrid: recurrentgemma, RG-LRU
+plus local attention) pool in the lifted slot-row layout
+(``slots.lift_cache``): their state is O(1) in length, so there are no
+pages, no allocator, no page counters, and every admission is a solo
+prefill written into the slot's rows (``slots.write_slot``); they have
+no chunk or verify step, so ``prefill_chunk``, ``spec``, the paged knobs
+and ``kv_quant`` are refused, as in the reference.
 
 The vlm and encdec families serve through the same engine.  A vlm
 request's ``patch_embeds`` (``Request.extras``) prefix its prompt: it
@@ -209,7 +218,8 @@ class _InflightTokens:
 
 
 class PoolEngine:
-    """Continuous-batching serving engine over a paged slot-pooled KV cache.
+    """Continuous-batching serving engine over a slot-pooled cache (paged
+    for the attention families, slot rows for the recurrent ones).
 
     Weights are PoT-prequantized at construction by default
     (``serve/quantized_weights.py``); pass ``prequantize=False`` to serve
@@ -235,10 +245,9 @@ class PoolEngine:
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = False, spec=None, kv_quant=None,
                  cache_dtype=torch.bfloat16, device=None):
-        if cfg.family not in registry.PAGED_FAMILIES:
+        if cfg.family not in registry.POOLED_FAMILIES:
             raise NotImplementedError(
-                f"PoolEngine: family {cfg.family!r} has no paged pool cache "
-                f"(supported: {registry.PAGED_FAMILIES})")
+                f"PoolEngine: family {cfg.family!r} lacks per-slot decode")
         span = registry.pool_span(cfg, max_len)
         if spec is not None:
             if cfg.family not in registry.SPEC_FAMILIES:
@@ -262,6 +271,21 @@ class PoolEngine:
                 raise ValueError(
                     f"prefill_chunk={prefill_chunk} must be in [1, {span}] "
                     "(the cache span) so a chunk's ring writes cannot collide")
+        self.paged = cfg.family in registry.PAGED_FAMILIES
+        if not self.paged and (page_size is not None or num_pages is not None
+                               or prefix_cache):
+            raise ValueError(
+                f"family {cfg.family!r} has no paged cache (paged: "
+                f"{registry.PAGED_FAMILIES}); drop page_size/num_pages/prefix_cache")
+        # the kwarg wins, else the policy's recipe; either way every step
+        # body reads it from the policy
+        kv_quant = kv_quant if kv_quant is not None else policy.kv_quant
+        if kv_quant is not None:
+            if not self.paged:
+                raise ValueError(
+                    f"kv_quant: family {cfg.family!r} has no paged KV cache to "
+                    f"quantize (paged: {registry.PAGED_FAMILIES})")
+            compress.kv_code_width(kv_quant, cfg.head_dim)  # even head_dim
         self.page_size = page_size or span
         if span % self.page_size != 0:
             raise ValueError(
@@ -278,11 +302,6 @@ class PoolEngine:
                 "prefix_cache needs prefill_chunk: solo prefill's "
                 "activation-scale groups cover the whole prompt, so its "
                 "pages are never content-shareable")
-        # the kwarg wins, else the policy's recipe; either way every step
-        # body reads it from the policy
-        kv_quant = kv_quant if kv_quant is not None else policy.kv_quant
-        if kv_quant is not None:
-            compress.kv_code_width(kv_quant, cfg.head_dim)  # even head_dim
         policy = dataclasses.replace(policy, kv_quant=kv_quant)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -321,8 +340,16 @@ class PoolEngine:
             plen = self._request_tokens(r)  # a vlm's patches take positions
             need = plen + r.max_new_tokens
             # a windowed arch decodes from a ring whose wrap is the model's
-            # semantics; otherwise the request must fit its page budget
-            if self.cfg.window is not None:
+            # semantics, and an ssm's state is O(1) in length; otherwise the
+            # request must fit its page budget (unpaged: the slot's row)
+            if self.cfg.family == "ssm" or self.cfg.window is not None:
+                continue
+            if not self.paged:
+                if need > self.max_len:
+                    raise ValueError(
+                        f"request {r.uid!r}: prompt ({plen}) + max_new_tokens "
+                        f"({r.max_new_tokens}) = {need} exceeds the pool's "
+                        f"max_len={self.max_len}")
                 continue
             need_pages = -(-need // self.page_size)
             if need_pages > self.pages_per_slot:
@@ -334,8 +361,9 @@ class PoolEngine:
 
     def _prefill_into(self, cache, slot: int, req: Request, pages, flight):
         """Solo-prefill ``req`` (batch 1, its extras passed along) and copy
-        its cache into the slot's ``pages``.  Returns the first generated
-        token, read through ``flight`` (an explicit sync)."""
+        its cache into the slot's ``pages`` (a slot-row pool: the slot's
+        rows, ``pages`` None).  Returns the first generated token, read
+        through ``flight`` (an explicit sync)."""
         dev = self.device
         mini = registry.init_cache(self.cfg, 1, self.max_len, self.cache_dtype, device=dev)
         batch = {"tokens": to_device(np.asarray(req.tokens), dev, torch.int64).reshape(1, -1)}
@@ -423,7 +451,11 @@ class PoolEngine:
             cache["table"][slot].fill_(slots_lib.drop_id(self.num_pages))
 
     def _stats(self) -> ServeStats:
+        """Fresh counters; a slot-row pool has no pages (page_size and
+        kv_page_bytes 0, as in the reference)."""
         cfg = self.cfg
+        if not self.paged:
+            return ServeStats()
         if self.kv_quant is not None:
             leaf = compress.kv_page_wire_bytes(self.kv_quant, self.page_size,
                                                cfg.kv_heads, cfg.head_dim)
@@ -554,8 +586,9 @@ class PoolEngine:
         for r in requests:
             sched.submit(r)
         stats = self._stats()
-        alloc = slots_lib.PageAllocator(self.num_pages, self.page_size,
-                                        self.pages_per_slot, self.max_slots)
+        alloc = (slots_lib.PageAllocator(self.num_pages, self.page_size,
+                                         self.pages_per_slot, self.max_slots)
+                 if self.paged else None)
         out: Dict = {r.uid: [] for r in requests}
         remaining: Dict[int, int] = {}  # slot -> tokens still to emit
         pending: Dict[int, np.ndarray] = {}  # slot -> unconsumed prompt
@@ -599,8 +632,9 @@ class PoolEngine:
 
         def retire(slot):
             sched.retire(slot)
-            alloc.release_slot(slot)
-            dead_rows.append(slot)
+            if alloc is not None:
+                alloc.release_slot(slot)
+                dead_rows.append(slot)
             prompts.pop(slot, None)
             histories.pop(slot, None)
             spec_dropped.pop(slot, None)
@@ -623,25 +657,31 @@ class PoolEngine:
             emit_tokens(slot, req, [tok])
 
         with torch.inference_mode():
+            paged_kw = (dict(page_size=self.page_size, num_pages=self.num_pages,
+                             kv_quant=self.kv_quant) if self.paged else {})
             cache = registry.init_pool_cache(
                 cfg, self.max_slots, self.max_len, self.cache_dtype, device=self.device,
-                page_size=self.page_size, num_pages=self.num_pages,
-                kv_quant=self.kv_quant)
-            # the allocator owns every mapping: dead slots must write into
-            # nothing, not into pages the allocator will hand out
-            cache["table"].fill_(slots_lib.drop_id(self.num_pages))
+                **paged_kw)
+            if alloc is not None:
+                # the allocator owns every mapping: dead slots must write
+                # into nothing, not into pages the allocator will hand out
+                cache["table"].fill_(slots_lib.drop_id(self.num_pages))
             while not sched.all_done():
                 stamp_arrivals(step)
                 dead_rows: List[int] = []
-                alloc.tick(step)
-                for slot, req in sched.admit(step, can_admit_cb):
+                if alloc is not None:
+                    alloc.tick(step)
+                for slot, req in sched.admit(step, can_admit_cb if alloc is not None else None):
                     stats.prompt_tokens += self._prompt_len(req)
                     if track_hist:
                         histories[slot] = np.asarray(req.tokens, np.int64).reshape(-1).tolist()
-                    aplan, hold = holds.pop(0)
-                    alloc.bind(slot, hold)
-                    self._sync_admission(cache, slot, hold, aplan)
-                    stats.prefix_hit_tokens += aplan.hit_tokens
+                    pages = None
+                    if alloc is not None:
+                        aplan, hold = holds.pop(0)
+                        alloc.bind(slot, hold)
+                        self._sync_admission(cache, slot, hold, aplan)
+                        stats.prefix_hit_tokens += aplan.hit_tokens
+                        pages = self._table_row(hold["table"])
                     if self._chunkable(req):
                         if cfg.family == "encdec":
                             self._admit_encoder(cache, slot, req)
@@ -651,8 +691,7 @@ class PoolEngine:
                         prompts[slot] = prompt
                         pending[slot] = prompt[aplan.resume:]
                     else:
-                        tok = self._prefill_into(cache, slot, req,
-                                                 self._table_row(hold["table"]), flight)
+                        tok = self._prefill_into(cache, slot, req, pages, flight)
                         stats.prefills += 1
                         stats.weight_passes += 1
                         first_token(slot, req, tok)
@@ -719,7 +758,8 @@ class PoolEngine:
                 stats.decode_steps += 1
                 stats.weight_passes += 1
                 stats.occupancy_sum += (len(active) + len(prefilling)) / self.max_slots
-                stats.pages_in_use_sum += alloc.pages_in_use()
+                if alloc is not None:
+                    stats.pages_in_use_sum += alloc.pages_in_use()
                 # the next step's arrivals stamp against the moved pass
                 # clock, and every slot that stays prefilling gets its next
                 # chunk row (finishing slots need this step's token first)
@@ -743,11 +783,13 @@ class PoolEngine:
                 if dead_rows:
                     self._void_table_rows(cache, dead_rows)
                 sched.check_conservation()
-                alloc.check_conservation()
+                if alloc is not None:
+                    alloc.check_conservation()
                 step += 1
-        stats.cow_copies = alloc.cow_copies
-        stats.evictions = alloc.evictions
-        alloc.check_conservation()
+        if alloc is not None:
+            stats.cow_copies = alloc.cow_copies
+            stats.evictions = alloc.evictions
+            alloc.check_conservation()
         self.last_stats = stats
         return {uid: np.asarray(toks, np.int32) for uid, toks in out.items()}
 

@@ -22,7 +22,7 @@ import torch
 from repro_torch.core import compress, mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
-from repro_torch.models.spec import named_leaves, set_leaf
+from repro_torch.models.spec import named_leaves, unflatten
 
 
 def is_linear_weight(name: str, x: torch.Tensor) -> bool:
@@ -47,28 +47,29 @@ def quantize_leaf(name: str, x: torch.Tensor, policy: QuantPolicy) -> torch.Tens
 def quantize_for_serving(cfg, policy: QuantPolicy, params):
     """PoT-quantize every linear weight and store it at bf16 (exact).
     Returns a new tree; ``params`` is left as it is."""
-    out: dict = {}
-    for name, x in named_leaves(params):
-        set_leaf(out, name, quantize_leaf(name, x, policy))
-    return out
+    return unflatten((name, quantize_leaf(name, x, policy))
+                     for name, x in named_leaves(params))
 
 
 def pack_int8(params, bits: int = 5):
     """Offline int8 packing: every linear weight becomes
     ``{"code": int8 of its shape, "beta": int32 scalar}`` (K4 on the card);
     other leaves are kept as they are.  Returns a new tree."""
-    out: dict = {}
-    for name, x in named_leaves(params):
+    def one(name, x):
         if is_linear_weight(name, x):
             code, beta = ops.potq_encode(x, bits)
-            x = {"code": code, "beta": beta}
-        set_leaf(out, name, x)
-    return out
+            return {"code": code, "beta": beta}
+        return x
+
+    return unflatten((name, one(name, x)) for name, x in named_leaves(params))
 
 
 def unpack_int8(packed, bits: int = 5):
     """Inverse of :func:`pack_int8`: the packed leaves as bf16 PoT values
     (exact), the others as they are."""
+    if isinstance(packed, (tuple, list)):
+        return type(packed)(unpack_int8(v, bits) for v in packed)
     if "code" in packed and not isinstance(packed["code"], dict):
         return compress.decompress(packed["code"], packed["beta"], bits).to(torch.bfloat16)
-    return {k: unpack_int8(v, bits) if isinstance(v, dict) else v for k, v in packed.items()}
+    return {k: unpack_int8(v, bits) if isinstance(v, (dict, tuple, list)) else v
+            for k, v in packed.items()}

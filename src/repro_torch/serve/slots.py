@@ -37,9 +37,14 @@ quantized and never shared.  They are written once per admission
 (:func:`write_slot`, or the engine's encoder-side pass) and a
 speculative rollback never touches them.
 
-Contiguous slot-row layout (``lift_cache``): ``k``/``v``
-(L, max_slots, span, KV, hd), ``pos`` (max_slots, span), ``len``
-(max_slots,).  ``decode_step`` still accepts it.
+Slot-row layout (``lift_cache``): every leaf of ``init_cache(cfg,
+max_slots, max_len)`` keeps its batch axis as the slot axis, ``len``
+becomes (max_slots,) and each ``pos`` leaf (max_slots, span).  It is the
+pool of the recurrent families (ssm: per-layer conv windows and SSM
+states; hybrid: a tuple of per-layer dicts, RG-LRU states and attention
+rings), whose state is O(1) in length and has nothing to page; an
+attention family's ``decode_step`` still accepts it (``k``/``v``
+(L, max_slots, span, KV, hd)).
 
 :class:`PageAllocator` is host-side bookkeeping in numpy (free list,
 refcounts, per-slot tables, a prompt-keyed prefix cache with LRU eviction
@@ -65,13 +70,28 @@ from repro_torch.models import transformer
 # Contiguous slot-row layout
 # ---------------------------------------------------------------------------
 
+def _map_keyed(fn, tree, key=""):
+    """``fn(key, leaf)`` over a cache tree of dicts and tuples, ``key`` the
+    leaf's own dict key; a new tree of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _map_keyed(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_keyed(fn, v, key) for v in tree)
+    return fn(key, tree)
+
+
 def lift_cache(cache, max_slots: int):
-    """Lift a fresh ``init_cache(cfg, max_slots, ...)`` to the slot-pooled
-    contiguous layout (per-slot ``pos``/``len``)."""
-    out = dict(cache)
-    out["len"] = cache["len"].new_zeros((max_slots,))
-    out["pos"] = cache["pos"][None].repeat(max_slots, 1)
-    return out
+    """Lift a fresh ``init_cache(cfg, max_slots, ...)`` tree to the
+    slot-pooled layout: every ``len`` leaf (max_slots,) zeros, every
+    ``pos`` leaf one row a slot; the other leaves as they are."""
+    def one(key, x):
+        if key == "len":
+            return x.new_zeros((max_slots,))
+        if key == "pos":
+            return x[None].repeat((max_slots,) + (1,) * x.dim())
+        return x
+
+    return _map_keyed(one, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +183,20 @@ def reset_slot(pool, slot: int):
     not-yet-written sentinel the attention mask keys on).  On a paged pool
     this resets the ``pos`` rows of the pages the slot's table maps;
     engine-managed slots get their resets from the allocator instead."""
-    pool["len"][slot] = 0
     if is_paged(pool):
+        pool["len"][slot] = 0
         pids = [p for p in pool["table"][slot].tolist() if p < num_pages_of(pool)]
         pool["pos"][pids] = -1
-    else:
-        pool["pos"][slot] = -1
+        return pool
+
+    def one(key, x):
+        if key == "len":
+            x[slot] = 0
+        elif key == "pos":
+            x[slot] = -1
+        return x
+
+    _map_keyed(one, pool)
     return pool
 
 
@@ -184,16 +212,44 @@ def write_slot(pool, mini, slot: int, *, pages: Optional[Sequence[int]] = None,
     current row is used.  Logical pages mapped to drop_id are skipped.  A
     quantized pool (``kv_quant``, which must match the pool) encodes the
     bf16 mini K/V per written token on the way in.  An encdec slot's
-    cross ``ck``/``cv`` rows are copied as they are."""
-    if "ck" in pool:
-        write_cross(pool, mini["ck"], mini["cv"], slot)
+    cross ``ck``/``cv`` rows are copied as they are.
+
+    A slot-row pool (``lift_cache``) takes every leaf of the mini cache,
+    cast to the pool leaf's dtype, as the reference's tree map does: a
+    lifted ``len``/``pos`` leaf at row ``slot``, any other along its one
+    axis where the mini cache has size 1 and the pool not (its batch
+    axis), or whole where the two shapes agree (a one-slot pool)."""
     if is_paged(pool):
+        if "ck" in pool:
+            write_cross(pool, mini["ck"], mini["cv"], slot)
         return _write_slot_paged(pool, mini, slot, pages, kv_quant)
-    pool["k"][:, slot] = mini["k"][:, 0].to(pool["k"].dtype)
-    pool["v"][:, slot] = mini["v"][:, 0].to(pool["v"].dtype)
-    pool["pos"][slot] = mini["pos"]
-    pool["len"][slot] = mini["len"]
+    _write_rows(pool, mini, slot)
     return pool
+
+
+def _write_rows(pool, mini, slot: int) -> None:
+    if isinstance(pool, dict):
+        for k, p in pool.items():
+            if isinstance(p, (dict, tuple, list)):
+                _write_rows(p, mini[k], slot)
+            else:
+                _write_leaf(p, mini[k], slot)
+        return
+    for p, m in zip(pool, mini):
+        _write_rows(p, m, slot)
+
+
+def _write_leaf(p: torch.Tensor, m: torch.Tensor, slot: int) -> None:
+    if m.dim() == p.dim() - 1:  # a lifted per-slot leaf (pos / len)
+        p[slot] = m
+        return
+    if p.shape == m.shape:  # max_slots == 1: the row is the pool
+        p.copy_(m)
+        return
+    diffs = [d for d, (ps, ms) in enumerate(zip(p.shape, m.shape)) if ps != ms]
+    if len(diffs) != 1 or m.shape[diffs[0]] != 1:
+        raise ValueError(f"write_slot: pool leaf {tuple(p.shape)} vs mini {tuple(m.shape)}")
+    p.narrow(diffs[0], slot, 1).copy_(m)
 
 
 def _write_slot_paged(pool, mini, slot, pages, kv_quant=None):

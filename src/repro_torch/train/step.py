@@ -28,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import registry
+from repro_torch.models.spec import named_leaves, unflatten
 from repro_torch.optim import Optimizer, clip_by_global_norm, global_norm
 from repro_torch.optim.optimizers import tree_map
 
@@ -48,16 +49,13 @@ def _quantize_shadow(params, policy: QuantPolicy):
     exact PoT values in float32; stacked (L, K, N) leaves per layer (mean
     and beta over the last two axes).  Other leaves are returned as they
     are (embed, norm scales, gamma)."""
-    def one(key, x):
-        if key != "w" or x.dim() < 2:
+    def one(name, x):
+        if name.split("/")[-1] != "w" or x.dim() < 2:
             return x
         axes = (x.dim() - 2, x.dim() - 1) if x.dim() > 2 else None
         return mfmac._quantize_w(x, policy, axes).to(torch.float32)
 
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else one(k, v) for k, v in tree.items()}
-
-    return walk(params)
+    return unflatten((name, one(name, x)) for name, x in named_leaves(params))
 
 
 def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):

@@ -234,17 +234,34 @@ def test_traces_with_extras_equal_reference(arch):
 
 
 def test_request_extras_and_family_gates():
-    """A request's extras default to none; the registry's family tuples are
-    the reference's for every family the port runs, and hybrid and ssm
-    still raise."""
+    """A request's extras default to none; the port runs all five families
+    and its family tuples (pooled, chunked, paged, spec) are the
+    reference's; for hybrid and ssm, ``chunk_step``, ``verify_step`` and
+    the paged pool knobs refuse, as the reference's do, and a
+    ``PoolEngine`` with a page size or a chunk refuses too."""
     assert Request(uid=0, tokens=np.zeros((1, 3)), max_new_tokens=1).extras == {}
-    for name in ("CHUNKED_FAMILIES", "PAGED_FAMILIES", "SPEC_FAMILIES"):
+    for name in ("POOLED_FAMILIES", "CHUNKED_FAMILIES", "PAGED_FAMILIES", "SPEC_FAMILIES"):
         assert getattr(registry, name) == getattr(jreg, name), name
-    assert registry.PORTED_FAMILIES == ("decoder", "vlm", "encdec")
+    assert registry.PORTED_FAMILIES == ("decoder", "vlm", "encdec", "hybrid", "ssm")
+    assert set(registry.PORTED_FAMILIES) == set(jreg.POOLED_FAMILIES)
     _, tcfg, _, tparams = _model()
-    for fam in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="6.4-6.5"):
-            registry.param_specs(dataclasses.replace(tcfg, family=fam))
-        with pytest.raises(NotImplementedError):
-            PoolEngine(dataclasses.replace(tcfg, family=fam), PAPER_FAITHFUL, tparams,
-                       max_slots=1, max_len=MAX_LEN, device="cpu")
+    for arch in ("recurrentgemma-2b", "mamba2-2.7b"):
+        cfg, jcfg = TC.smoke_config(arch), C.smoke_config(arch)
+        cache = registry.init_pool_cache(cfg, 2, MAX_LEN, device="cpu")
+        for fn, jfn in ((registry.chunk_step, jreg.chunk_step),
+                        (registry.verify_step, jreg.verify_step)):
+            with pytest.raises(NotImplementedError) as ours:
+                fn(cfg, PAPER_FAITHFUL, tparams, torch.zeros((2, 4), dtype=torch.long),
+                   [1, 1], cache)
+            with pytest.raises(NotImplementedError) as theirs:
+                jfn(jcfg, J_PF, None, jnp.zeros((2, 4), jnp.int32), jnp.ones((2,), jnp.int32),
+                    None)
+            assert str(ours.value) == str(theirs.value)
+        for kw in (dict(page_size=4), dict(num_pages=4), dict(kv_quant=KV_PINNED)):
+            with pytest.raises(ValueError, match="has no paged cache"):
+                registry.init_pool_cache(cfg, 2, MAX_LEN, device="cpu", **kw)
+        for kw in (dict(page_size=4), dict(prefill_chunk=4)):
+            # refused before the weights are read
+            with pytest.raises((ValueError, NotImplementedError)):
+                PoolEngine(cfg, PAPER_FAITHFUL, tparams, max_slots=1, max_len=MAX_LEN,
+                           device="cpu", **kw)
