@@ -135,12 +135,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     over bf16 pages and the self-draft over quantized pages give the
     tokens of their spec-off runs at that depth, bit for bit, in no more
     weight passes; K1 launches once a linear per verify pass and per
-    draft step; at all 32 layers, a verify pass over 4 slots x 4
-    positions (one row across a page) equals 4 sequential
-    ``decode_step`` calls in logits and every cache leaf, over bf16 and
-    quantized pages; weight passes, accepted tokens, draft passes,
-    tokens/s, a profiled verify pass and draft step, and the draft's 225
-    weight re-quantizations timed alone;
+    draft step; at that depth too (all 32 layers until PR 22), a verify
+    pass over 4 slots x 4 positions (one row across a page) equals 4
+    sequential ``decode_step`` calls in logits and every cache leaf, over
+    bf16 and quantized pages; weight passes, accepted tokens, draft
+    passes, tokens/s, a profiled verify pass and draft step, and the
+    draft's weight re-quantizations timed alone;
 23. lockstep serving and float32 pages at llama3-8b's full width, on the
     serve trace's first 4 requests: ``lockstep_generate`` serves them as
     one wave (one batched prefill, then lockstep steps to the longest
@@ -205,8 +205,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 34. mamba2-2.7b and recurrentgemma-2b training at smoke width as phase
     28 (CUDA against CPU losses within ``FAMILY_LOSS_RTOL``, a step twice
     bit for bit, launches a step);
+35. the paper's CNN (``models/cnn.py``: every conv an im2col product, the
+    head a linear; ``examples/cnn_classification_torch.py``): (a) K1, the
+    G pre-pass, K2 and K3 against their plain versions bit for bit at
+    every (M, K, N) of both cells (``CNN_CELLS``: width 16, 16 x 16
+    images, batch 64; width 64, 64 x 64, batch 256), under
+    ``PAPER_FAITHFUL`` and the example's ``BITS444``; (b) their times
+    there (CUDA events, L2 flushed) beside the plain versions,
+    ``torch.matmul`` on the same bf16 operands, the roofline and FP64
+    tensor-core bounds, summed over one step of each cell; (c)
+    ``train_cnn`` at width 16 for 120 steps under FP32, 5/5/5 and 4/4/4
+    (the main path: launches counted from 0 around each run, 7/7/7/7 a
+    quantized step, 0 under FP32; accuracy at least ``CNN_MIN_ACCURACY``;
+    step ms; one profiled step); (d) 3 steps on CUDA and on the CPU from
+    the same state (losses within ``LOSS_RTOL``, the first step's
+    gradients within ``GRAD_RTOL`` of each leaf's largest); (e) one step
+    twice, bit for bit; (f) width 64, 3 steps and one profiled (K1-K3
+    device ms, peak under ``CNN_PEAK_GIB``);
+36. ``quantize_attention`` (attention products through ``mf_act_dot``):
+    (a) olmo-1b, whisper-large-v3 and recurrentgemma-2b training at smoke
+    width as phase 28 (losses within ``LOSS_RTOL``); (b) one olmo-1b step
+    at full width from phase 10's state (after phase 11), timed and
+    profiled beside phase 10's; (c) phase 5's engine and trace at
+    llama3-8b's widths and ``SPEC_LAYERS`` layers (after phase 23): K1
+    once a linear a weight pass, each request alone gives its pooled
+    tokens;
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last;
-    32-33 run after 30, 34 after 31).
+    32-33 run after 30, 34 after 31, 35-36a after 34).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
 """
@@ -879,6 +904,8 @@ def main() -> int:
     moe_train = moe_training(dev, detail)
     fam_train, whisper_launches, whisper_step = family_training(dev, detail)
     fam_train.update(recurrent_training(dev, detail))
+    qa_train = qa_training(dev, detail)
+    cnn_kernels, cnn_launches = cnn_phase(dev, detail)
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -907,12 +934,12 @@ def main() -> int:
         # + training (phase 10); since phases 26-27 it also runs the
         # expert-batched form (one launch counts one)
         "launches": (launches + train["launches"]["k1"] + paged["launches"]
-                     + whisper_launches["k1"]),
+                     + whisper_launches["k1"] + cnn_launches["k1"]),
         "lockstep_launches": paged["lockstep_launches"],
         "chunk_step_launches": paged["chunk_launches"],
         "verify_step_launches": paged["verify_launches"],
         "draft_step_launches": paged["draft_launches"],
-        "max_abs_err": max(max_err, grads["k1"]["max_abs_err"]),
+        "max_abs_err": max(max_err, grads["k1"]["max_abs_err"], cnn_kernels["k1"]["max_abs_err"]),
         "ms": per_pass["ms"],
         "plain_ms": per_pass["plain_ms"],
         "bound_ms": per_pass["bound_ms"],
@@ -963,6 +990,11 @@ def main() -> int:
         "whisper_train_step_launches": whisper_step["launches"]["k1"],
         "whisper_train_step_device_ms": whisper_step["k1_ms"],
         "whisper_train_step_fp64_tc_bound_ms": whisper_step["fp64_tc_bound_ms"]["k1_ms"],
+        # phase 35: the CNN (conv = im2col + K1): the main path's launches,
+        # the kernel summed over one step of each cell, the wide step's
+        # device ms; phase 36c's launches under quantize_attention
+        "cnn": cnn_kernels["k1"],
+        "quantize_attention_serving_launches": paged["qa_launches"],
         # the other dense decoders (phase 4's sums, phases 24-25's launches)
         "other_configs": {
             arch: dict(launches=paged["dense_launches"][arch],
@@ -980,18 +1012,24 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source="src/repro_torch/csrc/potq_grad.cu",
                             replaces=f"src/repro/kernels/potq_grad.py:{line}",
-                            # phase 10 (olmo-1b) and phase 31b (whisper)
-                            launches=train["launches"][key] + whisper_launches[key],
-                            # phases 28 and 31a: one step at smoke width
+                            # phase 10 (olmo-1b), phase 31b (whisper), phase 35 (the CNN)
+                            launches=(train["launches"][key] + whisper_launches[key]
+                                      + cnn_launches[key]),
+                            # phases 28, 31a, 34 and 36a: one step at smoke width
                             moe_step_launches={a: n[key] for a, n in moe_train.items()},
                             family_step_launches={a: n[key] for a, n in fam_train.items()},
+                            quantize_attention_step_launches={a: n[key]
+                                                              for a, n in qa_train.items()},
+                            # phase 35: the CNN's conv shapes
+                            cnn=cnn_kernels[key],
                             # phase 31b: one whisper step at full width, profiled
                             whisper_train_step_launches=whisper_step["launches"][key],
                             whisper_train_step_device_ms=whisper_step[
                                 "prepass_ms" if key == "gq" else f"{key}_ms"],
                             whisper_train_step_fp64_tc_bound_ms=whisper_step[
                                 "fp64_tc_bound_ms"].get(f"{key}_ms"),
-                            **grads[key]))
+                            **dict(grads[key], max_abs_err=max(
+                                grads[key]["max_abs_err"], cnn_kernels[key]["max_abs_err"]))))
     kernels.append(dict(name="potq_encode", route="cuda",
                         source="src/repro_torch/csrc/potq_encode.cu",
                         replaces="src/repro/kernels/potq_encode.py:24",
@@ -1589,15 +1627,12 @@ def training(dev, detail):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.data import pipeline
-    from repro_torch.kernels import potq_grad as KG
-    from repro_torch.kernels import potq_matmul as K
     from repro_torch.launch import train as train_cli
     from repro_torch.models import registry, spec
     from repro_torch.optim import adamw, warmup_cosine_schedule
     from repro_torch.train import make_train_step
 
-    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
-                "gq": KG.quantize_g_cuda}
+    counters = _kernel_counters()
 
     def reset():
         for fn in counters.values():
@@ -1647,10 +1682,8 @@ def training(dev, detail):
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
     # K2 counts its pre-pass and its rows fold (grad_da_rows_fold_kernel)
-    pats = {"k1_ms": ("potq_mm",), "k2_ms": ("grad_da", "grad_g_quantize"),
-            "k3_ms": ("grad_dw",), "prepass_ms": ("grad_g_quantize",)}
     by = {k: sum(e.time_range.elapsed_us() for e in kern if any(p in e.name for p in ps)) / 1e3
-          for k, ps in pats.items()}
+          for k, ps in KERNEL_PATTERNS.items()}
     prof_row = dict(wall_ms=t_prof * 1e3, device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
                     launches=per_step, **by,
                     idle_share=(1 - busy_us / 1e3 / (train["mean_step_s"] * 1e3)) if kern else None)
@@ -1674,7 +1707,9 @@ def training(dev, detail):
     if not same:
         raise SystemExit("two runs of one training step differ")
     train["deterministic"] = same
-    del run, first, batch
+    del first
+    train["quantize_attention_step"] = qa_train_step(dev, run, batch, steps + 2, prof_row)
+    del run, batch
     torch.cuda.empty_cache()
 
     phase("12 training, CUDA vs CPU (smoke width)")
@@ -1716,26 +1751,29 @@ def moe_training(dev, detail):
     return {arch: r["launches"] for arch, r in out.items()}
 
 
-def smoke_training(dev, archs, loss_rtol):
-    """Three AdamW steps of each arch at smoke width on the card against the
+def smoke_training(dev, archs, loss_rtol, policy=None):
+    """Three AdamW steps of each arch at smoke width (under ``policy``,
+    default ``PAPER_FAITHFUL``) on the card against the
     same steps on the CPU (each loss within ``loss_rtol``, the first
     step's gradients within ``GRAD_RTOL`` of their leaf's largest; a top-1
     router's exact gradient is zero (its gate is g / g), so its rounding
     noise is held to ``GRAD_RTOL`` of the tree's largest), the last step
     run twice from the same state bit for bit, and its K1/K2/K3/pre-pass
-    launches equal to ``step_launches``.  Returns {arch: its row}."""
+    launches equal to ``step_launches``.  Under ``quantize_attention`` the
+    attention operands' PoT codes are compared too (``_attention_ties``):
+    where a near tie rounds differently on the two devices, the gradients
+    and the later losses follow two different quantized models and are
+    reported, not held; the first loss still is.  Returns {arch: its row}."""
     from repro_torch import configs
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.data import pipeline
-    from repro_torch.kernels import potq_grad as KG
-    from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry, spec
     from repro_torch.optim import adamw, warmup_cosine_schedule
     from repro_torch.train import make_train_step
 
-    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
-                "gq": KG.quantize_g_cuda}
+    counters = _kernel_counters()
+    policy = policy or PAPER_FAITHFUL
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)  # as the trainer runs
     out = {}
@@ -1745,12 +1783,13 @@ def smoke_training(dev, archs, loss_rtol):
         p_gpu = spec.params_from_numpy({n: x.numpy() for n, x in spec.named_leaves(p_cpu)}, dev)
         batches = [pipeline.make_batch(scfg, ShapeConfig("t", 64, 8, "train"), i, device="cpu")
                    for i in range(3)]
-        runs = {}
+        runs, calls = {}, {}
         for d, where, p in (("cpu", "cpu", p_cpu), ("cuda", dev, p_gpu)):
             opt = adamw(warmup_cosine_schedule(3e-3, 5, 30))
-            step = make_train_step(scfg, PAPER_FAITHFUL, opt)
+            step = make_train_step(scfg, policy, opt)
             bs = [{k: v.to(where) for k, v in b.items()} for b in batches]
-            _, grads = step.grads(p, bs[0])
+            with _recording_qact() as calls[d]:
+                _, grads = step.grads(p, bs[0])
             state = opt.init(p)
             losses = []
             for i, b in enumerate(bs):
@@ -1777,12 +1816,14 @@ def smoke_training(dev, archs, loss_rtol):
             top if top1 and "/router/" in n else float(gc[n].abs().max()), 1e-30)
             for n in gc)
         want = step_launches(scfg)
+        tie = _attention_ties(arch, calls["cpu"], calls["cuda"])
         row = dict(losses_cpu=lc, losses_cuda=lg, grad_rel_err=g_worst, step_twice_equal=same,
-                   launches=launches, expected_launches=want)
+                   launches=launches, expected_launches=want, attention_tie=tie)
         print(f"{arch}:", json.dumps(row), f"(tolerances: loss rtol {loss_rtol}, grads "
               f"{GRAD_RTOL} x max|g|)", flush=True)
-        if not all(abs(a - b) <= loss_rtol * abs(b) for a, b in zip(lg, lc)) or \
-                not g_worst <= GRAD_RTOL:
+        held = 1 if tie else len(lc)  # after a tie: the first loss only
+        if not all(abs(a - b) <= loss_rtol * abs(b) for a, b in zip(lg[:held], lc[:held])) or \
+                not (tie or g_worst <= GRAD_RTOL):
             raise SystemExit(f"{arch}: CUDA and CPU training disagree beyond the tolerances")
         if not same:
             raise SystemExit(f"{arch}: two runs of one training step differ")
@@ -1791,6 +1832,62 @@ def smoke_training(dev, archs, loss_rtol):
         out[arch] = row
     torch.use_deterministic_algorithms(deterministic)
     return out
+
+
+@contextlib.contextmanager
+def _recording_qact():
+    """Record (input, output) of every attention-operand quantization
+    (``mfmac._qact``) made inside the block, on the host."""
+    from repro_torch.core import mfmac
+
+    calls, orig = [], mfmac._qact
+
+    def recorded(x, bits, axes=None):
+        out = orig(x, bits, axes)
+        calls.append((x.detach().float().cpu(), out.detach().float().cpu(), bits, axes))
+        return out
+
+    mfmac._qact = recorded
+    try:
+        yield calls
+    finally:
+        mfmac._qact = orig
+
+
+# a near tie: an element whose scaled mantissa lies within this many ulps of
+# the rounding threshold of round(log2) (potq.SQRT_HALF_UP) on both devices
+TIE_ULPS = 8
+
+
+def _attention_ties(arch, cpu_calls, cuda_calls):
+    """Walk the attention-operand quantizations of one step in order on the
+    two devices.  Where every PoT code is equal, returns None.  At the
+    first call whose codes differ, every differing element must be a near
+    tie (its scaled mantissa within ``TIE_ULPS`` of the threshold on both
+    devices, the group scales equal), else this fails; returns where the
+    tie was.  Past that call the two devices run two different quantized
+    models."""
+    from repro_torch.core import potq
+
+    if len(cpu_calls) != len(cuda_calls):
+        raise SystemExit(f"{arch}: {len(cpu_calls)} vs {len(cuda_calls)} attention quantizations")
+    for i, ((xc, oc, bits, axes), (xg, og, _, _)) in enumerate(zip(cpu_calls, cuda_calls)):
+        if torch.equal(oc, og):
+            continue
+        bc, bg = potq.compute_beta(xc, bits, axes), potq.compute_beta(xg, bits, axes)
+        diff = oc != og
+        # each device's scaled mantissa of the differing elements, in [0.5, 1)
+        dist = [(torch.frexp((x.abs() / potq.exp2i(bc))[diff])[0] - potq.SQRT_HALF_UP).abs()
+                / 2.0 ** -24 for x in (xc, xg)]
+        tie = dict(call=i, of=len(cpu_calls), shape=list(xc.shape), codes_differ=int(diff.sum()),
+                   max_input_rel_diff=float((xc - xg).abs().max() / xc.abs().max()),
+                   ulps_from_threshold=[float(d.max()) for d in dist])
+        print(f"{arch}: first differing attention quantization:", json.dumps(tie))
+        if not (torch.equal(bc, bg) and all(bool((d <= TIE_ULPS).all()) for d in dist)):
+            raise SystemExit(f"{arch}: CUDA and CPU quantize an attention operand differently "
+                             f"away from a near tie ({tie})")
+        return tie
+    return None
 
 
 def recurrent_training(dev, detail):
@@ -1819,8 +1916,6 @@ def family_training(dev, detail):
     steps, 31b's profiled step)."""
     from repro_torch import configs
     from repro_torch.data import pipeline
-    from repro_torch.kernels import potq_grad as KG
-    from repro_torch.kernels import potq_matmul as K
     from repro_torch.launch import train as train_cli
     from repro_torch.models import spec
 
@@ -1831,8 +1926,7 @@ def family_training(dev, detail):
 
     phase(f"31b train {ENCDEC_ARCH} at full width (batch {WHISPER_TRAIN_BATCH} x "
           f"{configs.get_config(ENCDEC_ARCH).enc_seq} frames x {WHISPER_TRAIN_SEQ} tokens)")
-    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
-                "gq": KG.quantize_g_cuda}
+    counters = _kernel_counters()
     steps = 3
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
@@ -1880,10 +1974,8 @@ def family_training(dev, detail):
         raise SystemExit(f"one whisper step launched {per_step}, expected {want}")
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
-    pats = {"k1_ms": ("potq_mm",), "k2_ms": ("grad_da", "grad_g_quantize"),
-            "k3_ms": ("grad_dw",), "prepass_ms": ("grad_g_quantize",)}
     by = {k: sum(e.time_range.elapsed_us() for e in kern if any(p in e.name for p in ps)) / 1e3
-          for k, ps in pats.items()}
+          for k, ps in KERNEL_PATTERNS.items()}
     prof_row = dict(wall_ms=t_prof * 1e3, device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
                     launches=per_step, **by,
                     fp64_tc_bound_ms=bounds,
@@ -2065,13 +2157,10 @@ def checkpoint_and_pack(dev, detail):
 def restart(dev, detail, ckpt_dir):
     """Phase 15: runs A (2 steps, saved), B (resumed to 3) and C (3 steps
     uninterrupted); B must equal C bit for bit."""
-    from repro_torch.kernels import potq_grad as KG
-    from repro_torch.kernels import potq_matmul as K
     from repro_torch.launch import train as train_cli
 
     phase("15 checkpoint and restart at full width (olmo-1b, batch 8 x seq 512)")
-    counters = {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
-                "gq": KG.quantize_g_cuda}
+    counters = _kernel_counters()
     ck = ["--ckpt-dir", ckpt_dir, "--ckpt-every", "100"]
     peaks = {}
 
@@ -2289,6 +2378,15 @@ SERVE_COUNTERS = ("weight_passes", "decode_steps", "prefills", "emitted_tokens",
 PREFIX_COUNTERS = SERVE_COUNTERS + ("prefix_hit_tokens", "cow_copies", "evictions")
 
 
+def _kernel_counters():
+    """K1, K2, K3 and the pre-pass wrappers by key, each with its launch count."""
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+
+    return {"k1": K.potq_matmul_cuda, "k2": KG.grad_da_cuda, "k3": KG.grad_dw_cuda,
+            "gq": KG.quantize_g_cuda}
+
+
 def _zero_launches():
     from repro_torch.kernels import potq_encode as KE
     from repro_torch.kernels import potq_grad as KG
@@ -2446,19 +2544,26 @@ def _decode_row_check(cfg, pol, params, pool, logits, dev):
     return last, c2, launches
 
 
+# kernel names by the ms they are summed into (K2 with its pre-pass)
+KERNEL_PATTERNS = {"k1_ms": ("potq_mm",), "k2_ms": ("grad_da", "grad_g_quantize"),
+                   "k3_ms": ("grad_dw",), "prepass_ms": ("grad_g_quantize",)}
+
+
 def _profiled(fn, wall_s):
     """Device kernels of one call of ``fn`` under torch.profiler: count,
-    busy ms, K1's ms, and the idle share against ``wall_s``, the call's
-    unprofiled wall time."""
+    busy ms, K1's (and K2's, K3's, the pre-pass's) ms, and the idle share
+    against ``wall_s``, the call's unprofiled wall time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
-    k1_us = sum(e.time_range.elapsed_us() for e in kern if "potq_mm" in e.name)
+    by = {k: sum(e.time_range.elapsed_us() for e in kern if any(p in e.name for p in ps)) / 1e3
+          for k, ps in KERNEL_PATTERNS.items()}
     return dict(wall_ms=wall_s * 1e3, device_kernels=len(kern), device_busy_ms=busy_us / 1e3,
-                k1_ms=k1_us / 1e3, idle_share=1 - busy_us / 1e6 / wall_s if kern else None)
+                **by, idle_share=1 - busy_us / 1e6 / wall_s if kern else None)
 
 
 def _wall(fn):
@@ -2499,6 +2604,7 @@ def serving(dev, detail):
     kvq = kv_quant_serving(dev, detail, cfg, params, policy, reqs)
     spec_run = spec_serving(dev, detail, cfg, params, policy, reqs)
     lockstep = lockstep_serving(dev, detail, cfg, params, policy, reqs)
+    qa = qa_serving(dev, detail, cfg, params, policy, reqs)
     del params
     torch.cuda.empty_cache()
     dense = {arch: dense_serving(dev, detail, arch, number)
@@ -2507,8 +2613,8 @@ def serving(dev, detail):
     family = family_serving(dev, detail)
     torch.use_deterministic_algorithms(deterministic)
     return dict(launches=paged["launches"] + kvq["launches"] + spec_run["launches"]
-                + lockstep["launches"] + sum(dense.values()) + sum(moe.values())
-                + sum(family.values()), family_launches=family,
+                + lockstep["launches"] + qa + sum(dense.values()) + sum(moe.values())
+                + sum(family.values()), family_launches=family, qa_launches=qa,
                 chunk_launches=paged["chunk_launches"],
                 verify_launches=spec_run["verify_launches"],
                 draft_launches=spec_run["draft_launches"],
@@ -2909,9 +3015,9 @@ def _first_layers(tree, n):
     return {k: _first_layers(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
 
 
-# phase 22's engines run llama3-8b's widths at this depth (its verify and
-# draft steps run all 32 layers): five engine runs on a host-bound path,
-# kept short so the whole script stays well inside its time limit
+# phase 22 runs llama3-8b's widths at this depth (its verify and draft
+# checks too since PR 22): five engine runs on a host-bound path, kept
+# short so the whole script stays well inside its time limit
 SPEC_LAYERS = 4
 
 
@@ -2973,7 +3079,8 @@ def spec_serving(dev, detail, cfg, params, policy, reqs):
         if launches != want:
             raise SystemExit(f"{name}: K1 launched {launches} times, expected "
                              f"{k1_per_pass(scfg)} x (weight passes + draft steps) = {want}")
-    # the verify pass and the draft step on the card, each against its
+    # the verify pass and the draft step on the card at SPEC_LAYERS layers
+    # (32 until PR 22, when the script read 1041.7 s), each against its
     # sequential or plain counterpart; slot 0's row (positions 62..65)
     # crosses a 16-position page
     prompts = [np.asarray(r.tokens).reshape(-1)[:n] for r, n in
@@ -2982,27 +3089,27 @@ def spec_serving(dev, detail, cfg, params, policy, reqs):
     with torch.inference_mode():
         for kvq, label in ((None, "bf16"), (KV_PINNED, "KV_PINNED")):
             pol = dataclasses.replace(eng.policy, kv_quant=kvq)
-            t_verify, verify_launches, again = _verify_check(cfg, pol, params, dev, prompts,
+            t_verify, verify_launches, again = _verify_check(scfg, pol, sparams, dev, prompts,
                                                              kvq, label)
             steps[f"verify_{label}"] = dict(wall_ms=t_verify * 1e3,
                                             profiled=_profiled(again, t_verify))
         dpol = eng.draft_policy
-        pool, logits, _, _ = _streamed_pool(cfg, eng.policy, params, dev, prompts, KV_PINNED)
+        pool, logits, _, _ = _streamed_pool(scfg, eng.policy, sparams, dev, prompts, KV_PINNED)
         last = torch.argmax(logits, -1)
         _zero_launches()
-        t_draft = [_wall(lambda: registry.decode_step(cfg, dpol, params, last, pool))
+        t_draft = [_wall(lambda: registry.decode_step(scfg, dpol, sparams, last, pool))
                    for _ in range(3)]
         draft_launches = K.potq_matmul_cuda.launches // 3
-        if draft_launches != k1_per_pass(cfg):
+        if draft_launches != k1_per_pass(scfg):
             raise SystemExit(f"K1 launched {draft_launches} times in a draft step")
-        prof = _profiled(lambda: registry.decode_step(cfg, dpol, params, last, pool),
+        prof = _profiled(lambda: registry.decode_step(scfg, dpol, sparams, last, pool),
                          min(t_draft))
-        # the draft's 225 weight re-quantizations (5 -> 3 bits, WBC) alone
-        leaves = [lp[key]["w"] for lp in (params["layers"], params["layers"]["mlp"])
+        # the draft's weight re-quantizations (5 -> 3 bits, WBC) alone
+        leaves = [lp[key]["w"] for lp in (sparams["layers"], sparams["layers"]["mlp"])
                   for key in lp if isinstance(lp[key], dict) and "w" in lp[key]]
         requant = _wall(lambda: [mfmac._quantize_w(w[i], dpol) for w in leaves
                                  for i in range(w.shape[0])]
-                        + [mfmac._quantize_w(params["lm_head"]["w"], dpol)])
+                        + [mfmac._quantize_w(sparams["lm_head"]["w"], dpol)])
     steps["draft_step"] = dict(wall_ms=[t * 1e3 for t in t_draft], profiled=prof,
                                weight_requantization_ms=requant * 1e3,
                                requantized_leaves=sum(w.shape[0] for w in leaves) + 1)
@@ -3194,6 +3301,450 @@ def dense_serving(dev, detail, arch, number, n_layers=None, max_len=160, trace=D
     detail[f"serving_{arch}"] = res
     del params, eng_a, eng_c, pool, c2
     torch.cuda.empty_cache()
+    return launches
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 35: the paper's CNN; phase 36: quantized attention
+# ---------------------------------------------------------------------------
+
+# phase 35's cells: the repo's width (16 channels, 16 x 16 images, batch 64,
+# the example's) and ResNet-18's first-stage width (64 channels, 64 x 64,
+# batch 256)
+CNN_CELLS = {"narrow": dict(width=16, res=16, batch=64), "wide": dict(width=64, res=64, batch=256)}
+CNN_STEPS, CNN_WIDE_STEPS = 120, 3
+CNN_MIN_ACCURACY = 0.5  # chance is 0.1
+# launches of K1, K2, K3 and the pre-pass a quantized CNN step: 6 convs + the head
+CNN_STEP_LAUNCHES = 7
+CNN_PEAK_GIB = 75.0
+
+
+def cnn_example():
+    """``examples/cnn_classification_torch.py`` as a module."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import cnn_classification_torch
+
+    return cnn_classification_torch
+
+
+def conv_shapes(width, res, batch):
+    """(M, K, N) of each linear of the CNN at one cell: each conv as its
+    im2col product (M = B x Ho x Wo, K = Cin x KH x KW), then the head."""
+    w, m1, m2 = width, batch * res * res, batch * (res // 2) ** 2
+    return {"stem": (m1, 27, w), "block1a": (m1, 9 * w, w), "block1b": (m1, 9 * w, w),
+            "block2a": (m2, 9 * w, 2 * w), "block2b": (m2, 18 * w, 2 * w),
+            "proj2": (m2, w, 2 * w), "head": (batch, 2 * w, 10)}
+
+
+def _conv_operands(dev, gen, m, k, n, bits_a, bits_w):
+    """a, g, aq, wq, amax, t of one CNN linear as a training step makes
+    them (PRC at 0.95, WBC, the policy's bit-widths)."""
+    from repro_torch.core import potq
+
+    a = torch.randn(m, k, generator=gen, device=dev) * 1.7
+    w = torch.randn(k, n, generator=gen, device=dev) * 0.1
+    g = torch.randn(m, n, generator=gen, device=dev) * 1e-4
+    amax = a.abs().amax()
+    t = amax * 0.95
+    aq = potq.pot_quantize(torch.clamp(a, -t, t), bits_a).to(torch.bfloat16)
+    wq = potq.pot_quantize(w - w.mean(), bits_w).to(torch.bfloat16)
+    return a, g, aq, wq, amax, t
+
+
+def cnn_kernel_checks(dev, pols):
+    """Phase 35a: K1, the G pre-pass, K2 (dA, the dgamma rows, dgamma) and
+    K3 against their plain versions, bit for bit, at every distinct (M, K,
+    N) of both cells under each policy of ``pols``.  Returns ({kernel: max
+    abs err}, the first policy's operands by shape for 35b)."""
+    from repro_torch.core import potq
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(35)
+    max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "gq": 0.0}
+    timing = {}
+    for name, pol in pols.items():
+        for cell, c in CNN_CELLS.items():
+            for layer, (m, kk, nn) in conv_shapes(**c).items():
+                if layer == "block1b":
+                    continue  # block1a's shape
+                bits_g = pol.bits_g_last if layer == "head" else pol.bits_g
+                a, g, aq, wq, amax, t = _conv_operands(dev, gen, m, kk, nn, pol.bits_a,
+                                                       pol.bits_w)
+                e = potq.pot_emax(bits_g)
+                beta = potq.compute_beta(g, bits_g)
+                s = torch.stack([potq.exp2i(-beta), potq.exp2i(beta), t])
+                out_k, out_p = K.potq_matmul_cuda(aq, wq), K.potq_matmul_plain(aq, wq)
+                gq_k, gq_p = KG.quantize_g_cuda(g, s, emax_g=e), KG._quantize_g(g, s, e)
+                da_k, rows_k = KG.grad_da_cuda(g, wq, a, s, emax_g=e, prc=True, gq=gq_k)
+                da_p, rows_p = KG.grad_da_plain(g, wq, a, s, emax_g=e, prc=True)
+                dw_k = KG.grad_dw_cuda(aq, g, s, emax_g=e, gq=gq_k)
+                dw_p = KG.grad_dw_plain(aq, g, s, emax_g=e)
+                dg_k, dg_p = ref.halves_fold(rows_k) * amax, ref.halves_fold(rows_p) * amax
+                torch.cuda.synchronize()
+                errs = dict(k1=(out_k - out_p).abs().max().item(),
+                            gq=(gq_k.float() - gq_p).abs().max().item(),
+                            k2=max((da_k - da_p).abs().max().item(),
+                                   (rows_k - rows_p).abs().max().item(),
+                                   (dg_k - dg_p).abs().item()),
+                            k3=(dw_k - dw_p).abs().max().item())
+                ok = (torch.equal(out_k, out_p) and torch.equal(gq_k.float(), gq_p)
+                      and torch.equal(da_k, da_p) and torch.equal(rows_k, rows_p)
+                      and torch.equal(dg_k, dg_p) and torch.equal(dw_k, dw_p)
+                      and all(bool(torch.isfinite(x).all()) for x in (out_k, da_k, dw_k)))
+                print(f"{name} {cell} {layer} M={m} K={kk} N={nn} bits_g={bits_g}: "
+                      f"equal={ok} {json.dumps(errs)}", flush=True)
+                if not ok:
+                    raise SystemExit(f"K1/K2/K3/pre-pass differ from their plain versions at "
+                                     f"the CNN's {cell} {layer} under {name}")
+                for key, v in errs.items():
+                    max_err[key] = max(max_err[key], v)
+                del out_k, out_p, gq_k, gq_p, da_k, da_p, dw_k, dw_p
+                if name == next(iter(pols)):
+                    timing[(cell, layer)] = (a, g, aq, wq, s, e)
+                del a, g, aq, wq
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def cnn_kernel_timing(timing, flush):
+    """Phase 35b: K1, K2 (its pre-pass included), K3 and the pre-pass alone
+    at each CNN shape (CUDA events, L2 flushed) beside their plain
+    versions, ``torch.matmul`` on the same bf16 operands (a yardstick),
+    their roofline bound and their FP64 tensor-core bound, and each summed
+    over one training step of each cell (block1's shape twice).  Returns
+    (rows, {cell: {kernel: sums}})."""
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+
+    rows, steps = [], {}
+    for cell, c in CNN_CELLS.items():
+        steps[cell] = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_ops": 0.0,
+                             "t_bytes": 0.0, "fp64_tc_bound_ms": 0.0}
+                       for key in ("k1", "k2", "k3", "gq")}
+        for layer, (m, kk, nn) in conv_shapes(**c).items():
+            a, g, aq, wq, s, e = timing[(cell, "block1a" if layer == "block1b" else layer)]
+            gq = KG.quantize_g_cuda(g, s, emax_g=e)
+            fns = {"k1": (lambda: K.potq_matmul_cuda(aq, wq), lambda: K.potq_matmul_plain(aq, wq),
+                          lambda: torch.matmul(aq, wq)),
+                   "k2": (lambda: KG.grad_da_cuda(g, wq, a, s, emax_g=e, prc=True),
+                          lambda: KG.grad_da_plain(g, wq, a, s, emax_g=e, prc=True),
+                          lambda: torch.matmul(gq, wq.T)),
+                   "k3": (lambda: KG.grad_dw_cuda(aq, g, s, emax_g=e, gq=gq),
+                          lambda: KG.grad_dw_plain(aq, g, s, emax_g=e),
+                          lambda: torch.matmul(aq.T, gq)),
+                   "gq": (lambda: KG.quantize_g_cuda(g, s, emax_g=e),
+                          lambda: KG._quantize_g(g, s, e), None)}
+            for key, (kern, plain, lib) in fns.items():
+                if layer == "block1b":  # block1a's row, counted twice
+                    row = dict(next(r for r in rows if r["cell"] == cell
+                                    and r["layer"] == "block1a" and r["kernel"] == key),
+                               layer="block1b")
+                else:
+                    t_k = time_ms(kern, 3 if key != "gq" else 10, flush)
+                    t_p = time_ms(plain, 1, flush)
+                    t_l = time_ms(lib, 3, flush) if lib is not None else None
+                    if key == "gq":
+                        t_ops, t_bytes = 0.0, 6.0 * m * nn / PEAK_BYTES * 1e3
+                    else:
+                        t_ops, t_bytes = train_bound(m, kk, nn, key)
+                    row = dict(cell=cell, layer=layer, kernel=key, M=m, K=kk, N=nn, ms=t_k,
+                               plain_ms=t_p, library_ms=t_l, bound_ms=max(t_ops, t_bytes),
+                               bound_by="operations" if t_ops > t_bytes else "bytes",
+                               t_ops=t_ops, t_bytes=t_bytes,
+                               fp64_tc_bound_ms=(2.0 * m * kk * nn / PEAK_FP64_TC_FLOPS * 1e3
+                                                 if key != "gq" else None))
+                    if key == "k3":  # one block per 128 x 128 tile of dW walks all of M
+                        row["grid_blocks"] = -(-kk // 128) * -(-nn // 128)
+                    print(json.dumps({k: v for k, v in row.items()
+                                      if k not in ("t_ops", "t_bytes")}), flush=True)
+                rows.append(row)
+                acc = steps[cell][key]
+                for f in ("ms", "plain_ms", "t_ops", "t_bytes"):
+                    acc[f] += row[f]
+                acc["library_ms"] = (None if row["library_ms"] is None
+                                     else acc["library_ms"] + row["library_ms"])
+                acc["fp64_tc_bound_ms"] = (None if row["fp64_tc_bound_ms"] is None
+                                           else acc["fp64_tc_bound_ms"] + row["fp64_tc_bound_ms"])
+            del gq
+        for key, acc in steps[cell].items():
+            t_ops, t_bytes = acc.pop("t_ops"), acc.pop("t_bytes")
+            acc["bound_ms"] = max(t_ops, t_bytes)
+            acc["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+            acc["launches"] = CNN_STEP_LAUNCHES
+            print(f"{key}, one {cell} CNN training step ({CNN_STEP_LAUNCHES} launches):",
+                  json.dumps(acc), flush=True)
+    for r in rows:
+        r.pop("t_ops", None)
+        r.pop("t_bytes", None)
+    return rows, steps
+
+
+def cnn_training(dev, detail, ex):
+    """Phases 35c-f: ``train_cnn`` at the repo's width under the example's
+    three policies (the main path: launches counted from 0 around each
+    run), CUDA against CPU, a step twice, and the wide cell's steps."""
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.models import spec
+    from repro_torch.train import value_and_grad
+    from repro_torch.models import cnn
+
+    counters = _kernel_counters()
+    narrow = CNN_CELLS["narrow"]
+    phase(f"35c train_cnn at width {narrow['width']}, {narrow['res']} x {narrow['res']}, batch "
+          f"{narrow['batch']}, {CNN_STEPS} steps, three policies")
+    res, launches_total = {}, {k: 0 for k in counters}
+    for label, pol in ex.POLICIES:
+        times = []
+
+        def mark(step, loss):
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        acc, loss, params = ex.train_cnn(pol, steps=CNN_STEPS, device=dev, on_step=mark)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        q = pol.enabled
+        # every step, then the eval forward (K1 only)
+        want = {k: (CNN_STEPS * CNN_STEP_LAUNCHES + (CNN_STEP_LAUNCHES if k == "k1" else 0))
+                if q else 0 for k in counters}
+        step_ms = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+        opt, step = ex.make_step(pol)
+        state = opt.init(params)
+        x, y = ex.batch_at(CNN_STEPS, narrow["batch"], narrow["res"], dev)
+        _zero_launches()
+        prof = _profiled(lambda: step(params, state, x, y, CNN_STEPS),
+                             sum(step_ms) / len(step_ms) / 1e3)
+        per_step = {k: fn.launches for k, fn in counters.items()}
+        row = dict(accuracy=acc, final_loss=loss, wall_s=wall, launches=launches,
+                   expected_launches=want, step_ms_mean=sum(step_ms) / len(step_ms),
+                   step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+                   launches_a_step=per_step, profiled_step=prof)
+        print(f"{label}:", json.dumps(row), flush=True)
+        if launches != want or per_step != {k: CNN_STEP_LAUNCHES if q else 0 for k in counters}:
+            raise SystemExit(f"{label}: the CNN launched {launches} ({per_step} a step), "
+                             f"expected {want}")
+        if not (acc >= CNN_MIN_ACCURACY and np.isfinite(loss)):
+            raise SystemExit(f"{label}: accuracy {acc} (below {CNN_MIN_ACCURACY}) or loss {loss}")
+        res[label.split()[0]] = row
+        for k in counters:
+            launches_total[k] += launches[k]
+        del params, state
+
+    phase("35d the CNN on CUDA and on the CPU, 3 steps from the same state")
+    cmp = {}
+    for label, pol in ex.POLICIES:
+        runs = {}
+        for where in ("cpu", dev):
+            p = ex.init_params(narrow["width"], 0, where)
+            opt, step = ex.make_step(pol)
+            state = opt.init(p)
+            bs = [ex.batch_at(i, narrow["batch"], narrow["res"], where) for i in range(3)]
+            _, grads = value_and_grad(lambda t: cnn.loss_fn(pol, t, *bs[0]), p)
+            losses = []
+            for i, (x, y) in enumerate(bs):
+                p, state, loss = step(p, state, x, y, i)
+                losses.append(float(loss))
+            runs[str(where)] = (losses, {n: g.cpu() for n, g in spec.named_leaves(grads)})
+            if where is dev:
+                saved = (p, state, bs, step)
+        (lc, gc), (lg, gg) = runs["cpu"], runs[str(dev)]
+        g_worst = max(float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-30)
+                      for n in gc)
+        row = dict(losses_cpu=lc, losses_cuda=lg, grad_rel_err=g_worst)
+        print(f"{label}:", json.dumps(row), f"(tolerances: loss rtol {LOSS_RTOL}, grads "
+              f"{GRAD_RTOL} x max|g|)", flush=True)
+        if not all(abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(lg, lc)) or                 not g_worst <= GRAD_RTOL:
+            raise SystemExit(f"{label}: the CNN on CUDA and on the CPU disagree")
+        cmp[label.split()[0]] = row
+        if pol is PAPER_FAITHFUL:
+            twice = saved
+    res["cuda_vs_cpu"] = cmp
+
+    phase("35e one CNN step twice from the same state (PAPER_FAITHFUL)")
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    p, state, bs, step = twice
+    x, y = bs[0]
+    keep = (_state_copy(p), _state_copy(state))
+    p, state, l1 = step(p, state, x, y, 3)
+    first = _state_copy(p)
+    _state_load(p, keep[0])
+    _state_load(state, keep[1])
+    p, state, l2 = step(p, state, x, y, 3)
+    torch.cuda.synchronize()
+    same = torch.equal(l1, l2) and all(torch.equal(a, b) for (_, a), (_, b) in
+                                       zip(spec.named_leaves(first), spec.named_leaves(p)))
+    print(f"loss {float(l1)!r} / {float(l2)!r}; every parameter bit-equal: {same}")
+    torch.use_deterministic_algorithms(deterministic)
+    if not same:
+        raise SystemExit("two runs of one CNN step differ")
+    res["step_twice_equal"] = same
+    del twice, p, state, keep, first
+
+    wide = CNN_CELLS["wide"]
+    phase(f"35f the CNN at width {wide['width']}, {wide['res']} x {wide['res']}, batch "
+          f"{wide['batch']}: {CNN_WIDE_STEPS} steps (PAPER_FAITHFUL), one profiled")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p = ex.init_params(wide["width"], 0, dev)
+    opt, step = ex.make_step(PAPER_FAITHFUL)
+    state = opt.init(p)
+    _zero_launches()
+    times, losses = [], []
+    for i in range(CNN_WIDE_STEPS):
+        x, y = ex.batch_at(i, wide["batch"], wide["res"], dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, loss = step(p, state, x, y, i)
+        losses.append(float(loss))  # waits for the device
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    x, y = ex.batch_at(CNN_WIDE_STEPS, wide["batch"], wide["res"], dev)
+    prof = _profiled(lambda: step(p, state, x, y, CNN_WIDE_STEPS), min(times[1:]))
+    shapes = conv_shapes(**wide).values()
+    prof["fp64_tc_bound_ms"] = sum(2.0 * m * k * n for m, k, n in shapes) / PEAK_FP64_TC_FLOPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = dict(losses=losses, step_ms=[t * 1e3 for t in times], launches=launches,
+               peak_gib=peak, profiled_step=prof)
+    print("wide:", json.dumps(row), flush=True)
+    want = {k: CNN_WIDE_STEPS * CNN_STEP_LAUNCHES for k in counters}
+    if launches != want or not all(np.isfinite(losses)) or peak >= CNN_PEAK_GIB:
+        raise SystemExit(f"the wide CNN: launches {launches} (expected {want}), losses {losses}, "
+                         f"peak {peak:.1f} GiB (gate {CNN_PEAK_GIB})")
+    res["wide"] = row
+    for k in counters:
+        launches_total[k] += launches[k]
+    del p, state
+    torch.cuda.empty_cache()
+    detail["cnn_training"] = res
+    return res, launches_total
+
+
+def cnn_phase(dev, detail):
+    """Phase 35: the paper's CNN (``models/cnn.py``, every conv an im2col
+    product through K1-K3).  Returns (kernel rows by kernel for the
+    ``kernels`` line, the main path's launches)."""
+    from repro_torch.core.policy import PAPER_FAITHFUL
+
+    ex = cnn_example()
+    phase("35a K1, K2, K3 and the pre-pass vs plain versions at the CNN's shapes (bit for bit)")
+    max_err, timing = cnn_kernel_checks(dev, {"PAPER_FAITHFUL": PAPER_FAITHFUL,
+                                              "BITS444": ex.BITS444})
+    phase("35b K1, K2, K3 and pre-pass timing at the CNN's shapes (CUDA events, L2 flushed)")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows, steps = cnn_kernel_timing(timing, flush)
+    del timing, flush
+    torch.cuda.empty_cache()
+    detail["cnn_kernel_shapes"] = rows
+    train, launches = cnn_training(dev, detail, ex)
+    kernels = {k: dict(max_abs_err=max_err[k], launches=launches[k],
+                       **{f"{cell}_step": steps[cell][k] for cell in CNN_CELLS},
+                       wide_step_device_ms=train["wide"]["profiled_step"][
+                           "prepass_ms" if k == "gq" else f"{k}_ms"])
+               for k in max_err}
+    return kernels, launches
+
+
+
+QA_ARCHS = ("olmo-1b", ENCDEC_ARCH, "recurrentgemma-2b")
+
+
+def qa_policy():
+    from repro_torch.core.policy import PAPER_FAITHFUL
+
+    return dataclasses.replace(PAPER_FAITHFUL, quantize_attention=True)
+
+
+def qa_training(dev, detail):
+    """Phase 36a: a training step of olmo-1b, whisper-large-v3 and
+    recurrentgemma-2b at smoke width under ``quantize_attention``, CUDA
+    against CPU (``smoke_training``: losses, gradients, a step twice,
+    launches a step: the attention products add no kernel launch)."""
+    phase("36a training under quantize_attention at smoke width: CUDA vs CPU, a step twice, "
+          "launches a step")
+    res = smoke_training(dev, QA_ARCHS, LOSS_RTOL, qa_policy())
+    detail["quantize_attention_training"] = res
+    return {a: r["launches"] for a, r in res.items()}
+
+
+def qa_train_step(dev, run, batch, step_no, base):
+    """Phase 36b: from phase 10's olmo-1b state at full width, one step
+    under ``quantize_attention`` (timed, then one profiled), beside phase
+    10's profiled step ``base``; K1/K2/K3/pre-pass launches as phase 10's."""
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.train import make_train_step
+
+    phase("36b olmo-1b at full width: one step under quantize_attention from phase 10's state")
+    counters = _kernel_counters()
+    step = make_train_step(run.cfg, qa_policy(), adamw(warmup_cosine_schedule(3e-3, 20, 4)))
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = step(run.params, run.opt_state, batch, step_no)
+    loss = float(m["loss"])
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # the device's kernels only, as phase 31b: the host's ops of a 40k-kernel
+    # step take the profiler seconds to collect
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        _, _, m2 = step(run.params, run.opt_state, batch, step_no + 1)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t1
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    k1_us = sum(e.time_range.elapsed_us() for e in kern if "potq_mm" in e.name)
+    row = dict(loss=loss, loss_next=float(m2["loss"]), step_s=wall, launches=launches,
+               profiled=dict(wall_ms=t_prof * 1e3, device_kernels=len(kern),
+                             device_busy_ms=busy_us / 1e3, k1_ms=k1_us / 1e3,
+                             idle_share=1 - busy_us / 1e6 / wall if kern else None),
+               phase10_profiled=dict(wall_ms=base["wall_ms"], device_kernels=base["device_kernels"],
+                                     device_busy_ms=base["device_busy_ms"],
+                                     idle_share=base["idle_share"]))
+    print(json.dumps(row), flush=True)
+    if launches != step_launches() or not (np.isfinite(loss) and np.isfinite(row["loss_next"])):
+        raise SystemExit(f"quantize_attention step: launches {launches} (expected "
+                         f"{step_launches()}), loss {loss}")
+    return row
+
+
+def qa_serving(dev, detail, cfg, params, policy, reqs):
+    """Phase 36c: phase 5's engine (4 slots, solo prefill, paged) and trace
+    under ``quantize_attention`` at llama3-8b's widths and ``SPEC_LAYERS``
+    layers: A is the main path; C (each request alone) gives A's tokens
+    bit for bit; K1 once a linear a weight pass."""
+    from repro_torch.serve import PoolEngine
+
+    phase(f"36c serving under quantize_attention, llama3-8b's widths at {SPEC_LAYERS} layers")
+    scfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+    sparams = dict(params, layers=_first_layers(params["layers"], SPEC_LAYERS))
+    pol = dataclasses.replace(policy, quantize_attention=True)
+    eng = PoolEngine(scfg, pol, sparams, max_slots=4, max_len=160, device=dev)
+    eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    out, wall, launches = _timed_run(eng, reqs)
+    st = eng.last_stats
+    row = _serve_row(st, wall, launches)
+    print("A:", json.dumps(row))
+    if launches != k1_per_pass(scfg) * st.weight_passes:
+        raise SystemExit(f"quantize_attention serving: K1 launched {launches} times, expected "
+                         f"{k1_per_pass(scfg)} x {st.weight_passes} weight passes")
+    check_tokens(scfg, reqs, out)
+    solo = PoolEngine(scfg, pol, sparams, max_slots=1, max_len=160, device=dev)
+    same = [bool(np.array_equal(solo.run([dataclasses.replace(r, arrival=0)])[r.uid],
+                                out[r.uid])) for r in reqs]
+    row["a_equals_c"] = same
+    print(f"A == C (each request alone): {same}")
+    if not all(same):
+        raise SystemExit("quantize_attention serving: pooled tokens differ from solo")
+    detail["quantize_attention_serving"] = row
     return launches
 
 

@@ -1,5 +1,6 @@
-"""MF-MAC linear layers with their backward (port of ``repro/core/mfmac.py``,
-``mf_linear`` and ``mf_expert_linear``; Algorithm 1).
+"""MF-MAC linear layers with their backward (port of ``repro/core/mfmac.py``:
+``mf_linear``, ``mf_expert_linear``, ``mf_act_dot`` and ``mf_conv2d``;
+Algorithm 1).
 
 Forward (lines 4-8):
     Wq = ALS-PoTQ(W - mean(W))            # WBC then quantize
@@ -27,12 +28,24 @@ expert is its own "layer" (its own W scale and WBC mean, its own A scale
 and PRC threshold), the forward is ONE launch of K1's expert-batched form
 (``ops.pot_value_bmm``) and the backward runs K2/K3 once per expert
 (``ops.potq_expert_grad_matmuls``), as the reference's vmap does.
+
+``mf_act_dot`` is the attention's activation-by-activation product
+x[..., M, K] @ y[..., K, N] (QK^T and PV).  Under
+``policy.quantize_attention`` both operands are PoT-quantized without a
+PRC clip and the product runs over their exact values in float32 (no
+kernel: the reference's is a plain dot outside any Pallas kernel);
+otherwise it is today's plain product, bit for bit.
+
+``mf_conv2d`` is a convolution as im2col (pure data movement, the
+reference's ``conv_general_dilated_patches`` element for element) followed
+by ``mf_linear``: K1 forward, K2 and K3 backward at conv shapes.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import potq
 from repro_torch.core.policy import QuantPolicy
@@ -112,10 +125,6 @@ def _quantize_a(a: torch.Tensor, gamma: torch.Tensor, policy: QuantPolicy,
     return potq.pot_quantize(a32, policy.bits_a, beta).to(_BF16)
 
 
-def _bits_g(policy: QuantPolicy, is_last: bool) -> int:
-    return policy.bits_g_last if is_last else policy.bits_g
-
-
 class _MFLinear(torch.autograd.Function):
     """a[..., K] @ w[K, N] through K1, backward through K2 and K3."""
 
@@ -135,7 +144,7 @@ class _MFLinear(torch.autograd.Function):
         policy = ctx.policy
         k, n = wq.shape
         g2 = g.to(torch.float32).reshape(-1, n)
-        kw = dict(bits_g=_bits_g(policy, ctx.is_last), bits_a=policy.bits_a,
+        kw = dict(bits_g=policy.bits_for("g", ctx.is_last), bits_a=policy.bits_a,
                   bits_w=policy.bits_w,
                   per_sample_act_scales=policy.per_sample_act_scales)
         if policy.prc_enabled:
@@ -246,3 +255,110 @@ def mf_expert_linear(
             raise ValueError("mf_expert_linear(per_slot=True) has no backward")
         return _expert_per_slot(a, w, gamma, policy)
     return _MFExpertLinear.apply(a, w, gamma, policy)
+
+
+# ---------------------------------------------------------------------------
+# mf_act_dot: activation x activation products (attention), opt-in
+# ---------------------------------------------------------------------------
+
+def _qact(x: torch.Tensor, bits: int, axes=None) -> torch.Tensor:
+    """x PoT-quantized at ``bits`` under one scale per ``axes`` group (the
+    whole tensor for None), as exact values in bf16; no PRC clip."""
+    x32 = x.to(torch.float32)
+    return potq.pot_quantize(x32, bits, potq.compute_beta(x32, bits, axes)).to(_BF16)
+
+
+def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` summed over the dims that broadcasting added or widened, back
+    to ``shape``."""
+    lead = t.dim() - len(shape)
+    if lead:
+        t = t.sum(dim=tuple(range(lead)))
+    wide = tuple(i for i, n in enumerate(shape) if n == 1 and t.shape[i] != 1)
+    return t.sum(dim=wide, keepdim=True) if wide else t
+
+
+class _MFActDot(torch.autograd.Function):
+    """x[..., M, K] @ y[..., K, N] over PoT-quantized operands (batch dims
+    broadcast); the backward is the reference's ``_mf_act_dot_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, y, policy: QuantPolicy):
+        xq = _qact(x, policy.bits_a, _sample_axes(policy, x, None))
+        yq = _qact(y, policy.bits_a, _sample_axes(policy, y, None))
+        ctx.policy, ctx.dtypes = policy, (x.dtype, y.dtype)
+        ctx.save_for_backward(xq, yq)
+        # PoT products are exact in float32 (TF32 is off on the card)
+        return torch.matmul(xq.to(torch.float32), yq.to(torch.float32)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, yq = ctx.saved_tensors
+        # G quantized once, one scale for the whole tensor
+        gq = _qact(g, ctx.policy.bits_g).to(torch.float32)
+        dx = _sum_to(torch.matmul(gq, yq.to(torch.float32).transpose(-1, -2)), xq.shape)
+        dy = _sum_to(torch.matmul(xq.to(torch.float32).transpose(-1, -2), gq), yq.shape)
+        # rounded to bf16 as the reference's rule does, in the primal's dtype
+        return dx.to(_BF16).to(ctx.dtypes[0]), dy.to(_BF16).to(ctx.dtypes[1]), None
+
+
+def mf_act_dot(x: torch.Tensor, y: torch.Tensor, *, policy: QuantPolicy) -> torch.Tensor:
+    """x[..., M, K] @ y[..., K, N], batch dims broadcast: through PoT
+    quantization under ``policy.quantize_attention`` (one activation scale
+    per tensor, per leading-dim sample under ``per_sample_act_scales``),
+    otherwise the plain product."""
+    if policy.enabled and policy.quantize_attention:
+        return _MFActDot.apply(x, y, policy)
+    return torch.matmul(x, y)
+
+
+# ---------------------------------------------------------------------------
+# mf_conv2d: convolution as im2col + MF-MAC (the paper's CNN linear layers)
+# ---------------------------------------------------------------------------
+
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """JAX's "SAME" split: the output is ceil(size / stride) wide, the
+    total pad goes one more to the end than to the start when odd."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_patches(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+                 padding: str = "SAME") -> torch.Tensor:
+    """im2col of x (B, H, W, Cin): (B, Ho, Wo, Cin*KH*KW), features
+    Cin-major, element for element the reference's
+    ``conv_general_dilated_patches`` (pads of zeros, explicit and, at
+    stride 2, possibly asymmetric)."""
+    b, h, w, c = x.shape
+    if padding == "SAME":
+        ph, pw = _same_pads(h, kh, stride), _same_pads(w, kw, stride)
+    elif padding == "VALID":
+        ph = pw = (0, 0)
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    xc = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+    ho = (h + ph[0] + ph[1] - kh) // stride + 1
+    wo = (w + pw[0] + pw[1] - kw) // stride + 1
+    cols = F.unfold(xc, (kh, kw), stride=stride)  # (B, Cin*KH*KW, Ho*Wo)
+    return cols.transpose(1, 2).reshape(b, ho, wo, c * kh * kw)
+
+
+def mf_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    gamma: Optional[Union[torch.Tensor, float]] = None,
+    *,
+    policy: QuantPolicy,
+    stride: int = 1,
+    padding: str = "SAME",
+    is_last: bool = False,
+) -> torch.Tensor:
+    """2-D convolution of x (B, H, W, Cin) by w (KH, KW, Cin, Cout) through
+    the quantized MAC path: im2col, then ``mf_linear`` of the patches by
+    the (Cin*KH*KW, Cout) filter matrix, one layer-wise scale for W and one
+    for A.  Returns (B, Ho, Wo, Cout)."""
+    kh, kw, cin, cout = w.shape
+    patches = conv_patches(x, kh, kw, stride, padding)
+    wm = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+    return mf_linear(patches, wm, gamma, policy=policy, is_last=is_last)

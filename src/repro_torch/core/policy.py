@@ -50,7 +50,9 @@ class QuantPolicy:
       weight_bias_correction: subtract mean(W) before quantization (WBC).
       ratio_clip_init: PRC clipping ratio gamma; ``None`` disables PRC.
       stochastic_rounding: not ported yet; must be False.
-      quantize_attention: not ported yet; must be False.
+      quantize_attention: ALSO run the attention QK^T / PV activation-by-
+        activation products through PoT quantization (``mfmac.mf_act_dot``);
+        beyond the paper, off for paper-faithful runs.
       use_pallas: kept for field parity with the reference and **ignored
         by the port**.  In the port, dispatch depends only on the device
         of the operands: CUDA tensors always go to the hand-written kernel
@@ -81,19 +83,26 @@ class QuantPolicy:
     kv_quant: Optional[KVQuantSpec] = None
 
     def __post_init__(self) -> None:
-        unported = {
-            "stochastic_rounding": self.stochastic_rounding,
-            "quantize_attention": self.quantize_attention,
-        }
-        on = [k for k, v in unported.items() if v]
-        if on:
+        if self.stochastic_rounding:
             raise NotImplementedError(
-                f"QuantPolicy options not ported to repro_torch yet: {on}"
+                "QuantPolicy options not ported to repro_torch yet: ['stochastic_rounding']"
             )
 
     @property
     def prc_enabled(self) -> bool:
         return self.ratio_clip_init is not None
+
+    def bits_for(self, tensor: str, is_last_layer: bool = False) -> int:
+        """The PoT bit-width of a weight (``"w"``), an activation (``"a"``)
+        or an activation gradient (``"g"``; ``bits_g_last`` into the last
+        layer)."""
+        if tensor == "w":
+            return self.bits_w
+        if tensor == "a":
+            return self.bits_a
+        if tensor == "g":
+            return self.bits_g_last if is_last_layer else self.bits_g
+        raise ValueError(f"unknown tensor kind {tensor!r}")
 
 
 def draft_policy(policy: QuantPolicy, bits: int = 3) -> QuantPolicy:

@@ -121,3 +121,31 @@ def pot_decode(enc: PotEncoded) -> torch.Tensor:
     mag = torch.where(zero, torch.zeros(e.shape, dtype=torch.float32,
                                         device=e.device), exp2i(e))
     return torch.where(enc.sign == 1, -mag, mag)
+
+
+# ---------------------------------------------------------------------------
+# Preprocessing: WBC (§4.2) and PRC (§4.3)
+# ---------------------------------------------------------------------------
+
+def weight_bias_correction(w: torch.Tensor) -> torch.Tensor:
+    """WBC: remove the weight mean so W matches the symmetric PoT grid."""
+    return w - w.mean()
+
+
+def ratio_clip(a: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """PRC forward: clip activations at +-gamma * max|A| (Eq. 12).  max|A|
+    is a constant to autograd (detached), as in PACT."""
+    t = a.abs().amax().detach() * gamma
+    return torch.clamp(a, -t, t)
+
+
+def ratio_clip_vjp(a: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor):
+    """The VJP of :func:`ratio_clip` written out: (da, dgamma).  da passes
+    ``g`` where ``a`` is not clipped and is zero where it is (PACT);
+    dgamma sums sign(a) * g over the clipped region, times max|A|."""
+    amax = a.abs().amax()
+    clipped = a.abs() > amax * gamma
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    da = torch.where(clipped, zero, g)
+    dgamma = torch.where(clipped, g * torch.sign(a), zero).sum() * amax
+    return da, dgamma.to(torch.as_tensor(gamma).dtype)

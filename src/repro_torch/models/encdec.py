@@ -96,9 +96,10 @@ def _proj_heads(p, name, x, policy, nh, hd):
     return mfmac.mf_linear(x, p[name]["w"], p[name]["gamma"], policy=policy).reshape(b, s, nh, hd)
 
 
-def _mha(q, k, v):
+def _mha(policy, q, k, v):
     """Bidirectional grouped attention (no mask), FP32 scores: q (B, Sq,
-    H, hd) over k, v (B, Skv, KV, hd), cast to q's dtype."""
+    H, hd) over k, v (B, Skv, KV, hd), cast to q's dtype; QK^T and PV
+    through ``mfmac.mf_act_dot``."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
@@ -106,8 +107,9 @@ def _mha(q, k, v):
     qg = q.reshape(b, sq, kv, rep, hd).permute(0, 2, 3, 1, 4)  # (B,KV,rep,Sq,hd)
     kt = k.to(q.dtype).permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,Skv)
     vt = v.to(q.dtype).permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,Skv,hd)
-    probs = torch.softmax(torch.matmul(qg, kt).to(torch.float32) * scale, dim=-1)
-    out = torch.matmul(probs.to(q.dtype), vt)  # (B,KV,rep,Sq,hd)
+    scores = mfmac.mf_act_dot(qg, kt, policy=policy).to(torch.float32) * scale
+    probs = torch.softmax(scores, dim=-1)
+    out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
@@ -123,7 +125,7 @@ def _enc_layer(cfg, policy, lp, x):
     q = _proj_heads(lp, "wq", h, policy, cfg.n_heads, hd)
     k = _proj_heads(lp, "wk", h, policy, cfg.kv_heads, hd)
     v = _proj_heads(lp, "wv", h, policy, cfg.kv_heads, hd)
-    att = _mha(q, k, v).reshape(b, s, cfg.n_heads * hd)
+    att = _mha(policy, q, k, v).reshape(b, s, cfg.n_heads * hd)
     y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
     return y + _mlp(policy, lp, _norm(lp["ln2"])(y))
 
@@ -155,13 +157,13 @@ def _dec_block(cfg, policy, lp, x, enc_out, qpos):
     hd, hh = cfg.head_dim, cfg.n_heads * cfg.head_dim
     h = _norm(lp["ln1"])(x)
     q, k, v = T._qkv(cfg, policy, lp, h, qpos[None, :].expand(b, s))
-    att = T._sdpa(cfg, q, k, v, qpos, qpos, None).reshape(b, s, hh)
+    att = T._sdpa(cfg, policy, q, k, v, qpos, qpos, None).reshape(b, s, hh)
     x = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
     hc = _norm(lp["ln_cross"])(x)
     cq = _proj_heads(lp, "cq", hc, policy, cfg.n_heads, hd)
     ck = _proj_heads(lp, "ck", enc_out, policy, cfg.kv_heads, hd)
     cv = _proj_heads(lp, "cv", enc_out, policy, cfg.kv_heads, hd)
-    catt = _mha(cq, ck, cv).reshape(b, s, hh)
+    catt = _mha(policy, cq, ck, cv).reshape(b, s, hh)
     x = x + mfmac.mf_linear(catt, lp["co"]["w"], lp["co"]["gamma"], policy=policy)
     x = x + _mlp(policy, lp, _norm(lp["ln2"])(x))
     return x, (k, v), (ck, cv)
@@ -259,11 +261,11 @@ def encode_cross_kv(cfg, policy, params, frames):
     return torch.stack(cks), torch.stack(cvs)
 
 
-def _cross_attend(cache, i):
+def _cross_attend(policy, cache, i):
     """Row ``s``'s cross attention over its slot's own ``ck``/``cv`` of
     layer ``i``: ``fn(q_s, s)``."""
     ckx, cvx = cache["ck"][i], cache["cv"][i]
-    return lambda q_s, s: _mha(q_s, ckx[s:s + 1], cvx[s:s + 1])
+    return lambda q_s, s: _mha(policy, q_s, ckx[s:s + 1], cvx[s:s + 1])
 
 
 def decode_step(cfg, policy, params, token, cache):
@@ -280,12 +282,16 @@ def decode_step(cfg, policy, params, token, cache):
         lp = T._layer(params["dec_layers"], i)
         h = T._rows(_norm(lp["ln1"]), x)
         q, k, v = T._qkv(cfg, policy, lp, h, st.qpos)
-        att = st.attend(cfg, cache, i, q, k, v).reshape(b, 1, hh)
+        att = st.attend(cfg, policy, cache, i, q, k, v).reshape(b, 1, hh)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         hc = T._rows(_norm(lp["ln_cross"]), y)
         cq = _proj_heads(lp, "cq", hc, policy, cfg.n_heads, hd)
-        cross = _cross_attend(cache, i)
-        catt = torch.cat([cross(cq[s:s + 1], s) for s in range(b)]).reshape(b, 1, hh)
+        if T.rows_are_groups(policy):
+            cross = _cross_attend(policy, cache, i)
+            catt = torch.cat([cross(cq[s:s + 1], s) for s in range(b)])
+        else:  # one scale group over the batch's attention products
+            catt = _mha(policy, cq, cache["ck"][i], cache["cv"][i])
+        catt = catt.reshape(b, 1, hh)
         y = y + mfmac.mf_linear(catt, lp["co"]["w"], lp["co"]["gamma"], policy=policy)
         x = y + _mlp(policy, lp, T._rows(_norm(lp["ln2"]), y))
     x = T._rows(_norm(params["dec_norm"]), x)
@@ -308,11 +314,11 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
         lp = T._layer(params["dec_layers"], i)
         h = st.norms(_norm(lp["ln1"]), x)
         q, k, v = T._qkv(cfg, policy, lp, h, st.qpos)
-        att = st.attend(cfg, cache, i, q, k, v)
+        att = st.attend(cfg, policy, cache, i, q, k, v)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         cq = _proj_heads(lp, "cq", st.norms(_norm(lp["ln_cross"]), y), policy,
                          cfg.n_heads, hd)
-        catt = T.slot_attend(_cross_attend(cache, i), cq, st.layout)
+        catt = T.slot_attend(_cross_attend(policy, cache, i), cq, st.layout)
         # zero the pad rows, so nothing downstream depends on them
         catt = torch.where(st.vmask[..., None], catt, 0.0).reshape(b, c, hh)
         y = y + mfmac.mf_linear(catt, lp["co"]["w"], lp["co"]["gamma"], policy=policy)
@@ -337,11 +343,11 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
         lp = T._layer(params["dec_layers"], i)
         h = T.live_norms(_norm(lp["ln1"]), x, st.rows)
         q, k, v = T._qkv(cfg, policy, lp, h, st.rq)
-        att = st.attend(cfg, cache, i, q, k, v)
+        att = st.attend(cfg, policy, cache, i, q, k, v)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         cq = _proj_heads(lp, "cq", T.live_norms(_norm(lp["ln_cross"]), y, st.rows), policy,
                          cfg.n_heads, hd)
-        cross = _cross_attend(cache, i)
+        cross = _cross_attend(policy, cache, i)
         catt = torch.zeros_like(cq)
         for r in st.rows:
             catt[r:r + 1] = cross(cq[r:r + 1], r // c)

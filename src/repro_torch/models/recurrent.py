@@ -204,7 +204,7 @@ def _attn_decode(cfg, policy, p, x, c, token, pos):
     st = transformer.DecodeSlots(view, token, None)
     h = _norm(x, p["ln1"]["scale"], True)
     q, k, v = transformer._qkv(cfg, policy, p, h, st.qpos)
-    att = st.attend(cfg, view, 0, q, k, v).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    att = st.attend(cfg, policy, view, 0, q, k, v).reshape(b, 1, cfg.n_heads * cfg.head_dim)
     x = x + mfmac.mf_linear(att, p["wo"]["w"], p["wo"]["gamma"], policy=policy)
     h2 = _norm(x, p["ln2"]["scale"], True)
     x = x + _mlp(cfg, policy, p["mlp"], h2)

@@ -311,14 +311,17 @@ def _attn_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, qpos, *,
     ``qpos`` is 1-D.  Returns (output, (k, v))."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, policy, p, x, qpos[None, :].expand(b, s))
-    att = _sdpa(cfg, q, k, v, qpos, qpos, window)
+    att = _sdpa(cfg, policy, q, k, v, qpos, qpos, window)
     att = att.reshape(b, s, cfg.n_heads * cfg.head_dim)
     out = mfmac.mf_linear(att, p["wo"]["w"], p["wo"]["gamma"], policy=policy)
     return out, (k, v)
 
 
-def _sdpa(cfg, q, k, v, qpos, kpos, window):
-    """Grouped-GQA attention with FP32 scores (K/V at kv-head width).
+def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
+    """Grouped-GQA attention with FP32 scores (K/V at kv-head width); QK^T
+    and PV through ``mfmac.mf_act_dot`` (PoT-quantized under
+    ``policy.quantize_attention``, one scale group per tensor or per
+    leading-dim sample).
 
     ``qpos``/``kpos`` are 1-D (shared across the batch) or 2-D
     ``(B, Sq)``/``(B, Skv)``.  Masked scores take -1e30, as in the
@@ -330,7 +333,7 @@ def _sdpa(cfg, q, k, v, qpos, kpos, window):
     qg = q.reshape(b, sq, kv, rep, hd).permute(0, 2, 3, 1, 4)  # (B,KV,rep,Sq,hd)
     kt = k.permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,Skv)
     vt = v.permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,Skv,hd)
-    scores = torch.matmul(qg, kt).to(torch.float32) * scale  # (B,KV,rep,Sq,Skv)
+    scores = mfmac.mf_act_dot(qg, kt, policy=policy).to(torch.float32) * scale  # (B,KV,rep,Sq,Skv)
     if qpos.dim() == 1:
         qpos = qpos[None, :].expand(b, sq)
     if kpos.dim() == 1:
@@ -342,7 +345,7 @@ def _sdpa(cfg, q, k, v, qpos, kpos, window):
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(q.dtype), vt)  # (B,KV,rep,Sq,hd)
+    out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
@@ -560,8 +563,22 @@ def _kv_page_view(cache, key, layer, ids, spec):
     return compress.kv_page_decode(view, page_view(cache[f"{key}_beta"][layer], ids), spec)
 
 
-def _attend(cfg, q, k, v, qpos, kpos, window):
-    return _sdpa(cfg, q, k.to(q.dtype), v.to(q.dtype), qpos, kpos, window)
+def _attend(cfg, policy, q, k, v, qpos, kpos, window):
+    return _sdpa(cfg, policy, q, k.to(q.dtype), v.to(q.dtype), qpos, kpos, window)
+
+
+def rows_are_groups(policy) -> bool:
+    """Whether each leading row (slot) of an attention is an activation-
+    scale group of its own, so that attending row by row gives the
+    batch's bits: always unless ``quantize_attention`` puts the products
+    under one scale per tensor (no ``per_sample_act_scales``)."""
+    return policy.per_sample_act_scales or not (policy.enabled and policy.quantize_attention)
+
+
+def _needs_row_groups(policy, step):
+    if not rows_are_groups(policy):
+        raise ValueError(f"{step} attends slot by slot: under quantize_attention it needs "
+                         "per_sample_act_scales (the serving policy)")
 
 
 def _norm_fn(cfg, p):
@@ -605,9 +622,11 @@ class DecodeSlots:
         # (B, 1)
         self.qpos = pos.reshape(1, 1).expand(b, 1) if self.lockstep else pos[:, None]
 
-    def attend(self, cfg, cache, i, q, k, v):
+    def attend(self, cfg, policy, cache, i, q, k, v):
         """Write layer ``i``'s fresh K/V (B, 1, KV, hd) of every row, then
-        attend each row over its own view, row by row (B, 1, H, hd)."""
+        attend each row over its own view, row by row (B, 1, H, hd); the
+        whole batch at once where its attention products share one scale
+        group (:func:`rows_are_groups`)."""
         spec = self.spec
         if self.paged:
             _kv_scatter(cache, "k", i, self.dest, self.loff, k[:, 0], self.npages, spec)
@@ -625,8 +644,11 @@ class DecodeSlots:
             cv[self.rows, self.slot] = v[:, 0].to(cv.dtype)
             kview, vview = ck, cv
 
+        if not rows_are_groups(policy):
+            return _attend(cfg, policy, q, kview, vview, self.qpos, self.kpos, cfg.window)
+
         def one(q1, kv1, vv1, qp, kp):
-            return _attend(cfg, q1, kv1, vv1, qp, kp, cfg.window)
+            return _attend(cfg, policy, q1, kv1, vv1, qp, kp, cfg.window)
 
         return _rows(one, q, kview, vview, self.qpos, self.kpos)
 
@@ -669,7 +691,7 @@ def decode_step(cfg, policy, params, token, cache):
         lp = _layer(params["layers"], i)
         h = _rows(_norm_fn(cfg, lp.get("ln1")), x)
         q, k, v = _qkv(cfg, policy, lp, h, st.qpos)
-        att = st.attend(cfg, cache, i, q, k, v).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+        att = st.attend(cfg, policy, cache, i, q, k, v).reshape(b, 1, cfg.n_heads * cfg.head_dim)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         h2 = _rows(_norm_fn(cfg, lp.get("ln2")), y)
         x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
@@ -758,10 +780,16 @@ class ChunkSlots:
         group then has the amax of its valid rows alone)."""
         return torch.where(self.vmask, slot_norms(norm, x, self.layout), 0.0)
 
-    def attend(self, cfg, cache, i, q, k, v):
+    def attend(self, cfg, policy, cache, i, q, k, v):
         """Write layer ``i``'s fresh K/V of the valid positions, then attend
         each slot over its view (a windowed arch over the pre-scatter cache
-        and the fresh chunk); pad rows zeroed.  Returns (B, C, H * hd)."""
+        and the fresh chunk); pad rows zeroed.  Returns (B, C, H * hd).
+
+        A decode row attends at (1, 1, ·) and a chunk at (1, C, ·): under
+        ``quantize_attention`` each keeps its slot's scale group, since a
+        slot's pad queries are zero and their uniform probabilities are no
+        larger than a valid row's largest."""
+        _needs_row_groups(policy, "chunk_step")
         spec = self.spec
         windowed, npages, ids = self.windowed, self.npages, self.ids
         if windowed:
@@ -781,17 +809,17 @@ class ChunkSlots:
         def one(q_s, s):
             kind = self.layout[s]
             if kind == "decode":
-                return _attend(cfg, q_s, ok[s:s + 1], ov[s:s + 1], qpos[s:s + 1, :1],
+                return _attend(cfg, policy, q_s, ok[s:s + 1], ov[s:s + 1], qpos[s:s + 1, :1],
                                kpos[s:s + 1], None)
             if not windowed:
-                return _attend(cfg, q_s, ok[s:s + 1], ov[s:s + 1], qpos[s:s + 1],
+                return _attend(cfg, policy, q_s, ok[s:s + 1], ov[s:s + 1], qpos[s:s + 1],
                                kpos[s:s + 1], None)
             # old entries hold positions < pos0 only, fresh ones >= pos0
             # (-1 where invalid): each key is seen exactly once
             k_all = torch.cat([ok[s:s + 1].to(q.dtype), kf[s:s + 1].to(q.dtype)], dim=1)
             v_all = torch.cat([ov[s:s + 1].to(q.dtype), vf[s:s + 1].to(q.dtype)], dim=1)
             kp_all = torch.cat([self.kpos_old[s:s + 1], qpos[s:s + 1]], dim=1)
-            return _attend(cfg, q_s, k_all, v_all, qpos[s:s + 1], kp_all, cfg.window)
+            return _attend(cfg, policy, q_s, k_all, v_all, qpos[s:s + 1], kp_all, cfg.window)
 
         att = slot_attend(one, q, self.layout)
         # a pad query's softmax is uniform over every key, stale ones of a
@@ -850,7 +878,7 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
         lp = _layer(params["layers"], i)
         h = st.norms(_norm_fn(cfg, lp.get("ln1")), x)
         q, k, v = _qkv(cfg, policy, lp, h, st.qpos)
-        att = st.attend(cfg, cache, i, q, k, v)
+        att = st.attend(cfg, policy, cache, i, q, k, v)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         h2 = st.norms(_norm_fn(cfg, lp.get("ln2")), y)
         x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
@@ -911,10 +939,13 @@ class VerifySlots:
         self.rows = sorted(s * c + j for j in range(c) for s in self.live[j])
         self.rq = self.qpos.reshape(b * c, 1)
 
-    def attend(self, cfg, cache, i, q, k, v):
+    def attend(self, cfg, policy, cache, i, q, k, v):
         """Per position j: write layer ``i``'s K/V of every live slot at j,
         then each live (slot, j) row attends over its slot's view.  q, k,
-        v are (B*C, 1, ·, hd); returns (B*C, 1, H * hd), pad rows zero."""
+        v are (B*C, 1, ·, hd); returns (B*C, 1, H * hd), pad rows zero.
+        Under ``quantize_attention`` a (slot, j) row is the scale group of
+        the reference's per-position step under per-sample scales."""
+        _needs_row_groups(policy, "verify_step")
         b, c = self.qpos.shape
         spec, npages, ids = self.spec, self.npages, self.ids
         kb = k.reshape(b, c, cfg.kv_heads, cfg.head_dim)
@@ -929,7 +960,7 @@ class VerifySlots:
             vview = _kv_page_view(cache, "v", i, ids, spec)
             for s in self.live[j]:
                 r = s * c + j
-                att[r:r + 1] = _attend(cfg, q[r:r + 1], kview[s:s + 1], vview[s:s + 1],
+                att[r:r + 1] = _attend(cfg, policy, q[r:r + 1], kview[s:s + 1], vview[s:s + 1],
                                        self.qpos[s:s + 1, j:j + 1], self.kpos[j][s:s + 1],
                                        cfg.window)
         return att.reshape(b * c, 1, -1)
@@ -972,7 +1003,7 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
         lp = _layer(params["layers"], i)
         h = live_norms(_norm_fn(cfg, lp.get("ln1")), x, st.rows)
         q, k, v = _qkv(cfg, policy, lp, h, st.rq)  # (B*C, 1, heads, hd)
-        att = st.attend(cfg, cache, i, q, k, v)
+        att = st.attend(cfg, policy, cache, i, q, k, v)
         y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
         h2 = live_norms(_norm_fn(cfg, lp.get("ln2")), y, st.rows)
         # every (slot, position) row is a dispatch group of its own (t = 1),

@@ -15,7 +15,9 @@ respect to the shadow updates the float32 master (Algorithm 1, line 17).
 The reference keeps the shadow in bf16 and gets float32 gradients from
 its custom VJP; PyTorch's autograd would cast a bf16 leaf's gradient to
 bf16, so the port holds the shadow as float32 tensors of the same exact
-PoT values (mf_linear casts them to bf16 without loss).
+PoT values (mf_linear casts them to bf16 without loss).  With
+``TrainConfig(weight_shadow=False)`` each ``mf_linear`` quantizes its
+float32 master at use instead (the same WBC and scale per stacked layer).
 """
 from __future__ import annotations
 
@@ -35,13 +37,15 @@ from repro_torch.optim.optimizers import tree_map
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's fields that the port runs: the microbatch count and
-    the global-norm clip (``None``: no clipping, the norm is still
-    reported).  Its ``grad_compression`` (multi-GPU) is not ported, and the
-    weight shadow is always on for quantized policies."""
+    """The reference's fields that the port runs: the microbatch count, the
+    global-norm clip (``None``: no clipping, the norm is still reported)
+    and the weight shadow (``False``: every ``mf_linear`` quantizes its
+    float32 master at use, as Algorithm 1 writes it).  Its
+    ``grad_compression`` (multi-GPU) is not ported."""
 
     microbatches: int = 1
     clip_norm: Optional[float] = 1.0
+    weight_shadow: bool = True
 
 
 def _quantize_shadow(params, policy: QuantPolicy):
@@ -58,9 +62,10 @@ def _quantize_shadow(params, policy: QuantPolicy):
     return unflatten((name, one(name, x)) for name, x in named_leaves(params))
 
 
-def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
-    """(loss, grads) of ``registry.loss_fn`` at ``params`` (not modified).
-    Every gradient is float32 and shaped like its parameter."""
+def value_and_grad(fn, params):
+    """(fn(params), its gradients) at ``params`` (not modified); ``fn``
+    maps a parameter tree to a scalar loss.  Every gradient is float32 and
+    shaped like its parameter (zero where the loss does not reach it)."""
     leaves = []
 
     def lift(x):
@@ -69,7 +74,7 @@ def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
 
     tree = tree_map(lift, params)
     with torch.enable_grad():
-        loss = registry.loss_fn(cfg, policy, tree, batch)
+        loss = fn(tree)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
     pairs = iter(zip(leaves, got))
 
@@ -80,9 +85,14 @@ def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
     return loss.detach(), tree_map(grad, tree)
 
 
+def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
+    """(loss, grads) of ``registry.loss_fn`` at ``params`` (not modified)."""
+    return value_and_grad(lambda p: registry.loss_fn(cfg, policy, p, batch), params)
+
+
 def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
                     tc: TrainConfig = TrainConfig()):
-    use_shadow = policy.enabled
+    use_shadow = tc.weight_shadow and policy.enabled
     loss_policy = (dataclasses.replace(policy, weights_prequantized=True)
                    if use_shadow else policy)
 

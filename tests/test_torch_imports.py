@@ -1,6 +1,7 @@
 """repro_torch stands alone: importing every module of the port pulls in
 neither jax nor any module of the JAX package ``repro``, and neither the
-port's sources nor ``chip_smoke.py`` import them."""
+port's sources, ``chip_smoke.py`` nor the port's example
+(``examples/cnn_classification_torch.py``) import them."""
 import os
 import pathlib
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 pytest.importorskip("torch")
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+EXAMPLE = SRC.parent / "examples" / "cnn_classification_torch.py"
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -36,10 +38,21 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_port_sources_do_not_name_jax():
-    for path in [*(SRC / "repro_torch").rglob("*.py"), SRC.parent / "chip_smoke.py"]:
+    for path in [*(SRC / "repro_torch").rglob("*.py"), SRC.parent / "chip_smoke.py", EXAMPLE]:
         for line in path.read_text().splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
                 assert "jax" not in stripped, (path, line)
                 assert not stripped.startswith(("import repro ", "from repro ",
                                                 "from repro.", "import repro.")), (path, line)
+
+
+def test_example_imports_neither_jax_nor_repro():
+    probe = (f"import runpy, sys; runpy.run_path({str(EXAMPLE)!r}, run_name='probe'); "
+             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+             "'jaxlib')) or m == 'repro' or m.startswith('repro.')); print(bad); "
+             "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

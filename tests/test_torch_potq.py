@@ -102,3 +102,43 @@ def test_frexp_rule_is_exact_on_the_band(k):
         lo = int(e) - 1  # floor(log2 val)
         up = f * f >= 2 * Fraction(2) ** (2 * lo)
         assert r == lo + int(up), (val, r, lo, up)
+
+
+def test_weight_bias_correction_vs_reference():
+    """The WBC shift: the two means sum in different orders, so the
+    shifted weights agree within a few ulps of the mean (rtol 1e-6)."""
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal((64, 96)) * 0.05 + 0.003).astype(np.float32)
+    ours = potq.weight_bias_correction(torch.from_numpy(w)).numpy()
+    ref = np.asarray(jpotq.weight_bias_correction(jnp.asarray(w)))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6 * float(np.abs(w).mean()))
+    assert abs(float(ours.mean())) < 1e-8
+
+
+@pytest.mark.parametrize("gamma", [0.95, 0.5, 1.0])
+def test_ratio_clip_and_its_vjp_vs_reference(gamma):
+    """PRC forward bit for bit (a max, a product and a clamp), its written-
+    out VJP bit for bit in da, dgamma within the reorder bound of its sum
+    (n eps sum|terms| times max|A|), and autograd through ``ratio_clip``
+    gives the written-out VJP (at gamma = 1 the largest element sits on
+    the threshold: unclipped, as the rule says)."""
+    rng = np.random.default_rng(8)
+    a = (rng.standard_normal((16, 40)) * 1.5).astype(np.float32)
+    g = rng.standard_normal((16, 40)).astype(np.float32)
+    at, gt, gam = torch.from_numpy(a), torch.from_numpy(g), torch.tensor(gamma)
+    ours = potq.ratio_clip(at, gam).numpy()
+    ref = np.asarray(jpotq.ratio_clip(jnp.asarray(a), jnp.float32(gamma)))
+    np.testing.assert_array_equal(ours, ref)
+    da, dg = potq.ratio_clip_vjp(at, gam, gt)
+    jda, jdg = jpotq.ratio_clip_vjp(jnp.asarray(a), jnp.float32(gamma), jnp.asarray(g))
+    np.testing.assert_array_equal(da.numpy(), np.asarray(jda))
+    amax = float(np.abs(a).max())
+    terms = np.where(np.abs(a) > amax * np.float32(gamma), g * np.sign(a), 0)
+    bound = terms.size * 2 ** -23 * float(np.abs(terms).sum()) * amax
+    assert dg.dtype == torch.float32 and abs(float(dg) - float(jdg)) <= bound
+    # autograd of the forward is the written-out rule (the reference's too)
+    at_g = at.clone().requires_grad_(True)
+    gam_g = gam.clone().requires_grad_(True)
+    auto_da, auto_dg = torch.autograd.grad(potq.ratio_clip(at_g, gam_g), (at_g, gam_g), gt)
+    np.testing.assert_array_equal(auto_da.numpy(), da.numpy())
+    np.testing.assert_allclose(float(auto_dg), float(dg), rtol=0, atol=bound)

@@ -312,3 +312,47 @@ def test_launch_counts_per_step(monkeypatch):
         loss = transformer.lm_loss(cfg, PAPER_FAITHFUL, params, batch["tokens"],
                                    batch["labels"], batch["mask"], remat=False)
     assert counts["k1"] == per_pass and loss.dim() == 0
+
+
+def test_weight_shadow_off_vs_reference():
+    """``TrainConfig(weight_shadow=False)``: every ``mf_linear`` quantizes
+    its float32 master at use.  Three steps against the reference's
+    shadow-off steps: losses within ``LOSS_RTOL``, parameters within
+    ``PARAM_ATOL``; and against the port's shadow-on run, whose losses
+    and parameters it equals bit for bit (the shadow is the same WBC and
+    quantization of each layer's weight, made once a step)."""
+    jp, tp = _ref_params(J_CFG)
+    jopt = joptim.adamw(joptim.warmup_cosine_schedule(3e-3, 5, 30))
+    opt = optim.adamw(optim.warmup_cosine_schedule(3e-3, 5, 30))
+    jstep = jax.jit(j_make_train_step(J_CFG, J_PF, jopt, JTrainConfig(weight_shadow=False)))
+    tstep = make_train_step(CFG, PAPER_FAITHFUL, opt, TrainConfig(weight_shadow=False))
+    on_step = make_train_step(CFG, PAPER_FAITHFUL, opt, TrainConfig())
+    on = spec.tree_map(lambda x: x.clone(), tp)
+    js, ts, ts_on = jopt.init(jp), opt.init(tp), opt.init(on)
+    for step in range(3):
+        jb = jpipeline.make_batch(J_CFG, J_SHAPE, step)
+        jp, js, jm = jstep(jp, js, jb, jnp.int32(step))
+        tp, ts, tm = tstep(tp, ts, _torch_batch(jb), step)
+        on, ts_on, m_on = on_step(on, ts_on, _torch_batch(jb), step)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=LOSS_RTOL)
+        assert torch.equal(tm["loss"], m_on["loss"])
+    jn = _named(jp)
+    for leaf, x in spec.named_leaves(tp):
+        assert np.abs(x.numpy() - jn[leaf]).max() <= PARAM_ATOL, leaf
+    for (_, x), (_, y) in zip(spec.named_leaves(tp), spec.named_leaves(on)):
+        assert torch.equal(x, y)
+
+
+def test_bits_for_matches_reference():
+    from repro.core.policy import QuantPolicy as JQuantPolicy
+
+    from repro_torch.core.policy import QuantPolicy
+
+    ours, theirs = QuantPolicy(bits_w=4, bits_a=3, bits_g=6, bits_g_last=7), \
+        JQuantPolicy(bits_w=4, bits_a=3, bits_g=6, bits_g_last=7)
+    for kind in ("w", "a", "g"):
+        for last in (False, True):
+            assert ours.bits_for(kind, last) == theirs.bits_for(kind, last)
+    for pol in (ours, theirs):
+        with pytest.raises(ValueError, match="unknown tensor kind"):
+            pol.bits_for("x")
