@@ -104,18 +104,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     no element differs);
 17. CUDA vs CPU at smoke width: pack_int8 code for code and beta for
     beta; checkpoints written from one device restore on the other;
-19. chunked + paged serving, llama3-8b at full width (the serve cell's
-    weights and trace): engine A (4 slots, chunk 32, page 16) is the main
+19. chunked + paged serving at llama3-8b's widths and 8 of its layers
+    (``PAGED_LAYERS``, since phase 37 took the script to 980.6 s; the
+    serve cell's weights and trace): engine A (4 slots, chunk 32, page 16) is the main
     path, its launch counts set to 0 just before and read just after; B
     (page = span) and C (each request alone, chunk 32) give A's tokens bit
     for bit; A's counters (weight passes, decode steps, prefills, emitted
     tokens, per-request TTFT in passes, admission deferrals) equal a CPU
     run of the port at smoke width on the same requests (token ids modulo
     the smoke vocab); a chunk-step decode row equals ``decode_step`` in
-    logits and cache bytes; K1 launches 225 times per chunk step and per
-    decode step; tokens/s, TTFT in passes and ms, chunk- and decode-step
+    logits and cache bytes; K1 launches once a linear (57 at 8 layers)
+    per chunk step and per decode step; tokens/s, TTFT in passes and ms, chunk- and decode-step
     wall times, one profiled chunk step (M = 128);
-20. the prefix cache at full width (shared_prefix_trace: 8 requests,
+20. the prefix cache at phase 19's depth (shared_prefix_trace: 8 requests,
     prefix 96 + suffix 32): prefix on gives prefix off's tokens bit for
     bit, a hit rate above 0, fewer weight passes and a lower mean TTFT,
     and both runs' counters (prefix hits, copies on write and evictions
@@ -230,8 +231,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     llama3-8b's widths and ``SPEC_LAYERS`` layers (after phase 23): K1
     once a linear a weight pass, each request alone gives its pooled
     tokens;
+37. multi-GPU on ``torch.distributed``: two ranks spawned on the one card
+    (gloo: ranks share the card), the parent holding no model meanwhile
+    (``multi_gpu``): 37a llama3-8b at full width and depth on the (1, 2)
+    mesh (tokens = phase 5's, K1 once a linear shard a weight pass on each
+    rank, row-parallel folds counted, tokens/s, a decode step's wall and
+    device times, each rank's weight bytes, the collectives' share),
+    37b the (2, 1) mesh at 4 layers against one rank, 37c olmo-1b
+    data-parallel at batch 4 x 512, 2 steps, against one rank (first-step
+    per-token losses bit for bit, launches a step, peaks), 37d
+    ``compressed_psum`` on CUDA tensors; phase 3 also holds K1's ``start``
+    variant (the row-parallel fold) at llama3-8b's row-parallel shapes;
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last;
-    32-33 run after 30, 34 after 31, 35-36a after 34).
+    32-33 run after 30, 34 after 31, 35-36a after 34, 37 after 35-36).
 
 Per-shape details go to chiprun_out/chip_smoke.json.
 """
@@ -684,6 +696,9 @@ def main() -> int:
         raise SystemExit("K1 quantize=True differs from its plain version")
     max_err = max(max_err, err)
     max_err = max(max_err, k1_edges(dev, gen))
+    start_rows, err = k1_start_checks(dev, gen)
+    max_err = max(max_err, err)
+    detail["k1_start_variant"] = start_rows
 
     phase("4 timing (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -807,6 +822,7 @@ def main() -> int:
         raise SystemExit(f"K1 launched {launches} times, expected {k1_per_pass(cfg)} x "
                          f"{st.weight_passes} weight passes")
     check_tokens(cfg, reqs, out)
+    phase5_tokens = {str(u): t.tolist() for u, t in out.items()}
     # where a weight pass's time goes: one prefill and one pooled decode step
     with torch.inference_mode():
         mini = registry.init_cache(cfg, 1, 160, device=dev)
@@ -906,6 +922,9 @@ def main() -> int:
     fam_train.update(recurrent_training(dev, detail))
     qa_train = qa_training(dev, detail)
     cnn_kernels, cnn_launches = cnn_phase(dev, detail)
+    multi = multi_gpu(dev, detail, phase5_tokens)
+    m_a, m_c = multi["a"][0], multi["c"]["ranks"][0]
+    multi_steps = {k: sum(s[k] for s in m_c["launches"]) for k in ("k1", "k2", "k3", "gq")}
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -933,8 +952,20 @@ def main() -> int:
         # speculative runs, 23's lockstep wave and float32 run, 24-27's A)
         # + training (phase 10); since phases 26-27 it also runs the
         # expert-batched form (one launch counts one)
+        # ... + phase 37 on rank 0: 37a's served passes and 37c's steps
         "launches": (launches + train["launches"]["k1"] + paged["launches"]
-                     + whisper_launches["k1"] + cnn_launches["k1"]),
+                     + whisper_launches["k1"] + cnn_launches["k1"]
+                     + m_a["k1_launches"] + multi_steps["k1"]),
+        # phase 37: two ranks on the card; 37a's K1 launches on each rank
+        # (one a linear shard a weight pass), its row-parallel folds (K1's
+        # start variant chained over the model axis, phase 3), 37c's
+        # launches a data-parallel step on each rank
+        "multi_gpu": dict(
+            serve_launches_per_rank=[r["k1_launches"] for r in multi["a"]],
+            serve_weight_passes=m_a["weight_passes"], serve_folds=m_a["folds"],
+            train_step_launches=[r["launches"] for r in multi["c"]["ranks"]],
+            backend=m_a["backend"]),
+        "start_variant": detail["k1_start_variant"],
         "lockstep_launches": paged["lockstep_launches"],
         "chunk_step_launches": paged["chunk_launches"],
         "verify_step_launches": paged["verify_launches"],
@@ -1014,7 +1045,10 @@ def main() -> int:
                             replaces=f"src/repro/kernels/potq_grad.py:{line}",
                             # phase 10 (olmo-1b), phase 31b (whisper), phase 35 (the CNN)
                             launches=(train["launches"][key] + whisper_launches[key]
-                                      + cnn_launches[key]),
+                                      + cnn_launches[key] + multi_steps[key]),
+                            # phase 37c: a data-parallel step on each rank
+                            multi_gpu_step_launches=[[s[key] for s in r["launches"]]
+                                                     for r in multi["c"]["ranks"]],
                             # phases 28, 31a, 34 and 36a: one step at smoke width
                             moe_step_launches={a: n[key] for a, n in moe_train.items()},
                             family_step_launches={a: n[key] for a, n in fam_train.items()},
@@ -1313,6 +1347,57 @@ def family_k1_timing(operands, flush):
             print(f"{arch}: one {regime} pass (M={acc['M']}, {acc['launches']} launches):",
                   json.dumps(acc), flush=True)
     return rows, sums
+
+
+# phase 3: K1's start variant at llama3-8b's row-parallel shapes on two
+# model ranks (wo: K 4096 -> 2048 a rank; the MLP's down projection:
+# 14336 -> 7168), N 4096, at a decode step's, a chunk step's and a
+# lockstep wave's rows
+START_SHAPES = ((4096, 4096), (14336, 4096))
+START_M = (4, 128, 512)
+
+
+def k1_start_checks(dev, gen):
+    """Phase 3: the second rank's half of a row-parallel product continued
+    from the first half's fold (``start``) equals the whole product and
+    the plain version with the same start, bit for bit.  Returns (rows
+    with the variant's time beside the plain half's, max_abs_err)."""
+    from repro_torch.core import potq
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.serve import quantized_weights as qw
+
+    rows, worst = [], 0.0
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for kk, nn in START_SHAPES:
+        w = torch.randn(kk, nn, generator=gen, device=dev) * 0.02 + 1e-3
+        wq = qw.quantize_leaf("w", w, PAPER_FAITHFUL)
+        del w
+        half = kk // 2
+        w0, w1 = wq[:half].contiguous(), wq[half:].contiguous()
+        for m in START_M:
+            a = torch.randn(m, kk, generator=gen, device=dev)
+            axes = (1,) if m <= VERIFY_M else None
+            aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, axes)).to(torch.bfloat16)
+            a0, a1 = aq[:, :half].contiguous(), aq[:, half:].contiguous()
+            first = K.potq_matmul_cuda(a0, w0)
+            second = K.potq_matmul_cuda(a1, w1, start=first)
+            whole = K.potq_matmul_cuda(aq, wq)
+            plain = K.potq_matmul_plain(a1, w1, start=first)
+            torch.cuda.synchronize()
+            err = (second - plain).abs().max().item()
+            ok = torch.equal(second, whole) and torch.equal(second, plain)
+            row = dict(M=m, K=kk, K_rank=half, N=nn, equal=ok, max_abs_err=err,
+                       path=K.plan(m, nn, half),
+                       start_ms=time_ms(lambda: K.potq_matmul_cuda(a1, w1, start=first), 5,
+                                        flush),
+                       half_ms=time_ms(lambda: K.potq_matmul_cuda(a1, w1), 5, flush))
+            print("start variant:", json.dumps(row))
+            if not ok:
+                raise SystemExit(f"K1's start variant differs at {(m, kk, nn)}")
+            worst = max(worst, err)
+            rows.append(row)
+    return rows, worst
 
 
 def k1_edges(dev, gen):
@@ -2793,20 +2878,27 @@ def moe_serving(dev, detail):
             for number, (arch, layers) in enumerate(MOE_ARCHS.items(), start=26)}
 
 
+# phases 19-20 run llama3-8b's widths at this depth: at all 32 layers the
+# whole script read 980.6 s on an H100 with phase 37 (phases 19-20: 142 s)
+PAGED_LAYERS = 8
+
+
 def paged_serving(dev, detail, cfg, params, policy, reqs):
     """Phases 19-20: chunked piggybacked prefill over the paged cache and
-    the prefix cache."""
+    the prefix cache, at llama3-8b's widths and ``PAGED_LAYERS`` layers."""
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry
     from repro_torch.serve import PoolEngine, shared_prefix_trace
 
-    phase("19 chunked + paged serving, llama3-8b at full width")
+    phase(f"19 chunked + paged serving, llama3-8b's widths at {PAGED_LAYERS} layers")
+    cfg = dataclasses.replace(cfg, n_layers=PAGED_LAYERS)
+    params = dict(params, layers=_first_layers(params["layers"], PAGED_LAYERS))
     kw = dict(max_slots=4, max_len=160, prefill_chunk=32)
     eng_a = PoolEngine(cfg, policy, params, page_size=16, device=dev, **kw)
     eng_a.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
     out_a, wall, launches = _timed_run(eng_a, reqs)  # the main path
     st_a = eng_a.last_stats
-    res = {"A": _serve_row(st_a, wall, launches)}
+    res = {"A": dict(_serve_row(st_a, wall, launches), layers=PAGED_LAYERS)}
     print("A (page 16):", json.dumps(res["A"]))
     if launches != k1_per_pass(cfg) * st_a.weight_passes:
         raise SystemExit(f"K1 launched {launches} times in A, expected {k1_per_pass(cfg)} x "
@@ -2861,7 +2953,7 @@ def paged_serving(dev, detail, cfg, params, policy, reqs):
     res["steps"] = steps
     del eng_b, eng_c, pool, c2, c3, c4
 
-    phase("20 prefix cache at full width")
+    phase(f"20 prefix cache, llama3-8b's widths at {PAGED_LAYERS} layers")
     preqs = shared_prefix_trace(cfg, n_requests=8, prefix_len=96, suffix_len=32, lam=2.0,
                                 new_lo=8, new_hi=32, seed=0)
     pkw = dict(kw, page_size=16)
@@ -2910,7 +3002,6 @@ def kv_quant_serving(dev, detail, cfg, params, policy, reqs):
     from repro_torch.serve import PoolEngine
 
     phase(f"21 PoT-quantized KV pages (KV_PINNED), llama3-8b's widths at {KVQ_LAYERS} layers")
-    full_layers = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=KVQ_LAYERS)
     params = dict(params, layers=_first_layers(params["layers"], KVQ_LAYERS))
     kw = dict(max_slots=4, max_len=160, prefill_chunk=32, kv_quant=KV_PINNED)
@@ -2922,7 +3013,8 @@ def kv_quant_serving(dev, detail, cfg, params, policy, reqs):
     res = {"A": dict(_serve_row(st, wall, launches), kv_page_bytes=st.kv_page_bytes,
                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)}
     # phase 19's bf16 figure at this depth (bytes a token scale with layers)
-    bf16 = detail["paged_serving"]["A"]["kv_hbm_bytes_per_token"] * KVQ_LAYERS / full_layers
+    p19 = detail["paged_serving"]["A"]
+    bf16 = p19["kv_hbm_bytes_per_token"] * KVQ_LAYERS / p19["layers"]
     print("A (page 16, KV_PINNED):", json.dumps(res["A"]))
     print(f"kv_page_bytes {st.kv_page_bytes} (bf16: {2 * KVQ_LAYERS * 16 * 8 * 128 * 2}); "
           f"kv_hbm_bytes_per_token {st.kv_hbm_bytes_per_token} (phase 19's bf16 at "
@@ -3746,6 +3838,341 @@ def qa_serving(dev, detail, cfg, params, policy, reqs):
         raise SystemExit("quantize_attention serving: pooled tokens differ from solo")
     detail["quantize_attention_serving"] = row
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 37: multi-GPU on torch.distributed, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# 37b: the (2, 1) mesh at llama3-8b's widths and this depth; 37c: olmo-1b
+# data-parallel at this global batch, these steps
+DP_SERVE_LAYERS = 4
+DP_TRAIN_BATCH, DP_TRAIN_SEQ, DP_TRAIN_STEPS = 4, 512, 2
+# the two ranks' device memory, summed, stays under this
+MULTI_PEAK_GIB = 75.0
+# 37d: the compressor's unbiasedness bound (standard errors) and draws
+PSUM_Z, PSUM_DRAWS = 6.0, 64
+
+
+def _serve_trace(cfg):
+    from repro_torch.serve import poisson_trace
+
+    return poisson_trace(cfg, n_requests=8, prompt_len=128, lam=2.0, new_lo=8, new_hi=32,
+                         seed=0)
+
+
+def _count_kernels():
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+
+    return {"k1": K.potq_matmul_cuda.launches, "k2": KG.grad_da_cuda.launches,
+            "k3": KG.grad_dw_cuda.launches, "gq": KG.quantize_g_cuda.launches}
+
+
+def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank):
+    """One sharded engine over ``mesh`` (a (data, model) pair) at
+    llama3-8b's widths and ``n_layers`` layers (None: all), phase 5's seed
+    and trace:
+    every leaf drawn whole from phase 5's generator and quantized whole,
+    each rank keeping its shard.  Returns the served tokens and a row."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.models import registry, spec
+    from repro_torch.parallel import actshard, collectives, meshes, planner
+    from repro_torch.serve import PoolEngine
+    from repro_torch.serve import quantized_weights as qw
+
+    cfg = configs.get_config("llama3-8b")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    plan = planner.plan_for(cfg, meshes.make_mesh(mesh, ("data", "model")),
+                            configs.ShapeConfig("serve", 160, 4, "decode"), pool_slots=4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = spec.materialize(
+        registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0),
+        transform=lambda name, x: plan.shard_leaf(name, qw.quantize_leaf(name, x,
+                                                                         PAPER_FAITHFUL)))
+    torch.cuda.synchronize()
+    weight_bytes = sum(x.numel() * x.element_size() for _, x in spec.named_leaves(params))
+    draw_s = time.perf_counter() - t0
+    policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
+    reqs = _serve_trace(cfg)
+    eng = PoolEngine(cfg, policy, params, max_slots=4, max_len=160, device=dev, plan=plan,
+                     num_pages=plan.num_pages)
+    eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    torch.cuda.synchronize()
+    K.potq_matmul_cuda.launches = 0
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.last_stats
+    row = dict(mesh=plan.mesh_shape(), layers=cfg.n_layers, backend=collectives.backend(),
+               wall_s=wall, tokens_per_s=st.emitted_tokens / wall,
+               emitted_tokens=st.emitted_tokens, weight_passes=st.weight_passes,
+               data_shards=st.data_shards, model_shards=st.model_shards,
+               per_device_weight_passes=st.per_device_weight_passes,
+               k1_launches=K.potq_matmul_cuda.launches,
+               k1_per_pass_expected=k1_per_pass(cfg),
+               folds=collectives.stats["folds"], collective_calls=collectives.stats["calls"],
+               collective_bytes=collectives.stats["bytes"],
+               collective_s=collectives.stats["seconds"], weight_bytes=weight_bytes,
+               draw_quantize_shard_s=draw_s,
+               overrides=sorted(f"{k}:{p}" for k, p in plan.overrides))
+    # one pooled decode step of the model axis's ranks (4 slots), wall and device
+    with torch.inference_mode(), actshard.use_plan(plan if mesh[1] > 1 else None):
+        pool = registry.init_pool_cache(plan.local_config(), 4, 160, device=dev)
+        tok = torch.zeros(4, dtype=torch.int64, device=dev)
+        lcfg = plan.local_config()
+        walls = []
+        for _ in range(3):
+            collectives.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pool = registry.decode_step(lcfg, eng.policy, eng.params, tok, pool)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        row["decode_step_wall_ms"] = [w * 1e3 for w in walls]
+        row["decode_step_rows"] = "all 4 slots on each rank" if mesh[1] == 1 else "4 slots"
+        row["decode_step_collective_share"] = collectives.stats["seconds"] / walls[-1]
+        row["decode_step_collective_calls"] = collectives.stats["calls"]
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            logits, pool = registry.decode_step(lcfg, eng.policy, eng.params, tok, pool)
+            torch.cuda.synchronize()
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"rank {rank}: non-finite decode logits on mesh {mesh}")
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    row["decode_step_device_ms"] = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    row["decode_step_k1_ms"] = sum(e.time_range.elapsed_us() for e in kern
+                                   if "potq_mm" in e.name) / 1e3
+    row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    tokens = {str(u): t.tolist() for u, t in out.items()}
+    if compare_one_rank and rank == 0:
+        # the same model on this rank alone (no plan), the same trace
+        del eng, pool
+        whole = spec.materialize(
+            registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0),
+            transform=lambda name, x: qw.quantize_leaf(name, x, PAPER_FAITHFUL))
+        one = PoolEngine(cfg, policy, whole, max_slots=4, max_len=160, device=dev,
+                         num_pages=plan.num_pages)
+        row["one_rank_tokens_equal"] = {
+            str(u): t.tolist() for u, t in one.run(reqs).items()} == tokens
+        del whole, one
+    del params
+    torch.cuda.empty_cache()
+    return tokens, row
+
+
+def _dp_train(rank, dev):
+    """37c: olmo-1b at its published widths, data-parallel over the (2, 1)
+    mesh: the first step's per-token losses (this rank's rows) and
+    ``DP_TRAIN_STEPS`` steps' losses, launches a step, peak memory."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.parallel import collectives, meshes, planner
+    from repro_torch.train import TrainConfig, make_train_step
+
+    train_cli.make_deterministic()
+    cfg = configs.get_config("olmo-1b")
+    shape = configs.ShapeConfig("dp", DP_TRAIN_SEQ, DP_TRAIN_BATCH, "train")
+    plan = planner.plan_for(cfg, meshes.make_mesh((2, 1), ("data", "model")), shape)
+    opt = adamw(warmup_cosine_schedule(3e-3, 20, DP_TRAIN_STEPS))
+    step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=plan)
+    dp = step_fn.data_parallel
+    torch.cuda.reset_peak_memory_stats()
+    params = dp.shard(spec.materialize(registry.param_specs(cfg),
+                                       torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.empty_cache()
+    state = opt.init(params)
+    held = sum(x.numel() * x.element_size() for _, x in spec.named_leaves(params))
+    batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(DP_TRAIN_STEPS)]
+    token_losses = step_fn.token_losses(params, batches[0]).cpu().numpy()
+    losses, launches, seconds, coll = [], [], [], []
+    for s in range(DP_TRAIN_STEPS):
+        before = _count_kernels()
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batches[s], s)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        coll.append(collectives.stats["seconds"])
+        launches.append({k: v - before[k] for k, v in _count_kernels().items()})
+    row = dict(losses=losses, step_s=seconds, collective_s=coll, launches=launches,
+               master_bytes=held, peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               backend=collectives.backend())
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return token_losses, row
+
+
+def _psum_check(rank, dev):
+    """37d: ``compressed_psum`` on CUDA tensors over the two ranks: the
+    sum equals the ranks' own decoded values summed, and the mean of
+    ``PSUM_DRAWS`` sums lies within ``PSUM_Z`` standard errors of the
+    exact sum (elements on the grid's range)."""
+    from repro_torch.core import compress, potq
+    from repro_torch.parallel import collectives
+
+    group = collectives.axis_group((2, 1), 0)
+    gens = [torch.Generator(device=dev).manual_seed(50 + r) for r in range(2)]
+    gs = [torch.randn((1 << 20,), generator=g, device=dev) * 1e-3 for g in gens]
+    g = gs[rank]
+    amax = torch.stack([x.abs().max() for x in gs]).max()
+    beta = potq.compute_beta(amax, 5, conservative=True)
+    out = compress.compressed_psum(g, torch.Generator(device=dev).manual_seed(rank), group)
+    own = [potq.pot_quantize(x, 5, beta, stochastic=True,
+                             generator=torch.Generator(device=dev).manual_seed(r))
+           for r, x in enumerate(gs)]
+    equal = bool(torch.equal(out, own[0] + own[1]))
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    small = g[:4096]
+    mean = torch.stack([compress.compressed_psum(small, gen, group)
+                        for _ in range(PSUM_DRAWS)]).mean(0)
+    want = gs[0][:4096] + gs[1][:4096]
+    scale = potq.exp2i(potq.compute_beta(torch.stack([x[:4096].abs().max() for x in gs]).max(),
+                                         5, conservative=True))
+    var, inside = 0.0, None
+    for x in (gs[0][:4096], gs[1][:4096]):
+        mag = (x / scale).abs()
+        ok = mag >= potq.exp2i(torch.tensor(-potq.pot_emax(5), device=dev))
+        lo = torch.where(ok, potq.exp2i(torch.frexp(mag)[1] - 1), torch.ones_like(mag))
+        var = var + torch.where(ok, ((2 * lo - mag) * (mag - lo)).clamp(min=0) * scale ** 2,
+                                torch.zeros_like(mag))
+        inside = ok if inside is None else inside & ok
+    z = ((mean - want).abs() / (torch.sqrt(var / PSUM_DRAWS) + 1e-30))[inside]
+    return dict(sum_equals_decoded=equal, max_z=float(z.max()), elements=int(inside.sum()),
+                unbiased=bool(float(z.max()) <= PSUM_Z),
+                wire_bytes=compress.wire_bytes(g), f32_bytes=g.numel() * 4)
+
+
+def _phase37_rank(rank):
+    """Everything phase 37 runs on one of the two ranks."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import potq_encode as KE
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+
+    dev = resolve_device(torch.device("cuda", torch.cuda.current_device()))
+    K.build()
+    KG.build()
+    KE.build()
+    res = {}
+    t0 = time.perf_counter()
+    res["a"] = _sharded_serve(rank, dev, (1, 2), None, False)
+    res["a"][1]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["b"] = _sharded_serve(rank, dev, (2, 1), DP_SERVE_LAYERS, True)
+    res["b"][1]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["c"] = _dp_train(rank, dev)
+    res["c"][1]["seconds"] = time.perf_counter() - t0
+    res["d"] = _psum_check(rank, dev)
+    return res
+
+
+def multi_gpu(dev, detail, phase5_tokens):
+    """Phase 37: two gloo ranks on the one card (``collectives.spawn``),
+    the parent holding no model meanwhile.  37a: llama3-8b at its
+    published widths and all 32 layers on the (1, 2) mesh, phase 5's seed
+    and trace: tokens = phase 5's, K1 once a linear shard a weight pass on
+    each rank, the row-parallel folds counted.  37b: the (2, 1) mesh at 4
+    layers against one rank at 4 layers.  37c: olmo-1b data-parallel,
+    global batch 4 x 512, 2 steps, against one rank here after the ranks
+    exit: first-step per-token losses bit for bit, losses within
+    LOSS_RTOL, launches a step.  37d: ``compressed_psum`` on the card."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.data import pipeline
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.parallel import collectives
+    from repro_torch.train import TrainConfig, make_train_step
+
+    phase("37 multi-GPU: two ranks on the one card (37a-d)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
+    spawn_s = time.perf_counter() - t0
+    out = {"spawn_s": spawn_s}
+    failures = []
+    # 37a
+    for r, res in enumerate(ranks):
+        toks, row = res["a"]
+        print(f"37a rank {r}:", json.dumps(row))
+        if toks != phase5_tokens:
+            failures.append(f"37a rank {r}: tokens differ from phase 5's")
+        if row["k1_launches"] != row["k1_per_pass_expected"] * row["weight_passes"]:
+            failures.append(f"37a rank {r}: K1 launched {row['k1_launches']}, expected "
+                            f"{row['k1_per_pass_expected']} x {row['weight_passes']}")
+        if row["folds"] != 2 * 32 * row["weight_passes"]:
+            failures.append(f"37a rank {r}: {row['folds']} row-parallel folds, expected "
+                            f"2 x 32 a weight pass")
+    peak_a = sum(res["a"][1]["peak_gib"] for res in ranks)
+    # 37b
+    for r, res in enumerate(ranks):
+        print(f"37b rank {r}:", json.dumps(res["b"][1]))
+    if ranks[0]["b"][0] != ranks[1]["b"][0] or not ranks[0]["b"][1]["one_rank_tokens_equal"]:
+        failures.append("37b: (2, 1) tokens differ from the one-rank run")
+    # 37d
+    for r, res in enumerate(ranks):
+        print(f"37d rank {r}:", json.dumps(res["d"]))
+        if not (res["d"]["sum_equals_decoded"] and res["d"]["unbiased"]):
+            failures.append(f"37d rank {r}: compressed_psum check failed")
+    # 37c: one rank at the same global batch, here
+    cfg = configs.get_config("olmo-1b")
+    shape = configs.ShapeConfig("dp", DP_TRAIN_SEQ, DP_TRAIN_BATCH, "train")
+    opt = adamw(warmup_cosine_schedule(3e-3, 20, DP_TRAIN_STEPS))
+    step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig())
+    params = spec.materialize(registry.param_specs(cfg),
+                              torch.Generator(device=dev).manual_seed(0))
+    state = opt.init(params)
+    batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(DP_TRAIN_STEPS)]
+    one_tl = step_fn.token_losses(params, batches[0]).cpu().numpy()
+    one_losses = []
+    for s in range(DP_TRAIN_STEPS):
+        params, state, m = step_fn(params, state, batches[s], s)
+        one_losses.append(float(m["loss"]))
+    del params, state, batches
+    torch.cuda.empty_cache()
+    dp_tl = np.concatenate([res["c"][0] for res in ranks])
+    tl_equal = dp_tl.view(np.uint32).tolist() == one_tl.view(np.uint32).tolist()
+    tl_rel = float(np.max(np.abs(dp_tl - one_tl) / np.maximum(np.abs(one_tl), 1e-30)))
+    dp_rows = [res["c"][1] for res in ranks]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dp_rows[0]["losses"], one_losses))
+    want = step_launches()
+    for r, row in enumerate(dp_rows):
+        print(f"37c rank {r}:", json.dumps(row))
+        if any(n != want for n in row["launches"]):
+            failures.append(f"37c rank {r}: launches {row['launches']}, expected {want}")
+    print(f"37c one rank: losses {[repr(x) for x in one_losses]}; data-parallel "
+          f"{[repr(x) for x in dp_rows[0]['losses']]}; max relative {rel:.3g}; first-step "
+          f"per-token losses bit for bit: {tl_equal} (max relative {tl_rel:.3g})")
+    if not tl_equal:
+        failures.append("37c: first-step per-token losses differ from one rank's")
+    if not rel <= LOSS_RTOL:
+        failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
+    peak_c = sum(row["peak_gib"] for row in dp_rows)
+    print(f"37 peaks, both ranks summed: 37a {peak_a:.2f} GiB, 37c {peak_c:.2f} GiB; "
+          f"backend {ranks[0]['a'][1]['backend']}; spawn to exit {spawn_s:.1f} s")
+    if max(peak_a, peak_c) >= MULTI_PEAK_GIB:
+        failures.append(f"37: the ranks' summed peak passed {MULTI_PEAK_GIB} GiB")
+    out.update(a=[res["a"][1] for res in ranks], b=[res["b"][1] for res in ranks],
+               c=dict(ranks=dp_rows, one_rank_losses=one_losses, max_rel=rel,
+                      token_losses_bit_equal=tl_equal, token_losses_max_rel=tl_rel),
+               d=[res["d"] for res in ranks], peak_gib=dict(a=peak_a, c=peak_c))
+    detail["multi_gpu"] = out
+    if failures:
+        raise SystemExit("phase 37: " + "; ".join(failures))
+    return out
 
 
 if __name__ == "__main__":

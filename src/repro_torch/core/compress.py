@@ -1,12 +1,21 @@
-"""The int8 PoT wire format's decoder and the KV-page wire format (port
-of ``repro/core/compress.py:47-58`` and ``:86-184``).
+"""The int8 PoT wire format: the gradient compressor, its decoder and the
+KV-page wire format (port of ``repro/core/compress.py``).
 
 Code layout (int8): 0 means an exact zero; otherwise
     code = (exp + emax + 1) * (-1 if negative else +1),  |code| in [1, 2*emax+1],
 and the value is ``sign * 2^(exp + beta)`` under one int32 beta per
-tensor.  ``ops.potq_encode`` (K4) produces it with nearest rounding; the
-reference's stochastic ``compress`` (gradient compression) comes with its
-slice of the port.
+tensor.  ``ops.potq_encode`` (K4) produces it with nearest rounding.
+
+Gradient compression (beyond the paper, as in the reference):
+:func:`compress` encodes a gradient with **stochastic** log2 rounding
+under a **conservative** beta (ceil: max|G| never saturates), so
+E[decompress(compress(g))] = g elementwise, at one byte an element plus
+the beta (:func:`wire_bytes`).  :func:`compressed_psum` is its collective
+over a ``torch.distributed`` process group: all-reduce max of the amax
+(so every rank has one beta), stochastic quantize, all-reduce sum of the
+decoded values.  The reference declares ``QuantPolicy.stochastic_rounding``
+and ``TrainConfig.grad_compression`` and reads neither; the port keeps
+both refused and runs the compressor only where it is called.
 
 KV pages (``serve/slots.py``, ``core.policy.KVQuantSpec``) use the same
 code layout with three serving choices, each the reference's:
@@ -36,6 +45,35 @@ import torch
 
 from repro_torch.core import potq
 from repro_torch.core.policy import KVQuantSpec
+
+
+def compress(g: torch.Tensor, generator: torch.Generator,
+             bits: int = 5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode a gradient to (int8 codes, int32 beta), unbiased: stochastic
+    rounding drawn from ``generator`` under the conservative beta."""
+    emax = potq.pot_emax(bits)
+    beta = potq.compute_beta(g, bits, conservative=True)
+    enc = potq.pot_encode(g, bits, beta, stochastic=True, generator=generator)
+    mag = torch.where(enc.exp == potq.EXP_ZERO, torch.zeros_like(enc.exp, dtype=torch.int32),
+                      enc.exp.to(torch.int32) + emax + 1)
+    code = torch.where(enc.sign == 1, -mag, mag).to(torch.int8)
+    return code, enc.beta
+
+
+def compressed_psum(g: torch.Tensor, generator: torch.Generator, group,
+                    bits: int = 5) -> torch.Tensor:
+    """Quantize-then-sum over ``group`` (a process group; None: this rank
+    alone): every rank quantizes its ``g`` under the beta of the global
+    max|g| (conservative), stochastically from its own ``generator``, and
+    the decoded values are summed (f32)."""
+    from repro_torch.parallel import collectives
+
+    emax = potq.pot_emax(bits)
+    amax = collectives.all_reduce_max(g.abs().amax().to(torch.float32), group)
+    beta = torch.where(amax > 0, potq.ceil_log2(amax) - emax,
+                       torch.zeros((), dtype=torch.int32, device=g.device))
+    q = potq.pot_quantize(g, bits, beta, stochastic=True, generator=generator)
+    return collectives.all_reduce_sum(q, group)
 
 
 def decompress(code: torch.Tensor, beta: torch.Tensor, bits: int = 5) -> torch.Tensor:

@@ -39,6 +39,16 @@ otherwise it is today's plain product, bit for bit.
 ``mf_conv2d`` is a convolution as im2col (pure data movement, the
 reference's ``conv_general_dilated_patches`` element for element) followed
 by ``mf_linear``: K1 forward, K2 and K3 backward at conv shapes.
+
+On a sharded plan (``parallel/actshard.py``) the quantizers take global
+maxima wherever their input is split: the per-tensor activation amax and
+PRC threshold, and the backward's max|G| (the G scale of
+``kernels/ops.py``), over the data axis when the batch rows are split
+(data-parallel training); the activation amax (per tensor or per sample)
+over the model axis when the contraction is split (``row_group``: a
+row-parallel linear, whose K1 fold continues across the ranks,
+``parallel/collectives.ordered_fold``).  Max is exact, so each quantized
+value is one rank's, bit for bit.  Without a plan nothing changes.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ import torch.nn.functional as F
 from repro_torch.core import potq
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
+from repro_torch.parallel import actshard, collectives
 
 _BF16 = torch.bfloat16
 
@@ -111,17 +122,29 @@ def _sample_axes(policy: QuantPolicy, x: torch.Tensor, axes):
     return axes
 
 
+def _global_amax(amax: torch.Tensor, per_tensor: bool, row_group) -> torch.Tensor:
+    """``amax`` over every rank that holds part of its group: the data
+    axis for a per-tensor amax of split batch rows, the model axis for a
+    split contraction."""
+    if per_tensor:
+        amax = collectives.all_reduce_max(amax, actshard.batch_group())
+    return collectives.all_reduce_max(amax, row_group)
+
+
 def _quantize_a(a: torch.Tensor, gamma: torch.Tensor, policy: QuantPolicy,
-                axes=None) -> torch.Tensor:
+                axes=None, row_group=None) -> torch.Tensor:
     axes = _sample_axes(policy, a, axes)
     a32 = a.to(torch.float32)
+    # global maxima where the input is split (identities on one rank):
+    # amax, the PRC threshold t and the exact amax of the clipped values,
+    # min(amax, t) (a clamp to a t < 0 sets every value to t: then -t)
+    amax = a32.abs().amax() if axes is None else a32.abs().amax(dim=axes, keepdim=True)
+    amax = _global_amax(amax, axes is None, row_group)
     if policy.prc_enabled:
-        if axes is None:
-            t = a32.abs().amax() * gamma
-        else:
-            t = a32.abs().amax(dim=axes, keepdim=True) * gamma
+        t = amax * gamma
         a32 = torch.clamp(a32, -t, t)
-    beta = potq.compute_beta(a32, policy.bits_a, axes)
+        amax = torch.where(t < 0, -t, torch.minimum(amax, t))
+    beta = potq.beta_of_amax(amax, policy.bits_a)
     return potq.pot_quantize(a32, policy.bits_a, beta).to(_BF16)
 
 
@@ -144,12 +167,16 @@ class _MFLinear(torch.autograd.Function):
         policy = ctx.policy
         k, n = wq.shape
         g2 = g.to(torch.float32).reshape(-1, n)
-        kw = dict(bits_g=policy.bits_for("g", ctx.is_last), bits_a=policy.bits_a,
-                  bits_w=policy.bits_w,
+        bits_g = policy.bits_for("g", ctx.is_last)
+        kw = dict(bits_g=bits_g, bits_a=policy.bits_a, bits_w=policy.bits_w,
                   per_sample_act_scales=policy.per_sample_act_scales)
+        dgroup = actshard.batch_group()
+        # the G scale of the whole batch
+        gmax = collectives.all_reduce_max(g2.abs().amax(), dgroup)
+        kw["beta_g"] = potq.beta_of_amax(gmax, bits_g)
         if policy.prc_enabled:
             a32 = a.to(torch.float32)
-            amax = a32.abs().amax()
+            amax = collectives.all_reduce_max(a32.abs().amax(), dgroup)
             da, dw, dgamma = ops.potq_grad_matmuls(
                 g2, aq.reshape(-1, k), wq, a=a32.reshape(-1, k),
                 clip_t=amax * gamma, amax=amax, **kw)
@@ -160,6 +187,27 @@ class _MFLinear(torch.autograd.Function):
         return da.reshape(a.shape).to(a.dtype), dw, dgamma, None, None
 
 
+def _row_parallel(a, w, gamma, policy: QuantPolicy, group) -> torch.Tensor:
+    """a[..., K_r] @ w[K_r, N] with K split over ``group`` at whole
+    128-chunks, in rank order: global activation scales, then K1's fold
+    chained across the ranks.  Serving only (prequantized weights, whose
+    scale was taken whole; no backward)."""
+    if not policy.weights_prequantized:
+        raise ValueError("a row-parallel mf_linear needs weights prequantized whole "
+                         "(a shard's own WBC mean and scale would not be the matrix's)")
+    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        raise ValueError("row-parallel mf_linear has no backward: tensor-parallel "
+                         "training is not ported (ROADMAP)")
+    k, n = w.shape
+    aq = _quantize_a(a, gamma, policy, row_group=group).reshape(-1, k)
+    wq = _quantize_w(w, policy)
+    out = collectives.ordered_fold(
+        lambda start: ops.pot_value_matmul(aq, wq, bits_a=policy.bits_a,
+                                           bits_w=policy.bits_w, start=start),
+        (aq.shape[0], n), a.device, group)
+    return out.reshape(*a.shape[:-1], n).to(a.dtype)
+
+
 def mf_linear(
     a: torch.Tensor,
     w: torch.Tensor,
@@ -167,11 +215,15 @@ def mf_linear(
     *,
     policy: QuantPolicy,
     is_last: bool = False,
+    row_group=None,
 ) -> torch.Tensor:
     """Quantized (or plain, if ``policy.enabled=False``) a[..., K] @ w[K, N].
 
     ``is_last`` selects the last layer's gradient bit-width
-    (``policy.bits_g_last``) in the backward.  dW comes back in float32."""
+    (``policy.bits_g_last``) in the backward.  dW comes back in float32.
+    ``row_group`` (a process group): K is split over its ranks, this
+    rank's slice in ``a`` and ``w``; the result is the whole product on
+    every rank (:func:`_row_parallel`)."""
     if not policy.enabled:
         w_ = w.to(a.dtype)
         if a.dim() == 3 and a.shape[1] == 1:
@@ -184,6 +236,8 @@ def mf_linear(
     if not torch.is_tensor(gamma):
         # a fill on the device, not a host-to-device copy (no host sync)
         gamma = torch.full((), gamma, dtype=torch.float32, device=a.device)
+    if row_group is not None:
+        return _row_parallel(a, w, gamma, policy, row_group)
     return _MFLinear.apply(a, w, gamma, policy, is_last)
 
 

@@ -49,7 +49,11 @@ class QuantPolicy:
       bits_g_last: bit-width for the last linear layer's activation grads.
       weight_bias_correction: subtract mean(W) before quantization (WBC).
       ratio_clip_init: PRC clipping ratio gamma; ``None`` disables PRC.
-      stochastic_rounding: not ported yet; must be False.
+      stochastic_rounding: declared by the reference and read nowhere in
+        it (its mf_linear rounds to nearest); refused here rather than
+        given a meaning the reference lacks.  Stochastic rounding itself
+        is ``core.potq.pot_quantize(stochastic=True)`` (the gradient
+        compressor, ``core/compress.py``).
       quantize_attention: ALSO run the attention QK^T / PV activation-by-
         activation products through PoT quantization (``mfmac.mf_act_dot``);
         beyond the paper, off for paper-faithful runs.
@@ -85,7 +89,10 @@ class QuantPolicy:
     def __post_init__(self) -> None:
         if self.stochastic_rounding:
             raise NotImplementedError(
-                "QuantPolicy options not ported to repro_torch yet: ['stochastic_rounding']"
+                "QuantPolicy.stochastic_rounding: the reference declares this flag and "
+                "reads it nowhere (its quantizers round to nearest), so the port refuses "
+                "it; stochastic rounding is core.potq.pot_quantize(stochastic=True), "
+                "used by core.compress"
             )
 
     @property

@@ -16,6 +16,16 @@ CUDA kernel (``frexpf``), so both devices agree bit for bit.  The
 reference's ``jnp.round(jnp.log2(x))`` disagrees with this rule on a few
 mantissas just below √2·2^k (the "√2 band"); tests hold the port against
 it bit for bit outside that band.
+
+Stochastic rounding (the reference's gradient-compression path,
+``core/compress.py``): ``pot_quantize(stochastic=True, generator=g)``
+rounds |x| to 2^floor(log2|x|) or the next power up, with probability
+proportional to its position between them, so E[q] = x; the uniform
+draws come from an explicit ``torch.Generator`` on the tensor's device.
+``floor(log2 x)`` is ``e - 1`` of frexp, exact.  ``compute_beta(...,
+conservative=True)`` takes ``ceil(log2(max|F|)) - emax`` so that the top
+value never saturates (saturation would clip the upward rounding and
+bias the estimate).
 """
 from __future__ import annotations
 
@@ -57,32 +67,68 @@ def round_log2(mag: torch.Tensor) -> torch.Tensor:
     return torch.where(mag > 0, r, torch.full_like(r, _ZERO_EXP))
 
 
-def compute_beta(f: torch.Tensor, bits: int, axes=None) -> torch.Tensor:
+def ceil_log2(mag: torch.Tensor) -> torch.Tensor:
+    """ceil(log2(mag)) as int32 for mag > 0 (frexp: e - 1 when the
+    mantissa is exactly 1/2, a power of two, else e)."""
+    m, e = torch.frexp(mag.to(torch.float32))
+    r = e.to(torch.int32) - (m == 0.5).to(torch.int32)
+    return torch.where(mag > 0, r, torch.full_like(r, _ZERO_EXP))
+
+
+def compute_beta(f: torch.Tensor, bits: int, axes=None, *,
+                 conservative: bool = False) -> torch.Tensor:
     """Layer-wise PoT scale exponent beta = round(log2(max|F|)) - emax
-    (int32).  ``axes=None`` reduces over the whole tensor; otherwise the
-    reduced axes are kept so the result broadcasts against ``f``.
+    (int32; ``conservative``: ceil instead of round, so max|F| never
+    saturates).  ``axes=None`` reduces over the whole tensor; otherwise
+    the reduced axes are kept so the result broadcasts against ``f``.
     All-zero groups get beta = 0."""
-    emax = pot_emax(bits)
     mag = f.abs().to(torch.float32)
-    if axes is None:
-        amax = mag.amax()
-    else:
-        amax = mag.amax(dim=tuple(axes), keepdim=True)
-    beta = round_log2(amax) - emax
+    amax = mag.amax() if axes is None else mag.amax(dim=tuple(axes), keepdim=True)
+    return beta_of_amax(amax, bits, conservative=conservative)
+
+
+def beta_of_amax(amax: torch.Tensor, bits: int, *, conservative: bool = False) -> torch.Tensor:
+    """:func:`compute_beta` of a group whose max|F| is ``amax`` (a global
+    max taken over ranks, for one)."""
+    beta = (ceil_log2(amax) if conservative else round_log2(amax)) - pot_emax(bits)
     return torch.where(amax > 0, beta, torch.zeros_like(beta))
 
 
+def _log2_round_stochastic(mag: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Unbiased stochastic log2 rounding: ``floor(log2 mag)`` plus one with
+    probability ``mag / 2^floor - 1``, so E[2^e] = mag; mag == 0 maps to a
+    very negative exponent.  One uniform draw per element from
+    ``generator`` (on mag's device)."""
+    m, e = torch.frexp(mag.to(torch.float32))
+    lo = e.to(torch.int32) - 1
+    safe = torch.where(mag > 0, mag, torch.ones_like(mag))
+    p_up = safe / exp2i(torch.where(mag > 0, lo, torch.zeros_like(lo))) - 1.0
+    u = torch.rand(mag.shape, generator=generator, dtype=torch.float32, device=mag.device)
+    r = lo + (u < p_up).to(torch.int32)
+    return torch.where(mag > 0, r, torch.full_like(r, _ZERO_EXP))
+
+
+def _round_exp(scaled: torch.Tensor, stochastic: bool, generator) -> torch.Tensor:
+    if not stochastic:
+        return round_log2(scaled.abs())
+    if generator is None:
+        raise ValueError("stochastic rounding requires a torch.Generator")
+    return _log2_round_stochastic(scaled.abs(), generator)
+
+
 def pot_quantize(f: torch.Tensor, bits: int,
-                 beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 beta: Optional[torch.Tensor] = None, *, stochastic: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Quantize-dequantize ``f`` to b-bit PoT with layer-wise PoT scaling
-    (round to nearest).  Returns float32 values, each exact in bf16."""
+    (round to nearest; ``stochastic``: unbiased log2 rounding drawn from
+    ``generator``).  Returns float32 values, each exact in bf16."""
     emax = pot_emax(bits)
     f = f.to(torch.float32)
     if beta is None:
         beta = compute_beta(f, bits)
     scale = exp2i(beta)
     scaled = f / scale
-    e = round_log2(scaled.abs())
+    e = _round_exp(scaled, stochastic, generator)
     underflow = e < -emax
     q = torch.where(underflow, torch.zeros_like(scaled),
                     exp2i(e.clamp(-emax, emax)))
@@ -99,14 +145,16 @@ class PotEncoded(NamedTuple):
 
 
 def pot_encode(f: torch.Tensor, bits: int,
-               beta: Optional[torch.Tensor] = None) -> PotEncoded:
-    """Quantize ``f`` to the integer PoT wire format (sign, exp, beta)."""
+               beta: Optional[torch.Tensor] = None, *, stochastic: bool = False,
+               generator: Optional[torch.Generator] = None) -> PotEncoded:
+    """Quantize ``f`` to the integer PoT wire format (sign, exp, beta);
+    ``stochastic`` as for :func:`pot_quantize`."""
     emax = pot_emax(bits)
     f = f.to(torch.float32)
     if beta is None:
         beta = compute_beta(f, bits)
     scaled = f / exp2i(beta)
-    e = round_log2(scaled.abs())
+    e = _round_exp(scaled, stochastic, generator)
     exp = e.clamp(-emax, emax).to(torch.int8)
     exp = torch.where(e < -emax, torch.full_like(exp, EXP_ZERO), exp)
     sign = (scaled < 0).to(torch.int8)

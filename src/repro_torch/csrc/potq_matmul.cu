@@ -18,6 +18,13 @@
 // per row of A, one for all of W, so every fp64 partial sum is exact in
 // any order), rounded ONCE to f32, and the chunk sums are left-folded in
 // f32 in ascending chunk order from 0.0f; the fold is multiplied by `deq`.
+//
+// `start` (optional, (M, N) f32): the fold's initial accumulator instead
+// of 0.0f -- a row-parallel product split over ranks at whole chunks
+// continues the previous rank's running sum (parallel/collectives.py
+// ordered_fold), so the chain adds exactly one rank's chunk sums in one
+// rank's order.  With `start` every path takes the split: chunk sums into
+// the scratch, then the fold from `start`.
 // No atomics: the result is deterministic, row-independent and the same
 // for every path below, which is what the serving engine's pool-vs-solo
 // identity rests on.
@@ -310,14 +317,16 @@ potq_mm_dec(const uint16_t* __restrict__ A, const uint16_t* __restrict__ W,
     }
 }
 
-// Left fold of the (nchunk, M*N) chunk sums in ascending chunk order, x deq.
+// Left fold of the (nchunk, M*N) chunk sums in ascending chunk order from
+// start (0.0f without one), x deq.
 __global__ void __launch_bounds__(256)
 potq_mm_fold(const float* __restrict__ part, const float* __restrict__ scal,
-             float* __restrict__ out, long long total, int nchunk) {
+             const float* __restrict__ start, float* __restrict__ out, long long total,
+             int nchunk) {
     const float deq = dequant(scal);
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-        float acc = 0.0f;
+        float acc = start == nullptr ? 0.0f : start[i];
         for (int c = 0; c < nchunk; ++c) acc += part[(size_t)c * total + i];
         out[i] = acc * deq;
     }
@@ -348,12 +357,14 @@ cudaError_t launch_dec_rows(bool vec, bool split, dim3 grid, cudaStream_t st, co
 
 // E products (E = 1: one).  kind 0: decode, 1: tensor cores.  groups > 1
 // splits the chunks into that many ranges (part: (ceil(K/128), E, M, N)
-// f32), then folds.
-cudaError_t product(const uint16_t* a, const uint16_t* w, const float* scal, float* out,
-                    float* part, int E, int M, int N, int K, int kind, int groups,
-                    cudaStream_t st) {
+// f32), then folds; a `start` always takes the scratch and the fold (one
+// range where groups is 1).
+cudaError_t product(const uint16_t* a, const uint16_t* w, const float* scal,
+                    const float* start, float* out, float* part, int E, int M, int N, int K,
+                    int kind, int groups, cudaStream_t st) {
     const int nchunk = (K + CHUNK - 1) / CHUNK;
-    const bool split = groups > 1 && nchunk > 1;
+    if (groups < 1) groups = 1;
+    const bool split = start != nullptr || (groups > 1 && nchunk > 1);
     const int per = split ? (nchunk + groups - 1) / groups : nchunk;  // chunks per range
     const int ranges = split ? (nchunk + per - 1) / per : 1;
     cudaError_t e;
@@ -380,7 +391,8 @@ cudaError_t product(const uint16_t* a, const uint16_t* w, const float* scal, flo
     }
     if (e != cudaSuccess || !split) return e;
     const long long total = (long long)E * M * N;
-    potq_mm_fold<<<grid_stride_blocks(total), 256, 0, st>>>(part, scal, out, total, nchunk);
+    potq_mm_fold<<<grid_stride_blocks(total), 256, 0, st>>>(part, scal, start, out, total,
+                                                            nchunk);
     return cudaGetLastError();
 }
 
@@ -389,16 +401,17 @@ cudaError_t product(const uint16_t* a, const uint16_t* w, const float* scal, flo
 // quantize = 0, E products (E = 1: one).  a: (E, M, K) bf16 PoT values,
 // w: (E, K, N) bf16 PoT values, out: (E, M, N) f32; scalars: null (deq 1)
 // or the (5,) f32 [2^-beta_a, 2^-beta_w, deq, w_mean, clip_t], of which
-// only deq is read; part: the (ceil(K/128), E, M, N) scratch when
-// groups > 1.
+// only deq is read; start: null or the (M, N) f32 initial accumulator
+// (E = 1); part: the (ceil(K/128), E, M, N) scratch when groups > 1 or
+// with a start.
 extern "C" int potq_matmul_launch(const void* a, const void* w, const float* scalars,
-                                  float* out, float* part, int E, int M, int N, int K, int kind,
-                                  int groups, void* stream) {
+                                  const float* start, float* out, float* part, int E, int M,
+                                  int N, int K, int kind, int groups, void* stream) {
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (E > 0 && M > 0 && N > 0) {
         const cudaError_t e = product(static_cast<const uint16_t*>(a),
-                                      static_cast<const uint16_t*>(w), scalars, out, part, E, M,
-                                      N, K, kind, groups, st);
+                                      static_cast<const uint16_t*>(w), scalars, start, out, part,
+                                      E, M, N, K, kind, groups, st);
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     return static_cast<int>(cudaGetLastError());
@@ -423,7 +436,7 @@ extern "C" int potq_matmul_quantize_launch(const float* a, const float* w,
         cudaError_t e = cudaGetLastError();
         if (e == cudaSuccess)
             e = product(reinterpret_cast<const uint16_t*>(qa), reinterpret_cast<const uint16_t*>(qw),
-                        scalars, out, part, 1, M, N, K, kind, groups, st);
+                        scalars, nullptr, out, part, 1, M, N, K, kind, groups, st);
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     return static_cast<int>(cudaGetLastError());

@@ -42,6 +42,12 @@ def batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, tuple]:
     return out
 
 
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, tuple]:
+    """``{name: shape}`` of the batch dict (the reference's ``batch_specs``
+    as plain shape tuples; the sharding planner reads them)."""
+    return {k: shp for k, (shp, _) in batch_shapes(cfg, shape).items()}
+
+
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int, seed: int = 0,
                *, device=None) -> Dict[str, torch.Tensor]:
     """Materialize the synthetic batch for ``step`` (deterministic), drawn

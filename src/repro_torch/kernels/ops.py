@@ -82,14 +82,17 @@ def potq_matmul(
 
 
 def pot_value_matmul(x: torch.Tensor, y: torch.Tensor, *,
-                     bits_a: int = 5, bits_w: int = 5) -> torch.Tensor:
+                     bits_a: int = 5, bits_w: int = 5,
+                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M,K)@(K,N) over already-quantized (PoT-valued) operands.
 
     ``bits_a``/``bits_w`` are the widths the operands were quantized at;
     they only gate the exactness precondition (``ref.check_exact_spread``).
+    ``start`` continues the fold from an (M, N) running sum (a
+    row-parallel product's previous ranks, ``parallel/collectives.py``).
     """
     ref.check_exact_spread(bits_a, bits_w)
-    return _launch(x, y, None, quantize=False)
+    return _launch(x, y, None, quantize=False, start=start)
 
 
 def pot_value_bmm(x: torch.Tensor, y: torch.Tensor, *,
@@ -187,9 +190,11 @@ def potq_grad_matmuls(
     bits_a: int = 5,
     bits_w: int = 5,
     per_sample_act_scales: bool = False,
+    beta_g: Optional[torch.Tensor] = None,
 ):
     """The backward MACs (Algorithm 1, lines 13-15): G (M, N) is quantized
-    once — one beta_g, shared by both kernels — then
+    once — one beta_g (given: the scale of G's whole batch across
+    data-parallel ranks; else from this G), shared by both kernels — then
 
         dA = Gq·Wq^T   (PRC mask + dgamma rows in the epilogue, K2)
         dW = Aq^T·Gq   (K3)
@@ -198,7 +203,8 @@ def potq_grad_matmuls(
     (PRC off).  dgamma = halves_fold(rows) * amax, amax defaulting to
     max|a|: a fixed order, the same bits on every device."""
     g = g.to(torch.float32)
-    beta_g = potq.compute_beta(g, bits_g)  # quantized once: one shared beta
+    if beta_g is None:
+        beta_g = potq.compute_beta(g, bits_g)  # quantized once: one shared beta
     gq = None
     if g.device.type == "cuda":  # one pre-pass, read by both kernels
         gq = _kg.quantize_g_cuda(g, _g_scalars(g, bits_g, beta_g, None),

@@ -22,6 +22,12 @@ Build: ``kernels/_build.py`` (nvcc for sm_90a into a shared library with a
 plain C interface, at first use, into ``<checkout>/build/kernels/<hash>/``,
 loaded with ``ctypes``).
 
+Row-parallel products (``core/mfmac.py`` under a model axis) split the
+contraction over ranks at whole 128-chunks and chain K1's fold across
+them: ``start`` (an (M, N) f32 running sum, on a quantize=False launch)
+replaces the fold's initial 0.  A launch with ``start`` always takes the
+split's scratch and fold.
+
 Exactness precondition: operands come from the port's quantizer (one beta
 per row of A, one for all of W) and the bit widths pass
 ``ref.check_exact_spread``.  Within it the kernel equals
@@ -44,7 +50,7 @@ ACC_SCHEME = "canonical-k128-exactchunk-leftfold-v1"
 SOURCE = "potq_matmul.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "potq_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "potq_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "potq_matmul_quantize_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _P],
 }
@@ -67,16 +73,27 @@ def build() -> ctypes.CDLL:
     return _lib
 
 
+def _check_start(start, a: torch.Tensor, quantize: bool, m: int, n: int, k: int):
+    if start is None:
+        return
+    if quantize or a.dim() == 3:
+        raise ValueError("start takes one (M, K) @ (K, N) product with quantize=False")
+    if tuple(start.shape) != (m, n) or k < 1:
+        raise ValueError(f"start must be ({m}, {n}) with K >= 1, got {tuple(start.shape)}")
+
+
 def potq_matmul_plain(a: torch.Tensor, w: torch.Tensor,
                       scalars: Optional[torch.Tensor] = None, *,
                       emax_a: int = 7, emax_w: int = 7,
-                      quantize: bool = False) -> torch.Tensor:
+                      quantize: bool = False,
+                      start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same arguments.
 
     ``scalars`` is a (5,) float32 tensor ``[2^-beta_a, 2^-beta_w,
     2^(beta_a+beta_w), w_mean, clip_t]``; ``None`` means
     ``[1, 1, 1, 0, inf]``.  An expert batch (E, M, K) @ (E, K, N) is one
-    expert at a time."""
+    expert at a time.  ``start``: the fold's initial (M, N) accumulator."""
+    _check_start(start, a, quantize, a.shape[-2], w.shape[-1], a.shape[-1])
     if a.dim() == 3:
         if quantize:
             raise ValueError("quantize=True takes one (M, K) @ (K, N) product")
@@ -89,7 +106,7 @@ def potq_matmul_plain(a: torch.Tensor, w: torch.Tensor,
         sa, sw, _, w_mean, clip_t = scalars.unbind()
         a = quantize_tile_ref(torch.clamp(a, -clip_t, clip_t) * sa, emax_a)
         w = quantize_tile_ref((w - w_mean) * sw, emax_w)
-    out = pot_value_matmul_ref(a, w)
+    out = pot_value_matmul_ref(a, w, start)
     if scalars is not None:
         out = out * scalars[2]
     return out
@@ -154,7 +171,8 @@ def _sm_count(index: int) -> int:
 def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
                      scalars: Optional[torch.Tensor] = None, *,
                      emax_a: int = 7, emax_w: int = 7,
-                     quantize: bool = False) -> torch.Tensor:
+                     quantize: bool = False,
+                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K1 on the tensors' CUDA device (PyTorch's current stream).
 
     ``quantize=False`` reads bf16 operands (f32 PoT values are cast, which
@@ -162,7 +180,8 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     (E, M, N) in one launch; each expert's W must then carry one beta and
     each row of its A one, so that the result equals E single launches
     bit for bit.  ``quantize=True`` reads raw f32 (M, K) @ (K, N)
-    operands.  Raises on a bad device, shape or launch."""
+    operands.  ``start`` (an (M, N) f32 running sum; one product,
+    quantize=False) is the fold's initial accumulator.  Raises on a bad device, shape or launch."""
     if a.device.type != "cuda" or w.device.type != "cuda":
         raise ValueError("potq_matmul_cuda needs CUDA tensors")
     batched = a.dim() == 3
@@ -179,6 +198,9 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
             raise ValueError("scalars must hold 5 values")
     elif quantize:
         raise ValueError("quantize=True needs the (5,) scalars")
+    _check_start(start, a, quantize, a.shape[-2], w.shape[-1], a.shape[-1])
+    if start is not None:
+        start = start.to(device=a.device, dtype=torch.float32).contiguous()
     e = a.shape[0] if batched else 1
     m, k = a.shape[-2:]
     n = w.shape[-1]
@@ -186,12 +208,13 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     path, groups = plan(m, n, k, _sm_count(dev.index), e)
     out = torch.empty((*a.shape[:-2], m, n), dtype=torch.float32, device=dev)
     part = None
-    if groups > 1:
+    if groups > 1 or start is not None:
         part = torch.empty((-(-k // CANONICAL_BK), e, m, n), dtype=torch.float32, device=dev)
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     sp = scalars.data_ptr() if scalars is not None else None
     pp = part.data_ptr() if part is not None else None
+    st = start.data_ptr() if start is not None else None
     if quantize:
         aq = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
         wq = torch.empty((k, n), dtype=torch.bfloat16, device=dev)
@@ -199,7 +222,7 @@ def potq_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
             a.data_ptr(), w.data_ptr(), sp, aq.data_ptr(), wq.data_ptr(), out.data_ptr(), pp,
             m, n, k, emax_a, emax_w, _KINDS[path], groups, stream)
     else:
-        err = lib.potq_matmul_launch(a.data_ptr(), w.data_ptr(), sp, out.data_ptr(), pp,
+        err = lib.potq_matmul_launch(a.data_ptr(), w.data_ptr(), sp, st, out.data_ptr(), pp,
                                      e, m, n, k, _KINDS[path], groups, stream)
     if err != 0:
         raise RuntimeError(f"potq_matmul kernel launch failed: CUDA error {err}")

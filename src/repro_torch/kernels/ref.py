@@ -75,15 +75,18 @@ def quantize_tile_ref(x: torch.Tensor, emax: int) -> torch.Tensor:
     return torch.sign(x) * q
 
 
-def pot_value_matmul_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def pot_value_matmul_ref(x: torch.Tensor, y: torch.Tensor,
+                         start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M,K)@(K,N) over PoT-valued operands (cast to bf16, as the kernel
     reads them): exact fp64 partial per canonical chunk, rounded once to
-    f32, left-folded in f32 in ascending chunk order."""
+    f32, left-folded in f32 in ascending chunk order from ``start`` (an
+    (M, N) running sum: a row-parallel product's previous ranks) or 0."""
     m, k = x.shape
     n = y.shape[1]
     xb = x.to(torch.bfloat16)
     yb = y.to(torch.bfloat16)
-    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    out = (torch.zeros((m, n), dtype=torch.float32, device=x.device) if start is None
+           else start.to(torch.float32).clone())
     for c in range(0, k, CANONICAL_BK):
         part = xb[:, c:c + CANONICAL_BK].double() @ yb[c:c + CANONICAL_BK].double()
         out = out + part.float()

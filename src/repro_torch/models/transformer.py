@@ -35,6 +35,19 @@ the same way (a decode row at decode's shapes, a chunk at (1, C, ·)).
 A MoE layer dispatches per slot in every serving step (``per_slot``), so
 routing, capacity and expert scales never couple pool rows; its router
 softmax sums each row in a fixed order (:func:`_softmax_rows`).
+
+On a model axis (a sharded plan active, ``parallel/actshard.py``; the
+dense decoder only, ``parallel/planner.dense_layout``) the step bodies
+run with the plan's local config (this rank's q and K/V heads) over this
+rank's weight shards: q/k/v heads split at whole heads (the K/V heads
+selected from a whole product where they do not split, :func:`_qkv`),
+attention on the rank, norms and rope on every rank, ``wo`` and the
+MLP's down projection row-parallel (K1's fold chained across the ranks)
+or over the all-gathered input where a rank's slice is not whole
+128-chunks (:func:`_out_proj`), the embedding rows of a vocab shard
+gathered and selected (never summed with zeros, :func:`_embed`) and the
+head's logits all-gathered in rank order (:func:`_lm_head`).  Without
+a plan every hook is the identity.
 """
 from __future__ import annotations
 
@@ -52,6 +65,7 @@ from repro_torch.device import to_device
 from repro_torch.kernels.ref import halves_fold
 from repro_torch.models import common
 from repro_torch.models.spec import ParamSpec
+from repro_torch.parallel import actshard, collectives
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +175,71 @@ def _rows(fn, x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Model-axis hooks (identity without an active sharded plan)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    cfg: ModelConfig  # the whole model's config
+    layout: object  # parallel.planner.DenseLayout
+    rank: int
+    group: object
+
+
+def _tp() -> Optional[_TP]:
+    plan = actshard.active_plan()
+    if (plan is None or plan.model_shards == 1 or plan.cfg is None
+            or not getattr(plan.mesh, "is_concrete", False)):
+        return None
+    return _TP(plan.cfg, plan.layout(), plan.mesh.coord("model"), plan.mesh.group("model"))
+
+
+def _gather_cols(x: torch.Tensor, group) -> torch.Tensor:
+    """Every model rank's columns of ``x``, concatenated in rank order."""
+    return torch.cat(collectives.all_gather(x.contiguous(), group), dim=-1)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; over a vocab shard each rank looks up the rows
+    it holds, the lookups are all-gathered and each token takes its row
+    from the rank that holds it (selected, not summed with zeros)."""
+    tp = _tp()
+    if tp is None or not tp.layout.vocab:
+        return table[tokens]
+    vl = table.shape[0]
+    local = table[(tokens - tp.rank * vl).clamp(0, vl - 1)]
+    stacked = torch.stack(collectives.all_gather(local, tp.group))
+    owner = (tokens // vl).clamp(max=tp.layout.model - 1)
+    idx = owner[None, ..., None].expand((1,) + tuple(local.shape))
+    return torch.gather(stacked, 0, idx)[0]
+
+
+def _kv_select(k: torch.Tensor) -> torch.Tensor:
+    """A whole K or V projection (..., KV*hd) cut to the K/V heads this
+    rank's q heads read (``kv == 'select'``); otherwise as it is."""
+    tp = _tp()
+    if tp is None or tp.layout.kv != "select":
+        return k
+    hd = tp.cfg.head_dim
+    lo = tp.layout.kv_lo(tp.rank, tp.cfg)
+    return k[..., lo * hd:(lo + tp.layout.kv_local) * hd]
+
+
+def _out_proj(p, x, policy, mode: str) -> torch.Tensor:
+    """An output projection whose input is split over the model axis
+    (``wo`` of the attention, ``mode`` 'wo'; the MLP's down projection,
+    'mlp_wo'): row-parallel where the layout folds, else over the
+    all-gathered input with the weight whole."""
+    tp = _tp()
+    how = getattr(tp.layout, mode) if tp is not None else "whole"
+    if how == "fold" and policy.enabled:
+        return mfmac.mf_linear(x, p["w"], p["gamma"], policy=policy, row_group=tp.group)
+    if how != "whole":
+        x = _gather_cols(x, tp.group)
+    return mfmac.mf_linear(x, p["w"], p["gamma"], policy=policy)
+
+
+# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
@@ -173,7 +252,7 @@ def _mlp_apply(cfg: ModelConfig, policy: QuantPolicy, p, x):
         h = common.gelu(
             mfmac.mf_linear(x, p["wi"]["w"], p["wi"]["gamma"], policy=policy)
         )
-    return mfmac.mf_linear(h, p["wo"]["w"], p["wo"]["gamma"], policy=policy)
+    return _out_proj(p["wo"], h, policy, "mlp_wo")
 
 
 def _softmax_rows(x: torch.Tensor) -> torch.Tensor:
@@ -298,8 +377,8 @@ def _qkv(cfg, policy, p, x, qpos):
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = mfmac.mf_linear(x, p["wq"]["w"], p["wq"]["gamma"], policy=policy)
-    k = mfmac.mf_linear(x, p["wk"]["w"], p["wk"]["gamma"], policy=policy)
-    v = mfmac.mf_linear(x, p["wv"]["w"], p["wv"]["gamma"], policy=policy)
+    k = _kv_select(mfmac.mf_linear(x, p["wk"]["w"], p["wk"]["gamma"], policy=policy))
+    v = _kv_select(mfmac.mf_linear(x, p["wv"]["w"], p["wv"]["gamma"], policy=policy))
     q = common.rope(q.reshape(b, s, cfg.n_heads, hd), qpos, cfg.rope_theta)
     k = common.rope(k.reshape(b, s, cfg.kv_heads, hd), qpos, cfg.rope_theta)
     return q, k, v.reshape(b, s, cfg.kv_heads, hd)
@@ -313,8 +392,7 @@ def _attn_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, qpos, *,
     q, k, v = _qkv(cfg, policy, p, x, qpos[None, :].expand(b, s))
     att = _sdpa(cfg, policy, q, k, v, qpos, qpos, window)
     att = att.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    out = mfmac.mf_linear(att, p["wo"]["w"], p["wo"]["gamma"], policy=policy)
-    return out, (k, v)
+    return _out_proj(p["wo"], att, policy, "wo"), (k, v)
 
 
 def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
@@ -368,7 +446,8 @@ def embed_inputs(cfg, policy, params, tokens, patch_embeds=None):
     # the values of embed[tokens]; the backward is embedding_dense_backward
     # rather than an accumulating index_put_, and the trainer's
     # deterministic mode keeps it run-to-run identical on the card
-    x = F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.act_dtype))
+    x = (F.embedding(tokens, params["embed"]) if _tp() is None
+         else _embed(params["embed"], tokens)).to(getattr(torch, cfg.act_dtype))
     if cfg.family == "vlm" and patch_embeds is not None:
         pp = params["patch_proj"]
         pe = mfmac.mf_linear(patch_embeds.to(torch.float32), pp["w"], pp["gamma"],
@@ -423,7 +502,11 @@ def _lm_head(cfg, policy, params, x):
     if cfg.tie_embeddings:
         return tied_head(policy, params["embed"], x)
     hp = params["lm_head"]
-    return mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
+    logits = mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
+    tp = _tp()
+    if tp is not None and tp.layout.vocab:
+        logits = _gather_cols(logits, tp.group)  # the vocab shards in rank order
+    return logits
 
 
 def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, labels,
@@ -437,9 +520,9 @@ def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, labels,
     return next_token_loss(cfg, logits, labels, loss_mask)
 
 
-def next_token_loss(cfg: ModelConfig, logits, labels, loss_mask) -> torch.Tensor:
-    """Mean cross entropy of ``logits`` (B, S, V_padded) against ``labels``
-    over ``loss_mask``, padded-vocab ids masked out."""
+def token_losses(cfg: ModelConfig, logits, labels) -> torch.Tensor:
+    """Per-token cross entropy (B, S) of ``logits`` (B, S, V_padded)
+    against ``labels``, padded-vocab ids masked out."""
     logits = logits.to(torch.float32)
     vpad = cfg.vocab_padded
     if vpad != cfg.vocab:
@@ -447,9 +530,20 @@ def next_token_loss(cfg: ModelConfig, logits, labels, loss_mask) -> torch.Tensor
         logits = logits.masked_fill(invalid, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return logz - gold
+
+
+def next_token_loss(cfg: ModelConfig, logits, labels, loss_mask) -> torch.Tensor:
+    """Mean cross entropy of ``logits`` (B, S, V_padded) against ``labels``
+    over ``loss_mask``, padded-vocab ids masked out.  Under a data-parallel
+    plan the mean's denominator is the global token count, so the ranks'
+    losses (and gradients) sum to one rank's."""
+    losses = token_losses(cfg, logits, labels)
     mask = loss_mask.to(torch.float32)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return ((logz - gold) * mask).sum() / denom
+    # over data-parallel ranks: this rank's share of the global mean
+    denom = torch.clamp(collectives.all_reduce_sum(mask.sum(), actshard.batch_group()),
+                        min=1.0)
+    return (losses * mask).sum() / denom
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -686,13 +780,13 @@ def decode_step(cfg, policy, params, token, cache):
     the cache cast to the activation dtype."""
     b = token.shape[0]
     st = DecodeSlots(cache, token, _kv_check(policy, cache))
-    x = params["embed"][token[:, None]]  # (B, 1, D)
+    x = _embed(params["embed"], token[:, None])  # (B, 1, D)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = _rows(_norm_fn(cfg, lp.get("ln1")), x)
         q, k, v = _qkv(cfg, policy, lp, h, st.qpos)
         att = st.attend(cfg, policy, cache, i, q, k, v).reshape(b, 1, cfg.n_heads * cfg.head_dim)
-        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        y = x + _out_proj(lp["wo"], att, policy, "wo")
         h2 = _rows(_norm_fn(cfg, lp.get("ln2")), y)
         x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
     x = _rows(_norm_fn(cfg, params.get("final_norm")), x)
@@ -873,13 +967,13 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
     Returns (logits (B, V) at each slot's last valid position, the cache,
     updated in place).  Paged pool caches only."""
     st = ChunkSlots(cfg, cache, tokens, n_new, _kv_check(policy, cache))
-    x = params["embed"][tokens]  # (B, C, D)
+    x = _embed(params["embed"], tokens)  # (B, C, D)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = st.norms(_norm_fn(cfg, lp.get("ln1")), x)
         q, k, v = _qkv(cfg, policy, lp, h, st.qpos)
         att = st.attend(cfg, policy, cache, i, q, k, v)
-        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        y = x + _out_proj(lp["wo"], att, policy, "wo")
         h2 = st.norms(_norm_fn(cfg, lp.get("ln2")), y)
         x = y + _ffn(cfg, policy, lp, h2, per_slot=True)
     xe = _rows(_norm_fn(cfg, params.get("final_norm")), st.emit_rows(x))
@@ -998,13 +1092,13 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
     and the rollback of rejected positions (``serve.slots.spec_restore``)."""
     st = VerifySlots(cfg, cache, tokens, n_new, _kv_check(policy, cache))
     b, c = tokens.shape
-    x = params["embed"][tokens].reshape(b * c, 1, -1)  # (B*C, 1, D)
+    x = _embed(params["embed"], tokens).reshape(b * c, 1, -1)  # (B*C, 1, D)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = live_norms(_norm_fn(cfg, lp.get("ln1")), x, st.rows)
         q, k, v = _qkv(cfg, policy, lp, h, st.rq)  # (B*C, 1, heads, hd)
         att = st.attend(cfg, policy, cache, i, q, k, v)
-        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        y = x + _out_proj(lp["wo"], att, policy, "wo")
         h2 = live_norms(_norm_fn(cfg, lp.get("ln2")), y, st.rows)
         # every (slot, position) row is a dispatch group of its own (t = 1),
         # as in the reference's per-position decode

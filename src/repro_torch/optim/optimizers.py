@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -73,10 +73,11 @@ def global_norm(grads) -> torch.Tensor:
                           for g in tree_leaves(grads)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None):
     """Scale every gradient (in place) by min(1, max_norm / (|g| + 1e-9));
-    returns the tree and the norm before clipping."""
-    gn = global_norm(grads)
+    returns the tree and the norm before clipping.  ``norm``: |g| when the
+    caller has it (a data-parallel step's norm over every rank's slices)."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale)

@@ -78,6 +78,30 @@ reference does.
 solo prefill's mini cache; under ``kv_quant`` the pages hold codes and
 betas and the mini cache keeps ``cache_dtype``.
 
+Sharded serving (``plan=``, a pool plan of ``parallel/planner.py`` on a
+concrete mesh; the dense decoder only, other families on a plan are
+refused with a pointer to ROADMAP).  Every rank runs the same host
+scheduler, allocator and counters.
+
+* Model axis: weights are prequantized whole, then each rank keeps its
+  shard (``plan.shard_params``) and steps with the plan's local config;
+  the step bodies' collectives (``models/transformer.py``) give every
+  model rank the whole logits.
+* Data axis: the slots split evenly over the data ranks, in order; each
+  data rank steps only its slots' rows of the pool (the table, ``len``
+  and page stores are whole on every rank; a page is written and read
+  only by the rank that owns its slot).  The sampled tokens of each step
+  are all-gathered in rank order, so every rank takes the same
+  decisions, and a solo prefill runs on the owner's ranks and broadcasts
+  its first token.  When a finished prompt publishes its full pages to
+  the prefix cache, the owner broadcasts their contents to the other
+  data ranks, so any slot may map them: every token and every counter
+  equals one rank's.
+* Host syncs the sharded path adds: the token all-gather of each step,
+  the first-token broadcast of a solo prefill and the page broadcast of
+  a prefix publication (through the host under gloo), and the
+  collectives of a step body on a model axis.
+
 :func:`lockstep_generate` is the pre-pool loop the reference keeps as
 servebench's baseline: one batched prefill, then the whole batch decodes
 in lockstep (one shared position, per-tensor activation scales) to
@@ -98,6 +122,8 @@ from repro_torch.core import compress
 from repro_torch.core.policy import QuantPolicy, draft_policy
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models import registry
+from repro_torch.parallel import actshard, collectives
+from repro_torch.parallel import planner as planner_lib
 from repro_torch.serve import quantized_weights as qw
 from repro_torch.serve import slots as slots_lib
 from repro_torch.serve import spec as spec_lib
@@ -236,7 +262,12 @@ class PoolEngine:
     ``max_slots * span / page_size``.  ``prefix_cache`` needs
     ``prefill_chunk``.  ``spec`` is a ``serve.spec.NgramDrafter`` or
     ``LowBitSelfDraft``; its verify row (``max_draft + 1`` positions) must
-    fit the span."""
+    fit the span.
+
+    ``plan`` (``planner.plan_for(..., pool_slots=max_slots)``) keys the
+    engine by page geometry and ``kv_bits`` as in the reference, and sets
+    ``ServeStats.data_shards`` / ``model_shards``; on a concrete mesh of
+    more than one rank it shards the engine (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, policy: QuantPolicy, params, *,
                  max_slots: int, max_len: int, prequantize: bool = True,
@@ -244,7 +275,7 @@ class PoolEngine:
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = False, spec=None, kv_quant=None,
-                 cache_dtype=torch.bfloat16, device=None):
+                 cache_dtype=torch.bfloat16, device=None, plan=None):
         if cfg.family not in registry.POOLED_FAMILIES:
             raise NotImplementedError(
                 f"PoolEngine: family {cfg.family!r} lacks per-slot decode")
@@ -314,6 +345,15 @@ class PoolEngine:
         # per-slot activation scale groups: batch-invariant decode (at
         # batch 1 identical to the per-tensor groups)
         policy = dataclasses.replace(policy, per_sample_act_scales=True)
+        self.plan = plan
+        self.step_cfg = cfg
+        self.sharded = False
+        self.data_rank, self.data_size = 0, 1
+        if plan is not None:
+            self._check_plan(plan, cfg, policy, max_slots, kv_quant, spec)
+            if self.sharded:
+                params = plan.shard_params(params)
+                self.step_cfg = plan.local_config()
         self.cfg = cfg
         self.policy = policy
         self.params = params
@@ -329,6 +369,100 @@ class PoolEngine:
         self.draft_policy = (draft_policy(policy, spec.bits)
                              if spec is not None and spec.needs_draft_pass else None)
         self.last_stats: Optional[ServeStats] = None
+
+    def _check_plan(self, plan, cfg, policy, max_slots, kv_quant, spec):
+        """The reference's refusals (slot count, page geometry, kv_bits),
+        then, on a concrete mesh of more than one rank, what the sharded
+        runtime takes."""
+        if getattr(plan, "pool_slots", None) != max_slots:
+            raise ValueError(
+                "PoolEngine plans must be built with planner.plan_for(..., "
+                "pool_slots=max_slots) so the cache specs cover the per-slot leaves; got "
+                f"pool_slots={getattr(plan, 'pool_slots', None)!r}, max_slots={max_slots}")
+        if self.paged and plan.page_size is not None and (
+                plan.page_size != self.page_size or plan.num_pages != self.num_pages):
+            raise ValueError(
+                f"PoolEngine plan was built for page geometry (page_size={plan.page_size}, "
+                f"num_pages={plan.num_pages}) but the engine uses (page_size="
+                f"{self.page_size}, num_pages={self.num_pages}); rebuild the plan with "
+                "planner.plan_for(..., page_size=..., num_pages=...)")
+        eng_bits = kv_quant.bits if kv_quant is not None else None
+        if self.paged and plan.kv_bits != eng_bits:
+            raise ValueError(
+                f"PoolEngine plan was built for kv_bits={plan.kv_bits} but the engine "
+                f"quantizes at kv_bits={eng_bits}; rebuild the plan with "
+                "planner.plan_for(..., kv_quant=...)")
+        if not getattr(plan.mesh, "is_concrete", False) or plan.mesh.size == 1:
+            return
+        refuse = None
+        if not planner_lib.is_dense_decoder(cfg):
+            refuse = f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''}"
+        elif spec is not None:
+            refuse = "speculative decoding"
+        elif plan.model_shards > 1 and kv_quant is not None:
+            refuse = "quantized K/V pages on a model axis (a token's scale spans its heads)"
+        elif plan.model_shards > 1 and (not policy.enabled or policy.quantize_attention):
+            refuse = "a model axis under an unquantized policy or quantize_attention"
+        if refuse is not None:
+            raise NotImplementedError(
+                f"PoolEngine on a sharded plan runs the dense decoder only; {refuse} on a "
+                "plan is not ported yet (ROADMAP Queue 1)")
+        self.data_rank, self.data_size = actshard.data_rank_and_size(plan)
+        if max_slots % self.data_size:
+            raise ValueError(f"max_slots={max_slots} must split evenly over the "
+                             f"{self.data_size} data ranks")
+        self.sharded = True
+
+    # -- the sharded pool's local rows -----------------------------------------
+    def _local_rows(self):
+        """The slots [lo, hi) this data rank steps."""
+        n = self.max_slots // self.data_size
+        return self.data_rank * n, (self.data_rank + 1) * n
+
+    def _owner(self, slot: int) -> int:
+        return slot // (self.max_slots // self.data_size)
+
+    def _pool_step(self, cache, tokens, n_new=None):
+        """One pooled step (``decode_step`` when ``n_new`` is None, else
+        ``chunk_step``) over this data rank's slots; returns the sampled
+        token of every slot (the data ranks' tokens all-gathered in rank
+        order)."""
+        dev = self.device
+        if self.data_size == 1:
+            if n_new is None:
+                logits, _ = registry.decode_step(self.step_cfg, self.policy, self.params,
+                                                 to_device(tokens, dev), cache)
+            else:
+                logits, _ = registry.chunk_step(self.step_cfg, self.policy, self.params,
+                                                to_device(tokens, dev), n_new, cache)
+            return torch.argmax(logits, dim=-1)
+        lo, hi = self._local_rows()
+        sub = dict(cache, table=cache["table"][lo:hi], len=cache["len"][lo:hi])
+        if n_new is None:
+            logits, sub = registry.decode_step(self.step_cfg, self.policy, self.params,
+                                               to_device(tokens[lo:hi], dev), sub)
+        else:
+            logits, sub = registry.chunk_step(self.step_cfg, self.policy, self.params,
+                                              to_device(tokens[lo:hi], dev), n_new[lo:hi], sub)
+        cache["len"][lo:hi] = sub["len"]
+        return torch.cat(collectives.all_gather(torch.argmax(logits, dim=-1),
+                                                self.plan.mesh.group("data")))
+
+    def _publish_pages(self, cache, slot: int, pages) -> None:
+        """Over a data axis: the owner of ``slot`` broadcasts the contents
+        of ``pages`` (their K/V, betas and ``pos``) to the other data
+        ranks, which hold them stale, so a prefix hit on any rank reads
+        what one rank would."""
+        if self.data_size == 1 or not pages:
+            return
+        ids = to_device(list(pages), self.device, torch.int64)
+        group, owner = self.plan.mesh.group("data"), self._owner(slot)
+        for key in ("k", "v", "k_beta", "v_beta"):
+            if key in cache:
+                cache[key][:, ids] = collectives.broadcast(cache[key][:, ids].contiguous(),
+                                                           owner, group)
+        cache["pos"][ids] = collectives.broadcast(cache["pos"][ids].contiguous(), owner,
+                                                  group)
 
     # -- request admission -------------------------------------------------
     def _validate(self, requests: Sequence[Request]) -> None:
@@ -365,12 +499,22 @@ class PoolEngine:
         rows, ``pages`` None).  Returns the first generated token, read
         through ``flight`` (an explicit sync)."""
         dev = self.device
-        mini = registry.init_cache(self.cfg, 1, self.max_len, self.cache_dtype, device=dev)
-        batch = {"tokens": to_device(np.asarray(req.tokens), dev, torch.int64).reshape(1, -1)}
-        batch.update({k: to_device(np.asarray(v), dev) for k, v in req.extras.items()})
-        logits, mini = registry.prefill(self.cfg, self.policy, self.params, batch, mini)
-        slots_lib.write_slot(cache, mini, slot, pages=pages, kv_quant=self.kv_quant)
-        flight.start(torch.argmax(logits, dim=-1))
+        owner = self._owner(slot) if self.data_size > 1 else 0
+        if owner == self.data_rank:
+            mini = registry.init_cache(self.step_cfg, 1, self.max_len, self.cache_dtype,
+                                       device=dev)
+            batch = {"tokens": to_device(np.asarray(req.tokens), dev,
+                                         torch.int64).reshape(1, -1)}
+            batch.update({k: to_device(np.asarray(v), dev) for k, v in req.extras.items()})
+            logits, mini = registry.prefill(self.step_cfg, self.policy, self.params, batch,
+                                            mini)
+            slots_lib.write_slot(cache, mini, slot, pages=pages, kv_quant=self.kv_quant)
+            tok = torch.argmax(logits, dim=-1)
+        else:
+            tok = torch.zeros((1,), dtype=torch.int64, device=dev)
+        if self.data_size > 1:  # the owner's first token to every data rank
+            collectives.broadcast(tok, owner, self.plan.mesh.group("data"))
+        flight.start(tok)
         return int(flight.wait()[0])
 
     def _chunkable(self, req: Request) -> bool:
@@ -586,6 +730,9 @@ class PoolEngine:
         for r in requests:
             sched.submit(r)
         stats = self._stats()
+        if self.plan is not None:
+            stats.data_shards = self.plan.fsdp_size()
+            stats.model_shards = self.plan.model_size()
         alloc = (slots_lib.PageAllocator(self.num_pages, self.page_size,
                                          self.pages_per_slot, self.max_slots)
                  if self.paged else None)
@@ -656,12 +803,12 @@ class PoolEngine:
             remaining[slot] = req.max_new_tokens
             emit_tokens(slot, req, [tok])
 
-        with torch.inference_mode():
+        with torch.inference_mode(), actshard.use_plan(self.plan if self.sharded else None):
             paged_kw = (dict(page_size=self.page_size, num_pages=self.num_pages,
                              kv_quant=self.kv_quant) if self.paged else {})
             cache = registry.init_pool_cache(
-                cfg, self.max_slots, self.max_len, self.cache_dtype, device=self.device,
-                **paged_kw)
+                self.step_cfg, self.max_slots, self.max_len, self.cache_dtype,
+                device=self.device, **paged_kw)
             if alloc is not None:
                 # the allocator owns every mapping: dead slots must write
                 # into nothing, not into pages the allocator will hand out
@@ -732,9 +879,7 @@ class PoolEngine:
                     # decode fast path: with nobody prefilling the chunk step
                     # is plain decode, bit-equal on decode rows.  Windowed
                     # archs keep the chunk step (its layout differs).
-                    logits, cache = registry.decode_step(
-                        cfg, self.policy, self.params, to_device(last_tok, self.device),
-                        cache)
+                    tok = self._pool_step(cache, last_tok)
                 else:
                     tokens = np.zeros((self.max_slots, chunk), np.int64)
                     n_new = np.zeros((self.max_slots,), np.int64)
@@ -749,10 +894,8 @@ class PoolEngine:
                         n_new[slot] = len(row)
                         if fin:
                             finishing.append(slot)
-                    logits, cache = registry.chunk_step(
-                        cfg, self.policy, self.params, to_device(tokens, self.device),
-                        n_new, cache)
-                flight.start(torch.argmax(logits, dim=-1))
+                    tok = self._pool_step(cache, tokens, n_new)
+                flight.start(tok)
                 # -- overlap window: the step and its token copy are in
                 # flight; nothing here may depend on this step's tokens
                 stats.decode_steps += 1
@@ -777,6 +920,8 @@ class PoolEngine:
                         # may retire the slot
                         alloc.register_prefix(slot, prompts[slot], chunk,
                                               self._prefix_context(sched.active_request(slot)))
+                        self._publish_pages(
+                            cache, slot, alloc.tables[slot][:len(prompts[slot]) // self.page_size])
                     first_token(slot, sched.active_request(slot), int(ntok[slot]))
                 for slot in active:
                     emit_tokens(slot, sched.active_request(slot), [int(ntok[slot])])

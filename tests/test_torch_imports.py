@@ -3,6 +3,7 @@ neither jax nor any module of the JAX package ``repro``, and neither the
 port's sources, ``chip_smoke.py`` nor the port's example
 (``examples/cnn_classification_torch.py``) import them."""
 import os
+import re
 import pathlib
 import subprocess
 import sys
@@ -56,3 +57,27 @@ def test_example_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+MULTI_DEVICE = ("repro_torch.parallel.meshes", "repro_torch.parallel.sharding",
+                "repro_torch.parallel.planner", "repro_torch.parallel.actshard",
+                "repro_torch.parallel.collectives", "repro_torch.parallel.smoke",
+                "repro_torch.launch.mesh")
+
+
+@pytest.mark.parametrize("module", MULTI_DEVICE)
+def test_multi_device_modules_are_scanned(module):
+    """The multi-device modules are among those the probe above imports,
+    and none of their import lines names jax or the JAX package."""
+    import pkgutil
+
+    import repro_torch
+
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+    assert module in names
+    path = SRC / (module.replace(".", "/") + ".py")
+    for line in path.read_text().splitlines():
+        stripped = line.strip()
+        if stripped.startswith(("import ", "from ")):
+            assert "jax" not in stripped and not re.match(r"(from|import) repro(\.|\s)",
+                                                          stripped), line
