@@ -91,9 +91,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     equals pot_quantize(x, bits, beta);
 14. K4 timing at the pack shapes: kernel, plain version, ``x.to(int8)``
     (a bytes yardstick, not the same function) and the bytes bound;
-15. checkpoint and restart at full width (olmo-1b, batch 8 x seq 512,
-    through ``launch.train.main`` and a checkpoint directory made with
-    tempfile, 40 GB free required): run A trains 2 steps and saves; run B
+15. checkpoint and restart at full width (olmo-1b at ``CKPT_LAYERS`` = 4
+    of its 16 layers, batch 8 x seq 512, through
+    ``launch.train.main`` and a checkpoint directory made with tempfile,
+    15 GB free required): run A trains 2 steps and saves; run B
     (--steps 3) restores step 2 and runs step 2 only; run C trains 3 steps
     uninterrupted; B's params and AdamW m/v equal C's bit for bit; save
     and restore seconds and GB/s;
@@ -173,7 +174,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     last step run twice bit for bit, and its K1/K2/K3/pre-pass launches
     equal to ``step_launches`` (the experts' backward once per expert);
 29. internvl2-76b (vlm) at its published widths and 16 of its 80 layers,
-    and 30. whisper-large-v3 (encdec) at full width and depth, through
+    and 30. whisper-large-v3 (encdec) at full width, 8 of its 32 decoder
+    layers (``ENCDEC_LAYERS``) and the whole encoder, through
     phase 24's engine and gates (A = C, counters = the CPU smoke-width
     run's, no implicit host sync, a chunk-step decode row =
     ``decode_step``, peak under ``MOE_PEAK_GIB``): internvl2's requests
@@ -181,9 +183,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     K1 113 a weight pass and one patch_proj more a prefill; whisper
     serves ``ENCDEC_TRACE`` (prompt 16, 16-32 new, 1500 x 128 frames,
     max_len 64), each admission one encoder-side pass
-    (``registry.encode_cross_kv``), K1 257 a decode, chunk or encoder
-    pass; the encoder-side pass timed and profiled against its FP64
-    tensor-core bound;
+    (``registry.encode_cross_kv``), K1 65 a decode or chunk pass and 209
+    an encoder-side pass (257 each at all 32 decoder layers); the
+    encoder-side pass timed and profiled against its FP64 tensor-core
+    bound;
 31. (a) internvl2-76b and whisper-large-v3 training at smoke width as
     phase 28 (CUDA against CPU losses within ``FAMILY_LOSS_RTOL``); (b)
     whisper-large-v3 at full width through ``launch.train.main``, batch 2
@@ -240,7 +243,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     37b the (2, 1) mesh at 4 layers against one rank, 37c olmo-1b
     data-parallel at batch 4 x 512, 2 steps, against one rank (first-step
     per-token losses bit for bit, launches a step, peaks), 37d
-    ``compressed_psum`` on CUDA tensors; phase 3 also holds K1's ``start``
+    ``compressed_psum`` on CUDA tensors; 37e grok-1-314b at its published
+    widths and 2 of 64 layers on the (1, 2) mesh with EP (4 experts a
+    rank), phase 27's seed, engine and trace (tokens = phase 27's, K1 15
+    a weight pass a rank, 2 folds a pass, each rank's weight bytes and
+    peak, the ranks' summed peak under ``MULTI_PEAK_GIB``), 37f
+    llama4-scout-17b-a16e the same way (8 experts a rank, the shared
+    expert folded) against one rank at 2 layers (tokens and counters
+    equal), 37g both MoE smoke configs data-parallel on (2, 1) at batch
+    4 x 256 against one rank (first-step per-token losses bit for bit,
+    launches a step equal); phase 3 also holds K1's ``start``
     variant (the row-parallel fold) at llama3-8b's row-parallel shapes;
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last;
     32-33 run after 30, 34 after 31, 35-36a after 34, 37 after 35-36).
@@ -324,7 +336,13 @@ PACK_BYTES_PER_ELEMENT = 5  # f32 read, int8 code written
 # CUDA cores' instruction rate (67 TFLOP/s f32 counts an FMA as two operations)
 ENCODE_OPS_PER_ELEMENT = 16
 PEAK_ALU_OPS = 33.5e12
-CKPT_FREE_BYTES = 40e9  # two 15.4 GB training checkpoints + the packed tree
+# phases 15-16 train, checkpoint, pack and serve olmo-1b's widths at this
+# depth: the three writes and reads of the whole state are disk-bound (15.4
+# GB at 0.43-0.57 GB/s took 90 of phase 15's 102 s at 16 layers on an NVIDIA
+# H100 80GB HBM3 machine, 700.00 W), and a slow host took the whole script
+# to 1172 s with phase 37e-g
+CKPT_LAYERS = 4
+CKPT_FREE_BYTES = 15e9  # two 5.7 GB training checkpoints + the packed tree
 TRAIN_ARGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "512", "--log-every", "1"]
 # the vlm and encdec families (phases 29-31): internvl2-76b served at its
 # published widths and 16 of its 80 layers (all 80 do not fit one card),
@@ -338,6 +356,11 @@ VLM_PREFILL_M, ENC_M = 256 + 128, 1500
 # phase 30's trace: transcription requests (a short task prefix, 30 s of
 # audio as 1500 frames, a few dozen tokens out)
 ENCDEC_TRACE = dict(n_requests=4, prompt_len=16, lam=2.0, new_lo=16, new_hi=32, seed=0)
+# phase 30 serves whisper's decoder at this depth, the encoder whole: on an
+# NVIDIA H100 80GB HBM3 (700.00 W) phase 30 took 104.3 s at all 32 layers
+# and 36.8 s at 8 in one call (tools/phase37_moe_probe.py), the room phase
+# 37e-g needed
+ENCDEC_LAYERS = 8
 # phase 31: whisper trained at full width on batch 2 x its 448-token decoder
 # context; CUDA against CPU losses at smoke width within this relative bound
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 2, 448
@@ -924,7 +947,11 @@ def main() -> int:
     cnn_kernels, cnn_launches = cnn_phase(dev, detail)
     multi = multi_gpu(dev, detail, phase5_tokens)
     m_a, m_c = multi["a"][0], multi["c"]["ranks"][0]
-    multi_steps = {k: sum(s[k] for s in m_c["launches"]) for k in ("k1", "k2", "k3", "gq")}
+    # 37c's and 37g's data-parallel steps on rank 0
+    multi_steps = {k: sum(s[k] for s in m_c["launches"])
+                   + sum(s[k] for g in multi["g"].values() for s in g["dp"][0]["launches"])
+                   for k in ("k1", "k2", "k3", "gq")}
+    moe_ep_launches = multi["e"][0]["k1_launches"] + multi["f"][0]["k1_launches"]
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -952,18 +979,27 @@ def main() -> int:
         # speculative runs, 23's lockstep wave and float32 run, 24-27's A)
         # + training (phase 10); since phases 26-27 it also runs the
         # expert-batched form (one launch counts one)
-        # ... + phase 37 on rank 0: 37a's served passes and 37c's steps
+        # ... + phase 37 on rank 0: 37a's, 37e's and 37f's served passes,
+        # 37c's and 37g's steps
         "launches": (launches + train["launches"]["k1"] + paged["launches"]
                      + whisper_launches["k1"] + cnn_launches["k1"]
-                     + m_a["k1_launches"] + multi_steps["k1"]),
+                     + m_a["k1_launches"] + moe_ep_launches + multi_steps["k1"]),
         # phase 37: two ranks on the card; 37a's K1 launches on each rank
         # (one a linear shard a weight pass), its row-parallel folds (K1's
         # start variant chained over the model axis, phase 3), 37c's
-        # launches a data-parallel step on each rank
+        # launches a data-parallel step on each rank; 37e-f's MoE decoders
+        # with EP (an expert-batched launch over a rank's experts), 37g's
+        # MoE smoke steps
         "multi_gpu": dict(
             serve_launches_per_rank=[r["k1_launches"] for r in multi["a"]],
             serve_weight_passes=m_a["weight_passes"], serve_folds=m_a["folds"],
             train_step_launches=[r["launches"] for r in multi["c"]["ranks"]],
+            moe_ep_launches_per_rank={
+                r["arch"]: [x["k1_launches"] for x in multi[key]]
+                for key in "ef" for r in multi[key][:1]},
+            moe_ep_weight_passes={multi[key][0]["arch"]: multi[key][0]["weight_passes"]
+                                  for key in "ef"},
+            moe_train_step_launches={a: g["dp"][0]["launches"] for a, g in multi["g"].items()},
             backend=m_a["backend"]),
         "start_variant": detail["k1_start_variant"],
         "lockstep_launches": paged["lockstep_launches"],
@@ -1049,6 +1085,10 @@ def main() -> int:
                             # phase 37c: a data-parallel step on each rank
                             multi_gpu_step_launches=[[s[key] for s in r["launches"]]
                                                      for r in multi["c"]["ranks"]],
+                            # phase 37g: a MoE smoke step, data-parallel, rank 0
+                            multi_gpu_moe_step_launches={
+                                a: [s[key] for s in g["dp"][0]["launches"]]
+                                for a, g in multi["g"].items()},
                             # phases 28, 31a, 34 and 36a: one step at smoke width
                             moe_step_launches={a: n[key] for a, n in moe_train.items()},
                             family_step_launches={a: n[key] for a, n in fam_train.items()},
@@ -2239,12 +2279,34 @@ def checkpoint_and_pack(dev, detail):
         shutil.rmtree(ckpt_dir)
 
 
+@contextlib.contextmanager
+def _olmo_depth(n_layers):
+    """Within the block ``repro_torch.configs.get_config("olmo-1b")``, which
+    ``launch.train.main`` builds its model from, gives olmo-1b at its
+    published widths and ``n_layers`` layers."""
+    from repro_torch import configs
+
+    real = configs.get_config
+    configs.get_config = lambda arch: (dataclasses.replace(real(arch), n_layers=n_layers)
+                                       if arch == "olmo-1b" else real(arch))
+    try:
+        yield
+    finally:
+        configs.get_config = real
+
+
 def restart(dev, detail, ckpt_dir):
     """Phase 15: runs A (2 steps, saved), B (resumed to 3) and C (3 steps
-    uninterrupted); B must equal C bit for bit."""
+    uninterrupted) at ``CKPT_LAYERS`` layers; B must equal C bit for bit."""
+    with _olmo_depth(CKPT_LAYERS):
+        return _restart(dev, detail, ckpt_dir)
+
+
+def _restart(dev, detail, ckpt_dir):
     from repro_torch.launch import train as train_cli
 
-    phase("15 checkpoint and restart at full width (olmo-1b, batch 8 x seq 512)")
+    phase(f"15 checkpoint and restart at full width, {CKPT_LAYERS} of olmo-1b's 16 layers "
+          "(batch 8 x seq 512)")
     counters = _kernel_counters()
     ck = ["--ckpt-dir", ckpt_dir, "--ckpt-every", "100"]
     peaks = {}
@@ -2735,15 +2797,16 @@ def _encoder_pass(cfg, pol, params, dev, frames):
 def family_serving(dev, detail):
     """Phases 29-30: internvl2-76b at its published widths and
     ``VLM_LAYERS`` layers (max_len 400: 256 patches, 128 tokens, 16 new),
-    and whisper-large-v3 whole on ``ENCDEC_TRACE`` (max_len 64), through
+    and whisper-large-v3 at ``ENCDEC_LAYERS`` decoder layers (the encoder
+    whole) on ``ENCDEC_TRACE`` (max_len 64), through
     phase 24's engine and gates; phases 32-33: mamba2-2.7b and
     recurrentgemma-2b whole through the slot-row pool
     (``recurrent_serving``).  Returns each one's K1 launches on its main
     path."""
     out = {VLM_ARCH: dense_serving(dev, detail, VLM_ARCH, 29, n_layers=VLM_LAYERS,
                                    max_len=400),
-           ENCDEC_ARCH: dense_serving(dev, detail, ENCDEC_ARCH, 30, max_len=64,
-                                      trace=ENCDEC_TRACE)}
+           ENCDEC_ARCH: dense_serving(dev, detail, ENCDEC_ARCH, 30, n_layers=ENCDEC_LAYERS,
+                                      max_len=64, trace=ENCDEC_TRACE)}
     for number, arch in enumerate(RECURRENT, start=32):
         out[arch] = recurrent_serving(dev, detail, arch, number)
     return out
@@ -2801,6 +2864,7 @@ def recurrent_serving(dev, detail, arch, number):
     out_a, wall, launches = _timed_run(eng_a, reqs, syncs)  # the main path
     st = eng_a.last_stats
     res["A"] = dict(_serve_row(st, wall, launches), implicit_syncs=syncs)
+    res["tokens"] = {str(u): t.tolist() for u, t in out_a.items()}
     print("A (slot rows, 4 slots):", json.dumps(res["A"]))
     port_syncs = {k: n for k, n in syncs.items() if k.startswith("src/")}
     print(f"implicit host syncs in A made by the port: {port_syncs}")
@@ -3292,9 +3356,14 @@ MOE_PEAK_GIB = 75.0
 
 
 def expected_k1(cfg, st):
-    """K1 launches of an engine run: ``k1_per_pass`` a weight pass (an
-    encdec's encoder-side passes included), and one patch_proj more for
-    each vlm request (they all solo-prefill)."""
+    """K1 launches of an engine run: ``k1_per_pass`` a weight pass, one
+    patch_proj more for each vlm request (they all solo-prefill); an
+    encdec's weight passes include one encoder-side pass an admission
+    (``encdec_pass_counts``: as many launches as a decode pass only at
+    whisper's full depth)."""
+    if cfg.family == "encdec":
+        enc = sum(encdec_pass_counts(cfg)[1].values())
+        return k1_per_pass(cfg) * (st.weight_passes - st.prefills) + enc * st.prefills
     return k1_per_pass(cfg) * st.weight_passes + (st.prefills if cfg.family == "vlm" else 0)
 
 
@@ -3315,7 +3384,8 @@ def dense_serving(dev, detail, arch, number, n_layers=None, max_len=160, trace=D
     from repro_torch.serve import quantized_weights as qw
 
     cfg = configs.get_config(arch)
-    depth = "" if n_layers is None else f", {n_layers} of {cfg.n_layers} layers"
+    depth = "" if n_layers is None else f", {n_layers} of {cfg.n_layers} layers" + (
+        " (decoder; the encoder whole)" if cfg.family == "encdec" else "")
     phase(f"{number} {arch} at full width{depth}: chunked (32) + paged (16) serving")
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -3343,6 +3413,7 @@ def dense_serving(dev, detail, arch, number, n_layers=None, max_len=160, trace=D
     out_a, wall, launches = _timed_run(eng_a, reqs, syncs)  # the main path
     st = eng_a.last_stats
     res["A"] = dict(_serve_row(st, wall, launches), implicit_syncs=syncs)
+    res["tokens"] = {str(u): t.tolist() for u, t in out_a.items()}
     print("A (chunk 32, page 16):", json.dumps(res["A"]))
     # the engine's one host sync a step is its wait on the token copy's
     # event; nothing of the port may synchronize implicitly
@@ -3869,24 +3940,39 @@ def _count_kernels():
             "k3": KG.grad_dw_cuda.launches, "gq": KG.quantize_g_cuda.launches}
 
 
-def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank):
+# 37e-f: the MoE decoders on the (1, 2) mesh through phases 26-27's engine
+# (chunked 32 + paged 16, 4 slots) and trace, at this depth
+MOE_EP_LAYERS = 2
+MOE_ENGINE = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
+# 37g: both MoE smoke configs data-parallel at this global batch (two
+# dispatch groups of 512 tokens, one a rank), these steps
+MOE_DP_BATCH, MOE_DP_SEQ, MOE_DP_STEPS = 4, 256, 2
+
+
+def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b",
+                   engine=None, trace=None):
     """One sharded engine over ``mesh`` (a (data, model) pair) at
-    llama3-8b's widths and ``n_layers`` layers (None: all), phase 5's seed
-    and trace:
-    every leaf drawn whole from phase 5's generator and quantized whole,
-    each rank keeping its shard.  Returns the served tokens and a row."""
+    ``arch``'s widths and ``n_layers`` layers (None: all), seed 0: every
+    leaf drawn whole from the phase's generator and quantized whole, each
+    rank keeping its shard.  ``engine`` (PoolEngine keywords) and
+    ``trace`` (poisson_trace keywords) default to phase 5's (4 slots,
+    solo prefill; ``_serve_trace``).  ``compare_one_rank``: rank 0 also
+    serves the trace alone (no plan) and compares tokens and counters.
+    Returns the served tokens and a row."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry, spec
     from repro_torch.parallel import actshard, collectives, meshes, planner
-    from repro_torch.serve import PoolEngine
+    from repro_torch.serve import PoolEngine, poisson_trace
     from repro_torch.serve import quantized_weights as qw
 
-    cfg = configs.get_config("llama3-8b")
+    cfg = configs.get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    engine = engine or dict(max_slots=4, max_len=160)
     plan = planner.plan_for(cfg, meshes.make_mesh(mesh, ("data", "model")),
-                            configs.ShapeConfig("serve", 160, 4, "decode"), pool_slots=4)
+                            configs.ShapeConfig("serve", engine["max_len"], 4, "decode"),
+                            pool_slots=4, page_size=engine.get("page_size"))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = spec.materialize(
@@ -3897,9 +3983,9 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank):
     weight_bytes = sum(x.numel() * x.element_size() for _, x in spec.named_leaves(params))
     draw_s = time.perf_counter() - t0
     policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
-    reqs = _serve_trace(cfg)
-    eng = PoolEngine(cfg, policy, params, max_slots=4, max_len=160, device=dev, plan=plan,
-                     num_pages=plan.num_pages)
+    reqs = _serve_trace(cfg) if trace is None else poisson_trace(cfg, **trace)
+    eng = PoolEngine(cfg, policy, params, device=dev, plan=plan, num_pages=plan.num_pages,
+                     **engine)
     eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
     torch.cuda.synchronize()
     K.potq_matmul_cuda.launches = 0
@@ -3909,7 +3995,8 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = eng.last_stats
-    row = dict(mesh=plan.mesh_shape(), layers=cfg.n_layers, backend=collectives.backend(),
+    row = dict(arch=arch, mesh=plan.mesh_shape(), layers=cfg.n_layers,
+               backend=collectives.backend(), counters={k: getattr(st, k) for k in SERVE_COUNTERS},
                wall_s=wall, tokens_per_s=st.emitted_tokens / wall,
                emitted_tokens=st.emitted_tokens, weight_passes=st.weight_passes,
                data_shards=st.data_shards, model_shards=st.model_shards,
@@ -3920,10 +4007,11 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank):
                collective_bytes=collectives.stats["bytes"],
                collective_s=collectives.stats["seconds"], weight_bytes=weight_bytes,
                draw_quantize_shard_s=draw_s,
-               overrides=sorted(f"{k}:{p}" for k, p in plan.overrides))
+               overrides=sorted(f"{k}:{p}" for k, p in plan.overrides),
+               experts=plan.layout().experts)
     # one pooled decode step of the model axis's ranks (4 slots), wall and device
     with torch.inference_mode(), actshard.use_plan(plan if mesh[1] > 1 else None):
-        pool = registry.init_pool_cache(plan.local_config(), 4, 160, device=dev)
+        pool = registry.init_pool_cache(plan.local_config(), 4, engine["max_len"], device=dev)
         tok = torch.zeros(4, dtype=torch.int64, device=dev)
         lcfg = plan.local_config()
         walls = []
@@ -3956,10 +4044,10 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank):
         whole = spec.materialize(
             registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0),
             transform=lambda name, x: qw.quantize_leaf(name, x, PAPER_FAITHFUL))
-        one = PoolEngine(cfg, policy, whole, max_slots=4, max_len=160, device=dev,
-                         num_pages=plan.num_pages)
+        one = PoolEngine(cfg, policy, whole, device=dev, num_pages=plan.num_pages, **engine)
         row["one_rank_tokens_equal"] = {
             str(u): t.tolist() for u, t in one.run(reqs).items()} == tokens
+        row["one_rank_counters"] = {k: getattr(one.last_stats, k) for k in SERVE_COUNTERS}
         del whole, one
     del params
     torch.cuda.empty_cache()
@@ -4012,6 +4100,56 @@ def _dp_train(rank, dev):
     del params, state, batches
     torch.cuda.empty_cache()
     return token_losses, row
+
+
+def _moe_dp_train(rank, dev):
+    """37g: both MoE smoke configs data-parallel over the (2, 1) mesh at
+    ``MOE_DP_BATCH`` x ``MOE_DP_SEQ`` (one dispatch group of 512 tokens a
+    rank) against one rank (rank 0 runs it too, after its own run): the
+    first step's per-token losses (this rank's rows; one rank's, every
+    row), both runs' losses and launches a step."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.data import pipeline
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.parallel import collectives, meshes, planner
+    from repro_torch.train import TrainConfig, make_train_step
+
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = configs.smoke_config(arch)
+        shape = configs.ShapeConfig("dp", MOE_DP_SEQ, MOE_DP_BATCH, "train")
+        plan = planner.plan_for(cfg, meshes.make_mesh((2, 1), ("data", "model")), shape)
+        opt = adamw(warmup_cosine_schedule(3e-3, 20, MOE_DP_STEPS))
+        batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(MOE_DP_STEPS)]
+        res = {}
+        for name, p in (("dp", plan), ("one", None)):
+            step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=p)
+            params = spec.materialize(registry.param_specs(cfg),
+                                      torch.Generator(device=dev).manual_seed(0))
+            if p is not None:
+                params = step_fn.data_parallel.shard(params)
+            # data-parallel: this rank's rows; one rank: every row
+            res[f"{name}_token_losses"] = step_fn.token_losses(params, batches[0]).cpu().numpy()
+            state = opt.init(params)
+            losses, launches, seconds = [], [], []
+            for s in range(MOE_DP_STEPS):
+                before = _count_kernels()
+                collectives.reset_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step_fn(params, state, batches[s], s)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                launches.append({k: v - before[k] for k, v in _count_kernels().items()})
+            res[name] = dict(losses=losses, launches=launches, step_s=seconds,
+                             collective_calls=collectives.stats["calls"])
+            if rank != 0:
+                break  # one rank's run is rank 0's
+        out[arch] = res
+    return out
 
 
 def _psum_check(rank, dev):
@@ -4072,9 +4210,17 @@ def _phase37_rank(rank):
     t0 = time.perf_counter()
     res["b"] = _sharded_serve(rank, dev, (2, 1), DP_SERVE_LAYERS, True)
     res["b"][1]["seconds"] = time.perf_counter() - t0
+    for key, arch in (("e", "grok-1-314b"), ("f", "llama4-scout-17b-a16e")):
+        t0 = time.perf_counter()
+        res[key] = _sharded_serve(rank, dev, (1, 2), MOE_EP_LAYERS, key == "f", arch,
+                                  MOE_ENGINE, DENSE_TRACE)
+        res[key][1]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["c"] = _dp_train(rank, dev)
     res["c"][1]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["g"] = _moe_dp_train(rank, dev)
+    res["g"]["seconds"] = time.perf_counter() - t0
     res["d"] = _psum_check(rank, dev)
     return res
 
@@ -4088,7 +4234,16 @@ def multi_gpu(dev, detail, phase5_tokens):
     layers against one rank at 4 layers.  37c: olmo-1b data-parallel,
     global batch 4 x 512, 2 steps, against one rank here after the ranks
     exit: first-step per-token losses bit for bit, losses within
-    LOSS_RTOL, launches a step.  37d: ``compressed_psum`` on the card."""
+    LOSS_RTOL, launches a step.  37d: ``compressed_psum`` on the card.
+    37e: grok-1 at its published widths and ``MOE_EP_LAYERS`` layers on
+    the (1, 2) mesh with EP (4 experts a rank), phase 27's seed, engine
+    and trace: tokens = phase 27's, K1 15 a weight pass a rank, 2 folds a
+    pass, the ranks' summed peak under ``MULTI_PEAK_GIB``.  37f:
+    llama4-scout the same way (8 experts a rank, the shared expert
+    folded) against one rank at that depth in the same world: tokens and
+    counters equal.  37g: both MoE smoke configs data-parallel on (2, 1)
+    against one rank: first-step per-token losses bit for bit, losses
+    within LOSS_RTOL, K1/K2/K3/pre-pass launches a step equal."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.data import pipeline
@@ -4097,7 +4252,7 @@ def multi_gpu(dev, detail, phase5_tokens):
     from repro_torch.parallel import collectives
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: two ranks on the one card (37a-d)")
+    phase("37 multi-GPU: two ranks on the one card (37a-g)")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
@@ -4122,6 +4277,57 @@ def multi_gpu(dev, detail, phase5_tokens):
         print(f"37b rank {r}:", json.dumps(res["b"][1]))
     if ranks[0]["b"][0] != ranks[1]["b"][0] or not ranks[0]["b"][1]["one_rank_tokens_equal"]:
         failures.append("37b: (2, 1) tokens differ from the one-rank run")
+    # 37e-f: the MoE decoders with EP on the model axis
+    phase27 = detail["serving_grok-1-314b"]
+    for key, arch in (("e", "grok-1-314b"), ("f", "llama4-scout-17b-a16e")):
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=MOE_EP_LAYERS)
+        folds = MOE_EP_LAYERS * (2 if cfg.moe.shared_expert else 1)
+        for r, res in enumerate(ranks):
+            toks, row = res[key]
+            print(f"37{key} rank {r}:", json.dumps(row))
+            if row["experts"] != "EP":
+                failures.append(f"37{key} rank {r}: experts {row['experts']}, expected EP")
+            if row["k1_launches"] != k1_per_pass(cfg) * row["weight_passes"]:
+                failures.append(f"37{key} rank {r}: K1 launched {row['k1_launches']}, expected "
+                                f"{k1_per_pass(cfg)} x {row['weight_passes']}")
+            if row["folds"] != folds * row["weight_passes"]:
+                failures.append(f"37{key} rank {r}: {row['folds']} row-parallel folds, "
+                                f"expected {folds} a weight pass")
+        if ranks[0][key][0] != ranks[1][key][0]:
+            failures.append(f"37{key}: the ranks' tokens differ")
+    if ranks[0]["e"][0] != phase27["tokens"]:
+        failures.append("37e: tokens differ from phase 27's")
+    f0 = ranks[0]["f"][1]
+    if not f0["one_rank_tokens_equal"] or f0["one_rank_counters"] != f0["counters"]:
+        failures.append(f"37f: tokens or counters differ from one rank's ({f0['counters']} / "
+                        f"{f0['one_rank_counters']})")
+    peak_e = sum(res["e"][1]["peak_gib"] for res in ranks)
+    peak_f = sum(res["f"][1]["peak_gib"] for res in ranks)
+    print(f"37e: a decode step's device busy {ranks[0]['e'][1]['decode_step_device_ms']:.2f} ms "
+          f"a rank against phase 27's "
+          f"{phase27['steps']['profiled_decode_step']['device_busy_ms']:.2f} ms")
+    # 37g: MoE data-parallel training against one rank (rank 0's own run)
+    g_rows = {}
+    for arch in MOE_ARCHS:
+        one = ranks[0]["g"][arch]["one"]
+        dp_tl = np.concatenate([res["g"][arch]["dp_token_losses"] for res in ranks])
+        one_tl = ranks[0]["g"][arch]["one_token_losses"]
+        tl_equal = dp_tl.view(np.uint32).tolist() == one_tl.view(np.uint32).tolist()
+        dp = [res["g"][arch]["dp"] for res in ranks]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(dp[0]["losses"], one["losses"]))
+        print(f"37g {arch}: one rank losses {[repr(x) for x in one['losses']]}; data-parallel "
+              f"{[repr(x) for x in dp[0]['losses']]}; max relative {rel:.3g}; first-step "
+              f"per-token losses bit for bit: {tl_equal}; launches a step "
+              f"{dp[0]['launches']} / one rank {one['launches']}; step s "
+              f"{[round(x, 3) for x in dp[0]['step_s']]} / {[round(x, 3) for x in one['step_s']]}")
+        if not tl_equal:
+            failures.append(f"37g {arch}: first-step per-token losses differ from one rank's")
+        if not rel <= LOSS_RTOL:
+            failures.append(f"37g {arch}: losses differ by {rel:.3g} relative")
+        if any(d["launches"] != one["launches"] for d in dp) or dp[0]["losses"] != dp[1]["losses"]:
+            failures.append(f"37g {arch}: launches or losses differ between the ranks and one "
+                            "rank")
+        g_rows[arch] = dict(dp=dp, one=one, max_rel=rel, token_losses_bit_equal=tl_equal)
     # 37d
     for r, res in enumerate(ranks):
         print(f"37d rank {r}:", json.dumps(res["d"]))
@@ -4161,14 +4367,19 @@ def multi_gpu(dev, detail, phase5_tokens):
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
     peak_c = sum(row["peak_gib"] for row in dp_rows)
-    print(f"37 peaks, both ranks summed: 37a {peak_a:.2f} GiB, 37c {peak_c:.2f} GiB; "
-          f"backend {ranks[0]['a'][1]['backend']}; spawn to exit {spawn_s:.1f} s")
-    if max(peak_a, peak_c) >= MULTI_PEAK_GIB:
+    print(f"37 peaks, both ranks summed: 37a {peak_a:.2f} GiB, 37c {peak_c:.2f} GiB, 37e "
+          f"{peak_e:.2f} GiB, 37f {peak_f:.2f} GiB; backend {ranks[0]['a'][1]['backend']}; "
+          f"seconds a sub-phase (rank 0) "
+          f"{ {k: round(ranks[0][k][1]['seconds'], 1) for k in 'abcef'} }, g "
+          f"{ranks[0]['g']['seconds']:.1f}; spawn to exit {spawn_s:.1f} s")
+    if max(peak_a, peak_c, peak_e, peak_f) >= MULTI_PEAK_GIB:
         failures.append(f"37: the ranks' summed peak passed {MULTI_PEAK_GIB} GiB")
     out.update(a=[res["a"][1] for res in ranks], b=[res["b"][1] for res in ranks],
                c=dict(ranks=dp_rows, one_rank_losses=one_losses, max_rel=rel,
                       token_losses_bit_equal=tl_equal, token_losses_max_rel=tl_rel),
-               d=[res["d"] for res in ranks], peak_gib=dict(a=peak_a, c=peak_c))
+               d=[res["d"] for res in ranks], e=[res["e"][1] for res in ranks],
+               f=[res["f"][1] for res in ranks], g=g_rows,
+               peak_gib=dict(a=peak_a, c=peak_c, e=peak_e, f=peak_f))
     detail["multi_gpu"] = out
     if failures:
         raise SystemExit("phase 37: " + "; ".join(failures))

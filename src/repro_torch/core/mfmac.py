@@ -44,7 +44,9 @@ On a sharded plan (``parallel/actshard.py``) the quantizers take global
 maxima wherever their input is split: the per-tensor activation amax and
 PRC threshold, and the backward's max|G| (the G scale of
 ``kernels/ops.py``), over the data axis when the batch rows are split
-(data-parallel training); the activation amax (per tensor or per sample)
+(data-parallel training), and so are an expert linear's per-expert
+activation amax, PRC threshold and max|G| (an expert's rows are the
+dispatch groups of every data rank); the activation amax (per tensor or per sample)
 over the model axis when the contraction is split (``row_group``: a
 row-parallel linear, whose K1 fold continues across the ranks,
 ``parallel/collectives.ordered_fold``).  Max is exact, so each quantized
@@ -122,24 +124,26 @@ def _sample_axes(policy: QuantPolicy, x: torch.Tensor, axes):
     return axes
 
 
-def _global_amax(amax: torch.Tensor, per_tensor: bool, row_group) -> torch.Tensor:
+def _global_amax(amax: torch.Tensor, rows_split: bool, row_group) -> torch.Tensor:
     """``amax`` over every rank that holds part of its group: the data
-    axis for a per-tensor amax of split batch rows, the model axis for a
-    split contraction."""
-    if per_tensor:
+    axis where the group's batch rows are split (a per-tensor amax, an
+    expert's), the model axis for a split contraction."""
+    if rows_split:
         amax = collectives.all_reduce_max(amax, actshard.batch_group())
     return collectives.all_reduce_max(amax, row_group)
 
 
 def _quantize_a(a: torch.Tensor, gamma: torch.Tensor, policy: QuantPolicy,
-                axes=None, row_group=None) -> torch.Tensor:
+                axes=None, row_group=None, rows_split: Optional[bool] = None) -> torch.Tensor:
+    """``rows_split``: the scale group's rows are split over the data
+    ranks (default: a per-tensor group)."""
     axes = _sample_axes(policy, a, axes)
     a32 = a.to(torch.float32)
     # global maxima where the input is split (identities on one rank):
     # amax, the PRC threshold t and the exact amax of the clipped values,
     # min(amax, t) (a clamp to a t < 0 sets every value to t: then -t)
     amax = a32.abs().amax() if axes is None else a32.abs().amax(dim=axes, keepdim=True)
-    amax = _global_amax(amax, axes is None, row_group)
+    amax = _global_amax(amax, axes is None if rows_split is None else rows_split, row_group)
     if policy.prc_enabled:
         t = amax * gamma
         a32 = torch.clamp(a32, -t, t)
@@ -243,11 +247,13 @@ def mf_linear(
 
 class _MFExpertLinear(torch.autograd.Function):
     """a[E, T, K] @ w[E, K, N], scales per expert (axes (1, 2)): forward
-    through one K1 launch, backward through K2 and K3 once per expert."""
+    through one K1 launch, backward through K2 and K3 once per expert.
+    Under data-parallel training an expert's rows lie on every data rank:
+    its activation amax, PRC threshold and max|G| are global maxima."""
 
     @staticmethod
     def forward(ctx, a, w, gamma, policy: QuantPolicy):
-        aq = _quantize_a(a, gamma, policy, axes=(1, 2))
+        aq = _quantize_a(a, gamma, policy, axes=(1, 2), rows_split=True)
         wq = _quantize_w(w, policy, axes=(1, 2))
         out = _pot_bmm(aq, wq, policy)
         ctx.policy = policy
@@ -258,10 +264,17 @@ class _MFExpertLinear(torch.autograd.Function):
     def backward(ctx, g):
         a, aq, wq, gamma = ctx.saved_tensors
         policy = ctx.policy
+        dgroup = actshard.batch_group()
+        g = g.to(torch.float32)
+        gmax = collectives.all_reduce_max(g.abs().amax(dim=(1, 2)), dgroup)
+        amax = None
+        if policy.prc_enabled:
+            amax = collectives.all_reduce_max(a.to(torch.float32).abs().amax(dim=(1, 2)),
+                                              dgroup)
         # experts get bits_g, never bits_g_last (the reference's choice)
         da, dw, dgamma = ops.potq_expert_grad_matmuls(
-            g.to(torch.float32), aq, wq, a=a if policy.prc_enabled else None, gamma=gamma,
-            bits_g=policy.bits_g, bits_a=policy.bits_a, bits_w=policy.bits_w)
+            g, aq, wq, gmax=gmax, a=a if policy.prc_enabled else None, gamma=gamma,
+            amax=amax, bits_g=policy.bits_g, bits_a=policy.bits_a, bits_w=policy.bits_w)
         if dgamma is None:
             dgamma = torch.zeros_like(gamma)
         return da.to(a.dtype), dw, dgamma.reshape(gamma.shape).to(gamma.dtype), None

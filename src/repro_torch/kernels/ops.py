@@ -225,16 +225,20 @@ def potq_expert_grad_matmuls(
     aq: torch.Tensor,
     wq: torch.Tensor,
     *,
+    gmax: torch.Tensor,
     a: Optional[torch.Tensor] = None,
     gamma: Optional[torch.Tensor] = None,
+    amax: Optional[torch.Tensor] = None,
     bits_g: int = 5,
     bits_a: int = 5,
     bits_w: int = 5,
 ):
     """The backward MACs of an expert linear: :func:`potq_grad_matmuls` on
     each expert's g (E, M, N), aq (E, M, K) and wq (E, K, N), each expert
-    its own "layer" (its own beta_g; with PRC, ``a`` given, its own
-    ``amax = max|a[e]|`` and clip ``amax * gamma``).
+    its own "layer": its own beta_g, from ``gmax[e]``; with PRC (``a``
+    given) its own ``amax[e]`` and clip ``amax[e] * gamma``.  ``gmax`` and
+    ``amax`` (E,) are each expert's max|g| and max|a| over every rank that
+    holds some of its rows (one rank: its own).
 
     Returns ``(da (E, M, K), dw (E, K, N), dgamma)``: dgamma, the sum of
     the experts' dgammas in :func:`ref.halves_fold`'s order, is None with
@@ -242,11 +246,10 @@ def potq_expert_grad_matmuls(
     kw = dict(bits_g=bits_g, bits_a=bits_a, bits_w=bits_w)
     das, dws, dgs = [], [], []
     for e in range(g.shape[0]):
+        kw["beta_g"] = potq.beta_of_amax(gmax[e], bits_g)
         if a is not None:
-            ae = a[e].to(torch.float32)
-            amax = ae.abs().amax()
-            da, dw, dg = potq_grad_matmuls(g[e], aq[e], wq[e], a=ae, clip_t=amax * gamma,
-                                           amax=amax, **kw)
+            da, dw, dg = potq_grad_matmuls(g[e], aq[e], wq[e], a=a[e].to(torch.float32),
+                                           clip_t=amax[e] * gamma, amax=amax[e], **kw)
             dgs.append(dg)
         else:
             da, dw, _ = potq_grad_matmuls(g[e], aq[e], wq[e], **kw)

@@ -37,17 +37,26 @@ routing, capacity and expert scales never couple pool rows; its router
 softmax sums each row in a fixed order (:func:`_softmax_rows`).
 
 On a model axis (a sharded plan active, ``parallel/actshard.py``; the
-dense decoder only, ``parallel/planner.dense_layout``) the step bodies
-run with the plan's local config (this rank's q and K/V heads) over this
-rank's weight shards: q/k/v heads split at whole heads (the K/V heads
-selected from a whole product where they do not split, :func:`_qkv`),
-attention on the rank, norms and rope on every rank, ``wo`` and the
-MLP's down projection row-parallel (K1's fold chained across the ranks)
-or over the all-gathered input where a rank's slice is not whole
-128-chunks (:func:`_out_proj`), the embedding rows of a vocab shard
-gathered and selected (never summed with zeros, :func:`_embed`) and the
-head's logits all-gathered in rank order (:func:`_lm_head`).  Without
-a plan every hook is the identity.
+decoder, dense or MoE, ``parallel/planner.decoder_layout``) the step
+bodies run with the plan's local config (this rank's q and K/V heads)
+over this rank's weight shards: q/k/v heads split at whole heads (the
+K/V heads selected from a whole product where they do not split,
+:func:`_qkv`), attention on the rank, norms and rope on every rank,
+``wo`` and the MLP's (the shared expert's) down projection row-parallel
+(K1's fold chained across the ranks) or over the all-gathered input
+where a rank's slice is not whole 128-chunks (:func:`_out_proj`), the
+embedding rows of a vocab shard gathered and selected (never summed with
+zeros, :func:`_embed`) and the head's logits all-gathered in rank order
+(:func:`_lm_head`).  A MoE layer routes whole on every rank; under EP
+each rank runs its own experts and each token slot takes its output from
+the rank that owns its expert, under TP every rank runs every expert's
+slice of the hidden width (:func:`_moe_apply`).  Without a plan every
+hook is the identity.
+
+Under data-parallel training (``parallel/actshard.batch_group``) a MoE
+layer's dispatch groups are the global batch's: the group size comes
+from the global token count, and each rank's rows must hold whole
+groups.
 """
 from __future__ import annotations
 
@@ -181,7 +190,7 @@ def _rows(fn, x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class _TP:
     cfg: ModelConfig  # the whole model's config
-    layout: object  # parallel.planner.DenseLayout
+    layout: object  # parallel.planner.DecoderLayout
     rank: int
     group: object
 
@@ -309,9 +318,11 @@ def _moe_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, group_size: int = 51
     ``mf_expert_linear``.
 
     x: (B, S, D).  Tokens are regrouped into groups of ``group_size``
-    (training, prefill), or with ``per_slot`` every batch row is a group of
-    its own (serving): its own capacity, and its own activation scale per
-    expert, so a slot's routing and bits never depend on its neighbours.
+    (training, prefill; under data-parallel training the global token
+    count sets the group size, and a rank's rows must hold whole groups),
+    or with ``per_slot`` every batch row is a group of its own (serving):
+    its own capacity, and its own activation scale per expert, so a
+    slot's routing and bits never depend on its neighbours.
 
     The reference's one-hot dispatch and combine einsums are index ops
     here, with the same values: each kept token slot is written to cell
@@ -319,30 +330,48 @@ def _moe_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, group_size: int = 51
     dropped, or whose gate is 0, go to one dead row past it), and its
     output is read back from that cell times its gate; top-k slots are
     summed in k order.  Every shape is static: nothing syncs with the
-    host."""
+    host.
+
+    On a model axis every rank routes the whole layer (its input and the
+    router are the same on each).  Under EP a rank fills only its own
+    experts' cells and runs them; each token slot's gated output is then
+    taken from the rank that owns its expert (all-gathered and selected,
+    never summed with zeros), so the top-k sum keeps one rank's bits.
+    Under TP each rank runs gate and up over its slice of the hidden
+    width, and the down projection over the all-gathered hidden state."""
     m = cfg.moe
     b, s, d = x.shape
     if per_slot:
         g, t = b, s
         xg = x
     else:
-        t = min(group_size, b * s)
+        shards = actshard.batch_shards()
+        t = min(group_size, b * s * shards)
         g = b * s // t
         if g * t != b * s:
-            raise ValueError(f"{b} x {s} tokens do not split into groups of {t}")
+            raise ValueError(f"{b} x {s} tokens do not split into groups of {t}" + (
+                f" (the global batch's, over {shards} data ranks): a dispatch group would "
+                "straddle two ranks" if shards > 1 else ""))
         xg = x.reshape(g, t, d)
     logits = mfmac.mf_linear(xg, p["router"]["w"], p["router"]["gamma"],
                              policy=policy).to(torch.float32)  # (G, T, E)
     gate, expert, pos, keep, cap = moe_route(cfg, _softmax_rows(logits))
     e, k = m.num_experts, m.top_k
+    tp = _tp()
+    mode = tp.layout.experts if tp is not None else None
+    el = tp.layout.experts_local if mode == "EP" else e
+    lo = tp.rank * el if mode == "EP" else 0
     xk = xg.repeat_interleave(k, dim=1) if k > 1 else xg  # (G, T*k, D)
     grp = torch.arange(g, device=x.device)[:, None]
-    dead = e * g * cap
-    cell = torch.where(keep & (gate > 0), (expert * g + grp) * cap + pos, dead)
+    dead = el * g * cap
+    live = keep & (gate > 0)
+    if mode == "EP":  # this rank's experts' cells only
+        live &= (expert >= lo) & (expert < lo + el)
+    cell = torch.where(live, ((expert - lo) * g + grp) * cap + pos, dead)
     buf = x.new_zeros((dead + 1, d)).index_put((cell.reshape(-1),), xk.reshape(-1, d))
-    ein = buf[:dead].reshape(e, g, cap, d)
+    ein = buf[:dead].reshape(el, g, cap, d)
     if not per_slot:
-        ein = ein.reshape(e, g * cap, d)
+        ein = ein.reshape(el, g * cap, d)
 
     def ffn(name, h):
         q = p[name]
@@ -352,10 +381,16 @@ def _moe_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, group_size: int = 51
         h = F.silu(ffn("gate", ein).to(torch.float32)).to(x.dtype) * ffn("up", ein)
     else:
         h = common.gelu(ffn("gate", ein))
+    if mode == "TP":
+        h = _gather_cols(h, tp.group)
     eout = ffn("down", h).reshape(dead, d)
     eout = torch.cat([eout, eout.new_zeros((1, d))])
     out = (eout[cell].to(torch.float32)
            * torch.where(keep, gate, 0.0)[..., None]).to(x.dtype)  # (G, T*k, D)
+    if mode == "EP":  # each slot from its expert's rank
+        stacked = torch.stack(collectives.all_gather(out, tp.group))
+        idx = (expert // el)[None, ..., None].expand((1,) + tuple(out.shape))
+        out = torch.gather(stacked, 0, idx)[0]
     if k > 1:
         out = out.reshape(g, t, k, d).sum(dim=2)
     out = out.reshape(b, s, d)

@@ -11,7 +11,7 @@ context the launcher and the serving engine set around their steps:
 under a plan built on a concrete mesh it returns this rank's rows of the
 data axes (in rank order, the batch split evenly), and it is a no-op when
 no plan is active, the plan's mesh is abstract, or B does not divide.
-Model code asks :func:`active_plan` for the plan (the dense decoder's
+Model code asks :func:`active_plan` for the plan (the decoder's
 model-axis layout, ``planner.ShardingPlan.layout``).
 """
 from __future__ import annotations
@@ -66,6 +66,12 @@ def batch_group():
             or not getattr(plan.mesh, "is_concrete", False)):
         return None
     return plan.mesh.group("data")
+
+
+def batch_shards() -> int:
+    """How many data ranks the active plan splits batch rows over: the
+    size of :func:`batch_group`'s axes, 1 where it is None."""
+    return 1 if batch_group() is None else data_rank_and_size()[1]
 
 
 def shard_tokens(x: torch.Tensor, *, batch_dim: int = 0) -> torch.Tensor:

@@ -23,13 +23,19 @@ keys.  Abstract cache shapes come from ``registry.init_pool_cache`` /
 ``params``, ``data`` and ``cache`` are the reference's rules, spec for
 spec.  Where the port's runtime lays a tensor out otherwise, the plan
 says so in ``overrides`` ({(kind, path): :class:`Override`}), for the
-dense decoder, the one family this slice runs on a plan
-(:func:`dense_layout`):
+decoder, dense or MoE, the one family the port runs on a plan
+(:func:`decoder_layout`):
 
 * a ``heads``/``kv`` output is split only at whole heads, and a
-  contraction (``wo``, the MLP's down projection) only at whole 128-wide
-  chunks, so that the split product keeps K1's fold (``kernels/ref.py``);
-  elsewhere that product is computed whole on each rank;
+  contraction (``wo``, the MLP's and the shared expert's down
+  projections) only at whole 128-wide chunks, so that the split product
+  keeps K1's fold (``kernels/ref.py``); elsewhere that product is
+  computed whole on each rank;
+* the experts follow the reference's decision (``moe``): EP keeps E/model
+  whole experts a rank; under TP (the expert count does not divide
+  ``model``) gate and up split over ``ffn`` and the down projection,
+  whose contraction the rules split, runs whole over the all-gathered
+  hidden state (K1's expert batch has no ``start`` to continue a fold);
 * the paged K/V stores put their **heads** on ``model`` (the reference:
   in-page positions), so attention stays on the rank: a softmax split
   over positions would change its reduction order;
@@ -139,19 +145,22 @@ def _named(tree, prefix=""):
 
 
 # ---------------------------------------------------------------------------
-# The dense decoder's runtime layout on the model axis
+# The decoder's runtime layout on the model axis
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class DenseLayout:
-    """How the dense decoder's tensors sit on a model axis of ``model``
-    ranks.  ``heads``: q heads split (``heads_local`` a rank); ``kv``:
-    'split' (K/V heads split with them), 'select' (wk/wv computed whole,
-    each rank keeps the ``kv_local`` heads its q heads read) or 'whole';
-    ``wo`` / ``mlp_wo``: 'fold' (row-parallel, K1's fold continued across
-    ranks), 'gather' (the input all-gathered, the product whole) or
-    'whole'; ``ffn``: the MLP's hidden width split; ``vocab``: the
-    embedding rows and the head's columns split."""
+class DecoderLayout:
+    """How the decoder's tensors sit on a model axis of ``model`` ranks.
+    ``heads``: q heads split (``heads_local`` a rank); ``kv``: 'split'
+    (K/V heads split with them), 'select' (wk/wv computed whole, each
+    rank keeps the ``kv_local`` heads its q heads read) or 'whole'; ``wo``
+    / ``mlp_wo``: 'fold' (row-parallel, K1's fold continued across ranks),
+    'gather' (the input all-gathered, the product whole) or 'whole';
+    ``ffn``: the MLP's (a MoE layer's shared expert's) hidden width split;
+    ``vocab``: the embedding rows and the head's columns split;
+    ``experts`` (a MoE decoder): 'EP' (``experts_local`` whole experts a
+    rank), 'TP' (gate and up split over ``ffn``, the down projection over
+    the gathered hidden state), 'whole', or None for a dense decoder."""
 
     model: int
     heads: bool
@@ -163,6 +172,8 @@ class DenseLayout:
     ffn_local: int
     mlp_wo: str
     vocab: bool
+    experts: Optional[str] = None
+    experts_local: int = 0
 
     def kv_lo(self, r: int, cfg) -> int:
         """First global K/V head that model rank ``r`` keeps."""
@@ -174,9 +185,11 @@ class DenseLayout:
         return 0
 
 
-def dense_layout(cfg, model: int) -> DenseLayout:
-    """The port's layout of the dense decoder ``cfg`` on ``model`` ranks
-    (see the module docstring): whole heads, whole 128-chunks."""
+def decoder_layout(cfg, model: int) -> DecoderLayout:
+    """The port's layout of the decoder ``cfg`` on ``model`` ranks (see
+    the module docstring): whole heads, whole 128-chunks, and the experts
+    as the reference's rules place them (EP when the expert count divides
+    ``model``, else TP when ``d_ff`` does)."""
     nh, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     heads = model > 1 and nh % model == 0
     hl = nh // model if heads else nh
@@ -202,17 +215,25 @@ def dense_layout(cfg, model: int) -> DenseLayout:
     else:
         mlp_wo = "whole"
     vocab = model > 1 and cfg.vocab_padded % model == 0 and not cfg.tie_embeddings
-    return DenseLayout(model, heads, hl, kv_mode, kvl, wo, ffn, ffl, mlp_wo, vocab)
+    experts, el = None, 0
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        experts, el = ("EP", e // model) if model > 1 and e % model == 0 else (
+            "TP" if ffn else "whole", e)
+    return DecoderLayout(model, heads, hl, kv_mode, kvl, wo, ffn, ffl, mlp_wo, vocab,
+                         experts, el)
 
 
-def is_dense_decoder(cfg) -> bool:
-    return cfg.family == "decoder" and cfg.moe is None
+def is_decoder(cfg) -> bool:
+    """The family the port runs on a sharded plan: the decoder, dense or MoE."""
+    return cfg.family == "decoder"
 
 
-def _dense_param_layout(lay: DenseLayout, path: str) -> Optional[int]:
-    """The runtime's model-axis split of one dense-decoder param leaf: the
-    dim it splits over ``model`` (None: whole on each rank)."""
+def _decoder_param_layout(lay: DecoderLayout, path: str) -> Optional[int]:
+    """The runtime's model-axis split of one decoder param leaf: the dim
+    it splits over ``model`` (None: whole on each rank)."""
     ffn_in = (2, lay.ffn)
+    expert_in = (1, True) if lay.experts == "EP" else (3, lay.experts == "TP")
     dim, split = {
         "embed": (0, lay.vocab),
         "lm_head/w": (1, lay.vocab),
@@ -224,10 +245,19 @@ def _dense_param_layout(lay: DenseLayout, path: str) -> Optional[int]:
         "layers/mlp/wi_up/w": ffn_in,
         "layers/mlp/wi/w": ffn_in,
         "layers/mlp/wo/w": (1, lay.mlp_wo == "fold"),
+        "layers/moe/gate/w": expert_in,
+        "layers/moe/up/w": expert_in,
+        "layers/moe/down/w": (1, lay.experts == "EP"),
+        "layers/moe/shared/wi_gate/w": ffn_in,
+        "layers/moe/shared/wi_up/w": ffn_in,
+        "layers/moe/shared/wi/w": ffn_in,
+        "layers/moe/shared/wo/w": (1, lay.mlp_wo == "fold"),
     }.get(path, (None, False))
     return dim if split else None
 
 
+_DOWN = ("contraction split only at whole 128-chunks: the MLP hidden state is "
+         "all-gathered and the down projection computed whole")
 _WHY = {
     "layers/wq": "q heads split only at whole heads: n_heads % model != 0",
     "layers/wk": "K/V heads split only at whole heads with the q heads: computed whole, "
@@ -236,28 +266,31 @@ _WHY = {
                  "each rank keeps the K/V heads its q heads read",
     "layers/wo": "contraction split only at whole 128-chunks: the attention output is "
                  "all-gathered and wo computed whole",
-    "layers/mlp/wo": "contraction split only at whole 128-chunks: the MLP hidden state is "
-                     "all-gathered and the down projection computed whole",
+    "layers/mlp/wo": _DOWN,
+    "layers/moe/shared/wo": _DOWN,
+    "layers/moe/down": "TP inside each expert: K1's expert batch has no start to continue "
+                       "a fold, so the experts' hidden state is all-gathered and the down "
+                       "projection computed whole",
 }
 
 
 def _overrides(cfg, mesh, params, cache, pool: bool) -> Dict[Tuple[str, str], Override]:
-    """The runtime's departures from the reference's specs (dense decoder)."""
-    if not is_dense_decoder(cfg):
+    """The runtime's departures from the reference's specs (the decoder)."""
+    if not is_decoder(cfg):
         return {}
     shape = meshes.shape_dict(mesh)
     ma = shd.model_axis(mesh)
     m = shape.get("model", 1)
     fa = shd.fsdp_axes(mesh)
     dsz = shd._axis_size(mesh, fa)
-    lay = dense_layout(cfg, m)
+    lay = decoder_layout(cfg, m)
     out: Dict[Tuple[str, str], Override] = {}
     for path, spec in _named(params):
         entries = list(spec)
         want = list(entries)
         reasons = []
         if m > 1:
-            split = _dense_param_layout(lay, path)
+            split = _decoder_param_layout(lay, path)
             for i, e in enumerate(entries):
                 if ma in _entry_axes(e) and i != split:
                     want[i] = None
@@ -349,17 +382,18 @@ class ShardingPlan:
                 return rep.spec
         raise KeyError(path)
 
-    def layout(self) -> DenseLayout:
-        """The runtime's model-axis layout (dense decoder plans only)."""
-        if self.cfg is None or not is_dense_decoder(self.cfg):
+    def layout(self) -> DecoderLayout:
+        """The runtime's model-axis layout (decoder plans only)."""
+        if self.cfg is None or not is_decoder(self.cfg):
             raise ShardingPlanError(
-                "the port runs only the dense decoder on a sharded plan; the other "
-                "families on a plan are ROADMAP Queue 1 work")
-        return dense_layout(self.cfg, self.model_shards)
+                "the port runs only the decoder (dense or MoE) on a sharded plan; the "
+                "other families on a plan are ROADMAP Queue 1 work")
+        return decoder_layout(self.cfg, self.model_shards)
 
     def local_config(self):
-        """The dense decoder's config as one model rank runs it: its q
-        heads and the K/V heads it keeps (the whole config at model 1)."""
+        """The decoder's config as one model rank runs it: its q heads and
+        the K/V heads it keeps (the whole config at model 1; a MoE
+        decoder keeps its global expert count, which routing reads)."""
         if self.model_shards == 1:
             return self.cfg
         lay = self.layout()
@@ -370,7 +404,7 @@ class ShardingPlan:
         (None: whole on every model rank)."""
         if self.model_shards == 1:
             return None
-        return _dense_param_layout(self.layout(), path)
+        return _decoder_param_layout(self.layout(), path)
 
     def data_split_dim(self, path: str) -> Optional[int]:
         """The dim of param leaf ``path`` that the rules put over the data

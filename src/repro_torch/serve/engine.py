@@ -79,14 +79,15 @@ solo prefill's mini cache; under ``kv_quant`` the pages hold codes and
 betas and the mini cache keeps ``cache_dtype``.
 
 Sharded serving (``plan=``, a pool plan of ``parallel/planner.py`` on a
-concrete mesh; the dense decoder only, other families on a plan are
+concrete mesh; the decoder, dense or MoE, other families on a plan are
 refused with a pointer to ROADMAP).  Every rank runs the same host
 scheduler, allocator and counters.
 
 * Model axis: weights are prequantized whole, then each rank keeps its
-  shard (``plan.shard_params``) and steps with the plan's local config;
-  the step bodies' collectives (``models/transformer.py``) give every
-  model rank the whole logits.
+  shard (``plan.shard_params``; a MoE layer's experts as the plan's EP or
+  TP decision says) and steps with the plan's local config; the step
+  bodies' collectives (``models/transformer.py``) give every model rank
+  the whole logits.
 * Data axis: the slots split evenly over the data ranks, in order; each
   data rank steps only its slots' rows of the pool (the table, ``len``
   and page stores are whole on every rank; a page is written and read
@@ -395,8 +396,8 @@ class PoolEngine:
         if not getattr(plan.mesh, "is_concrete", False) or plan.mesh.size == 1:
             return
         refuse = None
-        if not planner_lib.is_dense_decoder(cfg):
-            refuse = f"family {cfg.family!r}{' (MoE)' if cfg.moe else ''}"
+        if not planner_lib.is_decoder(cfg):
+            refuse = f"family {cfg.family!r}"
         elif spec is not None:
             refuse = "speculative decoding"
         elif plan.model_shards > 1 and kv_quant is not None:
@@ -405,8 +406,8 @@ class PoolEngine:
             refuse = "a model axis under an unquantized policy or quantize_attention"
         if refuse is not None:
             raise NotImplementedError(
-                f"PoolEngine on a sharded plan runs the dense decoder only; {refuse} on a "
-                "plan is not ported yet (ROADMAP Queue 1)")
+                f"PoolEngine on a sharded plan runs the decoder (dense or MoE) only; "
+                f"{refuse} on a plan is not ported yet (ROADMAP Queue 1)")
         self.data_rank, self.data_size = actshard.data_rank_and_size(plan)
         if max_slots % self.data_size:
             raise ValueError(f"max_slots={max_slots} must split evenly over the "

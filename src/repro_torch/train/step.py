@@ -31,9 +31,12 @@ over the global token count; reduce-scatters the gradients; clips by
 the global norm of the whole tree; and updates its shards.  Activations,
 weight and gradient scales and the forward's losses are one rank's bit
 for bit; a gradient is a sum over ranks of partial MAC folds, so it
-agrees with one rank's to rounding.  The dense decoder only; a model
-axis > 1 and microbatching are refused (tensor-parallel training is
-later work).
+agrees with one rank's to rounding.  The decoder, dense or MoE: a MoE
+layer's dispatch groups are the global batch's (``transformer._moe_apply``
+sizes them from the global token count and refuses a batch whose groups
+would straddle two ranks) and its experts' scales are global maxima
+(``core/mfmac.py``).  Other families, a model axis > 1 and
+microbatching are refused (tensor-parallel training is later work).
 """
 from __future__ import annotations
 
@@ -123,12 +126,12 @@ class DataParallel:
     shard / gather / gradient reduction of whole trees."""
 
     def __init__(self, plan):
-        from repro_torch.parallel.planner import is_dense_decoder
+        from repro_torch.parallel.planner import is_decoder
 
-        if not is_dense_decoder(plan.cfg):
+        if not is_decoder(plan.cfg):
             raise NotImplementedError(
-                f"data-parallel training runs the dense decoder only; {plan.cfg.family!r}"
-                f"{' (MoE)' if plan.cfg.moe else ''} on a plan is not ported yet (ROADMAP)")
+                f"data-parallel training runs the decoder (dense or MoE) only; "
+                f"{plan.cfg.family!r} on a plan is not ported yet (ROADMAP)")
         if plan.model_shards > 1:
             raise NotImplementedError(
                 "training on a model axis > 1 (tensor-parallel K2/K3) is not ported yet "

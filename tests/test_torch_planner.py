@@ -9,8 +9,9 @@ EP/TP decisions, ``num_pages``' rounding, ``data_shards`` and
 ``ShardingPlanError`` in both packages.
 
 The port's runtime departs from the reference's specs in two listed ways
-only (``plan.overrides``, dense decoder): whole heads / whole 128-chunks
-(a product that would split elsewhere is computed whole on each rank)
+only (``plan.overrides``, the decoder, dense or MoE): whole heads / whole
+128-chunks (a product that would split elsewhere is computed whole on
+each rank; under TP inside the experts, the experts' down projection)
 and the K/V stores' heads on ``model`` (the reference puts in-page
 positions there); and, in serving, weights, tables and page stores whole
 on every data rank.  The tests pin these as the only differences, with
@@ -110,9 +111,11 @@ def _expected_overrides(cfg, plan, pool: bool):
     shape = plan.mesh_shape()
     m = shape.get("model", 1)
     dsz = plan.data_shards
-    if not (cfg.family == "decoder" and cfg.moe is None):
+    if cfg.family != "decoder":
         return set()
     nh, kv, hd, ff = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
+    # the MLP's leaves; a MoE layer's shared expert follows the MLP's rule
+    mlp = "layers/mlp" if cfg.moe is None else "layers/moe/shared"
     whole_heads = nh % m == 0 and (kv % m == 0 or (nh // kv) % (nh // m) == 0
                                    or (nh // m) % (nh // kv) == 0)
     out = set()
@@ -123,8 +126,11 @@ def _expected_overrides(cfg, plan, pool: bool):
             out |= {("param", "layers/wk/w"), ("param", "layers/wv/w")}
         if (nh * hd) % m == 0 and not (whole_heads and (nh // m * hd) % 128 == 0):
             out.add(("param", "layers/wo/w"))
-        if ff % m == 0 and (ff // m) % 128:
-            out.add(("param", "layers/mlp/wo/w"))
+        if ff % m == 0 and (ff // m) % 128 and (cfg.moe is None or cfg.moe.shared_expert):
+            out.add(("param", f"{mlp}/wo/w"))
+        if cfg.moe is not None and cfg.moe.num_experts % m and ff % m == 0:
+            # TP inside the experts: the down projection runs whole
+            out.add(("param", "layers/moe/down/w"))
         if plan.cache is not None:
             out |= {("cache", "k"), ("cache", "v")}
     if pool and dsz > 1:
@@ -139,7 +145,8 @@ def _expected_overrides(cfg, plan, pool: bool):
 
 @pytest.mark.parametrize("mesh_id", list(MESHES))
 @pytest.mark.parametrize("arch", ["llama3-8b", "olmo-1b", "mistral-nemo-12b",
-                                  "starcoder2-7b", "llama4-scout-17b-a16e", "mamba2-2.7b"])
+                                  "starcoder2-7b", "llama4-scout-17b-a16e", "grok-1-314b",
+                                  "mamba2-2.7b"])
 @pytest.mark.parametrize("cell", ["train", "pool"])
 def test_runtime_overrides_are_the_listed_ones(arch, mesh_id, cell):
     shape, kw = CELLS[cell]
@@ -161,13 +168,13 @@ def test_llama3_smoke_layout_names_the_fallbacks():
     import dataclasses
 
     cfg = TC.smoke_config("llama3-8b")
-    lay = planner.dense_layout(cfg, 2)
+    lay = planner.decoder_layout(cfg, 2)
     assert (lay.heads, lay.heads_local, lay.kv, lay.kv_local, lay.wo, lay.ffn,
             lay.mlp_wo, lay.vocab) == (True, 2, "select", 1, "gather", True, "gather", True)
     wide = dataclasses.replace(cfg, d_ff=512, head_dim=64, kv_heads=2)
-    lay = planner.dense_layout(wide, 2)
+    lay = planner.decoder_layout(wide, 2)
     assert (lay.kv, lay.kv_local, lay.wo, lay.mlp_wo) == ("split", 1, "fold", "fold")
-    full = planner.dense_layout(TC.get_config("llama3-8b"), 2)
+    full = planner.decoder_layout(TC.get_config("llama3-8b"), 2)
     assert (full.heads_local, full.kv, full.kv_local, full.wo, full.ffn_local,
             full.mlp_wo) == (16, "split", 4, "fold", 7168, "fold")
     plan = planner.plan_for(cfg, meshes.make_abstract_mesh((1, 2), ("data", "model")),
