@@ -236,11 +236,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     tokens;
 37. multi-GPU on ``torch.distributed``: two ranks spawned on the one card
     (gloo: ranks share the card), the parent holding no model meanwhile
-    (``multi_gpu``): 37a llama3-8b at full width and depth on the (1, 2)
-    mesh (tokens = phase 5's, K1 once a linear shard a weight pass on each
-    rank, row-parallel folds counted, tokens/s, a decode step's wall and
-    device times, each rank's weight bytes, the collectives' share),
-    37b the (2, 1) mesh at 4 layers against one rank, 37c olmo-1b
+    (``multi_gpu``): 37a llama3-8b at full width and ``TP_SERVE_LAYERS``
+    (4) layers on the (1, 2) mesh through phase 5's engine and trace
+    against one rank (tokens and counters, K1 once a linear shard a
+    weight pass on each rank, row-parallel folds counted, tokens/s, a
+    decode step's wall and device times, each rank's weight bytes, the
+    collectives' share),
+    37b the (2, 1) mesh at 4 layers against one rank, 37c olmo-1b at its
+    published widths and ``DP_TRAIN_LAYERS`` (4) of its 16 layers
     data-parallel at batch 4 x 512, 2 steps, against one rank (first-step
     per-token losses bit for bit, launches a step, peaks), 37d
     ``compressed_psum`` on CUDA tensors; 37e grok-1-314b at its published
@@ -252,8 +255,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     expert folded) against one rank at 2 layers (tokens and counters
     equal), 37g both MoE smoke configs data-parallel on (2, 1) at batch
     4 x 256 against one rank (first-step per-token losses bit for bit,
-    launches a step equal); phase 3 also holds K1's ``start``
-    variant (the row-parallel fold) at llama3-8b's row-parallel shapes;
+    launches a step equal), 37h internvl2-76b at its published widths and
+    ``VLM_LAYERS`` layers on (1, 2) through phase 29's engine and trace
+    (tokens = phase 29's, K1 113 a weight pass a rank and one patch_proj
+    a solo prefill, 32 folds a pass), 37i whisper-large-v3 at
+    ``ENCDEC_LAYERS`` decoder layers and the whole encoder on (1, 2)
+    through phase 30's (tokens = phase 30's, K1 65 a decode pass and 209
+    an encoder-side pass a rank, 24 and 64 folds, 10 of the 20 (cross)
+    K/V heads a rank), 37j whisper on (2, 1) at ``ENCDEC_DP_LAYERS``
+    decoder layers against one rank, 37k the vlm and encdec smoke configs
+    data-parallel on (2, 1) against one rank (as 37g, 3 steps, their
+    launches a step ``step_launches``'); each sub-phase's summed peak under
+    ``MULTI_PEAK_GIB``; phase 3 also holds K1's ``start`` variant (the
+    row-parallel fold) at llama3-8b's, whisper's and internvl2's
+    row-parallel shapes (``START_CASES``) and times it beside the
+    unstarted half;
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last;
     32-33 run after 30, 34 after 31, 35-36a after 34, 37 after 35-36).
 
@@ -358,8 +374,8 @@ VLM_PREFILL_M, ENC_M = 256 + 128, 1500
 ENCDEC_TRACE = dict(n_requests=4, prompt_len=16, lam=2.0, new_lo=16, new_hi=32, seed=0)
 # phase 30 serves whisper's decoder at this depth, the encoder whole: on an
 # NVIDIA H100 80GB HBM3 (700.00 W) phase 30 took 104.3 s at all 32 layers
-# and 36.8 s at 8 in one call (tools/phase37_moe_probe.py), the room phase
-# 37e-g needed
+# and 36.8 s at 8 in one call (an earlier form of tools/phase37_probe.py),
+# the room phase 37e-g needed
 ENCDEC_LAYERS = 8
 # phase 31: whisper trained at full width on batch 2 x its 448-token decoder
 # context; CUDA against CPU losses at smoke width within this relative bound
@@ -845,7 +861,6 @@ def main() -> int:
         raise SystemExit(f"K1 launched {launches} times, expected {k1_per_pass(cfg)} x "
                          f"{st.weight_passes} weight passes")
     check_tokens(cfg, reqs, out)
-    phase5_tokens = {str(u): t.tolist() for u, t in out.items()}
     # where a weight pass's time goes: one prefill and one pooled decode step
     with torch.inference_mode():
         mini = registry.init_cache(cfg, 1, 160, device=dev)
@@ -945,13 +960,15 @@ def main() -> int:
     fam_train.update(recurrent_training(dev, detail))
     qa_train = qa_training(dev, detail)
     cnn_kernels, cnn_launches = cnn_phase(dev, detail)
-    multi = multi_gpu(dev, detail, phase5_tokens)
+    multi = multi_gpu(dev, detail)
     m_a, m_c = multi["a"][0], multi["c"]["ranks"][0]
-    # 37c's and 37g's data-parallel steps on rank 0
+    # 37c's, 37g's and 37k's data-parallel steps on rank 0
     multi_steps = {k: sum(s[k] for s in m_c["launches"])
-                   + sum(s[k] for g in multi["g"].values() for s in g["dp"][0]["launches"])
+                   + sum(s[k] for key in "gk" for g in multi[key].values()
+                         for s in g["dp"][0]["launches"])
                    for k in ("k1", "k2", "k3", "gq")}
-    moe_ep_launches = multi["e"][0]["k1_launches"] + multi["f"][0]["k1_launches"]
+    # 37e-f's, 37h-j's served passes on rank 0
+    multi_served = sum(multi[key][0]["k1_launches"] for key in "efhij")
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -979,11 +996,11 @@ def main() -> int:
         # speculative runs, 23's lockstep wave and float32 run, 24-27's A)
         # + training (phase 10); since phases 26-27 it also runs the
         # expert-batched form (one launch counts one)
-        # ... + phase 37 on rank 0: 37a's, 37e's and 37f's served passes,
-        # 37c's and 37g's steps
+        # ... + phase 37 on rank 0: 37a's, 37e-f's and 37h-j's served
+        # passes, 37c's, 37g's and 37k's steps
         "launches": (launches + train["launches"]["k1"] + paged["launches"]
                      + whisper_launches["k1"] + cnn_launches["k1"]
-                     + m_a["k1_launches"] + moe_ep_launches + multi_steps["k1"]),
+                     + m_a["k1_launches"] + multi_served + multi_steps["k1"]),
         # phase 37: two ranks on the card; 37a's K1 launches on each rank
         # (one a linear shard a weight pass), its row-parallel folds (K1's
         # start variant chained over the model axis, phase 3), 37c's
@@ -1000,6 +1017,17 @@ def main() -> int:
             moe_ep_weight_passes={multi[key][0]["arch"]: multi[key][0]["weight_passes"]
                                   for key in "ef"},
             moe_train_step_launches={a: g["dp"][0]["launches"] for a, g in multi["g"].items()},
+            # 37h-i: internvl2 and whisper on (1, 2), each rank's launches,
+            # weight passes, prefills (encoder-side passes) and folds; 37j
+            # whisper on (2, 1); 37k their smoke steps data-parallel
+            family_launches_per_rank={
+                multi[key][0]["arch"] + ("" if key != "j" else " (2, 1)"):
+                [x["k1_launches"] for x in multi[key]] for key in "hij"},
+            family_weight_passes={key: multi[key][0]["weight_passes"] for key in "hij"},
+            family_prefills={key: multi[key][0]["prefills"] for key in "hij"},
+            family_folds={key: multi[key][0]["folds"] for key in "hi"},
+            family_train_step_launches={a: g["dp"][0]["launches"]
+                                        for a, g in multi["k"].items()},
             backend=m_a["backend"]),
         "start_variant": detail["k1_start_variant"],
         "lockstep_launches": paged["lockstep_launches"],
@@ -1085,10 +1113,14 @@ def main() -> int:
                             # phase 37c: a data-parallel step on each rank
                             multi_gpu_step_launches=[[s[key] for s in r["launches"]]
                                                      for r in multi["c"]["ranks"]],
-                            # phase 37g: a MoE smoke step, data-parallel, rank 0
+                            # phase 37g / 37k: a MoE / vlm / encdec smoke
+                            # step, data-parallel, rank 0
                             multi_gpu_moe_step_launches={
                                 a: [s[key] for s in g["dp"][0]["launches"]]
                                 for a, g in multi["g"].items()},
+                            multi_gpu_family_step_launches={
+                                a: [s[key] for s in g["dp"][0]["launches"]]
+                                for a, g in multi["k"].items()},
                             # phases 28, 31a, 34 and 36a: one step at smoke width
                             moe_step_launches={a: n[key] for a, n in moe_train.items()},
                             family_step_launches={a: n[key] for a, n in fam_train.items()},
@@ -1389,12 +1421,20 @@ def family_k1_timing(operands, flush):
     return rows, sums
 
 
-# phase 3: K1's start variant at llama3-8b's row-parallel shapes on two
-# model ranks (wo: K 4096 -> 2048 a rank; the MLP's down projection:
-# 14336 -> 7168), N 4096, at a decode step's, a chunk step's and a
-# lockstep wave's rows
-START_SHAPES = ((4096, 4096), (14336, 4096))
-START_M = (4, 128, 512)
+# phase 3: K1's start variant at the row-parallel shapes of two model
+# ranks, {(K, N): (arch, rows)}: llama3-8b's wo (K 4096 -> 2048 a rank)
+# and down projection (14336 -> 7168) at a decode step's, a chunk step's
+# and a lockstep wave's rows; whisper-large-v3's wo and co (1280 -> 640)
+# and wo2 (5120 -> 2560) at a decode step's, a chunk step's and the
+# encoder's rows; internvl2-76b's wo (8192 -> 4096) and down projection
+# (28672 -> 14336) at a decode step's, a chunk step's and its solo
+# prefill's rows
+START_CASES = {(4096, 4096): ("llama3-8b", (4, 128, 512)),
+               (14336, 4096): ("llama3-8b", (4, 128, 512)),
+               (1280, 1280): (ENCDEC_ARCH, (4, 128, ENC_M)),
+               (5120, 1280): (ENCDEC_ARCH, (4, 128, ENC_M)),
+               (8192, 8192): (VLM_ARCH, (4, 128, VLM_PREFILL_M)),
+               (28672, 8192): (VLM_ARCH, (4, 128, VLM_PREFILL_M))}
 
 
 def k1_start_checks(dev, gen):
@@ -1409,13 +1449,13 @@ def k1_start_checks(dev, gen):
 
     rows, worst = [], 0.0
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    for kk, nn in START_SHAPES:
+    for (kk, nn), (arch, ms) in START_CASES.items():
         w = torch.randn(kk, nn, generator=gen, device=dev) * 0.02 + 1e-3
         wq = qw.quantize_leaf("w", w, PAPER_FAITHFUL)
         del w
         half = kk // 2
         w0, w1 = wq[:half].contiguous(), wq[half:].contiguous()
-        for m in START_M:
+        for m in ms:
             a = torch.randn(m, kk, generator=gen, device=dev)
             axes = (1,) if m <= VERIFY_M else None
             aq = potq.pot_quantize(a, 5, potq.compute_beta(a, 5, axes)).to(torch.bfloat16)
@@ -1427,7 +1467,7 @@ def k1_start_checks(dev, gen):
             torch.cuda.synchronize()
             err = (second - plain).abs().max().item()
             ok = torch.equal(second, whole) and torch.equal(second, plain)
-            row = dict(M=m, K=kk, K_rank=half, N=nn, equal=ok, max_abs_err=err,
+            row = dict(arch=arch, M=m, K=kk, K_rank=half, N=nn, equal=ok, max_abs_err=err,
                        path=K.plan(m, nn, half),
                        start_ms=time_ms(lambda: K.potq_matmul_cuda(a1, w1, start=first), 5,
                                         flush),
@@ -3915,9 +3955,16 @@ def qa_serving(dev, detail, cfg, params, policy, reqs):
 # Phase 37: multi-GPU on torch.distributed, two ranks on the one card
 # ---------------------------------------------------------------------------
 
-# 37b: the (2, 1) mesh at llama3-8b's widths and this depth; 37c: olmo-1b
-# data-parallel at this global batch, these steps
+# 37a: the (1, 2) mesh through phase 5's engine and trace at llama3-8b's
+# widths and this depth, against one rank; 37b: the (2, 1) mesh at
+# llama3-8b's widths and this depth; 37c: olmo-1b at its published widths
+# and this depth, data-parallel at this global batch, these steps.  On an
+# NVIDIA H100 80GB HBM3 37a took 62-85 s of the script at all 32 layers
+# (against phase 5's tokens) and 38-44 s at 8, 37c 27-44 s at all 16; a
+# slow host took the whole script to 1086.6 s with both at those depths
+TP_SERVE_LAYERS = 4
 DP_SERVE_LAYERS = 4
+DP_TRAIN_LAYERS = 4
 DP_TRAIN_BATCH, DP_TRAIN_SEQ, DP_TRAIN_STEPS = 4, 512, 2
 # the two ranks' device memory, summed, stays under this
 MULTI_PEAK_GIB = 75.0
@@ -3947,6 +3994,20 @@ MOE_ENGINE = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
 # 37g: both MoE smoke configs data-parallel at this global batch (two
 # dispatch groups of 512 tokens, one a rank), these steps
 MOE_DP_BATCH, MOE_DP_SEQ, MOE_DP_STEPS = 4, 256, 2
+# 37h-i: internvl2-76b (``VLM_LAYERS`` layers) and whisper-large-v3
+# (``ENCDEC_LAYERS`` decoder layers, the encoder whole) on the (1, 2) mesh
+# through phases 29-30's engine (max_len 400 / 64) and traces; 37j:
+# whisper on the (2, 1) mesh at this many decoder layers, against one rank
+FAMILY_ENGINE = dict(max_slots=4, prefill_chunk=32, page_size=16)
+ENCDEC_DP_LAYERS = 4
+# 37k: both smoke configs data-parallel at this global batch, these steps;
+# and whisper-large-v3 at its published widths, this encoder and decoder
+# depth (all 32 + 32 fit, but two ranks' gloo gradient sums of the whole
+# model through the host would take minutes), on phase 31b's batch (one
+# row of 1500 frames and 448 tokens a rank), these steps
+FAMILY_DP_BATCH, FAMILY_DP_SEQ, FAMILY_DP_STEPS = 4, 64, 3
+WHISPER_DP_LAYERS, WHISPER_DP_STEPS = 4, 2
+WHISPER_DP = f"{ENCDEC_ARCH} at published widths"
 
 
 def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b",
@@ -3975,10 +4036,10 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
                             pool_slots=4, page_size=engine.get("page_size"))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = spec.materialize(
-        registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0),
-        transform=lambda name, x: plan.shard_leaf(name, qw.quantize_leaf(name, x,
-                                                                         PAPER_FAITHFUL)))
+    params = spec.materialize(registry.param_specs(cfg),
+                              torch.Generator(device=dev).manual_seed(0),
+                              transform=lambda name, x: qw.quantize_leaf(name, x,
+                                                                         PAPER_FAITHFUL, plan))
     torch.cuda.synchronize()
     weight_bytes = sum(x.numel() * x.element_size() for _, x in spec.named_leaves(params))
     draw_s = time.perf_counter() - t0
@@ -4002,7 +4063,9 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
                data_shards=st.data_shards, model_shards=st.model_shards,
                per_device_weight_passes=st.per_device_weight_passes,
                k1_launches=K.potq_matmul_cuda.launches,
-               k1_per_pass_expected=k1_per_pass(cfg),
+               k1_per_pass_expected=k1_per_pass(cfg), k1_expected=expected_k1(cfg, st),
+               prefills=st.prefills, heads_local=plan.local_config().n_heads,
+               kv_heads_local=plan.local_config().kv_heads,
                folds=collectives.stats["folds"], collective_calls=collectives.stats["calls"],
                collective_bytes=collectives.stats["bytes"],
                collective_s=collectives.stats["seconds"], weight_bytes=weight_bytes,
@@ -4055,8 +4118,8 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
 
 
 def _dp_train(rank, dev):
-    """37c: olmo-1b at its published widths, data-parallel over the (2, 1)
-    mesh: the first step's per-token losses (this rank's rows) and
+    """37c: olmo-1b at its published widths and ``DP_TRAIN_LAYERS`` layers,
+    data-parallel over the (2, 1) mesh: the first step's per-token losses (this rank's rows) and
     ``DP_TRAIN_STEPS`` steps' losses, launches a step, peak memory."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
@@ -4068,7 +4131,7 @@ def _dp_train(rank, dev):
     from repro_torch.train import TrainConfig, make_train_step
 
     train_cli.make_deterministic()
-    cfg = configs.get_config("olmo-1b")
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=DP_TRAIN_LAYERS)
     shape = configs.ShapeConfig("dp", DP_TRAIN_SEQ, DP_TRAIN_BATCH, "train")
     plan = planner.plan_for(cfg, meshes.make_mesh((2, 1), ("data", "model")), shape)
     opt = adamw(warmup_cosine_schedule(3e-3, 20, DP_TRAIN_STEPS))
@@ -4102,12 +4165,27 @@ def _dp_train(rank, dev):
     return token_losses, row
 
 
-def _moe_dp_train(rank, dev):
-    """37g: both MoE smoke configs data-parallel over the (2, 1) mesh at
-    ``MOE_DP_BATCH`` x ``MOE_DP_SEQ`` (one dispatch group of 512 tokens a
-    rank) against one rank (rank 0 runs it too, after its own run): the
-    first step's per-token losses (this rank's rows; one rank's, every
-    row), both runs' losses and launches a step."""
+def _dp_cells(key):
+    """The data-parallel training cells of 37g (``key`` 'g') or 37k:
+    (label, config, global batch, seq, steps) each."""
+    from repro_torch import configs
+
+    if key == "g":
+        return [(a, configs.smoke_config(a), MOE_DP_BATCH, MOE_DP_SEQ, MOE_DP_STEPS)
+                for a in MOE_ARCHS]
+    full = dataclasses.replace(configs.get_config(ENCDEC_ARCH), n_layers=WHISPER_DP_LAYERS,
+                               enc_layers=WHISPER_DP_LAYERS)
+    return [(a, configs.smoke_config(a), FAMILY_DP_BATCH, FAMILY_DP_SEQ, FAMILY_DP_STEPS)
+            for a in (VLM_ARCH, ENCDEC_ARCH)] + [
+        (WHISPER_DP, full, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_DP_STEPS)]
+
+
+def _dp_cells_train(rank, dev, key):
+    """37g and 37k: each of ``_dp_cells(key)`` data-parallel over the
+    (2, 1) mesh against one rank (rank 0 runs it too, after its own run):
+    the first step's per-token losses (this rank's rows; one rank's, every
+    row), both runs' losses and launches a step, the data-parallel run's
+    peak."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.data import pipeline
@@ -4117,14 +4195,15 @@ def _moe_dp_train(rank, dev):
     from repro_torch.train import TrainConfig, make_train_step
 
     out = {}
-    for arch in MOE_ARCHS:
-        cfg = configs.smoke_config(arch)
-        shape = configs.ShapeConfig("dp", MOE_DP_SEQ, MOE_DP_BATCH, "train")
+    for label, cfg, batch, seq, steps in _dp_cells(key):
+        shape = configs.ShapeConfig("dp", seq, batch, "train")
         plan = planner.plan_for(cfg, meshes.make_mesh((2, 1), ("data", "model")), shape)
-        opt = adamw(warmup_cosine_schedule(3e-3, 20, MOE_DP_STEPS))
-        batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(MOE_DP_STEPS)]
+        opt = adamw(warmup_cosine_schedule(3e-3, 20, steps))
+        batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(steps)]
         res = {}
         for name, p in (("dp", plan), ("one", None)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=p)
             params = spec.materialize(registry.param_specs(cfg),
                                       torch.Generator(device=dev).manual_seed(0))
@@ -4134,7 +4213,7 @@ def _moe_dp_train(rank, dev):
             res[f"{name}_token_losses"] = step_fn.token_losses(params, batches[0]).cpu().numpy()
             state = opt.init(params)
             losses, launches, seconds = [], [], []
-            for s in range(MOE_DP_STEPS):
+            for s in range(steps):
                 before = _count_kernels()
                 collectives.reset_stats()
                 torch.cuda.synchronize()
@@ -4145,10 +4224,14 @@ def _moe_dp_train(rank, dev):
                 seconds.append(time.perf_counter() - t0)
                 launches.append({k: v - before[k] for k, v in _count_kernels().items()})
             res[name] = dict(losses=losses, launches=launches, step_s=seconds,
-                             collective_calls=collectives.stats["calls"])
+                             collective_calls=collectives.stats["calls"],
+                             peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            del params, state
             if rank != 0:
                 break  # one rank's run is rank 0's
-        out[arch] = res
+        out[label] = res
+        del batches
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4204,46 +4287,157 @@ def _phase37_rank(rank):
     KG.build()
     KE.build()
     res = {}
-    t0 = time.perf_counter()
-    res["a"] = _sharded_serve(rank, dev, (1, 2), None, False)
-    res["a"][1]["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res["b"] = _sharded_serve(rank, dev, (2, 1), DP_SERVE_LAYERS, True)
-    res["b"][1]["seconds"] = time.perf_counter() - t0
-    for key, arch in (("e", "grok-1-314b"), ("f", "llama4-scout-17b-a16e")):
+    # (key, mesh, layers, against one rank, arch, engine, trace)
+    serves = (("a", (1, 2), TP_SERVE_LAYERS, True, "llama3-8b", None, None),
+              ("b", (2, 1), DP_SERVE_LAYERS, True, "llama3-8b", None, None),
+              ("e", (1, 2), MOE_EP_LAYERS, False, "grok-1-314b", MOE_ENGINE, DENSE_TRACE),
+              ("f", (1, 2), MOE_EP_LAYERS, True, "llama4-scout-17b-a16e", MOE_ENGINE,
+               DENSE_TRACE),
+              ("h", (1, 2), VLM_LAYERS, False, VLM_ARCH, dict(FAMILY_ENGINE, max_len=400),
+               DENSE_TRACE),
+              ("i", (1, 2), ENCDEC_LAYERS, False, ENCDEC_ARCH,
+               dict(FAMILY_ENGINE, max_len=64), ENCDEC_TRACE),
+              ("j", (2, 1), ENCDEC_DP_LAYERS, True, ENCDEC_ARCH,
+               dict(FAMILY_ENGINE, max_len=64), ENCDEC_TRACE))
+    for key, mesh, layers, one, arch, engine, trace in serves:
         t0 = time.perf_counter()
-        res[key] = _sharded_serve(rank, dev, (1, 2), MOE_EP_LAYERS, key == "f", arch,
-                                  MOE_ENGINE, DENSE_TRACE)
+        res[key] = _sharded_serve(rank, dev, mesh, layers, one, arch, engine, trace)
         res[key][1]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["c"] = _dp_train(rank, dev)
     res["c"][1]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res["g"] = _moe_dp_train(rank, dev)
+    res["g"] = _dp_cells_train(rank, dev, "g")
     res["g"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["k"] = _dp_cells_train(rank, dev, "k")
+    res["k"]["seconds"] = time.perf_counter() - t0
     res["d"] = _psum_check(rank, dev)
     return res
 
 
-def multi_gpu(dev, detail, phase5_tokens):
+def _served_folds(cfg, row):
+    """Row-parallel folds of a (1, 2) engine run at published widths: a
+    decoder's ``wo`` and down projection (a MoE layer's shared expert's;
+    its experts do not fold) a layer a weight pass; an encdec decode or
+    chunk pass its decoder layers' ``wo``, ``co`` and ``wo2``, an
+    encoder-side pass (one an admission) its encoder layers' ``wo`` and
+    ``wo2``."""
+    if cfg.family == "encdec":
+        return (3 * cfg.n_layers * (row["weight_passes"] - row["prefills"])
+                + 2 * cfg.enc_layers * row["prefills"])
+    per_layer = 2 if cfg.moe is None or cfg.moe.shared_expert else 1
+    return per_layer * cfg.n_layers * row["weight_passes"]
+
+
+def _check_sharded(key, ranks, cfg, failures, tokens=None):
+    """The gates of a sharded serving sub-phase on both ranks: K1 once a
+    linear shard a weight pass (``expected_k1``; over a data axis every
+    rank runs each pooled step over its slots, and only a slot's owner its
+    admission's pass: the ranks' sum), the folds (model axis), the ranks'
+    tokens equal, and equal to ``tokens`` or to rank 0's one-rank run
+    (tokens and counters)."""
+    rows = [res[key][1] for res in ranks]
+    steps = rows[0]["k1_per_pass_expected"] * rows[0]["counters"]["decode_steps"]
+    admissions = rows[0]["k1_expected"] - steps
+    if rows[0]["data_shards"] > 1 and sum(row["k1_launches"] for row in rows) != (
+            rows[0]["data_shards"] * steps + admissions):
+        failures.append(f"37{key}: K1 launched {[row['k1_launches'] for row in rows]}, "
+                        f"expected {steps} a rank and {admissions} over the ranks")
+    for r, res in enumerate(ranks):
+        toks, row = res[key]
+        print(f"37{key} rank {r}:", json.dumps(row))
+        if row["data_shards"] == 1 and row["k1_launches"] != row["k1_expected"]:
+            failures.append(f"37{key} rank {r}: K1 launched {row['k1_launches']}, expected "
+                            f"{row['k1_expected']} ({row['k1_per_pass_expected']} a pass)")
+        if row["model_shards"] > 1:
+            want = _served_folds(cfg, row)
+            if row["folds"] != want:
+                failures.append(f"37{key} rank {r}: {row['folds']} row-parallel folds, "
+                                f"expected {want}")
+    if ranks[0][key][0] != ranks[1][key][0]:
+        failures.append(f"37{key}: the ranks' tokens differ")
+    if tokens is not None:
+        if ranks[0][key][0] != tokens:
+            failures.append(f"37{key}: tokens differ from the one-card phase's")
+        return
+    row = ranks[0][key][1]
+    if not row["one_rank_tokens_equal"] or row["one_rank_counters"] != row["counters"]:
+        failures.append(f"37{key}: tokens or counters differ from one rank's "
+                        f"({row['counters']} / {row['one_rank_counters']})")
+
+
+def _check_dp_cells(key, ranks, failures, launches=False):
+    """37g / 37k: data-parallel training against one rank (rank 0's own
+    run): first-step per-token losses bit for bit, losses within
+    LOSS_RTOL, launches a step equal on both ranks and one rank's (and,
+    with ``launches``, ``step_launches``').  Returns a row a cell."""
+    rows = {}
+    for label, cfg, *_ in _dp_cells(key):
+        one = ranks[0][key][label]["one"]
+        dp_tl = np.concatenate([res[key][label]["dp_token_losses"] for res in ranks])
+        one_tl = ranks[0][key][label]["one_token_losses"]
+        tl_equal = dp_tl.view(np.uint32).tolist() == one_tl.view(np.uint32).tolist()
+        dp = [res[key][label]["dp"] for res in ranks]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(dp[0]["losses"], one["losses"]))
+        print(f"37{key} {label}: one rank losses {[repr(x) for x in one['losses']]}; "
+              f"data-parallel {[repr(x) for x in dp[0]['losses']]}; max relative {rel:.3g}; "
+              f"first-step per-token losses bit for bit: {tl_equal}; launches a step "
+              f"{dp[0]['launches']} / one rank {one['launches']}; step s "
+              f"{[round(x, 3) for x in dp[0]['step_s']]} / {[round(x, 3) for x in one['step_s']]}"
+              f"; peak GiB a rank {[round(d['peak_gib'], 2) for d in dp]} / one rank "
+              f"{one['peak_gib']:.2f}")
+        if not tl_equal:
+            failures.append(f"37{key} {label}: first-step per-token losses differ from one "
+                            "rank's")
+        if not rel <= LOSS_RTOL:
+            failures.append(f"37{key} {label}: losses differ by {rel:.3g} relative")
+        if any(d["launches"] != one["launches"] for d in dp) or dp[0]["losses"] != dp[1]["losses"]:
+            failures.append(f"37{key} {label}: launches or losses differ between the ranks and "
+                            "one rank")
+        want = step_launches(cfg)
+        if launches and any(n != want for n in dp[0]["launches"]):
+            failures.append(f"37{key} {label}: launches {dp[0]['launches']}, expected {want}")
+        rows[label] = dict(dp=dp, one=one, max_rel=rel, token_losses_bit_equal=tl_equal,
+                           peak_gib=sum(d["peak_gib"] for d in dp))
+    return rows
+
+
+def multi_gpu(dev, detail):
     """Phase 37: two gloo ranks on the one card (``collectives.spawn``),
     the parent holding no model meanwhile.  37a: llama3-8b at its
-    published widths and all 32 layers on the (1, 2) mesh, phase 5's seed
-    and trace: tokens = phase 5's, K1 once a linear shard a weight pass on
-    each rank, the row-parallel folds counted.  37b: the (2, 1) mesh at 4
-    layers against one rank at 4 layers.  37c: olmo-1b data-parallel,
-    global batch 4 x 512, 2 steps, against one rank here after the ranks
+    published widths and ``TP_SERVE_LAYERS`` layers on the (1, 2) mesh,
+    phase 5's engine and trace, against one rank at that depth: tokens
+    and counters equal, K1 once a linear shard a weight pass on each
+    rank, the row-parallel folds counted.  37b: the (2, 1) mesh at 4
+    layers against one rank at 4 layers.  37c: olmo-1b at
+    ``DP_TRAIN_LAYERS`` layers data-parallel, global batch 4 x 512, 2
+    steps, against one rank here after the ranks
     exit: first-step per-token losses bit for bit, losses within
     LOSS_RTOL, launches a step.  37d: ``compressed_psum`` on the card.
     37e: grok-1 at its published widths and ``MOE_EP_LAYERS`` layers on
     the (1, 2) mesh with EP (4 experts a rank), phase 27's seed, engine
     and trace: tokens = phase 27's, K1 15 a weight pass a rank, 2 folds a
-    pass, the ranks' summed peak under ``MULTI_PEAK_GIB``.  37f:
-    llama4-scout the same way (8 experts a rank, the shared expert
-    folded) against one rank at that depth in the same world: tokens and
-    counters equal.  37g: both MoE smoke configs data-parallel on (2, 1)
-    against one rank: first-step per-token losses bit for bit, losses
-    within LOSS_RTOL, K1/K2/K3/pre-pass launches a step equal."""
+    pass.  37f: llama4-scout the same way (8 experts a rank, the shared
+    expert folded) against one rank at that depth in the same world:
+    tokens and counters equal.  37g: both MoE smoke configs
+    data-parallel on (2, 1) against one rank: first-step per-token
+    losses bit for bit, losses within LOSS_RTOL, K1/K2/K3/pre-pass
+    launches a step equal.  37h: internvl2-76b at its published widths
+    and ``VLM_LAYERS`` layers on (1, 2), phase 29's engine and trace:
+    tokens = phase 29's, K1 113 a weight pass a rank and one patch_proj
+    a solo prefill, 32 folds a pass.  37i: whisper-large-v3 at
+    ``ENCDEC_LAYERS`` decoder layers and the whole encoder on (1, 2),
+    phase 30's engine and trace: tokens = phase 30's, K1 65 a decode pass
+    and 209 an encoder-side pass a rank, 24 and 64 folds, 10 of the 20
+    (cross) K/V heads a rank.  37j: whisper on (2, 1) at
+    ``ENCDEC_DP_LAYERS`` decoder layers against one rank.  37k: the vlm
+    and encdec smoke configs, and whisper-large-v3 at its published widths
+    and ``WHISPER_DP_LAYERS`` encoder and decoder layers on phase 31b's
+    batch, data-parallel on (2, 1) against one rank, as 37g, their
+    launches a step ``step_launches``'.  The ranks' summed
+    peak stays under ``MULTI_PEAK_GIB`` in each serving and training
+    sub-phase."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.data import pipeline
@@ -4252,89 +4446,55 @@ def multi_gpu(dev, detail, phase5_tokens):
     from repro_torch.parallel import collectives
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: two ranks on the one card (37a-g)")
+    phase("37 multi-GPU: two ranks on the one card (37a-k)")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
     spawn_s = time.perf_counter() - t0
     out = {"spawn_s": spawn_s}
     failures = []
-    # 37a
-    for r, res in enumerate(ranks):
-        toks, row = res["a"]
-        print(f"37a rank {r}:", json.dumps(row))
-        if toks != phase5_tokens:
-            failures.append(f"37a rank {r}: tokens differ from phase 5's")
-        if row["k1_launches"] != row["k1_per_pass_expected"] * row["weight_passes"]:
-            failures.append(f"37a rank {r}: K1 launched {row['k1_launches']}, expected "
-                            f"{row['k1_per_pass_expected']} x {row['weight_passes']}")
-        if row["folds"] != 2 * 32 * row["weight_passes"]:
-            failures.append(f"37a rank {r}: {row['folds']} row-parallel folds, expected "
-                            f"2 x 32 a weight pass")
-    peak_a = sum(res["a"][1]["peak_gib"] for res in ranks)
-    # 37b
-    for r, res in enumerate(ranks):
-        print(f"37b rank {r}:", json.dumps(res["b"][1]))
-    if ranks[0]["b"][0] != ranks[1]["b"][0] or not ranks[0]["b"][1]["one_rank_tokens_equal"]:
-        failures.append("37b: (2, 1) tokens differ from the one-rank run")
+    llama = configs.get_config("llama3-8b")
+    _check_sharded("a", ranks, dataclasses.replace(llama, n_layers=TP_SERVE_LAYERS), failures)
+    _check_sharded("b", ranks, dataclasses.replace(llama, n_layers=DP_SERVE_LAYERS), failures)
     # 37e-f: the MoE decoders with EP on the model axis
     phase27 = detail["serving_grok-1-314b"]
     for key, arch in (("e", "grok-1-314b"), ("f", "llama4-scout-17b-a16e")):
         cfg = dataclasses.replace(configs.get_config(arch), n_layers=MOE_EP_LAYERS)
-        folds = MOE_EP_LAYERS * (2 if cfg.moe.shared_expert else 1)
         for r, res in enumerate(ranks):
-            toks, row = res[key]
-            print(f"37{key} rank {r}:", json.dumps(row))
-            if row["experts"] != "EP":
-                failures.append(f"37{key} rank {r}: experts {row['experts']}, expected EP")
-            if row["k1_launches"] != k1_per_pass(cfg) * row["weight_passes"]:
-                failures.append(f"37{key} rank {r}: K1 launched {row['k1_launches']}, expected "
-                                f"{k1_per_pass(cfg)} x {row['weight_passes']}")
-            if row["folds"] != folds * row["weight_passes"]:
-                failures.append(f"37{key} rank {r}: {row['folds']} row-parallel folds, "
-                                f"expected {folds} a weight pass")
-        if ranks[0][key][0] != ranks[1][key][0]:
-            failures.append(f"37{key}: the ranks' tokens differ")
-    if ranks[0]["e"][0] != phase27["tokens"]:
-        failures.append("37e: tokens differ from phase 27's")
-    f0 = ranks[0]["f"][1]
-    if not f0["one_rank_tokens_equal"] or f0["one_rank_counters"] != f0["counters"]:
-        failures.append(f"37f: tokens or counters differ from one rank's ({f0['counters']} / "
-                        f"{f0['one_rank_counters']})")
-    peak_e = sum(res["e"][1]["peak_gib"] for res in ranks)
-    peak_f = sum(res["f"][1]["peak_gib"] for res in ranks)
+            if res[key][1]["experts"] != "EP":
+                failures.append(f"37{key} rank {r}: experts {res[key][1]['experts']}, "
+                                "expected EP")
+        _check_sharded(key, ranks, cfg, failures, phase27["tokens"] if key == "e" else None)
     print(f"37e: a decode step's device busy {ranks[0]['e'][1]['decode_step_device_ms']:.2f} ms "
           f"a rank against phase 27's "
           f"{phase27['steps']['profiled_decode_step']['device_busy_ms']:.2f} ms")
-    # 37g: MoE data-parallel training against one rank (rank 0's own run)
-    g_rows = {}
-    for arch in MOE_ARCHS:
-        one = ranks[0]["g"][arch]["one"]
-        dp_tl = np.concatenate([res["g"][arch]["dp_token_losses"] for res in ranks])
-        one_tl = ranks[0]["g"][arch]["one_token_losses"]
-        tl_equal = dp_tl.view(np.uint32).tolist() == one_tl.view(np.uint32).tolist()
-        dp = [res["g"][arch]["dp"] for res in ranks]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(dp[0]["losses"], one["losses"]))
-        print(f"37g {arch}: one rank losses {[repr(x) for x in one['losses']]}; data-parallel "
-              f"{[repr(x) for x in dp[0]['losses']]}; max relative {rel:.3g}; first-step "
-              f"per-token losses bit for bit: {tl_equal}; launches a step "
-              f"{dp[0]['launches']} / one rank {one['launches']}; step s "
-              f"{[round(x, 3) for x in dp[0]['step_s']]} / {[round(x, 3) for x in one['step_s']]}")
-        if not tl_equal:
-            failures.append(f"37g {arch}: first-step per-token losses differ from one rank's")
-        if not rel <= LOSS_RTOL:
-            failures.append(f"37g {arch}: losses differ by {rel:.3g} relative")
-        if any(d["launches"] != one["launches"] for d in dp) or dp[0]["losses"] != dp[1]["losses"]:
-            failures.append(f"37g {arch}: launches or losses differ between the ranks and one "
-                            "rank")
-        g_rows[arch] = dict(dp=dp, one=one, max_rel=rel, token_losses_bit_equal=tl_equal)
+    # 37h-j: the vlm and the encdec on a plan
+    vlm = dataclasses.replace(configs.get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    enc = configs.get_config(ENCDEC_ARCH)
+    _check_sharded("h", ranks, vlm, failures, detail[f"serving_{VLM_ARCH}"]["tokens"])
+    _check_sharded("i", ranks, dataclasses.replace(enc, n_layers=ENCDEC_LAYERS), failures,
+                   detail[f"serving_{ENCDEC_ARCH}"]["tokens"])
+    _check_sharded("j", ranks, dataclasses.replace(enc, n_layers=ENCDEC_DP_LAYERS), failures)
+    for r, res in enumerate(ranks):
+        heads = (res["i"][1]["heads_local"], res["i"][1]["kv_heads_local"])
+        if heads != (enc.n_heads // 2, enc.kv_heads // 2):
+            failures.append(f"37i rank {r}: (q, K/V) heads a rank {heads}, expected "
+                            f"{(enc.n_heads // 2, enc.kv_heads // 2)}")
+    print(f"37h-i: a decode step's device busy a rank {ranks[0]['h'][1]['decode_step_device_ms']:.2f}"
+          f" / {ranks[0]['i'][1]['decode_step_device_ms']:.2f} ms against phases 29-30's "
+          f"{detail[f'serving_{VLM_ARCH}']['steps']['profiled_decode_step']['device_busy_ms']:.2f}"
+          f" / {detail[f'serving_{ENCDEC_ARCH}']['steps']['profiled_decode_step']['device_busy_ms']:.2f}"
+          " ms")
+    # 37g, 37k: data-parallel smoke training against one rank
+    g_rows = _check_dp_cells("g", ranks, failures)
+    k_rows = _check_dp_cells("k", ranks, failures, launches=True)
     # 37d
     for r, res in enumerate(ranks):
         print(f"37d rank {r}:", json.dumps(res["d"]))
         if not (res["d"]["sum_equals_decoded"] and res["d"]["unbiased"]):
             failures.append(f"37d rank {r}: compressed_psum check failed")
     # 37c: one rank at the same global batch, here
-    cfg = configs.get_config("olmo-1b")
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=DP_TRAIN_LAYERS)
     shape = configs.ShapeConfig("dp", DP_TRAIN_SEQ, DP_TRAIN_BATCH, "train")
     opt = adamw(warmup_cosine_schedule(3e-3, 20, DP_TRAIN_STEPS))
     step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig())
@@ -4354,7 +4514,7 @@ def multi_gpu(dev, detail, phase5_tokens):
     tl_rel = float(np.max(np.abs(dp_tl - one_tl) / np.maximum(np.abs(one_tl), 1e-30)))
     dp_rows = [res["c"][1] for res in ranks]
     rel = max(abs(a - b) / abs(b) for a, b in zip(dp_rows[0]["losses"], one_losses))
-    want = step_launches()
+    want = step_launches(cfg)
     for r, row in enumerate(dp_rows):
         print(f"37c rank {r}:", json.dumps(row))
         if any(n != want for n in row["launches"]):
@@ -4366,25 +4526,27 @@ def multi_gpu(dev, detail, phase5_tokens):
         failures.append("37c: first-step per-token losses differ from one rank's")
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
-    peak_c = sum(row["peak_gib"] for row in dp_rows)
-    print(f"37 peaks, both ranks summed: 37a {peak_a:.2f} GiB, 37c {peak_c:.2f} GiB, 37e "
-          f"{peak_e:.2f} GiB, 37f {peak_f:.2f} GiB; backend {ranks[0]['a'][1]['backend']}; "
-          f"seconds a sub-phase (rank 0) "
-          f"{ {k: round(ranks[0][k][1]['seconds'], 1) for k in 'abcef'} }, g "
-          f"{ranks[0]['g']['seconds']:.1f}; spawn to exit {spawn_s:.1f} s")
-    if max(peak_a, peak_c, peak_e, peak_f) >= MULTI_PEAK_GIB:
+    peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in "abefhij"}
+    peaks["c"] = sum(row["peak_gib"] for row in dp_rows)
+    peaks.update(g=max(r["peak_gib"] for r in g_rows.values()),
+                 k=max(r["peak_gib"] for r in k_rows.values()))
+    seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in "abcefhij"}
+    seconds.update(g=round(ranks[0]["g"]["seconds"], 1), k=round(ranks[0]["k"]["seconds"], 1))
+    print(f"37 peaks, both ranks summed (GiB): "
+          f"{ {k: round(v, 2) for k, v in sorted(peaks.items())} }; backend "
+          f"{ranks[0]['a'][1]['backend']}; seconds a sub-phase (rank 0) {seconds}; spawn to "
+          f"exit {spawn_s:.1f} s")
+    if max(peaks.values()) >= MULTI_PEAK_GIB:
         failures.append(f"37: the ranks' summed peak passed {MULTI_PEAK_GIB} GiB")
-    out.update(a=[res["a"][1] for res in ranks], b=[res["b"][1] for res in ranks],
-               c=dict(ranks=dp_rows, one_rank_losses=one_losses, max_rel=rel,
+    out.update({k: [res[k][1] for res in ranks] for k in "abefhij"})
+    out.update(c=dict(ranks=dp_rows, one_rank_losses=one_losses, max_rel=rel,
                       token_losses_bit_equal=tl_equal, token_losses_max_rel=tl_rel),
-               d=[res["d"] for res in ranks], e=[res["e"][1] for res in ranks],
-               f=[res["f"][1] for res in ranks], g=g_rows,
-               peak_gib=dict(a=peak_a, c=peak_c, e=peak_e, f=peak_f))
+               d=[res["d"] for res in ranks], g=g_rows, k=k_rows, peak_gib=peaks,
+               seconds=seconds)
     detail["multi_gpu"] = out
     if failures:
         raise SystemExit("phase 37: " + "; ".join(failures))
     return out
-
 
 if __name__ == "__main__":
     sys.exit(main())

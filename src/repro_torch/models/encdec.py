@@ -10,8 +10,9 @@ attention over the encoder output, and a gelu MLP; pre-norm LayerNorms
 throughout and an LM head tied to the token embedding (quantized at
 every use, gamma = ``ratio_clip_init``; :func:`transformer.tied_head`).
 
-Training (:func:`lm_loss`) recomputes each encoder and decoder layer in
-the backward, as the reference's ``jax.checkpoint`` does.
+Training (:func:`forward` under ``remat``, through ``registry.loss_fn``)
+recomputes each encoder and decoder layer in the backward, as the
+reference's ``jax.checkpoint`` does.
 
 Serving keeps the decoder's self-attention K/V in the pool cache of
 ``models/transformer.py`` (paged, contiguous or lockstep; PoT-quantized
@@ -25,6 +26,14 @@ attention run per slot (per (slot, position) row in the verify step) at
 decode's shapes, over each slot's own ``ck``/``cv``, so a slot's logits
 never depend on its pool neighbours.  The encoder runs at admission with
 batch 1.  Encdec is never windowed.
+
+On a model axis (a sharded plan active; ``parallel/planner.decoder_layout``)
+both stacks take the decoder's hooks (``transformer._qkv``,
+``_kv_select``, ``_out_proj``): the self- and cross attention's heads
+split at whole heads, ``wo``, ``co`` and ``wo2`` row-parallel at whole
+128-chunks (all-gathered otherwise), each rank's ``ck``/``cv`` its own
+K/V heads (:func:`encode_cross_kv`); ``frame_proj``, ``enc_pos``, the
+norms and the tied embedding (and so the head) stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -92,14 +101,28 @@ def _norm(p):
 
 
 def _proj_heads(p, name, x, policy, nh, hd):
+    """``x @ p[name]`` as (B, S, nh, hd) heads; a K/V projection (``nh``
+    K/V heads) cut to this model rank's (``transformer._kv_select``)."""
     b, s = x.shape[:2]
-    return mfmac.mf_linear(x, p[name]["w"], p[name]["gamma"], policy=policy).reshape(b, s, nh, hd)
+    y = mfmac.mf_linear(x, p[name]["w"], p[name]["gamma"], policy=policy)
+    if name in ("wk", "wv", "ck", "cv"):
+        y = T._kv_select(y)
+    return y.reshape(b, s, nh, hd)
+
+
+def _proj_out(p, name, x, policy):
+    """An output projection (``wo``, ``co``; ``wo2`` of the MLP) whose
+    input is split over the model axis (``transformer._out_proj``)."""
+    return T._out_proj(p[name], x, policy, "mlp_wo" if name == "wo2" else "wo")
 
 
 def _mha(policy, q, k, v):
     """Bidirectional grouped attention (no mask), FP32 scores: q (B, Sq,
     H, hd) over k, v (B, Skv, KV, hd), cast to q's dtype; QK^T and PV
-    through ``mfmac.mf_act_dot``."""
+    through ``mfmac.mf_act_dot``.  On a model axis it attends over the
+    whole head count and returns this rank's heads
+    (``transformer._heads_whole``)."""
+    q, k, v, mine = T._heads_whole(q, k, v)
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
@@ -110,12 +133,13 @@ def _mha(policy, q, k, v):
     scores = mfmac.mf_act_dot(qg, kt, policy=policy).to(torch.float32) * scale
     probs = torch.softmax(scores, dim=-1)
     out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    return out if mine is None else out[:, :, mine]
 
 
 def _mlp(policy, lp, h):
     m = common.gelu(mfmac.mf_linear(h, lp["wi"]["w"], lp["wi"]["gamma"], policy=policy))
-    return mfmac.mf_linear(m, lp["wo2"]["w"], lp["wo2"]["gamma"], policy=policy)
+    return _proj_out(lp, "wo2", m, policy)
 
 
 def _enc_layer(cfg, policy, lp, x):
@@ -126,7 +150,7 @@ def _enc_layer(cfg, policy, lp, x):
     k = _proj_heads(lp, "wk", h, policy, cfg.kv_heads, hd)
     v = _proj_heads(lp, "wv", h, policy, cfg.kv_heads, hd)
     att = _mha(policy, q, k, v).reshape(b, s, cfg.n_heads * hd)
-    y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+    y = x + _proj_out(lp, "wo", att, policy)
     return y + _mlp(policy, lp, _norm(lp["ln2"])(y))
 
 
@@ -158,13 +182,13 @@ def _dec_block(cfg, policy, lp, x, enc_out, qpos):
     h = _norm(lp["ln1"])(x)
     q, k, v = T._qkv(cfg, policy, lp, h, qpos[None, :].expand(b, s))
     att = T._sdpa(cfg, policy, q, k, v, qpos, qpos, None).reshape(b, s, hh)
-    x = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+    x = x + _proj_out(lp, "wo", att, policy)
     hc = _norm(lp["ln_cross"])(x)
     cq = _proj_heads(lp, "cq", hc, policy, cfg.n_heads, hd)
     ck = _proj_heads(lp, "ck", enc_out, policy, cfg.kv_heads, hd)
     cv = _proj_heads(lp, "cv", enc_out, policy, cfg.kv_heads, hd)
     catt = _mha(policy, cq, ck, cv).reshape(b, s, hh)
-    x = x + mfmac.mf_linear(catt, lp["co"]["w"], lp["co"]["gamma"], policy=policy)
+    x = x + _proj_out(lp, "co", catt, policy)
     x = x + _mlp(policy, lp, _norm(lp["ln2"])(x))
     return x, (k, v), (ck, cv)
 
@@ -202,13 +226,6 @@ def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, frames, *,
     enc_out = encode(cfg, policy, params, frames, remat=remat)
     x, _ = _decoder(cfg, policy, params, tokens, enc_out, remat=remat)
     return T.tied_head(policy, params["embed"], x)
-
-
-def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, frames, labels,
-            loss_mask, *, remat: bool = True) -> torch.Tensor:
-    """Mean next-token cross entropy of the decoder over ``loss_mask``."""
-    logits = forward(cfg, policy, params, tokens, frames, remat=remat)
-    return T.next_token_loss(cfg, logits, labels, loss_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +267,9 @@ def prefill(cfg, policy, params, tokens, frames, cache):
 def encode_cross_kv(cfg, policy, params, frames):
     """The encoder side of admission without the decoder prompt (chunked
     admission, serve/engine.py): the encoder pass and every decoder
-    layer's cross K/V.  Returns (ck, cv), each (L, B, enc_seq, KV, hd)."""
+    layer's cross K/V.  Returns (ck, cv), each (L, B, enc_seq, KV, hd):
+    on a model axis this rank's K/V heads (``cfg`` the plan's local
+    config), which are all a rank's cross attention reads."""
     enc_out = encode(cfg, policy, params, frames)
     layers = T._unbind_layers(params["dec_layers"])
     cks, cvs = [], []
@@ -283,7 +302,7 @@ def decode_step(cfg, policy, params, token, cache):
         h = T._rows(_norm(lp["ln1"]), x)
         q, k, v = T._qkv(cfg, policy, lp, h, st.qpos)
         att = st.attend(cfg, policy, cache, i, q, k, v).reshape(b, 1, hh)
-        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        y = x + _proj_out(lp, "wo", att, policy)
         hc = T._rows(_norm(lp["ln_cross"]), y)
         cq = _proj_heads(lp, "cq", hc, policy, cfg.n_heads, hd)
         if T.rows_are_groups(policy):
@@ -292,7 +311,7 @@ def decode_step(cfg, policy, params, token, cache):
         else:  # one scale group over the batch's attention products
             catt = _mha(policy, cq, cache["ck"][i], cache["cv"][i])
         catt = catt.reshape(b, 1, hh)
-        y = y + mfmac.mf_linear(catt, lp["co"]["w"], lp["co"]["gamma"], policy=policy)
+        y = y + _proj_out(lp, "co", catt, policy)
         x = y + _mlp(policy, lp, T._rows(_norm(lp["ln2"]), y))
     x = T._rows(_norm(params["dec_norm"]), x)
     logits = T.tied_head(policy, params["embed"], x)[:, 0, :]
@@ -315,13 +334,13 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
         h = st.norms(_norm(lp["ln1"]), x)
         q, k, v = T._qkv(cfg, policy, lp, h, st.qpos)
         att = st.attend(cfg, policy, cache, i, q, k, v)
-        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        y = x + _proj_out(lp, "wo", att, policy)
         cq = _proj_heads(lp, "cq", st.norms(_norm(lp["ln_cross"]), y), policy,
                          cfg.n_heads, hd)
         catt = T.slot_attend(_cross_attend(policy, cache, i), cq, st.layout)
         # zero the pad rows, so nothing downstream depends on them
         catt = torch.where(st.vmask[..., None], catt, 0.0).reshape(b, c, hh)
-        y = y + mfmac.mf_linear(catt, lp["co"]["w"], lp["co"]["gamma"], policy=policy)
+        y = y + _proj_out(lp, "co", catt, policy)
         x = y + _mlp(policy, lp, st.norms(_norm(lp["ln2"]), y))
     xe = T._rows(_norm(params["dec_norm"]), st.emit_rows(x))
     logits = T.tied_head(policy, params["embed"], xe)[:, 0, :]
@@ -344,15 +363,14 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
         h = T.live_norms(_norm(lp["ln1"]), x, st.rows)
         q, k, v = T._qkv(cfg, policy, lp, h, st.rq)
         att = st.attend(cfg, policy, cache, i, q, k, v)
-        y = x + mfmac.mf_linear(att, lp["wo"]["w"], lp["wo"]["gamma"], policy=policy)
+        y = x + _proj_out(lp, "wo", att, policy)
         cq = _proj_heads(lp, "cq", T.live_norms(_norm(lp["ln_cross"]), y, st.rows), policy,
                          cfg.n_heads, hd)
         cross = _cross_attend(policy, cache, i)
         catt = torch.zeros_like(cq)
         for r in st.rows:
             catt[r:r + 1] = cross(cq[r:r + 1], r // c)
-        y = y + mfmac.mf_linear(catt.reshape(b * c, 1, hh), lp["co"]["w"], lp["co"]["gamma"],
-                                policy=policy)
+        y = y + _proj_out(lp, "co", catt.reshape(b * c, 1, hh), policy)
         x = y + _mlp(policy, lp, T.live_norms(_norm(lp["ln2"]), y, st.rows))
     xe = T.live_norms(_norm(params["dec_norm"]), x, st.rows)
     logits = T.tied_head(policy, params["embed"], xe)[:, 0, :].reshape(b, c, -1)

@@ -240,12 +240,6 @@ def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: boo
     return _head(policy, params, x)
 
 
-def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, labels, loss_mask,
-            *, remat: bool = True) -> torch.Tensor:
-    logits = forward(cfg, policy, params, tokens, remat=remat)
-    return transformer.next_token_loss(cfg, logits, labels, loss_mask)
-
-
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------

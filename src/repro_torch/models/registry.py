@@ -12,7 +12,13 @@ ones; the lifted slot-row layout for the recurrent ones), lockstep and
 pooled decode, the fused chunk step of chunked piggybacked prefill, the
 speculative verify step and encdec's encoder-side admission
 (:func:`encode_cross_kv`).  The recurrent families (hybrid, ssm) have no
-chunk or verify step, as in the reference."""
+chunk or verify step, as in the reference.
+
+Under an active sharded plan (``parallel/actshard.py``) the same
+dispatch serves the families the port runs on a plan
+(``parallel/planner.PLAN_FAMILIES``): the caller passes the plan's local
+config (``plan.local_config``) and this rank's shards, and the step
+bodies' model-axis hooks do the rest."""
 from __future__ import annotations
 
 import torch
@@ -62,16 +68,25 @@ def param_specs(cfg: ModelConfig):
     return _model(cfg).decoder_specs(cfg)
 
 
-def loss_fn(cfg: ModelConfig, policy, params, batch):
-    """Training loss of a batch dict (its family's keys)."""
+def forward(cfg: ModelConfig, policy, params, batch, *, remat: bool = False):
+    """Logits (B, S, V_padded) of a batch dict's token positions (its
+    family's keys; a vlm's patch positions dropped)."""
     if cfg.family == "encdec":
-        return encdec.lm_loss(cfg, policy, params, batch["tokens"], batch["frames"],
-                              batch["labels"], batch["mask"])
+        return encdec.forward(cfg, policy, params, batch["tokens"], batch["frames"],
+                              remat=remat)
     if cfg.family in ("ssm", "hybrid"):
-        return _model(cfg).lm_loss(cfg, policy, params, batch["tokens"], batch["labels"],
-                                   batch["mask"])
-    return _model(cfg).lm_loss(cfg, policy, params, batch["tokens"], batch["labels"],
-                               batch["mask"], patch_embeds=batch.get("patch_embeds"))
+        return _model(cfg).forward(cfg, policy, params, batch["tokens"], remat=remat)
+    patches = batch.get("patch_embeds")
+    logits = transformer.forward(cfg, policy, params, batch["tokens"], patch_embeds=patches,
+                                 remat=remat)
+    return logits if patches is None else logits[:, patches.shape[1]:]
+
+
+def loss_fn(cfg: ModelConfig, policy, params, batch):
+    """Training loss of a batch dict (its family's keys), each layer
+    recomputed in the backward."""
+    return transformer.next_token_loss(cfg, forward(cfg, policy, params, batch, remat=True),
+                                       batch["labels"], batch["mask"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -164,7 +179,9 @@ def encode_cross_kv(cfg, policy, params, frames):
     """Encoder-side admission of chunked encdec serving: the encoder pass
     and every decoder layer's cross K/V, each (L, B, enc_seq, KV, hd); the
     engine writes them into the slot, then the decoder prompt streams in
-    through ``chunk_step``."""
+    through ``chunk_step``.  Under an active plan with a model axis
+    (``parallel/actshard.py``) ``cfg`` is the plan's local config and
+    ``params`` this rank's shards: KV is this rank's K/V heads."""
     if cfg.family != "encdec":
         raise ValueError(f"encode_cross_kv: family {cfg.family!r} has no encoder")
     return encdec.encode_cross_kv(cfg, policy, params, frames)

@@ -27,7 +27,7 @@ from repro_torch.core import mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import common
 from repro_torch.models.spec import ParamSpec
-from repro_torch.models.transformer import _layer, _rows, _unbind_layers, next_token_loss
+from repro_torch.models.transformer import _layer, _rows, _unbind_layers
 
 HEADDIM = 64  # Mamba2's default head dim P
 
@@ -231,12 +231,6 @@ def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: boo
         else:
             x = _block(cfg, policy, lp, x, chunk)
     return _head(policy, params, x)
-
-
-def lm_loss(cfg: ModelConfig, policy: QuantPolicy, params, tokens, labels, loss_mask,
-            *, remat: bool = True) -> torch.Tensor:
-    logits = forward(cfg, policy, params, tokens, remat=remat)
-    return next_token_loss(cfg, logits, labels, loss_mask)
 
 
 # ---------------------------------------------------------------------------

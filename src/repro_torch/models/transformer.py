@@ -37,11 +37,15 @@ routing, capacity and expert scales never couple pool rows; its router
 softmax sums each row in a fixed order (:func:`_softmax_rows`).
 
 On a model axis (a sharded plan active, ``parallel/actshard.py``; the
-decoder, dense or MoE, ``parallel/planner.decoder_layout``) the step
+decoder, dense or MoE, and the vlm's backbone,
+``parallel/planner.decoder_layout``; ``models/encdec.py`` takes the same
+hooks) the step
 bodies run with the plan's local config (this rank's q and K/V heads)
 over this rank's weight shards: q/k/v heads split at whole heads (the
 K/V heads selected from a whole product where they do not split,
-:func:`_qkv`), attention on the rank, norms and rope on every rank,
+:func:`_qkv`), attention on the rank over the whole head count with the
+other ranks' heads zero (:func:`_heads_whole`: the card's batched
+products round by the batch's size), norms and rope on every rank,
 ``wo`` and the MLP's (the shared expert's) down projection row-parallel
 (K1's fold chained across the ranks) or over the all-gathered input
 where a rank's slice is not whole 128-chunks (:func:`_out_proj`), the
@@ -50,8 +54,11 @@ zeros, :func:`_embed`) and the head's logits all-gathered in rank order
 (:func:`_lm_head`).  A MoE layer routes whole on every rank; under EP
 each rank runs its own experts and each token slot takes its output from
 the rank that owns its expert, under TP every rank runs every expert's
-slice of the hidden width (:func:`_moe_apply`).  Without a plan every
-hook is the identity.
+slice of the hidden width (:func:`_moe_apply`).  A vlm's patch rows go
+through ``patch_proj`` whole on every rank and prefix the tokens'
+gathered embeddings (:func:`embed_inputs`), so a patch request's solo
+prefill runs the backbone's hooks over them.  Without a plan every hook
+is the identity.
 
 Under data-parallel training (``parallel/actshard.batch_group``) a MoE
 layer's dispatch groups are the global batch's: the group size comes
@@ -232,6 +239,28 @@ def _kv_select(k: torch.Tensor) -> torch.Tensor:
     hd = tp.cfg.head_dim
     lo = tp.layout.kv_lo(tp.rank, tp.cfg)
     return k[..., lo * hd:(lo + tp.layout.kv_local) * hd]
+
+
+def _heads_whole(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """On a model axis that splits the heads: this rank's q heads (B, S,
+    H_r, hd) and K/V heads placed at their global offsets in zero tensors
+    of the whole model's head counts, and the slice of an attention
+    output's heads that is this rank's; elsewhere (q, k, v, None).  The
+    card's batched products pick their kernel, and so their rounding, by
+    the batch's size: attending over the whole head count gives each of
+    this rank's heads one rank's bits (the padded heads are discarded)."""
+    tp = _tp()
+    if tp is None or not tp.layout.heads:
+        return q, k, v, None
+    lo, kv_lo = tp.rank * tp.layout.heads_local, tp.layout.kv_lo(tp.rank, tp.cfg)
+
+    def whole(x, n, at):
+        out = x.new_zeros(x.shape[:2] + (n,) + x.shape[3:])
+        out[:, :, at:at + x.shape[2]] = x
+        return out
+
+    return (whole(q, tp.cfg.n_heads, lo), whole(k, tp.cfg.kv_heads, kv_lo),
+            whole(v, tp.cfg.kv_heads, kv_lo), slice(lo, lo + q.shape[2]))
 
 
 def _out_proj(p, x, policy, mode: str) -> torch.Tensor:
@@ -438,7 +467,10 @@ def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
 
     ``qpos``/``kpos`` are 1-D (shared across the batch) or 2-D
     ``(B, Sq)``/``(B, Skv)``.  Masked scores take -1e30, as in the
-    reference; ``kpos < 0`` marks cache entries not yet written."""
+    reference; ``kpos < 0`` marks cache entries not yet written.  On a
+    model axis it attends over the whole head count (:func:`_heads_whole`)
+    and returns this rank's heads."""
+    q, k, v, mine = _heads_whole(q, k, v)
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     rep = h // kv
@@ -459,7 +491,8 @@ def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    return out if mine is None else out[:, :, mine]
 
 
 def _block(cfg, policy, p, x, qpos):
@@ -477,7 +510,9 @@ def _block(cfg, policy, p, x, qpos):
 
 def embed_inputs(cfg, policy, params, tokens, patch_embeds=None):
     """Token embeddings (B, S, D), prefixed for a vlm by the projected
-    patch embeddings (B, P, patch_dim) -> (B, P + S, D)."""
+    patch embeddings (B, P, patch_dim) -> (B, P + S, D).  On a model axis
+    the tokens' rows come from the vocab shards (:func:`_embed`) and
+    ``patch_proj``, whole on every rank, projects every patch row there."""
     # the values of embed[tokens]; the backward is embedding_dense_backward
     # rather than an accumulating index_put_, and the trainer's
     # deterministic mode keeps it run-to-run identical on the card

@@ -11,6 +11,9 @@ context the launcher and the serving engine set around their steps:
 under a plan built on a concrete mesh it returns this rank's rows of the
 data axes (in rank order, the batch split evenly), and it is a no-op when
 no plan is active, the plan's mesh is abstract, or B does not divide.
+:func:`shard_batch` does it to a whole batch dict: a vlm's
+``patch_embeds`` and an encdec's ``frames`` split by rows with the tokens
+(the reference's ``data_pspecs``: batch over the data axes).
 Model code asks :func:`active_plan` for the plan (the decoder's
 model-axis layout, ``planner.ShardingPlan.layout``).
 """
@@ -83,3 +86,10 @@ def shard_tokens(x: torch.Tensor, *, batch_dim: int = 0) -> torch.Tensor:
         return x
     n = x.shape[batch_dim] // size
     return x.narrow(batch_dim, idx * n, n)
+
+
+def shard_batch(batch: dict) -> dict:
+    """This rank's rows of every leaf of a batch dict (tokens, labels,
+    mask and a family's extras: ``frames``, ``patch_embeds``), each split
+    as :func:`shard_tokens` splits it."""
+    return {k: shard_tokens(v) for k, v in batch.items()}

@@ -23,22 +23,30 @@ keys.  Abstract cache shapes come from ``registry.init_pool_cache`` /
 ``params``, ``data`` and ``cache`` are the reference's rules, spec for
 spec.  Where the port's runtime lays a tensor out otherwise, the plan
 says so in ``overrides`` ({(kind, path): :class:`Override`}), for the
-decoder, dense or MoE, the one family the port runs on a plan
-(:func:`decoder_layout`):
+families the port runs on a plan (``PLAN_FAMILIES``: the decoder, dense
+or MoE, the vlm on the decoder's backbone and the encoder-decoder; one
+:func:`decoder_layout` for all three):
 
 * a ``heads``/``kv`` output is split only at whole heads, and a
   contraction (``wo``, the MLP's and the shared expert's down
-  projections) only at whole 128-wide chunks, so that the split product
-  keeps K1's fold (``kernels/ref.py``); elsewhere that product is
-  computed whole on each rank;
+  projections; an encdec's ``wo``, ``co`` and ``wo2`` in both stacks)
+  only at whole 128-wide chunks, so that the split product keeps K1's
+  fold (``kernels/ref.py``); elsewhere that product is computed whole on
+  each rank;
+* the encdec's tied embedding stays whole on every model rank: the head
+  (``transformer.tied_head``) quantizes the whole table per tensor at
+  every call, so a vocab shard's own scale would not be the table's;
+  ``frame_proj``, ``enc_pos``, a vlm's ``patch_proj`` and the norms are
+  whole too (the rules split them over the data axes only);
 * the experts follow the reference's decision (``moe``): EP keeps E/model
   whole experts a rank; under TP (the expert count does not divide
   ``model``) gate and up split over ``ffn`` and the down projection,
   whose contraction the rules split, runs whole over the all-gathered
   hidden state (K1's expert batch has no ``start`` to continue a fold);
 * the paged K/V stores put their **heads** on ``model`` (the reference:
-  in-page positions), so attention stays on the rank: a softmax split
-  over positions would change its reduction order;
+  in-page positions), and so do an encdec's cross K/V rows ``ck``/``cv``
+  (the reference: the encoder's positions), so attention stays on the
+  rank: a softmax split over positions would change its reduction order;
 * in serving, weights are held whole across the data axis, and the
   table, ``len`` and page stores whole on every data rank; each data
   rank steps only its slots (``serve/engine.py``).
@@ -145,19 +153,22 @@ def _named(tree, prefix=""):
 
 
 # ---------------------------------------------------------------------------
-# The decoder's runtime layout on the model axis
+# The runtime layout on the model axis (the decoder, the vlm, the encdec)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class DecoderLayout:
-    """How the decoder's tensors sit on a model axis of ``model`` ranks.
+    """How the decoder's tensors sit on a model axis of ``model`` ranks
+    (a vlm's backbone; an encdec's encoder and decoder stacks alike, its
+    cross attention's ``cq``/``ck``/``cv``/``co`` as ``wq``/``wk``/``wv``/``wo``).
     ``heads``: q heads split (``heads_local`` a rank); ``kv``: 'split'
     (K/V heads split with them), 'select' (wk/wv computed whole, each
     rank keeps the ``kv_local`` heads its q heads read) or 'whole'; ``wo``
     / ``mlp_wo``: 'fold' (row-parallel, K1's fold continued across ranks),
     'gather' (the input all-gathered, the product whole) or 'whole';
     ``ffn``: the MLP's (a MoE layer's shared expert's) hidden width split;
-    ``vocab``: the embedding rows and the head's columns split;
+    ``vocab``: the embedding rows and the head's columns split (never
+    for a tied embedding);
     ``experts`` (a MoE decoder): 'EP' (``experts_local`` whole experts a
     rank), 'TP' (gate and up split over ``ffn``, the down projection over
     the gathered hidden state), 'whole', or None for a dense decoder."""
@@ -186,8 +197,9 @@ class DecoderLayout:
 
 
 def decoder_layout(cfg, model: int) -> DecoderLayout:
-    """The port's layout of the decoder ``cfg`` on ``model`` ranks (see
-    the module docstring): whole heads, whole 128-chunks, and the experts
+    """The port's layout of ``cfg`` (a ``PLAN_FAMILIES`` config) on
+    ``model`` ranks (see the module docstring): whole heads, whole
+    128-chunks, a tied embedding whole, and the experts
     as the reference's rules place them (EP when the expert count divides
     ``model``, else TP when ``d_ff`` does)."""
     nh, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -214,7 +226,7 @@ def decoder_layout(cfg, model: int) -> DecoderLayout:
         mlp_wo = "fold" if ffl % CANONICAL_BK == 0 else "gather"
     else:
         mlp_wo = "whole"
-    vocab = model > 1 and cfg.vocab_padded % model == 0 and not cfg.tie_embeddings
+    vocab = model > 1 and cfg.vocab_padded % model == 0 and not tied_embedding(cfg)
     experts, el = None, 0
     if cfg.moe is not None:
         e = cfg.moe.num_experts
@@ -224,59 +236,106 @@ def decoder_layout(cfg, model: int) -> DecoderLayout:
                          experts, el)
 
 
-def is_decoder(cfg) -> bool:
-    """The family the port runs on a sharded plan: the decoder, dense or MoE."""
-    return cfg.family == "decoder"
+#: the families the port runs on a sharded plan; ssm and hybrid need
+#: layouts of their own (ROADMAP Queue 1)
+PLAN_FAMILIES = ("decoder", "vlm", "encdec")
+
+
+def runs_on_plan(cfg) -> bool:
+    """Whether the port runs ``cfg``'s family on a sharded plan."""
+    return cfg.family in PLAN_FAMILIES
+
+
+def tied_embedding(cfg) -> bool:
+    """The LM head is the token embedding (an encdec's always is)."""
+    return cfg.tie_embeddings or cfg.family == "encdec"
+
+
+def family_refusal(cfg, what: str) -> str:
+    """Why ``what`` refuses ``cfg``'s family on a sharded plan."""
+    return (f"{what} runs the decoder (dense or MoE), the vlm and the encdec on a sharded "
+            f"plan; family {cfg.family!r} on a plan is not ported yet (ROADMAP Queue 1)")
+
+
+#: the layer stacks of a parameter tree: the decoder's and the vlm's; an
+#: encdec's encoder and decoder
+_STACKS = ("layers", "enc_layers", "dec_layers")
 
 
 def _decoder_param_layout(lay: DecoderLayout, path: str) -> Optional[int]:
-    """The runtime's model-axis split of one decoder param leaf: the dim
-    it splits over ``model`` (None: whole on each rank)."""
+    """The runtime's model-axis split of one param leaf of the decoder,
+    the vlm or the encdec (whose ``enc_layers``/``dec_layers`` stacks
+    follow the decoder's rules leaf for leaf): the dim it splits over
+    ``model`` (None: whole on each rank)."""
     ffn_in = (2, lay.ffn)
+    heads, kv = (2, lay.heads), (2, lay.kv == "split")
+    wo, mlp_wo = (1, lay.wo == "fold"), (1, lay.mlp_wo == "fold")
     expert_in = (1, True) if lay.experts == "EP" else (3, lay.experts == "TP")
-    dim, split = {
+    rules = {
         "embed": (0, lay.vocab),
         "lm_head/w": (1, lay.vocab),
-        "layers/wq/w": (2, lay.heads),
-        "layers/wk/w": (2, lay.kv == "split"),
-        "layers/wv/w": (2, lay.kv == "split"),
-        "layers/wo/w": (1, lay.wo == "fold"),
+        "layers/wq/w": heads,
+        "layers/wk/w": kv,
+        "layers/wv/w": kv,
+        "layers/wo/w": wo,
         "layers/mlp/wi_gate/w": ffn_in,
         "layers/mlp/wi_up/w": ffn_in,
         "layers/mlp/wi/w": ffn_in,
-        "layers/mlp/wo/w": (1, lay.mlp_wo == "fold"),
+        "layers/mlp/wo/w": mlp_wo,
         "layers/moe/gate/w": expert_in,
         "layers/moe/up/w": expert_in,
         "layers/moe/down/w": (1, lay.experts == "EP"),
         "layers/moe/shared/wi_gate/w": ffn_in,
         "layers/moe/shared/wi_up/w": ffn_in,
         "layers/moe/shared/wi/w": ffn_in,
-        "layers/moe/shared/wo/w": (1, lay.mlp_wo == "fold"),
-    }.get(path, (None, False))
+        "layers/moe/shared/wo/w": mlp_wo,
+    }
+    stack, _, leaf = path.partition("/")
+    if stack in _STACKS[1:]:
+        rules = {"wq/w": heads, "wk/w": kv, "wv/w": kv, "wo/w": wo, "cq/w": heads,
+                 "ck/w": kv, "cv/w": kv, "co/w": wo, "wi/w": ffn_in, "wo2/w": mlp_wo}
+        path = leaf
+    dim, split = rules.get(path, (None, False))
     return dim if split else None
 
 
 _DOWN = ("contraction split only at whole 128-chunks: the MLP hidden state is "
          "all-gathered and the down projection computed whole")
+_Q = "q heads split only at whole heads: n_heads % model != 0"
+_KV = ("K/V heads split only at whole heads with the q heads: computed whole, each rank "
+       "keeps the K/V heads its q heads read")
+_WO = ("contraction split only at whole 128-chunks: the attention output is all-gathered "
+       "and the output projection computed whole")
+# keyed by a leaf's module within its layer stack (an encdec's cross
+# attention's cq/ck/cv/co as wq/wk/wv/wo)
 _WHY = {
-    "layers/wq": "q heads split only at whole heads: n_heads % model != 0",
-    "layers/wk": "K/V heads split only at whole heads with the q heads: computed whole, "
-                 "each rank keeps the K/V heads its q heads read",
-    "layers/wv": "K/V heads split only at whole heads with the q heads: computed whole, "
-                 "each rank keeps the K/V heads its q heads read",
-    "layers/wo": "contraction split only at whole 128-chunks: the attention output is "
-                 "all-gathered and wo computed whole",
-    "layers/mlp/wo": _DOWN,
-    "layers/moe/shared/wo": _DOWN,
-    "layers/moe/down": "TP inside each expert: K1's expert batch has no start to continue "
-                       "a fold, so the experts' hidden state is all-gathered and the down "
-                       "projection computed whole",
+    "embed": "the tied embedding stays whole: the head quantizes the whole table per "
+             "tensor at every call (transformer.tied_head)",
+    "wq": _Q, "cq": _Q, "wk": _KV, "wv": _KV, "ck": _KV, "cv": _KV, "wo": _WO, "co": _WO,
+    "mlp/wo": _DOWN, "moe/shared/wo": _DOWN, "wo2": _DOWN,
+    "moe/down": "TP inside each expert: K1's expert batch has no start to continue a fold, "
+                "so the experts' hidden state is all-gathered and the down projection "
+                "computed whole",
 }
+_CACHE_HEADS = {
+    "k": "K/V heads on model (the reference: in-page positions), so attention stays on "
+         "the rank",
+    "ck": "cross K/V heads on model (the reference: the encoder's positions), so cross "
+          "attention stays on the rank",
+}
+_CACHE_HEADS["v"], _CACHE_HEADS["cv"] = _CACHE_HEADS["k"], _CACHE_HEADS["ck"]
+
+
+def _why(path: str) -> str:
+    """The reason a param leaf the rules split over ``model`` runs whole."""
+    mod = path[:-2] if path.endswith("/w") else path
+    stack, _, leaf = mod.partition("/")
+    return _WHY.get(leaf if stack in _STACKS else mod, "computed whole on each rank")
 
 
 def _overrides(cfg, mesh, params, cache, pool: bool) -> Dict[Tuple[str, str], Override]:
-    """The runtime's departures from the reference's specs (the decoder)."""
-    if not is_decoder(cfg):
+    """The runtime's departures from the reference's specs."""
+    if not runs_on_plan(cfg):
         return {}
     shape = meshes.shape_dict(mesh)
     ma = shd.model_axis(mesh)
@@ -294,8 +353,7 @@ def _overrides(cfg, mesh, params, cache, pool: bool) -> Dict[Tuple[str, str], Ov
             for i, e in enumerate(entries):
                 if ma in _entry_axes(e) and i != split:
                     want[i] = None
-                    reasons.append(_WHY.get("/".join(path.split("/")[:-1]),
-                                            "computed whole on each rank"))
+                    reasons.append(_why(path))
             if split is not None and ma not in _entry_axes(entries[split]):
                 raise ShardingPlanError(f"param {path}: the runtime splits dim {split} "
                                         f"over model, the rules do not")
@@ -315,12 +373,11 @@ def _overrides(cfg, mesh, params, cache, pool: bool) -> Dict[Tuple[str, str], Ov
             if pool and dsz > 1 and any(any(a in fa for a in _entry_axes(e)) for e in entries):
                 want = [None if any(a in fa for a in _entry_axes(e)) else e for e in want]
                 reasons.append("whole on every data rank; each data rank steps its own slots")
-            if m > 1 and key in ("k", "v"):
+            if m > 1 and key in _CACHE_HEADS:
                 want = [None if e == ma else e for e in want]
                 want += [None] * (4 - len(want))
                 want[3] = ma
-                reasons.append("K/V heads on model (the reference: in-page positions), "
-                               "so attention stays on the rank")
+                reasons.append(_CACHE_HEADS[key])
             while want and want[-1] is None:
                 want.pop()
             if want != entries:
@@ -383,17 +440,18 @@ class ShardingPlan:
         raise KeyError(path)
 
     def layout(self) -> DecoderLayout:
-        """The runtime's model-axis layout (decoder plans only)."""
-        if self.cfg is None or not is_decoder(self.cfg):
-            raise ShardingPlanError(
-                "the port runs only the decoder (dense or MoE) on a sharded plan; the "
-                "other families on a plan are ROADMAP Queue 1 work")
+        """The runtime's model-axis layout (``PLAN_FAMILIES`` only)."""
+        if self.cfg is None:
+            raise ShardingPlanError("a plan without a config has no runtime layout")
+        if not runs_on_plan(self.cfg):
+            raise ShardingPlanError(family_refusal(self.cfg, "ShardingPlan.layout"))
         return decoder_layout(self.cfg, self.model_shards)
 
     def local_config(self):
-        """The decoder's config as one model rank runs it: its q heads and
-        the K/V heads it keeps (the whole config at model 1; a MoE
-        decoder keeps its global expert count, which routing reads)."""
+        """The config as one model rank runs it: its q heads and the K/V
+        heads it keeps, in an encdec's encoder and cross attention too
+        (the whole config at model 1; a MoE decoder keeps its global
+        expert count, which routing reads)."""
         if self.model_shards == 1:
             return self.cfg
         lay = self.layout()
@@ -417,21 +475,30 @@ class ShardingPlan:
                 return i
         return None
 
+    def shard_slice(self, path: str) -> Optional[Tuple[int, int, int]]:
+        """``(dim, start, length)`` of this model rank's shard of param leaf
+        ``path`` along the dim the runtime splits (None: whole)."""
+        dim = self.model_split_dim(path)
+        if dim is None:
+            return None
+        n = self.param_shape(path)[dim] // self.model_shards
+        return dim, self.mesh.coord("model") * n, n
+
     def shard_leaf(self, path: str, x: torch.Tensor) -> torch.Tensor:
         """This model rank's shard of param leaf ``path`` (a contiguous
         copy), given whole; a leaf the runtime keeps whole, or one that
         already has the shard's shape, is returned as it is."""
-        dim = self.model_split_dim(path)
-        if dim is None:
+        cut = self.shard_slice(path)
+        if cut is None:
             return x
-        m, r = self.model_shards, self.mesh.coord("model")
+        dim, start, n = cut
+        if x.shape[dim] == n:
+            return x
         whole = self.param_shape(path)[dim]
-        if x.shape[dim] == whole // m:
-            return x
         if x.shape[dim] != whole:
             raise ShardingPlanError(f"param {path}: dim {dim} is {x.shape[dim]}, neither "
-                                    f"whole ({whole}) nor a shard ({whole // m})")
-        return x.narrow(dim, r * (whole // m), whole // m).contiguous()
+                                    f"whole ({whole}) nor a shard ({n})")
+        return x.narrow(dim, start, n).contiguous()
 
     def shard_params(self, params):
         """:meth:`shard_leaf` over a whole parameter tree."""

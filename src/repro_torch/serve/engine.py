@@ -79,22 +79,27 @@ solo prefill's mini cache; under ``kv_quant`` the pages hold codes and
 betas and the mini cache keeps ``cache_dtype``.
 
 Sharded serving (``plan=``, a pool plan of ``parallel/planner.py`` on a
-concrete mesh; the decoder, dense or MoE, other families on a plan are
-refused with a pointer to ROADMAP).  Every rank runs the same host
-scheduler, allocator and counters.
+concrete mesh; the decoder, dense or MoE, the vlm and the encdec
+(``planner.PLAN_FAMILIES``); ssm and hybrid on a plan are refused with a
+pointer to ROADMAP).  Every rank runs the same host scheduler, allocator
+and counters.
 
-* Model axis: weights are prequantized whole, then each rank keeps its
-  shard (``plan.shard_params``; a MoE layer's experts as the plan's EP or
-  TP decision says) and steps with the plan's local config; the step
-  bodies' collectives (``models/transformer.py``) give every model rank
-  the whole logits.
+* Model axis: each rank keeps its shard of the weights, quantized whole
+  a matrix at a time (``quantized_weights.quantize_leaf(..., plan)``;
+  given prequantized, ``plan.shard_params``; a MoE layer's experts as the
+  plan's EP or TP decision says) and steps with the plan's local
+  config; the step bodies' collectives (``models/transformer.py``,
+  ``models/encdec.py``) give every model rank the whole logits.  An encdec slot's ``ck``/``cv``
+  rows hold this rank's K/V heads, made by its own encoder-side pass.
 * Data axis: the slots split evenly over the data ranks, in order; each
   data rank steps only its slots' rows of the pool (the table, ``len``
   and page stores are whole on every rank; a page is written and read
   only by the rank that owns its slot).  The sampled tokens of each step
   are all-gathered in rank order, so every rank takes the same
-  decisions, and a solo prefill runs on the owner's ranks and broadcasts
-  its first token.  When a finished prompt publishes its full pages to
+  decisions, and a solo prefill (a vlm's patch request included) and an
+  encdec's encoder-side admission run on the owner's ranks alone, which
+  write the slot's pages and ``ck``/``cv`` rows; a solo prefill
+  broadcasts its first token.  When a finished prompt publishes its full pages to
   the prefix cache, the owner broadcasts their contents to the other
   data ranks, so any slot may map them: every token and every counter
   equals one rank's.
@@ -340,21 +345,23 @@ class PoolEngine:
             raise ValueError(
                 f"params lie on {params['embed'].device}, engine runs on "
                 f"{self.device}")
-        if prequantize and policy.enabled and not policy.weights_prequantized:
-            params = qw.quantize_for_serving(cfg, policy, params)
-            policy = dataclasses.replace(policy, weights_prequantized=True)
-        # per-slot activation scale groups: batch-invariant decode (at
-        # batch 1 identical to the per-tensor groups)
-        policy = dataclasses.replace(policy, per_sample_act_scales=True)
         self.plan = plan
         self.step_cfg = cfg
         self.sharded = False
         self.data_rank, self.data_size = 0, 1
         if plan is not None:
             self._check_plan(plan, cfg, policy, max_slots, kv_quant, spec)
-            if self.sharded:
-                params = plan.shard_params(params)
-                self.step_cfg = plan.local_config()
+        if prequantize and policy.enabled and not policy.weights_prequantized:
+            # on a plan each leaf is quantized whole and this rank's shard kept
+            params = qw.quantize_for_serving(cfg, policy, params,
+                                             plan if self.sharded else None)
+            policy = dataclasses.replace(policy, weights_prequantized=True)
+        if self.sharded:
+            params = plan.shard_params(params)
+            self.step_cfg = plan.local_config()
+        # per-slot activation scale groups: batch-invariant decode (at
+        # batch 1 identical to the per-tensor groups)
+        policy = dataclasses.replace(policy, per_sample_act_scales=True)
         self.cfg = cfg
         self.policy = policy
         self.params = params
@@ -395,10 +402,10 @@ class PoolEngine:
                 "planner.plan_for(..., kv_quant=...)")
         if not getattr(plan.mesh, "is_concrete", False) or plan.mesh.size == 1:
             return
+        if not planner_lib.runs_on_plan(cfg):
+            raise NotImplementedError(planner_lib.family_refusal(cfg, "PoolEngine"))
         refuse = None
-        if not planner_lib.is_decoder(cfg):
-            refuse = f"family {cfg.family!r}"
-        elif spec is not None:
+        if spec is not None:
             refuse = "speculative decoding"
         elif plan.model_shards > 1 and kv_quant is not None:
             refuse = "quantized K/V pages on a model axis (a token's scale spans its heads)"
@@ -406,8 +413,8 @@ class PoolEngine:
             refuse = "a model axis under an unquantized policy or quantize_attention"
         if refuse is not None:
             raise NotImplementedError(
-                f"PoolEngine on a sharded plan runs the decoder (dense or MoE) only; "
-                f"{refuse} on a plan is not ported yet (ROADMAP Queue 1)")
+                f"PoolEngine on a sharded plan: {refuse} on a plan is not ported yet "
+                "(ROADMAP Queue 1)")
         self.data_rank, self.data_size = actshard.data_rank_and_size(plan)
         if max_slots % self.data_size:
             raise ValueError(f"max_slots={max_slots} must split evenly over the "
@@ -439,6 +446,9 @@ class PoolEngine:
             return torch.argmax(logits, dim=-1)
         lo, hi = self._local_rows()
         sub = dict(cache, table=cache["table"][lo:hi], len=cache["len"][lo:hi])
+        for key in slots_lib.CROSS_KEYS:
+            if key in cache:  # an encdec's cross K/V rows: (L, slots, ...)
+                sub[key] = cache[key][:, lo:hi]
         if n_new is None:
             logits, sub = registry.decode_step(self.step_cfg, self.policy, self.params,
                                                to_device(tokens[lo:hi], dev), sub)
@@ -527,9 +537,13 @@ class PoolEngine:
     def _admit_encoder(self, cache, slot: int, req: Request) -> None:
         """Chunked encdec admission: the encoder pass over the request's
         frames and the decoder layers' cross K/V, written into the slot
-        (one weight pass); the prompt then streams in by chunk steps."""
+        (one weight pass); the prompt then streams in by chunk steps.
+        Over a data axis only the slot's owner runs it (its model ranks
+        together, each making its own K/V heads)."""
+        if self.data_size > 1 and self._owner(slot) != self.data_rank:
+            return
         frames = to_device(np.asarray(req.extras["frames"]), self.device, torch.float32)
-        cks, cvs = registry.encode_cross_kv(self.cfg, self.policy, self.params, frames)
+        cks, cvs = registry.encode_cross_kv(self.step_cfg, self.policy, self.params, frames)
         slots_lib.write_cross(cache, cks, cvs, slot)
 
     @staticmethod

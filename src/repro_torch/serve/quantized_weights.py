@@ -17,6 +17,8 @@ the bf16 PoT values back.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from repro_torch.core import compress, mfmac
@@ -31,23 +33,43 @@ def is_linear_weight(name: str, x: torch.Tensor) -> bool:
     return name.split("/")[-1] == "w" and x.dim() >= 2
 
 
-def quantize_leaf(name: str, x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
-    """Serving form of one parameter leaf (identity for non-linear leaves)."""
+def quantize_leaf(name: str, x: torch.Tensor, policy: QuantPolicy, plan=None) -> torch.Tensor:
+    """Serving form of one parameter leaf (identity for non-linear leaves).
+    With ``plan`` (a sharded plan of ``parallel/planner.py``), this model
+    rank's shard of it (``plan.shard_slice``), quantized a matrix at a time
+    from the whole leaf: along a stacked dim only this rank's matrices,
+    inside the matrices each whole matrix and this rank's slice of it kept,
+    so the leaf's whole quantized copy is never held."""
+    cut = None if plan is None else plan.shard_slice(name)
     if not is_linear_weight(name, x):
-        return x
+        return x if cut is None else plan.shard_leaf(name, x)
+    shape, lead, inner = list(x.shape), [0] * (x.dim() - 2), None
+    if cut is not None:
+        dim, start, n = cut
+        if x.shape[dim] == plan.param_shape(name)[dim]:
+            shape[dim] = n
+            if dim < x.dim() - 2:
+                lead[dim] = start
+            else:
+                inner = (dim - x.dim() + 2, start, n)
+        elif dim >= x.dim() - 2 or x.shape[dim] != n:
+            raise ValueError(f"{name}: a leaf split inside its matrices is quantized whole "
+                             f"(its WBC mean and scale), got dim {dim} of {x.shape[dim]}")
     # one matrix at a time: the same per-matrix groups as quantizing the
     # stack with trailing-axes reductions, at a fraction of the temporaries
-    flat = x.reshape(-1, *x.shape[-2:])
-    out = torch.empty(flat.shape, dtype=torch.bfloat16, device=x.device)
-    for i in range(flat.shape[0]):
-        out[i] = mfmac._quantize_w(flat[i], policy)
-    return out.reshape(x.shape)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    for idx in itertools.product(*(range(s) for s in shape[:-2])):
+        w = mfmac._quantize_w(x[tuple(i + o for i, o in zip(idx, lead))], policy)
+        out[idx] = w if inner is None else w.narrow(*inner)
+        del w
+    return out
 
 
-def quantize_for_serving(cfg, policy: QuantPolicy, params):
-    """PoT-quantize every linear weight and store it at bf16 (exact).
+def quantize_for_serving(cfg, policy: QuantPolicy, params, plan=None):
+    """PoT-quantize every linear weight and store it at bf16 (exact); with
+    ``plan``, each leaf's model-rank shard (:func:`quantize_leaf`).
     Returns a new tree; ``params`` is left as it is."""
-    return unflatten((name, quantize_leaf(name, x, policy))
+    return unflatten((name, quantize_leaf(name, x, policy, plan))
                      for name, x in named_leaves(params))
 
 

@@ -35,7 +35,11 @@ An encdec pool also carries each slot's cross-attention K/V, ``ck``/``cv``
 (L, max_slots, enc_seq, KV, hd): slot-rowed, never paged, never
 quantized and never shared.  They are written once per admission
 (:func:`write_slot`, or the engine's encoder-side pass) and a
-speculative rollback never touches them.
+speculative rollback never touches them.  On a sharded plan the pool is
+built from the plan's local config, so on a model axis KV is this rank's
+K/V heads; over a data axis only the data rank that owns a slot writes
+its rows (``serve/engine.py``), and a pooled step reads them through the
+rank's slice of the slot axis.
 
 Slot-row layout (``lift_cache``): every leaf of ``init_cache(cfg,
 max_slots, max_len)`` keeps its batch axis as the slot axis, ``len``

@@ -23,7 +23,7 @@ Data-parallel (``make_train_step(..., plan=)``, a training plan on a
 concrete (data, 1) mesh; :class:`DataParallel`).  Masters and optimizer
 state are held split as the plan's ``embed``-over-data rule says (each
 rank 1/D of every leaf whose dim divides; the rest whole), and the batch
-rows split over the data ranks in order (``actshard.shard_tokens``).
+rows split over the data ranks in order (``actshard.shard_batch``).
 Each step all-gathers the f32 masters before ``_quantize_shadow``, so
 WBC's mean and every weight scale are one rank's; runs the forward and
 backward on its rows with global maxima (``core/mfmac.py``) and the loss
@@ -35,8 +35,12 @@ agrees with one rank's to rounding.  The decoder, dense or MoE: a MoE
 layer's dispatch groups are the global batch's (``transformer._moe_apply``
 sizes them from the global token count and refuses a batch whose groups
 would straddle two ranks) and its experts' scales are global maxima
-(``core/mfmac.py``).  Other families, a model axis > 1 and
-microbatching are refused (tensor-parallel training is later work).
+(``core/mfmac.py``).  The vlm and the encdec train the same way: a
+batch's ``patch_embeds`` / ``frames`` rows split with its tokens
+(``actshard.shard_batch``), so ``patch_proj``'s and ``frame_proj``'s
+activation scales, like every other per-tensor one, are the global
+batch's.  ssm and hybrid, a model axis > 1 and microbatching are refused
+(tensor-parallel training is later work).
 """
 from __future__ import annotations
 
@@ -126,12 +130,10 @@ class DataParallel:
     shard / gather / gradient reduction of whole trees."""
 
     def __init__(self, plan):
-        from repro_torch.parallel.planner import is_decoder
+        from repro_torch.parallel.planner import family_refusal, runs_on_plan
 
-        if not is_decoder(plan.cfg):
-            raise NotImplementedError(
-                f"data-parallel training runs the decoder (dense or MoE) only; "
-                f"{plan.cfg.family!r} on a plan is not ported yet (ROADMAP)")
+        if not runs_on_plan(plan.cfg):
+            raise NotImplementedError(family_refusal(plan.cfg, "data-parallel training"))
         if plan.model_shards > 1:
             raise NotImplementedError(
                 "training on a model axis > 1 (tensor-parallel K2/K3) is not ported yet "
@@ -204,15 +206,12 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
                 params = dp.gather(params)
             return _quantize_shadow(params, policy) if use_shadow else params
 
-    def local(batch):
-        return {k: actshard.shard_tokens(v) for k, v in batch.items()}
-
     def grads_of(params, batch):
         """Mean loss and gradients over the microbatches (the data-parallel
         step: this rank's share of the loss, its rows' partial gradients
         of the whole tree)."""
         inputs = inputs_of(params)
-        batch = local(batch)
+        batch = actshard.shard_batch(batch)
         m = tc.microbatches
         if m == 1:
             return loss_and_grads(cfg, loss_policy, inputs, batch)
@@ -255,12 +254,8 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
         from repro_torch.models import transformer
 
         with actshard.use_plan(run_plan), torch.no_grad():
-            inputs = inputs_of(params)
-            b = local(batch)
-            logits = transformer.forward(cfg, loss_policy, inputs, b["tokens"],
-                                         patch_embeds=b.get("patch_embeds"))
-            if "patch_embeds" in b:
-                logits = logits[:, b["patch_embeds"].shape[1]:]
+            b = actshard.shard_batch(batch)
+            logits = registry.forward(cfg, loss_policy, inputs_of(params), b)
             return transformer.token_losses(cfg, logits, b["labels"])
 
     train_step.grads = grads_planned

@@ -220,24 +220,29 @@ def _rank_cases(rank, weights):
 
 
 def _refused():
-    """The message of a sharded ``PoolEngine`` built for a family the port
-    does not run on a plan (the ssm), on a concrete (2, 1) mesh."""
+    """The message (or None) of a sharded ``PoolEngine`` built for each
+    family the port does not run on a plan (the ssm, the hybrid), on a
+    concrete (2, 1) mesh."""
     from repro_torch import configs as TC
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.models import registry, spec
     from repro_torch.parallel import meshes, planner
     from repro_torch.serve import PoolEngine
 
-    cfg = TC.smoke_config("mamba2-2.7b")
-    params = spec.materialize(registry.param_specs(cfg), torch.Generator().manual_seed(0))
-    plan = planner.plan_for(cfg, meshes.make_mesh((2, 1), ("data", "model")),
-                            TC.ShapeConfig("s", MAX_LEN, SLOTS, "decode"), pool_slots=SLOTS)
-    try:
-        PoolEngine(cfg, PAPER_FAITHFUL, params, max_slots=SLOTS, max_len=MAX_LEN, plan=plan,
-                   device="cpu")
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    out = {}
+    for arch in ("mamba2-2.7b", "recurrentgemma-2b"):
+        cfg = TC.smoke_config(arch)
+        params = spec.materialize(registry.param_specs(cfg), torch.Generator().manual_seed(0))
+        plan = planner.plan_for(cfg, meshes.make_mesh((2, 1), ("data", "model")),
+                                TC.ShapeConfig("s", MAX_LEN, SLOTS, "decode"),
+                                pool_slots=SLOTS)
+        try:
+            PoolEngine(cfg, PAPER_FAITHFUL, params, max_slots=SLOTS, max_len=MAX_LEN,
+                       plan=plan, device="cpu")
+            out[cfg.family] = None
+        except NotImplementedError as e:
+            out[cfg.family] = str(e)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +426,9 @@ def test_smoke_driver_moe_equals_reference(world, mesh):
 
 
 def test_other_families_stay_refused_on_a_plan(world):
+    """ssm and hybrid stay refused on a plan (the decoder, the vlm and the
+    encdec run there), with a pointer to ROADMAP."""
     for res in world:
-        assert res["refused"] is not None
-        assert "'ssm'" in res["refused"] and "ROADMAP" in res["refused"]
+        assert set(res["refused"]) == {"ssm", "hybrid"}
+        for family, msg in res["refused"].items():
+            assert msg is not None and f"'{family}'" in msg and "ROADMAP" in msg

@@ -8,13 +8,15 @@ EP/TP decisions, ``num_pages``' rounding, ``data_shards`` and
 ``model_shards``.  The same misconfigurations raise
 ``ShardingPlanError`` in both packages.
 
-The port's runtime departs from the reference's specs in two listed ways
-only (``plan.overrides``, the decoder, dense or MoE): whole heads / whole
-128-chunks (a product that would split elsewhere is computed whole on
-each rank; under TP inside the experts, the experts' down projection)
-and the K/V stores' heads on ``model`` (the reference puts in-page
-positions there); and, in serving, weights, tables and page stores whole
-on every data rank.  The tests pin these as the only differences, with
+The port's runtime departs from the reference's specs in listed ways
+only (``plan.overrides``; the decoder, dense or MoE, the vlm and the
+encdec): whole heads / whole 128-chunks (a product that would split
+elsewhere is computed whole on each rank; under TP inside the experts,
+the experts' down projection), an encdec's tied embedding whole, and the
+K/V stores' heads on ``model`` (the reference puts in-page positions
+there; for an encdec's cross K/V ``ck``/``cv``, the encoder's positions);
+and, in serving, weights, tables and page stores whole on every data
+rank.  The tests pin these as the only differences, with
 an independent statement of each rule."""
 import re
 
@@ -111,28 +113,39 @@ def _expected_overrides(cfg, plan, pool: bool):
     shape = plan.mesh_shape()
     m = shape.get("model", 1)
     dsz = plan.data_shards
-    if cfg.family != "decoder":
+    if cfg.family not in ("decoder", "vlm", "encdec"):
         return set()
     nh, kv, hd, ff = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
-    # the MLP's leaves; a MoE layer's shared expert follows the MLP's rule
-    mlp = "layers/mlp" if cfg.moe is None else "layers/moe/shared"
+    encdec = cfg.family == "encdec"
+    # an encdec's two stacks follow the decoder's rules, its cross
+    # attention's cq/ck/cv/co as wq/wk/wv/wo; a MoE layer's shared expert
+    # follows the MLP's rule
+    stacks = ["enc_layers", "dec_layers"] if encdec else ["layers"]
+    mlp_wo = "wo2" if encdec else "mlp/wo" if cfg.moe is None else "moe/shared/wo"
     whole_heads = nh % m == 0 and (kv % m == 0 or (nh // kv) % (nh // m) == 0
                                    or (nh // m) % (nh // kv) == 0)
     out = set()
     if m > 1:
-        if not whole_heads and (nh * hd) % m == 0:
-            out.add(("param", "layers/wq/w"))
-        if not (whole_heads and kv % m == 0) and (kv * hd) % m == 0:
-            out |= {("param", "layers/wk/w"), ("param", "layers/wv/w")}
-        if (nh * hd) % m == 0 and not (whole_heads and (nh // m * hd) % 128 == 0):
-            out.add(("param", "layers/wo/w"))
-        if ff % m == 0 and (ff // m) % 128 and (cfg.moe is None or cfg.moe.shared_expert):
-            out.add(("param", f"{mlp}/wo/w"))
+        for st in stacks:
+            cross = st == "dec_layers"
+            if not whole_heads and (nh * hd) % m == 0:
+                out |= {("param", f"{st}/{q}/w") for q in ("wq", "cq")[:1 + cross]}
+            if not (whole_heads and kv % m == 0) and (kv * hd) % m == 0:
+                out |= {("param", f"{st}/{w}/w")
+                        for w in ("wk", "wv", "ck", "cv")[:2 + 2 * cross]}
+            if (nh * hd) % m == 0 and not (whole_heads and (nh // m * hd) % 128 == 0):
+                out |= {("param", f"{st}/{o}/w") for o in ("wo", "co")[:1 + cross]}
+            if ff % m == 0 and (ff // m) % 128 and (cfg.moe is None or cfg.moe.shared_expert):
+                out.add(("param", f"{st}/{mlp_wo}/w"))
         if cfg.moe is not None and cfg.moe.num_experts % m and ff % m == 0:
             # TP inside the experts: the down projection runs whole
             out.add(("param", "layers/moe/down/w"))
+        if encdec and cfg.vocab_padded % m == 0:
+            out.add(("param", "embed"))  # the tied embedding stays whole
         if plan.cache is not None:
             out |= {("cache", "k"), ("cache", "v")}
+            if encdec:
+                out |= {("cache", "ck"), ("cache", "cv")}
     if pool and dsz > 1:
         out |= {("param", r.path) for r in plan.report
                 if r.kind == "param" and any(a in ("pod", "data") for d in r.dims
@@ -146,7 +159,7 @@ def _expected_overrides(cfg, plan, pool: bool):
 @pytest.mark.parametrize("mesh_id", list(MESHES))
 @pytest.mark.parametrize("arch", ["llama3-8b", "olmo-1b", "mistral-nemo-12b",
                                   "starcoder2-7b", "llama4-scout-17b-a16e", "grok-1-314b",
-                                  "mamba2-2.7b"])
+                                  "mamba2-2.7b", "internvl2-76b", "whisper-large-v3"])
 @pytest.mark.parametrize("cell", ["train", "pool"])
 def test_runtime_overrides_are_the_listed_ones(arch, mesh_id, cell):
     shape, kw = CELLS[cell]
@@ -154,8 +167,11 @@ def test_runtime_overrides_are_the_listed_ones(arch, mesh_id, cell):
     assert set(tp.overrides) == _expected_overrides(cfg, tp, "pool_slots" in kw)
     for (kind, path), ov in tp.overrides.items():
         assert ov.reason, (kind, path)
-        if kind == "cache" and path in ("k", "v") and tp.model_shards > 1:
+        if kind == "cache" and path in ("k", "v", "ck", "cv") and tp.model_shards > 1:
             assert len(ov.spec) == 4 and ov.spec[3] == "model"  # heads on model
+        if (kind, path) == ("param", "embed") and cfg.family == "encdec" and (
+                tp.model_shards > 1):
+            assert "tied" in ov.reason
     assert "[runtime]" in tp.summary() or not tp.overrides
 
 
@@ -238,3 +254,62 @@ def test_meshes_and_launch_reexport():
     assert launch_mesh.parse_mesh("2x1") == (2, 1)
     with pytest.raises(ValueError):
         launch_mesh.parse_mesh("2")
+
+
+# smoke configs at model = 2, each with leaves split inside their matrices
+# (heads, ffn, folded contractions), grok-1's experts along their stacked
+# dim (EP)
+QUANT_CONFIGS = {"llama3-8b": {}, "grok-1-314b": {},
+                 "internvl2-76b": dict(head_dim=64, d_ff=512, kv_heads=2),
+                 "whisper-large-v3": dict(head_dim=64, d_ff=512)}
+
+
+def _rank_plan(arch, model_rank):
+    import dataclasses
+
+    cfg = dataclasses.replace(TC.smoke_config(arch), **QUANT_CONFIGS[arch])
+    mesh = meshes.Mesh((1, 2), ("data", "model"), coords=(0, model_rank))
+    return cfg, planner.plan_for(cfg, mesh, TC.ShapeConfig("s", 24, 2, "decode"), pool_slots=2)
+
+
+@pytest.mark.parametrize("model_rank", [0, 1])
+@pytest.mark.parametrize("arch", list(QUANT_CONFIGS))
+def test_quantized_shard_is_the_shard_of_the_whole_quantized_leaf(arch, model_rank):
+    """``quantize_leaf(..., plan)`` (a sharded engine's load) gives, leaf
+    by leaf, this model rank's shard of the whole leaf's serving form
+    bit for bit, without holding that whole form."""
+    import torch
+
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.models import registry, spec
+    from repro_torch.serve import quantized_weights as qw
+
+    cfg, plan = _rank_plan(arch, model_rank)
+    params = spec.materialize(registry.param_specs(cfg), torch.Generator().manual_seed(0))
+    cuts = {"inside": 0, "stacked": 0}
+    for name, x in spec.named_leaves(params):
+        got = qw.quantize_leaf(name, x, PAPER_FAITHFUL, plan)
+        want = plan.shard_leaf(name, qw.quantize_leaf(name, x, PAPER_FAITHFUL))
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+        cut = plan.shard_slice(name)
+        if cut is not None and qw.is_linear_weight(name, x):
+            cuts["inside" if cut[0] >= x.dim() - 2 else "stacked"] += 1
+    assert cuts["inside"] > 0
+    assert (cuts["stacked"] > 0) == (plan.layout().experts == "EP")
+
+
+def test_quantized_shard_needs_the_whole_leaf():
+    """A leaf split inside its matrices takes its WBC mean and scale from
+    the whole matrix: given a shard, ``quantize_leaf(..., plan)`` raises."""
+    import torch
+
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.models import registry, spec
+    from repro_torch.serve import quantized_weights as qw
+
+    cfg, plan = _rank_plan("llama3-8b", 1)
+    x = dict(spec.named_leaves(spec.materialize(registry.param_specs(cfg),
+                                                torch.Generator().manual_seed(0))))
+    name = "layers/wq/w"
+    with pytest.raises(ValueError, match="quantized whole"):
+        qw.quantize_leaf(name, plan.shard_leaf(name, x[name]), PAPER_FAITHFUL, plan)
