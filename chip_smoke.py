@@ -143,10 +143,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     bf16 and quantized pages; weight passes, accepted tokens, draft
     passes, tokens/s, a profiled verify pass and draft step, and the
     draft's weight re-quantizations timed alone;
-23. lockstep serving and float32 pages at llama3-8b's full width, on the
+23. lockstep serving and float32 pages at llama3-8b's widths and
+    ``LOCKSTEP_LAYERS`` (8) of its layers (32 before), on the
     serve trace's first 4 requests: ``lockstep_generate`` serves them as
     one wave (one batched prefill, then lockstep steps to the longest
-    output; 225 K1 launches a weight pass); request 0 by batch-1
+    output; 57 K1 launches a weight pass); request 0 by batch-1
     lockstep equals its tokens from a solo-prefill pool (page 16), bit
     for bit; a ``cache_dtype=torch.float32`` chunked (32) + paged (16)
     engine gives each request's tokens alone, its counters equal the CPU
@@ -265,9 +266,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     K/V heads a rank), 37j whisper on (2, 1) at ``ENCDEC_DP_LAYERS``
     decoder layers against one rank, 37k the vlm and encdec smoke configs
     data-parallel on (2, 1) against one rank (as 37g, 3 steps, their
-    launches a step ``step_launches``'); each sub-phase's summed peak under
-    ``MULTI_PEAK_GIB``; phase 3 also holds K1's ``start`` variant (the
-    row-parallel fold) at llama3-8b's, whisper's and internvl2's
+    launches a step ``step_launches``'), 37l mamba2-2.7b at its published
+    widths and ``SSM_PLAN_LAYERS`` (8) of 64 layers on (1, 2) (40 of the
+    80 SSD heads a rank, out_proj folding over their 2560 channels)
+    through phase 32's engine and trace against one rank at that depth,
+    and on (2, 1) against that run (tokens and counters equal, K1 17 a
+    weight pass a rank, 8 folds a pass on (1, 2), no implicit host sync
+    outside the collectives; tokens/s, a decode step's wall and device
+    ms a rank, the collectives' share, each rank's weight bytes and
+    peak), 37m recurrentgemma-2b at ``HYBRID_PLAN_LAYERS`` (6) of 26 layers
+    the same way through phase 33's (RG-LRU channels, MLP, q heads and the
+    vocabulary split, the one K/V head whole; K1 47 a pass a rank, 12
+    folds), 37n both recurrent smoke configs and mamba2-2.7b at its
+    published widths and ``SSM_DP_LAYERS`` (4) layers at batch 2 x 512
+    data-parallel on (2, 1) against one rank (as 37k); each sub-phase's
+    seconds printed, and its summed peak under ``MULTI_PEAK_GIB``; phase 3
+    also holds K1's ``start`` variant (the row-parallel fold) at
+    llama3-8b's, whisper's, internvl2's, mamba2's and recurrentgemma's
     row-parallel shapes (``START_CASES``) and times it beside the
     unstarted half;
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last;
@@ -962,13 +977,14 @@ def main() -> int:
     cnn_kernels, cnn_launches = cnn_phase(dev, detail)
     multi = multi_gpu(dev, detail)
     m_a, m_c = multi["a"][0], multi["c"]["ranks"][0]
-    # 37c's, 37g's and 37k's data-parallel steps on rank 0
+    # 37c's, 37g's, 37k's and 37n's data-parallel steps on rank 0
     multi_steps = {k: sum(s[k] for s in m_c["launches"])
-                   + sum(s[k] for key in "gk" for g in multi[key].values()
+                   + sum(s[k] for key in "gkn" for g in multi[key].values()
                          for s in g["dp"][0]["launches"])
                    for k in ("k1", "k2", "k3", "gq")}
-    # 37e-f's, 37h-j's served passes on rank 0
-    multi_served = sum(multi[key][0]["k1_launches"] for key in "efhij")
+    # 37e-f's, 37h-j's and 37l-m's served passes on rank 0
+    multi_served = sum(multi[key][0]["k1_launches"]
+                       for key in tuple("efhij") + ("l", "l2", "m", "m2"))
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -1028,6 +1044,16 @@ def main() -> int:
             family_folds={key: multi[key][0]["folds"] for key in "hi"},
             family_train_step_launches={a: g["dp"][0]["launches"]
                                         for a, g in multi["k"].items()},
+            # 37l-m: mamba2 and recurrentgemma on (1, 2) and (2, 1), each
+            # rank's launches, weight passes and folds; 37n their steps
+            recurrent_launches_per_rank={
+                f"{multi[key][0]['arch']} {tuple(multi[key][0]['mesh'].values())}":
+                [x["k1_launches"] for x in multi[key]] for key in ("l", "l2", "m", "m2")},
+            recurrent_weight_passes={key: multi[key][0]["weight_passes"]
+                                     for key in ("l", "l2", "m", "m2")},
+            recurrent_folds={key: multi[key][0]["folds"] for key in "lm"},
+            recurrent_train_step_launches={a: g["dp"][0]["launches"]
+                                           for a, g in multi["n"].items()},
             backend=m_a["backend"]),
         "start_variant": detail["k1_start_variant"],
         "lockstep_launches": paged["lockstep_launches"],
@@ -1428,13 +1454,18 @@ def family_k1_timing(operands, flush):
 # and wo2 (5120 -> 2560) at a decode step's, a chunk step's and the
 # encoder's rows; internvl2-76b's wo (8192 -> 4096) and down projection
 # (28672 -> 14336) at a decode step's, a chunk step's and its solo
-# prefill's rows
+# prefill's rows; mamba2-2.7b's out_proj (5120 -> 2560) and
+# recurrentgemma-2b's wout and wo (2560 -> 1280) and down projection
+# (7680 -> 3840) at a decode step's rows and their solo prefill's
 START_CASES = {(4096, 4096): ("llama3-8b", (4, 128, 512)),
                (14336, 4096): ("llama3-8b", (4, 128, 512)),
                (1280, 1280): (ENCDEC_ARCH, (4, 128, ENC_M)),
                (5120, 1280): (ENCDEC_ARCH, (4, 128, ENC_M)),
                (8192, 8192): (VLM_ARCH, (4, 128, VLM_PREFILL_M)),
-               (28672, 8192): (VLM_ARCH, (4, 128, VLM_PREFILL_M))}
+               (28672, 8192): (VLM_ARCH, (4, 128, VLM_PREFILL_M)),
+               (5120, 2560): ("mamba2-2.7b", (4, 512)),
+               (2560, 2560): ("recurrentgemma-2b", (4, 128)),
+               (7680, 2560): ("recurrentgemma-2b", (4, 128))}
 
 
 def k1_start_checks(dev, gen):
@@ -3317,13 +3348,21 @@ def spec_serving(dev, detail, cfg, params, policy, reqs):
                 draft_launches=draft_launches)
 
 
+# phase 23 runs llama3-8b's widths at this depth (at all 32 layers it was
+# the script's largest phase, 82 s of 909.7 s on an NVIDIA H100 80GB HBM3)
+LOCKSTEP_LAYERS = 8
+
+
 def lockstep_serving(dev, detail, cfg, params, policy, reqs):
-    """Phase 23: lockstep serving and float32 K/V pages, llama3-8b at full
-    width, on the serve trace's first 4 requests."""
+    """Phase 23: lockstep serving and float32 K/V pages, llama3-8b's widths
+    at ``LOCKSTEP_LAYERS`` layers, on the serve trace's first 4 requests."""
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.serve import PoolEngine, lockstep_generate
 
-    phase("23 lockstep serving and cache_dtype, llama3-8b at full width")
+    phase(f"23 lockstep serving and cache_dtype, llama3-8b's widths at {LOCKSTEP_LAYERS} "
+          "layers")
+    cfg = dataclasses.replace(cfg, n_layers=LOCKSTEP_LAYERS)
+    params = dict(params, layers=_first_layers(params["layers"], LOCKSTEP_LAYERS))
     wave = reqs[:4]
     horizon = max(r.max_new_tokens for r in wave)
     batch = {"tokens": np.concatenate([np.asarray(r.tokens) for r in wave], axis=0)}
@@ -4008,10 +4047,23 @@ ENCDEC_DP_LAYERS = 4
 FAMILY_DP_BATCH, FAMILY_DP_SEQ, FAMILY_DP_STEPS = 4, 64, 3
 WHISPER_DP_LAYERS, WHISPER_DP_STEPS = 4, 2
 WHISPER_DP = f"{ENCDEC_ARCH} at published widths"
+# 37l-m: the recurrent families on the (1, 2) and (2, 1) meshes through
+# phases 32-33's engine (4 slots, slot rows, solo prefill) and
+# ``RECURRENT`` prompts and max_len, each against one rank at this depth:
+# mamba2-2.7b at 8 of its 64 layers (a prompt of 512: two SSD chunks of
+# 256), recurrentgemma-2b at 6 of its 26 (two rglru, rglru, attn periods,
+# so attention runs)
+SSM_PLAN_LAYERS = 8
+HYBRID_PLAN_LAYERS = 6
+RECURRENT_PLAN_LAYERS = {"mamba2-2.7b": SSM_PLAN_LAYERS, "recurrentgemma-2b": HYBRID_PLAN_LAYERS}
+# 37n: both recurrent smoke configs data-parallel as 37k; and mamba2-2.7b
+# at its published widths and this depth, global batch, sequence and steps
+SSM_DP_LAYERS, SSM_DP_BATCH, SSM_DP_SEQ, SSM_DP_STEPS = 4, 2, 512, 2
+SSM_DP = "mamba2-2.7b at published widths"
 
 
 def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b",
-                   engine=None, trace=None):
+                   engine=None, trace=None, count_syncs=False):
     """One sharded engine over ``mesh`` (a (data, model) pair) at
     ``arch``'s widths and ``n_layers`` layers (None: all), seed 0: every
     leaf drawn whole from the phase's generator and quantized whole, each
@@ -4019,7 +4071,10 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
     ``trace`` (poisson_trace keywords) default to phase 5's (4 slots,
     solo prefill; ``_serve_trace``).  ``compare_one_rank``: rank 0 also
     serves the trace alone (no plan) and compares tokens and counters.
-    Returns the served tokens and a row."""
+    ``count_syncs``: the run goes under PyTorch's sync debug mode and the
+    row lists the port's implicit host syncs outside the collectives
+    (gloo stages a card's tensors through the host there).  Returns the
+    served tokens and a row."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.kernels import potq_matmul as K
@@ -4048,13 +4103,9 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
     eng = PoolEngine(cfg, policy, params, device=dev, plan=plan, num_pages=plan.num_pages,
                      **engine)
     eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
-    torch.cuda.synchronize()
-    K.potq_matmul_cuda.launches = 0
     collectives.reset_stats()
-    t0 = time.perf_counter()
-    out = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    syncs = {} if count_syncs else None
+    out, wall, _ = _timed_run(eng, reqs, syncs)
     st = eng.last_stats
     row = dict(arch=arch, mesh=plan.mesh_shape(), layers=cfg.n_layers,
                backend=collectives.backend(), counters={k: getattr(st, k) for k in SERVE_COUNTERS},
@@ -4072,6 +4123,9 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
                draw_quantize_shard_s=draw_s,
                overrides=sorted(f"{k}:{p}" for k, p in plan.overrides),
                experts=plan.layout().experts)
+    if count_syncs:
+        row["implicit_syncs"] = {k: n for k, n in syncs.items() if k.startswith("src/")
+                                 and not k.startswith("src/repro_torch/parallel/collectives")}
     # one pooled decode step of the model axis's ranks (4 slots), wall and device
     with torch.inference_mode(), actshard.use_plan(plan if mesh[1] > 1 else None):
         pool = registry.init_pool_cache(plan.local_config(), 4, engine["max_len"], device=dev)
@@ -4166,13 +4220,17 @@ def _dp_train(rank, dev):
 
 
 def _dp_cells(key):
-    """The data-parallel training cells of 37g (``key`` 'g') or 37k:
+    """The data-parallel training cells of 37g (``key`` 'g'), 37k or 37n:
     (label, config, global batch, seq, steps) each."""
     from repro_torch import configs
 
     if key == "g":
         return [(a, configs.smoke_config(a), MOE_DP_BATCH, MOE_DP_SEQ, MOE_DP_STEPS)
                 for a in MOE_ARCHS]
+    if key == "n":
+        full = dataclasses.replace(configs.get_config("mamba2-2.7b"), n_layers=SSM_DP_LAYERS)
+        return [(a, configs.smoke_config(a), FAMILY_DP_BATCH, FAMILY_DP_SEQ, FAMILY_DP_STEPS)
+                for a in RECURRENT] + [(SSM_DP, full, SSM_DP_BATCH, SSM_DP_SEQ, SSM_DP_STEPS)]
     full = dataclasses.replace(configs.get_config(ENCDEC_ARCH), n_layers=WHISPER_DP_LAYERS,
                                enc_layers=WHISPER_DP_LAYERS)
     return [(a, configs.smoke_config(a), FAMILY_DP_BATCH, FAMILY_DP_SEQ, FAMILY_DP_STEPS)
@@ -4181,7 +4239,7 @@ def _dp_cells(key):
 
 
 def _dp_cells_train(rank, dev, key):
-    """37g and 37k: each of ``_dp_cells(key)`` data-parallel over the
+    """37g, 37k and 37n: each of ``_dp_cells(key)`` data-parallel over the
     (2, 1) mesh against one rank (rank 0 runs it too, after its own run):
     the first step's per-token losses (this rank's rows; one rank's, every
     row), both runs' losses and launches a step, the data-parallel run's
@@ -4299,9 +4357,18 @@ def _phase37_rank(rank):
                dict(FAMILY_ENGINE, max_len=64), ENCDEC_TRACE),
               ("j", (2, 1), ENCDEC_DP_LAYERS, True, ENCDEC_ARCH,
                dict(FAMILY_ENGINE, max_len=64), ENCDEC_TRACE))
+    # 37l-m: (1, 2) against one rank, then (2, 1) (held to that one rank)
+    for arch in RECURRENT:
+        engine = dict(max_slots=4, max_len=RECURRENT[arch]["max_len"])
+        trace = dict(RECURRENT_TRACE, prompt_len=RECURRENT[arch]["prompt"])
+        key = "l" if arch == "mamba2-2.7b" else "m"
+        serves += ((key, (1, 2), RECURRENT_PLAN_LAYERS[arch], True, arch, engine, trace),
+                   (key + "2", (2, 1), RECURRENT_PLAN_LAYERS[arch], False, arch, engine,
+                    trace))
     for key, mesh, layers, one, arch, engine, trace in serves:
         t0 = time.perf_counter()
-        res[key] = _sharded_serve(rank, dev, mesh, layers, one, arch, engine, trace)
+        res[key] = _sharded_serve(rank, dev, mesh, layers, one, arch, engine, trace,
+                                  count_syncs=key[0] in "lm")
         res[key][1]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["c"] = _dp_train(rank, dev)
@@ -4309,9 +4376,10 @@ def _phase37_rank(rank):
     t0 = time.perf_counter()
     res["g"] = _dp_cells_train(rank, dev, "g")
     res["g"]["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res["k"] = _dp_cells_train(rank, dev, "k")
-    res["k"]["seconds"] = time.perf_counter() - t0
+    for key in "kn":
+        t0 = time.perf_counter()
+        res[key] = _dp_cells_train(rank, dev, key)
+        res[key]["seconds"] = time.perf_counter() - t0
     res["d"] = _psum_check(rank, dev)
     return res
 
@@ -4319,24 +4387,28 @@ def _phase37_rank(rank):
 def _served_folds(cfg, row):
     """Row-parallel folds of a (1, 2) engine run at published widths: a
     decoder's ``wo`` and down projection (a MoE layer's shared expert's;
-    its experts do not fold) a layer a weight pass; an encdec decode or
+    its experts do not fold) a layer a weight pass, an ssm's ``out_proj``,
+    a hybrid's ``wout`` or ``wo`` and its down projection; an encdec decode or
     chunk pass its decoder layers' ``wo``, ``co`` and ``wo2``, an
     encoder-side pass (one an admission) its encoder layers' ``wo`` and
     ``wo2``."""
     if cfg.family == "encdec":
         return (3 * cfg.n_layers * (row["weight_passes"] - row["prefills"])
                 + 2 * cfg.enc_layers * row["prefills"])
-    per_layer = 2 if cfg.moe is None or cfg.moe.shared_expert else 1
+    # an ssm layer's out_proj; a hybrid layer's wout or wo and its MLP's down
+    # projection; a decoder layer's wo and down projection (the shared expert's)
+    per_layer = 2 if cfg.family != "ssm" and (cfg.moe is None or cfg.moe.shared_expert) else 1
     return per_layer * cfg.n_layers * row["weight_passes"]
 
 
-def _check_sharded(key, ranks, cfg, failures, tokens=None):
+def _check_sharded(key, ranks, cfg, failures, tokens=None, counters=None):
     """The gates of a sharded serving sub-phase on both ranks: K1 once a
     linear shard a weight pass (``expected_k1``; over a data axis every
     rank runs each pooled step over its slots, and only a slot's owner its
-    admission's pass: the ranks' sum), the folds (model axis), the ranks'
-    tokens equal, and equal to ``tokens`` or to rank 0's one-rank run
-    (tokens and counters)."""
+    admission's pass: the ranks' sum), the folds (model axis), no implicit
+    host sync where the row counted them, the ranks' tokens equal, and
+    equal to ``tokens`` (and the counters to ``counters``, given) or to
+    rank 0's one-rank run (tokens and counters)."""
     rows = [res[key][1] for res in ranks]
     steps = rows[0]["k1_per_pass_expected"] * rows[0]["counters"]["decode_steps"]
     admissions = rows[0]["k1_expected"] - steps
@@ -4355,11 +4427,16 @@ def _check_sharded(key, ranks, cfg, failures, tokens=None):
             if row["folds"] != want:
                 failures.append(f"37{key} rank {r}: {row['folds']} row-parallel folds, "
                                 f"expected {want}")
+        if row.get("implicit_syncs"):
+            failures.append(f"37{key} rank {r}: implicit host syncs {row['implicit_syncs']}")
     if ranks[0][key][0] != ranks[1][key][0]:
         failures.append(f"37{key}: the ranks' tokens differ")
     if tokens is not None:
         if ranks[0][key][0] != tokens:
             failures.append(f"37{key}: tokens differ from the one-card phase's")
+        if counters is not None and ranks[0][key][1]["counters"] != counters:
+            failures.append(f"37{key}: counters {ranks[0][key][1]['counters']} differ from "
+                            f"one rank's {counters}")
         return
     row = ranks[0][key][1]
     if not row["one_rank_tokens_equal"] or row["one_rank_counters"] != row["counters"]:
@@ -4435,7 +4512,16 @@ def multi_gpu(dev, detail):
     and encdec smoke configs, and whisper-large-v3 at its published widths
     and ``WHISPER_DP_LAYERS`` encoder and decoder layers on phase 31b's
     batch, data-parallel on (2, 1) against one rank, as 37g, their
-    launches a step ``step_launches``'.  The ranks' summed
+    launches a step ``step_launches``'.  37l: mamba2-2.7b at its published
+    widths and ``SSM_PLAN_LAYERS`` layers on (1, 2) (40 SSD heads a rank,
+    out_proj folding) through phase 32's engine and trace against one rank
+    at that depth, and on (2, 1) against that run: tokens and counters
+    equal, K1 17 a weight pass a rank, 8 folds a pass on (1, 2), no
+    implicit host sync outside the collectives.  37m: recurrentgemma-2b
+    at ``HYBRID_PLAN_LAYERS`` layers the same way (K1 47 a pass, 12
+    folds).  37n: both recurrent smoke configs and mamba2-2.7b at its
+    published widths and ``SSM_DP_LAYERS`` layers (batch 2 x 512)
+    data-parallel on (2, 1) against one rank, as 37k.  The ranks' summed
     peak stays under ``MULTI_PEAK_GIB`` in each serving and training
     sub-phase."""
     from repro_torch import configs
@@ -4444,9 +4530,10 @@ def multi_gpu(dev, detail):
     from repro_torch.models import registry, spec
     from repro_torch.optim import adamw, warmup_cosine_schedule
     from repro_torch.parallel import collectives
+    from repro_torch.parallel.planner import runtime_layout
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: two ranks on the one card (37a-k)")
+    phase("37 multi-GPU: two ranks on the one card (37a-n)")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
@@ -4485,9 +4572,28 @@ def multi_gpu(dev, detail):
           f"{detail[f'serving_{VLM_ARCH}']['steps']['profiled_decode_step']['device_busy_ms']:.2f}"
           f" / {detail[f'serving_{ENCDEC_ARCH}']['steps']['profiled_decode_step']['device_busy_ms']:.2f}"
           " ms")
-    # 37g, 37k: data-parallel smoke training against one rank
+    # 37l-m: the recurrent families on (1, 2) against one rank, and on
+    # (2, 1) against that one rank's tokens and counters
+    for key, arch in (("l", "mamba2-2.7b"), ("m", "recurrentgemma-2b")):
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=RECURRENT_PLAN_LAYERS[arch])
+        _check_sharded(key, ranks, cfg, failures)
+        _check_sharded(key + "2", ranks, cfg, failures, tokens=ranks[0][key][0],
+                       counters=ranks[0][key][1]["one_rank_counters"])
+        lay = runtime_layout(cfg, 2)
+        for r, res in enumerate(ranks):
+            if res[key][1]["heads_local"] != lay.heads_local:
+                failures.append(f"37{key} rank {r}: {res[key][1]['heads_local']} heads a "
+                                f"rank, expected {lay.heads_local}")
+        print(f"37{key}: a decode step's device busy a rank "
+              f"{[round(res[key][1]['decode_step_device_ms'], 3) for res in ranks]} ms on "
+              f"(1, 2), {[round(res[key + '2'][1]['decode_step_device_ms'], 3) for res in ranks]}"
+              f" ms on (2, 1); tokens/s {ranks[0][key][1]['tokens_per_s']:.2f} / "
+              f"{ranks[0][key + '2'][1]['tokens_per_s']:.2f}")
+    # 37g, 37k, 37n: data-parallel smoke training against one rank
     g_rows = _check_dp_cells("g", ranks, failures)
     k_rows = _check_dp_cells("k", ranks, failures, launches=True)
+    n_rows = _check_dp_cells("n", ranks, failures, launches=True)
     # 37d
     for r, res in enumerate(ranks):
         print(f"37d rank {r}:", json.dumps(res["d"]))
@@ -4526,22 +4632,24 @@ def multi_gpu(dev, detail):
         failures.append("37c: first-step per-token losses differ from one rank's")
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
-    peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in "abefhij"}
+    served = tuple("abefhij") + ("l", "l2", "m", "m2")
+    peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in served}
     peaks["c"] = sum(row["peak_gib"] for row in dp_rows)
     peaks.update(g=max(r["peak_gib"] for r in g_rows.values()),
-                 k=max(r["peak_gib"] for r in k_rows.values()))
-    seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in "abcefhij"}
-    seconds.update(g=round(ranks[0]["g"]["seconds"], 1), k=round(ranks[0]["k"]["seconds"], 1))
+                 k=max(r["peak_gib"] for r in k_rows.values()),
+                 n=max(r["peak_gib"] for r in n_rows.values()))
+    seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in served + ("c",)}
+    seconds.update({k: round(ranks[0][k]["seconds"], 1) for k in "gkn"})
     print(f"37 peaks, both ranks summed (GiB): "
           f"{ {k: round(v, 2) for k, v in sorted(peaks.items())} }; backend "
           f"{ranks[0]['a'][1]['backend']}; seconds a sub-phase (rank 0) {seconds}; spawn to "
           f"exit {spawn_s:.1f} s")
     if max(peaks.values()) >= MULTI_PEAK_GIB:
         failures.append(f"37: the ranks' summed peak passed {MULTI_PEAK_GIB} GiB")
-    out.update({k: [res[k][1] for res in ranks] for k in "abefhij"})
+    out.update({k: [res[k][1] for res in ranks] for k in served})
     out.update(c=dict(ranks=dp_rows, one_rank_losses=one_losses, max_rel=rel,
                       token_losses_bit_equal=tl_equal, token_losses_max_rel=tl_rel),
-               d=[res["d"] for res in ranks], g=g_rows, k=k_rows, peak_gib=peaks,
+               d=[res["d"] for res in ranks], g=g_rows, k=k_rows, n=n_rows, peak_gib=peaks,
                seconds=seconds)
     detail["multi_gpu"] = out
     if failures:

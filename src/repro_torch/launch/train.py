@@ -34,9 +34,9 @@ of a world started by ``parallel.collectives.spawn``.  The backend follows
 the topology (``parallel/collectives.py``: NCCL with a card a rank, gloo
 when ranks share a card or on the CPU).  Each rank draws the whole seed-0
 parameters, keeps its shards (``train.step.DataParallel``) and steps on
-its rows of the batch; the decoder, dense or MoE, trains so (a MoE
-batch's dispatch groups must not straddle two ranks), and a model axis
-> 1 is refused (tensor-parallel training is later work).  Checkpoints are gathered whole and written by
+its rows of the batch; every family trains so (a MoE batch's dispatch
+groups must not straddle two ranks), and a model axis > 1 is refused
+(tensor-parallel training is later work).  Checkpoints are gathered whole and written by
 rank 0 in the reference's layout, so a checkpoint written by D ranks
 restores in one, and in ``repro.launch.train``; a restore reads the whole
 state on every rank and keeps its shards.  Only rank 0 prints.

@@ -21,6 +21,19 @@ one row at a time (``transformer._rows``) and each row's windowed
 attention over its own ring (``transformer.DecodeSlots``); the RG-LRU
 step is elementwise and K1 row-independent, so a slot in a pool of four
 runs the very programs of a request served alone.
+
+On a model axis (a sharded plan active, ``parallel/planner.runtime_layout``)
+a rank runs the plan's local config (its q heads, the K/V head it keeps
+and, in ``lru_width``, its RG-LRU channels) over its shards, through the
+decoder's hooks: ``wx``/``wy`` give its channels, the conv, ``lam`` and
+the state run on them, the gates ``wa``/``wi`` compute its channels'
+columns whole over the all-gathered conv output (:func:`_gates`), and
+``wout`` and the MLP's down projection fold across the ranks or run whole
+over the gathered input (``transformer._out_proj``); attention takes the
+decoder's path (``_qkv`` with ``_kv_select``, ``_sdpa`` over the whole
+head count, ``wo`` through ``_out_proj``), and the embedding and the head
+split over the vocabulary (``_embed``, ``_lm_head``).  Without a plan
+every hook is the identity.
 """
 from __future__ import annotations
 
@@ -104,7 +117,19 @@ def hybrid_specs(cfg: ModelConfig):
 def _mlp(cfg, policy, p, x):
     g = mfmac.mf_linear(x, p["wi_gate"]["w"], p["wi_gate"]["gamma"], policy=policy)
     u = mfmac.mf_linear(x, p["wi_up"]["w"], p["wi_up"]["gamma"], policy=policy)
-    return mfmac.mf_linear(common.gelu(g) * u, p["wo"]["w"], p["wo"]["gamma"], policy=policy)
+    return transformer._out_proj(p["wo"], common.gelu(g) * u, policy, "mlp_wo")
+
+
+def _gates(policy, p, conv):
+    """The RG-LRU gates (r, i) of the conv output: on a model axis that
+    splits the channels, each rank's columns of ``wa``/``wi`` over the
+    all-gathered conv output (this rank's channels of both gates)."""
+    tp = transformer._tp()
+    if tp is not None and tp.layout.lru:
+        conv = transformer._gather_cols(conv, tp.group)
+    return tuple(torch.sigmoid(mfmac.mf_linear(conv, p[k]["w"], p[k]["gamma"],
+                                               policy=policy).to(torch.float32))
+                 for k in ("wa", "wi"))
 
 
 def _norm(x, scale, rows: bool):
@@ -162,11 +187,7 @@ def _rglru_block(cfg, policy, p, x, *, conv_state=None, lru_state=None):
         conv = conv + xp[:, i:i + xb.shape[1], :] * w[i]
     conv = conv + b
 
-    # RG-LRU gates
-    r = torch.sigmoid(mfmac.mf_linear(conv, p["wa"]["w"], p["wa"]["gamma"],
-                                      policy=policy).to(torch.float32))
-    i_g = torch.sigmoid(mfmac.mf_linear(conv, p["wi"]["w"], p["wi"]["gamma"],
-                                        policy=policy).to(torch.float32))
+    r, i_g = _gates(policy, p, conv)
     log_a = -LRU_C * common.softplus(p["lam"]) * r  # (B, S, lw)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i_g * conv.to(torch.float32))
@@ -176,8 +197,7 @@ def _rglru_block(cfg, policy, p, x, *, conv_state=None, lru_state=None):
         hseq = _rglru_scan(a, gated)
     new_lru_state = hseq[:, -1, :]
     out = hseq.to(x.dtype) * yb
-    out = mfmac.mf_linear(out, p["wout"]["w"], p["wout"]["gamma"], policy=policy)
-    x = x + out
+    x = x + transformer._out_proj(p["wout"], out, policy, "lru_wo")
     h2 = _norm(x, p["ln2"]["scale"], decode)
     x = x + _mlp(cfg, policy, p["mlp"], h2)
     return x, (new_conv_state, new_lru_state)
@@ -205,7 +225,7 @@ def _attn_decode(cfg, policy, p, x, c, token, pos):
     h = _norm(x, p["ln1"]["scale"], True)
     q, k, v = transformer._qkv(cfg, policy, p, h, st.qpos)
     att = st.attend(cfg, policy, view, 0, q, k, v).reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    x = x + mfmac.mf_linear(att, p["wo"]["w"], p["wo"]["gamma"], policy=policy)
+    x = x + transformer._out_proj(p["wo"], att, policy, "wo")
     h2 = _norm(x, p["ln2"]["scale"], True)
     x = x + _mlp(cfg, policy, p["mlp"], h2)
     st.done(view)
@@ -219,10 +239,9 @@ def _layer_out(cfg, policy, kind, p, x, qpos):
     return _rglru_block(cfg, policy, p, x)[0]
 
 
-def _head(policy, params, x):
+def _head(cfg, policy, params, x):
     x = common.rms_norm(x, params["final_norm"]["scale"])
-    hp = params["lm_head"]
-    return mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
+    return transformer._lm_head(cfg, policy, params, x)
 
 
 def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: bool = False):
@@ -237,7 +256,7 @@ def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: boo
                            preserve_rng_state=False)
         else:
             x = _layer_out(cfg, policy, kind, p, x, qpos)
-    return _head(policy, params, x)
+    return _head(cfg, policy, params, x)
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +296,7 @@ def prefill(cfg, policy, params, tokens, cache):
     RG-LRU layer's conv window and last state.  Returns the last
     position's logits (the head over that position alone, as in the
     reference) and the cache."""
-    x = F.embedding(tokens, params["embed"])
+    x = transformer._embed(params["embed"], tokens)
     s = tokens.shape[1]
     qpos = torch.arange(s, dtype=torch.int64, device=x.device)
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
@@ -301,7 +320,7 @@ def prefill(cfg, policy, params, tokens, cache):
             x, (cs, ls) = _rglru_block(cfg, policy, p, x)
             c["conv"].copy_(cs)
             c["lru"].copy_(ls)
-    logits = _head(policy, params, x[:, -1:, :])[:, 0, :]
+    logits = _head(cfg, policy, params, x[:, -1:, :])[:, 0, :]
     cache["len"] = torch.full((), s, dtype=cache["len"].dtype, device=x.device)
     return logits, cache
 
@@ -313,7 +332,7 @@ def decode_step(cfg, policy, params, token, cache):
     ``serve.slots.lift_cache``).  The RG-LRU states are per row in both.
     Every state is written into ``cache`` in place; ``len`` and the
     attention layers' ``pos`` are replaced."""
-    x = params["embed"][token[:, None]]  # (B, 1, D)
+    x = transformer._embed(params["embed"], token[:, None])  # (B, 1, D)
     pos = cache["len"]
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
         if kind == "attn":
@@ -324,7 +343,6 @@ def decode_step(cfg, policy, params, token, cache):
             c["conv"].copy_(cs)
             c["lru"].copy_(ls)
     x = _norm(x, params["final_norm"]["scale"], True)
-    hp = params["lm_head"]
-    logits = mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)[:, 0, :]
+    logits = transformer._lm_head(cfg, policy, params, x)[:, 0, :]
     cache["len"] = pos + 1
     return logits, cache

@@ -15,10 +15,9 @@ speculative verify step and encdec's encoder-side admission
 chunk or verify step, as in the reference.
 
 Under an active sharded plan (``parallel/actshard.py``) the same
-dispatch serves the families the port runs on a plan
-(``parallel/planner.PLAN_FAMILIES``): the caller passes the plan's local
-config (``plan.local_config``) and this rank's shards, and the step
-bodies' model-axis hooks do the rest."""
+dispatch serves every family: the caller passes the plan's local config
+(``plan.local_config``) and this rank's shards, and the step bodies'
+model-axis hooks do the rest."""
 from __future__ import annotations
 
 import torch

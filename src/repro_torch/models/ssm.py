@@ -15,6 +15,20 @@ one row at a time (the norms and the ``C · h`` contraction, through
 ``transformer._rows``), so a slot in a pool of four runs the very
 programs of a request served alone; everything else of a decode step is
 elementwise or K1, both row-independent.
+
+On a model axis (a sharded plan active, ``parallel/planner.runtime_layout``)
+a rank runs the plan's local config, whose ``n_heads`` is its count of
+SSD heads, over its shards: ``in_proj`` gives its heads' z, x and dt
+columns and B and C whole, the conv runs over its x channels and B and
+C, the SSD over its heads placed among zeros of the whole head count
+(:func:`_ssd_heads_whole`: the intra-chunk products batch over the heads,
+and a smaller batch would round otherwise), and y is all-gathered in rank
+order for ``out_norm``, whose mean runs over every channel; ``out_proj``
+then folds over this rank's channels (K1's fold chained across the
+ranks) or, under a 128-chunk a rank, runs whole over the gathered y
+(:func:`_out_norm_proj`).  The embedding rows and the head's columns
+split over the vocabulary (``transformer._embed`` and ``_lm_head``).
+Without a plan every hook is the identity.
 """
 from __future__ import annotations
 
@@ -27,14 +41,17 @@ from repro_torch.core import mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models import common
 from repro_torch.models.spec import ParamSpec
-from repro_torch.models.transformer import _layer, _rows, _unbind_layers
+from repro_torch.models import transformer
+from repro_torch.models.transformer import _gather_cols, _layer, _rows, _tp, _unbind_layers
 
 HEADDIM = 64  # Mamba2's default head dim P
 
 
 def _dims(cfg: ModelConfig):
-    d_inner = cfg.ssm_expand * cfg.d_model
-    nheads = d_inner // HEADDIM
+    # a model rank's config (planner.ShardingPlan.local_config) names its
+    # SSD heads in n_heads; a whole ssm config's is 0
+    nheads = cfg.n_heads or cfg.d_inner // HEADDIM
+    d_inner = nheads * HEADDIM
     n = cfg.ssm_state
     # in_proj emits [z, x, B, C, dt]: d_inner + d_inner + N + N + nheads
     d_in = 2 * d_inner + 2 * n + nheads
@@ -181,6 +198,55 @@ def _ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int, with_final: bool = Fals
     return y
 
 
+def _ssd_heads_whole(xh, dt, a_log, bb, cc, d_skip, chunk):
+    """:func:`_ssd_chunked` with the final state.  On a model axis that
+    splits the SSD heads, this rank's heads (B, S, H_r, P) are placed at
+    their global offsets in zeros of the whole head count and the outputs
+    cut back to them: the SSD's products batch over the heads, and the
+    port's CPU matmuls round a smaller batch otherwise (the card gave equal
+    bits both ways, ``tools/ssm_heads_probe.py``), so a rank's heads get
+    one rank's bits either way."""
+    tp = _tp()
+    if tp is None or not tp.layout.heads:
+        return _ssd_chunked(xh, dt, a_log, bb, cc, d_skip, chunk, with_final=True)
+    hl = xh.shape[2]
+    lo = tp.rank * hl
+
+    def whole(t, dim):
+        shape = list(t.shape)
+        shape[dim] = hl * tp.layout.model
+        out = t.new_zeros(shape)
+        out.narrow(dim, lo, hl).copy_(t)
+        return out
+
+    y, final = _ssd_chunked(whole(xh, 2), whole(dt, 2), whole(a_log, 0), bb, cc,
+                            whole(d_skip, 0), chunk, with_final=True)
+    return y[:, :, lo:lo + hl], final[:, lo:lo + hl]
+
+
+def _out_norm_proj(policy, lp, y, rows: bool):
+    """``out_norm`` (row by row with ``rows``: decode), then ``out_proj``.
+    On a model axis that splits the heads, y (this rank's heads'
+    channels) is all-gathered in rank order and normed whole; ``out_proj``
+    then folds over this rank's channels, or runs whole over the gathered
+    y where a rank's channels are not whole 128-chunks."""
+    tp = _tp()
+    split = tp is not None and tp.layout.heads
+    width = y.shape[-1]
+    if split:
+        y = _gather_cols(y, tp.group)
+
+    def norm(r):
+        return common.rms_norm(r, lp["out_norm"]["scale"])
+
+    y = _rows(norm, y) if rows else norm(y)
+    p = lp["out_proj"]
+    if split and tp.layout.wo == "fold":
+        y = y[..., tp.rank * width:(tp.rank + 1) * width]
+        return mfmac.mf_linear(y, p["w"], p["gamma"], policy=policy, row_group=tp.group)
+    return mfmac.mf_linear(y, p["w"], p["gamma"], policy=policy)
+
+
 def _mixer(cfg, policy, lp, x, chunk):
     """The block's SSD mixer over a whole sequence.  Returns (the block's
     output, the conv window of its last W - 1 inputs, the final state)."""
@@ -196,23 +262,19 @@ def _mixer(cfg, policy, lp, x, chunk):
     cc = conv_out[..., d_inner + n:]
     bsz, s, _ = xs.shape
     xh = xs.reshape(bsz, s, nheads, HEADDIM)
-    y, final = _ssd_chunked(xh, dt + lp["dt_bias"], lp["A_log"], bb, cc, lp["D"], chunk,
-                            with_final=True)
+    y, final = _ssd_heads_whole(xh, dt + lp["dt_bias"], lp["A_log"], bb, cc, lp["D"], chunk)
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    y = common.rms_norm(y, lp["out_norm"]["scale"])
-    out = mfmac.mf_linear(y, lp["out_proj"]["w"], lp["out_proj"]["gamma"], policy=policy)
-    return x + out, conv_state, final
+    return x + _out_norm_proj(policy, lp, y, rows=False), conv_state, final
 
 
 def _block(cfg, policy, lp, x, chunk):
     return _mixer(cfg, policy, lp, x, chunk)[0]
 
 
-def _head(policy, params, x):
+def _head(cfg, policy, params, x):
     x = common.rms_norm(x, params["final_norm"]["scale"])
-    hp = params["lm_head"]
-    return mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
+    return transformer._lm_head(cfg, policy, params, x)
 
 
 def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: bool = False):
@@ -230,7 +292,7 @@ def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: boo
                            preserve_rng_state=False)
         else:
             x = _block(cfg, policy, lp, x, chunk)
-    return _head(policy, params, x)
+    return _head(cfg, policy, params, x)
 
 
 # ---------------------------------------------------------------------------
@@ -294,10 +356,7 @@ def _block_decode(cfg, policy, lp, x, conv_state, ssm_state):
     y = y + lp["D"][None, :, None] * xh
     y = y.reshape(bsz, 1, d_inner)
     y = y * F.silu(z.to(torch.float32))
-    out_norm = lambda r: common.rms_norm(r, lp["out_norm"]["scale"])  # noqa: E731
-    y = _rows(out_norm, y.to(x.dtype))
-    out = mfmac.mf_linear(y, lp["out_proj"]["w"], lp["out_proj"]["gamma"], policy=policy)
-    return x + out, new_conv_state, new_ssm
+    return x + _out_norm_proj(policy, lp, y.to(x.dtype), rows=True), new_conv_state, new_ssm
 
 
 def prefill(cfg, policy, params, tokens, cache):
@@ -311,14 +370,14 @@ def prefill(cfg, policy, params, tokens, cache):
     if s < cfg.conv_width - 1:
         raise ValueError(f"ssm prefill: a prompt of {s} tokens is shorter than the conv "
                          f"window ({cfg.conv_width - 1})")
-    x = F.embedding(tokens, params["embed"])
+    x = transformer._embed(params["embed"], tokens)
     chunk = min(cfg.ssm_chunk, s)
     layers = _unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
         x, conv_state, final = _mixer(cfg, policy, _layer(layers, i), x, chunk)
         cache["conv"][i].copy_(conv_state)
         cache["ssm"][i].copy_(final)
-    logits = _head(policy, params, x[:, -1:, :])[:, 0, :]
+    logits = _head(cfg, policy, params, x[:, -1:, :])[:, 0, :]
     cache["len"] = torch.full((), s, dtype=cache["len"].dtype, device=tokens.device)
     return logits, cache
 
@@ -329,7 +388,7 @@ def decode_step(cfg, policy, params, token, cache):
     ``len`` is replaced: a scalar (lockstep, ``registry.init_cache``) or
     (B,) per slot (``serve.slots.lift_cache``); the states are per row in
     either layout."""
-    x = params["embed"][token[:, None]]  # (B, 1, D)
+    x = transformer._embed(params["embed"], token[:, None])  # (B, 1, D)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         x, conv, ssm_state = _block_decode(cfg, policy, lp, x, cache["conv"][i],
@@ -338,7 +397,6 @@ def decode_step(cfg, policy, params, token, cache):
         cache["ssm"][i].copy_(ssm_state)
     fn = lambda r: common.rms_norm(r, params["final_norm"]["scale"])  # noqa: E731
     x = _rows(fn, x)
-    hp = params["lm_head"]
-    logits = mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)[:, 0, :]
+    logits = transformer._lm_head(cfg, policy, params, x)[:, 0, :]
     cache["len"] = cache["len"] + 1
     return logits, cache

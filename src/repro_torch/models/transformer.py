@@ -38,8 +38,8 @@ softmax sums each row in a fixed order (:func:`_softmax_rows`).
 
 On a model axis (a sharded plan active, ``parallel/actshard.py``; the
 decoder, dense or MoE, and the vlm's backbone,
-``parallel/planner.decoder_layout``; ``models/encdec.py`` takes the same
-hooks) the step
+``parallel/planner.decoder_layout``; ``models/encdec.py``,
+``models/ssm.py`` and ``models/recurrent.py`` take the same hooks) the step
 bodies run with the plan's local config (this rank's q and K/V heads)
 over this rank's weight shards: q/k/v heads split at whole heads (the
 K/V heads selected from a whole product where they do not split,

@@ -22,16 +22,18 @@ keys.  Abstract cache shapes come from ``registry.init_pool_cache`` /
 
 ``params``, ``data`` and ``cache`` are the reference's rules, spec for
 spec.  Where the port's runtime lays a tensor out otherwise, the plan
-says so in ``overrides`` ({(kind, path): :class:`Override`}), for the
-families the port runs on a plan (``PLAN_FAMILIES``: the decoder, dense
-or MoE, the vlm on the decoder's backbone and the encoder-decoder; one
-:func:`decoder_layout` for all three):
+says so in ``overrides`` ({(kind, path): :class:`Override`}), for every
+family of the registry (:func:`runtime_layout`: the decoder, dense or
+MoE, the vlm on the decoder's backbone and the encoder-decoder through
+:func:`decoder_layout`; the ssm and the hybrid through their own fields
+of the same layout):
 
 * a ``heads``/``kv`` output is split only at whole heads, and a
   contraction (``wo``, the MLP's and the shared expert's down
-  projections; an encdec's ``wo``, ``co`` and ``wo2`` in both stacks)
-  only at whole 128-wide chunks, so that the split product keeps K1's
-  fold (``kernels/ref.py``); elsewhere that product is computed whole on
+  projections; an encdec's ``wo``, ``co`` and ``wo2`` in both stacks;
+  an ssm's ``out_proj``, a hybrid's ``wout``) only at whole 128-wide
+  chunks, so that the split product keeps K1's fold
+  (``kernels/ref.py``); elsewhere that product is computed whole on
   each rank;
 * the encdec's tied embedding stays whole on every model rank: the head
   (``transformer.tied_head``) quantizes the whole table per tensor at
@@ -43,6 +45,18 @@ or MoE, the vlm on the decoder's backbone and the encoder-decoder; one
   ``model``) gate and up split over ``ffn`` and the down projection,
   whose contraction the rules split, runs whole over the all-gathered
   hidden state (K1's expert batch has no ``start`` to continue a fold);
+* an ssm splits at whole SSD heads: ``in_proj`` packs z | x | B | C | dt
+  along the dim the rules split in two halves, so a rank takes its
+  heads' z, x and dt columns and the B and C columns whole, the conv its
+  heads' x channels and B and C whole, ``A_log``/``D``/``dt_bias`` its
+  heads (index sets, :meth:`ShardingPlan.shard_slice`); ``out_norm``
+  stays whole (its mean runs over every channel, so y is all-gathered);
+* a hybrid's RG-LRU gates ``wa``/``wi`` split their columns, not their
+  contraction as the rules do: the conv output is all-gathered and each
+  rank computes its own channels' gates whole, so no fold chains the
+  ranks; the conv, ``lam`` and the state split by channel with ``wx``
+  and ``wy``; its one K/V head stays whole on every rank (the rules put
+  ring positions on ``model``);
 * the paged K/V stores put their **heads** on ``model`` (the reference:
   in-page positions), and so do an encdec's cross K/V rows ``ck``/``cv``
   (the reference: the encoder's positions), so attention stays on the
@@ -153,14 +167,15 @@ def _named(tree, prefix=""):
 
 
 # ---------------------------------------------------------------------------
-# The runtime layout on the model axis (the decoder, the vlm, the encdec)
+# The runtime layout on the model axis
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class DecoderLayout:
-    """How the decoder's tensors sit on a model axis of ``model`` ranks
-    (a vlm's backbone; an encdec's encoder and decoder stacks alike, its
-    cross attention's ``cq``/``ck``/``cv``/``co`` as ``wq``/``wk``/``wv``/``wo``).
+    """How a model's tensors sit on a model axis of ``model`` ranks: the
+    decoder's (a vlm's backbone; an encdec's encoder and decoder stacks
+    alike, its cross attention's ``cq``/``ck``/``cv``/``co`` as
+    ``wq``/``wk``/``wv``/``wo``; a hybrid's attention and MLP layers).
     ``heads``: q heads split (``heads_local`` a rank); ``kv``: 'split'
     (K/V heads split with them), 'select' (wk/wv computed whole, each
     rank keeps the ``kv_local`` heads its q heads read) or 'whole'; ``wo``
@@ -171,7 +186,14 @@ class DecoderLayout:
     for a tied embedding);
     ``experts`` (a MoE decoder): 'EP' (``experts_local`` whole experts a
     rank), 'TP' (gate and up split over ``ffn``, the down projection over
-    the gathered hidden state), 'whole', or None for a dense decoder."""
+    the gathered hidden state), 'whole', or None for a dense decoder.
+
+    An ssm's ``heads`` are its SSD heads (their z, x and dt columns of
+    ``in_proj``, their conv channels and state; B and C whole on every
+    rank) and ``wo`` its ``out_proj`` over the all-gathered, normed y.  A
+    hybrid's ``lru``: its RG-LRU channels split (``lru_local`` a rank:
+    ``wx``, ``wy``, the conv, the gates' columns, ``lam`` and the state),
+    ``lru_wo``: ``wout``'s mode, as ``wo``'s."""
 
     model: int
     heads: bool
@@ -185,6 +207,9 @@ class DecoderLayout:
     vocab: bool
     experts: Optional[str] = None
     experts_local: int = 0
+    lru: bool = False
+    lru_local: int = 0
+    lru_wo: str = "whole"
 
     def kv_lo(self, r: int, cfg) -> int:
         """First global K/V head that model rank ``r`` keeps."""
@@ -196,12 +221,20 @@ class DecoderLayout:
         return 0
 
 
+def _contraction(split: bool, width: int) -> str:
+    """How a product whose contraction is a split of ``width`` columns a
+    rank runs: a fold at whole 128-chunks, else over the gathered input."""
+    if not split:
+        return "whole"
+    return "fold" if width % CANONICAL_BK == 0 else "gather"
+
+
 def decoder_layout(cfg, model: int) -> DecoderLayout:
-    """The port's layout of ``cfg`` (a ``PLAN_FAMILIES`` config) on
-    ``model`` ranks (see the module docstring): whole heads, whole
-    128-chunks, a tied embedding whole, and the experts
-    as the reference's rules place them (EP when the expert count divides
-    ``model``, else TP when ``d_ff`` does)."""
+    """The port's layout of ``cfg`` (a decoder, vlm, encdec or a hybrid's
+    attention and MLP) on ``model`` ranks (see the module docstring):
+    whole heads, whole 128-chunks, a tied embedding whole, and the
+    experts as the reference's rules place them (EP when the expert count
+    divides ``model``, else TP when ``d_ff`` does)."""
     nh, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     heads = model > 1 and nh % model == 0
     hl = nh // model if heads else nh
@@ -216,16 +249,10 @@ def decoder_layout(cfg, model: int) -> DecoderLayout:
             kv_mode, kvl = "select", hl // rep
         else:
             heads, hl = False, nh
-    if heads:
-        wo = "fold" if (hl * hd) % CANONICAL_BK == 0 else "gather"
-    else:
-        wo = "whole"
+    wo = _contraction(heads, hl * hd)
     ffn = model > 1 and cfg.d_ff % model == 0
     ffl = cfg.d_ff // model if ffn else cfg.d_ff
-    if ffn:
-        mlp_wo = "fold" if ffl % CANONICAL_BK == 0 else "gather"
-    else:
-        mlp_wo = "whole"
+    mlp_wo = _contraction(ffn, ffl)
     vocab = model > 1 and cfg.vocab_padded % model == 0 and not tied_embedding(cfg)
     experts, el = None, 0
     if cfg.moe is not None:
@@ -236,14 +263,29 @@ def decoder_layout(cfg, model: int) -> DecoderLayout:
                          experts, el)
 
 
-#: the families the port runs on a sharded plan; ssm and hybrid need
-#: layouts of their own (ROADMAP Queue 1)
-PLAN_FAMILIES = ("decoder", "vlm", "encdec")
+def runtime_layout(cfg, model: int) -> DecoderLayout:
+    """The port's layout of ``cfg`` on ``model`` ranks, for every family:
+    :func:`decoder_layout`; an ssm its SSD heads whole (80 of 64 at
+    mamba2-2.7b: 40 a rank at ``model`` 2, ``out_proj`` folding over
+    their 2560 channels) and its vocabulary; a hybrid its attention and
+    MLP as a decoder's and its RG-LRU channels (2560 at recurrentgemma-2b:
+    1280 a rank, ``wout`` folding)."""
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import HEADDIM
 
-
-def runs_on_plan(cfg) -> bool:
-    """Whether the port runs ``cfg``'s family on a sharded plan."""
-    return cfg.family in PLAN_FAMILIES
+        nh = cfg.d_inner // HEADDIM
+        heads = model > 1 and nh % model == 0
+        hl = nh // model if heads else nh
+        return DecoderLayout(model, heads, hl, "whole", 0, _contraction(heads, hl * HEADDIM),
+                             False, 0, "whole",
+                             model > 1 and cfg.vocab_padded % model == 0)
+    lay = decoder_layout(cfg, model)
+    if cfg.family != "hybrid":
+        return lay
+    lw = cfg.lru_width or cfg.d_model
+    lru = model > 1 and lw % model == 0
+    lwl = lw // model if lru else lw
+    return dataclasses.replace(lay, lru=lru, lru_local=lwl, lru_wo=_contraction(lru, lwl))
 
 
 def tied_embedding(cfg) -> bool:
@@ -251,15 +293,21 @@ def tied_embedding(cfg) -> bool:
     return cfg.tie_embeddings or cfg.family == "encdec"
 
 
-def family_refusal(cfg, what: str) -> str:
-    """Why ``what`` refuses ``cfg``'s family on a sharded plan."""
-    return (f"{what} runs the decoder (dense or MoE), the vlm and the encdec on a sharded "
-            f"plan; family {cfg.family!r} on a plan is not ported yet (ROADMAP Queue 1)")
-
-
 #: the layer stacks of a parameter tree: the decoder's and the vlm's; an
 #: encdec's encoder and decoder
 _STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def _module(path: str) -> str:
+    """A param leaf's module within its layer stack (``layers/wq/w`` and a
+    hybrid's ``layers/2/wq/w`` -> ``wq``; ``layers/conv_w`` -> ``conv_w``);
+    a leaf outside the stacks as it is (``lm_head/w`` -> ``lm_head``)."""
+    mod = path[:-2] if path.endswith("/w") else path
+    stack, _, leaf = mod.partition("/")
+    if stack not in _STACKS:
+        return mod
+    head, _, rest = leaf.partition("/")
+    return rest if head.isdigit() else leaf
 
 
 def _decoder_param_layout(lay: DecoderLayout, path: str) -> Optional[int]:
@@ -299,6 +347,47 @@ def _decoder_param_layout(lay: DecoderLayout, path: str) -> Optional[int]:
     return dim if split else None
 
 
+def _recurrent_param_layout(cfg, lay: DecoderLayout, path: str):
+    """The runtime's model-axis split of one param leaf of an ssm (stacked
+    (L, ...) leaves) or a hybrid (per-layer ``layers/<i>/...`` leaves):
+    ``(dim, segments)``, or None where the leaf is whole on each rank.
+    ``segments`` lists the split dim as (offset, width, split) pieces in
+    order (an ssm's packed in_proj and conv: a split piece gives each
+    rank its 1/model of it, a whole one all of it); None is one split
+    piece over the whole dim.  A gamma's or a norm's module (``in_proj/gamma``,
+    ``norm/scale``) matches no rule."""
+    mod = _module(path)
+    if mod in ("embed", "lm_head"):
+        return (0 if mod == "embed" else 1, None) if lay.vocab else None
+    if cfg.family == "ssm":
+        if mod == "out_proj":
+            return (1, None) if lay.wo == "fold" else None
+        di, n, nh = cfg.d_inner, cfg.ssm_state, lay.heads_local * lay.model
+        conv = ((0, di, True), (di, 2 * n, False))
+        rules = {"in_proj": (2, ((0, di, True), (di, di, True), (2 * di, 2 * n, False),
+                                 (2 * di + 2 * n, nh, True))),
+                 "conv_w": (2, conv), "conv_b": (1, conv), "A_log": (1, None),
+                 "D": (1, None), "dt_bias": (1, None)}
+        return rules.get(mod) if lay.heads else None
+    rules = {"wq": (1, lay.heads), "wk": (1, lay.kv == "split"), "wv": (1, lay.kv == "split"),
+             "wo": (0, lay.wo == "fold"), "mlp/wi_gate": (1, lay.ffn),
+             "mlp/wi_up": (1, lay.ffn), "mlp/wo": (0, lay.mlp_wo == "fold"),
+             "wx": (1, lay.lru), "wy": (1, lay.lru), "wa": (1, lay.lru), "wi": (1, lay.lru),
+             "conv_w": (1, lay.lru), "conv_b": (0, lay.lru), "lam": (0, lay.lru),
+             "wout": (0, lay.lru_wo == "fold")}
+    dim, split = rules.get(mod, (None, False))
+    return (dim, None) if split else None
+
+
+def _param_split(cfg, lay: DecoderLayout, path: str):
+    """``(dim, segments)`` of param leaf ``path`` on the model axis, or
+    None where it is whole on each rank."""
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_param_layout(cfg, lay, path)
+    dim = _decoder_param_layout(lay, path)
+    return None if dim is None else (dim, None)
+
+
 _DOWN = ("contraction split only at whole 128-chunks: the MLP hidden state is "
          "all-gathered and the down projection computed whole")
 _Q = "q heads split only at whole heads: n_heads % model != 0"
@@ -306,8 +395,14 @@ _KV = ("K/V heads split only at whole heads with the q heads: computed whole, ea
        "keeps the K/V heads its q heads read")
 _WO = ("contraction split only at whole 128-chunks: the attention output is all-gathered "
        "and the output projection computed whole")
+_SSM_HEADS = "the SSD heads split only at whole heads: computed whole on each rank"
+_LRU = "the RG-LRU's channels split only evenly: computed whole on each rank"
+_GATES = ("the RG-LRU gates split their columns (the reference: their contraction): the conv "
+          "output is all-gathered and each rank computes its own channels' gates whole, so "
+          "no fold chains the ranks")
 # keyed by a leaf's module within its layer stack (an encdec's cross
-# attention's cq/ck/cv/co as wq/wk/wv/wo)
+# attention's cq/ck/cv/co as wq/wk/wv/wo): why a dim the rules split over
+# model runs whole
 _WHY = {
     "embed": "the tied embedding stays whole: the head quantizes the whole table per "
              "tensor at every call (transformer.tied_head)",
@@ -316,7 +411,33 @@ _WHY = {
     "moe/down": "TP inside each expert: K1's expert batch has no start to continue a fold, "
                 "so the experts' hidden state is all-gathered and the down projection "
                 "computed whole",
+    "in_proj": _SSM_HEADS,
+    "out_proj": ("contraction split only at whole 128-chunks: y, all-gathered for out_norm, "
+                 "goes through out_proj whole"),
+    "wx": _LRU, "wy": _LRU,
+    "wa": _GATES, "wi": _GATES,
+    "wout": ("contraction split only at whole 128-chunks: the RG-LRU output is all-gathered "
+             "and wout computed whole"),
 }
+# why the runtime splits a dim that the rules keep whole
+_SPLIT_WHY = {
+    "conv_w": "per channel: this rank's conv channels (the reference keeps them whole)",
+    "A_log": "per SSD head: this rank's heads (the reference keeps them whole)",
+    "lam": "per RG-LRU channel: this rank's channels (the reference keeps them whole)",
+    "wa": _GATES, "wi": _GATES,
+}
+_SPLIT_WHY["conv_b"] = _SPLIT_WHY["conv_w"]
+_SPLIT_WHY["D"] = _SPLIT_WHY["dt_bias"] = _SPLIT_WHY["A_log"]
+# why a split dim is an index set, not the rules' contiguous range
+_PACKED_WHY = {
+    "in_proj": "this rank's heads' z, x and dt columns and the B and C columns whole, not "
+               "a contiguous half of the packed z|x|B|C|dt columns",
+    "conv_w": "this rank's heads' x channels and the B and C channels whole",
+    "conv": "this rank's heads' x channels and the B and C channels whole, not a contiguous "
+            "half of the x|B|C channels",
+}
+_PACKED_WHY["conv_b"] = _PACKED_WHY["conv_w"]
+_SPLIT_WHY["in_proj"] = _PACKED_WHY["in_proj"]
 _CACHE_HEADS = {
     "k": "K/V heads on model (the reference: in-page positions), so attention stays on "
          "the rank",
@@ -324,45 +445,77 @@ _CACHE_HEADS = {
           "attention stays on the rank",
 }
 _CACHE_HEADS["v"], _CACHE_HEADS["cv"] = _CACHE_HEADS["k"], _CACHE_HEADS["ck"]
+_RING_WHOLE = ("the K/V heads whole on every rank (the reference: ring positions on model), "
+               "so attention stays on the rank")
 
 
 def _why(path: str) -> str:
     """The reason a param leaf the rules split over ``model`` runs whole."""
-    mod = path[:-2] if path.endswith("/w") else path
-    stack, _, leaf = mod.partition("/")
-    return _WHY.get(leaf if stack in _STACKS else mod, "computed whole on each rank")
+    return _WHY.get(_module(path), "computed whole on each rank")
+
+
+def _cache_model(cfg, lay: DecoderLayout, key: str, entries, ma):
+    """The runtime's model-axis entries of one cache leaf (named ``key``)
+    and the reasons, where they depart from the rules' ``entries``."""
+    want, reasons = list(entries), []
+    off = [None if e == ma else e for e in want]  # nothing on model
+    if cfg.family == "ssm" and key in ("conv", "ssm"):
+        if not lay.heads and off != want:
+            want = off
+            reasons.append(_SSM_HEADS)
+        elif lay.heads and key == "conv":
+            reasons.append(_PACKED_WHY["conv"])
+    elif cfg.family == "hybrid" and key in ("k", "v", "conv", "lru"):
+        if key in ("k", "v") and lay.kv == "split":
+            want = off + [None] * (3 - len(off))
+            want[2] = ma
+            reasons.append(_CACHE_HEADS["k"])
+        elif off != want and (key in ("k", "v") or not lay.lru):
+            want = off
+            reasons.append(_RING_WHOLE if key in ("k", "v") else _LRU)
+    elif key in _CACHE_HEADS:
+        want = off + [None] * (4 - len(off))
+        want[3] = ma
+        reasons.append(_CACHE_HEADS[key])
+    return want, reasons
 
 
 def _overrides(cfg, mesh, params, cache, pool: bool) -> Dict[Tuple[str, str], Override]:
     """The runtime's departures from the reference's specs."""
-    if not runs_on_plan(cfg):
-        return {}
     shape = meshes.shape_dict(mesh)
     ma = shd.model_axis(mesh)
     m = shape.get("model", 1)
     fa = shd.fsdp_axes(mesh)
     dsz = shd._axis_size(mesh, fa)
-    lay = decoder_layout(cfg, m)
+    lay = runtime_layout(cfg, m)
     out: Dict[Tuple[str, str], Override] = {}
     for path, spec in _named(params):
         entries = list(spec)
         want = list(entries)
         reasons = []
         if m > 1:
-            split = _decoder_param_layout(lay, path)
+            cut = _param_split(cfg, lay, path)
+            split = None if cut is None else cut[0]
             for i, e in enumerate(entries):
                 if ma in _entry_axes(e) and i != split:
                     want[i] = None
                     reasons.append(_why(path))
             if split is not None and ma not in _entry_axes(entries[split]):
-                raise ShardingPlanError(f"param {path}: the runtime splits dim {split} "
-                                        f"over model, the rules do not")
+                why = _SPLIT_WHY.get(_module(path))
+                if why is None:
+                    raise ShardingPlanError(f"param {path}: the runtime splits dim {split} "
+                                            f"over model, the rules do not")
+                want += [None] * (split + 1 - len(want))
+                want[split] = ma
+                reasons.append(why)
+            if cut is not None and cut[1] is not None:
+                reasons.append(_PACKED_WHY[_module(path)])
         if pool and dsz > 1:
             for i, e in enumerate(want):
                 if any(a in fa for a in _entry_axes(e)):
                     want[i] = None
                     reasons.append("serving holds weights whole across the data axis")
-        if want != entries:
+        if want != entries or reasons:
             out[("param", path)] = Override(shd.Spec(want), "; ".join(dict.fromkeys(reasons)))
     if cache is not None:
         for path, spec in _named(cache):
@@ -373,14 +526,12 @@ def _overrides(cfg, mesh, params, cache, pool: bool) -> Dict[Tuple[str, str], Ov
             if pool and dsz > 1 and any(any(a in fa for a in _entry_axes(e)) for e in entries):
                 want = [None if any(a in fa for a in _entry_axes(e)) else e for e in want]
                 reasons.append("whole on every data rank; each data rank steps its own slots")
-            if m > 1 and key in _CACHE_HEADS:
-                want = [None if e == ma else e for e in want]
-                want += [None] * (4 - len(want))
-                want[3] = ma
-                reasons.append(_CACHE_HEADS[key])
+            if m > 1:
+                want, why = _cache_model(cfg, lay, key, want, ma)
+                reasons += why
             while want and want[-1] is None:
                 want.pop()
-            if want != entries:
+            if want != entries or reasons:
                 out[("cache", path)] = Override(shd.Spec(want), "; ".join(reasons))
     return out
 
@@ -440,29 +591,33 @@ class ShardingPlan:
         raise KeyError(path)
 
     def layout(self) -> DecoderLayout:
-        """The runtime's model-axis layout (``PLAN_FAMILIES`` only)."""
+        """The runtime's model-axis layout (:func:`runtime_layout`)."""
         if self.cfg is None:
             raise ShardingPlanError("a plan without a config has no runtime layout")
-        if not runs_on_plan(self.cfg):
-            raise ShardingPlanError(family_refusal(self.cfg, "ShardingPlan.layout"))
-        return decoder_layout(self.cfg, self.model_shards)
+        return runtime_layout(self.cfg, self.model_shards)
 
     def local_config(self):
         """The config as one model rank runs it: its q heads and the K/V
-        heads it keeps, in an encdec's encoder and cross attention too
-        (the whole config at model 1; a MoE decoder keeps its global
-        expert count, which routing reads)."""
+        heads it keeps, in an encdec's encoder and cross attention too; an
+        ssm's SSD heads in ``n_heads`` (the whole ssm config's is 0); a
+        hybrid's RG-LRU channels in ``lru_width`` (the whole config at
+        model 1; a MoE decoder keeps its global expert count, which
+        routing reads)."""
         if self.model_shards == 1:
             return self.cfg
         lay = self.layout()
-        return dataclasses.replace(self.cfg, n_heads=lay.heads_local, kv_heads=lay.kv_local)
+        if self.cfg.family == "ssm":
+            return dataclasses.replace(self.cfg, n_heads=lay.heads_local)
+        cfg = dataclasses.replace(self.cfg, n_heads=lay.heads_local, kv_heads=lay.kv_local)
+        if self.cfg.family == "hybrid":
+            cfg = dataclasses.replace(cfg, lru_width=lay.lru_local)
+        return cfg
 
     def model_split_dim(self, path: str) -> Optional[int]:
         """The dim of param leaf ``path`` the runtime splits over ``model``
         (None: whole on every model rank)."""
-        if self.model_shards == 1:
-            return None
-        return _decoder_param_layout(self.layout(), path)
+        cut = self.shard_slice(path)
+        return None if cut is None else cut[0]
 
     def data_split_dim(self, path: str) -> Optional[int]:
         """The dim of param leaf ``path`` that the rules put over the data
@@ -475,14 +630,34 @@ class ShardingPlan:
                 return i
         return None
 
-    def shard_slice(self, path: str) -> Optional[Tuple[int, int, int]]:
-        """``(dim, start, length)`` of this model rank's shard of param leaf
-        ``path`` along the dim the runtime splits (None: whole)."""
-        dim = self.model_split_dim(path)
-        if dim is None:
+    def shard_slice(self, path: str) -> Optional[Tuple[int, Tuple[Tuple[int, int], ...]]]:
+        """``(dim, ((start, length), ...))``: this model rank's pieces of
+        param leaf ``path`` along the dim the runtime splits, in order (one
+        piece, but for an ssm's packed ``in_proj`` and conv: its heads' z,
+        x and dt columns and B and C whole; None: whole)."""
+        if self.model_shards == 1:
             return None
-        n = self.param_shape(path)[dim] // self.model_shards
-        return dim, self.mesh.coord("model") * n, n
+        cut = _param_split(self.cfg, self.layout(), path)
+        if cut is None:
+            return None
+        dim, segments = cut
+        m, r = self.model_shards, self.mesh.coord("model")
+        pieces = []
+        for off, width, split in segments or ((0, self.param_shape(path)[dim], True),):
+            start, n = (off + r * (width // m), width // m) if split else (off, width)
+            if pieces and sum(pieces[-1]) == start:
+                pieces[-1] = (pieces[-1][0], pieces[-1][1] + n)
+            else:
+                pieces.append((start, n))
+        return dim, tuple(pieces)
+
+    @staticmethod
+    def take(x: torch.Tensor, cut) -> torch.Tensor:
+        """``x``'s pieces of a :meth:`shard_slice` cut (a contiguous copy)."""
+        dim, pieces = cut
+        if len(pieces) == 1:
+            return x.narrow(dim, *pieces[0]).contiguous()
+        return torch.cat([x.narrow(dim, start, n) for start, n in pieces], dim=dim)
 
     def shard_leaf(self, path: str, x: torch.Tensor) -> torch.Tensor:
         """This model rank's shard of param leaf ``path`` (a contiguous
@@ -491,14 +666,15 @@ class ShardingPlan:
         cut = self.shard_slice(path)
         if cut is None:
             return x
-        dim, start, n = cut
+        dim, pieces = cut
+        n = sum(length for _, length in pieces)
         if x.shape[dim] == n:
             return x
         whole = self.param_shape(path)[dim]
         if x.shape[dim] != whole:
             raise ShardingPlanError(f"param {path}: dim {dim} is {x.shape[dim]}, neither "
                                     f"whole ({whole}) nor a shard ({n})")
-        return x.narrow(dim, start, n).contiguous()
+        return self.take(x, cut)
 
     def shard_params(self, params):
         """:meth:`shard_leaf` over a whole parameter tree."""

@@ -66,7 +66,11 @@ def load_params(path: str, device):
 def run_smoke(arch: str = "llama3-8b", *, slots: int = 2, chunk: int = 4,
               n_requests: int = 4, sharded: bool = True, num_pages=None,
               mesh=(1, 1), params=None, device="cuda") -> dict:
-    """Serve the smoke trace; returns a JSON-ready result dict.
+    """Serve the smoke trace; returns a JSON-ready result dict.  The
+    attention families admit by ``chunk``-token chunked prefill into one
+    page a slot; the ssm and the hybrid by solo prefill into their
+    slot-row pool (no pages: ``num_pages`` None; the trace's 3-8 token
+    prompts fit mamba2's smoke SSD chunk of 8).
 
     ``sharded=True`` plans the pool on the (data, model) ``mesh`` over the
     launched world and runs the plan-carrying engine; ``sharded=False``
@@ -84,6 +88,8 @@ def run_smoke(arch: str = "llama3-8b", *, slots: int = 2, chunk: int = 4,
     if params is None:
         params = pspec.materialize(registry.param_specs(cfg),
                                    torch.Generator(device=dev).manual_seed(0))
+    if cfg.family not in registry.CHUNKED_FAMILIES:
+        chunk = None  # the recurrent families admit by solo prefill
     m = (meshes.make_mesh(mesh, ("data", "model")) if sharded
          else meshes.make_abstract_mesh((1, 1), ("data", "model")))
     shape = C.ShapeConfig("serve", MAX_LEN, slots, "decode")

@@ -79,22 +79,26 @@ solo prefill's mini cache; under ``kv_quant`` the pages hold codes and
 betas and the mini cache keeps ``cache_dtype``.
 
 Sharded serving (``plan=``, a pool plan of ``parallel/planner.py`` on a
-concrete mesh; the decoder, dense or MoE, the vlm and the encdec
-(``planner.PLAN_FAMILIES``); ssm and hybrid on a plan are refused with a
-pointer to ROADMAP).  Every rank runs the same host scheduler, allocator
-and counters.
+concrete mesh; every family of the registry: the decoder, dense or MoE,
+the vlm, the encdec, and the ssm and the hybrid on their slot-row pool).
+Every rank runs the same host scheduler, allocator and counters.
 
 * Model axis: each rank keeps its shard of the weights, quantized whole
   a matrix at a time (``quantized_weights.quantize_leaf(..., plan)``;
   given prequantized, ``plan.shard_params``; a MoE layer's experts as the
   plan's EP or TP decision says) and steps with the plan's local
   config; the step bodies' collectives (``models/transformer.py``,
-  ``models/encdec.py``) give every model rank the whole logits.  An encdec slot's ``ck``/``cv``
-  rows hold this rank's K/V heads, made by its own encoder-side pass.
+  ``models/encdec.py``, ``models/ssm.py``, ``models/recurrent.py``) give
+  every model rank the whole logits.  An encdec slot's ``ck``/``cv`` rows
+  hold this rank's K/V heads, made by its own encoder-side pass; an ssm
+  slot's ``conv`` and ``ssm`` rows this rank's heads' channels (B and C
+  whole) and states, a hybrid slot's ``conv`` and ``lru`` rows this rank's
+  RG-LRU channels and its rings the one K/V head whole.
 * Data axis: the slots split evenly over the data ranks, in order; each
   data rank steps only its slots' rows of the pool (the table, ``len``
   and page stores are whole on every rank; a page is written and read
-  only by the rank that owns its slot).  The sampled tokens of each step
+  only by the rank that owns its slot; a slot-row pool's rows too,
+  ``slots.slot_rows``).  The sampled tokens of each step
   are all-gathered in rank order, so every rank takes the same
   decisions, and a solo prefill (a vlm's patch request included) and an
   encdec's encoder-side admission run on the owner's ranks alone, which
@@ -129,7 +133,6 @@ from repro_torch.core.policy import QuantPolicy, draft_policy
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models import registry
 from repro_torch.parallel import actshard, collectives
-from repro_torch.parallel import planner as planner_lib
 from repro_torch.serve import quantized_weights as qw
 from repro_torch.serve import slots as slots_lib
 from repro_torch.serve import spec as spec_lib
@@ -402,8 +405,6 @@ class PoolEngine:
                 "planner.plan_for(..., kv_quant=...)")
         if not getattr(plan.mesh, "is_concrete", False) or plan.mesh.size == 1:
             return
-        if not planner_lib.runs_on_plan(cfg):
-            raise NotImplementedError(planner_lib.family_refusal(cfg, "PoolEngine"))
         refuse = None
         if spec is not None:
             refuse = "speculative decoding"
@@ -445,17 +446,14 @@ class PoolEngine:
                                                 to_device(tokens, dev), n_new, cache)
             return torch.argmax(logits, dim=-1)
         lo, hi = self._local_rows()
-        sub = dict(cache, table=cache["table"][lo:hi], len=cache["len"][lo:hi])
-        for key in slots_lib.CROSS_KEYS:
-            if key in cache:  # an encdec's cross K/V rows: (L, slots, ...)
-                sub[key] = cache[key][:, lo:hi]
+        sub = slots_lib.slot_rows(cache, lo, hi)
         if n_new is None:
             logits, sub = registry.decode_step(self.step_cfg, self.policy, self.params,
                                                to_device(tokens[lo:hi], dev), sub)
         else:
             logits, sub = registry.chunk_step(self.step_cfg, self.policy, self.params,
                                               to_device(tokens[lo:hi], dev), n_new[lo:hi], sub)
-        cache["len"][lo:hi] = sub["len"]
+        slots_lib.put_slot_rows(cache, sub, lo, hi)
         return torch.cat(collectives.all_gather(torch.argmax(logits, dim=-1),
                                                 self.plan.mesh.group("data")))
 

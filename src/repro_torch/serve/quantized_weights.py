@@ -36,22 +36,26 @@ def is_linear_weight(name: str, x: torch.Tensor) -> bool:
 def quantize_leaf(name: str, x: torch.Tensor, policy: QuantPolicy, plan=None) -> torch.Tensor:
     """Serving form of one parameter leaf (identity for non-linear leaves).
     With ``plan`` (a sharded plan of ``parallel/planner.py``), this model
-    rank's shard of it (``plan.shard_slice``), quantized a matrix at a time
-    from the whole leaf: along a stacked dim only this rank's matrices,
-    inside the matrices each whole matrix and this rank's slice of it kept,
-    so the leaf's whole quantized copy is never held."""
+    rank's shard of it (``plan.shard_slice``: one range, or an ssm's
+    index set of packed columns), quantized a matrix at a time from the
+    whole leaf: along a stacked dim only this rank's matrices, inside the
+    matrices each whole matrix and this rank's pieces of it kept, so the
+    leaf's whole quantized copy is never held."""
     cut = None if plan is None else plan.shard_slice(name)
     if not is_linear_weight(name, x):
         return x if cut is None else plan.shard_leaf(name, x)
     shape, lead, inner = list(x.shape), [0] * (x.dim() - 2), None
     if cut is not None:
-        dim, start, n = cut
+        dim, pieces = cut
+        n = sum(length for _, length in pieces)
         if x.shape[dim] == plan.param_shape(name)[dim]:
             shape[dim] = n
             if dim < x.dim() - 2:
-                lead[dim] = start
+                if len(pieces) != 1:
+                    raise ValueError(f"{name}: a stacked dim splits into one range")
+                lead[dim] = pieces[0][0]
             else:
-                inner = (dim - x.dim() + 2, start, n)
+                inner = (dim - x.dim() + 2, pieces)
         elif dim >= x.dim() - 2 or x.shape[dim] != n:
             raise ValueError(f"{name}: a leaf split inside its matrices is quantized whole "
                              f"(its WBC mean and scale), got dim {dim} of {x.shape[dim]}")
@@ -60,7 +64,7 @@ def quantize_leaf(name: str, x: torch.Tensor, policy: QuantPolicy, plan=None) ->
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
     for idx in itertools.product(*(range(s) for s in shape[:-2])):
         w = mfmac._quantize_w(x[tuple(i + o for i, o in zip(idx, lead))], policy)
-        out[idx] = w if inner is None else w.narrow(*inner)
+        out[idx] = w if inner is None else plan.take(w, inner)
         del w
     return out
 

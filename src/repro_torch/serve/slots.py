@@ -48,7 +48,11 @@ pool of the recurrent families (ssm: per-layer conv windows and SSM
 states; hybrid: a tuple of per-layer dicts, RG-LRU states and attention
 rings), whose state is O(1) in length and has nothing to page; an
 attention family's ``decode_step`` still accepts it (``k``/``v``
-(L, max_slots, span, KV, hd)).
+(L, max_slots, span, KV, hd)).  On a sharded plan it is built from the
+plan's local config, so its widths are this model rank's (an ssm's
+``conv`` channels of its heads and B and C, its heads' ``ssm`` states; a
+hybrid's RG-LRU channels in ``conv`` and ``lru``); over a data axis a
+rank steps its slots' rows through :func:`slot_rows`.
 
 :class:`PageAllocator` is host-side bookkeeping in numpy (free list,
 refcounts, per-slot tables, a prompt-keyed prefix cache with LRU eviction
@@ -96,6 +100,56 @@ def lift_cache(cache, max_slots: int):
         return x
 
     return _map_keyed(one, cache)
+
+
+def _slot_axis(key: str, in_layers: bool) -> int:
+    """The slot axis of a slot-row pool's leaf: an ssm's stacked
+    ``conv``/``ssm`` (L, slots, ...) on 1; a hybrid's per-layer leaves,
+    every ``len`` and ``pos``, on 0."""
+    return 1 if key in ("conv", "ssm") and not in_layers else 0
+
+
+def slot_rows(pool, lo: int, hi: int):
+    """The slots [lo, hi) of a pool (a data rank's share of a sharded
+    pool), as views a step body writes in place.  A paged pool: its
+    table rows, ``len`` and an encdec's cross K/V rows, the page stores
+    whole (a page is written only by its slot's rank).  A slot-row pool:
+    every leaf's rows; a step replaces ``len`` and ``pos`` (see
+    :func:`put_slot_rows`)."""
+    if is_paged(pool):
+        sub = dict(pool, table=pool["table"][lo:hi], len=pool["len"][lo:hi])
+        sub.update({key: pool[key][:, lo:hi] for key in CROSS_KEYS if key in pool})
+        return sub
+
+    def cut(tree, key, in_layers):
+        if isinstance(tree, dict):
+            return {k: cut(v, k, in_layers) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(cut(v, key, True) for v in tree)
+        return tree.narrow(_slot_axis(key, in_layers), lo, hi - lo)
+
+    return cut(pool, "", False)
+
+
+def put_slot_rows(pool, sub, lo: int, hi: int) -> None:
+    """Write the leaves a step replaced in :func:`slot_rows`' ``sub`` back
+    into slots [lo, hi) of the pool: ``len``, and a slot-row pool's
+    ``pos``."""
+    def put(p, s):
+        if isinstance(p, dict):
+            for k, v in p.items():
+                if k in ("len", "pos"):
+                    v[lo:hi] = s[k]
+                elif isinstance(v, (dict, tuple, list)):
+                    put(v, s[k])
+        elif isinstance(p, (tuple, list)):
+            for a, b in zip(p, s):
+                put(a, b)
+
+    if is_paged(pool):
+        pool["len"][lo:hi] = sub["len"]
+    else:
+        put(pool, sub)
 
 
 # ---------------------------------------------------------------------------

@@ -39,8 +39,10 @@ would straddle two ranks) and its experts' scales are global maxima
 batch's ``patch_embeds`` / ``frames`` rows split with its tokens
 (``actshard.shard_batch``), so ``patch_proj``'s and ``frame_proj``'s
 activation scales, like every other per-tensor one, are the global
-batch's.  ssm and hybrid, a model axis > 1 and microbatching are refused
-(tensor-parallel training is later work).
+batch's.  The ssm and the hybrid (a tuple of per-layer dicts, split
+leaf by leaf, ``layers/<i>/...``) train the same way too.  A model axis
+> 1 and microbatching are refused (tensor-parallel training is later
+work).
 """
 from __future__ import annotations
 
@@ -130,10 +132,6 @@ class DataParallel:
     shard / gather / gradient reduction of whole trees."""
 
     def __init__(self, plan):
-        from repro_torch.parallel.planner import family_refusal, runs_on_plan
-
-        if not runs_on_plan(plan.cfg):
-            raise NotImplementedError(family_refusal(plan.cfg, "data-parallel training"))
         if plan.model_shards > 1:
             raise NotImplementedError(
                 "training on a model axis > 1 (tensor-parallel K2/K3) is not ported yet "

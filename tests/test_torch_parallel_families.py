@@ -251,10 +251,8 @@ def _refusals():
     from repro_torch import configs as TC
     from repro_torch.core.policy import KV_PINNED, PAPER_FAITHFUL
     from repro_torch.models import registry, spec
-    from repro_torch.optim import adamw, warmup_cosine_schedule
     from repro_torch.parallel import meshes, planner
     from repro_torch.serve import NgramDrafter, PoolEngine
-    from repro_torch.train import TrainConfig, make_train_step
 
     def msg(fn):
         try:
@@ -280,23 +278,6 @@ def _refusals():
     qa = dataclasses.replace(PAPER_FAITHFUL, quantize_attention=True)
     out["quantize_attention"] = msg(lambda: PoolEngine(cfg, qa, params,
                                                        plan=_plan(cfg, (1, 2)), **engine))
-    for arch in ("mamba2-2.7b", "recurrentgemma-2b"):
-        rcfg = TC.smoke_config(arch)
-        rparams = spec.materialize(registry.param_specs(rcfg),
-                                   torch.Generator().manual_seed(0))
-        mesh = meshes.make_mesh((2, 1), ("data", "model"))
-        plan = planner.plan_for(rcfg, mesh, TC.ShapeConfig("s", MAX_LEN, SLOTS, "decode"),
-                                pool_slots=SLOTS)
-        out[("pool", arch)] = msg(lambda: PoolEngine(rcfg, PAPER_FAITHFUL, rparams,
-                                                     max_slots=SLOTS, max_len=MAX_LEN,
-                                                     plan=plan, device="cpu"))
-        tplan = planner.plan_for(rcfg, mesh, TC.ShapeConfig("t", SEQ, BATCH, "train"))
-        out[("train", arch)] = msg(lambda: make_train_step(
-            rcfg, PAPER_FAITHFUL, adamw(warmup_cosine_schedule(3e-3, 20, 3)), TrainConfig(),
-            plan=tplan))
-        out[("layout", arch)] = msg(
-            lambda: planner.plan_for(rcfg, meshes.make_abstract_mesh(
-                (1, 2), ("data", "model"))).layout())
     return out
 
 
@@ -612,16 +593,3 @@ def test_remaining_refusals(world, case):
                 else [res["refused"][case]])
         for msg in msgs:
             assert msg is not None and words in msg and "ROADMAP" in msg
-
-
-@pytest.mark.parametrize("what", ["pool", "train", "layout"])
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
-def test_ssm_and_hybrid_stay_refused(world, arch, what):
-    """``PoolEngine``, data-parallel training and ``plan.layout()`` refuse
-    ssm and hybrid on a plan, with a pointer to ROADMAP."""
-    from repro_torch import configs as TC
-
-    family = TC.smoke_config(arch).family
-    for res in world:
-        msg = res["refused"][(what, arch)]
-        assert msg is not None and f"'{family}'" in msg and "ROADMAP" in msg

@@ -215,34 +215,7 @@ def _rank_cases(rank, weights):
                                         num_pages=SMOKE_PAGES, device="cpu")
     for arch in TRAIN_ARCHS:
         res[("train", arch)] = _train(rank, arch)
-    res["refused"] = _refused()
     return res
-
-
-def _refused():
-    """The message (or None) of a sharded ``PoolEngine`` built for each
-    family the port does not run on a plan (the ssm, the hybrid), on a
-    concrete (2, 1) mesh."""
-    from repro_torch import configs as TC
-    from repro_torch.core.policy import PAPER_FAITHFUL
-    from repro_torch.models import registry, spec
-    from repro_torch.parallel import meshes, planner
-    from repro_torch.serve import PoolEngine
-
-    out = {}
-    for arch in ("mamba2-2.7b", "recurrentgemma-2b"):
-        cfg = TC.smoke_config(arch)
-        params = spec.materialize(registry.param_specs(cfg), torch.Generator().manual_seed(0))
-        plan = planner.plan_for(cfg, meshes.make_mesh((2, 1), ("data", "model")),
-                                TC.ShapeConfig("s", MAX_LEN, SLOTS, "decode"),
-                                pool_slots=SLOTS)
-        try:
-            PoolEngine(cfg, PAPER_FAITHFUL, params, max_slots=SLOTS, max_len=MAX_LEN,
-                       plan=plan, device="cpu")
-            out[cfg.family] = None
-        except NotImplementedError as e:
-            out[cfg.family] = str(e)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -423,12 +396,3 @@ def test_smoke_driver_moe_equals_reference(world, mesh):
     assert ours["tokens"] == ref["tokens"]
     assert (ours["data_shards"], ours["model_shards"]) == MESHES[mesh]
     assert ours["weight_passes"] == ref["weight_passes"]
-
-
-def test_other_families_stay_refused_on_a_plan(world):
-    """ssm and hybrid stay refused on a plan (the decoder, the vlm and the
-    encdec run there), with a pointer to ROADMAP."""
-    for res in world:
-        assert set(res["refused"]) == {"ssm", "hybrid"}
-        for family, msg in res["refused"].items():
-            assert msg is not None and f"'{family}'" in msg and "ROADMAP" in msg

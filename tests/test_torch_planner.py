@@ -9,15 +9,17 @@ EP/TP decisions, ``num_pages``' rounding, ``data_shards`` and
 ``ShardingPlanError`` in both packages.
 
 The port's runtime departs from the reference's specs in listed ways
-only (``plan.overrides``; the decoder, dense or MoE, the vlm and the
-encdec): whole heads / whole 128-chunks (a product that would split
-elsewhere is computed whole on each rank; under TP inside the experts,
-the experts' down projection), an encdec's tied embedding whole, and the
-K/V stores' heads on ``model`` (the reference puts in-page positions
-there; for an encdec's cross K/V ``ck``/``cv``, the encoder's positions);
-and, in serving, weights, tables and page stores whole on every data
-rank.  The tests pin these as the only differences, with
-an independent statement of each rule."""
+only (``plan.overrides``; every family): whole heads / whole 128-chunks
+(a product that would split elsewhere is computed whole on each rank;
+under TP inside the experts, the experts' down projection), an encdec's
+tied embedding whole, and the K/V stores' heads on ``model`` (the
+reference puts in-page positions there; for an encdec's cross K/V
+``ck``/``cv``, the encoder's positions); an ssm's packed ``in_proj`` and
+conv cut at whole SSD heads (index sets) with its per-head leaves split;
+a hybrid's RG-LRU gates split by column, its conv and ``lam`` by channel
+and its one K/V head whole on every rank; and, in serving, weights,
+tables and page stores whole on every data rank.  The tests pin these as
+the only differences, with an independent statement of each rule."""
 import re
 
 import pytest
@@ -108,13 +110,75 @@ def test_plan_matches_reference(arch, mesh_id):
         tp.validate()
 
 
+def _data_overrides(plan):
+    """Serving's leaves that the rules put on a data axis: whole on every
+    data rank."""
+    return ({("param", r.path) for r in plan.report
+             if r.kind == "param" and any(a in ("pod", "data") for d in r.dims
+                                          for a in d.axes)}
+            | {("cache", r.path) for r in plan.report
+               if r.kind == "cache" and any(a in ("pod", "data") for d in r.dims
+                                            for a in d.axes)})
+
+
+def _recurrent_overrides(cfg, plan, m):
+    """An ssm's and a hybrid's model-axis departures, leaf by leaf."""
+    from repro_torch.models import recurrent
+
+    out = set()
+    if m == 1:
+        return out
+    if cfg.family == "ssm":
+        nh, n, di = cfg.d_inner // 64, cfg.ssm_state, cfg.d_inner
+        if nh % m == 0:
+            # packed columns and conv channels by index set, per-head leaves split
+            out |= {("param", f"layers/{k}") for k in ("in_proj/w", "conv_w", "conv_b",
+                                                       "A_log", "D", "dt_bias")}
+            if (nh // m * 64) % 128:
+                out.add(("param", "layers/out_proj/w"))  # gathered y, out_proj whole
+            if plan.cache is not None:
+                out.add(("cache", "conv"))
+        else:
+            if (2 * di + 2 * n + nh) % m == 0:
+                out.add(("param", "layers/in_proj/w"))
+            if di % m == 0:
+                out.add(("param", "layers/out_proj/w"))
+            if plan.cache is not None and (di + 2 * n) % m == 0:
+                out.add(("cache", "conv"))
+        return out
+    nh, kv, hd, ff, lw = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff, cfg.lru_width
+    whole_heads = nh % m == 0 and (kv % m == 0 or (nh // kv) % (nh // m) == 0
+                                   or (nh // m) % (nh // kv) == 0)
+    for i, kind in enumerate(recurrent.layer_kinds(cfg)):
+        at = f"layers/{i}"
+        if ff % m == 0 and (ff // m) % 128:
+            out.add(("param", f"{at}/mlp/wo/w"))
+        if kind == "attn":
+            if not whole_heads and (nh * hd) % m == 0:
+                out.add(("param", f"{at}/wq/w"))
+            if not (whole_heads and kv % m == 0) and (kv * hd) % m == 0:
+                out |= {("param", f"{at}/wk/w"), ("param", f"{at}/wv/w")}
+            if (nh * hd) % m == 0 and not (whole_heads and (nh // m * hd) % 128 == 0):
+                out.add(("param", f"{at}/wo/w"))
+            if plan.cache is not None:  # the one K/V head whole, not ring positions
+                out |= {("cache", f"{at}/k"), ("cache", f"{at}/v")}
+        elif lw % m == 0:
+            # gates by column, conv and lam by channel; wout gathered under a chunk
+            out |= {("param", f"{at}/{k}") for k in ("wa/w", "wi/w", "conv_w", "conv_b",
+                                                     "lam")}
+            if (lw // m) % 128:
+                out.add(("param", f"{at}/wout/w"))
+    return out
+
+
 def _expected_overrides(cfg, plan, pool: bool):
     """The runtime's departures, stated leaf by leaf from the rule."""
     shape = plan.mesh_shape()
     m = shape.get("model", 1)
     dsz = plan.data_shards
-    if cfg.family not in ("decoder", "vlm", "encdec"):
-        return set()
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_overrides(cfg, plan, m) | (
+            _data_overrides(plan) if pool and dsz > 1 else set())
     nh, kv, hd, ff = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
     encdec = cfg.family == "encdec"
     # an encdec's two stacks follow the decoder's rules, its cross
@@ -147,19 +211,15 @@ def _expected_overrides(cfg, plan, pool: bool):
             if encdec:
                 out |= {("cache", "ck"), ("cache", "cv")}
     if pool and dsz > 1:
-        out |= {("param", r.path) for r in plan.report
-                if r.kind == "param" and any(a in ("pod", "data") for d in r.dims
-                                             for a in d.axes)}
-        out |= {("cache", r.path) for r in plan.report
-                if r.kind == "cache" and any(a in ("pod", "data") for d in r.dims
-                                             for a in d.axes)}
+        out |= _data_overrides(plan)
     return out
 
 
 @pytest.mark.parametrize("mesh_id", list(MESHES))
 @pytest.mark.parametrize("arch", ["llama3-8b", "olmo-1b", "mistral-nemo-12b",
                                   "starcoder2-7b", "llama4-scout-17b-a16e", "grok-1-314b",
-                                  "mamba2-2.7b", "internvl2-76b", "whisper-large-v3"])
+                                  "mamba2-2.7b", "recurrentgemma-2b", "internvl2-76b",
+                                  "whisper-large-v3"])
 @pytest.mark.parametrize("cell", ["train", "pool"])
 def test_runtime_overrides_are_the_listed_ones(arch, mesh_id, cell):
     shape, kw = CELLS[cell]
@@ -172,7 +232,90 @@ def test_runtime_overrides_are_the_listed_ones(arch, mesh_id, cell):
         if (kind, path) == ("param", "embed") and cfg.family == "encdec" and (
                 tp.model_shards > 1):
             assert "tied" in ov.reason
+        if tp.model_shards > 1 and cfg.family in ("ssm", "hybrid"):
+            leaf = path.split("/")[-1] if kind == "cache" else path.split("/")[-2 if (
+                path.endswith("/w")) else -1]
+            assert any(word in ov.reason for word in REASON_WORDS[leaf]), (kind, path,
+                                                                            ov.reason)
     assert "[runtime]" in tp.summary() or not tp.overrides
+
+
+# words the reason of each recurrent family's departure names (by leaf;
+# a serving plan's data-axis reason as well)
+_DATA_WORDS = ("data",)
+REASON_WORDS = {
+    "in_proj": ("B and C", "whole heads") + _DATA_WORDS,
+    "conv_w": ("channels",) + _DATA_WORDS, "conv_b": ("channels",) + _DATA_WORDS,
+    "A_log": ("SSD head",), "D": ("SSD head",), "dt_bias": ("SSD head",),
+    "out_proj": ("128-chunks",) + _DATA_WORDS,
+    "conv": ("B and C", "channels", "whole heads") + _DATA_WORDS,
+    "ssm": ("whole heads",) + _DATA_WORDS, "len": _DATA_WORDS,
+    "lru": ("channels",) + _DATA_WORDS, "pos": _DATA_WORDS,
+    "wa": ("columns",), "wi": ("columns",), "lam": ("channel",),
+    "wout": ("128-chunks",) + _DATA_WORDS, "wo": ("128-chunks",) + _DATA_WORDS,
+    "wq": ("whole heads",) + _DATA_WORDS, "wk": ("K/V heads",) + _DATA_WORDS,
+    "wv": ("K/V heads",) + _DATA_WORDS, "k": ("K/V heads whole",), "v": ("K/V heads whole",),
+    "embed": _DATA_WORDS, "lm_head": _DATA_WORDS, "wx": _DATA_WORDS, "wy": _DATA_WORDS,
+    "wi_gate": _DATA_WORDS, "wi_up": _DATA_WORDS, "scale": _DATA_WORDS,
+}
+
+
+def test_recurrent_layouts_at_published_widths():
+    """mamba2-2.7b at model = 2: 80 SSD heads of 64, 40 a rank; in_proj's
+    10576 packed columns (z 5120 | x 5120 | B 128 | C 128 | dt 80) give a
+    rank its heads' z, x and dt columns and B and C whole, 5416 columns;
+    the conv's 5376 channels 2816 a rank; out_proj folds over 2560 rows
+    (20 chunks); the vocabulary 50688 splits 25344 a rank; the cache's
+    conv is 2816 channels and its ssm states 40 heads a rank.
+    recurrentgemma-2b: the RG-LRU's 2560 channels 1280 a rank (wout folds
+    over 10 chunks), its MLP 3840 a rank (30 chunks, folds), 5 of the 10 q
+    heads a rank and the one K/V head selected whole, wo folding over
+    1280 rows (10 chunks), the vocabulary 256000 splitting 128000 a
+    rank."""
+    from repro_torch.models import registry
+
+    cfg = TC.get_config("mamba2-2.7b")
+    for r in range(2):
+        mesh = meshes.Mesh((1, 2), ("data", "model"), coords=(0, r))
+        plan = planner.plan_for(cfg, mesh, TC.ShapeConfig("s", 528, 4, "decode"),
+                                pool_slots=4)
+        lay = plan.layout()
+        assert (lay.heads, lay.heads_local, lay.wo, lay.vocab) == (True, 40, "fold", True)
+        assert plan.param_shape("layers/in_proj/w") == (64, 2560, 10576)
+        # z | x | B and C (| dt, adjacent on rank 0)
+        want = (((0, 2560), (5120, 2560), (10240, 256 + 40)) if r == 0 else
+                ((2560, 2560), (7680, 2560 + 256), (10496 + 40, 40)))
+        assert plan.shard_slice("layers/in_proj/w") == (2, want)
+        assert sum(n for _, n in plan.shard_slice("layers/in_proj/w")[1]) == 5416
+        assert plan.shard_slice("layers/conv_w") == (2, ((0, 2560), (5120, 256))
+                                                     if r == 0 else ((2560, 2560 + 256),))
+        assert plan.shard_slice("layers/out_proj/w") == (1, ((2560 * r, 2560),))
+        assert plan.shard_slice("layers/A_log") == (1, ((40 * r, 40),))
+        assert plan.shard_slice("embed") == (0, ((25344 * r, 25344),))
+        assert plan.shard_slice("layers/out_norm/scale") is None
+        lcfg = plan.local_config()
+        pool = registry.init_pool_cache(lcfg, 4, 528, device="meta")
+        assert tuple(pool["conv"].shape) == (64, 4, 3, 2816)
+        assert tuple(pool["ssm"].shape) == (64, 4, 40, 128, 64)
+    cfg = TC.get_config("recurrentgemma-2b")
+    lay = planner.runtime_layout(cfg, 2)
+    assert (lay.lru, lay.lru_local, lay.lru_wo, lay.ffn_local, lay.mlp_wo) == (
+        True, 1280, "fold", 3840, "fold")
+    assert (lay.heads_local, lay.kv, lay.kv_local, lay.wo, lay.vocab) == (
+        5, "select", 1, "fold", True)
+    plan = planner.plan_for(cfg, meshes.Mesh((1, 2), ("data", "model"), coords=(0, 1)),
+                            TC.ShapeConfig("s", 256, 4, "decode"), pool_slots=4)
+    assert plan.shard_slice("layers/0/wa/w") == (1, ((1280, 1280),))
+    assert plan.shard_slice("layers/0/wout/w") == (0, ((1280, 1280),))
+    assert plan.shard_slice("layers/2/wo/w") == (0, ((1280, 1280),))
+    assert plan.shard_slice("layers/2/wk/w") is None
+    assert plan.shard_slice("lm_head/w") == (1, ((128000, 128000),))
+    lcfg = plan.local_config()
+    assert (lcfg.n_heads, lcfg.kv_heads, lcfg.lru_width) == (5, 1, 1280)
+    pool = registry.init_pool_cache(lcfg, 4, 256, device="meta")
+    assert tuple(pool["layers"][0]["conv"].shape) == (4, 3, 1280)
+    assert tuple(pool["layers"][0]["lru"].shape) == (4, 1280)
+    assert tuple(pool["layers"][2]["k"].shape) == (4, 256, 1, 256)
 
 
 def test_llama3_smoke_layout_names_the_fallbacks():
@@ -257,11 +400,13 @@ def test_meshes_and_launch_reexport():
 
 
 # smoke configs at model = 2, each with leaves split inside their matrices
-# (heads, ffn, folded contractions), grok-1's experts along their stacked
-# dim (EP)
+# (heads, ffn, folded contractions; mamba2's packed in_proj by its index
+# set), grok-1's experts along their stacked dim (EP)
 QUANT_CONFIGS = {"llama3-8b": {}, "grok-1-314b": {},
                  "internvl2-76b": dict(head_dim=64, d_ff=512, kv_heads=2),
-                 "whisper-large-v3": dict(head_dim=64, d_ff=512)}
+                 "whisper-large-v3": dict(head_dim=64, d_ff=512),
+                 "mamba2-2.7b": dict(d_model=256),
+                 "recurrentgemma-2b": dict(lru_width=256, d_ff=512, head_dim=64)}
 
 
 def _rank_plan(arch, model_rank):
