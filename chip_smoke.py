@@ -152,13 +152,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     for bit; a ``cache_dtype=torch.float32`` chunked (32) + paged (16)
     engine gives each request's tokens alone, its counters equal the CPU
     smoke-width run's and ``kv_page_bytes`` is twice bf16's;
-24. mistral-nemo-12b and 25. starcoder2-7b at full width (weights from
-    seed 0, llama3-8b's freed first), each through phase 19's engine on
+24. mistral-nemo-12b and 25. starcoder2-7b at full width and 8 of their
+    40 and 32 layers (``OTHER_LAYERS``; weights from seed 0,
+    llama3-8b's freed first), each through phase 19's engine on
     ``poisson_trace(4 requests, prompt 128, lam 2.0, 8-16 new, seed 0)``:
     A is the main path (its implicit host syncs counted under PyTorch's
     sync debug mode); C (each request alone) gives A's tokens bit for
-    bit; A's counters equal the CPU smoke-width run's; K1 launches 281 /
-    193 times a weight pass; a chunk-step decode row equals
+    bit; A's counters equal the CPU smoke-width run's; K1 launches 57 /
+    49 times a weight pass; a chunk-step decode row equals
     ``decode_step``; tokens/s, TTFT, chunk- and decode-step wall times
     and one profiled decode step (K1's device time beside its bytes
     bound);
@@ -279,12 +280,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     vocabulary split, the one K/V head whole; K1 47 a pass a rank, 12
     folds), 37n both recurrent smoke configs and mamba2-2.7b at its
     published widths and ``SSM_DP_LAYERS`` (4) layers at batch 2 x 512
-    data-parallel on (2, 1) against one rank (as 37k); each sub-phase's
-    seconds printed, and its summed peak under ``MULTI_PEAK_GIB``; phase 3
-    also holds K1's ``start`` variant (the row-parallel fold) at
-    llama3-8b's, whisper's, internvl2's, mamba2's and recurrentgemma's
-    row-parallel shapes (``START_CASES``) and times it beside the
-    unstarted half;
+    data-parallel on (2, 1) against one rank (as 37k), 37o (a) olmo-1b at
+    its published widths and ``TP_TRAIN_LAYERS`` (4) of its 16 layers
+    tensor-parallel on (1, 2) (K2 chained across the ranks) at batch 4 x
+    512, AdamW, remat, 2 steps, against one rank at that depth (first-step
+    per-token losses and every gradient leaf's shard bit for bit, the
+    second loss within ``LOSS_RTOL``, K1 / K2 / K3 / pre-pass 57 / 29 / 29
+    / 29 a step a rank, 16 forward folds and 29 backward chains a step,
+    no implicit host sync outside the collectives; step seconds, the
+    collectives' share, master and optimizer bytes and device busy a step
+    a rank), and (b) olmo-1b's smoke config on (2, 2), four ranks spawned
+    on the card, 4 x 64, 3 steps, against one rank (first-step per-token
+    losses bit for bit, losses within ``LOSS_RTOL``, launches a step a
+    rank); each sub-phase's seconds printed, and its summed peak under
+    ``MULTI_PEAK_GIB``; phase 3 also holds K1's ``start`` variant (the
+    row-parallel fold) at llama3-8b's, whisper's, internvl2's, mamba2's
+    and recurrentgemma's row-parallel shapes (``START_CASES``) and times
+    it beside the unstarted half, and phase 8 K2's (``k2_start_checks``:
+    olmo-1b's column-parallel dA chained over the two ranks' N at 37o's
+    rows, the row-parallel dgamma rows chained over their K, a ragged
+    three-rank case; bit for bit against the unsplit launch and the plain
+    chain, the last rank's launch timed beside the same launch without
+    its start);
 18. the ``kernels`` JSON line, then the device line (phase 18 runs last;
     32-33 run after 30, 34 after 31, 35-36a after 34, 37 after 35-36).
 
@@ -327,6 +344,10 @@ SERVE_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096,
 # the other dense decoders, served at full width in phases 24-25; phase 3
 # checks K1 at their linears' (K, N), phase 4 times their weight passes
 OTHER_ARCHS = ("mistral-nemo-12b", "starcoder2-7b")
+# phases 24-25's depth: mistral-nemo-12b at 8 of its 40 layers (52 s at
+# 40 on an H100) and starcoder2-7b at 8 of its 32 (39 s at 32), which
+# makes room for phase 37o
+OTHER_LAYERS = {"mistral-nemo-12b": 8, "starcoder2-7b": 8}
 # the serving shapes of speculative decoding: a verify pass scores 4 slots x
 # 4 positions (max_draft 3), a self-draft step runs decode at 3 bits
 VERIFY_M, DRAFT_BITS = 16, 3
@@ -585,8 +606,16 @@ def step_launches(cfg=None):
     return {"k1": 2 * n - 1, "k2": bwd, "k3": bwd, "gq": bwd}
 
 
+#: (phase header, seconds since start) of every phase this process began,
+#: written to chiprun_out/chip_smoke.json (a long run's printed output
+#: may be kept only in part)
+PHASE_STARTS = []
+
+
 def phase(name):
-    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
+    at = time.perf_counter() - _T0
+    PHASE_STARTS.append((name, round(at, 1)))
+    print(f"== {name} (at {at:.1f} s)", flush=True)
 
 
 def bound(m, k, n, in_bytes):
@@ -977,10 +1006,13 @@ def main() -> int:
     cnn_kernels, cnn_launches = cnn_phase(dev, detail)
     multi = multi_gpu(dev, detail)
     m_a, m_c = multi["a"][0], multi["c"]["ranks"][0]
-    # 37c's, 37g's, 37k's and 37n's data-parallel steps on rank 0
+    # 37c's, 37g's, 37k's and 37n's data-parallel steps and 37o's
+    # tensor-parallel steps on rank 0
     multi_steps = {k: sum(s[k] for s in m_c["launches"])
                    + sum(s[k] for key in "gkn" for g in multi[key].values()
                          for s in g["dp"][0]["launches"])
+                   + sum(s[k] for s in multi["o"]["ranks"][0]["launches"])
+                   + sum(s[k] for s in multi["o"]["two_by_two"]["launches"])
                    for k in ("k1", "k2", "k3", "gq")}
     # 37e-f's, 37h-j's and 37l-m's served passes on rank 0
     multi_served = sum(multi[key][0]["k1_launches"]
@@ -989,6 +1021,7 @@ def main() -> int:
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    detail["phase_starts"] = PHASE_STARTS
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     # internvl2_* and whisper_*: phase 4's sums of each regime (internvl2's
     # decode pass and solo prefill, whisper's decode and encoder-side
@@ -1139,6 +1172,14 @@ def main() -> int:
                             # phase 37c: a data-parallel step on each rank
                             multi_gpu_step_launches=[[s[key] for s in r["launches"]]
                                                      for r in multi["c"]["ranks"]],
+                            # phase 37o: a tensor-parallel step on each
+                            # rank of (1, 2), and on rank 0 of (2, 2)
+                            multi_gpu_tp_step_launches=[[s[key] for s in r["launches"]]
+                                                        for r in multi["o"]["ranks"]],
+                            multi_gpu_tp_smoke_step_launches=[
+                                s[key] for s in multi["o"]["two_by_two"]["launches"]],
+                            **({"start_variant": detail["k2_start_variant"]}
+                               if key == "k2" else {}),
                             # phase 37g / 37k: a MoE / vlm / encdec smoke
                             # step, data-parallel, rank 0
                             multi_gpu_moe_step_launches={
@@ -1673,6 +1714,112 @@ def grad_checks(dev, gen, cases, max_err):
     return timing_inputs
 
 
+# K2's start variant (phase 8): olmo-1b's column-parallel linears on the
+# (1, 2) mesh at phase 37o's rows (M = 4 x 512), each rank N / 2 of wq, wk,
+# wv (K 2048, N 2048), wi_gate and wi_up (2048, 8192) and the head (2048,
+# 50688, G at 6 bits), dA's fold chained over the two halves; the
+# row-parallel wo (2048 -> 2048) and down projection (8192 -> 2048) with
+# K / 2 a rank, their dgamma rows' fold chained; and a ragged case (M, K
+# and the last rank's N off every tile, three ranks)
+TP_TRAIN_M = 4 * 512
+K2_START_COLUMN = ((2048, 2048, 5), (2048, 8192, 5), (2048, 50688, 6))
+K2_START_ROW = ((2048, 2048), (8192, 2048))
+K2_START_RAGGED = (300, 200, (128, 256, 70))
+
+
+def k2_start_checks(dev, gen):
+    """Phase 8's chain checks of K2: a column-parallel dA chained over the
+    ranks' N (``start``; the ranks before the last return the raw running
+    sum, ``last=False``) and a row-parallel linear's dgamma rows chained
+    over its K (``rows_start``) equal the unsplit launch and the chained
+    plain version bit for bit; the last rank's launch is timed beside the
+    same launch without a start.  Returns (rows, max_abs_err)."""
+    from repro_torch.core import potq
+    from repro_torch.kernels import potq_grad as KG
+
+    rows, worst = [], 0.0
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def chain(pieces, kind, a, s, e):
+        """Each rank's K2 in rank order (CUDA, then plain)."""
+        outs = []
+        for fn in (KG.grad_da_cuda, KG.grad_da_plain):
+            carry, das = None, []
+            for i, (g_r, w_r, a_r) in enumerate(pieces):
+                last = i == len(pieces) - 1
+                if kind == "column":
+                    carry, r = fn(g_r, w_r, a if last else None, s, emax_g=e, prc=last,
+                                  start=carry, last=last)
+                else:
+                    da, carry = fn(g_r, w_r, a_r, s, emax_g=e, prc=True, rows_start=carry)
+                    das.append(da)
+            outs.append((carry, r if kind == "column" else torch.cat(das, dim=1)))
+        return outs
+
+    cases = [("column", TP_TRAIN_M, kk, nn, b, (nn // 2, nn // 2))
+             for kk, nn, b in K2_START_COLUMN]
+    cases += [("row", TP_TRAIN_M, kk, nn, 5, (kk // 2, kk // 2)) for kk, nn in K2_START_ROW]
+    m_r, k_r, widths = K2_START_RAGGED
+    cases += [("column", m_r, k_r, sum(widths), 5, widths),
+              ("row", m_r, sum(widths), k_r, 5, widths)]
+    for kind, m, kk, nn, bits, widths in cases:
+        a, g, _, wq, _, t = _grad_operands(dev, gen, m, kk, nn)
+        e = potq.pot_emax(bits)
+        beta = potq.compute_beta(g, bits)
+        s = torch.stack([potq.exp2i(-beta), potq.exp2i(beta), t])
+        whole_da, whole_rows = KG.grad_da_cuda(g, wq, a, s, emax_g=e, prc=True)
+        pieces, lo = [], 0
+        for n in widths:
+            if kind == "column":
+                pieces.append((g[:, lo:lo + n].contiguous(), wq[:, lo:lo + n].contiguous(), None))
+            else:
+                pieces.append((g, wq[lo:lo + n].contiguous(), a[:, lo:lo + n].contiguous()))
+            lo += n
+        (k_first, k_second), (p_first, p_second) = chain(pieces, kind, a, s, e)
+        # column: (dA, rows); row: (rows, dA)
+        da_k, rows_k = (k_first, k_second) if kind == "column" else (k_second, k_first)
+        da_p, rows_p = (p_first, p_second) if kind == "column" else (p_second, p_first)
+        torch.cuda.synchronize()
+        err = max((da_k - da_p).abs().max().item(), (rows_k - rows_p).abs().max().item())
+        ok = (torch.equal(da_k, whole_da) and torch.equal(rows_k, whole_rows)
+              and torch.equal(da_k, da_p) and torch.equal(rows_k, rows_p))
+        # the last rank's launch, with and without its start
+        g_l, w_l, a_l = pieces[-1]
+        if kind == "column":
+            last_rank = (g_l, w_l, a)
+            chained = dict(start=KG.grad_da_cuda(*pieces[0][:2], None, s, emax_g=e, prc=False,
+                                                 last=False)[0])
+            n_l, k_l = w_l.shape[1], kk
+        else:
+            last_rank = (g_l, w_l, a_l)
+            chained = dict(rows_start=KG.grad_da_cuda(*pieces[0], s, emax_g=e, prc=True)[1])
+            n_l, k_l = nn, w_l.shape[0]
+
+        def with_start():
+            return KG.grad_da_cuda(*last_rank, s, emax_g=e, prc=True, **chained)
+
+        def without():
+            return KG.grad_da_cuda(*last_rank, s, emax_g=e, prc=True)
+        t_ops, t_bytes = train_bound(m, k_l, n_l, "k2")
+        if kind == "column":  # the start read once
+            t_bytes += 4.0 * m * k_l / PEAK_BYTES * 1e3
+        row = dict(kind=kind, M=m, K=kk, N=nn, bits_g=bits, ranks=len(widths),
+                   rank_widths=list(widths), equal=ok, max_abs_err=err,
+                   start_ms=time_ms(with_start, 3, flush), half_ms=time_ms(without, 3, flush),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops > t_bytes else "bytes",
+                   fp64_tc_bound_ms=2.0 * m * k_l * n_l / PEAK_FP64_TC_FLOPS * 1e3)
+        print("K2 start variant:", json.dumps(row), flush=True)
+        if not ok:
+            raise SystemExit(f"K2's chained launches differ from the unsplit launch or the "
+                             f"plain chain at {(kind, m, kk, nn, widths)}")
+        worst = max(worst, err)
+        rows.append(row)
+        del a, g, wq, whole_da, pieces, chained, da_k, da_p
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
 def training_kernels(dev, detail):
     """Phases 8 and 9: K1/K2/K3 and the G pre-pass at the training shapes
     against their plain versions, then timing; each summed over one
@@ -1700,6 +1847,9 @@ def training_kernels(dev, detail):
               for m, kk, nn in whisper_train_counts()]
     max_err = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "gq": 0.0}
     timing_inputs = grad_checks(dev, gen, cases, max_err)
+    start_rows, err = k2_start_checks(dev, gen)
+    max_err["k2"] = max(max_err["k2"], err)
+    detail["k2_start_variant"] = start_rows
 
     phase("9 K1/K2/K3 and pre-pass timing at the training shapes (CUDA events, L2 flushed)")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -2615,39 +2765,48 @@ def _zero_launches():
         fn.launches = 0
 
 
+@contextlib.contextmanager
+def _counting_syncs(syncs):
+    """With a dict ``syncs``, run the body under PyTorch's CUDA sync debug
+    mode and count its implicit host syncs by the innermost line of the
+    port (``src/``) that made them, else by torch's own line (waiting on
+    an event is explicit and not counted); with None, just the body."""
+    if syncs is None:
+        yield
+        return
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(str(ROOT / "src"))]
+        where = ours[-1] if ours else None
+        key = (f"{os.path.relpath(where.filename, ROOT)}:{where.lineno} "
+               f"({where.line})" if where else f"{filename}:{lineno}")
+        syncs[key] = syncs.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
 def _timed_run(eng, reqs, syncs=None):
     """One engine run with every launch count set to 0 just before it;
-    returns (tokens, wall seconds, K1 launches).  With a dict ``syncs``
-    the run goes under PyTorch's CUDA sync debug mode, and ``syncs``
-    counts its implicit host syncs by the innermost line of the port
-    (``src/``) that made them, else by torch's own line (waiting on an
-    event is explicit: the engine's one sync a step is not counted)."""
+    returns (tokens, wall seconds, K1 launches); with a dict ``syncs`` its
+    implicit host syncs counted (:func:`_counting_syncs`: the engine's one
+    sync a step waits on an event and is not counted)."""
     from repro_torch.kernels import potq_matmul as K
 
     torch.cuda.synchronize()
     _zero_launches()
     t0 = time.perf_counter()
-    if syncs is None:
+    with _counting_syncs(syncs):
         out = eng.run(reqs)
-    else:
-        def record(message, category, filename, lineno, file=None, line=None):
-            if "synchroniz" not in str(message):
-                return
-            ours = [f for f in traceback.extract_stack()[:-1]
-                    if f.filename.startswith(str(ROOT / "src"))]
-            where = ours[-1] if ours else None
-            key = (f"{os.path.relpath(where.filename, ROOT)}:{where.lineno} "
-                   f"({where.line})" if where else f"{filename}:{lineno}")
-            syncs[key] = syncs.get(key, 0) + 1
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = eng.run(reqs)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, K.potq_matmul_cuda.launches
 
@@ -2825,7 +2984,7 @@ def serving(dev, detail):
     qa = qa_serving(dev, detail, cfg, params, policy, reqs)
     del params
     torch.cuda.empty_cache()
-    dense = {arch: dense_serving(dev, detail, arch, number)
+    dense = {arch: dense_serving(dev, detail, arch, number, n_layers=OTHER_LAYERS.get(arch))
              for number, arch in enumerate(OTHER_ARCHS, start=24)}
     moe = moe_serving(dev, detail)
     family = family_serving(dev, detail)
@@ -4005,6 +4164,12 @@ TP_SERVE_LAYERS = 4
 DP_SERVE_LAYERS = 4
 DP_TRAIN_LAYERS = 4
 DP_TRAIN_BATCH, DP_TRAIN_SEQ, DP_TRAIN_STEPS = 4, 512, 2
+# 37o (a): olmo-1b at its published widths and this depth tensor-parallel
+# on the (1, 2) mesh, phase 37c's batch, these steps; (b): its smoke config
+# on the (2, 2) mesh (four ranks on the card) at this batch and steps
+TP_TRAIN_LAYERS = 4
+TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 512, 2
+TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS = 4, 64, 3
 # the two ranks' device memory, summed, stays under this
 MULTI_PEAK_GIB = 75.0
 # 37d: the compressor's unbiasedness bound (standard errors) and draws
@@ -4219,6 +4384,235 @@ def _dp_train(rank, dev):
     return token_losses, row
 
 
+def _tree_bytes(tree):
+    from repro_torch.models import spec
+
+    return sum(x.numel() * x.element_size() for _, x in spec.named_leaves(tree))
+
+
+def _device_busy_ms(fn):
+    """Device busy ms of this process's kernels during one call of ``fn``
+    (torch.profiler, CUDA activity only)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, sum(e.time_range.elapsed_us() for e in kern) / 1e3
+
+
+def _tp_train(rank, dev):
+    """37o (a): olmo-1b at its published widths and ``TP_TRAIN_LAYERS``
+    layers, tensor-parallel on the (1, 2) mesh (K2 chained across the two
+    ranks), against one rank at that depth run here after it: the first
+    step's per-token losses, every gradient leaf's shard against one
+    rank's slice, both runs' losses; per step the launches, collectives
+    (calls, bytes, seconds, forward folds, backward chains) and seconds;
+    the first step's implicit host syncs outside the collectives, the
+    second's device busy ms (profiled), the masters' and optimizer
+    state's bytes, the peak."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.parallel import collectives, meshes, planner
+    from repro_torch.train import TrainConfig, make_train_step
+
+    train_cli.make_deterministic()
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=TP_TRAIN_LAYERS)
+    shape = configs.ShapeConfig("tp", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train")
+    plan = planner.plan_for(cfg, meshes.make_mesh((1, 2), ("data", "model")), shape)
+    opt = adamw(warmup_cosine_schedule(3e-3, 20, TP_TRAIN_STEPS))
+    step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=plan)
+    sharded = step_fn.data_parallel
+    batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(TP_TRAIN_STEPS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = sharded.shard(spec.materialize(registry.param_specs(cfg),
+                                            torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.empty_cache()
+    state = opt.init(params)
+    row = dict(master_bytes=_tree_bytes(params), optimizer_bytes=_tree_bytes(state),
+               backend=collectives.backend())
+    token_losses = step_fn.token_losses(params, batches[0])
+    _, grads = step_fn.grads(params, batches[0])
+    losses, launches, seconds, colls, syncs = [], [], [], [], {}
+    for s in range(TP_TRAIN_STEPS):
+        before = _count_kernels()
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if s == 0:  # its implicit host syncs counted
+            with _counting_syncs(syncs):
+                params, state, m = step_fn(params, state, batches[s], s)
+            losses.append(float(m["loss"]))
+        else:
+            (params, state, m), busy = _device_busy_ms(
+                lambda: step_fn(params, state, batches[s], s))
+            losses.append(float(m["loss"]))
+            row["profiled_step_device_busy_ms"] = busy
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        colls.append(dict(collectives.stats))
+        launches.append({k: v - before[k] for k, v in _count_kernels().items()})
+    row.update(losses=losses, step_s=seconds, collectives=colls, launches=launches,
+               collective_share=[c["seconds"] / t for c, t in zip(colls, seconds)],
+               implicit_syncs={k: n for k, n in syncs.items() if k.startswith("src/")
+                               and not k.startswith("src/repro_torch/parallel/collectives")},
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del params, state
+    torch.cuda.empty_cache()
+    # one rank at the same depth: every rank holds its own slices to it
+    one_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig())
+    whole = spec.materialize(registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0))
+    row["token_losses_bit_equal"] = bool(torch.equal(token_losses,
+                                                     one_fn.token_losses(whole, batches[0])))
+    _, g1 = one_fn.grads(whole, batches[0])
+    differ = {}
+    for (name, x), (_, y) in zip(spec.named_leaves(grads), spec.named_leaves(g1)):
+        y = plan.shard_leaf(name, y)
+        if not torch.equal(x, y):
+            differ[name] = dict(max_abs=(x - y).abs().max().item(), max=y.abs().max().item())
+    row["grad_leaves"] = len(list(spec.named_leaves(grads)))
+    row["grad_leaves_differing"] = differ
+    del grads, g1
+    if rank == 0:
+        state = opt.init(whole)
+        one_losses = []
+        for s in range(TP_TRAIN_STEPS):
+            whole, state, m = one_fn(whole, state, batches[s], s)
+            one_losses.append(float(m["loss"]))
+        row["one_rank_losses"] = one_losses
+        del state
+    del whole, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tp_smoke_rank(rank):
+    """37o (b): olmo-1b's smoke config tensor-parallel on the (2, 2) mesh,
+    four ranks on the card: the first step's per-token losses (this rank's
+    rows), ``TP_SMOKE_STEPS`` steps' losses and launches; rank 0 then runs
+    one rank on the same batches (every row)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.data import pipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.parallel import meshes, planner
+    from repro_torch.train import TrainConfig, make_train_step
+
+    dev = resolve_device(torch.device("cuda", torch.cuda.current_device()))
+    K.build()
+    KG.build()
+    train_cli.make_deterministic()
+    t0 = time.perf_counter()
+    cfg = configs.smoke_config("olmo-1b")
+    shape = configs.ShapeConfig("tp", TP_SMOKE_SEQ, TP_SMOKE_BATCH, "train")
+    plan = planner.plan_for(cfg, meshes.make_mesh((2, 2), ("data", "model")), shape)
+    opt = adamw(warmup_cosine_schedule(3e-3, 20, TP_SMOKE_STEPS))
+    batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(TP_SMOKE_STEPS)]
+    out = dict(coords=(plan.mesh.coord("data"), plan.mesh.coord("model")))
+    for name, p in (("tp", plan), ("one", None)):
+        step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=p)
+        params = spec.materialize(registry.param_specs(cfg),
+                                  torch.Generator(device=dev).manual_seed(0))
+        if p is not None:
+            params = step_fn.data_parallel.shard(params)
+        tl = step_fn.token_losses(params, batches[0]).cpu().numpy()
+        state = opt.init(params)
+        losses, launches = [], []
+        for s in range(TP_SMOKE_STEPS):
+            before = _count_kernels()
+            params, state, m = step_fn(params, state, batches[s], s)
+            losses.append(float(m["loss"]))
+            launches.append({k: v - before[k] for k, v in _count_kernels().items()})
+        out[name] = dict(token_losses=tl, losses=losses, launches=launches)
+        if rank != 0:
+            break  # one rank's run is rank 0's
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _check_tp_train(ranks, ranks4, failures):
+    """37o's gates: (a) on both ranks of the (1, 2) run and (b) on the four
+    ranks of the (2, 2) run (module docstring of :func:`multi_gpu`)."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=TP_TRAIN_LAYERS)
+    want = step_launches(cfg)
+    rows = [res["o"] for res in ranks]
+    one = rows[0]["one_rank_losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"], one))
+    for r, row in enumerate(rows):
+        print(f"37o (1, 2) rank {r}:", json.dumps(row))
+        if not row["token_losses_bit_equal"]:
+            failures.append(f"37o rank {r}: first-step per-token losses differ from one rank's")
+        if row["grad_leaves_differing"]:
+            failures.append(f"37o rank {r}: gradient leaves differ from one rank's slices: "
+                            f"{row['grad_leaves_differing']}")
+        if any(n != want for n in row["launches"]):
+            failures.append(f"37o rank {r}: launches {row['launches']}, expected {want}")
+        folds = [(c["folds"], c["bwd_folds"]) for c in row["collectives"]]
+        if any(f != (4 * TP_TRAIN_LAYERS, 7 * TP_TRAIN_LAYERS + 1) for f in folds):
+            failures.append(f"37o rank {r}: (forward folds, backward chains) a step {folds}, "
+                            f"expected {(4 * TP_TRAIN_LAYERS, 7 * TP_TRAIN_LAYERS + 1)}")
+        if row["implicit_syncs"]:
+            failures.append(f"37o rank {r}: implicit host syncs {row['implicit_syncs']}")
+        if row["losses"] != rows[0]["losses"]:
+            failures.append("37o: the ranks' losses differ")
+    if not rel <= LOSS_RTOL:
+        failures.append(f"37o: losses differ from one rank's by {rel:.3g} relative")
+    print(f"37o (1, 2): one rank losses {[repr(x) for x in one]}; tensor-parallel "
+          f"{[repr(x) for x in rows[0]['losses']]}; max relative {rel:.3g}; step s a rank "
+          f"{[[round(t, 3) for t in row['step_s']] for row in rows]}; collectives a step "
+          f"{[c['calls'] for c in rows[0]['collectives']]} calls, "
+          f"{[round(c['bytes'] / 2 ** 20, 1) for c in rows[0]['collectives']]} MiB, share "
+          f"{[round(x, 3) for x in rows[0]['collective_share']]}; device busy a step a rank "
+          f"{[round(row['profiled_step_device_busy_ms'], 1) for row in rows]} ms; master / "
+          f"optimizer bytes a rank "
+          f"{[(row['master_bytes'], row['optimizer_bytes']) for row in rows]}")
+    # (b) the (2, 2) smoke run: first-step per-token losses of the data
+    # ranks' rows (model rank 0 of each) against one rank's, every rank's
+    # equal to its data group's, losses within LOSS_RTOL, launches
+    one = ranks4[0]["one"]
+    by_data = {}
+    for r, res in enumerate(ranks4):
+        d, _ = res["coords"]
+        tl = res["tp"]["token_losses"]
+        if d in by_data and tl.view(np.uint32).tolist() != by_data[d].view(np.uint32).tolist():
+            failures.append(f"37o (2, 2) rank {r}: per-token losses differ from its data "
+                            "group's")
+        by_data.setdefault(d, tl)
+        if res["tp"]["launches"] != one["launches"]:
+            failures.append(f"37o (2, 2) rank {r}: launches {res['tp']['launches']}, one rank "
+                            f"{one['launches']}")
+        if res["tp"]["losses"] != ranks4[0]["tp"]["losses"]:
+            failures.append("37o (2, 2): the ranks' losses differ")
+    tl = np.concatenate([by_data[d] for d in sorted(by_data)])
+    tl_equal = tl.view(np.uint32).tolist() == one["token_losses"].view(np.uint32).tolist()
+    rel_b = max(abs(a - b) / abs(b) for a, b in zip(ranks4[0]["tp"]["losses"], one["losses"]))
+    print(f"37o (2, 2): one rank losses {[repr(x) for x in one['losses']]}; tensor-parallel "
+          f"{[repr(x) for x in ranks4[0]['tp']['losses']]}; max relative {rel_b:.3g}; first-step "
+          f"per-token losses bit for bit: {tl_equal}; launches a step {ranks4[0]['tp']['launches']}"
+          f" / one rank {one['launches']}; seconds a rank "
+          f"{[round(res['seconds'], 1) for res in ranks4]}")
+    if not tl_equal:
+        failures.append("37o (2, 2): first-step per-token losses differ from one rank's")
+    if not rel_b <= LOSS_RTOL:
+        failures.append(f"37o (2, 2): losses differ from one rank's by {rel_b:.3g} relative")
+    return dict(ranks=rows, max_rel=rel, two_by_two=dict(
+        launches=ranks4[0]["tp"]["launches"], one_rank_launches=one["launches"],
+        losses=ranks4[0]["tp"]["losses"], one_rank_losses=one["losses"], max_rel=rel_b,
+        token_losses_bit_equal=tl_equal, seconds=[res["seconds"] for res in ranks4]))
+
+
 def _dp_cells(key):
     """The data-parallel training cells of 37g (``key`` 'g'), 37k or 37n:
     (label, config, global batch, seq, steps) each."""
@@ -4374,6 +4768,9 @@ def _phase37_rank(rank):
     res["c"] = _dp_train(rank, dev)
     res["c"][1]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    res["o"] = _tp_train(rank, dev)
+    res["o"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     res["g"] = _dp_cells_train(rank, dev, "g")
     res["g"]["seconds"] = time.perf_counter() - t0
     for key in "kn":
@@ -4521,7 +4918,10 @@ def multi_gpu(dev, detail):
     at ``HYBRID_PLAN_LAYERS`` layers the same way (K1 47 a pass, 12
     folds).  37n: both recurrent smoke configs and mamba2-2.7b at its
     published widths and ``SSM_DP_LAYERS`` layers (batch 2 x 512)
-    data-parallel on (2, 1) against one rank, as 37k.  The ranks' summed
+    data-parallel on (2, 1) against one rank, as 37k.  37o (a):
+    olmo-1b at ``TP_TRAIN_LAYERS`` layers tensor-parallel on (1, 2) against
+    one rank, (b): its smoke config on (2, 2) over four ranks
+    (:func:`tp_training`, :func:`_check_tp_train`).  The ranks' summed
     peak stays under ``MULTI_PEAK_GIB`` in each serving and training
     sub-phase."""
     from repro_torch import configs
@@ -4533,7 +4933,7 @@ def multi_gpu(dev, detail):
     from repro_torch.parallel.planner import runtime_layout
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: two ranks on the one card (37a-n)")
+    phase("37 multi-GPU: two ranks on the one card (37a-o), then four (37o (b))")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
@@ -4632,14 +5032,17 @@ def multi_gpu(dev, detail):
         failures.append("37c: first-step per-token losses differ from one rank's")
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
+    o_row = tp_training(ranks, failures)
     served = tuple("abefhij") + ("l", "l2", "m", "m2")
     peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in served}
     peaks["c"] = sum(row["peak_gib"] for row in dp_rows)
+    peaks["o"] = sum(res["o"]["peak_gib"] for res in ranks)
     peaks.update(g=max(r["peak_gib"] for r in g_rows.values()),
                  k=max(r["peak_gib"] for r in k_rows.values()),
                  n=max(r["peak_gib"] for r in n_rows.values()))
     seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in served + ("c",)}
-    seconds.update({k: round(ranks[0][k]["seconds"], 1) for k in "gkn"})
+    seconds.update({k: round(ranks[0][k]["seconds"], 1) for k in "gkno"})
+    seconds["o (2, 2)"] = round(o_row["two_by_two"]["spawn_s"], 1)
     print(f"37 peaks, both ranks summed (GiB): "
           f"{ {k: round(v, 2) for k, v in sorted(peaks.items())} }; backend "
           f"{ranks[0]['a'][1]['backend']}; seconds a sub-phase (rank 0) {seconds}; spawn to "
@@ -4649,11 +5052,25 @@ def multi_gpu(dev, detail):
     out.update({k: [res[k][1] for res in ranks] for k in served})
     out.update(c=dict(ranks=dp_rows, one_rank_losses=one_losses, max_rel=rel,
                       token_losses_bit_equal=tl_equal, token_losses_max_rel=tl_rel),
-               d=[res["d"] for res in ranks], g=g_rows, k=k_rows, n=n_rows, peak_gib=peaks,
-               seconds=seconds)
+               d=[res["d"] for res in ranks], g=g_rows, k=k_rows, n=n_rows, o=o_row,
+               peak_gib=peaks, seconds=seconds)
     detail["multi_gpu"] = out
     if failures:
         raise SystemExit("phase 37: " + "; ".join(failures))
+    return out
+
+
+def tp_training(ranks, failures):
+    """37o: (a) ran in phase 37's two-rank world; (b) spawns four ranks."""
+    from repro_torch.parallel import collectives
+
+    t0 = time.perf_counter()
+    ranks4 = collectives.spawn(_tp_smoke_rank, 4, device="cuda", threads=2)
+    spawn_s = time.perf_counter() - t0
+    out = _check_tp_train(ranks, ranks4, failures)
+    out["two_by_two"]["spawn_s"] = spawn_s
+    print(f"37o: (a) {ranks[0]['o']['seconds']:.1f} s on rank 0, (b) spawn to exit "
+          f"{spawn_s:.1f} s")
     return out
 
 if __name__ == "__main__":

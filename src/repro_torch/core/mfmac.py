@@ -51,17 +51,44 @@ over the model axis when the contraction is split (``row_group``: a
 row-parallel linear, whose K1 fold continues across the ranks,
 ``parallel/collectives.ordered_fold``).  Max is exact, so each quantized
 value is one rank's, bit for bit.  Without a plan nothing changes.
+
+The backward on a model axis (tensor-parallel training; the model ranks
+hold the same replicated activations, and each its shard of a linear's
+weight, quantized whole by the training step's shadow):
+
+* a column-parallel linear (``col_group``: its N split over the ranks,
+  its input whole on each): max|G| is global over the data and model
+  groups (a rank's G holds its columns only); dA = Gq·Wq^T contracts
+  over the split N, so K2's fold is chained across the ranks in rank
+  order (``collectives.chained``, K2's ``start``): the ranks before the
+  last pass the raw running sum on, the last dequantizes, runs the PRC
+  epilogue and hands dA and the dgamma rows to every rank.  That needs
+  whole 128-chunks a rank; a narrower shard (a smoke width) gathers G and
+  Wq and computes dA whole on every rank, as the forward's 'gather' mode
+  does a row-parallel product.  dW = Aq^T·Gq is local (its contraction
+  over M is whole on each rank): this rank's columns, bit for bit;
+* a row-parallel linear (``row_group``, :func:`_row_parallel`): G is whole
+  on every rank, so dA (this rank's K columns) and dW (its K rows) are
+  local; max|G| is global over the data group only; the PRC threshold's
+  amax is global over the model group too, as in the forward; the dgamma
+  rows' left fold over K chunks is chained across the ranks (K2's fold
+  kernel's ``rows_start``).
+
+Each chain reproduces one rank's adds in one rank's order, so dA, dW and
+dgamma are one rank's bit for bit.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import potq
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import CANONICAL_BK, halves_fold
 from repro_torch.parallel import actshard, collectives
 
 _BF16 = torch.bfloat16
@@ -152,64 +179,149 @@ def _quantize_a(a: torch.Tensor, gamma: torch.Tensor, policy: QuantPolicy,
     return potq.pot_quantize(a32, policy.bits_a, beta).to(_BF16)
 
 
+def _grad_scale(g2: torch.Tensor, bits_g: int, model_group=None) -> torch.Tensor:
+    """beta_g of the whole batch's G: max|G| over the data ranks (and the
+    model ranks, where each holds some of G's columns)."""
+    gmax = collectives.all_reduce_max(g2.abs().amax(), actshard.batch_group())
+    return potq.beta_of_amax(collectives.all_reduce_max(gmax, model_group), bits_g)
+
+
 class _MFLinear(torch.autograd.Function):
-    """a[..., K] @ w[K, N] through K1, backward through K2 and K3."""
+    """a[..., K] @ w[K, N] through K1, backward through K2 and K3;
+    ``col_group``: N is split over its ranks (module docstring)."""
 
     @staticmethod
-    def forward(ctx, a, w, gamma, policy: QuantPolicy, is_last: bool):
+    def forward(ctx, a, w, gamma, policy: QuantPolicy, is_last: bool, col_group=None):
         aq = _quantize_a(a, gamma, policy)
         wq = _quantize_w(w, policy)
         k = a.shape[-1]
         out = _pot_matmul(aq.reshape(-1, k), wq, policy)
-        ctx.policy, ctx.is_last = policy, is_last
+        ctx.policy, ctx.is_last, ctx.col_group = policy, is_last, col_group
         ctx.save_for_backward(a, aq, wq, gamma)
         return out.reshape(*a.shape[:-1], w.shape[-1]).to(a.dtype)
 
     @staticmethod
     def backward(ctx, g):
         a, aq, wq, gamma = ctx.saved_tensors
-        policy = ctx.policy
+        policy, group = ctx.policy, ctx.col_group
         k, n = wq.shape
         g2 = g.to(torch.float32).reshape(-1, n)
         bits_g = policy.bits_for("g", ctx.is_last)
         kw = dict(bits_g=bits_g, bits_a=policy.bits_a, bits_w=policy.bits_w,
-                  per_sample_act_scales=policy.per_sample_act_scales)
-        dgroup = actshard.batch_group()
-        # the G scale of the whole batch
-        gmax = collectives.all_reduce_max(g2.abs().amax(), dgroup)
-        kw["beta_g"] = potq.beta_of_amax(gmax, bits_g)
-        if policy.prc_enabled:
-            a32 = a.to(torch.float32)
-            amax = collectives.all_reduce_max(a32.abs().amax(), dgroup)
+                  per_sample_act_scales=policy.per_sample_act_scales,
+                  beta_g=_grad_scale(g2, bits_g, group))
+        a2 = amax = None
+        if policy.prc_enabled:  # a is whole on every model rank
+            a2 = a.to(torch.float32).reshape(-1, k)
+            amax = collectives.all_reduce_max(a2.abs().amax(), actshard.batch_group())
+        if group is None:
             da, dw, dgamma = ops.potq_grad_matmuls(
-                g2, aq.reshape(-1, k), wq, a=a32.reshape(-1, k),
-                clip_t=amax * gamma, amax=amax, **kw)
-            dgamma = dgamma.reshape(gamma.shape).to(gamma.dtype)
+                g2, aq.reshape(-1, k), wq, a=a2,
+                clip_t=None if amax is None else amax * gamma, amax=amax, **kw)
         else:
-            da, dw, _ = ops.potq_grad_matmuls(g2, aq.reshape(-1, k), wq, **kw)
-            dgamma = torch.zeros_like(gamma)
+            da, dw, dgamma = _column_grads(g2, aq.reshape(-1, k), wq, a2, amax, gamma,
+                                           group, kw)
+        dgamma = (torch.zeros_like(gamma) if dgamma is None
+                  else dgamma.reshape(gamma.shape).to(gamma.dtype))
+        return da.reshape(a.shape).to(a.dtype), dw, dgamma, None, None, None
+
+
+def _column_grads(g2, aq2, wq, a2, amax, gamma, group, kw):
+    """dA, dW and dgamma of a column-parallel linear (this rank's N columns
+    of G and Wq): K2 chained across ``group`` at whole 128-chunks a rank,
+    else over G and Wq gathered whole; K3 local."""
+    bits_g, beta_g = kw["bits_g"], kw["beta_g"]
+    prc = amax is not None
+    m, (k, n) = g2.shape[0], wq.shape
+    da_kw = dict(bits_g=bits_g, bits_w=kw["bits_w"], beta_g=beta_g)
+    if prc:
+        da_kw["clip_t"] = amax * gamma
+    if n % CANONICAL_BK == 0:
+        gq = ops.grad_prepass(g2, bits_g, beta_g)
+
+        def partial(start, last):  # the PRC epilogue on the last rank only
+            kw_r = da_kw if last else dict(da_kw, clip_t=None)
+            da, rows = ops.grad_da_matmul(g2, wq, a=a2 if last else None, gq=gq, start=start,
+                                          last=last, **kw_r)
+            return torch.cat([da.reshape(-1), rows]) if rows is not None else da
+
+        out = collectives.chained(partial, (m, k), g2.device, group,
+                                  last_shape=(m * k + m,) if prc else None,
+                                  counter="bwd_folds")
+        da = out.reshape(-1)[:m * k].reshape(m, k)
+        rows = out.reshape(-1)[m * k:] if prc else None
+        gq_mine = gq
+    else:
+        g_all = torch.cat(collectives.all_gather(g2, group), dim=1)
+        w_all = torch.cat(collectives.all_gather(wq.to(torch.float32), group), dim=1)
+        gq_all = ops.grad_prepass(g_all, bits_g, beta_g)
+        da, rows = ops.grad_da_matmul(g_all, w_all, a=a2, gq=gq_all, **da_kw)
+        r = dist.get_rank(group)
+        gq_mine = None if gq_all is None else gq_all[:, r * n:(r + 1) * n].contiguous()
+    dw = ops.grad_dw_matmul(g2, aq2, bits_g=bits_g, bits_a=kw["bits_a"], beta_g=beta_g,
+                            per_sample_act_scales=kw["per_sample_act_scales"], gq=gq_mine)
+    return da, dw, None if rows is None else halves_fold(rows) * amax
+
+
+class _RowParallel(torch.autograd.Function):
+    """a[..., K_r] @ w[K_r, N], K split over ``group`` (:func:`_row_parallel`)."""
+
+    @staticmethod
+    def forward(ctx, a, w, gamma, policy: QuantPolicy, group):
+        k, n = w.shape
+        aq = _quantize_a(a, gamma, policy, row_group=group).reshape(-1, k)
+        wq = _quantize_w(w, policy)
+        out = collectives.ordered_fold(
+            lambda start: ops.pot_value_matmul(aq, wq, bits_a=policy.bits_a,
+                                               bits_w=policy.bits_w, start=start),
+            (aq.shape[0], n), a.device, group)
+        ctx.policy, ctx.group = policy, group
+        ctx.save_for_backward(a, aq, wq, gamma)
+        return out.reshape(*a.shape[:-1], n).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, aq, wq, gamma = ctx.saved_tensors
+        policy, group = ctx.policy, ctx.group
+        k, n = wq.shape
+        g2 = g.to(torch.float32).reshape(-1, n)
+        bits_g = policy.bits_for("g", False)
+        beta_g = _grad_scale(g2, bits_g)  # G is whole on every model rank
+        gq = ops.grad_prepass(g2, bits_g, beta_g)
+        kw = dict(bits_g=bits_g, bits_w=policy.bits_w, beta_g=beta_g, gq=gq)
+        dgamma = torch.zeros_like(gamma)
+        if policy.prc_enabled:
+            a2 = a.to(torch.float32).reshape(-1, k)
+            amax = _global_amax(a2.abs().amax(), True, group)  # the forward's
+            got = []
+
+            def partial(rows_start, last):
+                da, rows = ops.grad_da_matmul(g2, wq, a=a2, clip_t=amax * gamma,
+                                              rows_start=rows_start, **kw)
+                got.append(da)
+                return rows
+
+            rows = collectives.chained(partial, (g2.shape[0],), a.device, group,
+                                       counter="bwd_folds")
+            da = got[0]
+            dgamma = (halves_fold(rows) * amax).reshape(gamma.shape).to(gamma.dtype)
+        else:
+            da, _ = ops.grad_da_matmul(g2, wq, **kw)
+        dw = ops.grad_dw_matmul(g2, aq, bits_g=bits_g, bits_a=policy.bits_a, beta_g=beta_g,
+                                per_sample_act_scales=policy.per_sample_act_scales, gq=gq)
         return da.reshape(a.shape).to(a.dtype), dw, dgamma, None, None
 
 
 def _row_parallel(a, w, gamma, policy: QuantPolicy, group) -> torch.Tensor:
     """a[..., K_r] @ w[K_r, N] with K split over ``group`` at whole
     128-chunks, in rank order: global activation scales, then K1's fold
-    chained across the ranks.  Serving only (prequantized weights, whose
-    scale was taken whole; no backward)."""
+    chained across the ranks; the backward of the module docstring.  Its
+    weights are prequantized whole (served, or the training step's shadow):
+    a shard's own WBC mean and scale would not be the matrix's."""
     if not policy.weights_prequantized:
         raise ValueError("a row-parallel mf_linear needs weights prequantized whole "
                          "(a shard's own WBC mean and scale would not be the matrix's)")
-    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
-        raise ValueError("row-parallel mf_linear has no backward: tensor-parallel "
-                         "training is not ported (ROADMAP)")
-    k, n = w.shape
-    aq = _quantize_a(a, gamma, policy, row_group=group).reshape(-1, k)
-    wq = _quantize_w(w, policy)
-    out = collectives.ordered_fold(
-        lambda start: ops.pot_value_matmul(aq, wq, bits_a=policy.bits_a,
-                                           bits_w=policy.bits_w, start=start),
-        (aq.shape[0], n), a.device, group)
-    return out.reshape(*a.shape[:-1], n).to(a.dtype)
+    return _RowParallel.apply(a, w, gamma, policy, group)
 
 
 def mf_linear(
@@ -220,6 +332,7 @@ def mf_linear(
     policy: QuantPolicy,
     is_last: bool = False,
     row_group=None,
+    col_group=None,
 ) -> torch.Tensor:
     """Quantized (or plain, if ``policy.enabled=False``) a[..., K] @ w[K, N].
 
@@ -227,7 +340,10 @@ def mf_linear(
     (``policy.bits_g_last``) in the backward.  dW comes back in float32.
     ``row_group`` (a process group): K is split over its ranks, this
     rank's slice in ``a`` and ``w``; the result is the whole product on
-    every rank (:func:`_row_parallel`)."""
+    every rank (:func:`_row_parallel`).  ``col_group``: N is split over its
+    ranks, ``a`` whole on each and ``w`` this rank's columns; the result is
+    this rank's columns, and the backward chains K2 across the ranks
+    (module docstring)."""
     if not policy.enabled:
         w_ = w.to(a.dtype)
         if a.dim() == 3 and a.shape[1] == 1:
@@ -242,7 +358,7 @@ def mf_linear(
         gamma = torch.full((), gamma, dtype=torch.float32, device=a.device)
     if row_group is not None:
         return _row_parallel(a, w, gamma, policy, row_group)
-    return _MFLinear.apply(a, w, gamma, policy, is_last)
+    return _MFLinear.apply(a, w, gamma, policy, is_last, col_group)
 
 
 class _MFExpertLinear(torch.autograd.Function):

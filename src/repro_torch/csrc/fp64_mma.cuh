@@ -198,10 +198,14 @@ __device__ __forceinline__ double tile_at(const double* tile, int o, int l) {
 // (chunk counted from the operands' start, row stride ldp, chunk stride
 // cstride; rows i0.. below X.outer, columns j0.. below Y.outer), for a fold
 // kernel to add in ascending chunk order; `acc` is then left at zero.
+// `start` (without SPLIT; null: 0.0f): the f32 running sums begin at
+// start[row][col] (row stride lds) instead of 0 -- a fold continued from
+// another rank's running sum (K2's chain over a split contraction).
 template <bool XK, bool YK, bool VEC, bool SPLIT = false>
 __device__ __forceinline__ void block_product(const Operand& X, const Operand& Y, int i0, int j0,
                                               unsigned char* smem, float* part = nullptr,
-                                              int ldp = 0, size_t cstride = 0) {
+                                              int ldp = 0, size_t cstride = 0,
+                                              const float* start = nullptr, int lds = 0) {
     double* xs = reinterpret_cast<double*>(smem);
     double* ys = xs + tile_doubles(XK);
     float* acc = reinterpret_cast<float*>(ys + tile_doubles(YK));
@@ -219,10 +223,18 @@ __device__ __forceinline__ void block_product(const Operand& X, const Operand& Y
         for (int nt = 0; nt < WN / 8; ++nt) {
 #pragma unroll
             for (int v = 0; v < 4; ++v) p[mt][nt][v] = 0.0;
-            // each thread zeroes the sums it will own
+            // each thread sets the sums it will own: 0, or start's values
             const int r = wi + mt * 16 + g, c = wj + nt * 8 + 2 * t;
-            *reinterpret_cast<float2*>(acc + r * ACC_LD + c) = make_float2(0.0f, 0.0f);
-            *reinterpret_cast<float2*>(acc + (r + 8) * ACC_LD + c) = make_float2(0.0f, 0.0f);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float2 v = make_float2(0.0f, 0.0f);
+                const int gr = i0 + r + 8 * h, gc = j0 + c;
+                if (start != nullptr && gr < X.outer) {
+                    if (gc < Y.outer) v.x = start[(size_t)gr * lds + gc];
+                    if (gc + 1 < Y.outer) v.y = start[(size_t)gr * lds + gc + 1];
+                }
+                *reinterpret_cast<float2*>(acc + (r + 8 * h) * ACC_LD + c) = v;
+            }
         }
 
 #pragma unroll

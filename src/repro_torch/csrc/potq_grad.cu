@@ -44,6 +44,18 @@
 // are the very same adds.  The chunk sums land in a (chunks, M) scratch,
 // and `grad_da_rows_fold_kernel` folds them left per row.
 //
+// `start`: K2's fold continued across the ranks of a split contraction
+// (tensor-parallel training, parallel/collectives.py ordered_fold).  A
+// column-parallel linear's dA contracts over its N, which the model ranks
+// split at whole 128-chunks in rank order: rank r begins its f32 running
+// sums at rank r-1's (block_product's `start`), so the chain adds one
+// rank's chunk sums in one rank's order, bit for bit.  A rank that is not
+// last writes the raw running sums (`raw`: no dequant, no epilogue); the
+// last dequantizes and runs the PRC epilogue on the finished dA.  A
+// row-parallel linear's K is split instead: its dA is local, and the
+// dgamma rows' left fold over K chunks continues from the previous rank's
+// (M,) sums (`rows_start` of the fold kernel).
+//
 // Design (the product core is block_product in fp64_mma.cuh, shared with
 // K1).  Block tile 128 x 128 outputs (K2: 128 rows of M x one 128-wide
 // K chunk; K3: 128 rows of K x 128 of N), 256 threads = 8 warps in 2 x 4,
@@ -106,19 +118,23 @@ grad_g_quantize_kernel(const float* __restrict__ G, const float* __restrict__ sc
 // K2: dA = Gq . Wq^T over N.  X = Gq (M x N, rows along N), Y = Wq^T with
 // Wq (K x N) rows along N.  Block (x: 128-wide K chunk, y: 128 rows of M).
 // ---------------------------------------------------------------------------
+// start: null or the (M, K) f32 running sums to continue; raw: write the
+// running sums as they are (a rank before the last of a chain; no PRC).
 template <bool PRC, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 grad_da_kernel(const uint16_t* __restrict__ Gq, const uint16_t* __restrict__ W,
                const float* __restrict__ A, const float* __restrict__ scal,
-               float* __restrict__ dA, float* __restrict__ part, int M, int N, int K) {
+               const float* __restrict__ start, float* __restrict__ dA,
+               float* __restrict__ part, int M, int N, int K, int raw) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int m0 = blockIdx.y * BT, k0 = blockIdx.x * BT;
-    block_product<true, true, VEC>(Operand{Gq, N, M, N}, Operand{W, N, K, N}, m0, k0, smem);
+    block_product<true, true, VEC>(Operand{Gq, N, M, N}, Operand{W, N, K, N}, m0, k0, smem,
+                                   nullptr, 0, 0, start, K);
     const float* acc = reinterpret_cast<const float*>(
         reinterpret_cast<const double*>(smem) + 2 * tile_doubles(true));
 
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const float deq = scal[1];
+    const float deq = raw ? 1.0f : scal[1];
     float clip = 0.0f;
     if (PRC) clip = scal[2];
     for (int rr = 0; rr < BT / 8; ++rr) {
@@ -129,7 +145,7 @@ grad_da_kernel(const uint16_t* __restrict__ Gq, const uint16_t* __restrict__ W,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int col = lane + 32 * j, gc = k0 + col;
-            float v = acc[r * ACC_LD + col] * deq;  // exact 2^beta_g dequant
+            float v = acc[r * ACC_LD + col] * deq;  // exact 2^beta_g dequant (raw: x 1)
             c[j] = 0.0f;
             if (gc < K) {
                 if (PRC) {
@@ -152,12 +168,14 @@ grad_da_kernel(const uint16_t* __restrict__ Gq, const uint16_t* __restrict__ W,
     }
 }
 
-// Left fold of the (chunks, M) chunk sums, ascending chunk order.
-__global__ void grad_da_rows_fold_kernel(const float* __restrict__ part, float* __restrict__ rows,
-                                         int M, int nchunk) {
+// Left fold of the (chunks, M) chunk sums, ascending chunk order, from
+// rows_start (a row-parallel linear's previous ranks) or 0.
+__global__ void grad_da_rows_fold_kernel(const float* __restrict__ part,
+                                         const float* __restrict__ rows_start,
+                                         float* __restrict__ rows, int M, int nchunk) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= M) return;
-    float acc = 0.0f;
+    float acc = rows_start == nullptr ? 0.0f : rows_start[r];
     for (int c = 0; c < nchunk; ++c) acc += part[(size_t)c * M + r];
     rows[r] = acc;
 }
@@ -210,10 +228,14 @@ extern "C" int grad_g_quantize_launch(const float* g, const float* scalars, void
 
 // gq: (M, N) bf16 from grad_g_quantize_launch; w: (K, N) bf16.
 // scalars: [2^-beta_g, 2^beta_g, clip_t] (clip_t read only with prc).
-// part: (ceil(K/128), M) f32 scratch, rows: (M,) f32; both unused without prc.
+// start: null or the (M, K) f32 running sums to continue; raw: write the
+// raw running sums (no dequant; prc must be 0).
+// part: (ceil(K/128), M) f32 scratch, rows: (M,) f32, rows_start: null or
+// (M,) f32 the rows' fold continues from; all unused without prc.
 extern "C" int grad_da_launch(const void* gq, const void* w, const float* a,
-                              const float* scalars, float* da, float* part, float* rows,
-                              int M, int N, int K, int prc, void* stream) {
+                              const float* scalars, const float* start, float* da, float* part,
+                              const float* rows_start, float* rows, int M, int N, int K, int prc,
+                              int raw, void* stream) {
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const uint16_t* x = static_cast<const uint16_t*>(gq);
     const uint16_t* y = static_cast<const uint16_t*>(w);
@@ -222,10 +244,13 @@ extern "C" int grad_da_launch(const void* gq, const void* w, const float* a,
         const bool vec = N % 8 == 0 && aligned16(gq) && aligned16(w);
         auto kernel = prc ? (vec ? grad_da_kernel<true, true> : grad_da_kernel<true, false>)
                           : (vec ? grad_da_kernel<false, true> : grad_da_kernel<false, false>);
+        if (prc && raw) return static_cast<int>(cudaErrorInvalidValue);
         const cudaError_t e = launch_kernel(kernel, grid, THREADS, smem_bytes(true, true), st, x,
-                                            y, a, scalars, da, part, M, N, K);
+                                            y, a, scalars, start, da, part, M, N, K, raw);
         if (e != cudaSuccess) return static_cast<int>(e);
-        if (prc) grad_da_rows_fold_kernel<<<(M + 255) / 256, 256, 0, st>>>(part, rows, M, grid.x);
+        if (prc)
+            grad_da_rows_fold_kernel<<<(M + 255) / 256, 256, 0, st>>>(part, rows_start, rows, M,
+                                                                       grid.x);
     }
     return static_cast<int>(cudaGetLastError());
 }

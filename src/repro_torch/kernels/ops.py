@@ -9,7 +9,9 @@
 * :func:`grad_dw_matmul`    — dW = Aq^T·Gq (K3).
 * :func:`potq_grad_matmuls` — both, G quantized once under one beta_g
   (every quantized ``mf_linear`` backward; on the card one pre-pass
-  writes Gq and both kernels read it).
+  writes Gq and both kernels read it, :func:`grad_prepass`).  A
+  tensor-parallel backward (``core/mfmac.py``) calls the three itself, K2
+  with ``start`` / ``last`` / ``rows_start`` (its chain across ranks).
 * :func:`potq_expert_grad_matmuls` — :func:`potq_grad_matmuls` once per
   expert (every quantized ``mf_expert_linear`` backward).
 * :func:`potq_encode`       — f32 -> int8 PoT wire codes + beta (K4;
@@ -66,9 +68,10 @@ def potq_matmul(
     a = a.to(torch.float32)
     w = w.to(torch.float32)
     f32 = dict(dtype=torch.float32, device=a.device)
-    clip_t = (torch.tensor(float("inf"), **f32) if clip_t is None
+    # fills on the device, not host-to-device copies (no host sync)
+    clip_t = (torch.full((), float("inf"), **f32) if clip_t is None
               else torch.as_tensor(clip_t).to(**f32))
-    w_mean = (torch.tensor(0.0, **f32) if w_mean is None
+    w_mean = (torch.full((), 0.0, **f32) if w_mean is None
               else torch.as_tensor(w_mean).to(**f32))
     # betas of the clipped / shifted operands, from their amax alone
     beta_a = potq.compute_beta(torch.minimum(a.abs().amax(), clip_t), bits_a)
@@ -114,9 +117,20 @@ def _g_scalars(g: torch.Tensor, bits_g: int, beta_g: Optional[torch.Tensor],
     if beta_g is None:
         beta_g = potq.compute_beta(g, bits_g)
     f32 = dict(dtype=torch.float32, device=g.device)
-    clip = (torch.tensor(float("inf"), **f32) if clip_t is None
+    # a fill on the device, not a host-to-device copy (no host sync)
+    clip = (torch.full((), float("inf"), **f32) if clip_t is None
             else torch.as_tensor(clip_t).to(**f32).reshape(()))
     return torch.stack([potq.exp2i(-beta_g), potq.exp2i(beta_g), clip])
+
+
+def grad_prepass(g: torch.Tensor, bits_g: int, beta_g: torch.Tensor) -> Optional[torch.Tensor]:
+    """G quantized once for K2 and K3 under ``beta_g``: on the card the
+    pre-pass's bf16 Gq, which both kernels read; None on the CPU, where
+    the plain versions quantize G themselves (the same values)."""
+    if g.device.type != "cuda":
+        return None
+    return _kg.quantize_g_cuda(g, _g_scalars(g, bits_g, beta_g, None),
+                               emax_g=potq.pot_emax(bits_g))
 
 
 def grad_da_matmul(
@@ -129,6 +143,9 @@ def grad_da_matmul(
     bits_w: int = 5,
     beta_g: Optional[torch.Tensor] = None,
     gq: Optional[torch.Tensor] = None,
+    start: Optional[torch.Tensor] = None,
+    last: bool = True,
+    rows_start: Optional[torch.Tensor] = None,
 ):
     """dA = Gq·Wq^T (K2): g (M, N) raw gradient, wq (K, N) the forward's
     quantized weights, read in that layout.
@@ -137,7 +154,10 @@ def grad_da_matmul(
     clip-masked and the dgamma contributions are reduced to the (M,) row
     vector; ``halves_fold(rows) * max|a|`` is dgamma.  Returns
     ``(da, rows)``, ``rows`` None with PRC off.  ``gq`` (CUDA only) is G
-    already quantized by the pre-pass under ``beta_g``."""
+    already quantized by the pre-pass under ``beta_g``.  ``start``,
+    ``last`` and ``rows_start``: K2's chain across ranks
+    (``kernels/potq_grad.py``); with ``last=False`` ``da`` is the raw
+    running sum."""
     ref.check_exact_spread(bits_g, bits_w)
     prc = a is not None
     if prc and clip_t is None:
@@ -145,7 +165,8 @@ def grad_da_matmul(
     g = g.to(torch.float32)
     scalars = _g_scalars(g, bits_g, beta_g, clip_t)
     fn = _dispatch(g.device, functools.partial(_kg.grad_da_cuda, gq=gq), _kg.grad_da_plain)
-    return fn(g, wq, a, scalars, emax_g=potq.pot_emax(bits_g), prc=prc)
+    return fn(g, wq, a, scalars, emax_g=potq.pot_emax(bits_g), prc=prc, start=start,
+              last=last, rows_start=rows_start)
 
 
 def grad_dw_matmul(
@@ -205,10 +226,7 @@ def potq_grad_matmuls(
     g = g.to(torch.float32)
     if beta_g is None:
         beta_g = potq.compute_beta(g, bits_g)  # quantized once: one shared beta
-    gq = None
-    if g.device.type == "cuda":  # one pre-pass, read by both kernels
-        gq = _kg.quantize_g_cuda(g, _g_scalars(g, bits_g, beta_g, None),
-                                 emax_g=potq.pot_emax(bits_g))
+    gq = grad_prepass(g, bits_g, beta_g)  # one pre-pass, read by both kernels
     da, rows = grad_da_matmul(g, wq, a=a, clip_t=clip_t, bits_g=bits_g,
                               bits_w=bits_w, beta_g=beta_g, gq=gq)
     dw = grad_dw_matmul(g, aq, bits_g=bits_g, bits_a=bits_a, beta_g=beta_g,

@@ -23,6 +23,16 @@ pass ``ref.check_exact_spread``, one scale for all of Wq, and for K3 one
 scale for all of Aq) the kernel equals it bit for bit.  ``scalars`` is a
 (3,) float32 tensor ``[2^-beta_g, 2^beta_g, clip_t]``, on the operands'
 device, so no launch waits for the host.
+
+K2's chain (tensor-parallel training, ``core/mfmac.py``).  ``start`` (an
+(M, K) f32 running sum) continues dA's fold over N from the previous
+model rank's, whose N range ends at a whole 128-chunk; ``last=False``
+returns that raw running sum (no dequant, no PRC epilogue), which the next
+rank continues; the last rank's launch dequantizes and runs the epilogue
+on the finished dA.  ``rows_start`` (an (M,) f32 running sum) continues the
+dgamma rows' left fold over K chunks from the previous rank's, for a
+row-parallel linear whose K the ranks split at whole 128-chunks.  Chained
+over ranks in rank order, each equals the unsplit launch bit for bit.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ SOURCE = "potq_grad.cu"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "grad_g_quantize_launch": [_P, _P, _P, _L, _I, _P],
-    "grad_da_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "grad_da_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grad_dw_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -63,17 +73,24 @@ def _quantize_g(g: torch.Tensor, scalars: torch.Tensor, emax_g: int) -> torch.Te
 
 
 def grad_da_plain(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
-                  scalars: torch.Tensor, *, emax_g: int,
-                  prc: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of K2: ``(dA (M,K), dgamma rows (M,) or None)``."""
+                  scalars: torch.Tensor, *, emax_g: int, prc: bool,
+                  start: Optional[torch.Tensor] = None, last: bool = True,
+                  rows_start: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of K2: ``(dA (M,K), dgamma rows (M,) or None)``;
+    with ``last=False`` ``(the raw running sum, None)`` (module docstring)."""
+    _check_chain(g, wq, prc, start, last, rows_start)
     gq = _quantize_g(g, scalars, emax_g)
-    da = pot_value_matmul_ref(gq, wq.to(torch.float32).T) * scalars[1]
+    acc = pot_value_matmul_ref(gq, wq.to(torch.float32).T, start)
+    if not last:
+        return acc, None
+    da = acc * scalars[1]
     if not prc:
         return da, None
     a = a.to(torch.float32)
     clipped = a.abs() > scalars[2]
     zero = torch.zeros_like(da)
-    rows = grad_rowsum_ref(torch.where(clipped, da * torch.sign(a), zero))
+    rows = grad_rowsum_ref(torch.where(clipped, da * torch.sign(a), zero), rows_start)
     return torch.where(clipped, zero, da), rows
 
 
@@ -82,6 +99,17 @@ def grad_dw_plain(aq: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, *,
     """Plain PyTorch version of K3: dW (K, N)."""
     gq = _quantize_g(g, scalars, emax_g)
     return pot_value_matmul_ref(aq.to(torch.float32).T, gq) * scalars[1]
+
+
+def _check_chain(g, wq, prc, start, last, rows_start) -> None:
+    m, k = g.shape[0], wq.shape[0]
+    if start is not None and tuple(start.shape) != (m, k):
+        raise ValueError(f"start must be ({m}, {k}), got {tuple(start.shape)}")
+    if not last and prc:
+        raise ValueError("a rank before the last of K2's chain returns the raw running sum: "
+                         "the PRC epilogue runs on the last rank only")
+    if rows_start is not None and (not prc or tuple(rows_start.shape) != (m,)):
+        raise ValueError(f"rows_start continues the PRC dgamma rows: ({m},) with prc")
 
 
 def _check_cuda(*ts: torch.Tensor) -> None:
@@ -128,18 +156,26 @@ def _gq(g: torch.Tensor, scalars: torch.Tensor, emax_g: int,
 
 def grad_da_cuda(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
                  scalars: torch.Tensor, *, emax_g: int, prc: bool,
-                 gq: Optional[torch.Tensor] = None
+                 gq: Optional[torch.Tensor] = None, start: Optional[torch.Tensor] = None,
+                 last: bool = True, rows_start: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K2 on the tensors' CUDA device (PyTorch's current stream).
     g: (M, N) f32, wq: (K, N) PoT values (read as bf16), a: (M, K) f32
     raw activations (PRC only); gq: G from :func:`quantize_g_cuda` under
-    the same scalars (the pre-pass is launched here when it is None).
+    the same scalars (the pre-pass is launched here when it is None);
+    ``start``, ``last`` and ``rows_start``: the chain (module docstring).
     Raises on a bad device, shape or launch."""
-    _check_cuda(g, wq, scalars, *([a] if prc else []))
+    _check_cuda(g, wq, scalars, *([a] if prc else []),
+                *(t for t in (start, rows_start) if t is not None))
     if g.dim() != 2 or wq.dim() != 2 or g.shape[1] != wq.shape[1]:
         raise ValueError(f"bad shapes G {tuple(g.shape)}, Wq {tuple(wq.shape)}")
+    _check_chain(g, wq, prc, start, last, rows_start)
     m, n = g.shape
     k = wq.shape[0]
+    if start is not None:
+        start = start.to(torch.float32).contiguous()
+    if rows_start is not None:
+        rows_start = rows_start.to(torch.float32).contiguous()
     wq = wq.to(torch.bfloat16).contiguous()
     s = _scalars(scalars, g.device)
     da = torch.empty((m, k), dtype=torch.float32, device=g.device)
@@ -155,8 +191,10 @@ def grad_da_cuda(g: torch.Tensor, wq: torch.Tensor, a: Optional[torch.Tensor],
     gq = _gq(g, s, emax_g, gq)
     err = lib.grad_da_launch(
         gq.data_ptr(), wq.data_ptr(), a.data_ptr() if prc else None, s.data_ptr(),
-        da.data_ptr(), part.data_ptr() if prc else None,
-        rows.data_ptr() if prc else None, m, n, k, int(prc),
+        start.data_ptr() if start is not None else None, da.data_ptr(),
+        part.data_ptr() if prc else None,
+        rows_start.data_ptr() if rows_start is not None else None,
+        rows.data_ptr() if prc else None, m, n, k, int(prc), int(not last),
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     if err != 0:

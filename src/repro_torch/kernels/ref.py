@@ -137,12 +137,15 @@ def halves_fold(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0].to(torch.float32)
 
 
-def grad_rowsum_ref(x: torch.Tensor) -> torch.Tensor:
+def grad_rowsum_ref(x: torch.Tensor, start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Row sums of (M, K) in the spec's order: :func:`halves_fold` inside
     each 128-wide K chunk (zero-padded), then an f32 left fold over the
-    chunks in ascending order.  The numeric spec of K2's dgamma rows."""
+    chunks in ascending order, from ``start`` (an (M,) running sum: a
+    row-parallel linear's previous ranks) or 0.  The numeric spec of K2's
+    dgamma rows."""
     m, k = x.shape
-    out = torch.zeros((m,), dtype=torch.float32, device=x.device)
+    out = (torch.zeros((m,), dtype=torch.float32, device=x.device) if start is None
+           else start.to(torch.float32).clone())
     for c in range(0, k, CANONICAL_BK):
         chunk = x[:, c:c + CANONICAL_BK]
         if chunk.shape[1] < CANONICAL_BK:

@@ -1,5 +1,5 @@
-"""Training CLI (port of ``repro/launch/train.py``): one device, or
-data-parallel over a launched world (``--mesh DxM``).
+"""Training CLI (port of ``repro/launch/train.py``): one device, or a
+launched world as a (data, model) mesh (``--mesh DxM``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \\
       --steps 3 --batch 2 --seq 16 --device cpu --ckpt-dir /tmp/ckpt
@@ -27,19 +27,24 @@ checkpoints mean the same and restore into each other:
 * at the end the state is saved, blocking, labelled ``--steps``, the
   number of updates it holds.
 
-Data-parallel: ``--mesh DxM`` (default ``host``, one process) takes the
-launched world as a (data, model) grid: ``torchrun --nproc-per-node 2 -m
-repro_torch.launch.train ... --mesh 2x1``, or ``main`` called on each rank
-of a world started by ``parallel.collectives.spawn``.  The backend follows
-the topology (``parallel/collectives.py``: NCCL with a card a rank, gloo
-when ranks share a card or on the CPU).  Each rank draws the whole seed-0
+Sharded: ``--mesh DxM`` (default ``host``, one process) takes the
+launched world of D*M ranks as a (data, model) grid: ``torchrun
+--nproc-per-node 2 -m repro_torch.launch.train ... --mesh 2x1`` (or
+``1x2``, ``2x2`` with 4), or ``main`` called on each rank of a world
+started by ``parallel.collectives.spawn``.  The backend follows the
+topology (``parallel/collectives.py``: NCCL with a card a rank, gloo when
+ranks share a card or on the CPU).  Each rank draws the whole seed-0
 parameters, keeps its shards (``train.step.DataParallel``) and steps on
-its rows of the batch; every family trains so (a MoE batch's dispatch
-groups must not straddle two ranks), and a model axis > 1 is refused
-(tensor-parallel training is later work).  Checkpoints are gathered whole and written by
-rank 0 in the reference's layout, so a checkpoint written by D ranks
-restores in one, and in ``repro.launch.train``; a restore reads the whole
-state on every rank and keeps its shards.  Only rank 0 prints.
+its rows of the batch (the model ranks of one data group on the same
+rows).  On (D, 1) every family trains so (a MoE batch's dispatch groups
+must not straddle two ranks).  On a model axis M > 1 the dense decoder
+trains tensor-parallel (``train/step.py``); the other families are
+refused there (ROADMAP item 9.3b), and so are ``--microbatches`` > 1
+(9.4).  Checkpoints are gathered whole, a leaf at a time over the data
+and model ranks, and written by rank 0 in the reference's layout, so a
+checkpoint written by D*M ranks restores in one, and in
+``repro.launch.train``; a restore reads the whole state on every rank
+and keeps its shards.  Only rank 0 prints.
 
 ``--pallas`` and ``--autotune`` are not ported yet.
 """
@@ -64,6 +69,7 @@ from repro_torch.optim import (adamw, sgd_momentum, step_decay_schedule,
                                warmup_cosine_schedule)
 from repro_torch.parallel import collectives, meshes, planner
 from repro_torch.train import TrainConfig, make_train_step
+from repro_torch.train.step import check_model_axis
 
 # cuBLAS reads its workspace setting when its first handle is made, so it
 # is fixed here, before any CUDA call, for make_deterministic's sake
@@ -105,13 +111,11 @@ def _world_plan(cfg, shape, mesh_arg: str, device: str):
     world joined from torchrun's environment when it is not up yet)."""
     d, m = meshes.parse_mesh(mesh_arg)
     if m > 1:
-        raise NotImplementedError(
-            f"--mesh {mesh_arg}: training on a model axis > 1 (tensor-parallel K2/K3) is "
-            "not ported yet (ROADMAP); use a (D, 1) mesh")
-    if collectives.world_size() == 1 and d > 1:
+        check_model_axis(cfg)
+    if collectives.world_size() == 1 and d * m > 1:
         env = collectives.world_from_env()
         if env is None:
-            raise RuntimeError(f"--mesh {mesh_arg} needs a launched world of {d} ranks "
+            raise RuntimeError(f"--mesh {mesh_arg} needs a launched world of {d * m} ranks "
                                "(torchrun, or parallel.collectives.spawn)")
         collectives.init(*env, device=device)
     return planner.plan_for(cfg, meshes.make_mesh((d, m), ("data", "model")), shape)

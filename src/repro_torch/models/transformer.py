@@ -60,6 +60,20 @@ gathered embeddings (:func:`embed_inputs`), so a patch request's solo
 prefill runs the backbone's hooks over them.  Without a plan every hook
 is the identity.
 
+Under autograd (tensor-parallel training of the dense decoder) the hooks
+keep the replicated-compute convention: every model rank holds the same
+replicated activations and computes the same loss from the gathered
+logits.  The gathers (the embedding's lookups, the head's logits, an input
+gathered for a whole product) take this rank's slice of the gradient
+(``collectives.gather_replicated``); the column-parallel linears (q and
+the split K/V heads, the MLP's gate and up projections, the vocab-split
+head) mark their input, whose gradient K2 chains across the ranks
+(``mfmac.mf_linear(col_group=)``); the row-parallel ``wo`` and down
+projection chain their dgamma rows.  A vocab shard's embedding rows take
+the gradient of the tokens it owns only (:class:`_ShardLookup`).  K/V
+heads selected from a whole product (``kv == 'select'``) are refused in
+training: each rank's G would reach its heads only (ROADMAP item 9.3b).
+
 Under data-parallel training (``parallel/actshard.batch_group``) a MoE
 layer's dispatch groups are the global batch's: the group size comes
 from the global token count, and each rank's rows must hold whole
@@ -211,8 +225,29 @@ def _tp() -> Optional[_TP]:
 
 
 def _gather_cols(x: torch.Tensor, group) -> torch.Tensor:
-    """Every model rank's columns of ``x``, concatenated in rank order."""
-    return torch.cat(collectives.all_gather(x.contiguous(), group), dim=-1)
+    """Every model rank's columns of ``x``, concatenated in rank order (a
+    result every rank uses alike: the backward takes this rank's slice)."""
+    return collectives.gather_replicated(x.contiguous(), group, -1)
+
+
+class _ShardLookup(torch.autograd.Function):
+    """Rows ``idx`` of a vocab shard (``idx`` = the shard's row count for
+    a token another rank owns: its row is never selected, so it reads the
+    last row and takes no gradient).  The backward accumulates only the
+    owned tokens' gradients, in the order a whole table's embedding
+    backward does."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.rows = table.shape[0]
+        ctx.save_for_backward(idx)
+        return F.embedding(idx.clamp(max=ctx.rows - 1), table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        grad = torch.ops.aten.embedding_dense_backward(g, idx, ctx.rows + 1, ctx.rows, False)
+        return grad[:ctx.rows], None
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -223,8 +258,10 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     if tp is None or not tp.layout.vocab:
         return table[tokens]
     vl = table.shape[0]
-    local = table[(tokens - tp.rank * vl).clamp(0, vl - 1)]
-    stacked = torch.stack(collectives.all_gather(local, tp.group))
+    lo = tp.rank * vl
+    owned = (tokens >= lo) & (tokens < lo + vl)
+    local = _ShardLookup.apply(table, torch.where(owned, tokens - lo, vl))
+    stacked = collectives.gather_replicated(local[None], tp.group, 0)
     owner = (tokens // vl).clamp(max=tp.layout.model - 1)
     idx = owner[None, ..., None].expand((1,) + tuple(local.shape))
     return torch.gather(stacked, 0, idx)[0]
@@ -236,6 +273,12 @@ def _kv_select(k: torch.Tensor) -> torch.Tensor:
     tp = _tp()
     if tp is None or tp.layout.kv != "select":
         return k
+    if torch.is_grad_enabled() and k.requires_grad:
+        raise NotImplementedError(
+            "tensor-parallel training with K/V heads selected from a whole product "
+            "(kv_heads % model != 0): each rank's gradient reaches its own heads only, so "
+            "wk/wv's gradients would need a sum over the model axis; not ported yet "
+            "(ROADMAP item 9.3b)")
     hd = tp.cfg.head_dim
     lo = tp.layout.kv_lo(tp.rank, tp.cfg)
     return k[..., lo * hd:(lo + tp.layout.kv_local) * hd]
@@ -282,13 +325,17 @@ def _out_proj(p, x, policy, mode: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _mlp_apply(cfg: ModelConfig, policy: QuantPolicy, p, x):
+    tp = _tp()  # the hidden width split: gate and up are column-parallel
+    col = tp.group if tp is not None and tp.layout.ffn else None
     if cfg.act == "swiglu":
-        g = mfmac.mf_linear(x, p["wi_gate"]["w"], p["wi_gate"]["gamma"], policy=policy)
-        u = mfmac.mf_linear(x, p["wi_up"]["w"], p["wi_up"]["gamma"], policy=policy)
+        g = mfmac.mf_linear(x, p["wi_gate"]["w"], p["wi_gate"]["gamma"], policy=policy,
+                            col_group=col)
+        u = mfmac.mf_linear(x, p["wi_up"]["w"], p["wi_up"]["gamma"], policy=policy,
+                            col_group=col)
         h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
     else:
         h = common.gelu(
-            mfmac.mf_linear(x, p["wi"]["w"], p["wi"]["gamma"], policy=policy)
+            mfmac.mf_linear(x, p["wi"]["w"], p["wi"]["gamma"], policy=policy, col_group=col)
         )
     return _out_proj(p["wo"], h, policy, "mlp_wo")
 
@@ -440,9 +487,14 @@ def _qkv(cfg, policy, p, x, qpos):
     """q, k, v projections of x (B, S, D) with rope at positions (B, S)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = mfmac.mf_linear(x, p["wq"]["w"], p["wq"]["gamma"], policy=policy)
-    k = _kv_select(mfmac.mf_linear(x, p["wk"]["w"], p["wk"]["gamma"], policy=policy))
-    v = _kv_select(mfmac.mf_linear(x, p["wv"]["w"], p["wv"]["gamma"], policy=policy))
+    tp = _tp()  # split heads: q (and K/V split with them) column-parallel
+    qcol = tp.group if tp is not None and tp.layout.heads else None
+    kvcol = tp.group if tp is not None and tp.layout.kv == "split" else None
+    q = mfmac.mf_linear(x, p["wq"]["w"], p["wq"]["gamma"], policy=policy, col_group=qcol)
+    k = _kv_select(mfmac.mf_linear(x, p["wk"]["w"], p["wk"]["gamma"], policy=policy,
+                                   col_group=kvcol))
+    v = _kv_select(mfmac.mf_linear(x, p["wv"]["w"], p["wv"]["gamma"], policy=policy,
+                                   col_group=kvcol))
     q = common.rope(q.reshape(b, s, cfg.n_heads, hd), qpos, cfg.rope_theta)
     k = common.rope(k.reshape(b, s, cfg.kv_heads, hd), qpos, cfg.rope_theta)
     return q, k, v.reshape(b, s, cfg.kv_heads, hd)
@@ -572,9 +624,11 @@ def _lm_head(cfg, policy, params, x):
     if cfg.tie_embeddings:
         return tied_head(policy, params["embed"], x)
     hp = params["lm_head"]
-    logits = mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True)
     tp = _tp()
-    if tp is not None and tp.layout.vocab:
+    vocab = tp is not None and tp.layout.vocab
+    logits = mfmac.mf_linear(x, hp["w"], hp["gamma"], policy=policy, is_last=True,
+                             col_group=tp.group if vocab else None)
+    if vocab:
         logits = _gather_cols(logits, tp.group)  # the vocab shards in rank order
     return logits
 

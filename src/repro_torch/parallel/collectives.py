@@ -34,7 +34,30 @@ op is the identity):
   result to every rank: R broadcasts of M*N*4 bytes, and the ranks'
   products run one after another.
 
-:data:`stats` counts calls, bytes and host seconds spent in the ops.
+Under autograd (tensor-parallel training; the replicated-compute
+convention: every model rank holds the same replicated tensors and runs
+the same ops on them, so the same backward):
+
+* :func:`gather_replicated`: an all-gather in rank order whose result
+  every rank uses the same way (the embedding's vocab-shard lookups, the
+  head's logits, an input gathered for a whole product); its backward
+  takes this rank's slice of the (identical) gradient and sums nothing;
+* :func:`chained`: the fold of :func:`ordered_fold` for any running sum,
+  the backward's chains of ``core/mfmac.py``: K2's dA fold over a
+  column-parallel linear's split N (the column-parallel input's "copy
+  into the model group", whose backward this is), and the dgamma rows of
+  a row-parallel linear's split K (its dA and dW are local: G is whole on
+  every rank).  It has no fallback of any kind: a rank that fails raises,
+  and its peers' collectives time out.
+
+Every rank reaches every collective in the same order, in the backward
+too: the backward's chains run in autograd's order, which is the same on
+every rank, and remat (``torch.utils.checkpoint``) re-runs a layer's
+forward, its amax all-reduces and folds included, on every rank alike.
+
+:data:`stats` counts calls, bytes and host seconds spent in the ops, the
+forward's row-parallel folds (``folds``) and the backward's chains
+(``bwd_folds``).
 :func:`spawn` runs a function on N ranks of a fresh world (the CPU tests,
 ``parallel/smoke.py``, the card's two-rank phases).
 """
@@ -51,14 +74,15 @@ import torch.distributed as dist
 
 #: calls, bytes moved and host seconds spent in this module's ops since
 #: the last :func:`reset_stats`
-stats: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0, "folds": 0}
+stats: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0, "folds": 0,
+                           "bwd_folds": 0}
 _STATE: Dict = {"backend": None, "cuda_ops": None}
 _GROUPS: Dict = {}
 _OPS = ("all_reduce", "all_gather", "broadcast")
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0, folds=0)
+    stats.update(calls=0, bytes=0, seconds=0.0, folds=0, bwd_folds=0)
 
 
 def world_size() -> int:
@@ -262,16 +286,54 @@ def ordered_fold(partial: Callable[[Optional[torch.Tensor]], torch.Tensor], shap
     once rank r-1's running sum has arrived; each running sum is
     broadcast from its rank, the last one to every rank.  Returns the
     full fold (f32, ``shape``) on every rank."""
+    return chained(lambda start, last: partial(start), shape, device, group)
+
+
+def chained(partial: Callable[[Optional[torch.Tensor], bool], torch.Tensor], shape, device,
+            group, *, last_shape=None, counter: str = "folds") -> torch.Tensor:
+    """A running sum chained across the group's ranks in rank order: group
+    rank r runs ``partial(start, last)`` (``start`` rank r-1's result,
+    None on rank 0; ``last`` whether r is the group's last rank) once
+    rank r-1's has arrived; each result is broadcast from its rank (f32,
+    ``shape``; the last rank's ``last_shape`` when given), the last one to
+    every rank, which all return it.  Counts one ``counter`` in
+    :data:`stats`."""
     if group is None:
-        return partial(None)
+        return partial(None, True)
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    stats["folds"] += 1
+    stats[counter] += 1
     start = None
     for src in range(n):
-        buf = partial(start) if src == r else torch.empty(shape, dtype=torch.float32,
-                                                          device=device)
+        want = last_shape if src == n - 1 and last_shape is not None else shape
+        buf = (partial(start, src == n - 1) if src == r
+               else torch.empty(want, dtype=torch.float32, device=device))
+        if tuple(buf.shape) != tuple(want):
+            raise ValueError(f"chained: rank {r} made {tuple(buf.shape)}, the chain carries "
+                             f"{tuple(want)}")
         start = broadcast(buf.contiguous(), src, group)
     return start
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
+
+
+def gather_replicated(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every group rank's ``x`` concatenated along ``dim`` in rank order,
+    for a result every rank uses the same way: its backward is this rank's
+    slice of the gradient (which is the same on every rank), summed with
+    nothing.  The identity without a group."""
+    if group is None:
+        return x
+    return _GatherReplicated.apply(x, group, dim)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Training step: microbatched gradient accumulation + optimizer update
-(port of ``repro/train/step.py``), on one device or data-parallel.
+(port of ``repro/train/step.py``), on one device or on a (data, model)
+mesh.
 
 ``make_train_step`` returns a function
     (params, opt_state, batch, step) -> (params, opt_state, metrics)
@@ -20,12 +21,14 @@ PoT values (mf_linear casts them to bf16 without loss).  With
 float32 master at use instead (the same WBC and scale per stacked layer).
 
 Data-parallel (``make_train_step(..., plan=)``, a training plan on a
-concrete (data, 1) mesh; :class:`DataParallel`).  Masters and optimizer
-state are held split as the plan's ``embed``-over-data rule says (each
-rank 1/D of every leaf whose dim divides; the rest whole), and the batch
-rows split over the data ranks in order (``actshard.shard_batch``).
-Each step all-gathers the f32 masters before ``_quantize_shadow``, so
-WBC's mean and every weight scale are one rank's; runs the forward and
+concrete (data, model) mesh; :class:`DataParallel`, the sharded side of
+any such plan).  Masters and optimizer state are held split as the
+plan's ``embed``-over-data rule says (each rank 1/D of every leaf whose
+dim divides; the rest whole), and the batch rows split over the data
+ranks in order (``actshard.shard_batch``; the model ranks of one data
+group take the same rows).  Each step all-gathers the f32 masters, a
+leaf at a time, before quantizing the shadow, so WBC's mean and every
+weight scale are one rank's; runs the forward and
 backward on its rows with global maxima (``core/mfmac.py``) and the loss
 over the global token count; reduce-scatters the gradients; clips by
 the global norm of the whole tree; and updates its shards.  Activations,
@@ -40,9 +43,28 @@ batch's ``patch_embeds`` / ``frames`` rows split with its tokens
 (``actshard.shard_batch``), so ``patch_proj``'s and ``frame_proj``'s
 activation scales, like every other per-tensor one, are the global
 batch's.  The ssm and the hybrid (a tuple of per-layer dicts, split
-leaf by leaf, ``layers/<i>/...``) train the same way too.  A model axis
-> 1 and microbatching are refused (tensor-parallel training is later
-work).
+leaf by leaf, ``layers/<i>/...``) train the same way too.
+
+Tensor-parallel (a (D, M) mesh with M > 1; the dense decoder only).
+Each rank holds its model shard of every leaf the runtime splits
+(``plan.shard_leaf``: q and the K/V heads, the MLP's hidden width, the
+vocabulary; ``wo`` and the down projection along their contraction),
+split in turn over the data ranks as above; leaves replicated on the
+model axis (each linear's ``gamma``) stay whole there.  The shadow
+quantizes each matrix whole, one leaf at a time: gathered over the data
+and model ranks, quantized (the reference's WBC mean and scale), and
+this rank's shard kept.  The forward and backward run with the plan's
+local config through the model-axis hooks (``models/transformer.py``;
+K2 chained across the ranks, ``core/mfmac.py``), so every rank computes
+the same loss and the same replicated gradients; a split leaf's gradient
+is this rank's slice of one rank's.  The gradients are summed over the
+data group only (a replicated leaf's is the same on every model rank),
+and ``global_norm`` sums the split leaves' squares over the groups they
+are split over, counting a replicated leaf once.  On (1, M) the losses
+and every gradient are one rank's bit for bit.  Refused on a model axis:
+the other families (ROADMAP item 9.3b), K/V heads selected from a whole
+product (9.3b), microbatches > 1 and ``weight_shadow=False`` (9.4).
+Microbatching is refused on any sharded plan.
 """
 from __future__ import annotations
 
@@ -84,18 +106,24 @@ class TrainConfig:
                 "it; the compressor itself is core.compress.compressed_psum")
 
 
-def _quantize_shadow(params, policy: QuantPolicy):
-    """WBC + ALS-PoTQ every linear weight (a ``w`` leaf of rank >= 2) to its
-    exact PoT values in float32; stacked (L, K, N) leaves per layer (mean
-    and beta over the last two axes).  Other leaves are returned as they
-    are (embed, norm scales, gamma)."""
-    def one(name, x):
-        if name.split("/")[-1] != "w" or x.dim() < 2:
-            return x
-        axes = (x.dim() - 2, x.dim() - 1) if x.dim() > 2 else None
-        return mfmac._quantize_w(x, policy, axes).to(torch.float32)
+def _is_weight(name: str, x: torch.Tensor) -> bool:
+    """A linear weight: a ``w`` leaf of rank >= 2."""
+    return name.split("/")[-1] == "w" and x.dim() >= 2
 
-    return unflatten((name, one(name, x)) for name, x in named_leaves(params))
+
+def _quantize_leaf(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
+    """One whole linear weight's shadow: WBC + ALS-PoTQ to its exact PoT
+    values in float32; a stacked (L, K, N) leaf per layer (mean and beta
+    over the last two axes)."""
+    axes = (x.dim() - 2, x.dim() - 1) if x.dim() > 2 else None
+    return mfmac._quantize_w(x, policy, axes).to(torch.float32)
+
+
+def _quantize_shadow(params, policy: QuantPolicy):
+    """:func:`_quantize_leaf` of every linear weight; other leaves are
+    returned as they are (embed, norm scales, gamma)."""
+    return unflatten((name, _quantize_leaf(x, policy) if _is_weight(name, x) else x)
+                     for name, x in named_leaves(params))
 
 
 def value_and_grad(fn, params):
@@ -126,64 +154,124 @@ def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
     return value_and_grad(lambda p: registry.loss_fn(cfg, policy, p, batch), params)
 
 
+def check_model_axis(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` trains on a model axis > 1 (the dense decoder)."""
+    if cfg.family != "decoder" or cfg.moe is not None:
+        kind = "MoE decoder" if cfg.family == "decoder" else cfg.family
+        raise NotImplementedError(
+            f"training the {kind} family ({cfg.name}) on a model axis > 1 is not ported yet "
+            "(ROADMAP item 9.3b: the other families under tensor-parallel training); train "
+            "it on a (D, 1) mesh")
+
+
 class DataParallel:
-    """The data-parallel side of a training plan: which dim of each leaf
-    is split over the data ranks (``plan.data_split_dim``), and the
-    shard / gather / gradient reduction of whole trees."""
+    """The sharded side of a training plan on a concrete (D, M) mesh: which
+    dim of each leaf is split over the data ranks (``plan.data_split_dim``)
+    and over the model ranks (``plan.model_split_dim``), and the shard /
+    gather / shadow / gradient reduction of whole trees (module
+    docstring)."""
 
     def __init__(self, plan):
-        if plan.model_shards > 1:
-            raise NotImplementedError(
-                "training on a model axis > 1 (tensor-parallel K2/K3) is not ported yet "
-                "(ROADMAP); train on a (D, 1) mesh")
         self.plan = plan
         self.group = plan.mesh.group("data")
         self.rank, self.size = actshard.data_rank_and_size(plan)
+        self.model_group = None
+        if plan.model_shards > 1:
+            check_model_axis(plan.cfg)
+            self.model_group = plan.mesh.group("model")
 
     def _dims(self, tree, strip: int):
-        return [(n, x, self.plan.data_split_dim("/".join(n.split("/")[strip:])))
-                for n, x in named_leaves(tree)]
+        """(name, leaf, data dim, model dim) of each leaf."""
+        out = []
+        for n, x in named_leaves(tree):
+            path = "/".join(n.split("/")[strip:])
+            d = self.plan.data_split_dim(path)
+            m = self.plan.model_split_dim(path) if self.model_group is not None else None
+            if d is not None and d == m:
+                raise ValueError(f"param {path}: dim {d} is split over both data and model")
+            out.append((n, x, d, m))
+        return out
+
+    def _narrow(self, x, dim):
+        if dim is None:
+            return x
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n).clone()
+
+    def _whole(self, x, d, m):
+        """A leaf whole from every rank's slices (all-gathers in rank order,
+        over data, then over model)."""
+        if d is not None:
+            x = torch.cat(collectives.all_gather(x, self.group), dim=d)
+        if m is not None:
+            x = torch.cat(collectives.all_gather(x.contiguous(), self.model_group), dim=m)
+        return x
 
     def shard(self, tree, strip: int = 0):
         """This rank's slices of a whole tree (``strip`` leading name
-        components: 1 for an optimizer state's ``m/...`` trees)."""
-        def one(x, dim):
-            if dim is None:
-                return x
-            n = x.shape[dim] // self.size
-            return x.narrow(dim, self.rank * n, n).clone()
+        components: 1 for an optimizer state's ``m/...`` trees): its model
+        shard of each leaf, then its data slice of that."""
+        def one(n, x, d):
+            if self.model_group is not None:
+                x = self.plan.shard_leaf("/".join(n.split("/")[strip:]), x)
+            return self._narrow(x, d)
 
-        return unflatten((n, one(x, d)) for n, x, d in self._dims(tree, strip))
+        return unflatten((n, one(n, x, d)) for n, x, d, _ in self._dims(tree, strip))
 
     def gather(self, tree, strip: int = 0):
-        """The whole tree from every rank's slices (all-gather in rank order)."""
-        return unflatten((n, x if d is None else torch.cat(
-            collectives.all_gather(x, self.group), dim=d)) for n, x, d in self._dims(tree, strip))
+        """The whole tree from every rank's slices, a leaf at a time."""
+        return unflatten((n, self._whole(x, d, m)) for n, x, d, m in self._dims(tree, strip))
+
+    def inputs(self, params, policy: Optional[QuantPolicy]):
+        """The step's inputs from this rank's masters, a leaf at a time: each
+        leaf whole over the data ranks (this rank's model shard); with
+        ``policy`` (the weight shadow) every linear weight quantized whole
+        (:func:`_quantize_shadow`'s rule, gathered over the model ranks
+        too) and this rank's shard of it kept."""
+        def one(n, x, d, m):
+            if d is not None:
+                x = torch.cat(collectives.all_gather(x, self.group), dim=d)
+            if policy is None or not _is_weight(n, x):
+                return x
+            whole = x if m is None else self._whole(x, None, m)
+            q = _quantize_leaf(whole, policy)
+            return q if m is None else self.plan.shard_leaf(n, q)
+
+        return unflatten((n, one(n, x, d, m)) for n, x, d, m in self._dims(params, 0))
 
     def reduce(self, grads):
-        """Each rank's gradient slices of the sum over ranks (a
-        reduce-scatter on split leaves, an all-reduce on whole ones)."""
+        """Each rank's gradient slices of the sum over the data ranks (a
+        reduce-scatter on split leaves, an all-reduce on whole ones); a
+        model shard's gradient is this rank's already."""
         return unflatten((n, collectives.all_reduce_sum(g, self.group) if d is None
                           else collectives.reduce_scatter(g, self.group, d))
-                         for n, g, d in self._dims(grads, 0))
+                         for n, g, d, _ in self._dims(grads, 0))
 
     def global_norm(self, grads) -> torch.Tensor:
-        """The whole tree's gradient norm from the ranks' slices: the split
-        leaves' sums of squares are summed over the ranks."""
-        split, whole = [], []
-        for _, g, d in self._dims(grads, 0):
-            (whole if d is None else split).append(torch.sum(g.to(torch.float32) ** 2))
-        total = sum(whole) if whole else 0.0
-        if split:
-            total = collectives.all_reduce_sum(torch.stack(split), self.group).sum() + total
+        """The whole tree's gradient norm from the ranks' slices: each
+        leaf's sum of squares is summed over the groups it is split over
+        (a leaf replicated on a group counts once)."""
+        sums = {}
+        for _, g, d, m in self._dims(grads, 0):
+            sums.setdefault((d is not None, m is not None), []).append(
+                torch.sum(g.to(torch.float32) ** 2))
+        total = 0.0
+        for (over_data, over_model), parts in sorted(sums.items()):
+            part = torch.stack(parts)
+            if over_data:
+                part = collectives.all_reduce_sum(part, self.group)
+            if over_model:
+                part = collectives.all_reduce_sum(part, self.model_group)
+            total = part.sum() + total
         return torch.sqrt(total)
 
 
 def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
                     tc: TrainConfig = TrainConfig(), plan=None):
     """The step function; with ``plan`` (a training plan on a concrete
-    mesh of more than one rank) the data-parallel step (module docstring),
-    which takes and returns this rank's shards of params and optimizer
+    mesh of more than one rank) the sharded step (module docstring:
+    data-parallel, and tensor-parallel on a model axis), which takes and
+    returns this rank's shards of params and optimizer
     state and the whole batch (each rank keeps its rows).  The step has
     ``.grads(params, batch)`` and ``.token_losses(params, batch)`` (the
     per-token losses of the step's forward, this rank's rows)."""
@@ -191,8 +279,16 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
     loss_policy = (dataclasses.replace(policy, weights_prequantized=True)
                    if use_shadow else policy)
     dp = None
+    run_cfg = cfg
     if plan is not None and getattr(plan.mesh, "is_concrete", False) and plan.mesh.size > 1:
         dp = DataParallel(plan)
+        if plan.model_shards > 1:
+            if tc.microbatches != 1 or not use_shadow:
+                raise NotImplementedError(
+                    "tensor-parallel training takes microbatches=1 and the weight shadow "
+                    "(each matrix quantized whole before its shards are used); the rest is "
+                    "ROADMAP item 9.4")
+            run_cfg = plan.local_config()
         if tc.microbatches != 1:
             raise NotImplementedError("data-parallel training takes microbatches=1 (a "
                                       "microbatch's scale groups would span ranks)")
@@ -201,7 +297,7 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
     def inputs_of(params):
         with torch.no_grad():
             if dp is not None:
-                params = dp.gather(params)
+                return dp.inputs(params, policy if use_shadow else None)
             return _quantize_shadow(params, policy) if use_shadow else params
 
     def grads_of(params, batch):
@@ -212,7 +308,7 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
         batch = actshard.shard_batch(batch)
         m = tc.microbatches
         if m == 1:
-            return loss_and_grads(cfg, loss_policy, inputs, batch)
+            return loss_and_grads(run_cfg, loss_policy, inputs, batch)
         b = next(iter(batch.values())).shape[0]
         if b % m:
             raise ValueError(f"batch {b} does not split into {m} microbatches")
@@ -253,7 +349,7 @@ def make_train_step(cfg: ModelConfig, policy: QuantPolicy, optimizer: Optimizer,
 
         with actshard.use_plan(run_plan), torch.no_grad():
             b = actshard.shard_batch(batch)
-            logits = registry.forward(cfg, loss_policy, inputs_of(params), b)
+            logits = registry.forward(run_cfg, loss_policy, inputs_of(params), b)
             return transformer.token_losses(cfg, logits, b["labels"])
 
     train_step.grads = grads_planned
