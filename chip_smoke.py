@@ -123,18 +123,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     and both runs' counters (prefix hits, copies on write and evictions
     included) equal the CPU smoke-width run's;
 21. PoT-quantized KV pages (``KV_PINNED``) on phase 19's engine and trace,
-    at llama3-8b's widths and 8 of its layers (``KVQ_LAYERS``, to keep
-    the script inside its time limit): A (page 16) is the main path; B
-    (page = span) and C (each request alone) give A's tokens bit for
-    bit; A's counters equal the CPU smoke-width run's; ``kv_page_bytes``
-    is 132,096 (528,384 at 32 layers); a chunk-step decode row equals
-    ``decode_step`` in logits and every cache leaf (codes and betas); K1
-    launches 57 times per weight pass; tokens/s, TTFT, KV bytes per token
+    at llama3-8b's widths and 4 of its layers (``KVQ_LAYERS``, to keep
+    the script inside its time limit; 8 before phase 37p): A (page 16) is the
+    main path; B (page = span) and C (each request alone) give A's tokens
+    bit for bit; A's counters equal the CPU smoke-width run's;
+    ``kv_page_bytes`` is 66,048 (528,384 at 32 layers); a chunk-step
+    decode row equals ``decode_step`` in logits and every cache leaf
+    (codes and betas); K1 launches 29 times per weight pass; tokens/s, TTFT, KV bytes per token
     beside phase 19's bf16 figure at that depth, peak memory, a profiled
     decode step;
 22. speculative decoding on the same engine at llama3-8b's widths and
-    4 of its layers (``SPEC_LAYERS``): ``NgramDrafter(3)`` and ``LowBitSelfDraft(3, 3)``
-    over bf16 pages and the self-draft over quantized pages give the
+    2 of its layers (``SPEC_LAYERS``; 4 before phase 37p): ``NgramDrafter(3)``
+    and ``LowBitSelfDraft(3, 3)`` over bf16 pages and the self-draft over quantized pages give the
     tokens of their spec-off runs at that depth, bit for bit, in no more
     weight passes; K1 launches once a linear per verify pass and per
     draft step; at that depth too (all 32 layers until PR 22), a verify
@@ -289,13 +289,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     / 29 a step a rank, 16 forward folds and 29 backward chains a step,
     no implicit host sync outside the collectives; step seconds, the
     collectives' share, master and optimizer bytes and device busy a step
-    a rank), and (b) olmo-1b's smoke config on (2, 2), four ranks spawned
+    a rank, and the seconds of the shadow alone and of the shadow and the
+    forward), and (b) olmo-1b's smoke config on (2, 2), four ranks spawned
     on the card, 4 x 64, 3 steps, against one rank (first-step per-token
     losses bit for bit, losses within ``LOSS_RTOL``, launches a step a
-    rank); each sub-phase's seconds printed, and its summed peak under
-    ``MULTI_PEAK_GIB``; phase 3 also holds K1's ``start`` variant (the
-    row-parallel fold) at llama3-8b's, whisper's, internvl2's, mamba2's
-    and recurrentgemma's row-parallel shapes (``START_CASES``) and times
+    rank), 37p (a) whisper-large-v3 at its published widths and
+    ``ENCDEC_TP_TRAIN_LAYERS`` (4) of its 32 encoder and 32 decoder layers
+    tensor-parallel on (1, 2) at phase 31b's batch (2 x 448 tokens, 1500
+    frames), AdamW, remat, 2 steps, against one rank at that depth with
+    37o (a)'s gates (K1 / K2 / K3 / pre-pass 130 / 66 / 66 / 66 a step a
+    rank, 40 forward folds and 64 backward chains, ``tp_step_folds``),
+    (b) internvl2-76b's smoke config on (1, 2) (its one K/V head selected
+    from a whole product; the attention's backward whole on every rank)
+    with the same gates, 3 steps at 4 x 64, and (c) internvl2-76b's and
+    whisper-large-v3's smoke configs in 37o (b)'s four-rank world with its
+    gates (``_tp_smoke_rank``, ``TP_SMOKE_ARCHS``); each sub-phase's
+    seconds printed, and its summed peak under ``MULTI_PEAK_GIB``; phase 3
+    also holds K1's ``start`` variant (the row-parallel fold) at
+    llama3-8b's, whisper's, internvl2's, mamba2's and recurrentgemma's
+    row-parallel shapes (``START_CASES``) and times
     it beside the unstarted half, and phase 8 K2's (``k2_start_checks``:
     olmo-1b's column-parallel dA chained over the two ranks' N at 37o's
     rows, the row-parallel dgamma rows chained over their K, a ragged
@@ -1006,13 +1018,14 @@ def main() -> int:
     cnn_kernels, cnn_launches = cnn_phase(dev, detail)
     multi = multi_gpu(dev, detail)
     m_a, m_c = multi["a"][0], multi["c"]["ranks"][0]
-    # 37c's, 37g's, 37k's and 37n's data-parallel steps and 37o's
-    # tensor-parallel steps on rank 0
+    # 37c's, 37g's, 37k's and 37n's data-parallel steps and 37o's and
+    # 37p's tensor-parallel steps on rank 0
+    tp = multi["tp"]
     multi_steps = {k: sum(s[k] for s in m_c["launches"])
                    + sum(s[k] for key in "gkn" for g in multi[key].values()
                          for s in g["dp"][0]["launches"])
-                   + sum(s[k] for s in multi["o"]["ranks"][0]["launches"])
-                   + sum(s[k] for s in multi["o"]["two_by_two"]["launches"])
+                   + sum(s[k] for key in _tp_cells() for s in tp[key]["ranks"][0]["launches"])
+                   + sum(s[k] for a in TP_SMOKE_ARCHS for s in tp["two_by_two"][a]["launches"])
                    for k in ("k1", "k2", "k3", "gq")}
     # 37e-f's, 37h-j's and 37l-m's served passes on rank 0
     multi_served = sum(multi[key][0]["k1_launches"]
@@ -1172,12 +1185,15 @@ def main() -> int:
                             # phase 37c: a data-parallel step on each rank
                             multi_gpu_step_launches=[[s[key] for s in r["launches"]]
                                                      for r in multi["c"]["ranks"]],
-                            # phase 37o: a tensor-parallel step on each
-                            # rank of (1, 2), and on rank 0 of (2, 2)
-                            multi_gpu_tp_step_launches=[[s[key] for s in r["launches"]]
-                                                        for r in multi["o"]["ranks"]],
-                            multi_gpu_tp_smoke_step_launches=[
-                                s[key] for s in multi["o"]["two_by_two"]["launches"]],
+                            # phases 37o-p: a tensor-parallel step on
+                            # each rank of (1, 2), and on rank 0 of (2, 2)
+                            multi_gpu_tp_step_launches={
+                                _tp_cells()[c][0].name: [[s[key] for s in r["launches"]]
+                                                         for r in tp[c]["ranks"]]
+                                for c in _tp_cells()},
+                            multi_gpu_tp_smoke_step_launches={
+                                a: [s[key] for s in tp["two_by_two"][a]["launches"]]
+                                for a in TP_SMOKE_ARCHS},
                             **({"start_variant": detail["k2_start_variant"]}
                                if key == "k2" else {}),
                             # phase 37g / 37k: a MoE / vlm / encdec smoke
@@ -3280,8 +3296,9 @@ def paged_serving(dev, detail, cfg, params, policy, reqs):
 
 
 # phase 21's engines run llama3-8b's widths at this depth: at all 32
-# layers the whole script read 912.0 s on an H100 (phase 21: 133 s of it)
-KVQ_LAYERS = 8
+# layers the whole script read 912.0 s on an H100 (phase 21: 133 s of it);
+# at 8 phase 21 took 37.0 s of 875.7 s; cut to 4 to make room for 37p
+KVQ_LAYERS = 4
 # kv_page_bytes of phase 21's engine at KVQ_LAYERS layers: a 16-position
 # page of K and of V holds 8 KV heads x 64 code bytes and one int32 beta a
 # token, 8256 bytes a layer each (528,384 at all 32 layers)
@@ -3403,8 +3420,10 @@ def _first_layers(tree, n):
 
 # phase 22 runs llama3-8b's widths at this depth (its verify and draft
 # checks too since PR 22): five engine runs on a host-bound path, kept
-# short so the whole script stays well inside its time limit
-SPEC_LAYERS = 4
+# short so the whole script stays well inside its time limit (at 4 the
+# phase took 59.9 s and 36c 13.0 s of 875.7 s on an NVIDIA H100 80GB HBM3
+# at 700.00 W; cut to 2 to make room for phase 37p)
+SPEC_LAYERS = 2
 
 
 def spec_serving(dev, detail, cfg, params, policy, reqs):
@@ -4170,6 +4189,15 @@ DP_TRAIN_BATCH, DP_TRAIN_SEQ, DP_TRAIN_STEPS = 4, 512, 2
 TP_TRAIN_LAYERS = 4
 TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 512, 2
 TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS = 4, 64, 3
+# 37p (a): whisper-large-v3 at its published widths and this encoder and
+# decoder depth tensor-parallel on (1, 2), phase 31b's batch (2 x 448
+# tokens, 1500 frames), 37o's steps (37k's depth: its ~1 GB of f32 masters
+# fit many times over, but two ranks' shadow gathers through the host grow
+# with it); (b) internvl2-76b's smoke config on (1, 2) (its one K/V head
+# selected from a whole product); (c) the (2, 2) world of 37o (b) trains
+# these smoke configs
+ENCDEC_TP_TRAIN_LAYERS = 4
+TP_SMOKE_ARCHS = ("olmo-1b", "internvl2-76b", "whisper-large-v3")
 # the two ranks' device memory, summed, stays under this
 MULTI_PEAK_GIB = 75.0
 # 37d: the compressor's unbiasedness bound (standard errors) and draws
@@ -4401,11 +4429,58 @@ def _device_busy_ms(fn):
     return out, sum(e.time_range.elapsed_us() for e in kern) / 1e3
 
 
-def _tp_train(rank, dev):
-    """37o (a): olmo-1b at its published widths and ``TP_TRAIN_LAYERS``
-    layers, tensor-parallel on the (1, 2) mesh (K2 chained across the two
-    ranks), against one rank at that depth run here after it: the first
-    step's per-token losses, every gradient leaf's shard against one
+def tp_step_folds(cfg, model=2):
+    """(forward folds, backward chains) of one tensor-parallel training
+    step a rank on ``model`` ranks, from the layout: each row-parallel
+    fold (``wo``, ``co``, the down projection, ``wo2``) twice, the forward
+    and its recomputation; a chain for every column-parallel dA whose
+    shard is whole 128-chunks (q, the split K/V and cross K/V heads, the
+    MLP's input products, the vocab-split head) and for the dgamma rows
+    of every row-parallel product (olmo-1b at 4 layers 16 / 29, whisper
+    at 4 + 4 layers 40 / 64, the smoke widths 0 / 0)."""
+    from repro_torch.kernels.ref import CANONICAL_BK
+    from repro_torch.parallel.planner import runtime_layout
+
+    lay = runtime_layout(cfg, model)
+    whole = lambda split, width: int(split and width % CANONICAL_BK == 0)  # noqa: E731
+    q = whole(lay.heads, lay.heads_local * cfg.head_dim)
+    kv = 2 * whole(lay.kv == "split", lay.kv_local * cfg.head_dim)
+    ffn = (2 if cfg.act == "swiglu" else 1) * whole(lay.ffn, lay.ffn_local)
+    wo, down = int(lay.wo == "fold"), int(lay.mlp_wo == "fold")
+    if cfg.family == "encdec":  # an encoder layer, then a decoder layer with cross attention
+        fwd = cfg.enc_layers * (wo + down) + cfg.n_layers * (2 * wo + down)
+        bwd = (cfg.enc_layers * (q + kv + ffn + wo + down)
+               + cfg.n_layers * (2 * (q + kv + wo) + ffn + down))
+    else:
+        fwd = cfg.n_layers * (wo + down)
+        bwd = (cfg.n_layers * (q + kv + ffn + wo + down)
+               + whole(lay.vocab, cfg.vocab_padded // model))
+    return 2 * fwd, bwd
+
+
+def _tp_cells():
+    """The tensor-parallel training cells of the (1, 2) runs, each
+    (config, global batch, seq, steps): 37o (a) olmo-1b at
+    ``TP_TRAIN_LAYERS`` layers, 37p (a) whisper-large-v3 at
+    ``ENCDEC_TP_TRAIN_LAYERS`` encoder and decoder layers, 37p (b)
+    internvl2-76b's smoke config."""
+    from repro_torch import configs
+
+    olmo = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=TP_TRAIN_LAYERS)
+    whisper = dataclasses.replace(configs.get_config(ENCDEC_ARCH),
+                                  n_layers=ENCDEC_TP_TRAIN_LAYERS,
+                                  enc_layers=ENCDEC_TP_TRAIN_LAYERS)
+    return {"o": (olmo, TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS),
+            "p": (whisper, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, TP_TRAIN_STEPS),
+            "p_vlm": (configs.smoke_config(VLM_ARCH), TP_SMOKE_BATCH, TP_SMOKE_SEQ,
+                      TP_SMOKE_STEPS)}
+
+
+def _tp_train(rank, dev, key="o"):
+    """One of ``_tp_cells`` (37o (a), 37p (a) or (b)) tensor-parallel on the
+    (1, 2) mesh (K2 chained across the two ranks where a shard is whole
+    128-chunks), against one rank at that depth run here after it: the
+    first step's per-token losses, every gradient leaf's shard against one
     rank's slice, both runs' losses; per step the launches, collectives
     (calls, bytes, seconds, forward folds, backward chains) and seconds;
     the first step's implicit host syncs outside the collectives, the
@@ -4420,14 +4495,15 @@ def _tp_train(rank, dev):
     from repro_torch.parallel import collectives, meshes, planner
     from repro_torch.train import TrainConfig, make_train_step
 
+    t_start = time.perf_counter()
     train_cli.make_deterministic()
-    cfg = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=TP_TRAIN_LAYERS)
-    shape = configs.ShapeConfig("tp", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train")
+    cfg, batch, seq, steps = _tp_cells()[key]
+    shape = configs.ShapeConfig("tp", seq, batch, "train")
     plan = planner.plan_for(cfg, meshes.make_mesh((1, 2), ("data", "model")), shape)
-    opt = adamw(warmup_cosine_schedule(3e-3, 20, TP_TRAIN_STEPS))
+    opt = adamw(warmup_cosine_schedule(3e-3, 20, steps))
     step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=plan)
     sharded = step_fn.data_parallel
-    batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(TP_TRAIN_STEPS)]
+    batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(steps)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = sharded.shard(spec.materialize(registry.param_specs(cfg),
@@ -4435,11 +4511,11 @@ def _tp_train(rank, dev):
     torch.cuda.empty_cache()
     state = opt.init(params)
     row = dict(master_bytes=_tree_bytes(params), optimizer_bytes=_tree_bytes(state),
-               backend=collectives.backend())
+               backend=collectives.backend(), kv=plan.layout().kv)
     token_losses = step_fn.token_losses(params, batches[0])
     _, grads = step_fn.grads(params, batches[0])
     losses, launches, seconds, colls, syncs = [], [], [], [], {}
-    for s in range(TP_TRAIN_STEPS):
+    for s in range(steps):
         before = _count_kernels()
         collectives.reset_stats()
         torch.cuda.synchronize()
@@ -4462,6 +4538,19 @@ def _tp_train(rank, dev):
                implicit_syncs={k: n for k, n in syncs.items() if k.startswith("src/")
                                and not k.startswith("src/repro_torch/parallel/collectives")},
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    # where a step's time goes: the shadow alone (each matrix gathered
+    # whole, quantized, its shard kept), then the forward with it (the
+    # folds); the rest of a step is the backward (recomputation, chains)
+    for part, fn in (("shadow", lambda: sharded.inputs(params, PAPER_FAITHFUL)),
+                     ("shadow_and_forward", lambda: step_fn.token_losses(params, batches[0]))):
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        row[f"{part}_s"] = time.perf_counter() - t0
+        row[f"{part}_collectives"] = dict(collectives.stats)
     del params, state
     torch.cuda.empty_cache()
     # one rank at the same depth: every rank holds its own slices to it
@@ -4481,21 +4570,23 @@ def _tp_train(rank, dev):
     if rank == 0:
         state = opt.init(whole)
         one_losses = []
-        for s in range(TP_TRAIN_STEPS):
+        for s in range(steps):
             whole, state, m = one_fn(whole, state, batches[s], s)
             one_losses.append(float(m["loss"]))
         row["one_rank_losses"] = one_losses
         del state
     del whole, batches
     torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_start
     return row
 
 
 def _tp_smoke_rank(rank):
-    """37o (b): olmo-1b's smoke config tensor-parallel on the (2, 2) mesh,
-    four ranks on the card: the first step's per-token losses (this rank's
-    rows), ``TP_SMOKE_STEPS`` steps' losses and launches; rank 0 then runs
-    one rank on the same batches (every row)."""
+    """37o (b) and 37p (c): the smoke configs of ``TP_SMOKE_ARCHS``
+    (olmo-1b, internvl2-76b, whisper-large-v3) tensor-parallel on the (2, 2)
+    mesh, four ranks on the card: each one's first-step per-token losses
+    (this rank's rows), ``TP_SMOKE_STEPS`` steps' losses and launches;
+    rank 0 then runs one rank on the same batches (every row)."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.data import pipeline
@@ -4512,105 +4603,118 @@ def _tp_smoke_rank(rank):
     K.build()
     KG.build()
     train_cli.make_deterministic()
-    t0 = time.perf_counter()
-    cfg = configs.smoke_config("olmo-1b")
-    shape = configs.ShapeConfig("tp", TP_SMOKE_SEQ, TP_SMOKE_BATCH, "train")
-    plan = planner.plan_for(cfg, meshes.make_mesh((2, 2), ("data", "model")), shape)
-    opt = adamw(warmup_cosine_schedule(3e-3, 20, TP_SMOKE_STEPS))
-    batches = [pipeline.make_batch(cfg, shape, s, device=dev) for s in range(TP_SMOKE_STEPS)]
-    out = dict(coords=(plan.mesh.coord("data"), plan.mesh.coord("model")))
-    for name, p in (("tp", plan), ("one", None)):
-        step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=p)
-        params = spec.materialize(registry.param_specs(cfg),
-                                  torch.Generator(device=dev).manual_seed(0))
-        if p is not None:
-            params = step_fn.data_parallel.shard(params)
-        tl = step_fn.token_losses(params, batches[0]).cpu().numpy()
-        state = opt.init(params)
-        losses, launches = [], []
-        for s in range(TP_SMOKE_STEPS):
-            before = _count_kernels()
-            params, state, m = step_fn(params, state, batches[s], s)
-            losses.append(float(m["loss"]))
-            launches.append({k: v - before[k] for k, v in _count_kernels().items()})
-        out[name] = dict(token_losses=tl, losses=losses, launches=launches)
-        if rank != 0:
-            break  # one rank's run is rank 0's
-    out["seconds"] = time.perf_counter() - t0
+    out = {}
+    for arch in TP_SMOKE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = configs.smoke_config(arch)
+        shape = configs.ShapeConfig("tp", TP_SMOKE_SEQ, TP_SMOKE_BATCH, "train")
+        plan = planner.plan_for(cfg, meshes.make_mesh((2, 2), ("data", "model")), shape)
+        opt = adamw(warmup_cosine_schedule(3e-3, 20, TP_SMOKE_STEPS))
+        batches = [pipeline.make_batch(cfg, shape, s, device=dev)
+                   for s in range(TP_SMOKE_STEPS)]
+        res = dict(coords=(plan.mesh.coord("data"), plan.mesh.coord("model")))
+        for name, p in (("tp", plan), ("one", None)):
+            step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=p)
+            params = spec.materialize(registry.param_specs(cfg),
+                                      torch.Generator(device=dev).manual_seed(0))
+            if p is not None:
+                params = step_fn.data_parallel.shard(params)
+            tl = step_fn.token_losses(params, batches[0]).cpu().numpy()
+            state = opt.init(params)
+            losses, launches = [], []
+            for s in range(TP_SMOKE_STEPS):
+                before = _count_kernels()
+                params, state, m = step_fn(params, state, batches[s], s)
+                losses.append(float(m["loss"]))
+                launches.append({k: v - before[k] for k, v in _count_kernels().items()})
+            res[name] = dict(token_losses=tl, losses=losses, launches=launches)
+            if rank != 0:
+                break  # one rank's run is rank 0's
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
     return out
 
 
-def _check_tp_train(ranks, ranks4, failures):
-    """37o's gates: (a) on both ranks of the (1, 2) run and (b) on the four
-    ranks of the (2, 2) run (module docstring of :func:`multi_gpu`)."""
-    from repro_torch import configs
-
-    cfg = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=TP_TRAIN_LAYERS)
-    want = step_launches(cfg)
-    rows = [res["o"] for res in ranks]
+def _check_tp_run(key, label, rows, failures):
+    """The gates of a (1, 2) run of ``_tp_cells()[key]`` on both ranks
+    (``rows``, each rank's :func:`_tp_train` row): first-step per-token
+    losses and every gradient leaf's shard one rank's bit for bit, the
+    launches a step ``step_launches``', the folds and chains a step
+    ``tp_step_folds``', no implicit host sync outside the collectives, the
+    ranks' losses equal and within ``LOSS_RTOL`` of one rank's."""
+    cfg = _tp_cells()[key][0]
+    want, want_folds = step_launches(cfg), tp_step_folds(cfg)
     one = rows[0]["one_rank_losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"], one))
     for r, row in enumerate(rows):
-        print(f"37o (1, 2) rank {r}:", json.dumps(row))
+        print(f"{label} (1, 2) rank {r}:", json.dumps(row))
         if not row["token_losses_bit_equal"]:
-            failures.append(f"37o rank {r}: first-step per-token losses differ from one rank's")
+            failures.append(f"{label} rank {r}: first-step per-token losses differ from one "
+                            "rank's")
         if row["grad_leaves_differing"]:
-            failures.append(f"37o rank {r}: gradient leaves differ from one rank's slices: "
+            failures.append(f"{label} rank {r}: gradient leaves differ from one rank's slices: "
                             f"{row['grad_leaves_differing']}")
         if any(n != want for n in row["launches"]):
-            failures.append(f"37o rank {r}: launches {row['launches']}, expected {want}")
+            failures.append(f"{label} rank {r}: launches {row['launches']}, expected {want}")
         folds = [(c["folds"], c["bwd_folds"]) for c in row["collectives"]]
-        if any(f != (4 * TP_TRAIN_LAYERS, 7 * TP_TRAIN_LAYERS + 1) for f in folds):
-            failures.append(f"37o rank {r}: (forward folds, backward chains) a step {folds}, "
-                            f"expected {(4 * TP_TRAIN_LAYERS, 7 * TP_TRAIN_LAYERS + 1)}")
+        if any(f != want_folds for f in folds):
+            failures.append(f"{label} rank {r}: (forward folds, backward chains) a step "
+                            f"{folds}, expected {want_folds}")
         if row["implicit_syncs"]:
-            failures.append(f"37o rank {r}: implicit host syncs {row['implicit_syncs']}")
+            failures.append(f"{label} rank {r}: implicit host syncs {row['implicit_syncs']}")
         if row["losses"] != rows[0]["losses"]:
-            failures.append("37o: the ranks' losses differ")
+            failures.append(f"{label}: the ranks' losses differ")
     if not rel <= LOSS_RTOL:
-        failures.append(f"37o: losses differ from one rank's by {rel:.3g} relative")
-    print(f"37o (1, 2): one rank losses {[repr(x) for x in one]}; tensor-parallel "
-          f"{[repr(x) for x in rows[0]['losses']]}; max relative {rel:.3g}; step s a rank "
-          f"{[[round(t, 3) for t in row['step_s']] for row in rows]}; collectives a step "
-          f"{[c['calls'] for c in rows[0]['collectives']]} calls, "
+        failures.append(f"{label}: losses differ from one rank's by {rel:.3g} relative")
+    print(f"{label} (1, 2) {cfg.name}: one rank losses {[repr(x) for x in one]}; "
+          f"tensor-parallel {[repr(x) for x in rows[0]['losses']]}; max relative {rel:.3g}; "
+          f"step s a rank {[[round(t, 3) for t in row['step_s']] for row in rows]}; "
+          f"collectives a step {[c['calls'] for c in rows[0]['collectives']]} calls, "
           f"{[round(c['bytes'] / 2 ** 20, 1) for c in rows[0]['collectives']]} MiB, share "
           f"{[round(x, 3) for x in rows[0]['collective_share']]}; device busy a step a rank "
           f"{[round(row['profiled_step_device_busy_ms'], 1) for row in rows]} ms; master / "
           f"optimizer bytes a rank "
-          f"{[(row['master_bytes'], row['optimizer_bytes']) for row in rows]}")
-    # (b) the (2, 2) smoke run: first-step per-token losses of the data
-    # ranks' rows (model rank 0 of each) against one rank's, every rank's
-    # equal to its data group's, losses within LOSS_RTOL, launches
-    one = ranks4[0]["one"]
+          f"{[(row['master_bytes'], row['optimizer_bytes']) for row in rows]}; "
+          f"{rows[0]['seconds']:.1f} s on rank 0")
+    return dict(ranks=rows, max_rel=rel)
+
+
+def _check_tp_smoke(arch, label, ranks4, failures):
+    """The gates of ``arch``'s (2, 2) smoke run (``_tp_smoke_rank``): the
+    first-step per-token losses of the data ranks' rows (model rank 0 of
+    each) one rank's bit for bit, every rank's equal to its data group's,
+    the ranks' losses equal and within ``LOSS_RTOL`` of one rank's, the
+    launches a step one rank's."""
+    runs = [res[arch] for res in ranks4]
+    one = runs[0]["one"]
     by_data = {}
-    for r, res in enumerate(ranks4):
+    for r, res in enumerate(runs):
         d, _ = res["coords"]
         tl = res["tp"]["token_losses"]
         if d in by_data and tl.view(np.uint32).tolist() != by_data[d].view(np.uint32).tolist():
-            failures.append(f"37o (2, 2) rank {r}: per-token losses differ from its data "
+            failures.append(f"{label} (2, 2) rank {r}: per-token losses differ from its data "
                             "group's")
         by_data.setdefault(d, tl)
         if res["tp"]["launches"] != one["launches"]:
-            failures.append(f"37o (2, 2) rank {r}: launches {res['tp']['launches']}, one rank "
-                            f"{one['launches']}")
-        if res["tp"]["losses"] != ranks4[0]["tp"]["losses"]:
-            failures.append("37o (2, 2): the ranks' losses differ")
+            failures.append(f"{label} (2, 2) rank {r}: launches {res['tp']['launches']}, one "
+                            f"rank {one['launches']}")
+        if res["tp"]["losses"] != runs[0]["tp"]["losses"]:
+            failures.append(f"{label} (2, 2): the ranks' losses differ")
     tl = np.concatenate([by_data[d] for d in sorted(by_data)])
     tl_equal = tl.view(np.uint32).tolist() == one["token_losses"].view(np.uint32).tolist()
-    rel_b = max(abs(a - b) / abs(b) for a, b in zip(ranks4[0]["tp"]["losses"], one["losses"]))
-    print(f"37o (2, 2): one rank losses {[repr(x) for x in one['losses']]}; tensor-parallel "
-          f"{[repr(x) for x in ranks4[0]['tp']['losses']]}; max relative {rel_b:.3g}; first-step "
-          f"per-token losses bit for bit: {tl_equal}; launches a step {ranks4[0]['tp']['launches']}"
-          f" / one rank {one['launches']}; seconds a rank "
-          f"{[round(res['seconds'], 1) for res in ranks4]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs[0]["tp"]["losses"], one["losses"]))
+    print(f"{label} (2, 2) {arch} smoke: one rank losses {[repr(x) for x in one['losses']]}; "
+          f"tensor-parallel {[repr(x) for x in runs[0]['tp']['losses']]}; max relative "
+          f"{rel:.3g}; first-step per-token losses bit for bit: {tl_equal}; launches a step "
+          f"{runs[0]['tp']['launches']} / one rank {one['launches']}; seconds a rank "
+          f"{[round(res['seconds'], 1) for res in runs]}")
     if not tl_equal:
-        failures.append("37o (2, 2): first-step per-token losses differ from one rank's")
-    if not rel_b <= LOSS_RTOL:
-        failures.append(f"37o (2, 2): losses differ from one rank's by {rel_b:.3g} relative")
-    return dict(ranks=rows, max_rel=rel, two_by_two=dict(
-        launches=ranks4[0]["tp"]["launches"], one_rank_launches=one["launches"],
-        losses=ranks4[0]["tp"]["losses"], one_rank_losses=one["losses"], max_rel=rel_b,
-        token_losses_bit_equal=tl_equal, seconds=[res["seconds"] for res in ranks4]))
+        failures.append(f"{label} (2, 2): first-step per-token losses differ from one rank's")
+    if not rel <= LOSS_RTOL:
+        failures.append(f"{label} (2, 2): losses differ from one rank's by {rel:.3g} relative")
+    return dict(launches=runs[0]["tp"]["launches"], one_rank_launches=one["launches"],
+                losses=runs[0]["tp"]["losses"], one_rank_losses=one["losses"], max_rel=rel,
+                token_losses_bit_equal=tl_equal, seconds=[res["seconds"] for res in runs])
 
 
 def _dp_cells(key):
@@ -4767,9 +4871,8 @@ def _phase37_rank(rank):
     t0 = time.perf_counter()
     res["c"] = _dp_train(rank, dev)
     res["c"][1]["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res["o"] = _tp_train(rank, dev)
-    res["o"]["seconds"] = time.perf_counter() - t0
+    for key in _tp_cells():  # 37o (a), 37p (a) and (b)
+        res[key] = _tp_train(rank, dev, key)
     t0 = time.perf_counter()
     res["g"] = _dp_cells_train(rank, dev, "g")
     res["g"]["seconds"] = time.perf_counter() - t0
@@ -4920,8 +5023,11 @@ def multi_gpu(dev, detail):
     published widths and ``SSM_DP_LAYERS`` layers (batch 2 x 512)
     data-parallel on (2, 1) against one rank, as 37k.  37o (a):
     olmo-1b at ``TP_TRAIN_LAYERS`` layers tensor-parallel on (1, 2) against
-    one rank, (b): its smoke config on (2, 2) over four ranks
-    (:func:`tp_training`, :func:`_check_tp_train`).  The ranks' summed
+    one rank, (b): its smoke config on (2, 2) over four ranks.  37p (a):
+    whisper-large-v3 at ``ENCDEC_TP_TRAIN_LAYERS`` encoder and decoder
+    layers on (1, 2), (b): internvl2-76b's smoke config on (1, 2), (c):
+    both smoke configs in 37o (b)'s four ranks (:func:`tp_training`,
+    :func:`_check_tp_run`, :func:`_check_tp_smoke`).  The ranks' summed
     peak stays under ``MULTI_PEAK_GIB`` in each serving and training
     sub-phase."""
     from repro_torch import configs
@@ -4933,7 +5039,7 @@ def multi_gpu(dev, detail):
     from repro_torch.parallel.planner import runtime_layout
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: two ranks on the one card (37a-o), then four (37o (b))")
+    phase("37 multi-GPU: two ranks on the one card (37a-p), then four (37o (b), 37p (c))")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
@@ -5032,17 +5138,17 @@ def multi_gpu(dev, detail):
         failures.append("37c: first-step per-token losses differ from one rank's")
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
-    o_row = tp_training(ranks, failures)
+    tp_rows = tp_training(ranks, failures)
     served = tuple("abefhij") + ("l", "l2", "m", "m2")
     peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in served}
     peaks["c"] = sum(row["peak_gib"] for row in dp_rows)
-    peaks["o"] = sum(res["o"]["peak_gib"] for res in ranks)
+    peaks.update({k: sum(res[k]["peak_gib"] for res in ranks) for k in _tp_cells()})
     peaks.update(g=max(r["peak_gib"] for r in g_rows.values()),
                  k=max(r["peak_gib"] for r in k_rows.values()),
                  n=max(r["peak_gib"] for r in n_rows.values()))
     seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in served + ("c",)}
-    seconds.update({k: round(ranks[0][k]["seconds"], 1) for k in "gkno"})
-    seconds["o (2, 2)"] = round(o_row["two_by_two"]["spawn_s"], 1)
+    seconds.update({k: round(ranks[0][k]["seconds"], 1) for k in ("g", "k", "n", *_tp_cells())})
+    seconds["o, p (2, 2)"] = round(tp_rows["two_by_two_spawn_s"], 1)
     print(f"37 peaks, both ranks summed (GiB): "
           f"{ {k: round(v, 2) for k, v in sorted(peaks.items())} }; backend "
           f"{ranks[0]['a'][1]['backend']}; seconds a sub-phase (rank 0) {seconds}; spawn to "
@@ -5052,7 +5158,7 @@ def multi_gpu(dev, detail):
     out.update({k: [res[k][1] for res in ranks] for k in served})
     out.update(c=dict(ranks=dp_rows, one_rank_losses=one_losses, max_rel=rel,
                       token_losses_bit_equal=tl_equal, token_losses_max_rel=tl_rel),
-               d=[res["d"] for res in ranks], g=g_rows, k=k_rows, n=n_rows, o=o_row,
+               d=[res["d"] for res in ranks], g=g_rows, k=k_rows, n=n_rows, tp=tp_rows,
                peak_gib=peaks, seconds=seconds)
     detail["multi_gpu"] = out
     if failures:
@@ -5061,17 +5167,25 @@ def multi_gpu(dev, detail):
 
 
 def tp_training(ranks, failures):
-    """37o: (a) ran in phase 37's two-rank world; (b) spawns four ranks."""
+    """37o and 37p: their (1, 2) runs (37o (a), 37p (a) and (b)) ran in
+    phase 37's two-rank world; their (2, 2) smoke runs (37o (b), 37p (c))
+    spawn four ranks."""
     from repro_torch.parallel import collectives
 
     t0 = time.perf_counter()
     ranks4 = collectives.spawn(_tp_smoke_rank, 4, device="cuda", threads=2)
     spawn_s = time.perf_counter() - t0
-    out = _check_tp_train(ranks, ranks4, failures)
-    out["two_by_two"]["spawn_s"] = spawn_s
-    print(f"37o: (a) {ranks[0]['o']['seconds']:.1f} s on rank 0, (b) spawn to exit "
-          f"{spawn_s:.1f} s")
+    out = {key: _check_tp_run(key, "37o" if key == "o" else "37p", [res[key] for res in ranks],
+                              failures)
+           for key in _tp_cells()}
+    out["two_by_two"] = {arch: _check_tp_smoke(arch, "37o" if arch == "olmo-1b" else "37p",
+                                                ranks4, failures)
+                         for arch in TP_SMOKE_ARCHS}
+    out["two_by_two_spawn_s"] = spawn_s
+    print(f"37o/p: (1, 2) {[round(ranks[0][k]['seconds'], 1) for k in _tp_cells()]} s on rank "
+          f"0, (2, 2) spawn to exit {spawn_s:.1f} s")
     return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -34,6 +34,11 @@ split at whole heads, ``wo``, ``co`` and ``wo2`` row-parallel at whole
 128-chunks (all-gathered otherwise), each rank's ``ck``/``cv`` its own
 K/V heads (:func:`encode_cross_kv`); ``frame_proj``, ``enc_pos``, the
 norms and the tied embedding (and so the head) stay whole on every rank.
+Under tensor-parallel training the column-parallel products (q, cq; the
+split K/V and cross K/V heads; ``wi``) chain their dA across the model
+ranks (``mfmac.mf_linear(col_group=)``), so the encoder output's
+gradient, summed over every decoder layer's cross K/V, stays replicated
+and one rank's; ``wo``, ``co`` and ``wo2`` chain their dgamma rows.
 """
 from __future__ import annotations
 
@@ -100,14 +105,20 @@ def _norm(p):
     return lambda r: common.layer_norm(r, p["scale"], p["bias"])
 
 
-def _proj_heads(p, name, x, policy, nh, hd):
-    """``x @ p[name]`` as (B, S, nh, hd) heads; a K/V projection (``nh``
-    K/V heads) cut to this model rank's (``transformer._kv_select``)."""
+def _proj_heads(p, name, x, policy, hd):
+    """``x @ p[name]`` as (B, S, heads, hd); a K/V projection cut to this
+    model rank's K/V heads (``transformer._kv_select``).  Column-parallel
+    (its dA chained across the model ranks) where the layout splits its
+    heads."""
     b, s = x.shape[:2]
-    y = mfmac.mf_linear(x, p[name]["w"], p[name]["gamma"], policy=policy)
-    if name in ("wk", "wv", "ck", "cv"):
+    tp = T._tp()
+    kv = name in ("wk", "wv", "ck", "cv")
+    split = tp is not None and (tp.layout.kv == "split" if kv else tp.layout.heads)
+    y = mfmac.mf_linear(x, p[name]["w"], p[name]["gamma"], policy=policy,
+                        col_group=tp.group if split else None)
+    if kv:
         y = T._kv_select(y)
-    return y.reshape(b, s, nh, hd)
+    return y.reshape(b, s, -1, hd)
 
 
 def _proj_out(p, name, x, policy):
@@ -121,7 +132,8 @@ def _mha(policy, q, k, v):
     H, hd) over k, v (B, Skv, KV, hd), cast to q's dtype; QK^T and PV
     through ``mfmac.mf_act_dot``.  On a model axis it attends over the
     whole head count and returns this rank's heads
-    (``transformer._heads_whole``)."""
+    (``transformer._heads_whole``, also under autograd with K/V heads
+    selected from a whole product)."""
     q, k, v, mine = T._heads_whole(q, k, v)
     b, sq, h, hd = q.shape
     kv = k.shape[2]
@@ -133,12 +145,14 @@ def _mha(policy, q, k, v):
     scores = mfmac.mf_act_dot(qg, kt, policy=policy).to(torch.float32) * scale
     probs = torch.softmax(scores, dim=-1)
     out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
-    return out if mine is None else out[:, :, mine]
+    return T._mine(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype), mine)
 
 
 def _mlp(policy, lp, h):
-    m = common.gelu(mfmac.mf_linear(h, lp["wi"]["w"], lp["wi"]["gamma"], policy=policy))
+    tp = T._tp()  # the hidden width split: wi is column-parallel
+    col = tp.group if tp is not None and tp.layout.ffn else None
+    m = common.gelu(mfmac.mf_linear(h, lp["wi"]["w"], lp["wi"]["gamma"], policy=policy,
+                                    col_group=col))
     return _proj_out(lp, "wo2", m, policy)
 
 
@@ -146,9 +160,9 @@ def _enc_layer(cfg, policy, lp, x):
     b, s, _ = x.shape
     hd = cfg.head_dim
     h = _norm(lp["ln1"])(x)
-    q = _proj_heads(lp, "wq", h, policy, cfg.n_heads, hd)
-    k = _proj_heads(lp, "wk", h, policy, cfg.kv_heads, hd)
-    v = _proj_heads(lp, "wv", h, policy, cfg.kv_heads, hd)
+    q = _proj_heads(lp, "wq", h, policy, hd)
+    k = _proj_heads(lp, "wk", h, policy, hd)
+    v = _proj_heads(lp, "wv", h, policy, hd)
     att = _mha(policy, q, k, v).reshape(b, s, cfg.n_heads * hd)
     y = x + _proj_out(lp, "wo", att, policy)
     return y + _mlp(policy, lp, _norm(lp["ln2"])(y))
@@ -184,9 +198,9 @@ def _dec_block(cfg, policy, lp, x, enc_out, qpos):
     att = T._sdpa(cfg, policy, q, k, v, qpos, qpos, None).reshape(b, s, hh)
     x = x + _proj_out(lp, "wo", att, policy)
     hc = _norm(lp["ln_cross"])(x)
-    cq = _proj_heads(lp, "cq", hc, policy, cfg.n_heads, hd)
-    ck = _proj_heads(lp, "ck", enc_out, policy, cfg.kv_heads, hd)
-    cv = _proj_heads(lp, "cv", enc_out, policy, cfg.kv_heads, hd)
+    cq = _proj_heads(lp, "cq", hc, policy, hd)
+    ck = _proj_heads(lp, "ck", enc_out, policy, hd)
+    cv = _proj_heads(lp, "cv", enc_out, policy, hd)
     catt = _mha(policy, cq, ck, cv).reshape(b, s, hh)
     x = x + _proj_out(lp, "co", catt, policy)
     x = x + _mlp(policy, lp, _norm(lp["ln2"])(x))
@@ -275,8 +289,8 @@ def encode_cross_kv(cfg, policy, params, frames):
     cks, cvs = [], []
     for i in range(cfg.n_layers):
         lp = T._layer(layers, i)
-        cks.append(_proj_heads(lp, "ck", enc_out, policy, cfg.kv_heads, cfg.head_dim))
-        cvs.append(_proj_heads(lp, "cv", enc_out, policy, cfg.kv_heads, cfg.head_dim))
+        cks.append(_proj_heads(lp, "ck", enc_out, policy, cfg.head_dim))
+        cvs.append(_proj_heads(lp, "cv", enc_out, policy, cfg.head_dim))
     return torch.stack(cks), torch.stack(cvs)
 
 
@@ -304,7 +318,7 @@ def decode_step(cfg, policy, params, token, cache):
         att = st.attend(cfg, policy, cache, i, q, k, v).reshape(b, 1, hh)
         y = x + _proj_out(lp, "wo", att, policy)
         hc = T._rows(_norm(lp["ln_cross"]), y)
-        cq = _proj_heads(lp, "cq", hc, policy, cfg.n_heads, hd)
+        cq = _proj_heads(lp, "cq", hc, policy, hd)
         if T.rows_are_groups(policy):
             cross = _cross_attend(policy, cache, i)
             catt = torch.cat([cross(cq[s:s + 1], s) for s in range(b)])
@@ -335,8 +349,7 @@ def chunk_step(cfg, policy, params, tokens, n_new, cache):
         q, k, v = T._qkv(cfg, policy, lp, h, st.qpos)
         att = st.attend(cfg, policy, cache, i, q, k, v)
         y = x + _proj_out(lp, "wo", att, policy)
-        cq = _proj_heads(lp, "cq", st.norms(_norm(lp["ln_cross"]), y), policy,
-                         cfg.n_heads, hd)
+        cq = _proj_heads(lp, "cq", st.norms(_norm(lp["ln_cross"]), y), policy, hd)
         catt = T.slot_attend(_cross_attend(policy, cache, i), cq, st.layout)
         # zero the pad rows, so nothing downstream depends on them
         catt = torch.where(st.vmask[..., None], catt, 0.0).reshape(b, c, hh)
@@ -364,8 +377,7 @@ def verify_step(cfg, policy, params, tokens, n_new, cache):
         q, k, v = T._qkv(cfg, policy, lp, h, st.rq)
         att = st.attend(cfg, policy, cache, i, q, k, v)
         y = x + _proj_out(lp, "wo", att, policy)
-        cq = _proj_heads(lp, "cq", T.live_norms(_norm(lp["ln_cross"]), y, st.rows), policy,
-                         cfg.n_heads, hd)
+        cq = _proj_heads(lp, "cq", T.live_norms(_norm(lp["ln_cross"]), y, st.rows), policy, hd)
         cross = _cross_attend(policy, cache, i)
         catt = torch.zeros_like(cq)
         for r in st.rows:

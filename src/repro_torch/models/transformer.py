@@ -60,8 +60,9 @@ gathered embeddings (:func:`embed_inputs`), so a patch request's solo
 prefill runs the backbone's hooks over them.  Without a plan every hook
 is the identity.
 
-Under autograd (tensor-parallel training of the dense decoder) the hooks
-keep the replicated-compute convention: every model rank holds the same
+Under autograd (tensor-parallel training of the dense decoder, the vlm
+and, through the same hooks, the encdec) the hooks keep the
+replicated-compute convention: every model rank holds the same
 replicated activations and computes the same loss from the gathered
 logits.  The gathers (the embedding's lookups, the head's logits, an input
 gathered for a whole product) take this rank's slice of the gradient
@@ -71,8 +72,12 @@ head) mark their input, whose gradient K2 chains across the ranks
 (``mfmac.mf_linear(col_group=)``); the row-parallel ``wo`` and down
 projection chain their dgamma rows.  A vocab shard's embedding rows take
 the gradient of the tokens it owns only (:class:`_ShardLookup`).  K/V
-heads selected from a whole product (``kv == 'select'``) are refused in
-training: each rank's G would reach its heads only (ROADMAP item 9.3b).
+heads selected from a whole product (``kv == 'select'``) stay whole
+under autograd, and every rank attends with the whole q over them, its
+heads cut from the output (:func:`_heads_whole`, :func:`_mine`): the
+attention's backward is one rank's on every rank, and wk and wv take one
+rank's gradient, replicated.  A vlm's ``patch_proj`` runs whole on every rank,
+its gradient replicated.
 
 Under data-parallel training (``parallel/actshard.batch_group``) a MoE
 layer's dispatch groups are the global batch's: the group size comes
@@ -267,18 +272,20 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return torch.gather(stacked, 0, idx)[0]
 
 
+def _attend_whole(tp: Optional[_TP], x: torch.Tensor) -> bool:
+    """Under autograd with K/V heads selected from a whole product: each
+    rank attends with the whole q, K and V (:func:`_heads_whole`)."""
+    return (tp is not None and tp.layout.kv == "select" and torch.is_grad_enabled()
+            and x.requires_grad)
+
+
 def _kv_select(k: torch.Tensor) -> torch.Tensor:
     """A whole K or V projection (..., KV*hd) cut to the K/V heads this
-    rank's q heads read (``kv == 'select'``); otherwise as it is."""
+    rank's q heads read (``kv == 'select'``; kept whole under autograd,
+    :func:`_heads_whole`); otherwise as it is."""
     tp = _tp()
-    if tp is None or tp.layout.kv != "select":
+    if tp is None or tp.layout.kv != "select" or _attend_whole(tp, k):
         return k
-    if torch.is_grad_enabled() and k.requires_grad:
-        raise NotImplementedError(
-            "tensor-parallel training with K/V heads selected from a whole product "
-            "(kv_heads % model != 0): each rank's gradient reaches its own heads only, so "
-            "wk/wv's gradients would need a sum over the model axis; not ported yet "
-            "(ROADMAP item 9.3b)")
     hd = tp.cfg.head_dim
     lo = tp.layout.kv_lo(tp.rank, tp.cfg)
     return k[..., lo * hd:(lo + tp.layout.kv_local) * hd]
@@ -291,11 +298,23 @@ def _heads_whole(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     output's heads that is this rank's; elsewhere (q, k, v, None).  The
     card's batched products pick their kernel, and so their rounding, by
     the batch's size: attending over the whole head count gives each of
-    this rank's heads one rank's bits (the padded heads are discarded)."""
+    this rank's heads one rank's bits (the padded heads are discarded).
+
+    Under autograd with K/V heads selected from a whole product (``k`` and
+    ``v`` whole, :func:`_kv_select`) a rank's q heads would take only
+    their share of a shared K/V head's gradient.  So every rank attends
+    with the whole q (gathered over the model ranks; its backward keeps
+    this rank's column-parallel slice) over the whole K and V, and
+    :func:`_mine` cuts the output to its heads: the attention's backward
+    is one rank's, replicated, and dK and dV reach the whole wk and wv
+    products."""
     tp = _tp()
     if tp is None or not tp.layout.heads:
         return q, k, v, None
     lo, kv_lo = tp.rank * tp.layout.heads_local, tp.layout.kv_lo(tp.rank, tp.cfg)
+    mine = slice(lo, lo + q.shape[2])
+    if _attend_whole(tp, q):
+        return collectives.gather_replicated(q.contiguous(), tp.group, 2), k, v, mine
 
     def whole(x, n, at):
         out = x.new_zeros(x.shape[:2] + (n,) + x.shape[3:])
@@ -303,7 +322,20 @@ def _heads_whole(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         return out
 
     return (whole(q, tp.cfg.n_heads, lo), whole(k, tp.cfg.kv_heads, kv_lo),
-            whole(v, tp.cfg.kv_heads, kv_lo), slice(lo, lo + q.shape[2]))
+            whole(v, tp.cfg.kv_heads, kv_lo), mine)
+
+
+def _mine(out: torch.Tensor, mine: Optional[slice]) -> torch.Tensor:
+    """This rank's heads ``mine`` (:func:`_heads_whole`) of an attention
+    output (B, S, H, hd); under autograd with K/V heads selected from a
+    whole product through ``collectives.slice_replicated``, whose backward
+    gathers every rank's heads' gradient into the whole one."""
+    if mine is None:
+        return out
+    tp = _tp()
+    if _attend_whole(tp, out):
+        return collectives.slice_replicated(out, tp.group, 2)
+    return out[:, :, mine]
 
 
 def _out_proj(p, x, policy, mode: str) -> torch.Tensor:
@@ -495,9 +527,10 @@ def _qkv(cfg, policy, p, x, qpos):
                                    col_group=kvcol))
     v = _kv_select(mfmac.mf_linear(x, p["wv"]["w"], p["wv"]["gamma"], policy=policy,
                                    col_group=kvcol))
+    # K/V: this rank's heads, or the whole product's (_kv_select)
     q = common.rope(q.reshape(b, s, cfg.n_heads, hd), qpos, cfg.rope_theta)
-    k = common.rope(k.reshape(b, s, cfg.kv_heads, hd), qpos, cfg.rope_theta)
-    return q, k, v.reshape(b, s, cfg.kv_heads, hd)
+    k = common.rope(k.reshape(b, s, -1, hd), qpos, cfg.rope_theta)
+    return q, k, v.reshape(b, s, -1, hd)
 
 
 def _attn_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, qpos, *,
@@ -543,8 +576,7 @@ def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
-    return out if mine is None else out[:, :, mine]
+    return _mine(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype), mine)
 
 
 def _block(cfg, policy, p, x, qpos):
@@ -567,8 +599,10 @@ def embed_inputs(cfg, policy, params, tokens, patch_embeds=None):
     ``patch_proj``, whole on every rank, projects every patch row there."""
     # the values of embed[tokens]; the backward is embedding_dense_backward
     # rather than an accumulating index_put_, and the trainer's
-    # deterministic mode keeps it run-to-run identical on the card
-    x = (F.embedding(tokens, params["embed"]) if _tp() is None
+    # deterministic mode keeps it run-to-run identical on the card (a
+    # table whole on every model rank, a tied one, takes the same backward)
+    tp = _tp()
+    x = (F.embedding(tokens, params["embed"]) if tp is None or not tp.layout.vocab
          else _embed(params["embed"], tokens)).to(getattr(torch, cfg.act_dtype))
     if cfg.family == "vlm" and patch_embeds is not None:
         pp = params["patch_proj"]

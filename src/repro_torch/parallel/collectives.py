@@ -42,6 +42,10 @@ the same ops on them, so the same backward):
   every rank uses the same way (the embedding's vocab-shard lookups, the
   head's logits, an input gathered for a whole product); its backward
   takes this rank's slice of the (identical) gradient and sums nothing;
+* :func:`slice_replicated`, its mirror: this rank's slice of a tensor
+  every rank holds alike (the attention output of K/V heads selected from
+  a whole product, ``models/transformer._heads_whole``); its backward
+  all-gathers every rank's slice gradient into the whole, replicated one;
 * :func:`chained`: the fold of :func:`ordered_fold` for any running sum,
   the backward's chains of ``core/mfmac.py``: K2's dA fold over a
   column-parallel linear's split N (the column-parallel input's "copy
@@ -334,6 +338,28 @@ def gather_replicated(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     if group is None:
         return x
     return _GatherReplicated.apply(x, group, dim)
+
+
+class _SliceReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim] // n
+        return x.narrow(dim, r * ctx.width, ctx.width).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(all_gather(g.contiguous(), ctx.group), dim=ctx.dim), None, None
+
+
+def slice_replicated(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """This group rank's 1/n of ``x`` along ``dim``, where ``x`` is the same
+    on every rank: the mirror of :func:`gather_replicated`.  Its backward
+    all-gathers every rank's slice gradient, in rank order, into the whole
+    gradient, the same on every rank.  The identity without a group."""
+    if group is None:
+        return x
+    return _SliceReplicated.apply(x, group, dim)
 
 
 # ---------------------------------------------------------------------------

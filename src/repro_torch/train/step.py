@@ -45,26 +45,32 @@ activation scales, like every other per-tensor one, are the global
 batch's.  The ssm and the hybrid (a tuple of per-layer dicts, split
 leaf by leaf, ``layers/<i>/...``) train the same way too.
 
-Tensor-parallel (a (D, M) mesh with M > 1; the dense decoder only).
-Each rank holds its model shard of every leaf the runtime splits
-(``plan.shard_leaf``: q and the K/V heads, the MLP's hidden width, the
-vocabulary; ``wo`` and the down projection along their contraction),
-split in turn over the data ranks as above; leaves replicated on the
-model axis (each linear's ``gamma``) stay whole there.  The shadow
-quantizes each matrix whole, one leaf at a time: gathered over the data
-and model ranks, quantized (the reference's WBC mean and scale), and
-this rank's shard kept.  The forward and backward run with the plan's
-local config through the model-axis hooks (``models/transformer.py``;
-K2 chained across the ranks, ``core/mfmac.py``), so every rank computes
-the same loss and the same replicated gradients; a split leaf's gradient
-is this rank's slice of one rank's.  The gradients are summed over the
-data group only (a replicated leaf's is the same on every model rank),
-and ``global_norm`` sums the split leaves' squares over the groups they
-are split over, counting a replicated leaf once.  On (1, M) the losses
-and every gradient are one rank's bit for bit.  Refused on a model axis:
-the other families (ROADMAP item 9.3b), K/V heads selected from a whole
-product (9.3b), microbatches > 1 and ``weight_shadow=False`` (9.4).
-Microbatching is refused on any sharded plan.
+Tensor-parallel (a (D, M) mesh with M > 1; the dense decoder, the vlm
+and the encdec).  Each rank holds its model shard of every leaf the
+runtime splits (``plan.shard_leaf``: q and the K/V heads, the MLP's
+hidden width, the vocabulary; ``wo`` and the down projection along their
+contraction; an encdec's ``enc_layers/...`` and ``dec_layers/...`` by
+the same rules, its cross attention's ``cq``/``ck``/``cv``/``co`` as
+``wq``/``wk``/``wv``/``wo``), split in turn over the data ranks as
+above; leaves replicated on the model axis stay whole there: each
+linear's ``gamma``, the norms, K/V heads selected from a whole product
+(``kv == 'select'``), a vlm's ``patch_proj``, an encdec's
+``frame_proj``, ``enc_pos`` and tied embedding.  The shadow quantizes
+each matrix whole, one leaf at a time: gathered over the data and model
+ranks, quantized (the reference's WBC mean and scale, per layer for a
+stacked leaf), and this rank's shard kept.  The forward and backward run
+with the plan's local config through the model-axis hooks
+(``models/transformer.py``, ``models/encdec.py``; K2 chained across the
+ranks, ``core/mfmac.py``), so every rank computes the same loss and the
+same replicated gradients; a split leaf's gradient is this rank's slice
+of one rank's.  The gradients are summed over the data group only (a
+replicated leaf's is the same on every model rank), and ``global_norm``
+sums the split leaves' squares over the groups they are split over,
+counting a replicated leaf once.  On (1, M) the losses and every
+gradient are one rank's bit for bit.  Refused on a model axis: the MoE
+decoder, the ssm and the hybrid (ROADMAP item 9.3b), microbatches > 1
+and ``weight_shadow=False`` (9.4).  Microbatching is refused on any
+sharded plan.
 """
 from __future__ import annotations
 
@@ -154,10 +160,15 @@ def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
     return value_and_grad(lambda p: registry.loss_fn(cfg, policy, p, batch), params)
 
 
+#: the families that train on a model axis > 1 (the decoder dense only)
+MODEL_AXIS_FAMILIES = ("decoder", "vlm", "encdec")
+
+
 def check_model_axis(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` trains on a model axis > 1 (the dense decoder)."""
-    if cfg.family != "decoder" or cfg.moe is not None:
-        kind = "MoE decoder" if cfg.family == "decoder" else cfg.family
+    """Raise unless ``cfg`` trains on a model axis > 1 (the dense decoder,
+    the vlm, the encdec)."""
+    if cfg.family not in MODEL_AXIS_FAMILIES or cfg.moe is not None:
+        kind = "MoE decoder" if cfg.moe is not None else cfg.family
         raise NotImplementedError(
             f"training the {kind} family ({cfg.name}) on a model axis > 1 is not ported yet "
             "(ROADMAP item 9.3b: the other families under tensor-parallel training); train "

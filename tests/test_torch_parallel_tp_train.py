@@ -38,7 +38,8 @@ What must hold, and why:
 * ``launch.train --mesh 1x2`` trains and checkpoints whole; the
   checkpoint restores in one rank of the port's CLI and in the reference's
   manager, bit for bit; ``--mesh 2x2`` trains;
-* K/V heads selected from a whole product are refused in training.
+* K/V heads selected from a whole product (one K/V head for 4 q heads)
+  train on (1, 2) bit for bit with one rank.
 
 K2's chain itself is held here on its plain version: chained over 2 and
 3 ranks it equals the unsplit call bit for bit (dA, the dgamma rows, a
@@ -159,20 +160,27 @@ def _rank_cases(rank, mesh, cases, ckdir):
 
     torch.set_num_threads(1)
     out = {w: _width_case(mesh, _config(TC, w), *cases[w]) for w in WIDTHS}
-    # K/V heads selected from a whole product (llama3-8b's smoke config:
-    # 1 K/V head for 4 q heads) are refused in training
-    cfg = TC.smoke_config("llama3-8b")
-    shape = TC.ShapeConfig("t", SEQ, BATCH, "train")
-    plan = planner.plan_for(cfg, meshes.make_mesh(mesh, ("data", "model")), shape)
-    step = make_train_step(cfg, PAPER_FAITHFUL, adamw(warmup_cosine_schedule(3e-3, 20, 3)),
-                           TrainConfig(), plan=plan)
-    params = step.data_parallel.shard(
-        spec.materialize(registry.param_specs(cfg), torch.Generator().manual_seed(0)))
-    try:
-        step.grads(params, pipeline.make_batch(cfg, shape, 0, device="cpu"))
-        out["select_refusal"] = None
-    except NotImplementedError as e:
-        out["select_refusal"] = str(e)
+    if mesh == (1, 2):
+        # K/V heads selected from a whole product: olmo-1b's smoke config
+        # with 1 K/V head for its 4 q heads, against one rank
+        cfg = dataclasses.replace(TC.smoke_config("olmo-1b"), kv_heads=1)
+        shape = TC.ShapeConfig("t", SEQ, BATCH, "train")
+        plan = planner.plan_for(cfg, meshes.make_mesh(mesh, ("data", "model")), shape)
+        opt = adamw(warmup_cosine_schedule(3e-3, 20, 3))
+        step = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=plan)
+        one = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig())
+        whole = spec.materialize(registry.param_specs(cfg), torch.Generator().manual_seed(0))
+        params = step.data_parallel.shard(whole)
+        batch = pipeline.make_batch(cfg, shape, 0, device="cpu")
+        loss, g = step.grads(params, batch)
+        loss1, g1 = one.grads(whole, batch)
+        out["select"] = dict(
+            kv=plan.layout().kv, loss=(float(loss), float(loss1)),
+            token_losses=bool(torch.equal(step.token_losses(params, batch),
+                                          one.token_losses(whole, batch))),
+            differ=[n for (n, x), (_, y) in zip(
+                spec.named_leaves(g), spec.named_leaves(step.data_parallel.shard(g1)))
+                if not torch.equal(x, y)])
     argv = CLI + ["--steps", "2", "--mesh", f"{mesh[0]}x{mesh[1]}"]
     if ckdir:
         argv += ["--ckpt-dir", ckdir, "--ckpt-every", "100"]
@@ -314,10 +322,15 @@ def test_gradients_vs_reference_jax_grad(worlds, reference, width):
             assert err <= GRAD_TOL * np.abs(ref).max(), (name, err)
 
 
-def test_select_kv_heads_refused_in_training(worlds):
-    for mesh in MESHES:
-        for res in worlds[0][mesh]:
-            assert res["select_refusal"] and "9.3b" in res["select_refusal"]
+def test_select_kv_heads_train_bit_for_bit(worlds):
+    """K/V heads selected from a whole product (olmo-1b's smoke config with
+    one K/V head) train on (1, 2): the loss, the per-token losses and
+    every gradient leaf's shard are one rank's bit for bit."""
+    for res in worlds[0][(1, 2)]:
+        sel = res["select"]
+        assert sel["kv"] == "select"
+        assert sel["loss"][0] == sel["loss"][1]
+        assert sel["token_losses"] and not sel["differ"], sel["differ"]
 
 
 def test_two_by_two_cli_trains(worlds):

@@ -18,7 +18,10 @@ What must hold, and why:
   ``embed`` dim divides (the plan's embed-over-data rule), the rest whole;
 * a checkpoint written by 2 ranks (``launch.train --mesh 2x1``) restores
   in one rank of the port's CLI and in the reference's manager, bit for
-  bit.
+  bit;
+* the same two ranks train the vlm and the encdec on ``--mesh 1x2``, one
+  rank's loss bit for bit; the MoE, ssm and hybrid families are refused
+  on a model axis.
 
 The ranks run once per module (one spawned world); the tests read what
 they returned.
@@ -37,6 +40,8 @@ CLI = ["--arch", "olmo-1b", "--smoke", "--batch", str(BATCH), "--seq", str(SEQ),
        "--log-every", "1", "--device", "cpu"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
+# the families besides the dense decoder that train on a model axis
+MODEL_AXIS_ARCHS = ("internvl2-76b", "whisper-large-v3")
 
 
 def _record_scales(fn):
@@ -137,6 +142,10 @@ def _rank_cases(rank, ckdir):
                                  "--ckpt-every", "100"])
     res["cli_losses"] = [r["loss"] for r in run2.records]
     res["cli_final"] = {n: x.numpy() for n, x in spec.named_leaves(dp.gather(run2.params))}
+    for arch in MODEL_AXIS_ARCHS:  # the same two ranks as a (1, 2) mesh
+        argv = [a if a != "olmo-1b" else arch for a in CLI]
+        res[arch] = [r["loss"] for r in
+                     train_cli.main(argv + ["--steps", "1", "--mesh", "1x2"]).records]
     return res
 
 
@@ -231,14 +240,27 @@ def test_two_rank_checkpoint_restores_in_one_rank_and_reference(world, capsys):
             np.uint32).tolist(), name
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "internvl2-76b", "whisper-large-v3",
-                                  "mamba2-2.7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-2.7b", "recurrentgemma-2b"])
 def test_model_axis_training_is_refused(arch):
-    """The dense decoder trains on a model axis
-    (``tests/test_torch_parallel_tp_train.py``); the MoE, vlm, encdec, ssm
-    and hybrid families are refused there, pointing to ROADMAP item 9.3b."""
+    """The dense decoder, the vlm and the encdec train on a model axis
+    (``tests/test_torch_parallel_tp_train.py``,
+    ``tests/test_torch_parallel_tp_families.py``); the MoE, ssm and hybrid
+    families are refused there, pointing to ROADMAP item 9.3b."""
     from repro_torch.launch import train as train_cli
 
     argv = [a if a != "olmo-1b" else arch for a in CLI]
     with pytest.raises(NotImplementedError, match=r"model axis.*9\.3b"):
         train_cli.main(argv + ["--steps", "1", "--mesh", "1x2"])
+
+
+@pytest.mark.parametrize("arch", MODEL_AXIS_ARCHS)
+def test_model_axis_training_runs(world, arch):
+    """``launch.train --mesh 1x2`` trains the vlm and the encdec one step
+    on the two ranks: the loss is the same on both and one rank's bit for
+    bit (the same CLI without a mesh)."""
+    from repro_torch.launch import train as train_cli
+
+    argv = [a if a != "olmo-1b" else arch for a in CLI] + ["--steps", "1"]
+    one = [r["loss"] for r in train_cli.main(argv).records]
+    ranks = world[1]
+    assert ranks[0][arch] == ranks[1][arch] == one

@@ -1,11 +1,14 @@
-"""Phase 8's K2 start checks and phase 37o of ``chip_smoke.py`` alone, on one
-GPU: build the kernels, hold K2's ``start`` variant (``k2_start_checks``:
+"""Phase 8's K2 start checks and phases 37o-p of ``chip_smoke.py`` alone, on
+one GPU: build the kernels, hold K2's ``start`` variant (``k2_start_checks``:
 olmo-1b's column-parallel dA chained over two ranks' N, the row-parallel
 dgamma rows over their K, a ragged three-rank case) against the unsplit
-launch and the plain chain and time it, then train olmo-1b tensor-parallel
-on the (1, 2) mesh at its published widths and ``TP_TRAIN_LAYERS`` layers
-(37o (a), two ranks) and its smoke config on the (2, 2) mesh (37o (b),
-four ranks), each against one rank, with 37o's gates.  Details go to
+launch and the plain chain and time it, then train tensor-parallel on the
+(1, 2) mesh (two ranks) olmo-1b at its published widths and
+``TP_TRAIN_LAYERS`` layers (37o (a)), whisper-large-v3 at its published
+widths and ``ENCDEC_TP_TRAIN_LAYERS`` encoder and decoder layers (37p (a))
+and internvl2-76b's smoke config (37p (b)), and the olmo-1b, internvl2-76b
+and whisper-large-v3 smoke configs on the (2, 2) mesh (37o (b), 37p (c),
+four ranks), each against one rank, with their gates.  Details go to
 ``chiprun_out/tp_train_probe.json``.
 
     python3 tools/tp_train_probe.py
@@ -26,7 +29,7 @@ import chip_smoke as cs  # noqa: E402
 
 
 def _tp_rank(rank):
-    """37o (a) on one of the two ranks."""
+    """37o (a), 37p (a) and (b) on one of the two ranks."""
     from repro_torch.device import resolve_device
     from repro_torch.kernels import potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
@@ -34,10 +37,7 @@ def _tp_rank(rank):
     dev = resolve_device(torch.device("cuda", torch.cuda.current_device()))
     K.build()
     KG.build()
-    t0 = time.perf_counter()
-    row = cs._tp_train(rank, dev)
-    row["seconds"] = time.perf_counter() - t0
-    return {"o": row}
+    return {key: cs._tp_train(rank, dev, key) for key in cs._tp_cells()}
 
 
 def main():
@@ -64,18 +64,19 @@ def main():
         detail["k2_start_variant"] = cs.k2_start_checks(
             dev, torch.Generator(device=dev).manual_seed(1))[0]
         times["phase8_start"] = time.perf_counter() - t0
-        cs.phase("37o (a) tensor-parallel olmo-1b on (1, 2)")
+        cs.phase("37o (a), 37p (a-b) tensor-parallel training on (1, 2)")
         t0 = time.perf_counter()
         ranks = collectives.spawn(_tp_rank, 2, device="cuda")
-        times["phase37o_a"] = time.perf_counter() - t0
-        cs.phase("37o (b) tensor-parallel smoke olmo-1b on (2, 2)")
+        times["phase37op_1x2"] = time.perf_counter() - t0
+        cs.phase("37o (b), 37p (c) tensor-parallel smoke training on (2, 2)")
         failures = []
-        detail["multi_gpu_o"] = cs.tp_training(ranks, failures)
-        times["phase37o_b"] = detail["multi_gpu_o"]["two_by_two"]["spawn_s"]
-        peak = sum(res["o"]["peak_gib"] for res in ranks)
-        print(f"37o (a) peak, both ranks summed: {peak:.2f} GiB", flush=True)
-        if peak >= cs.MULTI_PEAK_GIB:
-            failures.append(f"37o: the ranks' summed peak {peak:.2f} GiB")
+        detail["multi_gpu_tp"] = cs.tp_training(ranks, failures)
+        times["phase37op_2x2"] = detail["multi_gpu_tp"]["two_by_two_spawn_s"]
+        for key in cs._tp_cells():
+            peak = sum(res[key]["peak_gib"] for res in ranks)
+            print(f"37{key} (1, 2) peak, both ranks summed: {peak:.2f} GiB", flush=True)
+            if peak >= cs.MULTI_PEAK_GIB:
+                failures.append(f"37{key}: the ranks' summed peak {peak:.2f} GiB")
         if failures:
             raise SystemExit("; ".join(failures))
     finally:
