@@ -91,8 +91,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     equals pot_quantize(x, bits, beta);
 14. K4 timing at the pack shapes: kernel, plain version, ``x.to(int8)``
     (a bytes yardstick, not the same function) and the bytes bound;
-15. checkpoint and restart at full width (olmo-1b at ``CKPT_LAYERS`` = 4
-    of its 16 layers, batch 8 x seq 512, through
+15. checkpoint and restart at full width (olmo-1b at ``CKPT_LAYERS`` = 2
+    of its 16 layers, 4 until phase 37q, batch 8 x seq 512, through
     ``launch.train.main`` and a checkpoint directory made with tempfile,
     15 GB free required): run A trains 2 steps and saves; run B
     (--steps 3) restores step 2 and runs step 2 only; run C trains 3 steps
@@ -105,16 +105,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     no element differs);
 17. CUDA vs CPU at smoke width: pack_int8 code for code and beta for
     beta; checkpoints written from one device restore on the other;
-19. chunked + paged serving at llama3-8b's widths and 8 of its layers
-    (``PAGED_LAYERS``, since phase 37 took the script to 980.6 s; the
-    serve cell's weights and trace): engine A (4 slots, chunk 32, page 16) is the main
+19. chunked + paged serving at llama3-8b's widths and 4 of its layers
+    (``PAGED_LAYERS``: 8 since phase 37 took the script to 980.6 s, 4
+    since phase 37q; the serve cell's weights and trace): engine A (4 slots, chunk 32, page 16) is the main
     path, its launch counts set to 0 just before and read just after; B
     (page = span) and C (each request alone, chunk 32) give A's tokens bit
     for bit; A's counters (weight passes, decode steps, prefills, emitted
     tokens, per-request TTFT in passes, admission deferrals) equal a CPU
     run of the port at smoke width on the same requests (token ids modulo
     the smoke vocab); a chunk-step decode row equals ``decode_step`` in
-    logits and cache bytes; K1 launches once a linear (57 at 8 layers)
+    logits and cache bytes; K1 launches once a linear (29 at 4 layers)
     per chunk step and per decode step; tokens/s, TTFT in passes and ms, chunk- and decode-step
     wall times, one profiled chunk step (M = 128);
 20. the prefix cache at phase 19's depth (shared_prefix_trace: 8 requests,
@@ -191,9 +191,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     bound;
 31. (a) internvl2-76b and whisper-large-v3 training at smoke width as
     phase 28 (CUDA against CPU losses within ``FAMILY_LOSS_RTOL``); (b)
-    whisper-large-v3 at full width through ``launch.train.main``, batch 2
-    x 1500 frames x 448 tokens, 3 AdamW steps with recomputation: finite
-    losses printed with repr, 1026/514/514/514 launches a step, peak
+    whisper-large-v3 at full width and ``WHISPER_TRAIN_LAYERS`` (8) of
+    its 32 encoder and 32 decoder layers (all of them before phase 37q)
+    through ``launch.train.main``, batch 2 x 1500 frames x 448 tokens, 3
+    AdamW steps with recomputation: finite losses printed with repr,
+    258/130/130/130 launches a step (1026/514/514/514 at 32 + 32), peak
     GiB, a profiled step (K1, K2, K3 device ms beside their FP64
     tensor-core bounds) and one step run twice bit for bit;
 32. mamba2-2.7b (ssm) and 33. recurrentgemma-2b (hybrid: RG-LRU and
@@ -303,7 +305,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     from a whole product; the attention's backward whole on every rank)
     with the same gates, 3 steps at 4 x 64, and (c) internvl2-76b's and
     whisper-large-v3's smoke configs in 37o (b)'s four-rank world with its
-    gates (``_tp_smoke_rank``, ``TP_SMOKE_ARCHS``); each sub-phase's
+    gates (``_tp_smoke_rank``, ``TP_SMOKE_ARCHS``), 37q (a)
+    llama4-scout-17b-a16e at its published widths and
+    ``MOE_TP_TRAIN_LAYERS`` (1) of its 48 layers on (1, 2) under EP (8 of
+    16 experts a rank), batch 2 x 512 (two dispatch groups), remat, the
+    first step only (its per-token losses and gradients, no optimizer
+    state), against one rank run first in a process of its own (the
+    parent holding no model; it leaves the losses and a sha256 of each
+    gradient leaf's shard a rank): per-token losses and every gradient
+    leaf's shard bit for bit, K1 / K2 / K3 / pre-pass 23 / 33 / 33 / 33 a
+    rank (``tp_step_launches``), 4 forward folds, 8 backward chains and 3
+    owner selections (``tp_step_folds``), no implicit host sync outside
+    the collectives; step seconds, the collectives' share and MiB, device
+    busy a rank and each run's peak; (b) grok-1-314b's smoke config (EP)
+    and the 3-expert grok-1 (TP experts) at smoke width and at
+    ``GROK3_CHUNKED_FF`` (each expert's K2 chained) on (1, 2) with 37p
+    (b)'s gates, 3 steps at 4 x 64; (c) llama4-scout's and grok-1's smoke
+    configs in 37o (b)'s four-rank world at 4 x 256 (``TP_SMOKE_SEQS``:
+    whole dispatch groups a data rank) with its gates; each sub-phase's
     seconds printed, and its summed peak under ``MULTI_PEAK_GIB``; phase 3
     also holds K1's ``start`` variant (the row-parallel fold) at
     llama3-8b's, whisper's, internvl2's, mamba2's and recurrentgemma's
@@ -404,9 +423,9 @@ PEAK_ALU_OPS = 33.5e12
 # depth: the three writes and reads of the whole state are disk-bound (15.4
 # GB at 0.43-0.57 GB/s took 90 of phase 15's 102 s at 16 layers on an NVIDIA
 # H100 80GB HBM3 machine, 700.00 W), and a slow host took the whole script
-# to 1172 s with phase 37e-g
-CKPT_LAYERS = 4
-CKPT_FREE_BYTES = 15e9  # two 5.7 GB training checkpoints + the packed tree
+# to 1172 s with phase 37e-g; 4 until phase 37q took the room
+CKPT_LAYERS = 2
+CKPT_FREE_BYTES = 15e9  # two 4.1 GB training checkpoints + the packed tree
 TRAIN_ARGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "512", "--log-every", "1"]
 # the vlm and encdec families (phases 29-31): internvl2-76b served at its
 # published widths and 16 of its 80 layers (all 80 do not fit one card),
@@ -426,8 +445,11 @@ ENCDEC_TRACE = dict(n_requests=4, prompt_len=16, lam=2.0, new_lo=16, new_hi=32, 
 # the room phase 37e-g needed
 ENCDEC_LAYERS = 8
 # phase 31: whisper trained at full width on batch 2 x its 448-token decoder
-# context; CUDA against CPU losses at smoke width within this relative bound
+# context (31b at this many encoder and decoder layers of its 32 + 32: at
+# all of them 31b took 49.2 s, the room phase 37q needed); CUDA against
+# CPU losses at smoke width within this relative bound
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 2, 448
+WHISPER_TRAIN_LAYERS = 8
 FAMILY_LOSS_RTOL = 1e-6
 # the recurrent families (phases 32-34), served whole at full width and
 # depth through the slot-row pool (4 slots, solo-prefill admissions): each
@@ -1026,6 +1048,7 @@ def main() -> int:
                          for s in g["dp"][0]["launches"])
                    + sum(s[k] for key in _tp_cells() for s in tp[key]["ranks"][0]["launches"])
                    + sum(s[k] for a in TP_SMOKE_ARCHS for s in tp["two_by_two"][a]["launches"])
+                   + tp["q"]["ranks"][0]["launches"][k]
                    for k in ("k1", "k2", "k3", "gq")}
     # 37e-f's, 37h-j's and 37l-m's served passes on rank 0
     multi_served = sum(multi[key][0]["k1_launches"]
@@ -1185,12 +1208,16 @@ def main() -> int:
                             # phase 37c: a data-parallel step on each rank
                             multi_gpu_step_launches=[[s[key] for s in r["launches"]]
                                                      for r in multi["c"]["ranks"]],
-                            # phases 37o-p: a tensor-parallel step on
+                            # phases 37o-q: a tensor-parallel step on
                             # each rank of (1, 2), and on rank 0 of (2, 2)
                             multi_gpu_tp_step_launches={
-                                _tp_cells()[c][0].name: [[s[key] for s in r["launches"]]
-                                                         for r in tp[c]["ranks"]]
+                                f"{c} {_tp_cells()[c][0].name}": [
+                                    [s[key] for s in r["launches"]] for r in tp[c]["ranks"]]
                                 for c in _tp_cells()},
+                            # phase 37q (a): llama4-scout's first step
+                            # at published widths on each rank of (1, 2)
+                            multi_gpu_moe_tp_step_launches=[
+                                r["launches"][key] for r in tp["q"]["ranks"]],
                             multi_gpu_tp_smoke_step_launches={
                                 a: [s[key] for s in tp["two_by_two"][a]["launches"]]
                                 for a in TP_SMOKE_ARCHS},
@@ -2286,16 +2313,19 @@ def family_training(dev, detail):
     small = smoke_training(dev, (VLM_ARCH, ENCDEC_ARCH), FAMILY_LOSS_RTOL)
     res = {"smoke": small}
 
-    phase(f"31b train {ENCDEC_ARCH} at full width (batch {WHISPER_TRAIN_BATCH} x "
+    phase(f"31b train {ENCDEC_ARCH} at full width, {WHISPER_TRAIN_LAYERS} + "
+          f"{WHISPER_TRAIN_LAYERS} layers (batch {WHISPER_TRAIN_BATCH} x "
           f"{configs.get_config(ENCDEC_ARCH).enc_seq} frames x {WHISPER_TRAIN_SEQ} tokens)")
     counters = _kernel_counters()
     steps = 3
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
-    run = train_cli.main(["--arch", ENCDEC_ARCH, "--steps", str(steps),
-                          "--batch", str(WHISPER_TRAIN_BATCH), "--seq", str(WHISPER_TRAIN_SEQ),
-                          "--log-every", "1"])
+    with _arch_depth(ENCDEC_ARCH, n_layers=WHISPER_TRAIN_LAYERS,
+                     enc_layers=WHISPER_TRAIN_LAYERS):
+        run = train_cli.main(["--arch", ENCDEC_ARCH, "--steps", str(steps),
+                              "--batch", str(WHISPER_TRAIN_BATCH), "--seq",
+                              str(WHISPER_TRAIN_SEQ), "--log-every", "1"])
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2517,15 +2547,16 @@ def checkpoint_and_pack(dev, detail):
 
 
 @contextlib.contextmanager
-def _olmo_depth(n_layers):
-    """Within the block ``repro_torch.configs.get_config("olmo-1b")``, which
-    ``launch.train.main`` builds its model from, gives olmo-1b at its
-    published widths and ``n_layers`` layers."""
+def _arch_depth(name, **layers):
+    """Within the block ``repro_torch.configs.get_config(name)``, which
+    ``launch.train.main`` builds its model from, gives ``name`` at its
+    published widths and ``layers`` (``n_layers``, an encdec's
+    ``enc_layers``)."""
     from repro_torch import configs
 
     real = configs.get_config
-    configs.get_config = lambda arch: (dataclasses.replace(real(arch), n_layers=n_layers)
-                                       if arch == "olmo-1b" else real(arch))
+    configs.get_config = lambda arch: (dataclasses.replace(real(arch), **layers)
+                                       if arch == name else real(arch))
     try:
         yield
     finally:
@@ -2535,7 +2566,7 @@ def _olmo_depth(n_layers):
 def restart(dev, detail, ckpt_dir):
     """Phase 15: runs A (2 steps, saved), B (resumed to 3) and C (3 steps
     uninterrupted) at ``CKPT_LAYERS`` layers; B must equal C bit for bit."""
-    with _olmo_depth(CKPT_LAYERS):
+    with _arch_depth("olmo-1b", n_layers=CKPT_LAYERS):
         return _restart(dev, detail, ckpt_dir)
 
 
@@ -3189,8 +3220,9 @@ def moe_serving(dev, detail):
 
 
 # phases 19-20 run llama3-8b's widths at this depth: at all 32 layers the
-# whole script read 980.6 s on an H100 with phase 37 (phases 19-20: 142 s)
-PAGED_LAYERS = 8
+# whole script read 980.6 s on an H100 with phase 37 (phases 19-20: 142 s);
+# 8 until phase 37q took the room
+PAGED_LAYERS = 4
 
 
 def paged_serving(dev, detail, cfg, params, policy, reqs):
@@ -4197,7 +4229,22 @@ TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS = 4, 64, 3
 # selected from a whole product); (c) the (2, 2) world of 37o (b) trains
 # these smoke configs
 ENCDEC_TP_TRAIN_LAYERS = 4
-TP_SMOKE_ARCHS = ("olmo-1b", "internvl2-76b", "whisper-large-v3")
+TP_SMOKE_ARCHS = ("olmo-1b", "internvl2-76b", "whisper-large-v3", "llama4-scout-17b-a16e",
+                  "grok-1-314b")
+# 37q (a): llama4-scout-17b-a16e at its published widths and this depth on
+# (1, 2) under EP (8 of its 16 experts a rank), this batch (two dispatch
+# groups of 512 tokens), remat, the first step's losses and gradients alone
+# (AdamW's m and v at published widths need a card a rank: ROADMAP 9.3b);
+# (b) grok-1's smoke config (EP) and the 3-expert grok-1 (TP experts) at
+# smoke width and at this d_ff (whole 128-chunks a rank: each expert's K2
+# chained) on (1, 2), 37p (b)'s batch and steps; (c) the MoE smoke configs
+# in 37o (b)'s (2, 2) world at this sequence (whole dispatch groups a data
+# rank; the others at TP_SMOKE_SEQ)
+MOE_TP_ARCH = "llama4-scout-17b-a16e"
+MOE_TP_TRAIN_LAYERS = 1
+MOE_TP_TRAIN_BATCH, MOE_TP_TRAIN_SEQ = 2, 512
+GROK3_CHUNKED_FF = 256
+TP_SMOKE_SEQS = {"llama4-scout-17b-a16e": 256, "grok-1-314b": 256}
 # the two ranks' device memory, summed, stays under this
 MULTI_PEAK_GIB = 75.0
 # 37d: the compressor's unbiasedness bound (standard errors) and draws
@@ -4430,32 +4477,57 @@ def _device_busy_ms(fn):
 
 
 def tp_step_folds(cfg, model=2):
-    """(forward folds, backward chains) of one tensor-parallel training
-    step a rank on ``model`` ranks, from the layout: each row-parallel
-    fold (``wo``, ``co``, the down projection, ``wo2``) twice, the forward
-    and its recomputation; a chain for every column-parallel dA whose
-    shard is whole 128-chunks (q, the split K/V and cross K/V heads, the
-    MLP's input products, the vocab-split head) and for the dgamma rows
-    of every row-parallel product (olmo-1b at 4 layers 16 / 29, whisper
-    at 4 + 4 layers 40 / 64, the smoke widths 0 / 0)."""
+    """(forward folds, backward chains, owner selections) of one
+    tensor-parallel training step a rank on ``model`` ranks, from the
+    layout: each row-parallel fold (``wo``, ``co``, the down projection,
+    a MoE layer's shared expert's, ``wo2``) twice, the forward and its
+    recomputation; a chain for every column-parallel dA whose shard is
+    whole 128-chunks (q, the split K/V and cross K/V heads, the MLP's or
+    shared expert's input products, TP experts' gate and up, one chain
+    over all the experts, the vocab-split head) and for the dgamma rows of
+    every row-parallel product; under EP three selections a MoE layer
+    (the combine, forward and recomputed, and the dispatch's backward)
+    (olmo-1b at 4 layers 16 / 29 / 0, whisper at 4 + 4 layers 40 / 64 /
+    0, llama4-scout at 1 layer 4 / 8 / 3, the smoke widths 0 / 0 and 3 a
+    MoE layer under EP)."""
     from repro_torch.kernels.ref import CANONICAL_BK
     from repro_torch.parallel.planner import runtime_layout
 
     lay = runtime_layout(cfg, model)
     whole = lambda split, width: int(split and width % CANONICAL_BK == 0)  # noqa: E731
+    inputs = 2 if cfg.act == "swiglu" else 1  # gate and up, or gate (wi)
+    mlp = int(cfg.moe is None or cfg.moe.shared_expert)  # a dense MLP, or a shared expert
     q = whole(lay.heads, lay.heads_local * cfg.head_dim)
     kv = 2 * whole(lay.kv == "split", lay.kv_local * cfg.head_dim)
-    ffn = (2 if cfg.act == "swiglu" else 1) * whole(lay.ffn, lay.ffn_local)
-    wo, down = int(lay.wo == "fold"), int(lay.mlp_wo == "fold")
+    ffn = inputs * whole(lay.ffn, lay.ffn_local) * mlp
+    wo, down = int(lay.wo == "fold"), int(lay.mlp_wo == "fold") * mlp
+    experts = inputs * whole(lay.experts == "TP", lay.ffn_local)
+    selects = 3 * cfg.n_layers * int(lay.experts == "EP")
     if cfg.family == "encdec":  # an encoder layer, then a decoder layer with cross attention
         fwd = cfg.enc_layers * (wo + down) + cfg.n_layers * (2 * wo + down)
         bwd = (cfg.enc_layers * (q + kv + ffn + wo + down)
                + cfg.n_layers * (2 * (q + kv + wo) + ffn + down))
     else:
         fwd = cfg.n_layers * (wo + down)
-        bwd = (cfg.n_layers * (q + kv + ffn + wo + down)
+        bwd = (cfg.n_layers * (q + kv + ffn + wo + down + experts)
                + whole(lay.vocab, cfg.vocab_padded // model))
-    return 2 * fwd, bwd
+    return 2 * fwd, bwd, selects
+
+
+def tp_step_launches(cfg, model=2):
+    """K1/K2/K3/pre-pass launches of one tensor-parallel training step a
+    rank on ``model`` ranks: ``step_launches``' (one rank's), but under EP
+    a rank's experts' backward runs once per expert it holds (K1's expert
+    batch is one launch over them, as over all)."""
+    from repro_torch.parallel.planner import runtime_layout
+
+    want = step_launches(cfg)
+    lay = runtime_layout(cfg, model)
+    if cfg.moe is None or lay.experts != "EP":
+        return want
+    fewer = (cfg.n_layers * (cfg.moe.num_experts - lay.experts_local)
+             * (3 if cfg.act == "swiglu" else 2))
+    return dict(want, **{k: want[k] - fewer for k in ("k2", "k3", "gq")})
 
 
 def _tp_cells():
@@ -4463,21 +4535,28 @@ def _tp_cells():
     (config, global batch, seq, steps): 37o (a) olmo-1b at
     ``TP_TRAIN_LAYERS`` layers, 37p (a) whisper-large-v3 at
     ``ENCDEC_TP_TRAIN_LAYERS`` encoder and decoder layers, 37p (b)
-    internvl2-76b's smoke config."""
+    internvl2-76b's smoke config, 37q (b) grok-1-314b's smoke config
+    (EP) and the 3-expert grok-1 (TP experts) at smoke width and at
+    ``GROK3_CHUNKED_FF``."""
     from repro_torch import configs
 
     olmo = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=TP_TRAIN_LAYERS)
     whisper = dataclasses.replace(configs.get_config(ENCDEC_ARCH),
                                   n_layers=ENCDEC_TP_TRAIN_LAYERS,
                                   enc_layers=ENCDEC_TP_TRAIN_LAYERS)
+    grok = configs.smoke_config("grok-1-314b")
+    grok3 = dataclasses.replace(grok, moe=dataclasses.replace(grok.moe, num_experts=3))
+    smoke = (TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS)
     return {"o": (olmo, TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS),
             "p": (whisper, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, TP_TRAIN_STEPS),
-            "p_vlm": (configs.smoke_config(VLM_ARCH), TP_SMOKE_BATCH, TP_SMOKE_SEQ,
-                      TP_SMOKE_STEPS)}
+            "p_vlm": (configs.smoke_config(VLM_ARCH),) + smoke,
+            "q_grok": (grok,) + smoke,
+            "q_grok3": (grok3,) + smoke,
+            "q_grok3_chunked": (dataclasses.replace(grok3, d_ff=GROK3_CHUNKED_FF),) + smoke}
 
 
 def _tp_train(rank, dev, key="o"):
-    """One of ``_tp_cells`` (37o (a), 37p (a) or (b)) tensor-parallel on the
+    """One of ``_tp_cells`` (37o (a), 37p (a) or (b), 37q (b)) tensor-parallel on the
     (1, 2) mesh (K2 chained across the two ranks where a shard is whole
     128-chunks), against one rank at that depth run here after it: the
     first step's per-token losses, every gradient leaf's shard against one
@@ -4582,8 +4661,9 @@ def _tp_train(rank, dev, key="o"):
 
 
 def _tp_smoke_rank(rank):
-    """37o (b) and 37p (c): the smoke configs of ``TP_SMOKE_ARCHS``
-    (olmo-1b, internvl2-76b, whisper-large-v3) tensor-parallel on the (2, 2)
+    """37o (b), 37p (c) and 37q (c): the smoke configs of ``TP_SMOKE_ARCHS``
+    (olmo-1b, internvl2-76b, whisper-large-v3, the MoE decoders at
+    ``TP_SMOKE_SEQS``) tensor-parallel on the (2, 2)
     mesh, four ranks on the card: each one's first-step per-token losses
     (this rank's rows), ``TP_SMOKE_STEPS`` steps' losses and launches;
     rank 0 then runs one rank on the same batches (every row)."""
@@ -4607,7 +4687,8 @@ def _tp_smoke_rank(rank):
     for arch in TP_SMOKE_ARCHS:
         t0 = time.perf_counter()
         cfg = configs.smoke_config(arch)
-        shape = configs.ShapeConfig("tp", TP_SMOKE_SEQ, TP_SMOKE_BATCH, "train")
+        shape = configs.ShapeConfig("tp", TP_SMOKE_SEQS.get(arch, TP_SMOKE_SEQ), TP_SMOKE_BATCH,
+                                    "train")
         plan = planner.plan_for(cfg, meshes.make_mesh((2, 2), ("data", "model")), shape)
         opt = adamw(warmup_cosine_schedule(3e-3, 20, TP_SMOKE_STEPS))
         batches = [pipeline.make_batch(cfg, shape, s, device=dev)
@@ -4635,15 +4716,205 @@ def _tp_smoke_rank(rank):
     return out
 
 
+def _moe_tp_cell(dev=None):
+    """37q (a)'s config (``MOE_TP_ARCH`` at its published widths and
+    ``MOE_TP_TRAIN_LAYERS`` layers), its shape and, on ``dev``, its
+    batch."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+
+    cfg = dataclasses.replace(configs.get_config(MOE_TP_ARCH), n_layers=MOE_TP_TRAIN_LAYERS)
+    shape = configs.ShapeConfig("moe_tp", MOE_TP_TRAIN_SEQ, MOE_TP_TRAIN_BATCH, "train")
+    return cfg, shape, None if dev is None else pipeline.make_batch(cfg, shape, 0, device=dev)
+
+
+def _sha256(chunks):
+    """sha256 hex digests of host byte arrays, hashed on threads (hashlib
+    lets go of the GIL over large buffers)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda b: hashlib.sha256(b).hexdigest(), chunks))
+
+
+def _host_bytes(x):
+    return x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy()
+
+
+def _moe_tp_one_rank(rank):
+    """37q (a)'s one-rank run, in a process of its own before the two
+    ranks start (a world of one: no collective runs): the whole model from
+    seed 0, the first step's per-token losses and gradients (remat, no
+    optimizer state); returns the losses and, for each gradient leaf, the
+    sha256 of each model rank's shard of it on (1, 2) (the layout's
+    ``planner._param_split``), its seconds and peak."""
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import potq_grad as KG
+    from repro_torch.kernels import potq_matmul as K
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.parallel import planner
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    dev = resolve_device("cuda")
+    K.build()
+    KG.build()
+    train_cli.make_deterministic()
+    cfg, _, batch = _moe_tp_cell(dev)
+    lay = planner.runtime_layout(cfg, 2)
+    step_fn = make_train_step(cfg, PAPER_FAITHFUL, adamw(warmup_cosine_schedule(3e-3, 20, 1)),
+                              TrainConfig())
+    torch.cuda.reset_peak_memory_stats()
+    params = spec.materialize(registry.param_specs(cfg),
+                              torch.Generator(device=dev).manual_seed(0))
+    token_losses = step_fn.token_losses(params, batch).cpu().numpy()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, grads = step_fn.grads(params, batch)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t1
+    del params
+    names, parts = [], []
+    for name, g in spec.named_leaves(grads):
+        cut = planner._param_split(cfg, lay, name)  # (dim, None): an even split
+        host = g.detach().cpu()
+        names.append(name)
+        parts += [host] * 2 if cut is None else host.chunk(2, dim=cut[0])
+    del grads
+    hashes = _sha256([_host_bytes(p) for p in parts])
+    digests = {n: hashes[2 * i:2 * i + 2] for i, n in enumerate(names)}
+    return dict(token_losses=token_losses, digests=digests, grads_s=grads_s,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                seconds=time.perf_counter() - t0)
+
+
+def _moe_tp_first_step(rank, dev):
+    """37q (a) on one of the two ranks of (1, 2): the parameters drawn leaf
+    by leaf from seed 0, this rank's shard of each kept; the first step's
+    per-token losses, then its gradients (counted: launches, collectives,
+    implicit host syncs, device busy); the sha256 of each gradient leaf."""
+    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry, spec
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.parallel import collectives, meshes, planner
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t_start = time.perf_counter()
+    train_cli.make_deterministic()
+    cfg, shape, batch = _moe_tp_cell(dev)
+    plan = planner.plan_for(cfg, meshes.make_mesh((1, 2), ("data", "model")), shape)
+    step_fn = make_train_step(cfg, PAPER_FAITHFUL, adamw(warmup_cosine_schedule(3e-3, 20, 1)),
+                              TrainConfig(), plan=plan)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def keep(name, x):  # a split leaf's shard as a copy of its own: the whole is freed
+        return x if plan.model_split_dim(name) is None else plan.shard_leaf(name, x).clone()
+
+    t0 = time.perf_counter()
+    params = spec.materialize(registry.param_specs(cfg),
+                              torch.Generator(device=dev).manual_seed(0), transform=keep)
+    torch.cuda.synchronize()
+    row = dict(draw_s=time.perf_counter() - t0, master_bytes=_tree_bytes(params),
+               experts=plan.layout().experts, experts_local=plan.layout().experts_local)
+    # where the step's time goes: the shadow (each matrix gathered whole but
+    # the experts, quantized, its shard kept) and the forward, in the
+    # per-token losses' call, then the whole step
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    row["token_losses"] = step_fn.token_losses(params, batch).cpu().numpy()
+    row.update(shadow_and_forward_s=time.perf_counter() - t0,
+               shadow_and_forward_collectives=dict(collectives.stats))
+    syncs = {}
+    before = _count_kernels()
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _counting_syncs(syncs):
+        (_, grads), busy = _device_busy_ms(lambda: step_fn.grads(params, batch))
+    torch.cuda.synchronize()
+    row.update(step_s=time.perf_counter() - t0, device_busy_ms=busy,
+               collectives=dict(collectives.stats),
+               launches={k: v - before[k] for k, v in _count_kernels().items()},
+               implicit_syncs={k: n for k, n in syncs.items() if k.startswith("src/")
+                               and not k.startswith("src/repro_torch/parallel/collectives")},
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    row["collective_share"] = row["collectives"]["seconds"] / row["step_s"]
+    del params
+    names, chunks = [], []
+    for name, g in spec.named_leaves(grads):
+        names.append(name)
+        chunks.append(_host_bytes(g))
+    row["digests"] = dict(zip(names, _sha256(chunks)))
+    del grads, chunks
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_start
+    return row
+
+
+def _check_moe_tp(one, rows, failures):
+    """37q (a)'s gates: each rank's per-token losses and every gradient
+    leaf's shard (its sha256) one rank's, the launches a step
+    ``tp_step_launches``', the folds, chains and selections
+    ``tp_step_folds``', no implicit host sync outside the collectives."""
+    cfg = _moe_tp_cell()[0]
+    want, want_folds = tp_step_launches(cfg), tp_step_folds(cfg)
+    for r, row in enumerate(rows):
+        tl_equal = (row["token_losses"].view(np.uint32).tolist()
+                    == one["token_losses"].view(np.uint32).tolist())
+        differ = sorted(n for n, h in row["digests"].items() if h != one["digests"][n][r])
+        c = row["collectives"]
+        folds = (c["folds"], c["bwd_folds"], c["selects"])
+        print(f"37q (a) rank {r}:", json.dumps(
+            {k: v for k, v in row.items() if k not in ("token_losses", "digests")}))
+        if row["experts"] != "EP":
+            failures.append(f"37q (a) rank {r}: experts {row['experts']}, expected EP")
+        if not tl_equal:
+            failures.append(f"37q (a) rank {r}: first-step per-token losses differ from one "
+                            "rank's")
+        if differ or set(row["digests"]) != set(one["digests"]):
+            failures.append(f"37q (a) rank {r}: gradient shards differ from one rank's: {differ}")
+        if row["launches"] != want:
+            failures.append(f"37q (a) rank {r}: launches {row['launches']}, expected {want}")
+        if folds != want_folds:
+            failures.append(f"37q (a) rank {r}: (forward folds, backward chains, selections) "
+                            f"{folds}, expected {want_folds}")
+        if row["implicit_syncs"]:
+            failures.append(f"37q (a) rank {r}: implicit host syncs {row['implicit_syncs']}")
+    loss = float(np.mean(one["token_losses"]))
+    print(f"37q (a) {cfg.name} at {cfg.n_layers} layer(s), published widths, (1, 2) EP: one "
+          f"rank's mean token loss {loss!r}, its grads {one['grads_s']:.2f} s, peak "
+          f"{one['peak_gib']:.2f} GiB, {one['seconds']:.1f} s in all; a rank's shadow and "
+          f"forward {[round(row['shadow_and_forward_s'], 2) for row in rows]} s, "
+          f"{rows[0]['shadow_and_forward_collectives']['bytes'] / 2 ** 20:.1f} MiB; its first step "
+          f"{[round(row['step_s'], 2) for row in rows]} s (profiled), collectives "
+          f"{rows[0]['collectives']['calls']} calls, "
+          f"{rows[0]['collectives']['bytes'] / 2 ** 20:.1f} MiB, share "
+          f"{[round(row['collective_share'], 3) for row in rows]}; device busy a rank "
+          f"{[round(row['device_busy_ms'], 1) for row in rows]} ms; peak a rank "
+          f"{[round(row['peak_gib'], 2) for row in rows]} GiB; {rows[0]['seconds']:.1f} s on "
+          "rank 0")
+    return dict(one_rank={k: v for k, v in one.items() if k not in ("token_losses", "digests")},
+                ranks=[{k: v for k, v in row.items() if k not in ("token_losses", "digests")}
+                       for row in rows],
+                token_loss_mean=loss, leaves=len(one["digests"]))
+
+
 def _check_tp_run(key, label, rows, failures):
     """The gates of a (1, 2) run of ``_tp_cells()[key]`` on both ranks
     (``rows``, each rank's :func:`_tp_train` row): first-step per-token
     losses and every gradient leaf's shard one rank's bit for bit, the
-    launches a step ``step_launches``', the folds and chains a step
-    ``tp_step_folds``', no implicit host sync outside the collectives, the
-    ranks' losses equal and within ``LOSS_RTOL`` of one rank's."""
+    launches a step ``tp_step_launches``', the folds, chains and owner
+    selections a step ``tp_step_folds``', no implicit host sync outside
+    the collectives, the ranks' losses equal and within ``LOSS_RTOL`` of
+    one rank's."""
     cfg = _tp_cells()[key][0]
-    want, want_folds = step_launches(cfg), tp_step_folds(cfg)
+    want, want_folds = tp_step_launches(cfg), tp_step_folds(cfg)
     one = rows[0]["one_rank_losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"], one))
     for r, row in enumerate(rows):
@@ -4656,10 +4927,10 @@ def _check_tp_run(key, label, rows, failures):
                             f"{row['grad_leaves_differing']}")
         if any(n != want for n in row["launches"]):
             failures.append(f"{label} rank {r}: launches {row['launches']}, expected {want}")
-        folds = [(c["folds"], c["bwd_folds"]) for c in row["collectives"]]
+        folds = [(c["folds"], c["bwd_folds"], c["selects"]) for c in row["collectives"]]
         if any(f != want_folds for f in folds):
-            failures.append(f"{label} rank {r}: (forward folds, backward chains) a step "
-                            f"{folds}, expected {want_folds}")
+            failures.append(f"{label} rank {r}: (forward folds, backward chains, selections) "
+                            f"a step {folds}, expected {want_folds}")
         if row["implicit_syncs"]:
             failures.append(f"{label} rank {r}: implicit host syncs {row['implicit_syncs']}")
         if row["losses"] != rows[0]["losses"]:
@@ -4684,9 +4955,15 @@ def _check_tp_smoke(arch, label, ranks4, failures):
     first-step per-token losses of the data ranks' rows (model rank 0 of
     each) one rank's bit for bit, every rank's equal to its data group's,
     the ranks' losses equal and within ``LOSS_RTOL`` of one rank's, the
-    launches a step one rank's."""
+    launches a step one rank's (under EP less the experts a rank does not
+    hold, ``tp_step_launches``)."""
+    from repro_torch import configs
+
     runs = [res[arch] for res in ranks4]
     one = runs[0]["one"]
+    cfg = configs.smoke_config(arch)
+    fewer = {k: n - tp_step_launches(cfg)[k] for k, n in step_launches(cfg).items()}
+    want = [{k: n - fewer[k] for k, n in s.items()} for s in one["launches"]]
     by_data = {}
     for r, res in enumerate(runs):
         d, _ = res["coords"]
@@ -4695,9 +4972,9 @@ def _check_tp_smoke(arch, label, ranks4, failures):
             failures.append(f"{label} (2, 2) rank {r}: per-token losses differ from its data "
                             "group's")
         by_data.setdefault(d, tl)
-        if res["tp"]["launches"] != one["launches"]:
-            failures.append(f"{label} (2, 2) rank {r}: launches {res['tp']['launches']}, one "
-                            f"rank {one['launches']}")
+        if res["tp"]["launches"] != want:
+            failures.append(f"{label} (2, 2) rank {r}: launches {res['tp']['launches']}, "
+                            f"expected {want} (one rank {one['launches']})")
         if res["tp"]["losses"] != runs[0]["tp"]["losses"]:
             failures.append(f"{label} (2, 2): the ranks' losses differ")
     tl = np.concatenate([by_data[d] for d in sorted(by_data)])
@@ -4881,6 +5158,7 @@ def _phase37_rank(rank):
         res[key] = _dp_cells_train(rank, dev, key)
         res[key]["seconds"] = time.perf_counter() - t0
     res["d"] = _psum_check(rank, dev)
+    res["q"] = _moe_tp_first_step(rank, dev)
     return res
 
 
@@ -5027,7 +5305,12 @@ def multi_gpu(dev, detail):
     whisper-large-v3 at ``ENCDEC_TP_TRAIN_LAYERS`` encoder and decoder
     layers on (1, 2), (b): internvl2-76b's smoke config on (1, 2), (c):
     both smoke configs in 37o (b)'s four ranks (:func:`tp_training`,
-    :func:`_check_tp_run`, :func:`_check_tp_smoke`).  The ranks' summed
+    :func:`_check_tp_run`, :func:`_check_tp_smoke`).  37q (a):
+    llama4-scout at its published widths and ``MOE_TP_TRAIN_LAYERS``
+    layers on (1, 2) under EP, its first step against one rank run alone
+    before the two ranks start (:func:`_moe_tp_one_rank`,
+    :func:`_check_moe_tp`), (b): grok-1's smoke configs on (1, 2) under EP
+    and TP experts, (c): the MoE smoke configs in the four ranks.  The ranks' summed
     peak stays under ``MULTI_PEAK_GIB`` in each serving and training
     sub-phase."""
     from repro_torch import configs
@@ -5039,12 +5322,17 @@ def multi_gpu(dev, detail):
     from repro_torch.parallel.planner import runtime_layout
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: two ranks on the one card (37a-p), then four (37o (b), 37p (c))")
+    phase("37 multi-GPU: one rank alone (37q (a)), two ranks on the one card (37a-q), then "
+          "four (37o (b), 37p (c), 37q (c))")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # 37q (a)'s one rank, alone on the card: a world of one runs no collective
+    moe_one = collectives.spawn(_moe_tp_one_rank, 1, device="cpu")[0]
+    one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
     spawn_s = time.perf_counter() - t0
-    out = {"spawn_s": spawn_s}
+    out = {"spawn_s": spawn_s, "moe_one_rank_spawn_s": one_s}
     failures = []
     llama = configs.get_config("llama3-8b")
     _check_sharded("a", ranks, dataclasses.replace(llama, n_layers=TP_SERVE_LAYERS), failures)
@@ -5139,15 +5427,18 @@ def multi_gpu(dev, detail):
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
     tp_rows = tp_training(ranks, failures)
+    tp_rows["q"] = _check_moe_tp(moe_one, [res["q"] for res in ranks], failures)
     served = tuple("abefhij") + ("l", "l2", "m", "m2")
     peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in served}
     peaks["c"] = sum(row["peak_gib"] for row in dp_rows)
-    peaks.update({k: sum(res[k]["peak_gib"] for res in ranks) for k in _tp_cells()})
+    peaks.update({k: sum(res[k]["peak_gib"] for res in ranks) for k in (*_tp_cells(), "q")})
     peaks.update(g=max(r["peak_gib"] for r in g_rows.values()),
                  k=max(r["peak_gib"] for r in k_rows.values()),
                  n=max(r["peak_gib"] for r in n_rows.values()))
     seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in served + ("c",)}
-    seconds.update({k: round(ranks[0][k]["seconds"], 1) for k in ("g", "k", "n", *_tp_cells())})
+    seconds.update({k: round(ranks[0][k]["seconds"], 1)
+                    for k in ("g", "k", "n", *_tp_cells(), "q")})
+    seconds["q one rank"] = round(one_s, 1)
     seconds["o, p (2, 2)"] = round(tp_rows["two_by_two_spawn_s"], 1)
     print(f"37 peaks, both ranks summed (GiB): "
           f"{ {k: round(v, 2) for k, v in sorted(peaks.items())} }; backend "
@@ -5167,22 +5458,27 @@ def multi_gpu(dev, detail):
 
 
 def tp_training(ranks, failures):
-    """37o and 37p: their (1, 2) runs (37o (a), 37p (a) and (b)) ran in
-    phase 37's two-rank world; their (2, 2) smoke runs (37o (b), 37p (c))
-    spawn four ranks."""
+    """37o, 37p and 37q (b-c): their (1, 2) runs (37o (a), 37p (a) and
+    (b), 37q (b)) ran in phase 37's two-rank world; their (2, 2) smoke
+    runs (37o (b), 37p (c), 37q (c)) spawn four ranks."""
     from repro_torch.parallel import collectives
 
     t0 = time.perf_counter()
     ranks4 = collectives.spawn(_tp_smoke_rank, 4, device="cuda", threads=2)
     spawn_s = time.perf_counter() - t0
-    out = {key: _check_tp_run(key, "37o" if key == "o" else "37p", [res[key] for res in ranks],
+    from repro_torch import configs
+
+    def label(cfg):
+        return "37o" if cfg.name == "olmo-1b" else "37q" if cfg.moe is not None else "37p"
+
+    out = {key: _check_tp_run(key, label(_tp_cells()[key][0]), [res[key] for res in ranks],
                               failures)
            for key in _tp_cells()}
-    out["two_by_two"] = {arch: _check_tp_smoke(arch, "37o" if arch == "olmo-1b" else "37p",
+    out["two_by_two"] = {arch: _check_tp_smoke(arch, label(configs.smoke_config(arch)),
                                                 ranks4, failures)
                          for arch in TP_SMOKE_ARCHS}
     out["two_by_two_spawn_s"] = spawn_s
-    print(f"37o/p: (1, 2) {[round(ranks[0][k]['seconds'], 1) for k in _tp_cells()]} s on rank "
+    print(f"37o/p/q: (1, 2) {[round(ranks[0][k]['seconds'], 1) for k in _tp_cells()]} s on rank "
           f"0, (2, 2) spawn to exit {spawn_s:.1f} s")
     return out
 

@@ -74,6 +74,14 @@ weight, quantized whole by the training step's shadow):
   rows' left fold over K chunks is chained across the ranks (K2's fold
   kernel's ``rows_start``).
 
+* an expert linear (``mf_expert_linear``): under EP (``expert_group``)
+  a rank's experts are whole, so their scales and launches are local and
+  only the shared gamma's per-expert dgammas are all-gathered, in expert
+  order, and folded on every rank; under TP (``col_group``: every
+  expert's N split) each expert is a column-parallel linear, its max|G|
+  global over the model ranks and its dA chained across them, all the
+  experts' running sums in one chain (:func:`_expert_column_grads`).
+
 Each chain reproduces one rank's adds in one rank's order, so dA, dW and
 dgamma are one rank's bit for bit.
 """
@@ -218,49 +226,76 @@ class _MFLinear(torch.autograd.Function):
             da, dw, dgamma = ops.potq_grad_matmuls(
                 g2, aq.reshape(-1, k), wq, a=a2,
                 clip_t=None if amax is None else amax * gamma, amax=amax, **kw)
-        else:
-            da, dw, dgamma = _column_grads(g2, aq.reshape(-1, k), wq, a2, amax, gamma,
-                                           group, kw)
+        else:  # a stack of one column-parallel product
+            beta_g = kw.pop("beta_g")
+            da, dw, dgs = _column_grads(
+                g2[None], aq.reshape(-1, k)[None], wq[None], group, betas=[beta_g],
+                a=None if a2 is None else a2[None], amax=None if amax is None else amax[None],
+                gamma=gamma, **kw)
+            da, dw, dgamma = da[0], dw[0], None if dgs is None else dgs[0]
         dgamma = (torch.zeros_like(gamma) if dgamma is None
                   else dgamma.reshape(gamma.shape).to(gamma.dtype))
         return da.reshape(a.shape).to(a.dtype), dw, dgamma, None, None, None
 
 
-def _column_grads(g2, aq2, wq, a2, amax, gamma, group, kw):
-    """dA, dW and dgamma of a column-parallel linear (this rank's N columns
-    of G and Wq): K2 chained across ``group`` at whole 128-chunks a rank,
-    else over G and Wq gathered whole; K3 local."""
-    bits_g, beta_g = kw["bits_g"], kw["beta_g"]
+def _column_grads(g, aq, wq, group, *, betas, a, amax, gamma, bits_g, bits_a, bits_w,
+                  per_sample_act_scales=False):
+    """dA (E, M, K), dW (E, K, N) and the dgammas (E,) of a stack of E
+    column-parallel products (this rank's N columns of each G (E, M, N)
+    and Wq (E, K, N), the input whole on each rank; a linear is a stack of
+    one, an expert linear's experts each its own product): K2 chained
+    across ``group`` at whole 128-chunks a rank, every product's running
+    sum in one chain (each product's K2 continuing from its slice, the
+    PRC epilogue on the last rank), else over G and Wq gathered whole; K3
+    local.  ``betas``: each product's G scale; ``a`` (E, M, K) and
+    ``amax`` (E,) the PRC epilogue's (dgammas None without them)."""
+    e, m, n = g.shape
+    k = wq.shape[1]
     prc = amax is not None
-    m, (k, n) = g2.shape[0], wq.shape
-    da_kw = dict(bits_g=bits_g, bits_w=kw["bits_w"], beta_g=beta_g)
-    if prc:
-        da_kw["clip_t"] = amax * gamma
+
+    def da_kw(i, last):  # the PRC epilogue on the last rank only
+        kw = dict(bits_g=bits_g, bits_w=bits_w, beta_g=betas[i])
+        if prc and last:
+            kw.update(a=a[i], clip_t=amax[i] * gamma)
+        return kw
+
     if n % CANONICAL_BK == 0:
-        gq = ops.grad_prepass(g2, bits_g, beta_g)
+        gq = [ops.grad_prepass(g[i], bits_g, betas[i]) for i in range(e)]
 
-        def partial(start, last):  # the PRC epilogue on the last rank only
-            kw_r = da_kw if last else dict(da_kw, clip_t=None)
-            da, rows = ops.grad_da_matmul(g2, wq, a=a2 if last else None, gq=gq, start=start,
-                                          last=last, **kw_r)
-            return torch.cat([da.reshape(-1), rows]) if rows is not None else da
+        def partial(start, last):
+            outs = []
+            for i in range(e):
+                da, rows = ops.grad_da_matmul(g[i], wq[i], gq=gq[i], last=last,
+                                              start=None if start is None else start[i],
+                                              **da_kw(i, last))
+                outs.append(torch.cat([da.reshape(-1), rows]) if rows is not None else da)
+            return torch.stack(outs)
 
-        out = collectives.chained(partial, (m, k), g2.device, group,
-                                  last_shape=(m * k + m,) if prc else None,
-                                  counter="bwd_folds")
-        da = out.reshape(-1)[:m * k].reshape(m, k)
-        rows = out.reshape(-1)[m * k:] if prc else None
-        gq_mine = gq
+        out = collectives.chained(partial, (e, m, k), g.device, group,
+                                  last_shape=(e, m * k + m) if prc else None,
+                                  counter="bwd_folds").reshape(e, -1)
+        da = out[:, :m * k].reshape(e, m, k)
+        rows = out[:, m * k:] if prc else None
     else:
-        g_all = torch.cat(collectives.all_gather(g2, group), dim=1)
-        w_all = torch.cat(collectives.all_gather(wq.to(torch.float32), group), dim=1)
-        gq_all = ops.grad_prepass(g_all, bits_g, beta_g)
-        da, rows = ops.grad_da_matmul(g_all, w_all, a=a2, gq=gq_all, **da_kw)
+        g_all = torch.cat(collectives.all_gather(g, group), dim=2)
+        w_all = torch.cat(collectives.all_gather(wq.to(torch.float32), group), dim=2)
         r = dist.get_rank(group)
-        gq_mine = None if gq_all is None else gq_all[:, r * n:(r + 1) * n].contiguous()
-    dw = ops.grad_dw_matmul(g2, aq2, bits_g=bits_g, bits_a=kw["bits_a"], beta_g=beta_g,
-                            per_sample_act_scales=kw["per_sample_act_scales"], gq=gq_mine)
-    return da, dw, None if rows is None else halves_fold(rows) * amax
+        das, rows, gq = [], [], []
+        for i in range(e):
+            gq_all = ops.grad_prepass(g_all[i], bits_g, betas[i])
+            da, rw = ops.grad_da_matmul(g_all[i], w_all[i], gq=gq_all, **da_kw(i, True))
+            das.append(da)
+            rows.append(rw)
+            gq.append(None if gq_all is None else gq_all[:, r * n:(r + 1) * n].contiguous())
+        da = torch.stack(das)
+        rows = torch.stack(rows) if prc else None
+    dw = torch.stack([ops.grad_dw_matmul(g[i], aq[i], bits_g=bits_g, bits_a=bits_a,
+                                         beta_g=betas[i], gq=gq[i],
+                                         per_sample_act_scales=per_sample_act_scales)
+                      for i in range(e)])
+    dgs = None if rows is None else torch.stack([halves_fold(rows[i]) * amax[i]
+                                                 for i in range(e)])
+    return da, dw, dgs
 
 
 class _RowParallel(torch.autograd.Function):
@@ -365,35 +400,61 @@ class _MFExpertLinear(torch.autograd.Function):
     """a[E, T, K] @ w[E, K, N], scales per expert (axes (1, 2)): forward
     through one K1 launch, backward through K2 and K3 once per expert.
     Under data-parallel training an expert's rows lie on every data rank:
-    its activation amax, PRC threshold and max|G| are global maxima."""
+    its activation amax, PRC threshold and max|G| are global maxima.
+
+    On a model axis (:func:`mf_expert_linear`): ``expert_group``, this
+    rank's experts of the layer's whole ones (EP); their scales and
+    launches are local, and the per-expert dgammas of every rank are
+    all-gathered in rank order (expert order) and folded on each, so the
+    shared gamma's gradient is one rank's.  ``col_group``: every expert's
+    N split (TP; :func:`_expert_column_grads`)."""
 
     @staticmethod
-    def forward(ctx, a, w, gamma, policy: QuantPolicy):
+    def forward(ctx, a, w, gamma, policy: QuantPolicy, expert_group=None, col_group=None):
         aq = _quantize_a(a, gamma, policy, axes=(1, 2), rows_split=True)
         wq = _quantize_w(w, policy, axes=(1, 2))
         out = _pot_bmm(aq, wq, policy)
-        ctx.policy = policy
+        ctx.policy, ctx.expert_group, ctx.col_group = policy, expert_group, col_group
         ctx.save_for_backward(a, aq, wq, gamma)
         return out.to(a.dtype)
 
     @staticmethod
     def backward(ctx, g):
         a, aq, wq, gamma = ctx.saved_tensors
-        policy = ctx.policy
+        policy, col = ctx.policy, ctx.col_group
         dgroup = actshard.batch_group()
         g = g.to(torch.float32)
-        gmax = collectives.all_reduce_max(g.abs().amax(dim=(1, 2)), dgroup)
+        # a rank holds some of each expert's columns under TP: max|G| over
+        # the model ranks too
+        gmax = collectives.all_reduce_max(
+            collectives.all_reduce_max(g.abs().amax(dim=(1, 2)), dgroup), col)
         amax = None
         if policy.prc_enabled:
             amax = collectives.all_reduce_max(a.to(torch.float32).abs().amax(dim=(1, 2)),
                                               dgroup)
         # experts get bits_g, never bits_g_last (the reference's choice)
-        da, dw, dgamma = ops.potq_expert_grad_matmuls(
-            g, aq, wq, gmax=gmax, a=a if policy.prc_enabled else None, gamma=gamma,
-            amax=amax, bits_g=policy.bits_g, bits_a=policy.bits_a, bits_w=policy.bits_w)
-        if dgamma is None:
+        kw = dict(gmax=gmax, a=a if policy.prc_enabled else None, gamma=gamma, amax=amax,
+                  bits_g=policy.bits_g, bits_a=policy.bits_a, bits_w=policy.bits_w)
+        if col is None:
+            da, dw, dgs = ops.potq_expert_grad_matmuls(g, aq, wq, **kw)
+        else:
+            da, dw, dgs = _expert_column_grads(g, aq, wq, col, **kw)
+        if dgs is None:
             dgamma = torch.zeros_like(gamma)
-        return da.to(a.dtype), dw, dgamma.reshape(gamma.shape).to(gamma.dtype), None
+        else:  # the experts' dgammas in expert order, folded
+            dgamma = halves_fold(torch.cat(collectives.all_gather(dgs, ctx.expert_group)))
+        return (da.to(a.dtype), dw, dgamma.reshape(gamma.shape).to(gamma.dtype), None, None,
+                None)
+
+
+def _expert_column_grads(g, aq, wq, group, *, gmax, a, gamma, amax, bits_g, bits_a, bits_w):
+    """dA, dW and the per-expert dgammas of an expert linear whose N is
+    split over ``group``: :func:`_column_grads` over its experts, each
+    with its own G scale from ``gmax``."""
+    return _column_grads(g, aq, wq, group,
+                         betas=[potq.beta_of_amax(gmax[i], bits_g) for i in range(g.shape[0])],
+                         a=None if a is None else a.to(torch.float32), amax=amax,
+                         gamma=gamma, bits_g=bits_g, bits_a=bits_a, bits_w=bits_w)
 
 
 def _expert_per_slot(a, w, gamma, policy: QuantPolicy) -> torch.Tensor:
@@ -415,12 +476,18 @@ def mf_expert_linear(
     *,
     policy: QuantPolicy,
     per_slot: bool = False,
+    expert_group=None,
+    col_group=None,
 ) -> torch.Tensor:
     """Quantized (or plain, if ``policy.enabled=False``) a[E, T, K] @
     w[E, K, N], each expert its own layer.  ``per_slot`` takes a[E, G, C,
     K] and gives every (expert, slot) its own activation scale (serving's
     per-slot dispatch); it has no backward, as the reference only runs it
-    in serving steps.  dW comes back in float32."""
+    in serving steps.  dW comes back in float32.  The backward's groups
+    (tensor-parallel training, :class:`_MFExpertLinear`):
+    ``expert_group``, the layer's experts split over its ranks (``a`` and
+    ``w`` this rank's); ``col_group``, every expert's N split over its
+    ranks (``w`` this rank's columns, ``a`` whole on each)."""
     if not policy.enabled:
         # one (rows, K) @ (K, N) product per expert (and slot), so a
         # matrix's reduction never depends on the batch around it
@@ -437,7 +504,7 @@ def mf_expert_linear(
         if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
             raise ValueError("mf_expert_linear(per_slot=True) has no backward")
         return _expert_per_slot(a, w, gamma, policy)
-    return _MFExpertLinear.apply(a, w, gamma, policy)
+    return _MFExpertLinear.apply(a, w, gamma, policy, expert_group, col_group)
 
 
 # ---------------------------------------------------------------------------

@@ -258,9 +258,9 @@ def potq_expert_grad_matmuls(
     ``amax`` (E,) are each expert's max|g| and max|a| over every rank that
     holds some of its rows (one rank: its own).
 
-    Returns ``(da (E, M, K), dw (E, K, N), dgamma)``: dgamma, the sum of
-    the experts' dgammas in :func:`ref.halves_fold`'s order, is None with
-    PRC off."""
+    Returns ``(da (E, M, K), dw (E, K, N), dgammas (E,))``: each expert's
+    dgamma, unfolded (the layer's gamma takes their :func:`ref.halves_fold`,
+    over every rank's experts where they are split), None with PRC off."""
     kw = dict(bits_g=bits_g, bits_a=bits_a, bits_w=bits_w)
     das, dws, dgs = [], [], []
     for e in range(g.shape[0]):
@@ -273,8 +273,7 @@ def potq_expert_grad_matmuls(
             da, dw, _ = potq_grad_matmuls(g[e], aq[e], wq[e], **kw)
         das.append(da)
         dws.append(dw)
-    dgamma = ref.halves_fold(torch.stack(dgs)) if dgs else None
-    return torch.stack(das), torch.stack(dws), dgamma
+    return torch.stack(das), torch.stack(dws), torch.stack(dgs) if dgs else None
 
 
 def potq_encode(x: torch.Tensor, bits: int = 5):

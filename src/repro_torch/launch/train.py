@@ -37,11 +37,13 @@ ranks share a card or on the CPU).  Each rank draws the whole seed-0
 parameters, keeps its shards (``train.step.DataParallel``) and steps on
 its rows of the batch (the model ranks of one data group on the same
 rows).  On (D, 1) every family trains so (a MoE batch's dispatch groups
-must not straddle two ranks).  On a model axis M > 1 the dense decoder,
-the vlm and the encdec train tensor-parallel (``train/step.py``;
+must not straddle two ranks).  On a model axis M > 1 the decoder, dense
+or MoE, the vlm and the encdec train tensor-parallel (``train/step.py``;
 ``--arch whisper-large-v3 --mesh 1x2`` or ``2x2``, ``--arch
 internvl2-76b --smoke --mesh 1x2`` or ``2x2``, their batches carrying
-frames or patch embeddings); the MoE decoder, the ssm and the hybrid are
+frames or patch embeddings; ``--arch llama4-scout-17b-a16e --smoke
+--mesh 1x2``, its experts under EP, or ``2x2`` with ``--batch 4 --seq
+256``, whole dispatch groups a data rank); the ssm and the hybrid are
 refused there (ROADMAP item 9.3b), and so are ``--microbatches`` > 1
 (9.4).  Checkpoints are gathered whole, a leaf at a time over the data
 and model ranks, and written by rank 0 in the reference's layout, so a

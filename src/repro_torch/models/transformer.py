@@ -60,8 +60,8 @@ gathered embeddings (:func:`embed_inputs`), so a patch request's solo
 prefill runs the backbone's hooks over them.  Without a plan every hook
 is the identity.
 
-Under autograd (tensor-parallel training of the dense decoder, the vlm
-and, through the same hooks, the encdec) the hooks keep the
+Under autograd (tensor-parallel training of the decoder, dense or MoE,
+the vlm and, through the same hooks, the encdec) the hooks keep the
 replicated-compute convention: every model rank holds the same
 replicated activations and computes the same loss from the gathered
 logits.  The gathers (the embedding's lookups, the head's logits, an input
@@ -77,7 +77,14 @@ under autograd, and every rank attends with the whole q over them, its
 heads cut from the output (:func:`_heads_whole`, :func:`_mine`): the
 attention's backward is one rank's on every rank, and wk and wv take one
 rank's gradient, replicated.  A vlm's ``patch_proj`` runs whole on every rank,
-its gradient replicated.
+its gradient replicated.  A MoE layer's router runs whole, its gradient
+replicated; under EP each token slot enters its expert's cells through
+``collectives.grad_from_owner`` and its ungated output is selected from
+its expert's rank (``collectives.select_from_owner``) before the gate,
+so the slots' and the gate's gradients are one rank's on every rank;
+under TP gate and up are column-parallel per expert (K2 chained across
+the ranks) and down runs whole over the gathered hidden state
+(:func:`_moe_apply`).
 
 Under data-parallel training (``parallel/actshard.batch_group``) a MoE
 layer's dispatch groups are the global batch's: the group size comes
@@ -442,11 +449,17 @@ def _moe_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, group_size: int = 51
 
     On a model axis every rank routes the whole layer (its input and the
     router are the same on each).  Under EP a rank fills only its own
-    experts' cells and runs them; each token slot's gated output is then
-    taken from the rank that owns its expert (all-gathered and selected,
-    never summed with zeros), so the top-k sum keeps one rank's bits.
-    Under TP each rank runs gate and up over its slice of the hidden
-    width, and the down projection over the all-gathered hidden state."""
+    experts' cells and runs them; each token slot's ungated output is then
+    taken from the rank that owns its expert
+    (``collectives.select_from_owner``: all-gathered and selected, never
+    summed with zeros) and gated on every rank, so the top-k sum keeps one
+    rank's bits.  Under autograd the slots enter the cells through
+    ``collectives.grad_from_owner``: each slot's input gradient comes from
+    its expert's rank, and the gate's (the router's) is one rank's,
+    replicated.  Under TP each rank runs gate and up over its slice of the
+    hidden width (column-parallel per expert, K2 chained across the ranks,
+    ``core/mfmac.py``), and the down projection over the all-gathered
+    hidden state."""
     m = cfg.moe
     b, s, d = x.shape
     if per_slot:
@@ -473,32 +486,38 @@ def _moe_apply(cfg: ModelConfig, policy: QuantPolicy, p, x, group_size: int = 51
     grp = torch.arange(g, device=x.device)[:, None]
     dead = el * g * cap
     live = keep & (gate > 0)
+    owner = expert // el if mode == "EP" else None  # the rank of each slot's expert
     if mode == "EP":  # this rank's experts' cells only
-        live &= (expert >= lo) & (expert < lo + el)
+        live &= owner == tp.rank
+        xk = collectives.grad_from_owner(xk, owner, tp.group)
     cell = torch.where(live, ((expert - lo) * g + grp) * cap + pos, dead)
     buf = x.new_zeros((dead + 1, d)).index_put((cell.reshape(-1),), xk.reshape(-1, d))
     ein = buf[:dead].reshape(el, g, cap, d)
     if not per_slot:
         ein = ein.reshape(el, g * cap, d)
 
-    def ffn(name, h):
+    # the backward's groups: the experts split over the model ranks (EP),
+    # or gate's and up's hidden width (TP)
+    experts_group = tp.group if mode == "EP" else None
+    cols = tp.group if mode == "TP" else None
+
+    def ffn(name, h, col_group=None):
         q = p[name]
-        return mfmac.mf_expert_linear(h, q["w"], q["gamma"], policy=policy, per_slot=per_slot)
+        return mfmac.mf_expert_linear(h, q["w"], q["gamma"], policy=policy, per_slot=per_slot,
+                                      expert_group=experts_group, col_group=col_group)
 
     if cfg.act == "swiglu":
-        h = F.silu(ffn("gate", ein).to(torch.float32)).to(x.dtype) * ffn("up", ein)
+        h = F.silu(ffn("gate", ein, cols).to(torch.float32)).to(x.dtype) * ffn("up", ein, cols)
     else:
-        h = common.gelu(ffn("gate", ein))
+        h = common.gelu(ffn("gate", ein, cols))
     if mode == "TP":
         h = _gather_cols(h, tp.group)
     eout = ffn("down", h).reshape(dead, d)
     eout = torch.cat([eout, eout.new_zeros((1, d))])
-    out = (eout[cell].to(torch.float32)
-           * torch.where(keep, gate, 0.0)[..., None]).to(x.dtype)  # (G, T*k, D)
-    if mode == "EP":  # each slot from its expert's rank
-        stacked = torch.stack(collectives.all_gather(out, tp.group))
-        idx = (expert // el)[None, ..., None].expand((1,) + tuple(out.shape))
-        out = torch.gather(stacked, 0, idx)[0]
+    rows = eout[cell]  # (G, T*k, D)
+    if mode == "EP":  # each slot's from its expert's rank
+        rows = collectives.select_from_owner(rows, owner, tp.group)
+    out = (rows.to(torch.float32) * torch.where(keep, gate, 0.0)[..., None]).to(x.dtype)
     if k > 1:
         out = out.reshape(g, t, k, d).sum(dim=2)
     out = out.reshape(b, s, d)

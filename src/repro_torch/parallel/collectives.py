@@ -46,6 +46,14 @@ the same ops on them, so the same backward):
   every rank holds alike (the attention output of K/V heads selected from
   a whole product, ``models/transformer._heads_whole``); its backward
   all-gathers every rank's slice gradient into the whole, replicated one;
+* :func:`select_from_owner`: each row of a tensor from the rank that owns
+  it (a MoE layer's expert outputs under EP, each token slot's from its
+  expert's rank): all-gathered and selected, never summed with zeros; its
+  backward keeps this rank's rows of the gradient, zero elsewhere;
+* :func:`grad_from_owner`, its mirror: the identity on a tensor every
+  rank holds alike (the slots dispatched to the experts), whose backward
+  all-gathers every rank's gradient and takes each row from its owner's,
+  so the rows' gradient is one rank's on every rank;
 * :func:`chained`: the fold of :func:`ordered_fold` for any running sum,
   the backward's chains of ``core/mfmac.py``: K2's dA fold over a
   column-parallel linear's split N (the column-parallel input's "copy
@@ -60,8 +68,9 @@ every rank, and remat (``torch.utils.checkpoint``) re-runs a layer's
 forward, its amax all-reduces and folds included, on every rank alike.
 
 :data:`stats` counts calls, bytes and host seconds spent in the ops, the
-forward's row-parallel folds (``folds``) and the backward's chains
-(``bwd_folds``).
+forward's row-parallel folds (``folds``), the backward's chains
+(``bwd_folds``) and the owner selections (``selects``: a forward
+:func:`select_from_owner`, a backward :func:`grad_from_owner`).
 :func:`spawn` runs a function on N ranks of a fresh world (the CPU tests,
 ``parallel/smoke.py``, the card's two-rank phases).
 """
@@ -79,14 +88,14 @@ import torch.distributed as dist
 #: calls, bytes moved and host seconds spent in this module's ops since
 #: the last :func:`reset_stats`
 stats: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0, "folds": 0,
-                           "bwd_folds": 0}
+                           "bwd_folds": 0, "selects": 0}
 _STATE: Dict = {"backend": None, "cuda_ops": None}
 _GROUPS: Dict = {}
 _OPS = ("all_reduce", "all_gather", "broadcast")
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0, folds=0, bwd_folds=0)
+    stats.update(calls=0, bytes=0, seconds=0.0, folds=0, bwd_folds=0, selects=0)
 
 
 def world_size() -> int:
@@ -360,6 +369,65 @@ def slice_replicated(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     if group is None:
         return x
     return _SliceReplicated.apply(x, group, dim)
+
+
+def _take_owned(x: torch.Tensor, owner: torch.Tensor, group) -> torch.Tensor:
+    """Each row of ``x`` (``owner``'s shape, plus a trailing feature dim)
+    from the group rank ``owner`` names: every rank's ``x`` all-gathered in
+    rank order and gathered along the rank axis (exact: no sum)."""
+    stats["selects"] += 1
+    stacked = torch.stack(all_gather(x.contiguous(), group))
+    idx = owner[None, ..., None].expand((1,) + tuple(x.shape))
+    return torch.gather(stacked, 0, idx)[0]
+
+
+class _SelectFromOwner(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, owner, group):
+        ctx.save_for_backward(owner)
+        ctx.group = group
+        return _take_owned(x, owner, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        (owner,) = ctx.saved_tensors
+        mine = (owner == dist.get_rank(ctx.group))[..., None]
+        return torch.where(mine, g, torch.zeros_like(g)), None, None
+
+
+def select_from_owner(x: torch.Tensor, owner: torch.Tensor, group) -> torch.Tensor:
+    """Row ``i`` of group rank ``owner[i]``'s ``x``, on every rank (``x``
+    (..., D), ``owner`` (...) of group ranks, the same on every rank).
+    Its backward keeps this rank's rows of the gradient (which is the same
+    on every rank) and zeros the rest: each row's gradient reaches its
+    owner alone, summed with nothing.  The identity without a group."""
+    if group is None:
+        return x
+    return _SelectFromOwner.apply(x, owner, group)
+
+
+class _GradFromOwner(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, owner, group):
+        ctx.save_for_backward(owner)
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (owner,) = ctx.saved_tensors
+        return _take_owned(g, owner, ctx.group), None, None
+
+
+def grad_from_owner(x: torch.Tensor, owner: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself (the same on every rank), the mirror of
+    :func:`select_from_owner`: its backward all-gathers every rank's
+    gradient and takes row ``i`` from group rank ``owner[i]``'s, so each
+    row's gradient is its owner's on every rank.  The identity without a
+    group."""
+    if group is None:
+        return x
+    return _GradFromOwner.apply(x, owner, group)
 
 
 # ---------------------------------------------------------------------------

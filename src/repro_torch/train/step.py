@@ -45,32 +45,37 @@ activation scales, like every other per-tensor one, are the global
 batch's.  The ssm and the hybrid (a tuple of per-layer dicts, split
 leaf by leaf, ``layers/<i>/...``) train the same way too.
 
-Tensor-parallel (a (D, M) mesh with M > 1; the dense decoder, the vlm
-and the encdec).  Each rank holds its model shard of every leaf the
-runtime splits (``plan.shard_leaf``: q and the K/V heads, the MLP's
+Tensor-parallel (a (D, M) mesh with M > 1; the decoder, dense or MoE,
+the vlm and the encdec).  Each rank holds its model shard of every leaf
+the runtime splits (``plan.shard_leaf``: q and the K/V heads, the MLP's
 hidden width, the vocabulary; ``wo`` and the down projection along their
-contraction; an encdec's ``enc_layers/...`` and ``dec_layers/...`` by
+contraction; a MoE layer's experts under EP (``experts_local`` whole
+experts of gate, up and down) or, under TP, gate's and up's hidden width
+(down whole); an encdec's ``enc_layers/...`` and ``dec_layers/...`` by
 the same rules, its cross attention's ``cq``/``ck``/``cv``/``co`` as
 ``wq``/``wk``/``wv``/``wo``), split in turn over the data ranks as
 above; leaves replicated on the model axis stay whole there: each
-linear's ``gamma``, the norms, K/V heads selected from a whole product
-(``kv == 'select'``), a vlm's ``patch_proj``, an encdec's
-``frame_proj``, ``enc_pos`` and tied embedding.  The shadow quantizes
-each matrix whole, one leaf at a time: gathered over the data and model
-ranks, quantized (the reference's WBC mean and scale, per layer for a
-stacked leaf), and this rank's shard kept.  The forward and backward run
-with the plan's local config through the model-axis hooks
+linear's ``gamma``, the norms, the router, TP's down projection, K/V
+heads selected from a whole product (``kv == 'select'``), a vlm's
+``patch_proj``, an encdec's ``frame_proj``, ``enc_pos`` and tied
+embedding.  The shadow quantizes each matrix whole, one leaf at a time:
+gathered over the data and model ranks, quantized (the reference's WBC
+mean and scale, a matrix at a time for a stacked leaf), and this rank's
+shard kept; a leaf split along its stack of matrices (EP's experts) is
+quantized on its shard, whose matrices are whole.  The forward and
+backward run with the plan's local config through the model-axis hooks
 (``models/transformer.py``, ``models/encdec.py``; K2 chained across the
-ranks, ``core/mfmac.py``), so every rank computes the same loss and the
-same replicated gradients; a split leaf's gradient is this rank's slice
-of one rank's.  The gradients are summed over the data group only (a
-replicated leaf's is the same on every model rank), and ``global_norm``
-sums the split leaves' squares over the groups they are split over,
-counting a replicated leaf once.  On (1, M) the losses and every
-gradient are one rank's bit for bit.  Refused on a model axis: the MoE
-decoder, the ssm and the hybrid (ROADMAP item 9.3b), microbatches > 1
-and ``weight_shadow=False`` (9.4).  Microbatching is refused on any
-sharded plan.
+ranks, ``core/mfmac.py``; a MoE layer's owner selections,
+``parallel/collectives.py``), so every rank computes the same loss and
+the same replicated gradients; a split leaf's gradient is this rank's
+slice of one rank's.  The gradients are summed over the data group only
+(a replicated leaf's is the same on every model rank), and
+``global_norm`` sums the split leaves' squares over the groups they are
+split over, counting a replicated leaf once.  On (1, M) the losses and
+every gradient are one rank's bit for bit.  Refused on a model axis: the
+ssm and the hybrid (ROADMAP item 9.3b), microbatches > 1 and
+``weight_shadow=False`` (9.4).  Microbatching is refused on any sharded
+plan.
 """
 from __future__ import annotations
 
@@ -119,10 +124,17 @@ def _is_weight(name: str, x: torch.Tensor) -> bool:
 
 def _quantize_leaf(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
     """One whole linear weight's shadow: WBC + ALS-PoTQ to its exact PoT
-    values in float32; a stacked (L, K, N) leaf per layer (mean and beta
-    over the last two axes)."""
-    axes = (x.dim() - 2, x.dim() - 1) if x.dim() > 2 else None
-    return mfmac._quantize_w(x, policy, axes).to(torch.float32)
+    values in float32; a stacked (L, K, N) or (L, E, K, N) leaf per
+    matrix, one matrix at a time, as ``mf_linear`` quantizes a layer's
+    matrix at use: a matrix's bits never depend on the stack around it
+    (so a rank's experts quantize on their shard as in the whole leaf),
+    and the temporaries stay one matrix's."""
+    if x.dim() == 2:
+        return mfmac._quantize_w(x, policy).to(torch.float32)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    for m, q in zip(x.reshape((-1,) + x.shape[-2:]), out.view((-1,) + x.shape[-2:])):
+        q.copy_(mfmac._quantize_w(m, policy))
+    return out
 
 
 def _quantize_shadow(params, policy: QuantPolicy):
@@ -160,19 +172,18 @@ def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
     return value_and_grad(lambda p: registry.loss_fn(cfg, policy, p, batch), params)
 
 
-#: the families that train on a model axis > 1 (the decoder dense only)
+#: the families that train on a model axis > 1 (the decoder dense or MoE)
 MODEL_AXIS_FAMILIES = ("decoder", "vlm", "encdec")
 
 
 def check_model_axis(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` trains on a model axis > 1 (the dense decoder,
-    the vlm, the encdec)."""
-    if cfg.family not in MODEL_AXIS_FAMILIES or cfg.moe is not None:
-        kind = "MoE decoder" if cfg.moe is not None else cfg.family
+    """Raise unless ``cfg`` trains on a model axis > 1 (the decoder, dense
+    or MoE, the vlm, the encdec)."""
+    if cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
-            f"training the {kind} family ({cfg.name}) on a model axis > 1 is not ported yet "
-            "(ROADMAP item 9.3b: the other families under tensor-parallel training); train "
-            "it on a (D, 1) mesh")
+            f"training the {cfg.family} family ({cfg.name}) on a model axis > 1 is not "
+            "ported yet (ROADMAP item 9.3b: the ssm and the hybrid under tensor-parallel "
+            "training); train it on a (D, 1) mesh")
 
 
 class DataParallel:
@@ -238,15 +249,17 @@ class DataParallel:
         leaf whole over the data ranks (this rank's model shard); with
         ``policy`` (the weight shadow) every linear weight quantized whole
         (:func:`_quantize_shadow`'s rule, gathered over the model ranks
-        too) and this rank's shard of it kept."""
+        too) and this rank's shard of it kept.  A leaf split over the model
+        ranks along its stack of matrices (a MoE layer's experts under EP)
+        is quantized on its shard: its quantizer groups are per matrix."""
         def one(n, x, d, m):
             if d is not None:
                 x = torch.cat(collectives.all_gather(x, self.group), dim=d)
             if policy is None or not _is_weight(n, x):
                 return x
-            whole = x if m is None else self._whole(x, None, m)
-            q = _quantize_leaf(whole, policy)
-            return q if m is None else self.plan.shard_leaf(n, q)
+            if m is None or m < x.dim() - 2:
+                return _quantize_leaf(x, policy)
+            return self.plan.shard_leaf(n, _quantize_leaf(self._whole(x, None, m), policy))
 
         return unflatten((n, one(n, x, d, m)) for n, x, d, m in self._dims(params, 0))
 
