@@ -105,16 +105,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     no element differs);
 17. CUDA vs CPU at smoke width: pack_int8 code for code and beta for
     beta; checkpoints written from one device restore on the other;
-19. chunked + paged serving at llama3-8b's widths and 4 of its layers
+19. chunked + paged serving at llama3-8b's widths and 2 of its layers
     (``PAGED_LAYERS``: 8 since phase 37 took the script to 980.6 s, 4
-    since phase 37q; the serve cell's weights and trace): engine A (4 slots, chunk 32, page 16) is the main
+    from phase 37q, 2 since 37r; the serve cell's weights and trace): engine A (4 slots, chunk 32, page 16) is the main
     path, its launch counts set to 0 just before and read just after; B
     (page = span) and C (each request alone, chunk 32) give A's tokens bit
     for bit; A's counters (weight passes, decode steps, prefills, emitted
     tokens, per-request TTFT in passes, admission deferrals) equal a CPU
     run of the port at smoke width on the same requests (token ids modulo
     the smoke vocab); a chunk-step decode row equals ``decode_step`` in
-    logits and cache bytes; K1 launches once a linear (29 at 4 layers)
+    logits and cache bytes; K1 launches once a linear (15 at 2 layers)
     per chunk step and per decode step; tokens/s, TTFT in passes and ms, chunk- and decode-step
     wall times, one profiled chunk step (M = 128);
 20. the prefix cache at phase 19's depth (shared_prefix_trace: 8 requests,
@@ -123,17 +123,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     and both runs' counters (prefix hits, copies on write and evictions
     included) equal the CPU smoke-width run's;
 21. PoT-quantized KV pages (``KV_PINNED``) on phase 19's engine and trace,
-    at llama3-8b's widths and 4 of its layers (``KVQ_LAYERS``, to keep
-    the script inside its time limit; 8 before phase 37p): A (page 16) is the
+    at llama3-8b's widths and 2 of its layers (``KVQ_LAYERS``, to keep
+    the script inside its time limit; 8 before phase 37p, 4 before 37r): A (page 16) is the
     main path; B (page = span) and C (each request alone) give A's tokens
     bit for bit; A's counters equal the CPU smoke-width run's;
-    ``kv_page_bytes`` is 66,048 (528,384 at 32 layers); a chunk-step
+    ``kv_page_bytes`` is 33,024 (528,384 at 32 layers); a chunk-step
     decode row equals ``decode_step`` in logits and every cache leaf
-    (codes and betas); K1 launches 29 times per weight pass; tokens/s, TTFT, KV bytes per token
+    (codes and betas); K1 launches 15 times per weight pass; tokens/s, TTFT, KV bytes per token
     beside phase 19's bf16 figure at that depth, peak memory, a profiled
     decode step;
 22. speculative decoding on the same engine at llama3-8b's widths and
-    2 of its layers (``SPEC_LAYERS``; 4 before phase 37p): ``NgramDrafter(3)``
+    1 of its layers (``SPEC_LAYERS``; 4 before phase 37p, 2 before 37r): ``NgramDrafter(3)``
     and ``LowBitSelfDraft(3, 3)`` over bf16 pages and the self-draft over quantized pages give the
     tokens of their spec-off runs at that depth, bit for bit, in no more
     weight passes; K1 launches once a linear per verify pass and per
@@ -144,16 +144,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     passes, tokens/s, a profiled verify pass and draft step, and the
     draft's weight re-quantizations timed alone;
 23. lockstep serving and float32 pages at llama3-8b's widths and
-    ``LOCKSTEP_LAYERS`` (8) of its layers (32 before), on the
+    ``LOCKSTEP_LAYERS`` (4) of its layers (32, then 8 before), on the
     serve trace's first 4 requests: ``lockstep_generate`` serves them as
     one wave (one batched prefill, then lockstep steps to the longest
-    output; 57 K1 launches a weight pass); request 0 by batch-1
+    output; 29 K1 launches a weight pass); request 0 by batch-1
     lockstep equals its tokens from a solo-prefill pool (page 16), bit
     for bit; a ``cache_dtype=torch.float32`` chunked (32) + paged (16)
     engine gives each request's tokens alone, its counters equal the CPU
     smoke-width run's and ``kv_page_bytes`` is twice bf16's;
-24. mistral-nemo-12b and 25. starcoder2-7b at full width and 8 of their
-    40 and 32 layers (``OTHER_LAYERS``; weights from seed 0,
+24. mistral-nemo-12b and 25. starcoder2-7b at full width and 4 of their
+    40 and 32 layers (``OTHER_LAYERS``; 8 before phase 37r; weights from seed 0,
     llama3-8b's freed first), each through phase 19's engine on
     ``poisson_trace(4 requests, prompt 128, lam 2.0, 8-16 new, seed 0)``:
     A is the main path (its implicit host syncs counted under PyTorch's
@@ -175,17 +175,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     the card against the CPU (losses, the first step's gradients), the
     last step run twice bit for bit, and its K1/K2/K3/pre-pass launches
     equal to ``step_launches`` (the experts' backward once per expert);
-29. internvl2-76b (vlm) at its published widths and 16 of its 80 layers,
-    and 30. whisper-large-v3 (encdec) at full width, 8 of its 32 decoder
-    layers (``ENCDEC_LAYERS``) and the whole encoder, through
+29. internvl2-76b (vlm) at its published widths and ``VLM_LAYERS`` (8;
+    16 before phase 37r) of its 80 layers, and 30. whisper-large-v3
+    (encdec) at full width, ``ENCDEC_LAYERS`` (4; 8 before phase 37r) of
+    its 32 decoder layers and the whole encoder, through
     phase 24's engine and gates (A = C, counters = the CPU smoke-width
     run's, no implicit host sync, a chunk-step decode row =
     ``decode_step``, peak under ``MOE_PEAK_GIB``): internvl2's requests
     carry 256 patch embeddings of 3200 (max_len 400) and solo-prefill,
-    K1 113 a weight pass and one patch_proj more a prefill; whisper
+    K1 57 a weight pass and one patch_proj more a prefill; whisper
     serves ``ENCDEC_TRACE`` (prompt 16, 16-32 new, 1500 x 128 frames,
     max_len 64), each admission one encoder-side pass
-    (``registry.encode_cross_kv``), K1 65 a decode or chunk pass and 209
+    (``registry.encode_cross_kv``), K1 33 a decode or chunk pass and 201
     an encoder-side pass (257 each at all 32 decoder layers); the
     encoder-side pass timed and profiled against its FP64 tensor-core
     bound;
@@ -199,13 +200,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     GiB, a profiled step (K1, K2, K3 device ms beside their FP64
     tensor-core bounds) and one step run twice bit for bit;
 32. mamba2-2.7b (ssm) and 33. recurrentgemma-2b (hybrid: RG-LRU and
-    local attention) at full width and depth (weights from seed 0, drawn
-    leaf by leaf into served form) through ``PoolEngine(max_slots=4)`` on
+    local attention) at full width and ``RECURRENT_SERVE_LAYERS`` (8 of
+    64, 6 of 26) layers (all of them before phase 37r; weights from seed
+    0, drawn leaf by leaf into served form) through ``PoolEngine(max_slots=4)`` on
     the slot-row pool (no pages; solo-prefill admissions) on
     ``RECURRENT_TRACE`` (4 requests, 8-16 new; prompts of 512 and 128):
     A is the main path (no implicit host sync by the port); C (each
     request alone) gives A's tokens bit for bit; A's counters equal the
-    CPU smoke-width run's; K1 launches 129 / 201 times a weight pass, in
+    CPU smoke-width run's; K1 launches 17 / 47 times a weight pass, in
     a solo prefill and in a decode step; tokens/s, TTFT in passes and ms,
     prefill and decode-step wall times, one profiled decode step (kernels,
     K1 device ms beside its bytes bound, idle share), the state bytes a
@@ -241,13 +243,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 37. multi-GPU on ``torch.distributed``: two ranks spawned on the one card
     (gloo: ranks share the card), the parent holding no model meanwhile
     (``multi_gpu``): 37a llama3-8b at full width and ``TP_SERVE_LAYERS``
-    (4) layers on the (1, 2) mesh through phase 5's engine and trace
+    (2) layers on the (1, 2) mesh through phase 5's engine and trace
     against one rank (tokens and counters, K1 once a linear shard a
     weight pass on each rank, row-parallel folds counted, tokens/s, a
     decode step's wall and device times, each rank's weight bytes, the
     collectives' share),
     37b the (2, 1) mesh at 4 layers against one rank, 37c olmo-1b at its
-    published widths and ``DP_TRAIN_LAYERS`` (4) of its 16 layers
+    published widths and ``DP_TRAIN_LAYERS`` (2) of its 16 layers
     data-parallel at batch 4 x 512, 2 steps, against one rank (first-step
     per-token losses bit for bit, launches a step, peaks), 37d
     ``compressed_psum`` on CUDA tensors; 37e grok-1-314b at its published
@@ -261,8 +263,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     4 x 256 against one rank (first-step per-token losses bit for bit,
     launches a step equal), 37h internvl2-76b at its published widths and
     ``VLM_LAYERS`` layers on (1, 2) through phase 29's engine and trace
-    (tokens = phase 29's, K1 113 a weight pass a rank and one patch_proj
-    a solo prefill, 32 folds a pass), 37i whisper-large-v3 at
+    (tokens = phase 29's, K1 57 a weight pass a rank and one patch_proj
+    a solo prefill, 16 folds a pass), 37i whisper-large-v3 at
     ``ENCDEC_LAYERS`` decoder layers and the whole encoder on (1, 2)
     through phase 30's (tokens = phase 30's, K1 65 a decode pass and 209
     an encoder-side pass a rank, 24 and 64 folds, 10 of the 20 (cross)
@@ -281,14 +283,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     the same way through phase 33's (RG-LRU channels, MLP, q heads and the
     vocabulary split, the one K/V head whole; K1 47 a pass a rank, 12
     folds), 37n both recurrent smoke configs and mamba2-2.7b at its
-    published widths and ``SSM_DP_LAYERS`` (4) layers at batch 2 x 512
+    published widths and ``SSM_DP_LAYERS`` (2) layers at batch 2 x 512
     data-parallel on (2, 1) against one rank (as 37k), 37o (a) olmo-1b at
-    its published widths and ``TP_TRAIN_LAYERS`` (4) of its 16 layers
+    its published widths and ``TP_TRAIN_LAYERS`` (2) of its 16 layers
     tensor-parallel on (1, 2) (K2 chained across the ranks) at batch 4 x
     512, AdamW, remat, 2 steps, against one rank at that depth (first-step
     per-token losses and every gradient leaf's shard bit for bit, the
-    second loss within ``LOSS_RTOL``, K1 / K2 / K3 / pre-pass 57 / 29 / 29
-    / 29 a step a rank, 16 forward folds and 29 backward chains a step,
+    second loss within ``LOSS_RTOL``, K1 / K2 / K3 / pre-pass 29 / 15 / 15
+    / 15 a step a rank, 8 forward folds and 15 backward chains a step,
     no implicit host sync outside the collectives; step seconds, the
     collectives' share, master and optimizer bytes and device busy a step
     a rank, and the seconds of the shadow alone and of the shadow and the
@@ -296,11 +298,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     on the card, 4 x 64, 3 steps, against one rank (first-step per-token
     losses bit for bit, losses within ``LOSS_RTOL``, launches a step a
     rank), 37p (a) whisper-large-v3 at its published widths and
-    ``ENCDEC_TP_TRAIN_LAYERS`` (4) of its 32 encoder and 32 decoder layers
+    ``ENCDEC_TP_TRAIN_LAYERS`` (2) of its 32 encoder and 32 decoder layers
     tensor-parallel on (1, 2) at phase 31b's batch (2 x 448 tokens, 1500
     frames), AdamW, remat, 2 steps, against one rank at that depth with
-    37o (a)'s gates (K1 / K2 / K3 / pre-pass 130 / 66 / 66 / 66 a step a
-    rank, 40 forward folds and 64 backward chains, ``tp_step_folds``),
+    37o (a)'s gates (K1 / K2 / K3 / pre-pass 66 / 34 / 34 / 34 a step a
+    rank, 20 forward folds and 32 backward chains, ``tp_step_folds``),
     (b) internvl2-76b's smoke config on (1, 2) (its one K/V head selected
     from a whole product; the attention's backward whole on every rank)
     with the same gates, 3 steps at 4 x 64, and (c) internvl2-76b's and
@@ -322,8 +324,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     ``GROK3_CHUNKED_FF`` (each expert's K2 chained) on (1, 2) with 37p
     (b)'s gates, 3 steps at 4 x 64; (c) llama4-scout's and grok-1's smoke
     configs in 37o (b)'s four-rank world at 4 x 256 (``TP_SMOKE_SEQS``:
-    whole dispatch groups a data rank) with its gates; each sub-phase's
-    seconds printed, and its summed peak under ``MULTI_PEAK_GIB``; phase 3
+    whole dispatch groups a data rank) with its gates; 37r (a)
+    mamba2-2.7b at its published widths and ``SSM_TP_TRAIN_LAYERS`` (4) of
+    its 64 layers on (1, 2) (40 of 80 SSD heads a rank; under autograd
+    every rank runs the conv, the SSD and out_norm whole, in_proj's dA
+    over G and Wq gathered and placed by its index-set pieces), batch 4 x
+    512, AdamW, remat, 2 steps, against one rank run first in a process of
+    its own (as 37q (a)): per-token losses and every gradient leaf's shard
+    (sha256) bit for bit, the step losses within ``LOSS_RTOL``, K1 / K2 /
+    K3 / pre-pass 17 / 9 / 9 / 9 a step a rank, 8 forward folds, 5
+    backward chains and 4 backward gathers a step (``tp_step_folds``,
+    ``tp_step_gathers``), no implicit host sync outside the collectives;
+    (b) recurrentgemma-2b at its published widths and
+    ``HYBRID_TP_TRAIN_LAYERS`` (3) of its 26 layers on (1, 2) (1280 RG-LRU
+    channels, 3840 MLP columns, 5 q heads and 128000 vocabulary rows a
+    rank; the RG-LRU whole on every rank under autograd), batch 2 x 512,
+    the first step's losses and gradients alone, with (a)'s gates (47 / 24
+    / 24 / 24; 12 folds, 22 chains, no gather); (c) both smoke configs and
+    their ``RECURRENT_WIDE`` widenings on (1, 2) with 37p (b)'s gates and
+    their gathers; (d) both smoke configs in 37o (b)'s four-rank world
+    with its gates; each sub-phase's seconds printed, and its summed peak
+    under ``MULTI_PEAK_GIB``; phase 3
     also holds K1's ``start`` variant (the row-parallel fold) at
     llama3-8b's, whisper's, internvl2's, mamba2's and recurrentgemma's
     row-parallel shapes (``START_CASES``) and times
@@ -372,13 +393,17 @@ LOGIT_ATOL = 1e-3  # tests/test_torch_serve.py's tolerance
 # tests/test_torch_train.py's tolerances (port vs reference on the CPU)
 LOSS_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-5, 1e-4, 1e-6
 SERVE_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128512)]
+# The seconds quoted in the depth constants' comments below are this
+# script's phases on one NVIDIA H100 80GB HBM3 at 700.00 W (a "slow host"
+# ran the same phases 22-32% longer than another; PERF.md section 6).
 # the other dense decoders, served at full width in phases 24-25; phase 3
 # checks K1 at their linears' (K, N), phase 4 times their weight passes
 OTHER_ARCHS = ("mistral-nemo-12b", "starcoder2-7b")
-# phases 24-25's depth: mistral-nemo-12b at 8 of its 40 layers (52 s at
-# 40 on an H100) and starcoder2-7b at 8 of its 32 (39 s at 32), which
-# makes room for phase 37o
-OTHER_LAYERS = {"mistral-nemo-12b": 8, "starcoder2-7b": 8}
+# phases 24-25's depth: mistral-nemo-12b at 4 of its 40 layers (52 s at
+# 40 on an H100) and starcoder2-7b at 4 of its 32 (39 s at 32); 8 from
+# phase 37o until phase 37r took the room (14.1 and 13.9 s at 8 of a slow
+# host's 951.8 s)
+OTHER_LAYERS = {"mistral-nemo-12b": 4, "starcoder2-7b": 4}
 # the serving shapes of speculative decoding: a verify pass scores 4 slots x
 # 4 positions (max_draft 3), a self-draft step runs decode at 3 bits
 VERIFY_M, DRAFT_BITS = 16, 3
@@ -428,9 +453,11 @@ CKPT_LAYERS = 2
 CKPT_FREE_BYTES = 15e9  # two 4.1 GB training checkpoints + the packed tree
 TRAIN_ARGS = ["--arch", "olmo-1b", "--batch", "8", "--seq", "512", "--log-every", "1"]
 # the vlm and encdec families (phases 29-31): internvl2-76b served at its
-# published widths and 16 of its 80 layers (all 80 do not fit one card),
-# whisper-large-v3 served and trained at full width and depth
-VLM_ARCH, VLM_LAYERS = "internvl2-76b", 16
+# published widths and this many of its 80 layers (all 80 do not fit one
+# card; 16 until phase 37r took the room, when phases 29 and 37h took 27.3
+# and 28.3 s of a slow host's 1091.8 s), whisper-large-v3 served and
+# trained at full width and depth
+VLM_ARCH, VLM_LAYERS = "internvl2-76b", 8
 ENCDEC_ARCH = "whisper-large-v3"
 # K1's rows there: a decode step (4 slots), a chunk step (4 x 32), an
 # internvl2 solo prefill (256 patches + 128 tokens; its patch_proj at the
@@ -442,8 +469,9 @@ ENCDEC_TRACE = dict(n_requests=4, prompt_len=16, lam=2.0, new_lo=16, new_hi=32, 
 # phase 30 serves whisper's decoder at this depth, the encoder whole: on an
 # NVIDIA H100 80GB HBM3 (700.00 W) phase 30 took 104.3 s at all 32 layers
 # and 36.8 s at 8 in one call (an earlier form of tools/phase37_probe.py),
-# the room phase 37e-g needed
-ENCDEC_LAYERS = 8
+# the room phase 37e-g needed; at 8 phases 30 and 37i took 40.2 and 26.9 s
+# of a slow host's 1091.8 s, cut to 4 for phase 37r's room
+ENCDEC_LAYERS = 4
 # phase 31: whisper trained at full width on batch 2 x its 448-token decoder
 # context (31b at this many encoder and decoder layers of its 32 + 32: at
 # all of them 31b took 49.2 s, the room phase 37q needed); CUDA against
@@ -457,6 +485,10 @@ FAMILY_LOSS_RTOL = 1e-6
 # max_len (recurrentgemma's span 256: its 2048 window does not wrap here)
 RECURRENT = {"mamba2-2.7b": dict(prompt=512, max_len=528),
              "recurrentgemma-2b": dict(prompt=128, max_len=256)}
+# phases 32-33 serve them at this depth: at all 64 and 26 layers they took
+# 25.8 s each of 776.2 s on an NVIDIA H100 80GB HBM3 (700.00 W); cut to
+# 37l-m's depth for phase 37r's room
+RECURRENT_SERVE_LAYERS = {"mamba2-2.7b": 8, "recurrentgemma-2b": 6}
 RECURRENT_TRACE = dict(n_requests=4, lam=2.0, new_lo=8, new_hi=16, seed=0)
 
 
@@ -469,7 +501,7 @@ def k1_per_pass(cfg):
     MoE layer, the router, one expert-batched launch per expert matrix (3
     swiglu, 2 gelu: gate and down) and the shared expert's MLP; then the LM
     head (llama3-8b 225, mistral-nemo-12b 281, starcoder2-7b 193;
-    llama4-scout 89 at 8 layers, grok-1 15 at 2; internvl2 113 at 16, its
+    llama4-scout 89 at 8 layers, grok-1 15 at 2; internvl2 57 at 8, its
     solo prefill one more, patch_proj).  An encdec decode or chunk pass:
     every decoder layer's 4 self- and 2 cross-attention linears (cq, co)
     and its 2 MLP matrices, then the tied head (whisper 257; its
@@ -3077,8 +3109,8 @@ def family_serving(dev, detail):
     and whisper-large-v3 at ``ENCDEC_LAYERS`` decoder layers (the encoder
     whole) on ``ENCDEC_TRACE`` (max_len 64), through
     phase 24's engine and gates; phases 32-33: mamba2-2.7b and
-    recurrentgemma-2b whole through the slot-row pool
-    (``recurrent_serving``).  Returns each one's K1 launches on its main
+    recurrentgemma-2b at ``RECURRENT_SERVE_LAYERS`` layers through the
+    slot-row pool (``recurrent_serving``).  Returns each one's K1 launches on its main
     path."""
     out = {VLM_ARCH: dense_serving(dev, detail, VLM_ARCH, 29, n_layers=VLM_LAYERS,
                                    max_len=400),
@@ -3100,13 +3132,13 @@ def _state_bytes(cache):
 
 def recurrent_serving(dev, detail, arch, number):
     """Phase 32 or 33: ``arch`` (mamba2-2.7b, recurrentgemma-2b) at full
-    width and depth (weights from seed 0, drawn leaf by leaf into served
-    form) through ``PoolEngine(max_slots=4)`` on its slot-row pool: no
+    width and ``RECURRENT_SERVE_LAYERS`` layers (weights from seed 0,
+    drawn leaf by leaf into served form) through ``PoolEngine(max_slots=4)`` on its slot-row pool: no
     pages, each admission a solo prefill.  A is the main path (its launch
     counts set to 0 just before and read just after, its implicit host
     syncs counted); C (each request alone) gives A's tokens bit for bit;
     A's counters equal the CPU smoke-width run's; K1 launches
-    ``k1_per_pass`` times a weight pass (129 / 201), in a solo prefill and
+    ``k1_per_pass`` times a weight pass (17 / 47), in a solo prefill and
     in a 4-slot decode step; the prefill and decode-step wall times, one
     profiled decode step (kernels, busy, K1 device ms beside its bytes
     bound, idle share); the state bytes a slot; peak memory under
@@ -3119,8 +3151,10 @@ def recurrent_serving(dev, detail, arch, number):
     from repro_torch.serve import quantized_weights as qw
 
     cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=RECURRENT_SERVE_LAYERS[arch])
     rc = RECURRENT[arch]
-    phase(f"{number} {arch} at full width and depth: slot-row pool, 4 slots, solo prefill")
+    phase(f"{number} {arch} at full width, {cfg.n_layers} of its layers: slot-row pool, 4 "
+          "slots, solo prefill")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = spec.materialize(
@@ -3221,8 +3255,9 @@ def moe_serving(dev, detail):
 
 # phases 19-20 run llama3-8b's widths at this depth: at all 32 layers the
 # whole script read 980.6 s on an H100 with phase 37 (phases 19-20: 142 s);
-# 8 until phase 37q took the room
-PAGED_LAYERS = 4
+# 8 until phase 37q took the room, 4 until phase 37r (32 s of a slow host's
+# 951.8 s for both)
+PAGED_LAYERS = 2
 
 
 def paged_serving(dev, detail, cfg, params, policy, reqs):
@@ -3329,8 +3364,9 @@ def paged_serving(dev, detail, cfg, params, policy, reqs):
 
 # phase 21's engines run llama3-8b's widths at this depth: at all 32
 # layers the whole script read 912.0 s on an H100 (phase 21: 133 s of it);
-# at 8 phase 21 took 37.0 s of 875.7 s; cut to 4 to make room for 37p
-KVQ_LAYERS = 4
+# at 8 phase 21 took 37.0 s of 875.7 s; cut to 4 to make room for 37p,
+# and at 4 26.4 s of a slow host's 951.8 s, cut to 2 for 37r
+KVQ_LAYERS = 2
 # kv_page_bytes of phase 21's engine at KVQ_LAYERS layers: a 16-position
 # page of K and of V holds 8 KV heads x 64 code bytes and one int32 beta a
 # token, 8256 bytes a layer each (528,384 at all 32 layers)
@@ -3454,8 +3490,9 @@ def _first_layers(tree, n):
 # checks too since PR 22): five engine runs on a host-bound path, kept
 # short so the whole script stays well inside its time limit (at 4 the
 # phase took 59.9 s and 36c 13.0 s of 875.7 s on an NVIDIA H100 80GB HBM3
-# at 700.00 W; cut to 2 to make room for phase 37p)
-SPEC_LAYERS = 2
+# at 700.00 W; cut to 2 to make room for phase 37p; at 2 phase 22 took
+# 45.8 s of a slow host's 951.8 s, cut to 1 for phase 37r's room)
+SPEC_LAYERS = 1
 
 
 def spec_serving(dev, detail, cfg, params, policy, reqs):
@@ -3559,8 +3596,9 @@ def spec_serving(dev, detail, cfg, params, policy, reqs):
 
 
 # phase 23 runs llama3-8b's widths at this depth (at all 32 layers it was
-# the script's largest phase, 82 s of 909.7 s on an NVIDIA H100 80GB HBM3)
-LOCKSTEP_LAYERS = 8
+# the script's largest phase, 82 s of 909.7 s on an NVIDIA H100 80GB HBM3;
+# 8 until phase 37r took the room, when it took 19.7 s of 776.2 s)
+LOCKSTEP_LAYERS = 4
 
 
 def lockstep_serving(dev, detail, cfg, params, policy, reqs):
@@ -4210,15 +4248,18 @@ def qa_serving(dev, detail, cfg, params, policy, reqs):
 # and this depth, data-parallel at this global batch, these steps.  On an
 # NVIDIA H100 80GB HBM3 37a took 62-85 s of the script at all 32 layers
 # (against phase 5's tokens) and 38-44 s at 8, 37c 27-44 s at all 16; a
-# slow host took the whole script to 1086.6 s with both at those depths
-TP_SERVE_LAYERS = 4
+# slow host took the whole script to 1086.6 s with both at those depths;
+# 37a at 4 took 22.6 s of 776.2 s, cut to 2 for phase 37r's room, and so
+# was 37c (18.1 s at 4 of a slow host's 951.8 s)
+TP_SERVE_LAYERS = 2
 DP_SERVE_LAYERS = 4
-DP_TRAIN_LAYERS = 4
+DP_TRAIN_LAYERS = 2
 DP_TRAIN_BATCH, DP_TRAIN_SEQ, DP_TRAIN_STEPS = 4, 512, 2
 # 37o (a): olmo-1b at its published widths and this depth tensor-parallel
 # on the (1, 2) mesh, phase 37c's batch, these steps; (b): its smoke config
-# on the (2, 2) mesh (four ranks on the card) at this batch and steps
-TP_TRAIN_LAYERS = 4
+# on the (2, 2) mesh (four ranks on the card) at this batch and steps; 4
+# layers until phase 37r took the room (21.4 s of a slow host's 951.8 s)
+TP_TRAIN_LAYERS = 2
 TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 512, 2
 TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS = 4, 64, 3
 # 37p (a): whisper-large-v3 at its published widths and this encoder and
@@ -4227,10 +4268,11 @@ TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS = 4, 64, 3
 # fit many times over, but two ranks' shadow gathers through the host grow
 # with it); (b) internvl2-76b's smoke config on (1, 2) (its one K/V head
 # selected from a whole product); (c) the (2, 2) world of 37o (b) trains
-# these smoke configs
-ENCDEC_TP_TRAIN_LAYERS = 4
+# these smoke configs; 4 + 4 layers until phase 37r took the room (22.0 s
+# of a slow host's 951.8 s)
+ENCDEC_TP_TRAIN_LAYERS = 2
 TP_SMOKE_ARCHS = ("olmo-1b", "internvl2-76b", "whisper-large-v3", "llama4-scout-17b-a16e",
-                  "grok-1-314b")
+                  "grok-1-314b", "mamba2-2.7b", "recurrentgemma-2b")
 # 37q (a): llama4-scout-17b-a16e at its published widths and this depth on
 # (1, 2) under EP (8 of its 16 experts a rank), this batch (two dispatch
 # groups of 512 tokens), remat, the first step's losses and gradients alone
@@ -4245,6 +4287,24 @@ MOE_TP_TRAIN_LAYERS = 1
 MOE_TP_TRAIN_BATCH, MOE_TP_TRAIN_SEQ = 2, 512
 GROK3_CHUNKED_FF = 256
 TP_SMOKE_SEQS = {"llama4-scout-17b-a16e": 256, "grok-1-314b": 256}
+# 37r (a): mamba2-2.7b at its published widths and this depth
+# tensor-parallel on (1, 2) (40 of its 80 SSD heads a rank), this batch
+# (two SSD chunks of 256 a row), AdamW, remat, these steps; (b)
+# recurrentgemma-2b at its published widths and this depth (one rglru,
+# rglru, attn period: the RG-LRU, the MLP and the attention under
+# ``select``), this batch, the first step's losses and gradients alone
+# (its 256000-row head's whole gather and logits lead the gloo bytes);
+# each against one rank run alone first; (c) both smoke configs and these
+# widenings of them (whole 128-chunks a rank: every split contraction
+# folds, every column-parallel product but mamba2's in_proj and the
+# 160-row vocab shard chains K2) on (1, 2), 37p (b)'s batch and steps;
+# (d) both smoke configs in 37o (b)'s (2, 2) world
+SSM_TP_TRAIN_LAYERS = 4
+SSM_TP_TRAIN_BATCH, SSM_TP_TRAIN_SEQ, SSM_TP_TRAIN_STEPS = 4, 512, 2
+HYBRID_TP_TRAIN_LAYERS = 3
+HYBRID_TP_TRAIN_BATCH, HYBRID_TP_TRAIN_SEQ = 2, 512
+RECURRENT_WIDE = {"mamba2-2.7b": dict(d_model=256),
+                  "recurrentgemma-2b": dict(lru_width=256, d_ff=512, head_dim=64)}
 # the two ranks' device memory, summed, stays under this
 MULTI_PEAK_GIB = 75.0
 # 37d: the compressor's unbiasedness bound (standard errors) and draws
@@ -4297,8 +4357,9 @@ SSM_PLAN_LAYERS = 8
 HYBRID_PLAN_LAYERS = 6
 RECURRENT_PLAN_LAYERS = {"mamba2-2.7b": SSM_PLAN_LAYERS, "recurrentgemma-2b": HYBRID_PLAN_LAYERS}
 # 37n: both recurrent smoke configs data-parallel as 37k; and mamba2-2.7b
-# at its published widths and this depth, global batch, sequence and steps
-SSM_DP_LAYERS, SSM_DP_BATCH, SSM_DP_SEQ, SSM_DP_STEPS = 4, 2, 512, 2
+# at its published widths and this depth (4 until phase 37r: 19.8 s of a
+# slow host's 951.8 s for 37n), global batch, sequence and steps
+SSM_DP_LAYERS, SSM_DP_BATCH, SSM_DP_SEQ, SSM_DP_STEPS = 2, 2, 512, 2
 SSM_DP = "mamba2-2.7b at published widths"
 
 
@@ -4495,6 +4556,9 @@ def tp_step_folds(cfg, model=2):
 
     lay = runtime_layout(cfg, model)
     whole = lambda split, width: int(split and width % CANONICAL_BK == 0)  # noqa: E731
+    head = whole(lay.vocab, cfg.vocab_padded // model)
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_tp_folds(cfg, lay, whole, head)
     inputs = 2 if cfg.act == "swiglu" else 1  # gate and up, or gate (wi)
     mlp = int(cfg.moe is None or cfg.moe.shared_expert)  # a dense MLP, or a shared expert
     q = whole(lay.heads, lay.heads_local * cfg.head_dim)
@@ -4512,6 +4576,57 @@ def tp_step_folds(cfg, model=2):
         bwd = (cfg.n_layers * (q + kv + ffn + wo + down + experts)
                + whole(lay.vocab, cfg.vocab_padded // model))
     return 2 * fwd, bwd, selects
+
+
+def _recurrent_tp_folds(cfg, lay, whole, head):
+    """:func:`tp_step_folds` of an ssm (out_proj's fold and its dgamma
+    rows a layer where it folds; in_proj always gathers) or a hybrid (an
+    RG-LRU layer's wx, wy, wa and wi over its channels, an attention
+    layer's q heads, each layer's gate and up column-parallel; wout, wo
+    and the down projection row-parallel); no owner selections."""
+    from repro_torch.models.recurrent import layer_kinds
+
+    if cfg.family == "ssm":
+        wo = int(lay.wo == "fold")
+        return 2 * cfg.n_layers * wo, cfg.n_layers * wo + head, 0
+    kinds = layer_kinds(cfg)
+    attn = kinds.count("attn")
+    lru = len(kinds) - attn
+    mlp = 2 * whole(lay.ffn, lay.ffn_local) + int(lay.mlp_wo == "fold")
+    lru_layer = 4 * whole(lay.lru, lay.lru_local) + int(lay.lru_wo == "fold")
+    attn_layer = (whole(lay.heads, lay.heads_local * cfg.head_dim)
+                  + 2 * whole(lay.kv == "split", lay.kv_local * cfg.head_dim)
+                  + int(lay.wo == "fold"))
+    fwd = lru * (int(lay.lru_wo == "fold") + int(lay.mlp_wo == "fold")) + attn * (
+        int(lay.wo == "fold") + int(lay.mlp_wo == "fold"))
+    return 2 * fwd, lru * (lru_layer + mlp) + attn * (attn_layer + mlp) + head, 0
+
+
+def tp_step_gathers(cfg, model=2):
+    """Column-parallel backwards of one tensor-parallel step a rank of an
+    ssm or a hybrid that gather G and Wq whole instead of chaining K2
+    (``collectives.stats['bwd_gathers']``): mamba2's in_proj a layer
+    (index-set pieces, whatever the width), every other column-parallel
+    product whose shard is not whole 128-chunks (the 160-row vocab shard
+    of the smoke configs, their RG-LRU, MLP and q shards); None for the
+    other families."""
+    from repro_torch.kernels.ref import CANONICAL_BK
+    from repro_torch.models.recurrent import layer_kinds
+    from repro_torch.parallel.planner import runtime_layout
+
+    lay = runtime_layout(cfg, model)
+    part = lambda split, width: int(split and width % CANONICAL_BK != 0)  # noqa: E731
+    head = part(lay.vocab, cfg.vocab_padded // model)
+    if cfg.family == "ssm":
+        return cfg.n_layers * int(lay.heads) + head
+    if cfg.family != "hybrid":
+        return None
+    kinds = layer_kinds(cfg)
+    attn = kinds.count("attn")
+    mlp = 2 * part(lay.ffn, lay.ffn_local)
+    return ((len(kinds) - attn) * (4 * part(lay.lru, lay.lru_local) + mlp)
+            + attn * (part(lay.heads, lay.heads_local * cfg.head_dim)
+                      + 2 * part(lay.kv == "split", lay.kv_local * cfg.head_dim) + mlp) + head)
 
 
 def tp_step_launches(cfg, model=2):
@@ -4537,7 +4652,8 @@ def _tp_cells():
     ``ENCDEC_TP_TRAIN_LAYERS`` encoder and decoder layers, 37p (b)
     internvl2-76b's smoke config, 37q (b) grok-1-314b's smoke config
     (EP) and the 3-expert grok-1 (TP experts) at smoke width and at
-    ``GROK3_CHUNKED_FF``."""
+    ``GROK3_CHUNKED_FF``, 37r (c) mamba2-2.7b's and recurrentgemma-2b's
+    smoke configs and their ``RECURRENT_WIDE`` widenings."""
     from repro_torch import configs
 
     olmo = dataclasses.replace(configs.get_config("olmo-1b"), n_layers=TP_TRAIN_LAYERS)
@@ -4547,12 +4663,17 @@ def _tp_cells():
     grok = configs.smoke_config("grok-1-314b")
     grok3 = dataclasses.replace(grok, moe=dataclasses.replace(grok.moe, num_experts=3))
     smoke = (TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS)
-    return {"o": (olmo, TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS),
-            "p": (whisper, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, TP_TRAIN_STEPS),
-            "p_vlm": (configs.smoke_config(VLM_ARCH),) + smoke,
-            "q_grok": (grok,) + smoke,
-            "q_grok3": (grok3,) + smoke,
-            "q_grok3_chunked": (dataclasses.replace(grok3, d_ff=GROK3_CHUNKED_FF),) + smoke}
+    cells = {"o": (olmo, TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS),
+             "p": (whisper, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, TP_TRAIN_STEPS),
+             "p_vlm": (configs.smoke_config(VLM_ARCH),) + smoke,
+             "q_grok": (grok,) + smoke,
+             "q_grok3": (grok3,) + smoke,
+             "q_grok3_chunked": (dataclasses.replace(grok3, d_ff=GROK3_CHUNKED_FF),) + smoke}
+    for arch, wide in RECURRENT_WIDE.items():  # 37r (c)
+        key = "r_" + arch.split("-")[0]
+        cells[key] = (configs.smoke_config(arch),) + smoke
+        cells[key + "_wide"] = (dataclasses.replace(configs.smoke_config(arch), **wide),) + smoke
+    return cells
 
 
 def _tp_train(rank, dev, key="o"):
@@ -4563,7 +4684,7 @@ def _tp_train(rank, dev, key="o"):
     rank's slice, both runs' losses; per step the launches, collectives
     (calls, bytes, seconds, forward folds, backward chains) and seconds;
     the first step's implicit host syncs outside the collectives, the
-    second's device busy ms (profiled), the masters' and optimizer
+    last one's device busy ms (profiled), the masters' and optimizer
     state's bytes, the peak."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
@@ -4602,12 +4723,13 @@ def _tp_train(rank, dev, key="o"):
         if s == 0:  # its implicit host syncs counted
             with _counting_syncs(syncs):
                 params, state, m = step_fn(params, state, batches[s], s)
-            losses.append(float(m["loss"]))
-        else:
+        elif s == steps - 1:  # the last one profiled
             (params, state, m), busy = _device_busy_ms(
                 lambda: step_fn(params, state, batches[s], s))
-            losses.append(float(m["loss"]))
             row["profiled_step_device_busy_ms"] = busy
+        else:
+            params, state, m = step_fn(params, state, batches[s], s)
+        losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         colls.append(dict(collectives.stats))
@@ -4716,16 +4838,31 @@ def _tp_smoke_rank(rank):
     return out
 
 
-def _moe_tp_cell(dev=None):
-    """37q (a)'s config (``MOE_TP_ARCH`` at its published widths and
-    ``MOE_TP_TRAIN_LAYERS`` layers), its shape and, on ``dev``, its
-    batch."""
+#: the cells trained on (1, 2) at their published widths against one rank
+#: run alone first (37q (a), 37r (a), 37r (b)) and their labels
+FIRST_STEP_CELLS = {"q": "37q (a)", "r_a": "37r (a)", "r_b": "37r (b)"}
+
+
+def _first_step_cell(key, dev=None):
+    """One of ``FIRST_STEP_CELLS``: its config at its published widths
+    (37q (a): ``MOE_TP_ARCH`` at ``MOE_TP_TRAIN_LAYERS``, 37r (a):
+    mamba2-2.7b at ``SSM_TP_TRAIN_LAYERS``, 37r (b): recurrentgemma-2b at
+    ``HYBRID_TP_TRAIN_LAYERS``), its shape, its AdamW steps after the first
+    step's gradients (0: those alone) and, on ``dev``, its batches."""
     from repro_torch import configs
     from repro_torch.data import pipeline
 
-    cfg = dataclasses.replace(configs.get_config(MOE_TP_ARCH), n_layers=MOE_TP_TRAIN_LAYERS)
-    shape = configs.ShapeConfig("moe_tp", MOE_TP_TRAIN_SEQ, MOE_TP_TRAIN_BATCH, "train")
-    return cfg, shape, None if dev is None else pipeline.make_batch(cfg, shape, 0, device=dev)
+    arch, layers, batch, seq, steps = {
+        "q": (MOE_TP_ARCH, MOE_TP_TRAIN_LAYERS, MOE_TP_TRAIN_BATCH, MOE_TP_TRAIN_SEQ, 0),
+        "r_a": ("mamba2-2.7b", SSM_TP_TRAIN_LAYERS, SSM_TP_TRAIN_BATCH, SSM_TP_TRAIN_SEQ,
+                SSM_TP_TRAIN_STEPS),
+        "r_b": ("recurrentgemma-2b", HYBRID_TP_TRAIN_LAYERS, HYBRID_TP_TRAIN_BATCH,
+                HYBRID_TP_TRAIN_SEQ, 0)}[key]
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    shape = configs.ShapeConfig(f"tp_{key}", seq, batch, "train")
+    batches = None if dev is None else [pipeline.make_batch(cfg, shape, s, device=dev)
+                                        for s in range(max(steps, 1))]
+    return cfg, shape, steps, batches
 
 
 def _sha256(chunks):
@@ -4742,13 +4879,15 @@ def _host_bytes(x):
     return x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy()
 
 
-def _moe_tp_one_rank(rank):
-    """37q (a)'s one-rank run, in a process of its own before the two
-    ranks start (a world of one: no collective runs): the whole model from
-    seed 0, the first step's per-token losses and gradients (remat, no
-    optimizer state); returns the losses and, for each gradient leaf, the
-    sha256 of each model rank's shard of it on (1, 2) (the layout's
-    ``planner._param_split``), its seconds and peak."""
+def _first_steps_one_rank(rank):
+    """The one-rank runs of ``FIRST_STEP_CELLS``, one after the other in a
+    process of their own before the two ranks start (a world of one: no
+    collective runs): the whole model from seed 0, the first step's
+    per-token losses and gradients (remat), the sha256 of each model
+    rank's shard of each gradient leaf on (1, 2) (``ShardingPlan.shard_slice``
+    of every rank: an ssm's in_proj and conv by their index sets), then
+    the cell's AdamW steps' losses; the gradients' seconds, each run's
+    peak and seconds."""
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.device import resolve_device
     from repro_torch.kernels import potq_grad as KG
@@ -4756,47 +4895,64 @@ def _moe_tp_one_rank(rank):
     from repro_torch.launch import train as train_cli
     from repro_torch.models import registry, spec
     from repro_torch.optim import adamw, warmup_cosine_schedule
-    from repro_torch.parallel import planner
+    from repro_torch.parallel import meshes, planner
     from repro_torch.train import TrainConfig, make_train_step
 
-    t0 = time.perf_counter()
     dev = resolve_device("cuda")
     K.build()
     KG.build()
     train_cli.make_deterministic()
-    cfg, _, batch = _moe_tp_cell(dev)
-    lay = planner.runtime_layout(cfg, 2)
-    step_fn = make_train_step(cfg, PAPER_FAITHFUL, adamw(warmup_cosine_schedule(3e-3, 20, 1)),
-                              TrainConfig())
-    torch.cuda.reset_peak_memory_stats()
-    params = spec.materialize(registry.param_specs(cfg),
-                              torch.Generator(device=dev).manual_seed(0))
-    token_losses = step_fn.token_losses(params, batch).cpu().numpy()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    _, grads = step_fn.grads(params, batch)
-    torch.cuda.synchronize()
-    grads_s = time.perf_counter() - t1
-    del params
-    names, parts = [], []
-    for name, g in spec.named_leaves(grads):
-        cut = planner._param_split(cfg, lay, name)  # (dim, None): an even split
-        host = g.detach().cpu()
-        names.append(name)
-        parts += [host] * 2 if cut is None else host.chunk(2, dim=cut[0])
-    del grads
-    hashes = _sha256([_host_bytes(p) for p in parts])
-    digests = {n: hashes[2 * i:2 * i + 2] for i, n in enumerate(names)}
-    return dict(token_losses=token_losses, digests=digests, grads_s=grads_s,
-                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                seconds=time.perf_counter() - t0)
+    out = {}
+    for key in FIRST_STEP_CELLS:
+        t0 = time.perf_counter()
+        cfg, shape, steps, batches = _first_step_cell(key, dev)
+        plan = planner.plan_for(cfg, meshes.make_abstract_mesh((1, 2), ("data", "model")),
+                                shape)
+        opt = adamw(warmup_cosine_schedule(3e-3, 20, max(steps, 1)))
+        step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = spec.materialize(registry.param_specs(cfg),
+                                  torch.Generator(device=dev).manual_seed(0))
+        token_losses = step_fn.token_losses(params, batches[0]).cpu().numpy()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, grads = step_fn.grads(params, batches[0])
+        torch.cuda.synchronize()
+        grads_s = time.perf_counter() - t1
+        names, parts = [], []
+        for name, g in spec.named_leaves(grads):
+            host = g.detach().cpu()
+            names.append(name)
+            cuts = [plan.shard_slice(name, r) for r in range(2)]
+            parts += [host if c is None else plan.take(host, c) for c in cuts]
+        del grads
+        hashes = _sha256([_host_bytes(p) for p in parts])
+        del parts
+        losses = []
+        if steps:
+            state = opt.init(params)
+            for s in range(steps):
+                params, state, m = step_fn(params, state, batches[s], s)
+                losses.append(float(m["loss"]))
+            del state
+        del params, batches
+        out[key] = dict(token_losses=token_losses, losses=losses, grads_s=grads_s,
+                        digests={n: hashes[2 * i:2 * i + 2] for i, n in enumerate(names)},
+                        peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                        seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    return out
 
 
-def _moe_tp_first_step(rank, dev):
-    """37q (a) on one of the two ranks of (1, 2): the parameters drawn leaf
-    by leaf from seed 0, this rank's shard of each kept; the first step's
-    per-token losses, then its gradients (counted: launches, collectives,
-    implicit host syncs, device busy); the sha256 of each gradient leaf."""
+def _first_step_rank(rank, dev, key):
+    """One of ``FIRST_STEP_CELLS`` on one of the two ranks of (1, 2): the
+    parameters drawn leaf by leaf from seed 0, this rank's shard of each
+    kept; the seconds and collectives of the shadow alone and of the shadow
+    and the forward (the per-token losses' call); the first step's
+    gradients (counted: launches, collectives, implicit host syncs, device
+    busy) and the sha256 of each leaf; then the cell's AdamW steps, each
+    counted."""
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.launch import train as train_cli
     from repro_torch.models import registry, spec
@@ -4806,10 +4962,10 @@ def _moe_tp_first_step(rank, dev):
 
     t_start = time.perf_counter()
     train_cli.make_deterministic()
-    cfg, shape, batch = _moe_tp_cell(dev)
+    cfg, shape, steps, batches = _first_step_cell(key, dev)
     plan = planner.plan_for(cfg, meshes.make_mesh((1, 2), ("data", "model")), shape)
-    step_fn = make_train_step(cfg, PAPER_FAITHFUL, adamw(warmup_cosine_schedule(3e-3, 20, 1)),
-                              TrainConfig(), plan=plan)
+    opt = adamw(warmup_cosine_schedule(3e-3, 20, max(steps, 1)))
+    step_fn = make_train_step(cfg, PAPER_FAITHFUL, opt, TrainConfig(), plan=plan)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -4820,89 +4976,139 @@ def _moe_tp_first_step(rank, dev):
     params = spec.materialize(registry.param_specs(cfg),
                               torch.Generator(device=dev).manual_seed(0), transform=keep)
     torch.cuda.synchronize()
+    lay = plan.layout()
     row = dict(draw_s=time.perf_counter() - t0, master_bytes=_tree_bytes(params),
-               experts=plan.layout().experts, experts_local=plan.layout().experts_local)
-    # where the step's time goes: the shadow (each matrix gathered whole but
-    # the experts, quantized, its shard kept) and the forward, in the
-    # per-token losses' call, then the whole step
-    collectives.reset_stats()
-    t0 = time.perf_counter()
-    row["token_losses"] = step_fn.token_losses(params, batch).cpu().numpy()
-    row.update(shadow_and_forward_s=time.perf_counter() - t0,
-               shadow_and_forward_collectives=dict(collectives.stats))
+               experts=lay.experts, layout=str(lay))
+    # where the step's time goes: the shadow alone, the shadow and the
+    # forward, then the whole step (its backward the difference)
+    for part, fn in (("shadow", lambda: step_fn.data_parallel.inputs(params, PAPER_FAITHFUL)),
+                     ("shadow_and_forward", lambda: step_fn.token_losses(params, batches[0]))):
+        got = None  # the shadow alone is freed before the forward makes its own
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = fn()
+        torch.cuda.synchronize()
+        row[f"{part}_s"] = time.perf_counter() - t0
+        row[f"{part}_collectives"] = dict(collectives.stats)
+    row["token_losses"] = got.cpu().numpy()
+    del got
     syncs = {}
     before = _count_kernels()
     collectives.reset_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _counting_syncs(syncs):
-        (_, grads), busy = _device_busy_ms(lambda: step_fn.grads(params, batch))
+        (_, grads), busy = _device_busy_ms(lambda: step_fn.grads(params, batches[0]))
     torch.cuda.synchronize()
-    row.update(step_s=time.perf_counter() - t0, device_busy_ms=busy,
+    row.update(grads_s=time.perf_counter() - t0, device_busy_ms=busy,
                collectives=dict(collectives.stats),
                launches={k: v - before[k] for k, v in _count_kernels().items()},
                implicit_syncs={k: n for k, n in syncs.items() if k.startswith("src/")
-                               and not k.startswith("src/repro_torch/parallel/collectives")},
-               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
-    row["collective_share"] = row["collectives"]["seconds"] / row["step_s"]
-    del params
+                               and not k.startswith("src/repro_torch/parallel/collectives")})
+    row["collective_share"] = row["collectives"]["seconds"] / row["grads_s"]
     names, chunks = [], []
     for name, g in spec.named_leaves(grads):
         names.append(name)
         chunks.append(_host_bytes(g))
+    del grads
     row["digests"] = dict(zip(names, _sha256(chunks)))
-    del grads, chunks
+    del chunks
+    losses, step_s, colls, launches = [], [], [], []
+    if steps:
+        state = opt.init(params)
+        row["optimizer_bytes"] = _tree_bytes(state)
+        for s in range(steps):
+            before = _count_kernels()
+            collectives.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batches[s], s)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            colls.append(dict(collectives.stats))
+            launches.append({k: v - before[k] for k, v in _count_kernels().items()})
+        del state
+    row.update(losses=losses, step_s=step_s, step_collectives=colls, step_launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del params, batches
     torch.cuda.empty_cache()
     row["seconds"] = time.perf_counter() - t_start
     return row
 
 
-def _check_moe_tp(one, rows, failures):
-    """37q (a)'s gates: each rank's per-token losses and every gradient
-    leaf's shard (its sha256) one rank's, the launches a step
-    ``tp_step_launches``', the folds, chains and selections
-    ``tp_step_folds``', no implicit host sync outside the collectives."""
-    cfg = _moe_tp_cell()[0]
-    want, want_folds = tp_step_launches(cfg), tp_step_folds(cfg)
-    for r, row in enumerate(rows):
-        tl_equal = (row["token_losses"].view(np.uint32).tolist()
-                    == one["token_losses"].view(np.uint32).tolist())
-        differ = sorted(n for n, h in row["digests"].items() if h != one["digests"][n][r])
-        c = row["collectives"]
-        folds = (c["folds"], c["bwd_folds"], c["selects"])
-        print(f"37q (a) rank {r}:", json.dumps(
-            {k: v for k, v in row.items() if k not in ("token_losses", "digests")}))
-        if row["experts"] != "EP":
-            failures.append(f"37q (a) rank {r}: experts {row['experts']}, expected EP")
-        if not tl_equal:
-            failures.append(f"37q (a) rank {r}: first-step per-token losses differ from one "
-                            "rank's")
-        if differ or set(row["digests"]) != set(one["digests"]):
-            failures.append(f"37q (a) rank {r}: gradient shards differ from one rank's: {differ}")
-        if row["launches"] != want:
-            failures.append(f"37q (a) rank {r}: launches {row['launches']}, expected {want}")
-        if folds != want_folds:
-            failures.append(f"37q (a) rank {r}: (forward folds, backward chains, selections) "
-                            f"{folds}, expected {want_folds}")
-        if row["implicit_syncs"]:
-            failures.append(f"37q (a) rank {r}: implicit host syncs {row['implicit_syncs']}")
-    loss = float(np.mean(one["token_losses"]))
-    print(f"37q (a) {cfg.name} at {cfg.n_layers} layer(s), published widths, (1, 2) EP: one "
-          f"rank's mean token loss {loss!r}, its grads {one['grads_s']:.2f} s, peak "
-          f"{one['peak_gib']:.2f} GiB, {one['seconds']:.1f} s in all; a rank's shadow and "
-          f"forward {[round(row['shadow_and_forward_s'], 2) for row in rows]} s, "
-          f"{rows[0]['shadow_and_forward_collectives']['bytes'] / 2 ** 20:.1f} MiB; its first step "
-          f"{[round(row['step_s'], 2) for row in rows]} s (profiled), collectives "
-          f"{rows[0]['collectives']['calls']} calls, "
-          f"{rows[0]['collectives']['bytes'] / 2 ** 20:.1f} MiB, share "
-          f"{[round(row['collective_share'], 3) for row in rows]}; device busy a rank "
-          f"{[round(row['device_busy_ms'], 1) for row in rows]} ms; peak a rank "
-          f"{[round(row['peak_gib'], 2) for row in rows]} GiB; {rows[0]['seconds']:.1f} s on "
-          "rank 0")
-    return dict(one_rank={k: v for k, v in one.items() if k not in ("token_losses", "digests")},
-                ranks=[{k: v for k, v in row.items() if k not in ("token_losses", "digests")}
-                       for row in rows],
-                token_loss_mean=loss, leaves=len(one["digests"]))
+def _check_first_steps(one, ranks, failures):
+    """The gates of ``FIRST_STEP_CELLS`` (``one``: the one-rank runs,
+    ``ranks``: each rank's results): each rank's first-step per-token
+    losses and every gradient leaf's shard (its sha256) one rank's, the
+    launches of the gradients and of each step ``tp_step_launches``', the
+    folds, chains and owner selections ``tp_step_folds``', an ssm's or
+    hybrid's gathers ``tp_step_gathers``', no implicit host sync outside
+    the collectives, 37q (a)'s experts under EP; the ranks' step losses
+    equal and within ``LOSS_RTOL`` of one rank's.  Returns a row a cell."""
+    out = {}
+    for key, label in FIRST_STEP_CELLS.items():
+        cfg = _first_step_cell(key)[0]
+        want, want_folds = tp_step_launches(cfg), tp_step_folds(cfg)
+        want_gathers = tp_step_gathers(cfg)
+        rows = [res[key] for res in ranks]
+        ref = one[key]
+        for r, row in enumerate(rows):
+            differ = sorted(n for n, h in row["digests"].items() if h != ref["digests"][n][r])
+            print(f"{label} rank {r}:", json.dumps(
+                {k: v for k, v in row.items() if k not in ("token_losses", "digests")}))
+            if cfg.moe is not None and row["experts"] != "EP":
+                failures.append(f"{label} rank {r}: experts {row['experts']}, expected EP")
+            if row["token_losses"].view(np.uint32).tolist() != \
+                    ref["token_losses"].view(np.uint32).tolist():
+                failures.append(f"{label} rank {r}: first-step per-token losses differ from "
+                                "one rank's")
+            if differ or set(row["digests"]) != set(ref["digests"]):
+                failures.append(f"{label} rank {r}: gradient shards differ from one rank's: "
+                                f"{differ}")
+            for got in [row["launches"]] + row["step_launches"]:
+                if got != want:
+                    failures.append(f"{label} rank {r}: launches {got}, expected {want}")
+            for c in [row["collectives"]] + row["step_collectives"]:
+                folds = (c["folds"], c["bwd_folds"], c["selects"])
+                if folds != want_folds or (want_gathers is not None
+                                           and c["bwd_gathers"] != want_gathers):
+                    failures.append(f"{label} rank {r}: (forward folds, backward chains, "
+                                    f"selections) {folds}, gathers {c['bwd_gathers']}, "
+                                    f"expected {want_folds}, {want_gathers}")
+            if row["implicit_syncs"]:
+                failures.append(f"{label} rank {r}: implicit host syncs {row['implicit_syncs']}")
+            if row["losses"] != rows[0]["losses"]:
+                failures.append(f"{label}: the ranks' losses differ")
+        rel = max([abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"], ref["losses"])],
+                  default=0.0)
+        if not rel <= LOSS_RTOL:
+            failures.append(f"{label}: losses differ from one rank's by {rel:.3g} relative")
+        loss = float(np.mean(ref["token_losses"]))
+        c = rows[0]["collectives"]
+        print(f"{label} {cfg.name} at {cfg.n_layers} layer(s), published widths, (1, 2): one "
+              f"rank's mean token loss {loss!r}, losses {[repr(x) for x in ref['losses']]}, "
+              f"its grads {ref['grads_s']:.2f} s, peak {ref['peak_gib']:.2f} GiB, "
+              f"{ref['seconds']:.1f} s in all; tensor-parallel losses "
+              f"{[repr(x) for x in rows[0]['losses']]} (max relative {rel:.3g}); a rank's "
+              f"shadow {[round(row['shadow_s'], 2) for row in rows]} s, shadow and forward "
+              f"{[round(row['shadow_and_forward_s'], 2) for row in rows]} s, "
+              f"{rows[0]['shadow_and_forward_collectives']['bytes'] / 2 ** 20:.1f} MiB; its "
+              f"first step's gradients {[round(row['grads_s'], 2) for row in rows]} s "
+              f"(profiled), collectives {c['calls']} calls, {c['bytes'] / 2 ** 20:.1f} MiB, "
+              f"share {[round(row['collective_share'], 3) for row in rows]}; device busy a rank "
+              f"{[round(row['device_busy_ms'], 1) for row in rows]} ms; steps a rank "
+              f"{[[round(t, 2) for t in row['step_s']] for row in rows]} s; peak a rank "
+              f"{[round(row['peak_gib'], 2) for row in rows]} GiB; {rows[0]['seconds']:.1f} s "
+              "on rank 0")
+        out[key] = dict(one_rank={k: v for k, v in ref.items()
+                                  if k not in ("token_losses", "digests")},
+                        ranks=[{k: v for k, v in row.items()
+                                if k not in ("token_losses", "digests")} for row in rows],
+                        token_loss_mean=loss, leaves=len(ref["digests"]), max_rel=rel)
+    return out
 
 
 def _check_tp_run(key, label, rows, failures):
@@ -4915,6 +5121,7 @@ def _check_tp_run(key, label, rows, failures):
     one rank's."""
     cfg = _tp_cells()[key][0]
     want, want_folds = tp_step_launches(cfg), tp_step_folds(cfg)
+    want_gathers = tp_step_gathers(cfg)
     one = rows[0]["one_rank_losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"], one))
     for r, row in enumerate(rows):
@@ -4931,6 +5138,10 @@ def _check_tp_run(key, label, rows, failures):
         if any(f != want_folds for f in folds):
             failures.append(f"{label} rank {r}: (forward folds, backward chains, selections) "
                             f"a step {folds}, expected {want_folds}")
+        gathers = [c["bwd_gathers"] for c in row["collectives"]]
+        if want_gathers is not None and any(n != want_gathers for n in gathers):
+            failures.append(f"{label} rank {r}: backward gathers a step {gathers}, expected "
+                            f"{want_gathers}")
         if row["implicit_syncs"]:
             failures.append(f"{label} rank {r}: implicit host syncs {row['implicit_syncs']}")
         if row["losses"] != rows[0]["losses"]:
@@ -5158,7 +5369,8 @@ def _phase37_rank(rank):
         res[key] = _dp_cells_train(rank, dev, key)
         res[key]["seconds"] = time.perf_counter() - t0
     res["d"] = _psum_check(rank, dev)
-    res["q"] = _moe_tp_first_step(rank, dev)
+    for key in FIRST_STEP_CELLS:  # 37q (a), 37r (a-b)
+        res[key] = _first_step_rank(rank, dev, key)
     return res
 
 
@@ -5280,11 +5492,11 @@ def multi_gpu(dev, detail):
     losses bit for bit, losses within LOSS_RTOL, K1/K2/K3/pre-pass
     launches a step equal.  37h: internvl2-76b at its published widths
     and ``VLM_LAYERS`` layers on (1, 2), phase 29's engine and trace:
-    tokens = phase 29's, K1 113 a weight pass a rank and one patch_proj
-    a solo prefill, 32 folds a pass.  37i: whisper-large-v3 at
+    tokens = phase 29's, K1 57 a weight pass a rank and one patch_proj
+    a solo prefill, 16 folds a pass.  37i: whisper-large-v3 at
     ``ENCDEC_LAYERS`` decoder layers and the whole encoder on (1, 2),
-    phase 30's engine and trace: tokens = phase 30's, K1 65 a decode pass
-    and 209 an encoder-side pass a rank, 24 and 64 folds, 10 of the 20
+    phase 30's engine and trace: tokens = phase 30's, K1 33 a decode pass
+    and 201 an encoder-side pass a rank, 12 and 64 folds, 10 of the 20
     (cross) K/V heads a rank.  37j: whisper on (2, 1) at
     ``ENCDEC_DP_LAYERS`` decoder layers against one rank.  37k: the vlm
     and encdec smoke configs, and whisper-large-v3 at its published widths
@@ -5308,9 +5520,17 @@ def multi_gpu(dev, detail):
     :func:`_check_tp_run`, :func:`_check_tp_smoke`).  37q (a):
     llama4-scout at its published widths and ``MOE_TP_TRAIN_LAYERS``
     layers on (1, 2) under EP, its first step against one rank run alone
-    before the two ranks start (:func:`_moe_tp_one_rank`,
-    :func:`_check_moe_tp`), (b): grok-1's smoke configs on (1, 2) under EP
-    and TP experts, (c): the MoE smoke configs in the four ranks.  The ranks' summed
+    before the two ranks start (:func:`_first_steps_one_rank`,
+    :func:`_first_step_rank`, :func:`_check_first_steps`), (b): grok-1's
+    smoke configs on (1, 2) under EP and TP experts, (c): the MoE smoke
+    configs in the four ranks.  37r (a): mamba2-2.7b at
+    ``SSM_TP_TRAIN_LAYERS`` layers, batch 4 x 512, 2 steps, (b):
+    recurrentgemma-2b at ``HYBRID_TP_TRAIN_LAYERS`` layers, batch 2 x 512,
+    its first step, both at their published widths on (1, 2) against one
+    rank run alone before the two ranks start, as 37q (a)
+    (``FIRST_STEP_CELLS``), (c): both smoke configs and their
+    ``RECURRENT_WIDE`` widenings on (1, 2), (d): both smoke configs in the
+    four ranks.  The ranks' summed
     peak stays under ``MULTI_PEAK_GIB`` in each serving and training
     sub-phase."""
     from repro_torch import configs
@@ -5322,17 +5542,18 @@ def multi_gpu(dev, detail):
     from repro_torch.parallel.planner import runtime_layout
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: one rank alone (37q (a)), two ranks on the one card (37a-q), then "
-          "four (37o (b), 37p (c), 37q (c))")
+    phase("37 multi-GPU: one rank alone (37q (a), 37r (a-b)), two ranks on the one card "
+          "(37a-r), then four (37o (b), 37p (c), 37q (c), 37r (d))")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # 37q (a)'s one rank, alone on the card: a world of one runs no collective
-    moe_one = collectives.spawn(_moe_tp_one_rank, 1, device="cpu")[0]
+    # 37q (a)'s and 37r (a-b)'s one rank, alone on the card: a world of one
+    # runs no collective
+    one = collectives.spawn(_first_steps_one_rank, 1, device="cpu")[0]
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
     spawn_s = time.perf_counter() - t0
-    out = {"spawn_s": spawn_s, "moe_one_rank_spawn_s": one_s}
+    out = {"spawn_s": spawn_s, "one_rank_spawn_s": one_s}
     failures = []
     llama = configs.get_config("llama3-8b")
     _check_sharded("a", ranks, dataclasses.replace(llama, n_layers=TP_SERVE_LAYERS), failures)
@@ -5427,18 +5648,19 @@ def multi_gpu(dev, detail):
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
     tp_rows = tp_training(ranks, failures)
-    tp_rows["q"] = _check_moe_tp(moe_one, [res["q"] for res in ranks], failures)
+    tp_rows.update(_check_first_steps(one, ranks, failures))
     served = tuple("abefhij") + ("l", "l2", "m", "m2")
     peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in served}
     peaks["c"] = sum(row["peak_gib"] for row in dp_rows)
-    peaks.update({k: sum(res[k]["peak_gib"] for res in ranks) for k in (*_tp_cells(), "q")})
+    peaks.update({k: sum(res[k]["peak_gib"] for res in ranks)
+                  for k in (*_tp_cells(), *FIRST_STEP_CELLS)})
     peaks.update(g=max(r["peak_gib"] for r in g_rows.values()),
                  k=max(r["peak_gib"] for r in k_rows.values()),
                  n=max(r["peak_gib"] for r in n_rows.values()))
     seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in served + ("c",)}
     seconds.update({k: round(ranks[0][k]["seconds"], 1)
-                    for k in ("g", "k", "n", *_tp_cells(), "q")})
-    seconds["q one rank"] = round(one_s, 1)
+                    for k in ("g", "k", "n", *_tp_cells(), *FIRST_STEP_CELLS)})
+    seconds["q, r one rank"] = round(one_s, 1)
     seconds["o, p (2, 2)"] = round(tp_rows["two_by_two_spawn_s"], 1)
     print(f"37 peaks, both ranks summed (GiB): "
           f"{ {k: round(v, 2) for k, v in sorted(peaks.items())} }; backend "
@@ -5458,9 +5680,10 @@ def multi_gpu(dev, detail):
 
 
 def tp_training(ranks, failures):
-    """37o, 37p and 37q (b-c): their (1, 2) runs (37o (a), 37p (a) and
-    (b), 37q (b)) ran in phase 37's two-rank world; their (2, 2) smoke
-    runs (37o (b), 37p (c), 37q (c)) spawn four ranks."""
+    """37o, 37p, 37q (b-c) and 37r (c-d): their (1, 2) runs (37o (a), 37p
+    (a) and (b), 37q (b), 37r (c)) ran in phase 37's two-rank world; their
+    (2, 2) smoke runs (37o (b), 37p (c), 37q (c), 37r (d)) spawn four
+    ranks."""
     from repro_torch.parallel import collectives
 
     t0 = time.perf_counter()
@@ -5469,6 +5692,8 @@ def tp_training(ranks, failures):
     from repro_torch import configs
 
     def label(cfg):
+        if cfg.family in ("ssm", "hybrid"):
+            return "37r"
         return "37o" if cfg.name == "olmo-1b" else "37q" if cfg.moe is not None else "37p"
 
     out = {key: _check_tp_run(key, label(_tp_cells()[key][0]), [res[key] for res in ranks],
@@ -5478,7 +5703,7 @@ def tp_training(ranks, failures):
                                                 ranks4, failures)
                          for arch in TP_SMOKE_ARCHS}
     out["two_by_two_spawn_s"] = spawn_s
-    print(f"37o/p/q: (1, 2) {[round(ranks[0][k]['seconds'], 1) for k in _tp_cells()]} s on rank "
+    print(f"37o/p/q/r: (1, 2) {[round(ranks[0][k]['seconds'], 1) for k in _tp_cells()]} s on rank "
           f"0, (2, 2) spawn to exit {spawn_s:.1f} s")
     return out
 

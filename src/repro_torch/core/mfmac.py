@@ -65,8 +65,12 @@ weight, quantized whole by the training step's shadow):
   epilogue and hands dA and the dgamma rows to every rank.  That needs
   whole 128-chunks a rank; a narrower shard (a smoke width) gathers G and
   Wq and computes dA whole on every rank, as the forward's 'gather' mode
-  does a row-parallel product.  dW = Aq^T·Gq is local (its contraction
-  over M is whole on each rank): this rank's columns, bit for bit;
+  does a row-parallel product, and so does a linear whose columns are an
+  index set of pieces (``col_cuts``: an ssm's in_proj, its heads' z, x
+  and dt columns and the B and C columns every rank holds), G and Wq
+  placed at their offsets in the whole N.  dW = Aq^T·Gq is local (its
+  contraction over M is whole on each rank): this rank's columns, bit
+  for bit;
 * a row-parallel linear (``row_group``, :func:`_row_parallel`): G is whole
   on every rank, so dA (this rank's K columns) and dW (its K rows) are
   local; max|G| is global over the data group only; the PRC threshold's
@@ -98,6 +102,7 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import CANONICAL_BK, halves_fold
 from repro_torch.parallel import actshard, collectives
+from repro_torch.parallel.planner import ShardingPlan
 
 _BF16 = torch.bfloat16
 
@@ -199,12 +204,13 @@ class _MFLinear(torch.autograd.Function):
     ``col_group``: N is split over its ranks (module docstring)."""
 
     @staticmethod
-    def forward(ctx, a, w, gamma, policy: QuantPolicy, is_last: bool, col_group=None):
+    def forward(ctx, a, w, gamma, policy: QuantPolicy, is_last: bool, col_group=None,
+                col_cuts=None):
         aq = _quantize_a(a, gamma, policy)
         wq = _quantize_w(w, policy)
         k = a.shape[-1]
         out = _pot_matmul(aq.reshape(-1, k), wq, policy)
-        ctx.policy, ctx.is_last, ctx.col_group = policy, is_last, col_group
+        ctx.policy, ctx.is_last, ctx.col_group, ctx.col_cuts = policy, is_last, col_group, col_cuts
         ctx.save_for_backward(a, aq, wq, gamma)
         return out.reshape(*a.shape[:-1], w.shape[-1]).to(a.dtype)
 
@@ -231,15 +237,15 @@ class _MFLinear(torch.autograd.Function):
             da, dw, dgs = _column_grads(
                 g2[None], aq.reshape(-1, k)[None], wq[None], group, betas=[beta_g],
                 a=None if a2 is None else a2[None], amax=None if amax is None else amax[None],
-                gamma=gamma, **kw)
+                gamma=gamma, cuts=ctx.col_cuts, **kw)
             da, dw, dgamma = da[0], dw[0], None if dgs is None else dgs[0]
         dgamma = (torch.zeros_like(gamma) if dgamma is None
                   else dgamma.reshape(gamma.shape).to(gamma.dtype))
-        return da.reshape(a.shape).to(a.dtype), dw, dgamma, None, None, None
+        return da.reshape(a.shape).to(a.dtype), dw, dgamma, None, None, None, None
 
 
 def _column_grads(g, aq, wq, group, *, betas, a, amax, gamma, bits_g, bits_a, bits_w,
-                  per_sample_act_scales=False):
+                  per_sample_act_scales=False, cuts=None):
     """dA (E, M, K), dW (E, K, N) and the dgammas (E,) of a stack of E
     column-parallel products (this rank's N columns of each G (E, M, N)
     and Wq (E, K, N), the input whole on each rank; a linear is a stack of
@@ -248,7 +254,12 @@ def _column_grads(g, aq, wq, group, *, betas, a, amax, gamma, bits_g, bits_a, bi
     sum in one chain (each product's K2 continuing from its slice, the
     PRC epilogue on the last rank), else over G and Wq gathered whole; K3
     local.  ``betas``: each product's G scale; ``a`` (E, M, K) and
-    ``amax`` (E,) the PRC epilogue's (dgammas None without them)."""
+    ``amax`` (E,) the PRC epilogue's (dgammas None without them).
+    ``cuts``: each rank's pieces of N (``planner.ShardingPlan.model_cuts``;
+    an ssm's packed in_proj, whose pieces interleave and whose B and C
+    columns every rank holds): G and Wq are gathered and placed at their
+    offsets in the whole N, whatever the width, and Gq is cut back to this
+    rank's pieces for K3."""
     e, m, n = g.shape
     k = wq.shape[1]
     prc = amax is not None
@@ -259,7 +270,7 @@ def _column_grads(g, aq, wq, group, *, betas, a, amax, gamma, bits_g, bits_a, bi
             kw.update(a=a[i], clip_t=amax[i] * gamma)
         return kw
 
-    if n % CANONICAL_BK == 0:
+    if cuts is None and n % CANONICAL_BK == 0:
         gq = [ops.grad_prepass(g[i], bits_g, betas[i]) for i in range(e)]
 
         def partial(start, last):
@@ -277,16 +288,20 @@ def _column_grads(g, aq, wq, group, *, betas, a, amax, gamma, bits_g, bits_a, bi
         da = out[:, :m * k].reshape(e, m, k)
         rows = out[:, m * k:] if prc else None
     else:
-        g_all = torch.cat(collectives.all_gather(g, group), dim=2)
-        w_all = torch.cat(collectives.all_gather(wq.to(torch.float32), group), dim=2)
+        collectives.stats["bwd_gathers"] += 1
         r = dist.get_rank(group)
+        if cuts is None:  # an even split in rank order
+            cuts = tuple(((q * n, n),) for q in range(dist.get_world_size(group)))
+        g_all = ShardingPlan.untake(collectives.all_gather(g, group), (2, cuts))
+        w_all = ShardingPlan.untake(collectives.all_gather(wq.to(torch.float32), group),
+                                    (2, cuts))
         das, rows, gq = [], [], []
         for i in range(e):
             gq_all = ops.grad_prepass(g_all[i], bits_g, betas[i])
             da, rw = ops.grad_da_matmul(g_all[i], w_all[i], gq=gq_all, **da_kw(i, True))
             das.append(da)
             rows.append(rw)
-            gq.append(None if gq_all is None else gq_all[:, r * n:(r + 1) * n].contiguous())
+            gq.append(None if gq_all is None else ShardingPlan.take(gq_all, (1, cuts[r])))
         da = torch.stack(das)
         rows = torch.stack(rows) if prc else None
     dw = torch.stack([ops.grad_dw_matmul(g[i], aq[i], bits_g=bits_g, bits_a=bits_a,
@@ -368,6 +383,7 @@ def mf_linear(
     is_last: bool = False,
     row_group=None,
     col_group=None,
+    col_cuts=None,
 ) -> torch.Tensor:
     """Quantized (or plain, if ``policy.enabled=False``) a[..., K] @ w[K, N].
 
@@ -378,7 +394,9 @@ def mf_linear(
     every rank (:func:`_row_parallel`).  ``col_group``: N is split over its
     ranks, ``a`` whole on each and ``w`` this rank's columns; the result is
     this rank's columns, and the backward chains K2 across the ranks
-    (module docstring)."""
+    (module docstring); with ``col_cuts`` (each rank's pieces of N, an
+    index set: an ssm's packed in_proj) ``w`` holds this rank's pieces and
+    the backward computes dA over G and Wq placed whole (:func:`_column_grads`)."""
     if not policy.enabled:
         w_ = w.to(a.dtype)
         if a.dim() == 3 and a.shape[1] == 1:
@@ -393,7 +411,7 @@ def mf_linear(
         gamma = torch.full((), gamma, dtype=torch.float32, device=a.device)
     if row_group is not None:
         return _row_parallel(a, w, gamma, policy, row_group)
-    return _MFLinear.apply(a, w, gamma, policy, is_last, col_group)
+    return _MFLinear.apply(a, w, gamma, policy, is_last, col_group, col_cuts)
 
 
 class _MFExpertLinear(torch.autograd.Function):

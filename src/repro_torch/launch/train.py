@@ -37,17 +37,18 @@ ranks share a card or on the CPU).  Each rank draws the whole seed-0
 parameters, keeps its shards (``train.step.DataParallel``) and steps on
 its rows of the batch (the model ranks of one data group on the same
 rows).  On (D, 1) every family trains so (a MoE batch's dispatch groups
-must not straddle two ranks).  On a model axis M > 1 the decoder, dense
-or MoE, the vlm and the encdec train tensor-parallel (``train/step.py``;
-``--arch whisper-large-v3 --mesh 1x2`` or ``2x2``, ``--arch
-internvl2-76b --smoke --mesh 1x2`` or ``2x2``, their batches carrying
-frames or patch embeddings; ``--arch llama4-scout-17b-a16e --smoke
---mesh 1x2``, its experts under EP, or ``2x2`` with ``--batch 4 --seq
-256``, whole dispatch groups a data rank); the ssm and the hybrid are
-refused there (ROADMAP item 9.3b), and so are ``--microbatches`` > 1
-(9.4).  Checkpoints are gathered whole, a leaf at a time over the data
-and model ranks, and written by rank 0 in the reference's layout, so a
-checkpoint written by D*M ranks restores in one, and in
+must not straddle two ranks).  On a model axis M > 1 every family trains
+tensor-parallel (``train/step.py``; ``--arch whisper-large-v3 --mesh
+1x2`` or ``2x2``, ``--arch internvl2-76b --smoke --mesh 1x2`` or
+``2x2``, their batches carrying frames or patch embeddings; ``--arch
+llama4-scout-17b-a16e --smoke --mesh 1x2``, its experts under EP, or
+``2x2`` with ``--batch 4 --seq 256``, whole dispatch groups a data rank;
+``--arch mamba2-2.7b --smoke --mesh 1x2`` or ``2x2`` and
+``recurrentgemma-2b`` the same); ``--microbatches`` > 1 is refused
+there (ROADMAP item 9.4).  Checkpoints are gathered whole, a leaf at a
+time over the data and model ranks (an ssm's packed in_proj and conv
+placed by every rank's pieces), and written by rank 0 in the reference's
+layout, so a checkpoint written by D*M ranks restores in one, and in
 ``repro.launch.train``; a restore reads the whole state on every rank
 and keeps its shards.  Only rank 0 prints.
 
@@ -74,7 +75,6 @@ from repro_torch.optim import (adamw, sgd_momentum, step_decay_schedule,
                                warmup_cosine_schedule)
 from repro_torch.parallel import collectives, meshes, planner
 from repro_torch.train import TrainConfig, make_train_step
-from repro_torch.train.step import check_model_axis
 
 # cuBLAS reads its workspace setting when its first handle is made, so it
 # is fixed here, before any CUDA call, for make_deterministic's sake
@@ -115,8 +115,6 @@ def _world_plan(cfg, shape, mesh_arg: str, device: str):
     """The training plan over the launched world for ``--mesh DxM`` (the
     world joined from torchrun's environment when it is not up yet)."""
     d, m = meshes.parse_mesh(mesh_arg)
-    if m > 1:
-        check_model_axis(cfg)
     if collectives.world_size() == 1 and d * m > 1:
         env = collectives.world_from_env()
         if env is None:

@@ -32,8 +32,24 @@ columns whole over the all-gathered conv output (:func:`_gates`), and
 over the gathered input (``transformer._out_proj``); attention takes the
 decoder's path (``_qkv`` with ``_kv_select``, ``_sdpa`` over the whole
 head count, ``wo`` through ``_out_proj``), and the embedding and the head
-split over the vocabulary (``_embed``, ``_lm_head``).  Without a plan
-every hook is the identity.
+split over the vocabulary (``embed_inputs``, ``_lm_head``).  Without a
+plan every hook is the identity.
+
+Under autograd (tensor-parallel training) ``wx``, ``wy``, the gates and
+the MLP's gate and up are column-parallel (``mf_linear(col_group=)``: K2
+chained across the ranks at whole 128-chunks a rank, over G and Wq
+gathered below), and every rank runs the RG-LRU whole: ``wx``'s and
+``wy``'s outputs, the conv's taps and bias and ``lam`` all-gathered, the
+conv, the gates over the whole conv output (each gate's columns
+gathered), the scan and ``hseq · gelu(y)`` at one rank's shapes, and
+``wout``'s input cut to this rank's channels by
+``collectives.slice_replicated`` where it folds.  So the RG-LRU's
+backward is one rank's program at one rank's shapes: the per-channel
+gradients (the conv's, ``lam``'s: sums over the batch and the sequence)
+are one rank's slices whatever order a reduction over a rank's share of
+the channels would take, and the conv output's gradient adds one rank's
+three terms in one rank's order; M times the RG-LRU's elementwise work a
+rank.
 """
 from __future__ import annotations
 
@@ -115,21 +131,33 @@ def hybrid_specs(cfg: ModelConfig):
 
 
 def _mlp(cfg, policy, p, x):
-    g = mfmac.mf_linear(x, p["wi_gate"]["w"], p["wi_gate"]["gamma"], policy=policy)
-    u = mfmac.mf_linear(x, p["wi_up"]["w"], p["wi_up"]["gamma"], policy=policy)
+    tp = transformer._tp()  # the hidden width split: gate and up are column-parallel
+    col = tp.group if tp is not None and tp.layout.ffn else None
+    g = mfmac.mf_linear(x, p["wi_gate"]["w"], p["wi_gate"]["gamma"], policy=policy,
+                        col_group=col)
+    u = mfmac.mf_linear(x, p["wi_up"]["w"], p["wi_up"]["gamma"], policy=policy,
+                        col_group=col)
     return transformer._out_proj(p["wo"], common.gelu(g) * u, policy, "mlp_wo")
 
 
-def _gates(policy, p, conv):
+def _gates(policy, p, conv, whole: bool = False):
     """The RG-LRU gates (r, i) of the conv output: on a model axis that
     splits the channels, each rank's columns of ``wa``/``wi`` over the
-    all-gathered conv output (this rank's channels of both gates)."""
+    all-gathered conv output (this rank's channels of both gates), or,
+    with ``whole`` (the block run whole under autograd, ``conv`` every
+    channel), every channel of both, gathered from the ranks' columns:
+    the conv output then has one rank's three consumers (the two gates and
+    the input gate's product), so autograd adds their gradients in one
+    rank's order."""
     tp = transformer._tp()
-    if tp is not None and tp.layout.lru:
+    split = tp is not None and tp.layout.lru
+    if split and not whole:
         conv = transformer._gather_cols(conv, tp.group)
-    return tuple(torch.sigmoid(mfmac.mf_linear(conv, p[k]["w"], p[k]["gamma"],
-                                               policy=policy).to(torch.float32))
-                 for k in ("wa", "wi"))
+    out = [mfmac.mf_linear(conv, p[k]["w"], p[k]["gamma"], policy=policy,
+                           col_group=tp.group if split else None) for k in ("wa", "wi")]
+    if whole:
+        out = [transformer._gather_cols(o, tp.group) for o in out]
+    return tuple(torch.sigmoid(o.to(torch.float32)) for o in out)
 
 
 def _norm(x, scale, rows: bool):
@@ -167,12 +195,21 @@ def _rglru_block(cfg, policy, p, x, *, conv_state=None, lru_state=None):
     sequence is scanned from zero state.  Returns (x, (the conv window of
     the last W - 1 inputs, the last state))."""
     decode = conv_state is not None
+    tp = transformer._tp()
+    split = tp is not None and tp.layout.lru
     h = _norm(x, p["ln1"]["scale"], decode)
-    xb = mfmac.mf_linear(h, p["wx"]["w"], p["wx"]["gamma"], policy=policy)
-    yb = common.gelu(mfmac.mf_linear(h, p["wy"]["w"], p["wy"]["gamma"], policy=policy))
+    col = tp.group if split else None
+    xb = mfmac.mf_linear(h, p["wx"]["w"], p["wx"]["gamma"], policy=policy, col_group=col)
+    yb = mfmac.mf_linear(h, p["wy"]["w"], p["wy"]["gamma"], policy=policy, col_group=col)
+    w, b, lam = p["conv_w"], p["conv_b"], p["lam"]
+    # under autograd on a model axis that splits the channels every rank
+    # runs the RG-LRU whole (the module docstring)
+    whole = split and torch.is_grad_enabled() and xb.requires_grad
+    if whole:
+        xb, yb, w, b, lam = (transformer._gather_cols(t, tp.group) for t in (xb, yb, w, b, lam))
+    yb = common.gelu(yb)
 
     # temporal conv (depthwise, causal, width 4), its taps added in order
-    w, b = p["conv_w"], p["conv_b"]
     width = w.shape[0]
     if decode:
         # the f32 window promotes the new row, as jnp.concatenate does
@@ -187,8 +224,8 @@ def _rglru_block(cfg, policy, p, x, *, conv_state=None, lru_state=None):
         conv = conv + xp[:, i:i + xb.shape[1], :] * w[i]
     conv = conv + b
 
-    r, i_g = _gates(policy, p, conv)
-    log_a = -LRU_C * common.softplus(p["lam"]) * r  # (B, S, lw)
+    r, i_g = _gates(policy, p, conv, whole)
+    log_a = -LRU_C * common.softplus(lam) * r  # (B, S, lw)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i_g * conv.to(torch.float32))
     if decode:
@@ -197,7 +234,7 @@ def _rglru_block(cfg, policy, p, x, *, conv_state=None, lru_state=None):
         hseq = _rglru_scan(a, gated)
     new_lru_state = hseq[:, -1, :]
     out = hseq.to(x.dtype) * yb
-    x = x + transformer._out_proj(p["wout"], out, policy, "lru_wo")
+    x = x + transformer._out_proj(p["wout"], out, policy, "lru_wo", whole=whole)
     h2 = _norm(x, p["ln2"]["scale"], decode)
     x = x + _mlp(cfg, policy, p["mlp"], h2)
     return x, (new_conv_state, new_lru_state)
@@ -247,7 +284,7 @@ def _head(cfg, policy, params, x):
 def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: bool = False):
     """Full-sequence forward: logits (B, S, V_padded).  ``remat``
     recomputes each layer in the backward (when grad is on)."""
-    x = F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.act_dtype))
+    x = transformer.embed_inputs(cfg, policy, params, tokens)
     qpos = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     recompute = remat and torch.is_grad_enabled()
     for kind, p in zip(layer_kinds(cfg), params["layers"]):

@@ -27,10 +27,27 @@ order for ``out_norm``, whose mean runs over every channel; ``out_proj``
 then folds over this rank's channels (K1's fold chained across the
 ranks) or, under a 128-chunk a rank, runs whole over the gathered y
 (:func:`_out_norm_proj`).  The embedding rows and the head's columns
-split over the vocabulary (``transformer._embed`` and ``_lm_head``).
-Without a plan every hook is the identity.
+split over the vocabulary (``transformer.embed_inputs`` and
+``_lm_head``).  Without a plan every hook is the identity.
+
+Under autograd (tensor-parallel training) in_proj is column-parallel
+over its index-set pieces, its dA over G and Wq placed whole
+(``mfmac.mf_linear(col_cuts=)``), and every rank runs the rest of the
+mixer whole: its heads' z, x and dt columns, conv channels and per-head
+leaves all-gathered (:func:`_gathered`), the conv, the SSD over every
+head, ``y · silu(z)`` and ``out_norm`` at one rank's shapes, and
+out_proj's input cut to this rank's channels by
+``collectives.slice_replicated`` where it folds.  So the backward of the
+conv, the SSD and the norm is one rank's program at one rank's shapes,
+replicated: B's and C's gradients, which every head shares, whole on
+every rank, and each per-head or per-channel gradient one rank's slice,
+whatever order a reduction over a rank's share of the channels would
+take.  It costs M times the conv's and the SSD's work a rank, as
+``select`` does for attention.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +60,7 @@ from repro_torch.models import common
 from repro_torch.models.spec import ParamSpec
 from repro_torch.models import transformer
 from repro_torch.models.transformer import _gather_cols, _layer, _rows, _tp, _unbind_layers
+from repro_torch.parallel import actshard, collectives
 
 HEADDIM = 64  # Mamba2's default head dim P
 
@@ -224,35 +242,70 @@ def _ssd_heads_whole(xh, dt, a_log, bb, cc, d_skip, chunk):
     return y[:, :, lo:lo + hl], final[:, lo:lo + hl]
 
 
-def _out_norm_proj(policy, lp, y, rows: bool):
+def _out_norm_proj(policy, lp, y, rows: bool, whole: bool = False):
     """``out_norm`` (row by row with ``rows``: decode), then ``out_proj``.
     On a model axis that splits the heads, y (this rank's heads'
-    channels) is all-gathered in rank order and normed whole; ``out_proj``
-    then folds over this rank's channels, or runs whole over the gathered
-    y where a rank's channels are not whole 128-chunks."""
+    channels; ``whole``: every channel already, :func:`_gathered`) is
+    all-gathered in rank order and normed whole; ``out_proj`` then folds
+    over this rank's channels, or runs whole over the gathered y where a
+    rank's channels are not whole 128-chunks (``transformer._out_proj``)."""
     tp = _tp()
-    split = tp is not None and tp.layout.heads
-    width = y.shape[-1]
-    if split:
+    if tp is not None and tp.layout.heads and not whole:
         y = _gather_cols(y, tp.group)
 
     def norm(r):
         return common.rms_norm(r, lp["out_norm"]["scale"])
 
     y = _rows(norm, y) if rows else norm(y)
-    p = lp["out_proj"]
-    if split and tp.layout.wo == "fold":
-        y = y[..., tp.rank * width:(tp.rank + 1) * width]
-        return mfmac.mf_linear(y, p["w"], p["gamma"], policy=policy, row_group=tp.group)
-    return mfmac.mf_linear(y, p["w"], p["gamma"], policy=policy)
+    return transformer._out_proj(lp["out_proj"], y, policy, "wo", whole=True)
+
+
+def _gathered(tp, cfg, lp, zxbcdt):
+    """The mixer whole on every model rank, from in_proj's output on:
+    (the whole config, the layer's leaves with the conv's, ``A_log``'s,
+    ``D``'s and ``dt_bias``'s whole, in_proj's whole output) from this
+    rank's.  Its heads' z, x and dt columns and its conv channels and
+    per-head leaves are all-gathered in rank order
+    (``collectives.gather_replicated``: the backward takes this rank's
+    slice); B and C are whole on every rank already."""
+    d_inner = _dims(cfg)[0]
+
+    def g(t, dim=-1):
+        return collectives.gather_replicated(t.contiguous(), tp.group, dim)
+
+    z, xs, bb, cc, dt = _split_proj(cfg, zxbcdt)
+    lp = dict(lp, conv_w=torch.cat([g(lp["conv_w"][:, :d_inner]), lp["conv_w"][:, d_inner:]],
+                                   dim=-1),
+              conv_b=torch.cat([g(lp["conv_b"][:d_inner]), lp["conv_b"][d_inner:]], dim=-1),
+              **{k: g(lp[k], 0) for k in ("A_log", "D", "dt_bias")})
+    return tp.cfg, lp, torch.cat([g(z), g(xs), bb, cc, g(dt)], dim=-1)
 
 
 def _mixer(cfg, policy, lp, x, chunk):
     """The block's SSD mixer over a whole sequence.  Returns (the block's
-    output, the conv window of its last W - 1 inputs, the final state)."""
-    d_inner, nheads, n, _ = _dims(cfg)
+    output, the conv window of its last W - 1 inputs, the final state).
+
+    On a model axis that splits the SSD heads, in_proj is column-parallel
+    over this rank's pieces (its backward over G and Wq placed whole:
+    ``mfmac.mf_linear(col_cuts=)``).  Under autograd every rank then runs
+    the rest whole (:func:`_gathered`: M times the conv's and the SSD's
+    work a rank), so the backward of the conv, the SSD and ``out_norm`` is
+    one rank's, replicated: B's and C's gradients (shared by every head)
+    whole, and each per-head and per-channel gradient one rank's slice.
+    Without grad (serving, prefill, the per-token losses) a rank runs its
+    own heads, padded to the whole head count (:func:`_ssd_heads_whole`);
+    the forward's bits are the same either way."""
+    tp = _tp()
+    split = tp is not None and tp.layout.heads
     h = common.rms_norm(x, lp["norm"]["scale"])
-    zxbcdt = mfmac.mf_linear(h, lp["in_proj"]["w"], lp["in_proj"]["gamma"], policy=policy)
+    p = lp["in_proj"]
+    cuts = actshard.active_plan().model_cuts("layers/in_proj/w")[1] if split else None
+    zxbcdt = mfmac.mf_linear(h, p["w"], p["gamma"], policy=policy,
+                             col_group=tp.group if split else None, col_cuts=cuts)
+    whole = split and torch.is_grad_enabled() and zxbcdt.requires_grad
+    if whole:
+        cfg, lp, zxbcdt = _gathered(tp, cfg, lp, zxbcdt)
+    d_inner, nheads, n, _ = _dims(cfg)
     z, xs, bb, cc, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xs, bb, cc], dim=-1)
     conv_state = conv_in[:, conv_in.shape[1] - (cfg.conv_width - 1):, :]
@@ -262,10 +315,11 @@ def _mixer(cfg, policy, lp, x, chunk):
     cc = conv_out[..., d_inner + n:]
     bsz, s, _ = xs.shape
     xh = xs.reshape(bsz, s, nheads, HEADDIM)
-    y, final = _ssd_heads_whole(xh, dt + lp["dt_bias"], lp["A_log"], bb, cc, lp["D"], chunk)
+    ssd = functools.partial(_ssd_chunked, with_final=True) if whole else _ssd_heads_whole
+    y, final = ssd(xh, dt + lp["dt_bias"], lp["A_log"], bb, cc, lp["D"], chunk)
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    return x + _out_norm_proj(policy, lp, y, rows=False), conv_state, final
+    return x + _out_norm_proj(policy, lp, y, rows=False, whole=whole), conv_state, final
 
 
 def _block(cfg, policy, lp, x, chunk):
@@ -281,7 +335,7 @@ def forward(cfg: ModelConfig, policy: QuantPolicy, params, tokens, *, remat: boo
     """Full-sequence forward: logits (B, S, V_padded).  ``remat``
     recomputes each layer in the backward (when grad is on), as the
     reference's ``jax.checkpoint`` around its layer scan."""
-    x = F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.act_dtype))
+    x = transformer.embed_inputs(cfg, policy, params, tokens)
     chunk = min(cfg.ssm_chunk, x.shape[1])
     layers = _unbind_layers(params["layers"])
     recompute = remat and torch.is_grad_enabled()

@@ -61,7 +61,8 @@ prefill runs the backbone's hooks over them.  Without a plan every hook
 is the identity.
 
 Under autograd (tensor-parallel training of the decoder, dense or MoE,
-the vlm and, through the same hooks, the encdec) the hooks keep the
+the vlm and, through the same hooks, the encdec, the ssm and the
+hybrid) the hooks keep the
 replicated-compute convention: every model rank holds the same
 replicated activations and computes the same loss from the gathered
 logits.  The gathers (the embedding's lookups, the head's logits, an input
@@ -345,16 +346,23 @@ def _mine(out: torch.Tensor, mine: Optional[slice]) -> torch.Tensor:
     return out[:, :, mine]
 
 
-def _out_proj(p, x, policy, mode: str) -> torch.Tensor:
+def _out_proj(p, x, policy, mode: str, whole: bool = False) -> torch.Tensor:
     """An output projection whose input is split over the model axis
     (``wo`` of the attention, ``mode`` 'wo'; the MLP's down projection,
-    'mlp_wo'): row-parallel where the layout folds, else over the
-    all-gathered input with the weight whole."""
+    'mlp_wo'; an ssm's ``out_proj``, 'wo'; a hybrid's ``wout``, 'lru_wo'):
+    row-parallel where the layout folds, else over the all-gathered input
+    with the weight whole.  ``whole``: ``x`` is the whole input, the same
+    on every rank (a mixer run whole under autograd); where the layout
+    folds this rank's slice of it is taken by
+    ``collectives.slice_replicated``, whose backward gathers every rank's
+    slice gradient into the whole, replicated one."""
     tp = _tp()
     how = getattr(tp.layout, mode) if tp is not None else "whole"
+    if whole and how == "fold":
+        x, whole = collectives.slice_replicated(x, tp.group, -1), False
     if how == "fold" and policy.enabled:
         return mfmac.mf_linear(x, p["w"], p["gamma"], policy=policy, row_group=tp.group)
-    if how != "whole":
+    if how != "whole" and not whole:
         x = _gather_cols(x, tp.group)
     return mfmac.mf_linear(x, p["w"], p["gamma"], policy=policy)
 

@@ -69,8 +69,10 @@ forward, its amax all-reduces and folds included, on every rank alike.
 
 :data:`stats` counts calls, bytes and host seconds spent in the ops, the
 forward's row-parallel folds (``folds``), the backward's chains
-(``bwd_folds``) and the owner selections (``selects``: a forward
-:func:`select_from_owner`, a backward :func:`grad_from_owner`).
+(``bwd_folds``), the column-parallel backwards that gather G and Wq
+instead of chaining (``bwd_gathers``, counted by ``core/mfmac.py``) and
+the owner selections (``selects``: a forward :func:`select_from_owner`, a
+backward :func:`grad_from_owner`).
 :func:`spawn` runs a function on N ranks of a fresh world (the CPU tests,
 ``parallel/smoke.py``, the card's two-rank phases).
 """
@@ -88,14 +90,14 @@ import torch.distributed as dist
 #: calls, bytes moved and host seconds spent in this module's ops since
 #: the last :func:`reset_stats`
 stats: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0, "folds": 0,
-                           "bwd_folds": 0, "selects": 0}
+                           "bwd_folds": 0, "selects": 0, "bwd_gathers": 0}
 _STATE: Dict = {"backend": None, "cuda_ops": None}
 _GROUPS: Dict = {}
 _OPS = ("all_reduce", "all_gather", "broadcast")
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0, folds=0, bwd_folds=0, selects=0)
+    stats.update(calls=0, bytes=0, seconds=0.0, folds=0, bwd_folds=0, selects=0, bwd_gathers=0)
 
 
 def world_size() -> int:

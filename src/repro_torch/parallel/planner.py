@@ -630,26 +630,51 @@ class ShardingPlan:
                 return i
         return None
 
-    def shard_slice(self, path: str) -> Optional[Tuple[int, Tuple[Tuple[int, int], ...]]]:
-        """``(dim, ((start, length), ...))``: this model rank's pieces of
-        param leaf ``path`` along the dim the runtime splits, in order (one
-        piece, but for an ssm's packed ``in_proj`` and conv: its heads' z,
-        x and dt columns and B and C whole; None: whole)."""
+    def shard_segments(self, path: str, rank: Optional[int] = None):
+        """``(dim, ((start, length, split), ...))``: model rank ``rank``'s
+        (default this rank's) pieces of param leaf ``path`` along the dim
+        the runtime splits, in order and unmerged, each marked split (its
+        1/model of a segment) or whole on every rank (an ssm's B and C
+        columns); None: the leaf is whole."""
         if self.model_shards == 1:
             return None
         cut = _param_split(self.cfg, self.layout(), path)
         if cut is None:
             return None
         dim, segments = cut
-        m, r = self.model_shards, self.mesh.coord("model")
+        m = self.model_shards
+        r = self.mesh.coord("model") if rank is None else rank
+        return dim, tuple((off + r * (width // m), width // m, True) if split
+                          else (off, width, False)
+                          for off, width, split in
+                          segments or ((0, self.param_shape(path)[dim], True),))
+
+    def shard_slice(self, path: str, rank: Optional[int] = None
+                    ) -> Optional[Tuple[int, Tuple[Tuple[int, int], ...]]]:
+        """``(dim, ((start, length), ...))``: model rank ``rank``'s (default
+        this rank's) pieces of param leaf ``path`` along the dim the runtime
+        splits, in order, adjacent ones merged (one piece, but for an ssm's
+        packed ``in_proj`` and conv: its heads' z, x and dt columns and B
+        and C whole; None: whole)."""
+        seg = self.shard_segments(path, rank)
+        if seg is None:
+            return None
+        dim, segments = seg
         pieces = []
-        for off, width, split in segments or ((0, self.param_shape(path)[dim], True),):
-            start, n = (off + r * (width // m), width // m) if split else (off, width)
+        for start, n, _ in segments:
             if pieces and sum(pieces[-1]) == start:
                 pieces[-1] = (pieces[-1][0], pieces[-1][1] + n)
             else:
                 pieces.append((start, n))
         return dim, tuple(pieces)
+
+    def model_cuts(self, path: str):
+        """``(dim, (rank 0's pieces, rank 1's, ...))`` of param leaf
+        ``path`` (:meth:`shard_slice` of every model rank), or None."""
+        cut = self.shard_slice(path, 0)
+        if cut is None:
+            return None
+        return cut[0], tuple(self.shard_slice(path, r)[1] for r in range(self.model_shards))
 
     @staticmethod
     def take(x: torch.Tensor, cut) -> torch.Tensor:
@@ -658,6 +683,27 @@ class ShardingPlan:
         if len(pieces) == 1:
             return x.narrow(dim, *pieces[0]).contiguous()
         return torch.cat([x.narrow(dim, start, n) for start, n in pieces], dim=dim)
+
+    @staticmethod
+    def untake(parts, cuts) -> torch.Tensor:
+        """The inverse of :meth:`take` over every model rank: the whole
+        tensor from each rank's shard ``parts[r]`` and ``cuts`` (a
+        :meth:`model_cuts` pair).  A piece that several ranks hold (an
+        ssm's B and C, the same on each) is taken from the first of them."""
+        dim, per_rank = cuts
+        if all(len(p) == 1 for p in per_rank) and all(
+                per_rank[r][0][0] == sum(per_rank[r - 1][0]) for r in range(1, len(per_rank))):
+            return torch.cat(parts, dim=dim)  # contiguous ranges in rank order
+        shape = list(parts[0].shape)
+        shape[dim] = max(start + n for pieces in per_rank for start, n in pieces)
+        out = parts[0].new_empty(shape)
+        # the last rank first, so that rank 0 writes a shared piece last
+        for part, pieces in reversed(list(zip(parts, per_rank))):
+            off = 0
+            for start, n in pieces:
+                out.narrow(dim, start, n).copy_(part.narrow(dim, off, n))
+                off += n
+        return out
 
     def shard_leaf(self, path: str, x: torch.Tensor) -> torch.Tensor:
         """This model rank's shard of param leaf ``path`` (a contiguous

@@ -45,37 +45,42 @@ activation scales, like every other per-tensor one, are the global
 batch's.  The ssm and the hybrid (a tuple of per-layer dicts, split
 leaf by leaf, ``layers/<i>/...``) train the same way too.
 
-Tensor-parallel (a (D, M) mesh with M > 1; the decoder, dense or MoE,
-the vlm and the encdec).  Each rank holds its model shard of every leaf
-the runtime splits (``plan.shard_leaf``: q and the K/V heads, the MLP's
-hidden width, the vocabulary; ``wo`` and the down projection along their
-contraction; a MoE layer's experts under EP (``experts_local`` whole
-experts of gate, up and down) or, under TP, gate's and up's hidden width
-(down whole); an encdec's ``enc_layers/...`` and ``dec_layers/...`` by
-the same rules, its cross attention's ``cq``/``ck``/``cv``/``co`` as
-``wq``/``wk``/``wv``/``wo``), split in turn over the data ranks as
-above; leaves replicated on the model axis stay whole there: each
-linear's ``gamma``, the norms, the router, TP's down projection, K/V
-heads selected from a whole product (``kv == 'select'``), a vlm's
-``patch_proj``, an encdec's ``frame_proj``, ``enc_pos`` and tied
-embedding.  The shadow quantizes each matrix whole, one leaf at a time:
-gathered over the data and model ranks, quantized (the reference's WBC
-mean and scale, a matrix at a time for a stacked leaf), and this rank's
-shard kept; a leaf split along its stack of matrices (EP's experts) is
-quantized on its shard, whose matrices are whole.  The forward and
-backward run with the plan's local config through the model-axis hooks
-(``models/transformer.py``, ``models/encdec.py``; K2 chained across the
-ranks, ``core/mfmac.py``; a MoE layer's owner selections,
-``parallel/collectives.py``), so every rank computes the same loss and
-the same replicated gradients; a split leaf's gradient is this rank's
-slice of one rank's.  The gradients are summed over the data group only
-(a replicated leaf's is the same on every model rank), and
+Tensor-parallel (a (D, M) mesh with M > 1; every family).  Each rank
+holds its model shard of every leaf the runtime splits
+(``plan.shard_leaf``: q and the K/V heads, the MLP's hidden width, the
+vocabulary; ``wo`` and the down projection along their contraction; a
+MoE layer's experts under EP (``experts_local`` whole experts of gate,
+up and down) or, under TP, gate's and up's hidden width (down whole); an
+encdec's ``enc_layers/...`` and ``dec_layers/...`` by the same rules, its
+cross attention's ``cq``/``ck``/``cv``/``co`` as ``wq``/``wk``/``wv``/
+``wo``; an ssm's SSD heads: in_proj's and the conv's index-set pieces,
+B and C whole in them, ``A_log``, ``D``, ``dt_bias``, out_proj along its
+contraction; a hybrid's RG-LRU channels: ``wx``, ``wy``, the gates'
+columns, the conv, ``lam``, ``wout`` along its contraction), split in
+turn over the data ranks as above; leaves replicated on the model axis
+stay whole there: each linear's ``gamma``, the norms, the router, TP's
+down projection, K/V heads selected from a whole product (``kv ==
+'select'``), a vlm's ``patch_proj``, an encdec's ``frame_proj``,
+``enc_pos`` and tied embedding.  The shadow quantizes each matrix whole,
+one leaf at a time: gathered over the data and model ranks (a shard of
+several pieces placed by every rank's cut, ``ShardingPlan.untake``),
+quantized (the reference's WBC mean and scale, a matrix at a time for a
+stacked leaf), and this rank's shard kept; a leaf split along its stack
+of matrices (EP's experts) is quantized on its shard, whose matrices are
+whole.  The forward and backward run with the plan's local config
+through the model-axis hooks (``models/transformer.py``,
+``models/encdec.py``, ``models/ssm.py``, ``models/recurrent.py``; K2
+chained across the ranks, ``core/mfmac.py``; a MoE layer's owner
+selections, ``parallel/collectives.py``; an ssm's or a hybrid's mixer
+run whole on every rank), so every rank computes the same loss and the
+same replicated gradients; a split leaf's gradient is this rank's slice
+of one rank's.  The gradients are summed over the data group only (a
+replicated leaf's, or piece's, is the same on every model rank), and
 ``global_norm`` sums the split leaves' squares over the groups they are
-split over, counting a replicated leaf once.  On (1, M) the losses and
-every gradient are one rank's bit for bit.  Refused on a model axis: the
-ssm and the hybrid (ROADMAP item 9.3b), microbatches > 1 and
-``weight_shadow=False`` (9.4).  Microbatching is refused on any sharded
-plan.
+split over, counting a replicated leaf or piece once.  On (1, M) the
+losses and every gradient are one rank's bit for bit.  Refused on a
+model axis: microbatches > 1 and ``weight_shadow=False`` (ROADMAP item
+9.4).  Microbatching is refused on any sharded plan.
 """
 from __future__ import annotations
 
@@ -172,20 +177,6 @@ def loss_and_grads(cfg: ModelConfig, policy: QuantPolicy, params, batch):
     return value_and_grad(lambda p: registry.loss_fn(cfg, policy, p, batch), params)
 
 
-#: the families that train on a model axis > 1 (the decoder dense or MoE)
-MODEL_AXIS_FAMILIES = ("decoder", "vlm", "encdec")
-
-
-def check_model_axis(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` trains on a model axis > 1 (the decoder, dense
-    or MoE, the vlm, the encdec)."""
-    if cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) on a model axis > 1 is not "
-            "ported yet (ROADMAP item 9.3b: the ssm and the hybrid under tensor-parallel "
-            "training); train it on a (D, 1) mesh")
-
-
 class DataParallel:
     """The sharded side of a training plan on a concrete (D, M) mesh: which
     dim of each leaf is split over the data ranks (``plan.data_split_dim``)
@@ -197,13 +188,10 @@ class DataParallel:
         self.plan = plan
         self.group = plan.mesh.group("data")
         self.rank, self.size = actshard.data_rank_and_size(plan)
-        self.model_group = None
-        if plan.model_shards > 1:
-            check_model_axis(plan.cfg)
-            self.model_group = plan.mesh.group("model")
+        self.model_group = plan.mesh.group("model") if plan.model_shards > 1 else None
 
     def _dims(self, tree, strip: int):
-        """(name, leaf, data dim, model dim) of each leaf."""
+        """(name, leaf, data dim, model dim, param path) of each leaf."""
         out = []
         for n, x in named_leaves(tree):
             path = "/".join(n.split("/")[strip:])
@@ -211,7 +199,7 @@ class DataParallel:
             m = self.plan.model_split_dim(path) if self.model_group is not None else None
             if d is not None and d == m:
                 raise ValueError(f"param {path}: dim {d} is split over both data and model")
-            out.append((n, x, d, m))
+            out.append((n, x, d, m, path))
         return out
 
     def _narrow(self, x, dim):
@@ -220,13 +208,16 @@ class DataParallel:
         n = x.shape[dim] // self.size
         return x.narrow(dim, self.rank * n, n).clone()
 
-    def _whole(self, x, d, m):
+    def _whole(self, x, d, m, path):
         """A leaf whole from every rank's slices (all-gathers in rank order,
-        over data, then over model)."""
+        over data, then over model; a model shard of several pieces, an
+        ssm's packed in_proj and conv, placed by every rank's cut, the
+        inverse of ``ShardingPlan.take``)."""
         if d is not None:
             x = torch.cat(collectives.all_gather(x, self.group), dim=d)
         if m is not None:
-            x = torch.cat(collectives.all_gather(x.contiguous(), self.model_group), dim=m)
+            x = self.plan.untake(collectives.all_gather(x.contiguous(), self.model_group),
+                                 self.plan.model_cuts(path))
         return x
 
     def shard(self, tree, strip: int = 0):
@@ -238,11 +229,12 @@ class DataParallel:
                 x = self.plan.shard_leaf("/".join(n.split("/")[strip:]), x)
             return self._narrow(x, d)
 
-        return unflatten((n, one(n, x, d)) for n, x, d, _ in self._dims(tree, strip))
+        return unflatten((n, one(n, x, d)) for n, x, d, _, _ in self._dims(tree, strip))
 
     def gather(self, tree, strip: int = 0):
         """The whole tree from every rank's slices, a leaf at a time."""
-        return unflatten((n, self._whole(x, d, m)) for n, x, d, m in self._dims(tree, strip))
+        return unflatten((n, self._whole(x, d, m, path))
+                         for n, x, d, m, path in self._dims(tree, strip))
 
     def inputs(self, params, policy: Optional[QuantPolicy]):
         """The step's inputs from this rank's masters, a leaf at a time: each
@@ -259,9 +251,9 @@ class DataParallel:
                 return x
             if m is None or m < x.dim() - 2:
                 return _quantize_leaf(x, policy)
-            return self.plan.shard_leaf(n, _quantize_leaf(self._whole(x, None, m), policy))
+            return self.plan.shard_leaf(n, _quantize_leaf(self._whole(x, None, m, n), policy))
 
-        return unflatten((n, one(n, x, d, m)) for n, x, d, m in self._dims(params, 0))
+        return unflatten((n, one(n, x, d, m)) for n, x, d, m, _ in self._dims(params, 0))
 
     def reduce(self, grads):
         """Each rank's gradient slices of the sum over the data ranks (a
@@ -269,16 +261,31 @@ class DataParallel:
         model shard's gradient is this rank's already."""
         return unflatten((n, collectives.all_reduce_sum(g, self.group) if d is None
                           else collectives.reduce_scatter(g, self.group, d))
-                         for n, g, d, _ in self._dims(grads, 0))
+                         for n, g, d, _, _ in self._dims(grads, 0))
+
+    def _pieces(self, g, m, path):
+        """(piece, split over the model ranks) of a leaf's model shard: its
+        split segments and the ones every model rank holds (an ssm's B and
+        C columns), or the leaf as one piece."""
+        if m is None:
+            return [(g, False)]
+        dim, segments = self.plan.shard_segments(path)
+        out, off = [], 0
+        for _, n, split in segments:
+            out.append((g.narrow(dim, off, n), split))
+            off += n
+        return out
 
     def global_norm(self, grads) -> torch.Tensor:
         """The whole tree's gradient norm from the ranks' slices: each
         leaf's sum of squares is summed over the groups it is split over
-        (a leaf replicated on a group counts once)."""
+        (a leaf, or a piece of a model shard, replicated on a group counts
+        once)."""
         sums = {}
-        for _, g, d, m in self._dims(grads, 0):
-            sums.setdefault((d is not None, m is not None), []).append(
-                torch.sum(g.to(torch.float32) ** 2))
+        for _, g, d, m, path in self._dims(grads, 0):
+            for piece, split in self._pieces(g, m, path):
+                sums.setdefault((d is not None, split), []).append(
+                    torch.sum(piece.to(torch.float32) ** 2))
         total = 0.0
         for (over_data, over_model), parts in sorted(sums.items()):
             part = torch.stack(parts)

@@ -19,9 +19,9 @@ What must hold, and why:
 * a checkpoint written by 2 ranks (``launch.train --mesh 2x1``) restores
   in one rank of the port's CLI and in the reference's manager, bit for
   bit;
-* the same two ranks train the vlm, the encdec and the MoE decoder on
-  ``--mesh 1x2``, one rank's loss bit for bit; the ssm and hybrid
-  families are refused on a model axis.
+* the same two ranks train every other family on ``--mesh 1x2`` (the
+  vlm, the encdec, the MoE decoder, the ssm and the hybrid), one rank's
+  loss bit for bit.
 
 The ranks run once per module (one spawned world); the tests read what
 they returned.
@@ -41,7 +41,8 @@ CLI = ["--arch", "olmo-1b", "--smoke", "--batch", str(BATCH), "--seq", str(SEQ),
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 # the families besides the dense decoder that train on a model axis
-MODEL_AXIS_ARCHS = ("internvl2-76b", "whisper-large-v3", "llama4-scout-17b-a16e")
+MODEL_AXIS_ARCHS = ("internvl2-76b", "whisper-large-v3", "llama4-scout-17b-a16e",
+                    "mamba2-2.7b", "recurrentgemma-2b")
 
 
 def _record_scales(fn):
@@ -240,26 +241,13 @@ def test_two_rank_checkpoint_restores_in_one_rank_and_reference(world, capsys):
             np.uint32).tolist(), name
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
-def test_model_axis_training_is_refused(arch):
-    """The decoder, dense or MoE, the vlm and the encdec train on a model
-    axis (``tests/test_torch_parallel_tp_train.py``,
-    ``tests/test_torch_parallel_tp_families.py``,
-    ``tests/test_torch_parallel_tp_moe.py``); the ssm and hybrid families
-    are refused there, pointing to ROADMAP item 9.3b."""
-    from repro_torch.launch import train as train_cli
-
-    argv = [a if a != "olmo-1b" else arch for a in CLI]
-    with pytest.raises(NotImplementedError, match=r"model axis.*9\.3b"):
-        train_cli.main(argv + ["--steps", "1", "--mesh", "1x2"])
-
-
 @pytest.mark.parametrize("arch", MODEL_AXIS_ARCHS)
 def test_model_axis_training_runs(world, arch):
-    """``launch.train --mesh 1x2`` trains the vlm, the encdec and the MoE
-    decoder (llama4-scout's experts under EP) one step on the two ranks:
-    the loss is the same on both and one rank's bit for bit (the same CLI
-    without a mesh)."""
+    """``launch.train --mesh 1x2`` trains the vlm, the encdec, the MoE
+    decoder (llama4-scout's experts under EP), the ssm and the hybrid one
+    step on the two ranks (``tests/test_torch_parallel_tp_*.py`` hold
+    each family's step against one rank): the loss is the same on both
+    and one rank's bit for bit (the same CLI without a mesh)."""
     from repro_torch.launch import train as train_cli
 
     argv = [a if a != "olmo-1b" else arch for a in CLI] + ["--steps", "1"]
