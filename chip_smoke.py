@@ -248,7 +248,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     weight pass on each rank, row-parallel folds counted, tokens/s, a
     decode step's wall and device times, each rank's weight bytes, the
     collectives' share),
-    37b the (2, 1) mesh at 4 layers against one rank, 37c olmo-1b at its
+    37b the (2, 1) mesh at 2 layers against one rank, 37c olmo-1b at its
     published widths and ``DP_TRAIN_LAYERS`` (2) of its 16 layers
     data-parallel at batch 4 x 512, 2 steps, against one rank (first-step
     per-token losses bit for bit, launches a step, peaks), 37d
@@ -312,9 +312,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     ``MOE_TP_TRAIN_LAYERS`` (1) of its 48 layers on (1, 2) under EP (8 of
     16 experts a rank), batch 2 x 512 (two dispatch groups), remat, the
     first step only (its per-token losses and gradients, no optimizer
-    state), against one rank run first in a process of its own (the
-    parent holding no model; it leaves the losses and a sha256 of each
-    gradient leaf's shard a rank): per-token losses and every gradient
+    state), against one rank run on rank 0 of 37o (b)'s four-rank world
+    before its cells (no collective runs in it; it leaves the losses and
+    a sha256 of each gradient leaf's shard a rank): per-token losses and every gradient
     leaf's shard bit for bit, K1 / K2 / K3 / pre-pass 23 / 33 / 33 / 33 a
     rank (``tp_step_launches``), 4 forward folds, 8 backward chains and 3
     owner selections (``tp_step_folds``), no implicit host sync outside
@@ -329,8 +329,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     its 64 layers on (1, 2) (40 of 80 SSD heads a rank; under autograd
     every rank runs the conv, the SSD and out_norm whole, in_proj's dA
     over G and Wq gathered and placed by its index-set pieces), batch 4 x
-    512, AdamW, remat, 2 steps, against one rank run first in a process of
-    its own (as 37q (a)): per-token losses and every gradient leaf's shard
+    512, AdamW, remat, 2 steps, against one rank run as 37q (a)'s:
+    per-token losses and every gradient leaf's shard
     (sha256) bit for bit, the step losses within ``LOSS_RTOL``, K1 / K2 /
     K3 / pre-pass 17 / 9 / 9 / 9 a step a rank, 8 forward folds, 5
     backward chains and 4 backward gathers a step (``tp_step_folds``,
@@ -343,8 +343,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     / 24 / 24; 12 folds, 22 chains, no gather); (c) both smoke configs and
     their ``RECURRENT_WIDE`` widenings on (1, 2) with 37p (b)'s gates and
     their gathers; (d) both smoke configs in 37o (b)'s four-rank world
-    with its gates; each sub-phase's seconds printed, and its summed peak
-    under ``MULTI_PEAK_GIB``; phase 3
+    with its gates; 37s llama3-8b's serving options on a plan at its
+    published widths through phase 19's engine (chunked 32 + paged 16)
+    and ``OPTION_TRACE`` (4 requests, prompts of 64, 4-8 new tokens),
+    each against one rank in the same world: (a)
+    ``SPEC_PLAN_LAYERS`` (2) layers on (1, 2) with ``KV_PINNED`` pages and
+    the 3-bit self-draft (each weight shard rounded with its whole
+    matrix's statistics; spec on = spec off on the plan), (b) the same
+    engine on (2, 1) with the n-gram drafter, (c) ``OPTION_LAYERS`` (1)
+    layer on (1, 2) under ``quantize_attention``, (d) the same under the
+    FP32 baseline (a fresh pool's decode step's logits within
+    ``FP32_LOGIT_RTOL`` of one rank's, the ranks' equal): tokens and every
+    counter (accepted tokens, draft passes, KV bytes a token) equal one
+    rank's, K1 once a linear shard a weight pass and a draft step (none
+    under FP32), the folds, no implicit host sync outside the
+    collectives; tokens/s, wall, a decode step's device ms and gloo bytes
+    beside the card's name and power limit; each sub-phase's seconds
+    printed, and its summed peak under ``MULTI_PEAK_GIB``; phase 3
     also holds K1's ``start`` variant (the row-parallel fold) at
     llama3-8b's, whisper's, internvl2's, mamba2's and recurrentgemma's
     row-parallel shapes (``START_CASES``) and times
@@ -1082,9 +1097,9 @@ def main() -> int:
                    + sum(s[k] for a in TP_SMOKE_ARCHS for s in tp["two_by_two"][a]["launches"])
                    + tp["q"]["ranks"][0]["launches"][k]
                    for k in ("k1", "k2", "k3", "gq")}
-    # 37e-f's, 37h-j's and 37l-m's served passes on rank 0
+    # 37e-f's, 37h-j's, 37l-m's and 37s's served passes on rank 0
     multi_served = sum(multi[key][0]["k1_launches"]
-                       for key in tuple("efhij") + ("l", "l2", "m", "m2"))
+                       for key in tuple("efhij") + ("l", "l2", "m", "m2") + tuple(OPTION_CELLS))
 
     phase("18 results")
     out_dir = ROOT / "chiprun_out"
@@ -1155,6 +1170,13 @@ def main() -> int:
             recurrent_folds={key: multi[key][0]["folds"] for key in "lm"},
             recurrent_train_step_launches={a: g["dp"][0]["launches"]
                                            for a, g in multi["n"].items()},
+            # 37s: llama3-8b's serving options on a plan, each rank's
+            # launches and the run's weight passes and draft steps
+            option_launches_per_rank={row["label"]: row["k1_launches"]
+                                      for row in multi["s"].values()},
+            option_passes={row["label"]: (row["counters"]["weight_passes"],
+                                          row["counters"]["draft_weight_passes"])
+                           for row in multi["s"].values()},
             backend=m_a["backend"]),
         "start_variant": detail["k1_start_variant"],
         "lockstep_launches": paged["lockstep_launches"],
@@ -2263,8 +2285,8 @@ def _recording_qact():
 
     calls, orig = [], mfmac._qact
 
-    def recorded(x, bits, axes=None):
-        out = orig(x, bits, axes)
+    def recorded(x, bits, axes=None, *scale_groups, **kw):
+        out = orig(x, bits, axes, *scale_groups, **kw)
         calls.append((x.detach().float().cpu(), out.detach().float().cpu(), bits, axes))
         return out
 
@@ -2822,6 +2844,10 @@ def cpu_vs_card(dev, detail):
 
 SERVE_COUNTERS = ("weight_passes", "decode_steps", "prefills", "emitted_tokens",
                   "ttft_passes", "admission_deferrals")
+# 37s's rows: a spec round's and the KV pages' counters too
+OPTION_COUNTERS = SERVE_COUNTERS + ("accepted_tokens", "draft_weight_passes",
+                                    "accepted_tokens_per_weight_pass", "kv_page_bytes",
+                                    "kv_hbm_bytes_per_token", "pages_in_use_sum")
 PREFIX_COUNTERS = SERVE_COUNTERS + ("prefix_hit_tokens", "cow_copies", "evictions")
 
 
@@ -4250,9 +4276,11 @@ def qa_serving(dev, detail, cfg, params, policy, reqs):
 # (against phase 5's tokens) and 38-44 s at 8, 37c 27-44 s at all 16; a
 # slow host took the whole script to 1086.6 s with both at those depths;
 # 37a at 4 took 22.6 s of 776.2 s, cut to 2 for phase 37r's room, and so
-# was 37c (18.1 s at 4 of a slow host's 951.8 s)
+# was 37c (18.1 s at 4 of a slow host's 951.8 s); 37b took 9.0 s at 4 of
+# 822.5 s on an NVIDIA H100 80GB HBM3, cut to 2 (and 37j to 2) for phase
+# 37s's room
 TP_SERVE_LAYERS = 2
-DP_SERVE_LAYERS = 4
+DP_SERVE_LAYERS = 2
 DP_TRAIN_LAYERS = 2
 DP_TRAIN_BATCH, DP_TRAIN_SEQ, DP_TRAIN_STEPS = 4, 512, 2
 # 37o (a): olmo-1b at its published widths and this depth tensor-parallel
@@ -4294,7 +4322,7 @@ TP_SMOKE_SEQS = {"llama4-scout-17b-a16e": 256, "grok-1-314b": 256}
 # rglru, attn period: the RG-LRU, the MLP and the attention under
 # ``select``), this batch, the first step's losses and gradients alone
 # (its 256000-row head's whole gather and logits lead the gloo bytes);
-# each against one rank run alone first; (c) both smoke configs and these
+# each against one rank (run on rank 0 of the four-rank world); (c) both smoke configs and these
 # widenings of them (whole 128-chunks a rank: every split contraction
 # folds, every column-parallel product but mamba2's in_proj and the
 # 160-row vocab shard chains K2) on (1, 2), 37p (b)'s batch and steps;
@@ -4338,7 +4366,7 @@ MOE_DP_BATCH, MOE_DP_SEQ, MOE_DP_STEPS = 4, 256, 2
 # through phases 29-30's engine (max_len 400 / 64) and traces; 37j:
 # whisper on the (2, 1) mesh at this many decoder layers, against one rank
 FAMILY_ENGINE = dict(max_slots=4, prefill_chunk=32, page_size=16)
-ENCDEC_DP_LAYERS = 4
+ENCDEC_DP_LAYERS = 2
 # 37k: both smoke configs data-parallel at this global batch, these steps;
 # and whisper-large-v3 at its published widths, this encoder and decoder
 # depth (all 32 + 32 fit, but two ranks' gloo gradient sums of the whole
@@ -4363,75 +4391,274 @@ SSM_DP_LAYERS, SSM_DP_BATCH, SSM_DP_SEQ, SSM_DP_STEPS = 2, 2, 512, 2
 SSM_DP = "mamba2-2.7b at published widths"
 
 
-def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b",
-                   engine=None, trace=None, count_syncs=False):
+# 37s: the serving options on a plan at llama3-8b's published widths,
+# each against one rank in the same world, through phase 19's engine
+# (chunked 32 + paged 16, 4 slots) and OPTION_TRACE (phase 24's with
+# prompts of two chunks and 4-8 new tokens: at phase 24's own, 37s (a)
+# took 47.1 s on rank 0 on an NVIDIA H100 80GB HBM3, 15.0 s of it the
+# served run, whose 79 passes each wait on ~20 collectives through
+# gloo): (a) the 3-bit
+# self-draft over KV_PINNED pages on (1, 2) at SPEC_PLAN_LAYERS layers
+# (and spec off on the plan; every draft step's tokens = one rank's), (b)
+# the n-gram drafter over KV_PINNED pages on (2, 1) with one-token prompts
+# (:func:`_repeat_requests`: on phase 24's random prompts no n-gram draft
+# was accepted), (c) quantize_attention and (d) the FP32 baseline on
+# (1, 2) at OPTION_LAYERS.  One rank's runs alternate between the ranks (rank 1
+# runs (b)'s and (d)'s before its sharded run), so each overlaps the other
+# rank's of the cell before.
+SPEC_PLAN_LAYERS = 2
+OPTION_LAYERS = 1
+OPTION_ENGINE = dict(max_slots=4, max_len=160, prefill_chunk=32, page_size=16)
+OPTION_TRACE = dict(n_requests=4, prompt_len=64, lam=2.0, new_lo=4, new_hi=8, seed=0)
+OPTION_CELLS = {
+    "sa": ("37s (a)", (1, 2), SPEC_PLAN_LAYERS, dict(spec="self", kv_quant=True, spec_off=True),
+           0),
+    "sb": ("37s (b)", (2, 1), SPEC_PLAN_LAYERS, dict(spec="ngram", kv_quant=True,
+                                                     prompts="repeat"), 1),
+    "sc": ("37s (c)", (1, 2), OPTION_LAYERS, dict(policy="qa"), 0),
+    "sd": ("37s (d)", (1, 2), OPTION_LAYERS, dict(policy="fp32"), 1)}
+# 37s (b)'s prompts: each one token repeated, the tokens drawn from this
+# seed.  A random model at published widths does not copy: on an NVIDIA
+# H100 80GB HBM3 (tools/ngram_accept_probe.py) no n-gram draft token was
+# accepted on random prompts, on patterns of 2-16 tokens or on prompts
+# that echo the model's own continuation, but on one-token prompts the
+# model sometimes repeats a token of its own: at SPEC_PLAN_LAYERS layers
+# this seed's prompts had 3 draft tokens accepted
+REPEAT_SEED = 1
+# 37s (d): the FP32 baseline's folds add the ranks' partial products in
+# rank order, so its logits are one rank's within this share of the step's
+# largest |logit| (tests/test_torch_parallel_serve_plan.py's bound)
+FP32_LOGIT_RTOL = 1e-4
+
+
+def _option_cells_rank(rank, dev):
+    """37s's cells on one of the two ranks (:data:`OPTION_CELLS`), each
+    with its seconds."""
+    res = {}
+    for key, (_, mesh, layers, opts, one) in OPTION_CELLS.items():
+        t0 = time.perf_counter()
+        res[key] = _sharded_serve(rank, dev, mesh, layers, one, "llama3-8b", OPTION_ENGINE,
+                                  OPTION_TRACE, count_syncs=True, options=opts)
+        res[key][1]["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _check_options(ranks, failures, card):
+    """37s's gates on both ranks (:func:`_check_sharded`'s: tokens and
+    every counter of :data:`OPTION_COUNTERS` equal one rank's, K1 once a
+    linear shard a weight pass and a draft step, folds, no implicit host
+    sync outside the collectives), and (a) spec on = spec off on the plan
+    and every draft step's tokens on a rank = one rank's on its rows, (b)
+    n-gram drafts accepted (the accept-and-roll-back path ran),
+    (d) a fresh pool's decode step's logits within ``FP32_LOGIT_RTOL`` of
+    one rank's and equal on both ranks.  Prints each cell's tokens/s,
+    wall, a decode step's device ms and gloo bytes beside ``card``."""
+    from repro_torch import configs
+
+    llama = configs.get_config("llama3-8b")
+    rows = {}
+    for key, (label, mesh, layers, opts, one_rank) in OPTION_CELLS.items():
+        _check_sharded(key, ranks, dataclasses.replace(llama, n_layers=layers), failures)
+        both = [res[key][1] for res in ranks]
+        one = both[one_rank]
+        if opts.get("spec_off") and not all(r["spec_off_tokens_equal"] for r in both):
+            failures.append(f"{label}: spec-on tokens differ from spec off on the plan")
+        if opts.get("spec") == "ngram" and not one["counters"]["accepted_tokens"] > 0:
+            failures.append(f"{label}: no n-gram draft accepted (the accept path did not run)")
+        if opts.get("spec") == "self":
+            steps = one["one_rank_draft_steps"]
+            for rank, r in enumerate(both):
+                lo, hi = r["draft_rows"]
+                if not steps or r["draft_steps"] != [s[lo:hi] for s in steps]:
+                    failures.append(f"{label}: rank {rank}'s {len(r['draft_steps'])} draft "
+                                    f"steps differ from one rank's {len(steps)}")
+        if opts.get("policy") == "fp32":
+            if not one["one_rank_logits_max_rel"] <= FP32_LOGIT_RTOL:
+                failures.append(f"{label}: decode logits {one['one_rank_logits_max_rel']:.3g} "
+                                f"of the largest from one rank's (bound {FP32_LOGIT_RTOL})")
+        if both[0]["logits_digest"] != both[1]["logits_digest"]:
+            failures.append(f"{label}: the ranks' decode logits differ")
+        rows[key] = dict(label=label, mesh=mesh, layers=layers, options=opts,
+                         tokens_per_s=[r["tokens_per_s"] for r in both],
+                         wall_s=[r["wall_s"] for r in both],
+                         decode_step_device_ms=[r["decode_step_device_ms"] for r in both],
+                         gloo_bytes=[r["collective_bytes"] for r in both],
+                         counters=one["counters"], k1_launches=[r["k1_launches"] for r in both],
+                         logits_max_rel=one.get("one_rank_logits_max_rel"),
+                         logits_bit_equal=one.get("one_rank_logits_bit_equal"),
+                         draft_steps=[len(r.get("draft_steps", ())) for r in both],
+                         seconds=[r["seconds"] for r in both])
+        print(f"{label} ({card}): llama3-8b, {layers} layer(s), mesh {mesh}, {opts}: tokens/s "
+              f"{[round(x, 2) for x in rows[key]['tokens_per_s']]}, wall s "
+              f"{[round(x, 3) for x in rows[key]['wall_s']]}, a decode step's device ms "
+              f"{[round(x, 3) for x in rows[key]['decode_step_device_ms']]}, gloo MiB "
+              f"{[round(x / 2 ** 20, 1) for x in rows[key]['gloo_bytes']]}, counters "
+              f"{one['counters']}, K1 {rows[key]['k1_launches']}"
+              + (f", draft steps {rows[key]['draft_steps']} (one rank's)"
+                 if opts.get("spec") == "self" else "")
+              + (f", logits {one['one_rank_logits_max_rel']:.3g} of the largest from one "
+                 f"rank's (bit for bit: {one['one_rank_logits_bit_equal']})"
+                 if opts.get("policy") == "fp32" else ""))
+    return rows
+
+
+def _repeat_requests(reqs, vocab):
+    """``reqs`` with each prompt one token, drawn from
+    :data:`REPEAT_SEED`, repeated to the prompt's length."""
+    rng = np.random.default_rng(REPEAT_SEED)
+    return [dataclasses.replace(r, tokens=np.full_like(r.tokens, rng.integers(0, vocab, 1)[0]))
+            for r in reqs]
+
+
+def _recording_drafts(eng):
+    """A list that takes each self-draft step's tokens (this data rank's
+    rows, on the device) as ``eng`` drafts them."""
+    steps, draft = [], eng._draft
+
+    def recording(*args):
+        toks = draft(*args)
+        steps.append(toks)
+        return toks
+
+    eng._draft = recording
+    return steps
+
+
+def _sharded_serve(rank, dev, mesh, n_layers, one_rank, arch="llama3-8b",
+                   engine=None, trace=None, count_syncs=False, options=None):
     """One sharded engine over ``mesh`` (a (data, model) pair) at
     ``arch``'s widths and ``n_layers`` layers (None: all), seed 0: every
     leaf drawn whole from the phase's generator and quantized whole, each
     rank keeping its shard.  ``engine`` (PoolEngine keywords) and
     ``trace`` (poisson_trace keywords) default to phase 5's (4 slots,
-    solo prefill; ``_serve_trace``).  ``compare_one_rank``: rank 0 also
-    serves the trace alone (no plan) and compares tokens and counters.
+    solo prefill; ``_serve_trace``).  ``one_rank`` (None, or a rank):
+    that rank also serves the trace alone (no plan) and compares tokens
+    and counters; rank 1 does so before the sharded run, so that it
+    overlaps rank 0's one-rank run of the cell before.
     ``count_syncs``: the run goes under PyTorch's sync debug mode and the
     row lists the port's implicit host syncs outside the collectives
-    (gloo stages a card's tensors through the host there).  Returns the
-    served tokens and a row."""
+    (gloo stages a card's tensors through the host there).  ``options``
+    (37s, :data:`OPTION_CELLS`): ``policy`` ('qa': quantize_attention,
+    'fp32': the FP32 baseline, its weights drawn unquantized), ``spec``
+    ('self' or 'ngram'), ``kv_quant`` (``KV_PINNED`` pages), ``spec_off``
+    (the plan's engine also runs without spec), ``prompts`` ('repeat':
+    :func:`_repeat_requests`); a row of
+    them also carries the spec counters, and one pooled decode step's
+    logits (their digest, and the largest difference from one rank's
+    where that rank ran it).  Returns the served tokens and a row."""
     from repro_torch import configs
-    from repro_torch.core.policy import PAPER_FAITHFUL
+    from repro_torch.core.policy import FP32_BASELINE, KV_PINNED, PAPER_FAITHFUL
     from repro_torch.kernels import potq_matmul as K
     from repro_torch.models import registry, spec
     from repro_torch.parallel import actshard, collectives, meshes, planner
-    from repro_torch.serve import PoolEngine, poisson_trace
+    from repro_torch.serve import LowBitSelfDraft, NgramDrafter, PoolEngine, poisson_trace
     from repro_torch.serve import quantized_weights as qw
 
+    opts = dict(options or {})
     cfg = configs.get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
     engine = engine or dict(max_slots=4, max_len=160)
+    kv_quant = KV_PINNED if opts.get("kv_quant") else None
+    drafter = {None: None, "ngram": NgramDrafter(max_draft=3),
+               "self": LowBitSelfDraft(max_draft=3, bits=DRAFT_BITS)}[opts.get("spec")]
+    fp32 = opts.get("policy") == "fp32"
+    policy = (FP32_BASELINE if fp32 else dataclasses.replace(
+        PAPER_FAITHFUL, weights_prequantized=True,
+        quantize_attention=opts.get("policy") == "qa"))
+    counters = OPTION_COUNTERS if options else SERVE_COUNTERS
     plan = planner.plan_for(cfg, meshes.make_mesh(mesh, ("data", "model")),
                             configs.ShapeConfig("serve", engine["max_len"], 4, "decode"),
-                            pool_slots=4, page_size=engine.get("page_size"))
+                            pool_slots=4, page_size=engine.get("page_size"), kv_quant=kv_quant)
+    reqs = _serve_trace(cfg) if trace is None else poisson_trace(cfg, **trace)
+    if opts.get("prompts") == "repeat":
+        reqs = _repeat_requests(reqs, cfg.vocab)
+    lcfg = plan.local_config()
+    tok = torch.zeros(4, dtype=torch.int64, device=dev)
+
+    def draw(shard):
+        """The seed-0 weights, quantized whole (unquantized under the FP32
+        baseline), this rank's shards with ``shard``."""
+        def leaf(name, x):
+            if fp32:
+                return plan.shard_leaf(name, x) if shard else x
+            return qw.quantize_leaf(name, x, PAPER_FAITHFUL, plan if shard else None)
+
+        return spec.materialize(registry.param_specs(cfg),
+                                torch.Generator(device=dev).manual_seed(0), transform=leaf)
+
+    def serve_alone(row):
+        """The same model on this rank alone (no plan), the same trace, and
+        one pooled decode step of a fresh pool (37s)."""
+        whole = draw(False)
+        one = PoolEngine(cfg, policy, whole, device=dev, num_pages=plan.num_pages,
+                         spec=drafter, kv_quant=kv_quant, **engine)
+        drafts = _recording_drafts(one)
+        row["one_rank_tokens"] = {str(u): t.tolist() for u, t in one.run(reqs).items()}
+        if drafter is not None and drafter.needs_draft_pass:
+            row["one_rank_draft_steps"] = [t.tolist() for t in drafts]
+        row["one_rank_counters"] = {k: getattr(one.last_stats, k) for k in counters}
+        if options:
+            with torch.inference_mode():
+                pool = registry.init_pool_cache(cfg, 4, engine["max_len"], device=dev)
+                row["one_rank_logits"] = registry.decode_step(
+                    cfg, one.policy, whole, tok, pool)[0].float().cpu()
+        del whole, one
+        torch.cuda.empty_cache()
+
+    early = {}
+    if rank == one_rank == 1:
+        serve_alone(early)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = spec.materialize(registry.param_specs(cfg),
-                              torch.Generator(device=dev).manual_seed(0),
-                              transform=lambda name, x: qw.quantize_leaf(name, x,
-                                                                         PAPER_FAITHFUL, plan))
+    params = draw(True)
     torch.cuda.synchronize()
     weight_bytes = sum(x.numel() * x.element_size() for _, x in spec.named_leaves(params))
     draw_s = time.perf_counter() - t0
-    policy = dataclasses.replace(PAPER_FAITHFUL, weights_prequantized=True)
-    reqs = _serve_trace(cfg) if trace is None else poisson_trace(cfg, **trace)
+    t0 = time.perf_counter()
     eng = PoolEngine(cfg, policy, params, device=dev, plan=plan, num_pages=plan.num_pages,
-                     **engine)
+                     spec=drafter, kv_quant=kv_quant, **engine)
+    engine_s = time.perf_counter() - t0
     eng.run([dataclasses.replace(reqs[0], uid="warm-up", max_new_tokens=2)])
+    drafts = _recording_drafts(eng)
     collectives.reset_stats()
     syncs = {} if count_syncs else None
     out, wall, _ = _timed_run(eng, reqs, syncs)
     st = eng.last_stats
+    k1_pass = 0 if fp32 else k1_per_pass(cfg)
     row = dict(arch=arch, mesh=plan.mesh_shape(), layers=cfg.n_layers,
-               backend=collectives.backend(), counters={k: getattr(st, k) for k in SERVE_COUNTERS},
+               backend=collectives.backend(), counters={k: getattr(st, k) for k in counters},
                wall_s=wall, tokens_per_s=st.emitted_tokens / wall,
                emitted_tokens=st.emitted_tokens, weight_passes=st.weight_passes,
                data_shards=st.data_shards, model_shards=st.model_shards,
                per_device_weight_passes=st.per_device_weight_passes,
                k1_launches=K.potq_matmul_cuda.launches,
-               k1_per_pass_expected=k1_per_pass(cfg), k1_expected=expected_k1(cfg, st),
-               prefills=st.prefills, heads_local=plan.local_config().n_heads,
-               kv_heads_local=plan.local_config().kv_heads,
+               k1_per_pass_expected=k1_pass,
+               k1_expected=(0 if fp32 else expected_k1(cfg, st)
+                            + k1_pass * st.draft_weight_passes),
+               prefills=st.prefills, heads_local=lcfg.n_heads,
+               kv_heads_local=lcfg.kv_heads,
                folds=collectives.stats["folds"], collective_calls=collectives.stats["calls"],
                collective_bytes=collectives.stats["bytes"],
                collective_s=collectives.stats["seconds"], weight_bytes=weight_bytes,
-               draw_quantize_shard_s=draw_s,
+               draw_quantize_shard_s=draw_s, engine_start_s=engine_s,
                overrides=sorted(f"{k}:{p}" for k, p in plan.overrides),
-               experts=plan.layout().experts)
+               experts=plan.layout().experts, options=opts)
+    if drafter is not None and drafter.needs_draft_pass:
+        row["draft_steps"], row["draft_rows"] = [t.tolist() for t in drafts], eng._local_rows()
     if count_syncs:
         row["implicit_syncs"] = {k: n for k, n in syncs.items() if k.startswith("src/")
                                  and not k.startswith("src/repro_torch/parallel/collectives")}
+    tokens = {str(u): t.tolist() for u, t in out.items()}
+    if opts.get("spec_off"):  # the plan's engine without speculation
+        off = PoolEngine(cfg, policy, params, device=dev, plan=plan, num_pages=plan.num_pages,
+                         kv_quant=kv_quant, **engine)
+        row["spec_off_tokens_equal"] = {
+            str(u): t.tolist() for u, t in off.run(reqs).items()} == tokens
+        row["spec_off_weight_passes"] = off.last_stats.weight_passes
+        del off
     # one pooled decode step of the model axis's ranks (4 slots), wall and device
     with torch.inference_mode(), actshard.use_plan(plan if mesh[1] > 1 else None):
-        pool = registry.init_pool_cache(plan.local_config(), 4, engine["max_len"], device=dev)
-        tok = torch.zeros(4, dtype=torch.int64, device=dev)
-        lcfg = plan.local_config()
+        pool = registry.init_pool_cache(lcfg, 4, engine["max_len"], device=dev)
         walls = []
         for _ in range(3):
             collectives.reset_stats()
@@ -4445,6 +4672,8 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
         row["decode_step_collective_share"] = collectives.stats["seconds"] / walls[-1]
         row["decode_step_collective_calls"] = collectives.stats["calls"]
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        if options:  # a fresh pool's first step, as one rank's
+            pool = registry.init_pool_cache(lcfg, 4, engine["max_len"], device=dev)
         with torch.profiler.profile(activities=acts) as prof:
             logits, pool = registry.decode_step(lcfg, eng.policy, eng.params, tok, pool)
             torch.cuda.synchronize()
@@ -4455,20 +4684,21 @@ def _sharded_serve(rank, dev, mesh, n_layers, compare_one_rank, arch="llama3-8b"
     row["decode_step_k1_ms"] = sum(e.time_range.elapsed_us() for e in kern
                                    if "potq_mm" in e.name) / 1e3
     row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    tokens = {str(u): t.tolist() for u, t in out.items()}
-    if compare_one_rank and rank == 0:
-        # the same model on this rank alone (no plan), the same trace
-        del eng, pool
-        whole = spec.materialize(
-            registry.param_specs(cfg), torch.Generator(device=dev).manual_seed(0),
-            transform=lambda name, x: qw.quantize_leaf(name, x, PAPER_FAITHFUL))
-        one = PoolEngine(cfg, policy, whole, device=dev, num_pages=plan.num_pages, **engine)
-        row["one_rank_tokens_equal"] = {
-            str(u): t.tolist() for u, t in one.run(reqs).items()} == tokens
-        row["one_rank_counters"] = {k: getattr(one.last_stats, k) for k in SERVE_COUNTERS}
-        del whole, one
-    del params
+    if options:
+        host = logits.float().cpu()
+        row["logits_digest"] = _sha256([_host_bytes(host)])[0]
+    del eng, pool, params
     torch.cuda.empty_cache()
+    if rank == one_rank == 0:
+        serve_alone(early)
+    if "one_rank_tokens" in early:
+        row["one_rank_tokens_equal"] = early.pop("one_rank_tokens") == tokens
+        if "one_rank_logits" in early:
+            one = early.pop("one_rank_logits")
+            row["one_rank_logits_max_rel"] = float((host - one).abs().max()
+                                                   / one.abs().max())
+            row["one_rank_logits_bit_equal"] = bool(torch.equal(host, one))
+        row.update(early)
     return tokens, row
 
 
@@ -4788,7 +5018,10 @@ def _tp_smoke_rank(rank):
     ``TP_SMOKE_SEQS``) tensor-parallel on the (2, 2)
     mesh, four ranks on the card: each one's first-step per-token losses
     (this rank's rows), ``TP_SMOKE_STEPS`` steps' losses and launches;
-    rank 0 then runs one rank on the same batches (every row)."""
+    rank 0 then runs one rank on the same batches (every row).  Before
+    them rank 0 runs the one-rank runs of ``FIRST_STEP_CELLS``
+    (:func:`_first_steps_one_rank`, ``first_steps``) while the other
+    ranks wait: a process of its own would cost its start-up."""
     from repro_torch import configs
     from repro_torch.core.policy import PAPER_FAITHFUL
     from repro_torch.data import pipeline
@@ -4806,6 +5039,10 @@ def _tp_smoke_rank(rank):
     KG.build()
     train_cli.make_deterministic()
     out = {}
+    if rank == 0:  # no collective runs in it; the other ranks wait at their first
+        t0 = time.perf_counter()
+        out["first_steps"] = _first_steps_one_rank(rank)
+        out["first_steps_s"] = time.perf_counter() - t0
     for arch in TP_SMOKE_ARCHS:
         t0 = time.perf_counter()
         cfg = configs.smoke_config(arch)
@@ -4839,7 +5076,8 @@ def _tp_smoke_rank(rank):
 
 
 #: the cells trained on (1, 2) at their published widths against one rank
-#: run alone first (37q (a), 37r (a), 37r (b)) and their labels
+#: (run on rank 0 of the four-rank world before its cells: 37q (a), 37r
+#: (a), 37r (b)) and their labels
 FIRST_STEP_CELLS = {"q": "37q (a)", "r_a": "37r (a)", "r_b": "37r (b)"}
 
 
@@ -4880,9 +5118,9 @@ def _host_bytes(x):
 
 
 def _first_steps_one_rank(rank):
-    """The one-rank runs of ``FIRST_STEP_CELLS``, one after the other in a
-    process of their own before the two ranks start (a world of one: no
-    collective runs): the whole model from seed 0, the first step's
+    """The one-rank runs of ``FIRST_STEP_CELLS``, one after the other on
+    rank 0 of the four-rank world before its cells (no collective runs
+    in them; the other ranks wait): the whole model from seed 0, the first step's
     per-token losses and gradients (remat), the sha256 of each model
     rank's shard of each gradient leaf on (1, 2) (``ShardingPlan.shard_slice``
     of every rank: an ssm's in_proj and conv by their index sets), then
@@ -5332,30 +5570,37 @@ def _phase37_rank(rank):
     KE.build()
     res = {}
     # (key, mesh, layers, against one rank, arch, engine, trace)
-    serves = (("a", (1, 2), TP_SERVE_LAYERS, True, "llama3-8b", None, None),
-              ("b", (2, 1), DP_SERVE_LAYERS, True, "llama3-8b", None, None),
-              ("e", (1, 2), MOE_EP_LAYERS, False, "grok-1-314b", MOE_ENGINE, DENSE_TRACE),
-              ("f", (1, 2), MOE_EP_LAYERS, True, "llama4-scout-17b-a16e", MOE_ENGINE,
+    # (key, mesh, layers, the rank that serves one rank's engine, arch,
+    # engine, trace); rank 1's one-rank runs come first in their cells, so
+    # each overlaps rank 0's of the cell before (a and b, f and j, l and m)
+    serves = (("a", (1, 2), TP_SERVE_LAYERS, 0, "llama3-8b", None, None),
+              ("b", (2, 1), DP_SERVE_LAYERS, 1, "llama3-8b", None, None),
+              ("e", (1, 2), MOE_EP_LAYERS, None, "grok-1-314b", MOE_ENGINE, DENSE_TRACE),
+              ("f", (1, 2), MOE_EP_LAYERS, 0, "llama4-scout-17b-a16e", MOE_ENGINE,
                DENSE_TRACE),
-              ("h", (1, 2), VLM_LAYERS, False, VLM_ARCH, dict(FAMILY_ENGINE, max_len=400),
-               DENSE_TRACE),
-              ("i", (1, 2), ENCDEC_LAYERS, False, ENCDEC_ARCH,
+              ("j", (2, 1), ENCDEC_DP_LAYERS, 1, ENCDEC_ARCH,
                dict(FAMILY_ENGINE, max_len=64), ENCDEC_TRACE),
-              ("j", (2, 1), ENCDEC_DP_LAYERS, True, ENCDEC_ARCH,
+              ("h", (1, 2), VLM_LAYERS, None, VLM_ARCH, dict(FAMILY_ENGINE, max_len=400),
+               DENSE_TRACE),
+              ("i", (1, 2), ENCDEC_LAYERS, None, ENCDEC_ARCH,
                dict(FAMILY_ENGINE, max_len=64), ENCDEC_TRACE))
     # 37l-m: (1, 2) against one rank, then (2, 1) (held to that one rank)
+    for arch, one in (("mamba2-2.7b", 0), ("recurrentgemma-2b", 1)):
+        engine = dict(max_slots=4, max_len=RECURRENT[arch]["max_len"])
+        trace = dict(RECURRENT_TRACE, prompt_len=RECURRENT[arch]["prompt"])
+        serves += (("l" if one == 0 else "m", (1, 2), RECURRENT_PLAN_LAYERS[arch], one, arch,
+                    engine, trace),)
     for arch in RECURRENT:
         engine = dict(max_slots=4, max_len=RECURRENT[arch]["max_len"])
         trace = dict(RECURRENT_TRACE, prompt_len=RECURRENT[arch]["prompt"])
-        key = "l" if arch == "mamba2-2.7b" else "m"
-        serves += ((key, (1, 2), RECURRENT_PLAN_LAYERS[arch], True, arch, engine, trace),
-                   (key + "2", (2, 1), RECURRENT_PLAN_LAYERS[arch], False, arch, engine,
-                    trace))
+        serves += (("l2" if arch == "mamba2-2.7b" else "m2", (2, 1), RECURRENT_PLAN_LAYERS[arch],
+                    None, arch, engine, trace),)
     for key, mesh, layers, one, arch, engine, trace in serves:
         t0 = time.perf_counter()
         res[key] = _sharded_serve(rank, dev, mesh, layers, one, arch, engine, trace,
                                   count_syncs=key[0] in "lm")
         res[key][1]["seconds"] = time.perf_counter() - t0
+    res.update(_option_cells_rank(rank, dev))  # 37s
     t0 = time.perf_counter()
     res["c"] = _dp_train(rank, dev)
     res["c"][1]["seconds"] = time.perf_counter() - t0
@@ -5386,9 +5631,11 @@ def _served_folds(cfg, row):
         return (3 * cfg.n_layers * (row["weight_passes"] - row["prefills"])
                 + 2 * cfg.enc_layers * row["prefills"])
     # an ssm layer's out_proj; a hybrid layer's wout or wo and its MLP's down
-    # projection; a decoder layer's wo and down projection (the shared expert's)
+    # projection; a decoder layer's wo and down projection (the shared
+    # expert's); a self-draft step folds as a weight pass does (37s)
     per_layer = 2 if cfg.family != "ssm" and (cfg.moe is None or cfg.moe.shared_expert) else 1
-    return per_layer * cfg.n_layers * row["weight_passes"]
+    return per_layer * cfg.n_layers * (row["weight_passes"]
+                                       + row["counters"].get("draft_weight_passes", 0))
 
 
 def _check_sharded(key, ranks, cfg, failures, tokens=None, counters=None):
@@ -5400,7 +5647,9 @@ def _check_sharded(key, ranks, cfg, failures, tokens=None, counters=None):
     equal to ``tokens`` (and the counters to ``counters``, given) or to
     rank 0's one-rank run (tokens and counters)."""
     rows = [res[key][1] for res in ranks]
-    steps = rows[0]["k1_per_pass_expected"] * rows[0]["counters"]["decode_steps"]
+    # a draft step (37s) runs on every rank over its slots, as a pooled step
+    steps = rows[0]["k1_per_pass_expected"] * (
+        rows[0]["counters"]["decode_steps"] + rows[0]["counters"].get("draft_weight_passes", 0))
     admissions = rows[0]["k1_expected"] - steps
     if rows[0]["data_shards"] > 1 and sum(row["k1_launches"] for row in rows) != (
             rows[0]["data_shards"] * steps + admissions):
@@ -5428,7 +5677,7 @@ def _check_sharded(key, ranks, cfg, failures, tokens=None, counters=None):
             failures.append(f"37{key}: counters {ranks[0][key][1]['counters']} differ from "
                             f"one rank's {counters}")
         return
-    row = ranks[0][key][1]
+    row = next(r for r in rows if "one_rank_tokens_equal" in r)  # the rank that ran it
     if not row["one_rank_tokens_equal"] or row["one_rank_counters"] != row["counters"]:
         failures.append(f"37{key}: tokens or counters differ from one rank's "
                         f"({row['counters']} / {row['one_rank_counters']})")
@@ -5476,8 +5725,8 @@ def multi_gpu(dev, detail):
     published widths and ``TP_SERVE_LAYERS`` layers on the (1, 2) mesh,
     phase 5's engine and trace, against one rank at that depth: tokens
     and counters equal, K1 once a linear shard a weight pass on each
-    rank, the row-parallel folds counted.  37b: the (2, 1) mesh at 4
-    layers against one rank at 4 layers.  37c: olmo-1b at
+    rank, the row-parallel folds counted.  37b: the (2, 1) mesh at
+    ``DP_SERVE_LAYERS`` layers against one rank at that depth.  37c: olmo-1b at
     ``DP_TRAIN_LAYERS`` layers data-parallel, global batch 4 x 512, 2
     steps, against one rank here after the ranks
     exit: first-step per-token losses bit for bit, losses within
@@ -5519,18 +5768,31 @@ def multi_gpu(dev, detail):
     both smoke configs in 37o (b)'s four ranks (:func:`tp_training`,
     :func:`_check_tp_run`, :func:`_check_tp_smoke`).  37q (a):
     llama4-scout at its published widths and ``MOE_TP_TRAIN_LAYERS``
-    layers on (1, 2) under EP, its first step against one rank run alone
-    before the two ranks start (:func:`_first_steps_one_rank`,
+    layers on (1, 2) under EP, its first step against one rank run on
+    rank 0 of the four-rank world (:func:`_first_steps_one_rank`,
     :func:`_first_step_rank`, :func:`_check_first_steps`), (b): grok-1's
     smoke configs on (1, 2) under EP and TP experts, (c): the MoE smoke
     configs in the four ranks.  37r (a): mamba2-2.7b at
     ``SSM_TP_TRAIN_LAYERS`` layers, batch 4 x 512, 2 steps, (b):
     recurrentgemma-2b at ``HYBRID_TP_TRAIN_LAYERS`` layers, batch 2 x 512,
     its first step, both at their published widths on (1, 2) against one
-    rank run alone before the two ranks start, as 37q (a)
-    (``FIRST_STEP_CELLS``), (c): both smoke configs and their
-    ``RECURRENT_WIDE`` widenings on (1, 2), (d): both smoke configs in the
-    four ranks.  The ranks' summed
+    rank run as 37q (a)'s (``FIRST_STEP_CELLS``), (c): both smoke configs
+    and their ``RECURRENT_WIDE`` widenings on (1, 2), (d): both smoke
+    configs in the four ranks.  37s (:data:`OPTION_CELLS`,
+    :func:`_option_cells_rank`, :func:`_check_options`): llama3-8b at its
+    published widths through phase 19's engine and ``OPTION_TRACE``,
+    against one rank in the same world: (a) ``SPEC_PLAN_LAYERS`` layers on
+    (1, 2), ``KV_PINNED`` pages and the 3-bit self-draft (spec on = off on
+    the plan, every draft step's tokens = one rank's), (b) the same on
+    (2, 1) with the n-gram drafter and one-token prompts (drafts
+    accepted), (c) and (d)
+    ``OPTION_LAYERS`` layer on (1, 2) under ``quantize_attention`` and the
+    FP32 baseline (a fresh pool's decode logits within
+    ``FP32_LOGIT_RTOL`` of one rank's): tokens and every counter of
+    ``OPTION_COUNTERS`` equal one rank's, K1 once a linear shard a weight
+    pass and a draft step (none under FP32), the folds, no implicit host
+    sync outside the collectives; tokens/s, wall, a decode step's device
+    ms and gloo bytes printed beside the card.  The ranks' summed
     peak stays under ``MULTI_PEAK_GIB`` in each serving and training
     sub-phase."""
     from repro_torch import configs
@@ -5542,18 +5804,13 @@ def multi_gpu(dev, detail):
     from repro_torch.parallel.planner import runtime_layout
     from repro_torch.train import TrainConfig, make_train_step
 
-    phase("37 multi-GPU: one rank alone (37q (a), 37r (a-b)), two ranks on the one card "
-          "(37a-r), then four (37o (b), 37p (c), 37q (c), 37r (d))")
+    phase("37 multi-GPU: two ranks on the one card (37a-s), then four (37o (b), 37p (c), "
+          "37q (c), 37r (d), after 37q (a)'s and 37r (a-b)'s one rank on rank 0)")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    # 37q (a)'s and 37r (a-b)'s one rank, alone on the card: a world of one
-    # runs no collective
-    one = collectives.spawn(_first_steps_one_rank, 1, device="cpu")[0]
-    one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = collectives.spawn(_phase37_rank, 2, device="cuda")
     spawn_s = time.perf_counter() - t0
-    out = {"spawn_s": spawn_s, "one_rank_spawn_s": one_s}
+    out = {"spawn_s": spawn_s}
     failures = []
     llama = configs.get_config("llama3-8b")
     _check_sharded("a", ranks, dataclasses.replace(llama, n_layers=TP_SERVE_LAYERS), failures)
@@ -5593,8 +5850,9 @@ def multi_gpu(dev, detail):
         cfg = dataclasses.replace(configs.get_config(arch),
                                   n_layers=RECURRENT_PLAN_LAYERS[arch])
         _check_sharded(key, ranks, cfg, failures)
+        one_row = next(res[key][1] for res in ranks if "one_rank_counters" in res[key][1])
         _check_sharded(key + "2", ranks, cfg, failures, tokens=ranks[0][key][0],
-                       counters=ranks[0][key][1]["one_rank_counters"])
+                       counters=one_row["one_rank_counters"])
         lay = runtime_layout(cfg, 2)
         for r, res in enumerate(ranks):
             if res[key][1]["heads_local"] != lay.heads_local:
@@ -5647,9 +5905,10 @@ def multi_gpu(dev, detail):
         failures.append("37c: first-step per-token losses differ from one rank's")
     if not rel <= LOSS_RTOL:
         failures.append(f"37c: losses differ by {rel:.3g} relative (bound {LOSS_RTOL})")
-    tp_rows = tp_training(ranks, failures)
+    out["s"] = _check_options(ranks, failures, detail["card"])
+    tp_rows, one = tp_training(ranks, failures)
     tp_rows.update(_check_first_steps(one, ranks, failures))
-    served = tuple("abefhij") + ("l", "l2", "m", "m2")
+    served = tuple("abefhij") + ("l", "l2", "m", "m2") + tuple(OPTION_CELLS)
     peaks = {k: sum(res[k][1]["peak_gib"] for res in ranks) for k in served}
     peaks["c"] = sum(row["peak_gib"] for row in dp_rows)
     peaks.update({k: sum(res[k]["peak_gib"] for res in ranks)
@@ -5660,7 +5919,7 @@ def multi_gpu(dev, detail):
     seconds = {k: round(ranks[0][k][1]["seconds"], 1) for k in served + ("c",)}
     seconds.update({k: round(ranks[0][k]["seconds"], 1)
                     for k in ("g", "k", "n", *_tp_cells(), *FIRST_STEP_CELLS)})
-    seconds["q, r one rank"] = round(one_s, 1)
+    seconds["q, r one rank"] = round(tp_rows["first_steps_s"], 1)
     seconds["o, p (2, 2)"] = round(tp_rows["two_by_two_spawn_s"], 1)
     print(f"37 peaks, both ranks summed (GiB): "
           f"{ {k: round(v, 2) for k, v in sorted(peaks.items())} }; backend "
@@ -5683,7 +5942,8 @@ def tp_training(ranks, failures):
     """37o, 37p, 37q (b-c) and 37r (c-d): their (1, 2) runs (37o (a), 37p
     (a) and (b), 37q (b), 37r (c)) ran in phase 37's two-rank world; their
     (2, 2) smoke runs (37o (b), 37p (c), 37q (c), 37r (d)) spawn four
-    ranks."""
+    ranks, whose rank 0 first runs 37q (a)'s and 37r (a-b)'s one rank.
+    Returns the rows and that one rank's results."""
     from repro_torch.parallel import collectives
 
     t0 = time.perf_counter()
@@ -5703,9 +5963,11 @@ def tp_training(ranks, failures):
                                                 ranks4, failures)
                          for arch in TP_SMOKE_ARCHS}
     out["two_by_two_spawn_s"] = spawn_s
+    out["first_steps_s"] = ranks4[0]["first_steps_s"]
     print(f"37o/p/q/r: (1, 2) {[round(ranks[0][k]['seconds'], 1) for k in _tp_cells()]} s on rank "
-          f"0, (2, 2) spawn to exit {spawn_s:.1f} s")
-    return out
+          f"0, (2, 2) spawn to exit {spawn_s:.1f} s (37q (a)'s and 37r (a-b)'s one rank "
+          f"{ranks4[0]['first_steps_s']:.1f} s of it)")
+    return out, ranks4[0]["first_steps"]
 
 
 if __name__ == "__main__":

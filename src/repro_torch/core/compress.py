@@ -35,7 +35,10 @@ code layout with three serving choices, each the reference's:
   attention multiplies masked rows by an exact 0, and 0 * inf is NaN.
 
 Betas are stored page-shaped (one int32 per page position), so a page's
-scales travel with it through copies on write and prefix sharing.
+scales travel with it through copies on write and prefix sharing.  On a
+model axis a rank holds only its K/V heads of a token, so the token's
+amax is a max over the model ranks (:func:`kv_page_encode`'s ``group``)
+and every rank stores the one beta a whole-head encode would.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ import torch
 
 from repro_torch.core import potq
 from repro_torch.core.policy import KVQuantSpec
+from repro_torch.parallel import collectives
 
 
 def compress(g: torch.Tensor, generator: torch.Generator,
@@ -131,15 +135,18 @@ def kv_code_dtype(spec: KVQuantSpec) -> torch.dtype:
     return torch.uint8 if spec.pack else torch.int8
 
 
-def kv_page_encode(f: torch.Tensor, spec: KVQuantSpec):
+def kv_page_encode(f: torch.Tensor, spec: KVQuantSpec, group=None):
     """Encode K/V vectors ``f`` (..., kv_heads, head_dim).  Returns
     ``(codes, beta)``: codes (..., kv_heads, head_dim[/2]) and int32 beta
-    (...,), one amax scale per written token."""
+    (...,), one amax scale per written token.  ``group``: the model ranks
+    that hold the token's other K/V heads; its amax is their max."""
     f = f.to(torch.bfloat16)
     f = torch.where(f.abs() < torch.finfo(torch.float32).tiny, f * 0, f)
     emax = potq.pot_emax(spec.bits)
     lo, hi = _kv_beta_window(spec.bits)
-    beta = potq.compute_beta(f, spec.bits, axes=(-2, -1)).clamp(lo, hi)
+    amax = f.abs().to(torch.float32).amax(dim=(-2, -1), keepdim=True)
+    beta = potq.beta_of_amax(collectives.all_reduce_max(amax, group),
+                             spec.bits).clamp(lo, hi)
     enc = potq.pot_encode(f, spec.bits, beta)
     mag = torch.where(enc.exp == potq.EXP_ZERO, 0, enc.exp.to(torch.int32) + emax + 1)
     code = torch.where(enc.sign == 1, -mag, mag)

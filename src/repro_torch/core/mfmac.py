@@ -34,7 +34,9 @@ x[..., M, K] @ y[..., K, N] (QK^T and PV).  Under
 ``policy.quantize_attention`` both operands are PoT-quantized without a
 PRC clip and the product runs over their exact values in float32 (no
 kernel: the reference's is a plain dot outside any Pallas kernel);
-otherwise it is today's plain product, bit for bit.
+otherwise it is today's plain product, bit for bit.  On a plan its
+scales are global too: over the model ranks where the heads are split,
+over the data ranks where a per-tensor group's rows are (G's over both).
 
 ``mf_conv2d`` is a convolution as im2col (pure data movement, the
 reference's ``conv_general_dilated_patches`` element for element) followed
@@ -88,9 +90,16 @@ weight, quantized whole by the training step's shadow):
 
 Each chain reproduces one rank's adds in one rank's order, so dA, dW and
 dgamma are one rank's bit for bit.
+
+The low-bit self-draft re-quantizes served weights at use; on a model
+axis a shard is rounded with its whole matrix's WBC mean and scale
+(:func:`whole_stats`), which a row-parallel product also accepts.
+Unquantized (the FP32 baseline) a row-parallel product adds the ranks'
+partial products in rank order: one rank's within float32 rounding.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
@@ -122,26 +131,89 @@ def _pot_bmm(x: torch.Tensor, y: torch.Tensor, policy: QuantPolicy) -> torch.Ten
 W_BLOCK_ELEMS = 1 << 25
 
 
+class WholeStats(dict):
+    """Whole-matrix statistics of the weights a model rank holds shards
+    of: ``{weight_key(shard view): (mean, beta)}`` (:func:`whole_stats`),
+    and the address spans of the leaves whose trailing matrices are split
+    (:meth:`add_leaf`), where a view without an entry is refused."""
+
+    def __init__(self):
+        super().__init__()
+        self.spans = []
+
+    def add_leaf(self, x: torch.Tensor) -> None:
+        start = x.data_ptr()
+        self.spans.append((start, start + x.numel() * x.element_size()))
+
+    def covers(self, w: torch.Tensor) -> bool:
+        return any(lo <= w.data_ptr() < hi for lo, hi in self.spans)
+
+
+#: the active table (:func:`whole_stats`)
+_W_STATS = WholeStats()
+
+
+def weight_key(w: torch.Tensor):
+    """The key of a weight view in :func:`whole_stats`' table: its
+    address and shape (a stacked leaf's per-layer views differ in the
+    first, a stack and its first matrix in the second)."""
+    return w.data_ptr(), tuple(w.shape)
+
+
+@contextlib.contextmanager
+def whole_stats(table: WholeStats):
+    """Quantize the weights that ``table`` lists with its statistics
+    instead of their own: a shard of a matrix split over the model ranks
+    rounded with the whole matrix's WBC mean and scale
+    (``serve/quantized_weights.draft_stats``), so each rank rounds its
+    shard as the whole matrix would be rounded.  A view of a split leaf
+    that the table does not list raises: its own statistics would be a
+    shard's."""
+    global _W_STATS
+    prev, _W_STATS = _W_STATS, table
+    try:
+        yield
+    finally:
+        _W_STATS = prev
+
+
+def weight_stats(w: torch.Tensor, policy: QuantPolicy, axes=None):
+    """``(mean, beta)`` that :func:`_quantize_w` takes of ``w``: its WBC
+    mean (None without WBC) and its PoT scale, per ``axes`` group (one
+    for the whole matrix when None)."""
+    w = w.to(torch.float32)
+    wbc = policy.weight_bias_correction
+    if axes is not None:
+        mean = w.mean(dim=tuple(axes), keepdim=True) if wbc else None
+        return mean, potq.compute_beta(w if mean is None else w - mean, policy.bits_w, axes)
+    # the largest |w - mean| from each block's extremes (rounding w - mean
+    # is monotone in w, so this is exact)
+    mean = w.mean() if wbc else None
+    rows = w.reshape(-1, w.shape[-1])
+    step = max(1, W_BLOCK_ELEMS // rows.shape[1])
+    ext = torch.stack([torch.stack(torch.aminmax(rows[r:r + step]))
+                       for r in range(0, rows.shape[0], step)])
+    return mean, potq.compute_beta(ext if mean is None else ext - mean, policy.bits_w)
+
+
 def _quantize_w(w: torch.Tensor, policy: QuantPolicy, axes=None) -> torch.Tensor:
     if policy.weights_prequantized:
         return w.to(_BF16)  # already exact PoT values (serving path)
+    stats = _W_STATS.get(weight_key(w)) if _W_STATS.spans else None
+    if stats is None and _W_STATS.covers(w):
+        raise ValueError(f"a {tuple(w.shape)} view of a weight split over the model ranks "
+                         "has no whole-matrix statistics (its own would be a shard's)")
     w = w.to(torch.float32)
+    mean, beta = stats if stats is not None else weight_stats(w, policy, axes)
     if axes is not None:
-        if policy.weight_bias_correction:
-            w = w - w.mean(dim=tuple(axes), keepdim=True)
-        beta = potq.compute_beta(w, policy.bits_w, axes)
-        return potq.pot_quantize(w, policy.bits_w, beta).to(_BF16)
-    # one scale for the whole matrix: the WBC mean over all of it, and the
-    # largest |w - mean| from each block's extremes (rounding w - mean is
-    # monotone in w, so this is exact); the rounding then runs a block of
-    # rows at a time, so a large matrix (an LM head) never holds several
-    # float32 copies of itself
-    mean = w.mean() if policy.weight_bias_correction else None
+        return potq.pot_quantize(w if mean is None else w - mean, policy.bits_w,
+                                 beta).to(_BF16)
+    # one scale for the whole matrix; the rounding runs a block of rows at
+    # a time, so a large matrix (an LM head) never holds several float32
+    # copies of itself
     rows = w.reshape(-1, w.shape[-1])
     step = max(1, W_BLOCK_ELEMS // rows.shape[1])
     starts = range(0, rows.shape[0], step)
-    ext = torch.stack([torch.stack(torch.aminmax(rows[r:r + step])) for r in starts])
-    beta = potq.compute_beta(ext if mean is None else ext - mean, policy.bits_w)
 
     def rounded(r):
         blk = rows[r:r + step]
@@ -366,12 +438,41 @@ def _row_parallel(a, w, gamma, policy: QuantPolicy, group) -> torch.Tensor:
     """a[..., K_r] @ w[K_r, N] with K split over ``group`` at whole
     128-chunks, in rank order: global activation scales, then K1's fold
     chained across the ranks; the backward of the module docstring.  Its
-    weights are prequantized whole (served, or the training step's shadow):
-    a shard's own WBC mean and scale would not be the matrix's."""
-    if not policy.weights_prequantized:
-        raise ValueError("a row-parallel mf_linear needs weights prequantized whole "
-                         "(a shard's own WBC mean and scale would not be the matrix's)")
+    weights are prequantized whole (served, or the training step's shadow)
+    or given with the whole matrix's statistics (:func:`whole_stats`: the
+    self-draft's): a shard's own WBC mean and scale would not be the
+    matrix's."""
+    if not policy.weights_prequantized and weight_key(w) not in _W_STATS:
+        raise ValueError("a row-parallel mf_linear needs weights prequantized whole or "
+                         "their whole matrix's statistics (a shard's own WBC mean and "
+                         "scale would not be the matrix's)")
     return _RowParallel.apply(a, w, gamma, policy, group)
+
+
+def _plain_linear(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The unquantized a @ w in a's dtype; decode rows (B, 1, K) one (1, K)
+    @ (K, N) product a row, so a row's reduction never depends on the
+    batch size."""
+    w_ = w.to(a.dtype)
+    if a.dim() == 3 and a.shape[1] == 1:
+        return torch.stack([torch.matmul(r, w_) for r in a])
+    return torch.matmul(a, w_)
+
+
+def _plain_row_parallel(a: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """The unquantized a[..., K_r] @ w[K_r, N], K split over ``group``:
+    each rank's partial product (:func:`_plain_linear`) added in float32
+    to the running sum of the ranks before it, in rank order
+    (``collectives.ordered_fold``), so every rank holds the same sum.  It
+    adds the partials in another order than one rank's product does, so
+    it is that product within float32 rounding, not bit for bit."""
+    shape = a.shape[:-1] + (w.shape[-1],)
+
+    def partial(start):
+        part = _plain_linear(a, w).to(torch.float32)
+        return part if start is None else start + part
+
+    return collectives.ordered_fold(partial, shape, a.device, group).to(a.dtype)
 
 
 def mf_linear(
@@ -396,14 +497,13 @@ def mf_linear(
     this rank's columns, and the backward chains K2 across the ranks
     (module docstring); with ``col_cuts`` (each rank's pieces of N, an
     index set: an ssm's packed in_proj) ``w`` holds this rank's pieces and
-    the backward computes dA over G and Wq placed whole (:func:`_column_grads`)."""
+    the backward computes dA over G and Wq placed whole (:func:`_column_grads`).
+    Unquantized, a ``row_group`` product adds the ranks' partial products
+    in rank order (:func:`_plain_row_parallel`; no backward)."""
     if not policy.enabled:
-        w_ = w.to(a.dtype)
-        if a.dim() == 3 and a.shape[1] == 1:
-            # decode rows: one (1, D) @ (D, N) product per row, so a row's
-            # reduction never depends on the batch size
-            return torch.stack([torch.matmul(r, w_) for r in a])
-        return torch.matmul(a, w_)
+        if row_group is not None:
+            return _plain_row_parallel(a, w, row_group)
+        return _plain_linear(a, w)
     if gamma is None:
         gamma = policy.ratio_clip_init or 1.0
     if not torch.is_tensor(gamma):
@@ -529,11 +629,16 @@ def mf_expert_linear(
 # mf_act_dot: activation x activation products (attention), opt-in
 # ---------------------------------------------------------------------------
 
-def _qact(x: torch.Tensor, bits: int, axes=None) -> torch.Tensor:
+def _qact(x: torch.Tensor, bits: int, axes=None, group=None,
+          rows_split: bool = False) -> torch.Tensor:
     """x PoT-quantized at ``bits`` under one scale per ``axes`` group (the
-    whole tensor for None), as exact values in bf16; no PRC clip."""
+    whole tensor for None), as exact values in bf16; no PRC clip.  The
+    amax is global (:func:`_global_amax`) over the data ranks when
+    ``rows_split`` and over ``group``'s ranks."""
     x32 = x.to(torch.float32)
-    return potq.pot_quantize(x32, bits, potq.compute_beta(x32, bits, axes)).to(_BF16)
+    amax = x32.abs().amax() if axes is None else x32.abs().amax(dim=axes, keepdim=True)
+    amax = _global_amax(amax, rows_split, group)
+    return potq.pot_quantize(x32, bits, potq.beta_of_amax(amax, bits)).to(_BF16)
 
 
 def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
@@ -548,13 +653,16 @@ def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
 
 class _MFActDot(torch.autograd.Function):
     """x[..., M, K] @ y[..., K, N] over PoT-quantized operands (batch dims
-    broadcast); the backward is the reference's ``_mf_act_dot_bwd``."""
+    broadcast); the backward is the reference's ``_mf_act_dot_bwd``.
+    Each scale is global over the ranks that hold part of its group
+    (:func:`mf_act_dot`)."""
 
     @staticmethod
-    def forward(ctx, x, y, policy: QuantPolicy):
-        xq = _qact(x, policy.bits_a, _sample_axes(policy, x, None))
-        yq = _qact(y, policy.bits_a, _sample_axes(policy, y, None))
-        ctx.policy, ctx.dtypes = policy, (x.dtype, y.dtype)
+    def forward(ctx, x, y, policy: QuantPolicy, group):
+        xa, ya = _sample_axes(policy, x, None), _sample_axes(policy, y, None)
+        xq = _qact(x, policy.bits_a, xa, group, rows_split=xa is None)
+        yq = _qact(y, policy.bits_a, ya, group, rows_split=ya is None)
+        ctx.policy, ctx.group, ctx.dtypes = policy, group, (x.dtype, y.dtype)
         ctx.save_for_backward(xq, yq)
         # PoT products are exact in float32 (TF32 is off on the card)
         return torch.matmul(xq.to(torch.float32), yq.to(torch.float32)).to(x.dtype)
@@ -563,20 +671,31 @@ class _MFActDot(torch.autograd.Function):
     def backward(ctx, g):
         xq, yq = ctx.saved_tensors
         # G quantized once, one scale for the whole tensor
-        gq = _qact(g, ctx.policy.bits_g).to(torch.float32)
+        gq = _qact(g, ctx.policy.bits_g, None, ctx.group, rows_split=True).to(torch.float32)
         dx = _sum_to(torch.matmul(gq, yq.to(torch.float32).transpose(-1, -2)), xq.shape)
         dy = _sum_to(torch.matmul(xq.to(torch.float32).transpose(-1, -2), gq), yq.shape)
         # rounded to bf16 as the reference's rule does, in the primal's dtype
-        return dx.to(_BF16).to(ctx.dtypes[0]), dy.to(_BF16).to(ctx.dtypes[1]), None
+        return (dx.to(_BF16).to(ctx.dtypes[0]), dy.to(_BF16).to(ctx.dtypes[1]), None,
+                None)
 
 
-def mf_act_dot(x: torch.Tensor, y: torch.Tensor, *, policy: QuantPolicy) -> torch.Tensor:
+def mf_act_dot(x: torch.Tensor, y: torch.Tensor, *, policy: QuantPolicy,
+               group=None) -> torch.Tensor:
     """x[..., M, K] @ y[..., K, N], batch dims broadcast: through PoT
     quantization under ``policy.quantize_attention`` (one activation scale
     per tensor, per leading-dim sample under ``per_sample_act_scales``),
-    otherwise the plain product."""
+    otherwise the plain product.
+
+    On a sharded plan each scale is taken over its whole group: over
+    ``group`` (the model ranks, where the attention's heads are split and
+    each rank holds the others' heads as zeros or as the probabilities of
+    zero scores, which never exceed a real head's largest,
+    ``models/transformer._heads_whole``), and, for a per-tensor group,
+    over the data ranks that split the batch rows (training); the
+    backward's G scale over both.  Max is exact, so every quantized value
+    is one rank's."""
     if policy.enabled and policy.quantize_attention:
-        return _MFActDot.apply(x, y, policy)
+        return _MFActDot.apply(x, y, policy, group)
     return torch.matmul(x, y)
 
 

@@ -56,7 +56,9 @@ class QuantPolicy:
         compressor, ``core/compress.py``).
       quantize_attention: ALSO run the attention QK^T / PV activation-by-
         activation products through PoT quantization (``mfmac.mf_act_dot``);
-        beyond the paper, off for paper-faithful runs.
+        beyond the paper, off for paper-faithful runs.  On a sharded plan
+        each product's scales are maxima over the ranks that hold its
+        heads or rows, so every rank quantizes as one rank does.
       use_pallas: kept for field parity with the reference and **ignored
         by the port**.  In the port, dispatch depends only on the device
         of the operands: CUDA tensors always go to the hand-written kernel
@@ -118,7 +120,9 @@ def draft_policy(policy: QuantPolicy, bits: int = 3) -> QuantPolicy:
     ``weights_prequantized`` is cleared, so each draft step re-quantizes
     the served (exact 5-bit PoT) weights down to ``bits`` at use, WBC
     included.  ``kv_quant`` is kept: the draft reads and writes the same
-    cache as the verify pass."""
+    cache as the verify pass.  On a model axis a rank rounds its shard of
+    each matrix with the whole matrix's WBC mean and scale at ``bits``
+    (``serve/quantized_weights.draft_stats``, ``mfmac.whole_stats``)."""
     if not policy.enabled:
         raise ValueError(
             "draft_policy requires a quantized serving policy "

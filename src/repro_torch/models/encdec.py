@@ -142,9 +142,11 @@ def _mha(policy, q, k, v):
     qg = q.reshape(b, sq, kv, rep, hd).permute(0, 2, 3, 1, 4)  # (B,KV,rep,Sq,hd)
     kt = k.to(q.dtype).permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,Skv)
     vt = v.to(q.dtype).permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,Skv,hd)
-    scores = mfmac.mf_act_dot(qg, kt, policy=policy).to(torch.float32) * scale
+    group = T.head_group() if mine is not None else None  # the scales over every head
+    scores = mfmac.mf_act_dot(qg, kt, policy=policy, group=group).to(torch.float32) * scale
     probs = torch.softmax(scores, dim=-1)
-    out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
+    out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy,
+                           group=group)  # (B,KV,rep,Sq,hd)
     return T._mine(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype), mine)
 
 

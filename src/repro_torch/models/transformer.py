@@ -57,8 +57,12 @@ the rank that owns its expert, under TP every rank runs every expert's
 slice of the hidden width (:func:`_moe_apply`).  A vlm's patch rows go
 through ``patch_proj`` whole on every rank and prefix the tokens'
 gathered embeddings (:func:`embed_inputs`), so a patch request's solo
-prefill runs the backbone's hooks over them.  Without a plan every hook
-is the identity.
+prefill runs the backbone's hooks over them.  Every scale that spans
+the split heads is a max over the model ranks (:func:`head_group`): the
+attention products' under ``quantize_attention`` and a token's
+``KV_PINNED`` page beta.  Unquantized (the FP32 baseline) a folded ``wo``
+or down projection adds the ranks' partial products in rank order.
+Without a plan every hook is the identity.
 
 Under autograd (tensor-parallel training of the decoder, dense or MoE,
 the vlm and, through the same hooks, the encdec, the ssm and the
@@ -346,6 +350,14 @@ def _mine(out: torch.Tensor, mine: Optional[slice]) -> torch.Tensor:
     return out[:, :, mine]
 
 
+def head_group():
+    """The model group when the active plan splits the attention's heads
+    (each rank holds its q and K/V heads of every token: a per-token or
+    per-tensor scale of them is a max over the group), else None."""
+    tp = _tp()
+    return tp.group if tp is not None and tp.layout.heads else None
+
+
 def _out_proj(p, x, policy, mode: str, whole: bool = False) -> torch.Tensor:
     """An output projection whose input is split over the model axis
     (``wo`` of the attention, ``mode`` 'wo'; the MLP's down projection,
@@ -355,12 +367,14 @@ def _out_proj(p, x, policy, mode: str, whole: bool = False) -> torch.Tensor:
     on every rank (a mixer run whole under autograd); where the layout
     folds this rank's slice of it is taken by
     ``collectives.slice_replicated``, whose backward gathers every rank's
-    slice gradient into the whole, replicated one."""
+    slice gradient into the whole, replicated one.  Unquantized, a fold
+    adds the ranks' partial products in rank order (``mfmac.mf_linear``'s
+    ``row_group``)."""
     tp = _tp()
     how = getattr(tp.layout, mode) if tp is not None else "whole"
     if whole and how == "fold":
         x, whole = collectives.slice_replicated(x, tp.group, -1), False
-    if how == "fold" and policy.enabled:
+    if how == "fold":
         return mfmac.mf_linear(x, p["w"], p["gamma"], policy=policy, row_group=tp.group)
     if how != "whole" and not whole:
         x = _gather_cols(x, tp.group)
@@ -575,7 +589,7 @@ def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
     """Grouped-GQA attention with FP32 scores (K/V at kv-head width); QK^T
     and PV through ``mfmac.mf_act_dot`` (PoT-quantized under
     ``policy.quantize_attention``, one scale group per tensor or per
-    leading-dim sample).
+    leading-dim sample, over every rank's heads on a model axis).
 
     ``qpos``/``kpos`` are 1-D (shared across the batch) or 2-D
     ``(B, Sq)``/``(B, Skv)``.  Masked scores take -1e30, as in the
@@ -590,7 +604,9 @@ def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
     qg = q.reshape(b, sq, kv, rep, hd).permute(0, 2, 3, 1, 4)  # (B,KV,rep,Sq,hd)
     kt = k.permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,Skv)
     vt = v.permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,Skv,hd)
-    scores = mfmac.mf_act_dot(qg, kt, policy=policy).to(torch.float32) * scale  # (B,KV,rep,Sq,Skv)
+    group = head_group() if mine is not None else None
+    scores = mfmac.mf_act_dot(qg, kt, policy=policy,
+                              group=group).to(torch.float32) * scale  # (B,KV,rep,Sq,Skv)
     if qpos.dim() == 1:
         qpos = qpos[None, :].expand(b, sq)
     if kpos.dim() == 1:
@@ -602,7 +618,8 @@ def _sdpa(cfg, policy, q, k, v, qpos, kpos, window):
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
-    out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy)  # (B,KV,rep,Sq,hd)
+    out = mfmac.mf_act_dot(probs.to(q.dtype), vt, policy=policy,
+                           group=group)  # (B,KV,rep,Sq,hd)
     return _mine(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype), mine)
 
 
@@ -823,11 +840,11 @@ def _kv_check(policy, cache):
 def _kv_scatter(cache, key, layer, dest, loff, vals, npages, spec):
     """Write fresh K or V vectors (..., KV, hd) of ``layer`` at (dest,
     loff) as :func:`paged_write` does; PoT-encoded, with their per-token
-    betas, when ``spec`` is set."""
+    betas (over every model rank's K/V heads), when ``spec`` is set."""
     if spec is None:
         paged_write(cache[key][layer], dest, loff, vals, npages)
         return
-    codes, beta = compress.kv_page_encode(vals, spec)
+    codes, beta = compress.kv_page_encode(vals, spec, head_group())
     paged_write(cache[key][layer], dest, loff, codes, npages)
     paged_write(cache[f"{key}_beta"][layer], dest, loff, beta, npages)
 
@@ -1076,8 +1093,9 @@ class ChunkSlots:
             ov = _kv_page_view(cache, "v", i, ids, spec)
             kf, vf = k, v
             if spec is not None:
-                kf = compress.kv_page_decode(*compress.kv_page_encode(k, spec), spec)
-                vf = compress.kv_page_decode(*compress.kv_page_encode(v, spec), spec)
+                group = head_group()
+                kf = compress.kv_page_decode(*compress.kv_page_encode(k, spec, group), spec)
+                vf = compress.kv_page_decode(*compress.kv_page_encode(v, spec, group), spec)
         _kv_scatter(cache, "k", i, self.dest, self.loff, k, npages, spec)
         _kv_scatter(cache, "v", i, self.dest, self.loff, v, npages, spec)
         if not windowed:

@@ -107,6 +107,15 @@ Every rank runs the same host scheduler, allocator and counters.
   the prefix cache, the owner broadcasts their contents to the other
   data ranks, so any slot may map them: every token and every counter
   equals one rank's.
+* Every serving option runs on a plan: speculative decoding (a spec
+  round's lengths, drafts and verify argmaxes all-gathered over the data
+  axis; on a model axis the self-draft rounds each weight shard with its
+  whole matrix's WBC mean and scale at ``spec.bits``, taken once at
+  start, ``quantized_weights.draft_stats``), ``KV_PINNED`` pages (a
+  token's page beta a max over the model ranks' K/V heads),
+  ``quantize_attention`` (the attention products' scales over every
+  head) and the FP32 baseline (a folded linear's partial products added
+  in rank order: one rank's result within float32 rounding).
 * Host syncs the sharded path adds: the token all-gather of each step,
   the first-token broadcast of a solo prefill and the page broadcast of
   a prefix publication (through the host under gloo), and the
@@ -128,7 +137,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import compress
+from repro_torch.core import compress, mfmac
 from repro_torch.core.policy import QuantPolicy, draft_policy
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models import registry
@@ -216,19 +225,21 @@ class ServeStats:
 
 
 class _InflightTokens:
-    """The token vector of a dispatched step (a pooled step's, or a solo
-    prefill's one token) on its way to the host.  On a card :meth:`start`
-    copies it ``non_blocking`` into a pinned host buffer and records a
-    CUDA event behind the copy; :meth:`wait` synchronizes on that event.
-    A copy into pageable memory would block at once, so a card engine
-    without its pinned buffer fails instead.  On the CPU the step is done
-    when it returns, and :meth:`wait` is a plain copy."""
+    """A token tensor of a dispatched step (a pooled step's token vector,
+    a solo prefill's one token, a spec round's lengths, drafts or verify
+    argmaxes; int64, at most ``size`` of them) on its way to the host.
+    On a card :meth:`start` copies it ``non_blocking`` into a pinned host
+    buffer and records a CUDA event behind the copy; :meth:`wait`
+    synchronizes on that event.  A copy into pageable memory would block
+    at once, so a card engine without its pinned buffer fails instead.
+    On the CPU the step is done when it returns, and :meth:`wait` is a
+    plain copy."""
 
-    def __init__(self, max_slots: int, device: torch.device):
+    def __init__(self, size: int, device: torch.device):
         self._cuda = device.type == "cuda"
         self._tok = None
         if self._cuda:
-            self._host = torch.empty((max_slots,), dtype=torch.int64, pin_memory=True)
+            self._host = torch.empty((size,), dtype=torch.int64, pin_memory=True)
             if not self._host.is_pinned():
                 raise RuntimeError("the host token buffer is not pinned")
             self._event = torch.cuda.Event()
@@ -237,18 +248,19 @@ class _InflightTokens:
         if tok.is_cuda != self._cuda:
             raise ValueError(f"token vector on {tok.device}, engine on "
                              f"{'cuda' if self._cuda else 'cpu'}")
-        self._n = tok.shape[0]
+        self._shape = tok.shape
         if self._cuda:
-            self._host[:self._n].copy_(tok, non_blocking=True)
+            self._host[:tok.numel()].copy_(tok.reshape(-1), non_blocking=True)
             self._event.record()
         else:
             self._tok = tok
 
     def wait(self) -> np.ndarray:
-        """Block until the copy lands; the host token vector."""
+        """Block until the copy lands; the host token array."""
         if self._cuda:
             self._event.synchronize()
-            return self._host[:self._n].numpy().copy()
+            n = int(np.prod(self._shape, dtype=np.int64))
+            return self._host[:n].numpy().reshape(self._shape).copy()
         return self._tok.numpy().copy()
 
 
@@ -353,7 +365,7 @@ class PoolEngine:
         self.sharded = False
         self.data_rank, self.data_size = 0, 1
         if plan is not None:
-            self._check_plan(plan, cfg, policy, max_slots, kv_quant, spec)
+            self._check_plan(plan, max_slots, kv_quant)
         if prequantize and policy.enabled and not policy.weights_prequantized:
             # on a plan each leaf is quantized whole and this rank's shard kept
             params = qw.quantize_for_serving(cfg, policy, params,
@@ -376,15 +388,19 @@ class PoolEngine:
         self.prefix_cache = prefix_cache
         self.kv_quant = kv_quant
         self.spec = spec
-        # the self-draft: the same weights at spec.bits, re-quantized at use
+        # the self-draft: the same weights at spec.bits, re-quantized at use;
+        # on a model axis each shard with its whole matrix's statistics
         self.draft_policy = (draft_policy(policy, spec.bits)
                              if spec is not None and spec.needs_draft_pass else None)
+        self.draft_stats = mfmac.WholeStats()
+        if self.draft_policy is not None and self.sharded and plan.model_shards > 1:
+            self.draft_stats = qw.draft_stats(params, self.draft_policy, plan)
         self.last_stats: Optional[ServeStats] = None
 
-    def _check_plan(self, plan, cfg, policy, max_slots, kv_quant, spec):
+    def _check_plan(self, plan, max_slots, kv_quant):
         """The reference's refusals (slot count, page geometry, kv_bits),
-        then, on a concrete mesh of more than one rank, what the sharded
-        runtime takes."""
+        then, on a concrete mesh of more than one rank, the slots' split
+        over the data ranks."""
         if getattr(plan, "pool_slots", None) != max_slots:
             raise ValueError(
                 "PoolEngine plans must be built with planner.plan_for(..., "
@@ -405,17 +421,6 @@ class PoolEngine:
                 "planner.plan_for(..., kv_quant=...)")
         if not getattr(plan.mesh, "is_concrete", False) or plan.mesh.size == 1:
             return
-        refuse = None
-        if spec is not None:
-            refuse = "speculative decoding"
-        elif plan.model_shards > 1 and kv_quant is not None:
-            refuse = "quantized K/V pages on a model axis (a token's scale spans its heads)"
-        elif plan.model_shards > 1 and (not policy.enabled or policy.quantize_attention):
-            refuse = "a model axis under an unquantized policy or quantize_attention"
-        if refuse is not None:
-            raise NotImplementedError(
-                f"PoolEngine on a sharded plan: {refuse} on a plan is not ported yet "
-                "(ROADMAP Queue 1)")
         self.data_rank, self.data_size = actshard.data_rank_and_size(plan)
         if max_slots % self.data_size:
             raise ValueError(f"max_slots={max_slots} must split evenly over the "
@@ -623,37 +628,55 @@ class PoolEngine:
 
     def _draft(self, last_tok, cache):
         """``max_draft`` greedy decode steps under the draft policy on the
-        live cache; returns the draft tokens (B, max_draft) with ``len``
-        rewound (the caller restores the cache entries written)."""
-        token = torch.as_tensor(last_tok, device=self.device)
+        live cache (this data rank's rows); returns the draft tokens (B,
+        max_draft) with ``len`` rewound (the caller restores the cache
+        entries written)."""
+        token = last_tok
         toks = []
-        for _ in range(self.spec.max_draft):
-            logits, cache = registry.decode_step(self.cfg, self.draft_policy, self.params,
-                                                 token, cache)
-            token = torch.argmax(logits, dim=-1)
-            toks.append(token)
+        with mfmac.whole_stats(self.draft_stats):
+            for _ in range(self.spec.max_draft):
+                logits, cache = registry.decode_step(self.step_cfg, self.draft_policy,
+                                                     self.params, token, cache)
+                token = torch.argmax(logits, dim=-1)
+                toks.append(token)
         cache["len"] = cache["len"] - self.spec.max_draft
         return torch.stack(toks, dim=1)
 
+    def _gathered(self, x, flight):
+        """Every data rank's rows of ``x`` (this rank's slots), all-gathered
+        in rank order, on the host through ``flight`` (an explicit sync)."""
+        if self.data_size > 1:
+            x = torch.cat(collectives.all_gather(x, self.plan.mesh.group("data")))
+        flight.start(x.to(torch.int64))
+        return flight.wait()
+
     def _spec_round(self, cache, stats, reqs, alloc, remaining, last_tok,
-                    histories):
+                    histories, flight):
         """Draft, then one verify pass when any slot has a draft.  Returns
         None when none has (the cache is as it was; the caller runs a
         plain step), else ``(emitted, lens, n_new)``: the tokens each slot
         of ``reqs`` ({slot: request}) emits (greedy acceptance, cut at EOS
         and at its budget), and the pre-round lengths and verify-row
-        widths.  Rejected positions are rolled back here."""
+        widths.  Rejected positions are rolled back here.  Over a data
+        axis each rank drafts, verifies and rolls back its slots' rows
+        (as :meth:`_pool_step`), and their lengths, drafts and verify
+        argmaxes are all-gathered in rank order, so every rank takes the
+        same host decisions.  The host reads the device through
+        ``flight``."""
         spec = self.spec
         active = sorted(reqs)
         c = spec.max_draft + 1
-        lens = cache["len"].cpu().numpy()
-        snap = slots_lib.spec_snapshot(cache, c)
+        dev = self.device
+        lo, hi = self._local_rows()
+        sub = slots_lib.slot_rows(cache, lo, hi)
+        snap = slots_lib.spec_snapshot(sub, c)
+        lens = self._gathered(snap["len"], flight)
         if spec.needs_draft_pass:
-            dtoks = self._draft(last_tok, cache)
+            dtoks = self._draft(to_device(last_tok[lo:hi], dev, torch.int64), sub)
             stats.draft_weight_passes += spec.max_draft
             # the verify pass must see the pristine pre-round cache
-            slots_lib.spec_restore(cache, snap, torch.zeros_like(snap["len"]))
-            dhost = dtoks.cpu().numpy()
+            slots_lib.spec_restore(sub, snap, torch.zeros_like(snap["len"]))
+            dhost = self._gathered(dtoks, flight)
             drafts = {slot: dhost[slot] for slot in active}
         else:
             drafts = {slot: spec.propose(histories[slot], spec.max_draft)
@@ -670,11 +693,12 @@ class PoolEngine:
             tokens[slot, 1:1 + nd] = drafts[slot][:nd]
             n_new[slot] = 1 + nd
         if int(n_new.max()) <= 1:
+            slots_lib.put_slot_rows(cache, sub, lo, hi)
             return None
-        logits, cache = registry.verify_step(
-            self.cfg, self.policy, self.params,
-            torch.as_tensor(tokens, device=self.device), n_new, cache)
-        vhost = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, C)
+        logits, sub = registry.verify_step(
+            self.step_cfg, self.policy, self.params, to_device(tokens[lo:hi], dev),
+            n_new[lo:hi], sub)
+        vhost = self._gathered(torch.argmax(logits, dim=-1), flight)  # (B, C)
         stats.decode_steps += 1
         stats.weight_passes += 1
         stats.occupancy_sum += len(active) / self.max_slots
@@ -696,7 +720,8 @@ class PoolEngine:
             emitted[slot] = emit
         # keep[slot] positions cache exactly the consumed context (the
         # last emitted token is never cached, as in decode)
-        slots_lib.spec_restore(cache, snap, torch.as_tensor(keep, device=self.device))
+        slots_lib.spec_restore(sub, snap, to_device(keep[lo:hi], dev, snap["len"].dtype))
+        slots_lib.put_slot_rows(cache, sub, lo, hi)
         return emitted, lens, n_new
 
     def _drop_rejected_pages(self, cache, alloc, rnd, spec_dropped):
@@ -765,6 +790,9 @@ class PoolEngine:
         # rows staged for the NEXT step while this one is in flight
         staged: Dict[int, tuple] = {}
         flight = _InflightTokens(self.max_slots, self.device)
+        # a spec round's host reads: lengths, drafts, verify argmaxes
+        spec_flight = (_InflightTokens(self.max_slots * (self.spec.max_draft + 1), self.device)
+                       if self.spec is not None else None)
         step = 0
 
         def next_chunk(slot):
@@ -873,7 +901,7 @@ class PoolEngine:
                 if self.spec is not None and active and not prefilling:
                     reqs = {slot: sched.active_request(slot) for slot in active}
                     rnd = self._spec_round(cache, stats, reqs, alloc, remaining,
-                                           last_tok, histories)
+                                           last_tok, histories, spec_flight)
                     if rnd is not None:
                         for slot, emit in rnd[0].items():
                             emit_tokens(slot, reqs[slot], emit)

@@ -8,6 +8,10 @@ streams.  Each trailing 2-D matrix gets its own WBC mean and beta, so a
 stacked (L, D, F) weight gets one per layer.  The embedding, norms and
 PRC gammas stay f32.
 
+``draft_stats`` gives the low-bit self-draft on a model axis each
+matrix's whole statistics at the draft's bit-width, so a rank rounds its
+shard as the whole matrix is rounded on one rank.
+
 ``pack_int8`` goes further for offline storage: one int8 code per element
 (``core/compress.py`` layout) through K4 (``ops.potq_encode``) and ONE
 beta per tensor, as the reference packs — so a stacked leaf shares one
@@ -25,6 +29,7 @@ from repro_torch.core import compress, mfmac
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import ops
 from repro_torch.models.spec import named_leaves, unflatten
+from repro_torch.parallel import collectives
 
 
 def is_linear_weight(name: str, x: torch.Tensor) -> bool:
@@ -67,6 +72,38 @@ def quantize_leaf(name: str, x: torch.Tensor, policy: QuantPolicy, plan=None) ->
         out[idx] = w if inner is None else plan.take(w, inner)
         del w
     return out
+
+
+def draft_stats(params, policy: QuantPolicy, plan):
+    """The self-draft's statistics on a model axis: for every matrix that
+    ``params`` (this rank's shards of served weights) holds a piece of,
+    its WBC mean and scale under ``policy`` (the draft's bit-width) over
+    the whole matrix, per expert for a MoE leaf's experts, as
+    ``mfmac._quantize_w`` takes them of the whole at use.  Each matrix is
+    all-gathered over the model ranks and placed whole a matrix at a
+    time (the served values never change, so these are the statistics of
+    every draft step).  Returns ``{mfmac.weight_key(shard view): (mean,
+    beta)}`` for ``mfmac.whole_stats`` (a ``mfmac.WholeStats``, which
+    also marks each split leaf, so a view of it that is not listed
+    raises); a leaf whose scale groups are whole on the rank (whole, or
+    split along its stack or its experts) needs none."""
+    group = plan.mesh.group("model")
+    table = mfmac.WholeStats()
+    for name, x in named_leaves(params):
+        cuts = plan.model_cuts(name) if is_linear_weight(name, x) else None
+        if cuts is None or cuts[0] < x.dim() - 2:
+            continue
+        expert = name.split("/")[-2] in ("gate", "up", "down") and "/moe/" in f"/{name}"
+        unit = 3 if expert else 2  # the trailing dims one _quantize_w call takes
+        cut = (cuts[0] - (x.dim() - unit), cuts[1])
+        table.add_leaf(x)
+        for idx in itertools.product(*(range(s) for s in x.shape[:x.dim() - unit])):
+            view = x[idx]
+            whole = plan.untake(collectives.all_gather(view, group), cut)
+            table[mfmac.weight_key(view)] = mfmac.weight_stats(
+                whole, policy, (1, 2) if expert else None)
+            del whole
+    return table
 
 
 def quantize_for_serving(cfg, policy: QuantPolicy, params, plan=None):

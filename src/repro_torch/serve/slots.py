@@ -330,7 +330,7 @@ def _write_slot_paged(pool, mini, slot, pages, kv_quant=None):
         m = mini[key]  # (L, 1, span, KV, hd)
         L, _, _, kv, hd = m.shape
         if kv_quant is not None:
-            codes, beta = compress.kv_page_encode(m, kv_quant)
+            codes, beta = compress.kv_page_encode(m, kv_quant, transformer.head_group())
             mp = codes.reshape((L, n, page, kv) + codes.shape[4:])
             pool[f"{key}_beta"][:, phys] = beta.reshape(L, n, page)[:, logical]
         else:

@@ -246,41 +246,6 @@ def _train(rank, arch):
     return res
 
 
-def _refusals():
-    """The message (or None) of each sharded build that stays refused."""
-    from repro_torch import configs as TC
-    from repro_torch.core.policy import KV_PINNED, PAPER_FAITHFUL
-    from repro_torch.models import registry, spec
-    from repro_torch.parallel import meshes, planner
-    from repro_torch.serve import NgramDrafter, PoolEngine
-
-    def msg(fn):
-        try:
-            fn()
-        except (NotImplementedError, planner.ShardingPlanError) as e:
-            return str(e)
-        return None
-
-    out = {}
-    cfg = TC.smoke_config("whisper-large-v3")
-    params = spec.materialize(registry.param_specs(cfg), torch.Generator().manual_seed(0))
-    engine = dict(max_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, num_pages=NUM_PAGES,
-                  device="cpu")
-    for mid, mesh in MESHES.items():
-        out[("spec", mid)] = msg(lambda: PoolEngine(
-            cfg, PAPER_FAITHFUL, params, prefill_chunk=4, spec=NgramDrafter(3),
-            plan=_plan(cfg, mesh), **engine))
-    kvq = planner.plan_for(cfg, meshes.make_mesh((1, 2), ("data", "model")),
-                           TC.ShapeConfig("s", MAX_LEN, SLOTS, "decode"), pool_slots=SLOTS,
-                           page_size=PAGE, num_pages=NUM_PAGES, kv_quant=KV_PINNED)
-    out["kv_pinned"] = msg(lambda: PoolEngine(cfg, PAPER_FAITHFUL, params, kv_quant=KV_PINNED,
-                                              plan=kvq, **engine))
-    qa = dataclasses.replace(PAPER_FAITHFUL, quantize_attention=True)
-    out["quantize_attention"] = msg(lambda: PoolEngine(cfg, qa, params,
-                                                       plan=_plan(cfg, (1, 2)), **engine))
-    return out
-
-
 def _heads_whole(rank):
     """``transformer._heads_whole`` on (1, 2) for each config: where this
     rank's q and K/V heads land in the whole-head tensors (their global
@@ -341,7 +306,6 @@ def _rank_cases(rank, weights):
                 CONFIGS[name][0], mesh=mesh, params=params, num_pages=SMOKE_PAGES, device="cpu")
     for arch in TRAIN_ARCHS:
         res[("train", arch)] = _train(rank, arch)
-    res["refused"] = _refusals()
     res["heads_whole"] = _heads_whole(rank)
     return res
 
@@ -580,16 +544,3 @@ def test_smoke_driver_equals_reference(world, name, mesh):
     assert ours["tokens"] == tokens
     assert (ours["data_shards"], ours["model_shards"]) == MESHES[mesh]
     assert ours["weight_passes"] == passes
-
-
-@pytest.mark.parametrize("case", ["spec", "kv_pinned", "quantize_attention"])
-def test_remaining_refusals(world, case):
-    """Speculation on any sharded plan; ``KV_PINNED`` pages and
-    ``quantize_attention`` on a model axis."""
-    words = {"spec": "speculative", "kv_pinned": "quantized K/V",
-             "quantize_attention": "quantize_attention"}[case]
-    for res in world:
-        msgs = ([res["refused"][("spec", mid)] for mid in MESHES] if case == "spec"
-                else [res["refused"][case]])
-        for msg in msgs:
-            assert msg is not None and words in msg and "ROADMAP" in msg

@@ -46,7 +46,7 @@ def _rank(rank):
     out = {}
     for key, arch, layers, moe in CELLS:
         engine, trace = (cs.MOE_ENGINE, cs.DENSE_TRACE) if moe else (None, None)
-        _, row = cs._sharded_serve(rank, dev, (1, 2), layers, False, arch, engine, trace)
+        _, row = cs._sharded_serve(rank, dev, (1, 2), layers, None, arch, engine, trace)
         out[key] = {k: row[k] for k in KEEP}
     return out
 

@@ -28,8 +28,9 @@ def main():
     from repro_torch.kernels import _build, potq_encode as KE, potq_grad as KG
     from repro_torch.kernels import potq_matmul as K
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
     print("torch", torch.__version__, torch.version.cuda, flush=True)
     dev = resolve_device("cuda")
     t0 = time.perf_counter()
@@ -38,7 +39,7 @@ def main():
     KG.build()
     KE.build()
     print("build", time.perf_counter() - t0, flush=True)
-    detail, times = {}, {}
+    detail, times = {"card": card}, {}
     t0 = time.perf_counter()
     cs.phase("3 K1's start variant")
     detail["k1_start_variant"] = cs.k1_start_checks(

@@ -6,10 +6,10 @@ launch and the plain chain and time it, then train tensor-parallel on the
 (1, 2) mesh (two ranks) the cells of ``_tp_cells`` (37o (a), 37p (a-b),
 37q (b), 37r (c)), take the first steps of ``FIRST_STEP_CELLS`` at their
 published widths (37q (a) llama4-scout-17b-a16e under EP, 37r (a)
-mamba2-2.7b, (b) recurrentgemma-2b: one rank alone first, then the two),
-and the smoke configs of ``TP_SMOKE_ARCHS`` on the (2, 2) mesh (37o (b),
-37p (c), 37q (c), 37r (d), four ranks), each against one rank, with their
-gates.  ``--moe`` runs 37q alone; ``--recurrent`` runs 37r alone, after a
+mamba2-2.7b, (b) recurrentgemma-2b: the two ranks, and one rank on rank
+0 of the four-rank world before its cells), and the smoke configs of
+``TP_SMOKE_ARCHS`` on the (2, 2) mesh (37o (b), 37p (c), 37q (c), 37r
+(d), four ranks), each against one rank, with their gates.  ``--moe`` runs 37q alone; ``--recurrent`` runs 37r alone, after a
 check of a property its whole mixers do not rely on: a per-channel sum
 over the batch and sequence (a depthwise conv's, a bias's or ``lam``'s
 gradient) at a rank's channel count against the same channels of the
@@ -47,12 +47,6 @@ def _first_steps(only):
     return {k: v for k, v in cs.FIRST_STEP_CELLS.items() if only is None or k.startswith(only)}
 
 
-def _one_rank(rank, only):
-    """The one-rank runs of ``_first_steps(only)``, in a process of their own."""
-    cs.FIRST_STEP_CELLS = _first_steps(only)
-    return cs._first_steps_one_rank(rank)
-
-
 def _tp_rank(rank, only):
     """The (1, 2) cells (``_cells(only)``), then ``_first_steps(only)`` on
     one of the two ranks."""
@@ -69,10 +63,11 @@ def _tp_rank(rank, only):
     return res
 
 
-def _smoke_rank(rank, archs):
+def _smoke_rank(rank, archs, only):
     """37q (c) or 37r (d) alone: ``archs``' smoke configs on one of the
-    four ranks."""
+    four ranks, after ``_first_steps(only)``'s one rank on rank 0."""
     cs.TP_SMOKE_ARCHS = archs
+    cs.FIRST_STEP_CELLS = _first_steps(only)
     return cs._tp_smoke_rank(rank)
 
 
@@ -130,28 +125,28 @@ def main():
             print("per-channel sums, a rank's channels against the whole's:",
                   json.dumps(detail["channel_sums"]), flush=True)
         cs.FIRST_STEP_CELLS = _first_steps(only)
-        cs.phase(f"{', '.join(cs.FIRST_STEP_CELLS.values())} one rank alone")
-        t0 = time.perf_counter()
-        one = collectives.spawn(_one_rank, 1, only, device="cpu")[0]
-        times["phase37_one_rank"] = time.perf_counter() - t0
         cs.phase("37o (a), 37p (a-b), 37q (a-b), 37r (a-c) tensor-parallel training on (1, 2)")
         t0 = time.perf_counter()
         ranks = collectives.spawn(_tp_rank, 2, only, device="cuda")
         times["phase37_1x2"] = time.perf_counter() - t0
-        cs.phase("37o (b), 37p (c), 37q (c), 37r (d) tensor-parallel smoke training on (2, 2)")
+        cs.phase(f"{', '.join(cs.FIRST_STEP_CELLS.values())} one rank, then 37o (b), 37p (c), "
+                 "37q (c), 37r (d) tensor-parallel smoke training on (2, 2)")
         failures = []
         if only is not None:
             archs = RECURRENT if only == "r" else tuple(cs.TP_SMOKE_SEQS)
             t0 = time.perf_counter()
-            ranks4 = collectives.spawn(_smoke_rank, 4, archs, device="cuda", threads=2)
+            ranks4 = collectives.spawn(_smoke_rank, 4, archs, only, device="cuda", threads=2)
             tp = {key: cs._check_tp_run(key, "37" + only, [res[key] for res in ranks],
                                         failures)
                   for key in _cells(only)}
             tp["two_by_two"] = {a: cs._check_tp_smoke(a, "37" + only, ranks4, failures)
                                 for a in archs}
             tp["two_by_two_spawn_s"] = time.perf_counter() - t0
+            one = ranks4[0]["first_steps"]
+            times["phase37_one_rank"] = ranks4[0]["first_steps_s"]
         else:
-            tp = cs.tp_training(ranks, failures)
+            tp, one = cs.tp_training(ranks, failures)
+            times["phase37_one_rank"] = tp["first_steps_s"]
         tp.update(cs._check_first_steps(one, ranks, failures))
         detail["multi_gpu_tp"] = tp
         times["phase37_2x2"] = tp["two_by_two_spawn_s"]
